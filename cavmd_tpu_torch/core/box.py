@@ -1,0 +1,41 @@
+"""Orthorhombic periodic box: wrap/unwrap/minimum-image on tensors.
+
+Port of ``cavmd_tpu/core/box.py``. Only orthorhombic boxes are supported
+(the reference workflow never uses tilt factors).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def unwrap_positions(positions, images, box_L):
+    """``r_unwrapped = r + image * L`` for wrapped ``positions`` (..., 3)."""
+    return positions + images.to(positions.dtype) * box_L.to(positions.dtype)
+
+
+def wrap_positions(positions, box_L):
+    """Wrap into the primary box centred at the origin.
+
+    Returns ``(wrapped, image_flags)`` with ``image = floor((x + L/2) / L)``
+    and ``wrapped = x - image * L``.
+    """
+    box_L = box_L.to(positions.dtype)
+    image = torch.floor((positions + 0.5 * box_L) / box_L)
+    return positions - image * box_L, image.to(torch.int32)
+
+
+def rewrap(positions, images, box_L):
+    """Re-wrap drifted positions, accumulating the overflow into the
+    existing image flags."""
+    wrapped, delta_img = wrap_positions(positions, box_L)
+    return wrapped, images + delta_img
+
+
+def minimum_image(dr, box_L):
+    """Minimum-image convention on displacements ``dr``.
+
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.
+    """
+    box_L = box_L.to(dr.dtype)
+    return dr - box_L * torch.round(dr / box_L)

@@ -1,0 +1,262 @@
+"""ForceField: every force of the reference workflow in one module.
+
+Port of ``cavmd_tpu/integrate/forcefield.py`` for the dense pair mode (the
+JAX package's choice for N <= 4096, which covers the N = 501 reference
+scene). ``ForceField`` is an ``nn.Module`` whose tables are buffers, so
+``.to(device)`` moves it; ``forward`` evaluates cavity + bonds + LJ + Ewald
+short + PPPM long and returns the forces and a dict of energy components
+with the JAX package's keys.
+
+On CUDA tensors the pair pass and the PPPM spread/interpolation run in the
+hand-written kernels (``ops/pair_kernels.py``, ``ops/pppm_kernels.py``);
+on CPU tensors in their plain twins.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from cavmd_tpu_torch.core.snapshot import Snapshot
+from cavmd_tpu_torch.ops.bonds import (
+    bonds_are_consecutive,
+    harmonic_bond_force,
+    harmonic_bond_force_strided,
+)
+from cavmd_tpu_torch.ops.cavity import CavityParams, cavity_force
+from cavmd_tpu_torch.ops.ewald import (
+    auto_kappa,
+    ewald_exclusion_correction,
+    ewald_exclusion_correction_strided,
+    ewald_self_energy,
+)
+from cavmd_tpu_torch.ops.lj import (
+    bond_exclusion_mask,
+    lj_active_mask,
+    lj_kernel_tables,
+    lj_pair_tables,
+)
+from cavmd_tpu_torch.ops.pair_kernels import dense_pair_force
+from cavmd_tpu_torch.ops.pppm import PPPMParams, pppm_force_and_energy
+
+ENERGY_KEYS = (
+    "harmonic", "lj", "ewald_short", "ewald_long",
+    "cavity_harmonic", "cavity_coupling", "cavity_dipole_self",
+)
+DENSE_MAX_N = 4096
+
+
+class ForceField(nn.Module):
+    """All force parameters as buffers plus static switches.
+
+    Build it with :meth:`create` from a snapshot, or from the JAX package's
+    leaves with ``cavmd_tpu_torch.interop.forcefield_from_numpy``. Array
+    arguments may be NumPy arrays or tensors.
+    """
+
+    def __init__(self, *, bond_k, bond_r0, bond_k_per, bond_r0_per,
+                 bond_group, bond_typeid, lj_eps, lj_sig2, lj_rcut2,
+                 lj_vshift, lj_active, coulomb_active, kappa, influence,
+                 volume, omegac, couplstr, phmass, l_typeid: int,
+                 coulomb_rcut: float, pppm_order: int, pppm_mesh,
+                 enable_cavity=True, enable_coulomb=True, enable_lj=True,
+                 enable_bonds=True, dtype=torch.float64, device=None):
+        super().__init__()
+
+        def buf(name, x, dt=dtype):
+            x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+            self.register_buffer(name, torch.tensor(x, dtype=dt,
+                                                    device=device))
+
+        n_bonds = int(np.asarray(bond_group).shape[0])
+        self.bonds_strided = bonds_are_consecutive(np.asarray(bond_group))
+        self.n_bonds = n_bonds
+        for name, x in (("bond_k", bond_k), ("bond_r0", bond_r0),
+                        ("bond_k_per", bond_k_per),
+                        ("bond_r0_per", bond_r0_per),
+                        ("lj_eps", lj_eps), ("lj_sig2", lj_sig2),
+                        ("lj_rcut2", lj_rcut2), ("lj_vshift", lj_vshift),
+                        ("kappa", kappa), ("influence", influence),
+                        ("volume", volume), ("omegac", omegac),
+                        ("couplstr", couplstr), ("phmass", phmass)):
+            buf(name, x)
+        buf("bond_group", np.asarray(bond_group).reshape(-1, 2), torch.int32)
+        buf("bond_typeid", bond_typeid, torch.int32)
+        # static (N, N) masks, 1 byte per pair; a disabled interaction is an
+        # all-zero mask, which contributes exactly zero in the pair pass
+        lj_on = np.asarray(lj_active, bool) & bool(enable_lj)
+        coul_on = np.asarray(coulomb_active, bool) & bool(enable_coulomb)
+        buf("lj_active", lj_on, torch.uint8)
+        buf("coulomb_active", coul_on, torch.uint8)
+        # host copy of kappa at the working precision: the kernel launch
+        # takes it by value, so the step never reads it back from the device
+        self.kappa_value = float(self.kappa)
+        self.l_typeid = int(l_typeid)
+        self.coulomb_rcut = float(coulomb_rcut)
+        self.pppm_order = int(pppm_order)
+        self.pppm_mesh = tuple(int(k) for k in pppm_mesh)
+        self.enable_cavity = bool(enable_cavity) and self.l_typeid >= 0
+        self.enable_coulomb = bool(enable_coulomb)
+        self.enable_lj = bool(enable_lj)
+        self.enable_bonds = bool(enable_bonds)
+
+    @property
+    def pppm(self) -> PPPMParams:
+        return PPPMParams(self.influence, self.kappa, self.volume)
+
+    @property
+    def cavity(self) -> CavityParams:
+        return CavityParams(self.omegac, self.couplstr, self.phmass)
+
+    def forward(self, position, image, box_L, charge, typeid):
+        """Total forces (N, 3) and the energy components (dict of 0-d
+        tensors, keys ``ENERGY_KEYS``)."""
+        forces = torch.zeros_like(position)
+        zero = position.new_zeros(())
+        energies = {k: zero for k in ENERGY_KEYS}
+
+        if self.enable_bonds and self.n_bonds > 0:
+            if self.bonds_strided:
+                f, e = harmonic_bond_force_strided(
+                    position, box_L, self.n_bonds, self.bond_k_per,
+                    self.bond_r0_per)
+            else:
+                f, e = harmonic_bond_force(
+                    position, box_L, self.bond_group, self.bond_typeid,
+                    self.bond_k, self.bond_r0)
+            forces = forces + f
+            energies["harmonic"] = e
+
+        if self.enable_lj or self.enable_coulomb:
+            f, e_lj, e_ew = dense_pair_force(
+                position, box_L, typeid, self.lj_eps, self.lj_sig2,
+                self.lj_rcut2, self.lj_vshift, charge, self.lj_active,
+                self.coulomb_active, self.kappa_value,
+                self.coulomb_rcut * self.coulomb_rcut)
+            forces = forces + f
+            energies["lj"] = e_lj
+            energies["ewald_short"] = e_ew
+
+        if self.enable_coulomb:
+            f_rec, e_rec = pppm_force_and_energy(
+                position, charge, box_L, self.pppm, self.pppm_order,
+                self.pppm_mesh)
+            if self.bonds_strided:
+                f_corr, e_corr = ewald_exclusion_correction_strided(
+                    position, box_L, charge, self.kappa, self.n_bonds)
+            else:
+                f_corr, e_corr = ewald_exclusion_correction(
+                    position, box_L, charge, self.kappa, self.bond_group)
+            e_self = ewald_self_energy(charge, self.kappa)
+            forces = forces + f_rec - f_corr
+            energies["ewald_long"] = e_rec - e_self - e_corr
+
+        if self.enable_cavity:
+            f, e = cavity_force(position, image, box_L, charge, typeid,
+                                self.l_typeid, self.cavity)
+            forces = forces + f
+            energies["cavity_harmonic"] = e["harmonic"]
+            energies["cavity_coupling"] = e["coupling"]
+            energies["cavity_dipole_self"] = e["dipole_self"]
+
+        return forces, energies
+
+    @staticmethod
+    def create(
+        snapshot: Snapshot,
+        *,
+        coupling: float = 1e-3,
+        freq_cm1: float = 2000.0,
+        phmass: float = 1.0,
+        enable_cavity: bool = True,
+        enable_coulomb: bool = True,
+        enable_lj: bool = True,
+        enable_bonds: bool = True,
+        lj_params: dict | None = None,
+        bond_params: dict | None = None,
+        r_cut: float = 15.0,
+        pppm_mesh: Tuple[int, int, int] = (32, 32, 32),
+        pppm_order: int = 6,
+        kappa: float | None = None,
+        ewald_accuracy: float = 1e-6,
+        pair_mode: str | None = None,
+        dtype=None,
+        device=None,
+    ) -> "ForceField":
+        """The reference workflow's force mix for a snapshot
+        (``examples/05_advanced_run.py:556-608``): cavity, O-O/N-N harmonic
+        bonds, shifted LJ with r_cut 15 and inert photon rows, PPPM 32^3
+        order 6.
+
+        Only the dense pair mode is ported: ``pair_mode`` must be None or
+        'dense', and None picks dense only for N <= 4096 as the JAX package
+        does — a larger system raises instead of silently running dense.
+        """
+        from cavmd_tpu_torch.core.system import BOND_PARAMS, LJ_PARAMS
+        from cavmd_tpu_torch.core.units import PhysicalConstants
+
+        n = snapshot.N
+        if pair_mode is None:
+            pair_mode = "dense" if n <= DENSE_MAX_N else "cell"
+        if pair_mode != "dense":
+            raise NotImplementedError(
+                f"pair_mode={pair_mode!r} (N={n}): only the dense pair mode "
+                "is ported to cavmd_tpu_torch")
+        dtype = dtype or snapshot.position.dtype
+        device = device if device is not None else snapshot.device
+        lj_params = lj_params if lj_params is not None else LJ_PARAMS
+        bond_params = bond_params if bond_params is not None else BOND_PARAMS
+
+        def host(x, dt=None):
+            x = x.detach().cpu()
+            return x.to(dt).numpy() if dt is not None else x.numpy()
+
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        bond_types = snapshot.bond_types or tuple(bond_params.keys())
+        bond_k = np.asarray([bond_params[t]["k"] for t in bond_types],
+                            np_dtype)
+        bond_r0 = np.asarray([bond_params[t]["r0"] for t in bond_types],
+                             np_dtype)
+        btid = host(snapshot.bond_typeid)
+
+        types = list(snapshot.types)
+        eps, sig, rcut_t = lj_pair_tables(
+            types,
+            {k: {**v, "r_cut": v.get("r_cut", r_cut)}
+             for k, v in lj_params.items()},
+            dtype=dtype,
+        )
+        eps_t, sig2_t, rcut2_t, vshift_t = lj_kernel_tables(eps, sig, rcut_t)
+        excl = bond_exclusion_mask(n, snapshot.bond_group)
+        typeid = host(snapshot.typeid)
+        lj_active = lj_active_mask(typeid, eps_t, rcut2_t, excl)
+        charge = host(snapshot.charge, dtype)
+        qq = charge[:, None] * charge[None, :]
+        coulomb_active = (~np.eye(n, dtype=bool)) & (qq != 0) & ~excl
+
+        kappa_val = kappa if kappa is not None else auto_kappa(
+            r_cut, ewald_accuracy)
+        pppm, _ = PPPMParams.create(host(snapshot.box_L, torch.float64),
+                                    mesh=pppm_mesh, order=pppm_order,
+                                    kappa=kappa_val, dtype=dtype)
+        omegac = PhysicalConstants.omega_from_cm1(freq_cm1)
+        return ForceField(
+            bond_k=bond_k, bond_r0=bond_r0,
+            bond_k_per=bond_k[btid], bond_r0_per=bond_r0[btid],
+            bond_group=host(snapshot.bond_group),
+            bond_typeid=btid,
+            lj_eps=eps_t, lj_sig2=sig2_t, lj_rcut2=rcut2_t,
+            lj_vshift=vshift_t, lj_active=lj_active,
+            coulomb_active=coulomb_active,
+            kappa=pppm.kappa, influence=pppm.influence, volume=pppm.volume,
+            omegac=omegac, couplstr=coupling, phmass=phmass,
+            l_typeid=types.index("L") if "L" in types else -1,
+            coulomb_rcut=r_cut, pppm_order=pppm_order, pppm_mesh=pppm_mesh,
+            enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
+            enable_lj=enable_lj, enable_bonds=enable_bonds,
+            dtype=dtype, device=device,
+        )

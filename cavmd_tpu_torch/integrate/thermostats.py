@@ -1,0 +1,125 @@
+"""Thermostats: Bussi (with reservoir tally) and exact-OU Langevin.
+
+Port of ``cavmd_tpu/integrate/thermostats.py`` for the methods of the main
+path:
+
+- Bussi stochastic velocity rescaling with the Bussi 2009 Eq. A8 sign
+  correction and the exact reservoir tally ``dE_res = KE (1 - alpha^2)``
+  (reference ``src/BussiReservoirThermostat.h:43-225``);
+- Langevin as the exact Ornstein-Uhlenbeck velocity update (the BAOAB "O"
+  step) with the exact kinetic-energy tally;
+- Maxwell-Boltzmann thermalization.
+
+The random draws are separate from the updates: ``bussi_noise`` draws from
+an explicit generator, and the update functions take the draws as tensors,
+so tests can inject the JAX package's noise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def kinetic_energy(velocity, mass, mask):
+    """Group kinetic energy 1/2 sum m v^2 over ``mask``."""
+    w = torch.where(mask, mass, torch.zeros((), dtype=velocity.dtype,
+                                            device=velocity.device))
+    return 0.5 * torch.sum(w[:, None] * velocity**2)
+
+
+def bussi_noise(generator, dof: float, dtype, device):
+    """The two stochastic draws of one Bussi rescaling: (r1, r_gamma).
+
+    r1 ~ N(0, 1); r_gamma = 2 Gamma((dof - 1)/2) for dof > 1. Above a shape
+    of 30 the Wilson-Hilferty transform of one more normal draw (as the JAX
+    package does); below it the exact chi-square with dof - 1 degrees of
+    freedom (a sum of squared normals; dof = 3 N_group is an integer).
+    """
+    draws = torch.randn(2, generator=generator, dtype=dtype, device=device)
+    r1 = draws[0]
+    if dof <= 1.0:
+        return r1, torch.zeros((), dtype=dtype, device=device)
+    alpha_g = (dof - 1.0) / 2.0
+    if alpha_g > 30.0:
+        xi = draws[1]
+        cube = 1.0 - 1.0 / (9.0 * alpha_g) + xi / math.sqrt(9.0 * alpha_g)
+        g = alpha_g * torch.clamp_min(cube, 0.0) ** 3
+        return r1, 2.0 * g
+    k = int(round(dof - 1.0))
+    if k != dof - 1.0:
+        raise ValueError(f"Bussi dof {dof} is not an integer")
+    z = torch.randn(k, generator=generator, dtype=dtype, device=device)
+    return r1, torch.sum(z * z)
+
+
+def bussi_rescale_factor(K, dof: float, dt, tau: float, kT, r1, r_gamma):
+    """Bussi 2007 rescaling factor alpha for group kinetic energy ``K``.
+
+    alpha^2 = c + v(1-c)(r_gamma + r1^2) + 2 r1 sqrt(v(1-c)c), c =
+    exp(-dt/tau), v = kT/(2K), with the Bussi 2009 Eq. A8 sign correction:
+    sign(alpha) = sign(r1 + sqrt(c Nf K / ((1-c) K_bar))), K_bar = kT Nf/2.
+    ``dof``, ``tau`` and ``kT`` are host numbers (a host number meets a
+    tensor at the tensor's precision and costs no host-to-device copy);
+    ``K``, ``dt``, ``r1``, ``r_gamma`` are tensors.
+    """
+    if dof == 0:
+        return torch.ones_like(K)
+    c = torch.exp(-dt / tau) if tau != 0.0 else torch.zeros_like(K)
+    v = kT / 2.0 / K
+    term1 = v * (1.0 - c) * (r_gamma + r1 * r1)
+    term2 = 2.0 * r1 * torch.sqrt(v * (1.0 - c) * c)
+    alpha_mag = torch.sqrt(c + term1 + term2)
+    K_bar = kT * dof / 2.0
+    sign_term = r1 + torch.sqrt(c * dof * K / ((1.0 - c) * K_bar))
+    return torch.where(sign_term >= 0.0, alpha_mag, -alpha_mag)
+
+
+def bussi_apply(velocity, mass, mask, dof: float, dt, tau: float, kT, r1,
+                r_gamma):
+    """One Bussi rescaling: returns (new_velocity, reservoir_delta) with
+    reservoir_delta = KE (1 - alpha^2), positive when energy flows to the
+    bath."""
+    K = kinetic_energy(velocity, mass, mask)
+    alpha = bussi_rescale_factor(K, dof, dt, tau, kT, r1, r_gamma)
+    new_v = torch.where(mask[:, None], alpha * velocity, velocity)
+    return new_v, K * (1.0 - alpha * alpha)
+
+
+def langevin_ou_apply(velocity, mass, mask, gamma, kT, dt, noise,
+                      indices=None):
+    """Exact OU step v' = c v + sqrt((1 - c^2) kT/m) xi, c = exp(-gamma dt).
+
+    ``gamma`` and ``kT`` are host numbers or tensors. ``noise`` holds the
+    standard-normal draws: (len(indices), 3) when ``indices`` (a LongTensor
+    of the group's rows, for small groups such as the single photon) is
+    given, else (N, 3). Returns (new_velocity, reservoir_delta =
+    KE_before - KE_after).
+    """
+    c = torch.exp(-gamma * dt)
+    if indices is not None:
+        sigma = torch.sqrt((1.0 - c * c) * kT / mass[indices])[:, None]
+        new_v = velocity.clone()
+        new_v[indices] = c * velocity[indices] + sigma * noise
+    else:
+        sigma = torch.sqrt((1.0 - c * c) * kT / mass)[:, None]
+        new_v = torch.where(mask[:, None], c * velocity + sigma * noise,
+                            velocity)
+    ke_before = kinetic_energy(velocity, mass, mask)
+    ke_after = kinetic_energy(new_v, mass, mask)
+    return new_v, ke_before - ke_after
+
+
+def thermalize_velocities(generator, mass, mask, kT, *, remove_drift=True):
+    """Maxwell-Boltzmann velocities for the ``mask`` group (zero elsewhere),
+    with the group's centre-of-mass drift removed when ``remove_drift``."""
+    sigma = torch.sqrt(kT / mass)[:, None]
+    v = sigma * torch.randn((mass.shape[0], 3), generator=generator,
+                            dtype=mass.dtype, device=mass.device)
+    zero = torch.zeros((), dtype=mass.dtype, device=mass.device)
+    if remove_drift:
+        w = torch.where(mask, mass, zero)
+        vcm = torch.sum(w[:, None] * v, dim=0) / torch.sum(w)
+        v = v - vcm[None, :]
+    return torch.where(mask[:, None], v, zero)

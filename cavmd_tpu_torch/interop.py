@@ -1,0 +1,92 @@
+"""Build port objects from the JAX package's arrays, as NumPy.
+
+The tests use these so that both packages run the same tables and the same
+state: the caller turns the JAX ``ForceField`` / ``MDState`` leaves into
+NumPy arrays (``np.asarray``) and hands them in here. Nothing here imports
+JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cavmd_tpu_torch.integrate.forcefield import ForceField
+from cavmd_tpu_torch.integrate.integrator import MDState
+
+
+def _type_table(rows, typeid, ntypes):
+    """(T, T) table from (N, T) row gathers ``rows[i] = table[typeid[i]]``;
+    rows of types with no particle stay zero (they are never read)."""
+    table = np.zeros((ntypes, rows.shape[1]), rows.dtype)
+    for t in range(ntypes):
+        members = np.nonzero(typeid == t)[0]
+        if len(members):
+            table[t] = rows[members[0]]
+    return table
+
+
+def forcefield_from_numpy(*, rows_eps, rows_sig2, rows_rcut2, rows_vshift, oh,
+                          active, coulomb_active, kappa, influence, volume,
+                          omegac, couplstr, phmass, bond_k, bond_r0,
+                          bond_group, bond_typeid, l_typeid, coulomb_rcut,
+                          pppm_order, pppm_mesh, enable_cavity=True,
+                          enable_coulomb=True, enable_lj=True,
+                          enable_bonds=True, dtype=torch.float64,
+                          device=None) -> ForceField:
+    """A port ``ForceField`` from the JAX dense-mode leaves.
+
+    ``rows_*``/``oh``/``active`` are ``ff.lj_pair``'s fields;
+    ``influence``/``volume`` come from ``ff.pppm``; ``omegac``/
+    ``couplstr``/``phmass`` from ``ff.cavity``; ``bond_k``/``bond_r0`` are
+    the per-type bond tables and ``bond_group``/``bond_typeid`` the
+    snapshot's bond table.
+    """
+    oh = np.asarray(oh)
+    typeid = np.argmax(oh, axis=1)
+    ntypes = oh.shape[1]
+    tables = [_type_table(np.asarray(r), typeid, ntypes)
+              for r in (rows_eps, rows_sig2, rows_rcut2, rows_vshift)]
+    bond_k = np.asarray(bond_k)
+    bond_r0 = np.asarray(bond_r0)
+    btid = np.asarray(bond_typeid)
+    return ForceField(
+        bond_k=bond_k, bond_r0=bond_r0,
+        bond_k_per=bond_k[btid], bond_r0_per=bond_r0[btid],
+        bond_group=np.asarray(bond_group), bond_typeid=btid,
+        lj_eps=tables[0], lj_sig2=tables[1], lj_rcut2=tables[2],
+        lj_vshift=tables[3], lj_active=np.asarray(active),
+        coulomb_active=np.asarray(coulomb_active),
+        kappa=np.asarray(kappa), influence=np.asarray(influence),
+        volume=np.asarray(volume), omegac=np.asarray(omegac),
+        couplstr=np.asarray(couplstr), phmass=np.asarray(phmass),
+        l_typeid=l_typeid, coulomb_rcut=coulomb_rcut,
+        pppm_order=pppm_order, pppm_mesh=pppm_mesh,
+        enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
+        enable_lj=enable_lj, enable_bonds=enable_bonds,
+        dtype=dtype, device=device,
+    )
+
+
+def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
+                     box_L, forces, dt, time_au, time_comp, timestep,
+                     bussi_reservoir, bussi_instantaneous, langevin_reservoir,
+                     seed=0, dtype=torch.float64, device=None) -> MDState:
+    """A port ``MDState`` from the JAX ``MDState`` leaves (the JAX RNG key
+    has no counterpart; ``seed`` seeds the port's generators)."""
+
+    def f(x):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    def i32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    return MDState(
+        position=f(position), image=i32(image), velocity=f(velocity),
+        mass=f(mass), charge=f(charge), typeid=i32(typeid), box_L=f(box_L),
+        forces=f(forces), dt=f(dt), time_au=f(time_au),
+        time_comp=f(time_comp), timestep=i32(timestep),
+        bussi_reservoir=f(bussi_reservoir),
+        bussi_instantaneous=f(bussi_instantaneous),
+        langevin_reservoir=f(langevin_reservoir), seed=seed,
+    )

@@ -1,0 +1,124 @@
+"""Ewald electrostatics: splitting parameter, self and exclusion corrections,
+and the exact k-space sum (the correctness oracle for the PPPM mesh).
+
+Port of ``cavmd_tpu/ops/ewald.py``. Total Coulomb energy of a neutral
+periodic system::
+
+    E = E_real + E_kspace - E_self - E_excluded
+
+with the real-space part in the dense pair pass (``ops/lj.py``), the
+k-space part on the PPPM mesh (``ops/pppm.py``), ``E_self = kappa/sqrt(pi)
+sum q^2`` and ``E_excl = sum_bonds q_i q_j erf(kappa r)/r``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from cavmd_tpu_torch.core.box import minimum_image
+
+
+def auto_kappa(r_cut, accuracy=1e-6):
+    """kappa with erfc(kappa * r_cut) ~ accuracy (host-side bisection)."""
+    lo, hi = 0.0, 30.0
+    for _ in range(80):
+        mid = 0.5 * (lo + hi)
+        if math.erfc(mid) > accuracy:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi) / float(r_cut)
+
+
+def ewald_self_energy(charge, kappa):
+    """Self-interaction correction kappa/sqrt(pi) * sum q_i^2 (subtracted)."""
+    kappa = torch.as_tensor(kappa, dtype=charge.dtype, device=charge.device)
+    return kappa / math.sqrt(math.pi) * torch.sum(charge * charge)
+
+
+def _excl_pair_terms(dr, qq, kappa):
+    """Per-bond exclusion terms: force on endpoint i (``fmag * dr``) and the
+    energy, given min-imaged ``dr = r_i - r_j`` (Nb, 3) and ``qq`` (Nb,)."""
+    kappa = torch.as_tensor(kappa, dtype=dr.dtype, device=dr.device)
+    r2 = torch.sum(dr * dr, dim=1)
+    r = torch.sqrt(r2)
+    safe_r = torch.where(r > 0, r, torch.ones_like(r))
+    safe_r2 = torch.where(r2 > 0, r2, torch.ones_like(r2))
+    erf_term = 1.0 - torch.special.erfc(kappa * r)
+    energy = torch.sum(qq * erf_term / safe_r)
+    two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
+    fmag = qq * (
+        erf_term / safe_r2
+        - kappa * two_over_sqrt_pi * torch.exp(-(kappa * r) ** 2) / safe_r
+    ) / safe_r
+    return fmag[:, None] * dr, energy
+
+
+def ewald_exclusion_correction(position, box_L, charge, kappa, bond_group):
+    """Reciprocal-space contribution of the bonded pairs, for any bond
+    table (scatter path). Returns (forces, energy) to be SUBTRACTED."""
+    if bond_group.shape[0] == 0:
+        return torch.zeros_like(position), position.new_zeros(())
+    i = bond_group[:, 0].long()
+    j = bond_group[:, 1].long()
+    dr = minimum_image(position[i] - position[j], box_L)
+    f_i, energy = _excl_pair_terms(dr, charge[i] * charge[j], kappa)
+    forces = torch.zeros_like(position)
+    forces.index_add_(0, i, f_i)
+    forces.index_add_(0, j, -f_i)
+    return forces, energy
+
+
+def ewald_exclusion_correction_strided(position, box_L, charge, kappa,
+                                       n_bonds: int):
+    """Exclusion correction for bond b = particles (2b, 2b+1): reshape
+    views, no gathers. Returns (forces, energy) to be SUBTRACTED."""
+    pp = position[:2 * n_bonds].reshape(n_bonds, 2, 3)
+    qq_b = charge[:2 * n_bonds].reshape(n_bonds, 2).prod(dim=1)
+    dr = minimum_image(pp[:, 0] - pp[:, 1], box_L)
+    f_i, energy = _excl_pair_terms(dr, qq_b, kappa)
+    forces = torch.zeros_like(position)
+    forces[:2 * n_bonds] = torch.stack([f_i, -f_i], dim=1).reshape(
+        2 * n_bonds, 3)
+    return forces, energy
+
+
+def kspace_vectors(box_L, nmax, dtype=torch.float64, device=None):
+    """Reciprocal lattice vectors 2 pi n / L for n in [-nmax, nmax]^3, n != 0."""
+    ns = np.arange(-nmax, nmax + 1)
+    grid = np.stack(np.meshgrid(ns, ns, ns, indexing="ij"), -1).reshape(-1, 3)
+    grid = grid[np.any(grid != 0, axis=1)]
+    box_np = np.asarray(box_L.cpu() if isinstance(box_L, torch.Tensor)
+                        else box_L, dtype=float)
+    return torch.as_tensor(2.0 * np.pi * grid / box_np[None, :], dtype=dtype,
+                           device=device)
+
+
+def ewald_kspace_exact(position, charge, box_L, kappa, nmax=12):
+    """Exact reciprocal-space Ewald sum (oracle for PPPM; O(N * nk)).
+
+    Returns (forces (N, 3), energy); self/exclusion corrections excluded.
+    """
+    dtype = position.dtype
+    kvecs = kspace_vectors(box_L, nmax, dtype, position.device)
+    volume = torch.prod(box_L.to(dtype))
+    kappa = torch.as_tensor(kappa, dtype=dtype, device=position.device)
+
+    kr = position @ kvecs.T
+    cos_kr = torch.cos(kr)
+    sin_kr = torch.sin(kr)
+    rho_re = charge @ cos_kr
+    rho_im = charge @ sin_kr
+
+    k2 = torch.sum(kvecs * kvecs, dim=1)
+    green = torch.exp(-k2 / (4.0 * kappa * kappa)) / k2
+    pref = 2.0 * math.pi / volume
+    energy = pref * torch.sum(green * (rho_re**2 + rho_im**2))
+
+    coef = 2.0 * pref * green
+    site = sin_kr * rho_re[None, :] - cos_kr * rho_im[None, :]
+    forces = charge[:, None] * ((coef[None, :] * site) @ kvecs)
+    return forces, energy

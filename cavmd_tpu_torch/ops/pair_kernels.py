@@ -1,0 +1,100 @@
+"""Dense LJ + short-range Ewald pair pass: CUDA kernel and plain twin.
+
+``dense_pair_force`` (kernel 1, ``csrc/pair.cu``) replaces the TPU kernel
+``cavmd_tpu/ops/pallas_kernels.py:_pair_kernel`` and holds the semantics of
+the XLA function ``cavmd_tpu/ops/lj.py:fused_pair_force`` (true erfc,
+round-half-even minimum image). The source note in ``pair.cu`` says what
+bounds it on the H100 and how the design answers it.
+
+Inputs are the (T, T) type tables (eps, sigma^2, r_cut^2, v_shift), the
+typeid and charge vectors and the two static (N, N) ``uint8`` masks
+``lj_active`` / ``coulomb_active`` — 2 bytes per pair. The wrapper runs the
+plain twin only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cavmd_tpu_torch.ops import _cuda
+from cavmd_tpu_torch.ops.lj import fused_pair_terms
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_PAIR_ARGS = [_V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _D, _D, _V, _V,
+              _V]
+_SIGNATURES = {
+    "cavmd_dense_pair_f32": _PAIR_ARGS,
+    "cavmd_dense_pair_f64": _PAIR_ARGS,
+    "cavmd_dense_pair_blocks": [_I],
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def dense_pair_force_plain(position, box_L, typeid, eps, sig2, rcut2, vshift,
+                           charge, lj_active, coulomb_active, kappa: float,
+                           coulomb_rc2: float):
+    """Plain twin of kernel 1. Returns (forces (N, 3), e_lj, e_ewald_short)."""
+    tid = typeid.long()
+    ti, tj = tid[:, None], tid[None, :]
+    qq = charge[:, None] * charge[None, :]
+    return fused_pair_terms(
+        position, box_L, eps[ti, tj], sig2[ti, tj], rcut2[ti, tj],
+        vshift[ti, tj], lj_active.bool(), qq, coulomb_active.bool(), kappa,
+        coulomb_rc2,
+    )
+
+
+def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
+                     charge, lj_active, coulomb_active, kappa: float,
+                     coulomb_rc2: float):
+    """Forces and the two pair energies: kernel 1 on CUDA, the plain twin on
+    CPU. ``kappa`` and ``coulomb_rc2`` are host floats (static per force
+    field), so the launch needs no device-to-host read."""
+    if position.device.type == "cpu":
+        return dense_pair_force_plain(position, box_L, typeid, eps, sig2,
+                                      rcut2, vshift, charge, lj_active,
+                                      coulomb_active, kappa, coulomb_rc2)
+    if position.device.type != "cuda":
+        raise ValueError(
+            f"dense_pair_force: unsupported device {position.device}")
+    dtype = position.dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"dense_pair_force: no kernel for {dtype}")
+    n = position.shape[0]
+    ntypes = eps.shape[0]  # the launcher rejects more types than pair.cu holds
+    checks = dict(position=(position, dtype, (n, 3)),
+                  box_L=(box_L, dtype, (3,)),
+                  typeid=(typeid, torch.int32, (n,)),
+                  eps=(eps, dtype, (ntypes, ntypes)),
+                  sig2=(sig2, dtype, (ntypes, ntypes)),
+                  rcut2=(rcut2, dtype, (ntypes, ntypes)),
+                  vshift=(vshift, dtype, (ntypes, ntypes)),
+                  charge=(charge, dtype, (n,)),
+                  lj_active=(lj_active, torch.uint8, (n, n)),
+                  coulomb_active=(coulomb_active, torch.uint8, (n, n)))
+    for name, (t, want_dtype, shape) in checks.items():
+        if not t.is_cuda or t.dtype != want_dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"dense_pair_force: {name} must be a contiguous CUDA "
+                f"{want_dtype} tensor of shape {shape}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    lib = _cuda.load("pair", _SIGNATURES)
+    blocks = lib.cavmd_dense_pair_blocks(n)
+    forces = torch.empty_like(position)
+    partial = torch.empty((blocks, 2), dtype=dtype, device=position.device)
+    p = _cuda.ptr
+    rc = getattr(lib, f"cavmd_dense_pair_{_SUFFIX[dtype]}")(
+        p(position), p(box_L), p(typeid), p(eps), p(sig2), p(rcut2),
+        p(vshift), ntypes, p(charge), p(lj_active), p(coulomb_active), n,
+        float(kappa), float(coulomb_rc2), p(forces), p(partial),
+        _cuda.stream_ptr(position.device))
+    _cuda.check(rc, "dense_pair")
+    _cuda.count_launch("dense_pair")
+    energies = 0.5 * torch.sum(partial, dim=0)
+    return forces, energies[0], energies[1]

@@ -1,0 +1,165 @@
+"""PPPM charge spread and force interpolation: CUDA kernels and plain twins.
+
+``spread_grid`` (kernel 2, ``csrc/pppm_spread.cu``) replaces the TPU kernels
+``cavmd_tpu/ops/pppm_pallas.py:_spread_fwd_kernel`` /
+``_spread_fwd_kernel_stacked``; ``interpolate_grad`` (kernel 3, same file)
+replaces ``_spread_bwd_kernel`` / ``_spread_bwd_kernel_stacked``. The source
+notes in the ``.cu`` file say what bounds them on the H100 and how the
+design answers it.
+
+Both wrappers run their plain PyTorch twin only for tensors on the CPU; for
+a CUDA tensor they launch the kernel or raise. :class:`SpreadGrid` joins
+them as the forward and backward of one ``torch.autograd.Function``, so
+forces are ``-grad`` of the mesh energy exactly as with the JAX package's
+``custom_vjp``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cavmd_tpu_torch.ops import _cuda
+from cavmd_tpu_torch.ops.pppm import bspline_stencils, mesh_vector
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    **{f"cavmd_pppm_spread_{s}": [_V, _V, _V, _I, _I, _I, _I, _I, _V, _V]
+       for s in ("f32", "f64")},
+    **{f"cavmd_pppm_interpolate_{s}": [_V, _V, _V, _V, _I, _I, _I, _I, _I,
+                                       _V, _V]
+       for s in ("f32", "f64")},
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _flat_columns(idx, mesh):
+    """(N, p, p, p) flat row-major grid indices from per-axis columns."""
+    Kx, Ky, Kz = mesh
+    ix, iy, iz = idx[:, 0], idx[:, 1], idx[:, 2]
+    return ((ix[:, :, None, None] * Ky + iy[:, None, :, None]) * Kz
+            + iz[:, None, None, :])
+
+
+def spread_grid_plain(position, charge, box_L, order: int, mesh):
+    """Plain twin of kernel 2: the (Kx, Ky, Kz) charge grid
+    ``grid[x, y, z] = sum_i q_i Mx_i(x) My_i(y) Mz_i(z)`` by a p^3 scatter."""
+    w, _, idx = bspline_stencils(position, box_L, order, mesh)
+    wx, wy, wz = w[:, 0], w[:, 1], w[:, 2]
+    vals = ((charge[:, None] * wx)[:, :, None, None]
+            * (wy[:, None, :, None] * wz[:, None, None, :]))
+    grid = position.new_zeros(mesh[0] * mesh[1] * mesh[2])
+    grid.index_add_(0, _flat_columns(idx, mesh).reshape(-1), vals.reshape(-1))
+    return grid.reshape(mesh)
+
+
+def interpolate_grad_plain(ct, position, charge, box_L, order: int, mesh):
+    """Plain twin of kernel 3: dE/dr (N, 3) from the grid cotangent ``ct``,
+    ``dE/dr_d = (K_d / L_d) q sum ct M'(d) M(others)``."""
+    w, dw, idx = bspline_stencils(position, box_L, order, mesh)
+    g = ct.reshape(-1)[_flat_columns(idx, mesh)]  # (N, p, p, p)
+    wx, wy, wz = w[:, 0], w[:, 1], w[:, 2]
+    dx, dy, dz = dw[:, 0], dw[:, 1], dw[:, 2]
+    terms = (
+        dx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :],
+        wx[:, :, None, None] * dy[:, None, :, None] * wz[:, None, None, :],
+        wx[:, :, None, None] * wy[:, None, :, None] * dz[:, None, None, :],
+    )
+    gsum = torch.stack([torch.sum(g * t, dim=(1, 2, 3)) for t in terms],
+                       dim=1)
+    Ks = mesh_vector(mesh, position)
+    return charge[:, None] * gsum * (Ks / box_L.to(position.dtype))
+
+
+def _check_cuda_inputs(what, tensors, dtype):
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is on {t.device}, not CUDA")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _kernel_dtype(position, what):
+    if position.dtype not in _SUFFIX:
+        raise TypeError(f"{what}: no kernel for {position.dtype}")
+    return _SUFFIX[position.dtype]
+
+
+def _lib():
+    return _cuda.load("pppm_spread", _SIGNATURES)
+
+
+def spread_grid(position, charge, box_L, order: int, mesh):
+    """(Kx, Ky, Kz) charge grid: kernel 2 on CUDA, the plain twin on CPU."""
+    if position.device.type == "cpu":
+        return spread_grid_plain(position, charge, box_L, order, mesh)
+    if position.device.type != "cuda":
+        raise ValueError(f"spread_grid: unsupported device {position.device}")
+    sfx = _kernel_dtype(position, "spread_grid")
+    _check_cuda_inputs("spread_grid", dict(position=position, charge=charge,
+                                           box_L=box_L), position.dtype)
+    n = position.shape[0]
+    Kx, Ky, Kz = mesh
+    grid = torch.zeros(mesh, dtype=position.dtype, device=position.device)
+    rc = getattr(_lib(), f"cavmd_pppm_spread_{sfx}")(
+        _cuda.ptr(position), _cuda.ptr(charge), _cuda.ptr(box_L), n, order,
+        Kx, Ky, Kz, _cuda.ptr(grid), _cuda.stream_ptr(position.device))
+    _cuda.check(rc, "pppm_spread")
+    _cuda.count_launch("pppm_spread")
+    return grid
+
+
+def interpolate_grad(ct, position, charge, box_L, order: int, mesh):
+    """dE/dr (N, 3) from the grid cotangent: kernel 3 on CUDA, the plain
+    twin on CPU."""
+    if position.device.type == "cpu":
+        return interpolate_grad_plain(ct, position, charge, box_L, order, mesh)
+    if position.device.type != "cuda":
+        raise ValueError(
+            f"interpolate_grad: unsupported device {position.device}")
+    sfx = _kernel_dtype(position, "interpolate_grad")
+    ct = ct.contiguous()
+    _check_cuda_inputs("interpolate_grad", dict(
+        ct=ct, position=position, charge=charge, box_L=box_L),
+        position.dtype)
+    if tuple(ct.shape) != tuple(mesh):
+        raise ValueError(f"interpolate_grad: ct shape {tuple(ct.shape)} "
+                         f"is not the mesh {tuple(mesh)}")
+    n = position.shape[0]
+    Kx, Ky, Kz = mesh
+    dpos = torch.empty_like(position)
+    rc = getattr(_lib(), f"cavmd_pppm_interpolate_{sfx}")(
+        _cuda.ptr(ct), _cuda.ptr(position), _cuda.ptr(charge),
+        _cuda.ptr(box_L), n, order, Kx, Ky, Kz, _cuda.ptr(dpos),
+        _cuda.stream_ptr(position.device))
+    _cuda.check(rc, "pppm_interpolate")
+    _cuda.count_launch("pppm_interpolate")
+    return dpos
+
+
+class SpreadGrid(torch.autograd.Function):
+    """Charge grid as a function of positions: forward = spread (kernel 2),
+    backward = interpolation (kernel 3). ``charge`` and ``box_L`` get no
+    gradient (never differentiated in this framework)."""
+
+    @staticmethod
+    def forward(ctx, position, charge, box_L, order, mesh):
+        ctx.save_for_backward(position, charge, box_L)
+        ctx.order = order
+        ctx.mesh = mesh
+        return spread_grid(position, charge, box_L, order, mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        position, charge, box_L = ctx.saved_tensors
+        dpos = interpolate_grad(ct, position, charge, box_L, ctx.order,
+                                ctx.mesh)
+        return dpos, None, None, None, None
+
+
+def spread_grid_autograd(position, charge, box_L, order: int, mesh):
+    return SpreadGrid.apply(position, charge, box_L, order, tuple(mesh))
