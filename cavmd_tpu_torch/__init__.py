@@ -1,11 +1,13 @@
 """cavmd_tpu_torch: the PyTorch + CUDA port of the cavity-QED MD framework.
 
-Mirrors the layout of the JAX package (``core/ ops/ integrate/
-simulation.py``) and keeps its public names, so each port module has one
-reference module. Plain tensor code is PyTorch; the dense pair pass and the
-PPPM spread/interpolation run in hand-written CUDA kernels
-(``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at first use) whenever
-their inputs live on a CUDA device, and in plain PyTorch twins on the CPU.
+Mirrors the layout of the JAX package (``core/ ops/ integrate/ observe/
+io/ utils/ drivers/ simulation.py``) and keeps its public names, so each
+port module has one reference module. Plain tensor code is PyTorch; the
+dense pair pass, the PPPM spread/interpolation and the fused integrator
+tail run in hand-written CUDA kernels (``csrc/*.cu``, built with ``nvcc``
+for ``sm_90a`` at first use) whenever their inputs live on a CUDA device,
+and in plain PyTorch twins on the CPU. Entry points put their tensors on
+the CUDA device unless the caller passes ``device="cpu"``.
 
 TF32 is switched off at import: on the TPU, bf16 rounding of
 position-carrying products heated NVE from 100 K to 6000 K, and TF32 keeps

@@ -14,11 +14,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from cavmd_tpu_torch.core.device import resolve_device
+
 
 def _tensor(x, dtype, device=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device or x.device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,10 +90,15 @@ class Snapshot:
         dtype=None,
         device=None,
     ) -> "Snapshot":
-        """Build a snapshot from (possibly partial) NumPy arrays or tensors."""
+        """Build a snapshot from (possibly partial) NumPy arrays or tensors.
+
+        ``device=None`` keeps a tensor ``position`` where it lies; NumPy data
+        goes to the CUDA device (``core/device.py:resolve_device``)."""
         if dtype is None:
             dtype = (position.dtype if isinstance(position, torch.Tensor)
                      else torch.float64)
+        if device is None and not isinstance(position, torch.Tensor):
+            device = resolve_device()
         position = _tensor(position, dtype, device)
         device = position.device
         n = position.shape[0]

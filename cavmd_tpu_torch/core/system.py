@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cavmd_tpu_torch.core.device import resolve_device
 from cavmd_tpu_torch.core.snapshot import Snapshot
 
 # Bond parameters — reference examples/05_advanced_run.py:568-569
@@ -55,8 +56,10 @@ def make_diatomic_system(
     Molecules sit on a jittered cubic lattice with random orientations; the
     two atoms of a molecule carry +q and -q. With ``temperature_K`` the
     velocities are Maxwell-Boltzmann with the centre-of-mass drift removed.
-    Types: 0 = 'O', 1 = 'N'; bond b joins atoms (2b, 2b+1).
+    Types: 0 = 'O', 1 = 'N'; bond b joins atoms (2b, 2b+1). The tensors
+    go to ``device``; None is the CUDA device, and raises without one.
     """
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_atoms = 2 * n_molecules
 

@@ -1,0 +1,666 @@
+"""Advanced cavity-MD experiment runner on PyTorch.
+
+Port of ``cavmd_tpu/drivers/advanced_run.py`` (the rebuild of the
+reference's ``examples/05_advanced_run.py``), sequential path: the 7-phase
+workflow, the CLI flags, SLURM array-task replicas, the
+``cavity_coupling_{g}`` / ``no_cavity`` directory layout and the same
+output files (energy tracker, cavity mode, F(k,t) references, dipole
+autocorrelation, GSD trajectory, console table).
+
+Differences from the JAX driver:
+
+- ``--device`` is ``GPU`` (the default: the CUDA device, an error when
+  there is none) or ``CPU``; ``--precision auto`` is f32 on the GPU and
+  f64 on the CPU.
+- The paths the port does not have yet (``--vmap-replicas``,
+  ``--shard-replicas``, ``--shard-atoms``, ``--pad-atoms``, a
+  ``--rng-impl`` other than ``auto``) exit with an error naming
+  ``ROADMAP.md``; nothing else runs in their place.
+
+Usage:
+    python -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
+        --n-molecules 20 --runtime 0.02 --enable-energy-tracker
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def setup_device(device: str) -> torch.device:
+    """'CPU' -> the CPU; 'GPU' -> the CUDA device, raising when there is
+    none (the port never falls back to the CPU)."""
+    from cavmd_tpu_torch.core.device import resolve_device
+
+    if device.upper() == "CPU":
+        return torch.device("cpu")
+    if device.upper() == "GPU":
+        return resolve_device(None)
+    raise ValueError(f"unknown device {device!r}: CPU or GPU")
+
+
+class CavityMDSimulation:
+    """Setup and execution of one cavity MD experiment (parity: the
+    reference ``CavityMDSimulation``, 05_advanced_run.py:145-1324)."""
+
+    def __init__(
+        self, job_dir, replica, freq, couplstr, incavity, runtime_ps=500.0,
+        input_gsd="molecular-0.gsd", frame=-1, name="prod",
+        error_tolerance=0.01, temperature=100.0,
+        molecular_thermostat="bussi", cavity_thermostat="langevin",
+        cavity_damping_factor=1.0, add_cavity_particle=True, finite_q=False,
+        molecular_thermostat_tau=5.0, cavity_thermostat_tau=5.0,
+        log_level="INFO", enable_fkt=True, fkt_kmag=1.0,
+        fkt_num_wavevectors=50, fkt_reference_interval_ps=1.0,
+        fkt_max_references=10, max_energy_output_time_ps=None,
+        enable_energy_tracking=False, dt_fs=None, device="GPU",
+        energy_output_period_ps=0.1, fkt_output_period_ps=1.0,
+        gsd_output_period_ps=50.0, console_output_period_ps=1.0,
+        truncate_gsd=False, seed=None, n_molecules=250, box_L=46.0,
+        chunk_size=500, precision="auto", pppm_resolution=32,
+    ):
+        self.job_dir = job_dir
+        self.replica = replica
+        self.freq = freq
+        self.couplstr = couplstr
+        self.incavity = incavity
+        self.runtime_ps = runtime_ps
+        self.input_gsd = input_gsd
+        self.frame = frame
+        self.name = name
+        self.error_tolerance = error_tolerance
+        self.temperature = temperature
+        self.molecular_thermostat = molecular_thermostat
+        self.cavity_thermostat = cavity_thermostat
+        self.cavity_damping_factor = cavity_damping_factor
+        self.add_cavity_particle = add_cavity_particle
+        self.finite_q = finite_q
+        self.molecular_thermostat_tau = molecular_thermostat_tau
+        self.cavity_thermostat_tau = cavity_thermostat_tau
+        self.log_level = log_level
+        self.enable_fkt = enable_fkt
+        self.fkt_kmag = fkt_kmag
+        self.fkt_num_wavevectors = fkt_num_wavevectors
+        self.fkt_reference_interval_ps = fkt_reference_interval_ps
+        self.fkt_max_references = fkt_max_references
+        self.max_energy_output_time_ps = max_energy_output_time_ps
+        self.enable_energy_tracking = enable_energy_tracking
+        self.dt_fs = dt_fs
+        self.device = device
+        self.energy_output_period_ps = energy_output_period_ps
+        self.fkt_output_period_ps = fkt_output_period_ps
+        self.gsd_output_period_ps = gsd_output_period_ps
+        self.console_output_period_ps = console_output_period_ps
+        self.truncate_gsd = truncate_gsd
+        self.seed = seed if seed is not None else np.random.randint(10**4)
+        self.n_molecules = n_molecules
+        self.box_L = box_L
+        self.chunk_size = chunk_size
+        self.precision = precision
+        self.pppm_resolution = pppm_resolution
+        self.logger = None
+        self.sim = None
+
+    # ------------------------------------------------------------- logging
+    def setup_logging(self):
+        logger_name = f"CavityMD_{self.name}_{self.replica}"
+        self.logger = logging.getLogger(logger_name)
+        self.logger.setLevel(getattr(logging, self.log_level.upper()))
+        self.logger.handlers.clear()
+        h = logging.StreamHandler(sys.stdout)
+        h.setFormatter(
+            logging.Formatter("%(asctime)s | %(levelname)s | %(message)s",
+                              datefmt="%Y-%m-%d %H:%M:%S")
+        )
+        self.logger.addHandler(h)
+        self.log_info("=" * 60)
+        self.log_info("CAVITY MD SIMULATION STARTED (cavmd_tpu_torch)")
+        self.log_info("=" * 60)
+        self.log_info(f"Simulation: {self.name}-{self.replica}")
+        self.log_info(f"Device: {self.device}")
+        self.log_info(f"Runtime: {self.runtime_ps} ps")
+        self.log_info(f"Temperature: {self.temperature} K")
+        self.log_info(
+            f"Cavity coupling: {'Enabled' if self.incavity else 'Disabled'}"
+        )
+        if self.incavity:
+            self.log_info(f"  Frequency: {self.freq} cm^-1")
+            self.log_info(f"  Coupling strength: {self.couplstr}")
+            self.log_info(f"  Finite-q mode: {self.finite_q}")
+
+    def log_info(self, msg):
+        (self.logger.info if self.logger else print)(msg)
+
+    def log_error(self, msg):
+        (self.logger.error if self.logger else print)(msg)
+
+    # ---------------------------------------------------------------- phases
+    def run(self):
+        """Orchestrate the full 7-phase workflow; returns 0 on success and
+        1 on any exception."""
+        try:
+            self.setup_logging()
+            self.log_info("=== Phase 1: Setting up simulation ===")
+            self._setup_state()
+            self.log_info("=== Phase 2: Configuring forces and thermostats ===")
+            self._setup_forces_and_methods()
+            self.log_info("=== Phase 3: Integrator + thermalization ===")
+            self._setup_simulation()
+            self.log_info("=== Phase 3.5: Computing optimal timestep ===")
+            self._set_timestep()
+            self.log_info("=== Phase 4: Trackers and loggers ===")
+            self._setup_trackers()
+            self.log_info("=== Phase 5: Output writers ===")
+            self._setup_writers()
+            self.log_info("=== Phase 6: Running simulation ===")
+            t0 = time.time()
+            steps = self.sim.run(runtime_ps=self.runtime_ps)
+            if self.torch_device.type == "cuda":
+                torch.cuda.synchronize(self.torch_device)
+            wall = time.time() - t0
+            self.log_info(
+                f"Completed {steps} steps, {self.sim.elapsed_ps:.6f} ps in "
+                f"{wall:.3f} s ({steps / max(wall, 1e-9):.1f} steps/s)"
+            )
+            self.log_info("=== Phase 7: Cleanup ===")
+            self._cleanup()
+            self.log_info("=== SIMULATION COMPLETED SUCCESSFULLY ===")
+            return 0
+        except Exception as e:  # noqa: BLE001 — parity with reference
+            self.log_error(f"CRITICAL ERROR in simulation: {e}")
+            import traceback
+
+            for line in traceback.format_exc().split("\n"):
+                if line.strip():
+                    self.log_error(line)
+            return 1
+        finally:
+            # a failed replica must not strand later ones in its job_dir
+            if hasattr(self, "original_cwd"):
+                os.chdir(self.original_cwd)
+
+    def _setup_state(self):
+        self.torch_device = setup_device(self.device)
+        if self.precision == "auto":
+            self.precision = ("f64" if self.torch_device.type == "cpu"
+                              else "f32")
+        self.dtype = (torch.float64 if self.precision == "f64"
+                      else torch.float32)
+        np_dtype = np.float64 if self.precision == "f64" else np.float32
+
+        from cavmd_tpu_torch.core.snapshot import add_cavity_particle as inject
+        from cavmd_tpu_torch.core.system import make_diatomic_system
+        from cavmd_tpu_torch.io import open_gsd
+
+        self.original_cwd = os.getcwd()
+        os.makedirs(self.job_dir, exist_ok=True)
+        os.chdir(self.job_dir)
+
+        if os.path.exists(self.input_gsd):
+            with open_gsd(self.input_gsd) as t:
+                frame = (self.frame if self.frame >= 0
+                         else max(len(t) + self.frame, 0))
+                if frame >= len(t):
+                    # the replica number doubles as the frame index
+                    # (reference 05_advanced_run.py:1571); clamp for short
+                    # input files
+                    self.log_info(
+                        f"Frame {frame} beyond {len(t)}-frame input; using "
+                        "last")
+                    frame = len(t) - 1
+                snap = t.read_frame(frame, dtype=self.dtype,
+                                    device=self.torch_device)
+            self.log_info(
+                f"State read from {self.input_gsd} frame {frame} "
+                f"(N={snap.N})")
+        else:
+            self.log_info(
+                f"Input GSD {self.input_gsd} not found — generating "
+                f"equivalent O2/N2 system ({self.n_molecules} molecules) "
+                "and minimizing"
+            )
+            snap = make_diatomic_system(
+                self.n_molecules, box_L=self.box_L, seed=self.seed,
+                dtype=self.dtype, device=self.torch_device,
+            )
+            from cavmd_tpu_torch.integrate import ForceField
+            from cavmd_tpu_torch.io import HOOMDTrajectory
+            from cavmd_tpu_torch.utils import fire_minimize
+
+            ff0 = ForceField.create(snap, enable_cavity=False)
+            snap = fire_minimize(snap, ff0, n_steps=300)
+            with HOOMDTrajectory(self.input_gsd, "w") as t:
+                t.append(snap, step=0, dtype=np_dtype)
+
+        if self.incavity and self.add_cavity_particle and "L" not in snap.types:
+            snap = inject(
+                snap, coupling=self.couplstr, freq_cm1=self.freq,
+                temperature_K=self.temperature, finite_q=self.finite_q,
+                seed=self.seed + 1,
+            )
+            self.log_info("Cavity particle added to system")
+        elif self.incavity and "L" in snap.types:
+            tid = snap.typeid.cpu().numpy()
+            n_cav = int(np.sum(tid == snap.types.index("L")))
+            if n_cav != 1:
+                raise ValueError(
+                    f"Expected exactly 1 cavity particle but found {n_cav}"
+                )
+        self.snapshot = snap
+
+    def _setup_forces_and_methods(self):
+        from cavmd_tpu_torch.core.units import PhysicalConstants as PC
+        from cavmd_tpu_torch.integrate import ForceField, MethodSpec
+
+        self.ff = ForceField.create(
+            self.snapshot, coupling=self.couplstr, freq_cm1=self.freq,
+            enable_cavity=self.incavity,
+            pppm_mesh=(self.pppm_resolution,) * 3,
+        )
+
+        kT = PC.kT_from_kelvin(self.temperature)
+        self.kT = kT
+        methods = []
+        mt = self.molecular_thermostat.lower()
+        if mt == "bussi":
+            methods.append(MethodSpec(
+                kind="bussi", group="molecular", kT=kT,
+                tau=PC.ps_to_atomic_units(self.molecular_thermostat_tau),
+            ))
+            self.log_info("Molecular bath: Bussi (NVT)")
+        elif mt == "langevin":
+            methods.append(MethodSpec(
+                kind="langevin", group="molecular", kT=kT,
+                gamma=PC.gamma_from_tau_ps(self.molecular_thermostat_tau),
+            ))
+            self.log_info("Molecular bath: Langevin (NVT)")
+        elif mt == "brownian":
+            methods.append(MethodSpec(
+                kind="brownian", group="molecular", kT=kT,
+                gamma=PC.gamma_from_tau_ps(self.molecular_thermostat_tau),
+            ))
+            self.log_info("Molecular bath: Brownian (overdamped)")
+        elif mt == "none":
+            methods.append(MethodSpec(kind="nve", group="molecular"))
+            self.log_info("Molecular bath: none (NVE)")
+        else:
+            raise ValueError(f"Invalid molecular_thermostat: {mt}")
+
+        if self.incavity:
+            ct = self.cavity_thermostat.lower()
+            if ct == "langevin":
+                gamma = self.cavity_damping_factor * PC.gamma_from_tau_ps(
+                    self.cavity_thermostat_tau)
+                methods.append(MethodSpec(
+                    kind="langevin", group="cavity", kT=kT, gamma=gamma,
+                ))
+                self.log_info("Cavity bath: Langevin")
+            elif ct == "bussi":
+                methods.append(MethodSpec(
+                    kind="bussi", group="cavity", kT=kT,
+                    tau=PC.ps_to_atomic_units(self.cavity_thermostat_tau),
+                ))
+                self.log_info("Cavity bath: Bussi")
+            elif ct == "brownian":
+                gamma = self.cavity_damping_factor * PC.gamma_from_tau_ps(
+                    self.cavity_thermostat_tau)
+                methods.append(MethodSpec(
+                    kind="brownian", group="cavity", kT=kT, gamma=gamma,
+                ))
+                self.log_info("Cavity bath: Brownian (overdamped)")
+            elif ct == "none":
+                methods.append(MethodSpec(kind="nve", group="cavity"))
+                self.log_info("Cavity bath: none (NVE)")
+            else:
+                raise ValueError(f"Invalid cavity_thermostat: {ct}")
+        self.methods = methods
+
+    def _setup_simulation(self):
+        from cavmd_tpu_torch.core.units import PhysicalConstants as PC
+        from cavmd_tpu_torch.observe import (
+            generate_fibonacci_sphere,
+            make_extra_obs,
+        )
+        from cavmd_tpu_torch.simulation import Simulation
+
+        extra = None
+        if self.enable_fkt:
+            wv = (generate_fibonacci_sphere(self.fkt_num_wavevectors)
+                  * self.fkt_kmag)
+            extra = make_extra_obs(dipole=True, wavevectors=wv)
+
+        dt0 = PC.fs_to_atomic_units(self.dt_fs if self.dt_fs else 0.1)
+        # adaptive updates fire on the energy period (the reference
+        # attaches its updater with trigger Periodic(energy_period),
+        # 05_advanced_run.py:851-855), not every step
+        adaptive_period = max(1, int(self.energy_output_period_ps / 0.0001))
+        self.sim = Simulation(
+            self.snapshot, self.ff, self.methods,
+            dt=dt0, seed=self.seed,
+            error_tolerance=self.error_tolerance,
+            adaptive_period=min(adaptive_period, self.chunk_size),
+            chunk_size=self.chunk_size,
+            extra_obs=extra,
+        )
+        self.sim.thermalize(self.kT)
+        self.log_info("Thermalized molecular momenta (+ photon velocity)")
+
+    def _set_timestep(self):
+        from cavmd_tpu_torch.core.units import PhysicalConstants as PC
+
+        if self.error_tolerance <= 0:
+            if self.dt_fs is not None:
+                self.log_info(f"Fixed timestep: {self.dt_fs} fs")
+            return
+        dt = self.sim.set_optimal_timestep(self.error_tolerance * 1e-3)
+        self.log_info(
+            f"Optimal initial dt = {dt:.6f} a.u. "
+            f"({PC.atomic_units_to_ps(dt) * 1000:.4f} fs)"
+        )
+
+    def _setup_trackers(self):
+        from cavmd_tpu_torch.observe import (
+            CavityModeTracker,
+            DipoleAutocorrelation,
+            ElapsedTimeTracker,
+            EnergyTracker,
+            FieldAutocorrelationTracker,
+            PerformanceTracker,
+            TimestepFormatter,
+        )
+
+        prefix = f"{self.name}-{self.replica}"
+        self.time_tracker = ElapsedTimeTracker(self.runtime_ps)
+        self.perf_tracker = PerformanceTracker(self.runtime_ps)
+        self.dt_formatter = TimestepFormatter()
+        self.sim.trackers += [self.time_tracker, self.perf_tracker,
+                              self.dt_formatter]
+
+        # step-period throttles from the nominal dt (parity:
+        # calculate_physical_parameters, 05_advanced_run.py:339-386)
+        dt_ps_nominal = 0.0001 if self.error_tolerance > 0 else (
+            (self.dt_fs or 1.0) / 1000.0
+        )
+        energy_period = max(1, int(self.energy_output_period_ps
+                                   / dt_ps_nominal))
+        fkt_period = max(1, int(self.fkt_output_period_ps / dt_ps_nominal))
+
+        if self.enable_energy_tracking:
+            tid = self.snapshot.typeid.cpu().numpy()
+            n_dof = 3 * int(np.sum(tid != self.ff.l_typeid))
+            self.sim.trackers.append(EnergyTracker(
+                output_prefix=prefix,
+                output_period_steps=energy_period,
+                max_time_ps=self.max_energy_output_time_ps,
+                n_molecular_dof=n_dof,
+            ))
+            if self.incavity:
+                self.sim.trackers.append(CavityModeTracker(
+                    output_prefix=prefix, output_period_steps=energy_period,
+                ))
+            self.log_info("Energy tracking enabled")
+        if self.enable_fkt:
+            self.sim.trackers.append(FieldAutocorrelationTracker(
+                output_prefix=prefix,
+                output_period_steps=fkt_period,
+                reference_interval_ps=self.fkt_reference_interval_ps,
+                max_references=self.fkt_max_references,
+            ))
+            self.sim.trackers.append(
+                DipoleAutocorrelation(output_period_steps=fkt_period)
+            )
+            self.log_info(
+                f"F(k,t) enabled: k={self.fkt_kmag}, "
+                f"{self.fkt_num_wavevectors} wavevectors"
+            )
+
+    def _setup_writers(self):
+        from cavmd_tpu_torch.io import GSDWriter, TableWriter
+
+        prefix = f"{self.name}-{self.replica}"
+        self.gsd_writer = GSDWriter(
+            f"{prefix}.gsd", output_period_ps=self.gsd_output_period_ps,
+            truncate=self.truncate_gsd,
+        )
+        self.gsd_writer.write_now(self.sim)  # initial frame
+        self.sim.writers.append(self.gsd_writer)
+        self.sim.writers.append(
+            TableWriter(self.perf_tracker,
+                        output_period_ps=self.console_output_period_ps)
+        )
+        self.log_info(f"GSD writer: {prefix}.gsd "
+                      f"(every {self.gsd_output_period_ps} ps)")
+
+    def _cleanup(self):
+        if hasattr(self, "gsd_writer"):
+            self.gsd_writer.close()
+
+
+# ---------------------------------------------------------------- replicas
+def get_slurm_info():
+    """SLURM array-task detection (parity: 05_advanced_run.py:1326-1334)."""
+    task_id = os.environ.get("SLURM_ARRAY_TASK_ID")
+    job_id = os.environ.get("SLURM_JOB_ID", "unknown")
+    return (int(task_id) if task_id is not None else None), job_id
+
+
+def parse_replicas(replicas_str):
+    """Parse '1-5' / '1,3,5' specs (parity: 05_advanced_run.py:1336-1351)."""
+    if not replicas_str:
+        return [1]
+    replicas = []
+    for part in replicas_str.split(","):
+        part = part.strip()
+        if "-" in part:
+            start, end = part.split("-", 1)
+            replicas.extend(range(int(start), int(end) + 1))
+        else:
+            replicas.append(int(part))
+    return sorted(set(replicas))
+
+
+def resolved_box(args) -> float:
+    """--box-L, or the reference box scaled at constant density
+    (core/system.py:reference_box_for)."""
+    if getattr(args, "box_L", None):
+        return float(args.box_L)
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    return reference_box_for(args.n_molecules)
+
+
+def run_single_experiment(args, replica, frame):
+    """One experiment in its coupling-named directory
+    (parity: 05_advanced_run.py:1353-1439)."""
+    incavity = not args.no_cavity
+    if incavity:
+        coupling_str = (f"{args.coupling:.0e}".replace("-", "neg")
+                        .replace("+", "pos"))
+        exp_dir = Path(f"cavity_coupling_{coupling_str}")
+    else:
+        exp_dir = Path("no_cavity")
+    exp_dir.mkdir(exist_ok=True)
+
+    error_tolerance = 0.0 if args.fixed_timestep else 1.0
+    sim = CavityMDSimulation(
+        job_dir=str(exp_dir),
+        replica=replica,
+        freq=args.frequency,
+        couplstr=args.coupling,
+        incavity=incavity,
+        runtime_ps=args.runtime,
+        input_gsd=args.input_gsd,
+        frame=frame,
+        name="prod",
+        error_tolerance=error_tolerance,
+        temperature=args.temperature,
+        molecular_thermostat=args.molecular_bath,
+        cavity_thermostat=args.cavity_bath if incavity else "none",
+        finite_q=args.finite_q,
+        molecular_thermostat_tau=args.molecular_tau,
+        cavity_thermostat_tau=args.cavity_tau,
+        enable_fkt=args.enable_fkt,
+        fkt_kmag=args.fkt_kmag,
+        fkt_num_wavevectors=args.fkt_wavevectors,
+        fkt_reference_interval_ps=args.fkt_ref_interval,
+        fkt_max_references=args.fkt_max_refs,
+        max_energy_output_time_ps=args.max_energy_output_time,
+        enable_energy_tracking=args.enable_energy_tracker,
+        dt_fs=args.timestep if args.fixed_timestep else None,
+        device=args.device,
+        energy_output_period_ps=args.energy_output_period_ps,
+        fkt_output_period_ps=args.fkt_output_period_ps,
+        gsd_output_period_ps=args.gsd_output_period_ps,
+        console_output_period_ps=args.console_output_period_ps,
+        truncate_gsd=args.truncate_gsd,
+        seed=args.seed + replica if args.seed is not None else None,
+        n_molecules=args.n_molecules,
+        box_L=resolved_box(args),
+        precision=args.precision,
+        pppm_resolution=args.pppm_resolution,
+    )
+    return sim.run() == 0
+
+
+def unported_flags(args) -> list:
+    """The flags given whose paths the port does not have yet, each with
+    its message."""
+    where = ("not ported to cavmd_tpu_torch yet (see ROADMAP.md, Queue 1); "
+             "run the JAX package's driver, cavmd_tpu.drivers.advanced_run, "
+             "for it")
+    out = []
+    if args.vmap_replicas:
+        out.append(f"--vmap-replicas: replica batching is {where}")
+    if args.shard_replicas:
+        out.append(f"--shard-replicas: sharded replicas are {where}")
+    if args.shard_atoms:
+        out.append(f"--shard-atoms: atom sharding is {where}")
+    if args.pad_atoms:
+        out.append(f"--pad-atoms: ghost padding is {where}")
+    if args.rng_impl != "auto":
+        out.append(f"--rng-impl {args.rng_impl}: the port draws from "
+                   "torch.Generator streams only; JAX PRNG backends are "
+                   f"{where}")
+    return out
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        description="Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    parser.add_argument("--molecular-bath", type=str, default="bussi",
+                        choices=["bussi", "langevin", "brownian", "none"])
+    parser.add_argument("--cavity-bath", type=str, default="langevin",
+                        choices=["bussi", "langevin", "brownian", "none"])
+    parser.add_argument("--finite-q", action="store_true")
+    parser.add_argument("--coupling", type=float, default=1e-3)
+    parser.add_argument("--temperature", type=float, default=100.0)
+    parser.add_argument("--frequency", type=float, default=2000.0)
+    parser.add_argument("--runtime", type=float, default=500.0)
+    parser.add_argument("--no-cavity", action="store_true")
+    parser.add_argument("--replicas", type=str)
+    parser.add_argument("--molecular-tau", type=float, default=5.0)
+    parser.add_argument("--cavity-tau", type=float, default=5.0)
+    parser.add_argument("--fixed-timestep", action="store_true")
+    parser.add_argument("--timestep", type=float, default=1.0,
+                        help="Fixed timestep in fs")
+    parser.add_argument("--enable-energy-tracker", action="store_true")
+    parser.add_argument("--energy-output-period-ps", type=float, default=0.1)
+    parser.add_argument("--fkt-output-period-ps", type=float, default=1.0)
+    parser.add_argument("--gsd-output-period-ps", type=float, default=50.0)
+    parser.add_argument("--console-output-period-ps", type=float, default=1.0)
+    parser.add_argument("--enable-fkt", action="store_true")
+    parser.add_argument("--fkt-kmag", type=float, default=1.0)
+    parser.add_argument("--fkt-wavevectors", type=int, default=50)
+    parser.add_argument("--fkt-ref-interval", type=float, default=1.0)
+    parser.add_argument("--fkt-max-refs", type=int, default=10)
+    parser.add_argument("--max-energy-output-time", type=float)
+    parser.add_argument("--device", type=str, default="GPU",
+                        choices=["CPU", "GPU"],
+                        help="GPU (default) = the CUDA device, an error "
+                             "when there is none; CPU = the CPU")
+    parser.add_argument("--truncate-gsd", action="store_true")
+    # flags of the JAX driver whose paths are not ported yet: kept so that
+    # a command line written for it fails loudly instead of running
+    # something else
+    parser.add_argument("--vmap-replicas", action="store_true",
+                        help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--shard-replicas", type=int, default=0,
+                        help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--shard-atoms", type=int, default=0,
+                        help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--rng-impl", choices=("auto", "threefry", "rbg"),
+                        default="auto",
+                        help="only auto (torch.Generator streams) is "
+                             "ported (ROADMAP.md)")
+    parser.add_argument("--pad-atoms", type=int, default=0,
+                        help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--input-gsd", type=str, default="../init-0.gsd")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--n-molecules", type=int, default=250,
+                        help="molecules when generating a missing input GSD")
+    parser.add_argument("--box-L", type=float, default=None,
+                        help="cubic box edge (bohr) for the generated "
+                             "system; default scales the reference box "
+                             "(46.0 at 250 molecules) at constant density")
+    parser.add_argument("--pppm-resolution", type=int, default=32,
+                        help="PPPM mesh points per axis (reference default "
+                             "32)")
+    parser.add_argument("--precision", type=str, default="auto",
+                        choices=["auto", "f32", "f64"],
+                        help="auto = f64 on CPU, f32 on GPU")
+    return parser
+
+
+def main(argv=None):
+    """Parity: reference main() (05_advanced_run.py:1441-1632). Returns 0
+    when every replica succeeded, 1 when one failed, 2 for a flag whose
+    path is not ported."""
+    args = build_parser().parse_args(argv)
+
+    print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
+    print("=" * 50)
+    unported = unported_flags(args)
+    if unported:
+        for msg in unported:
+            print(f"error: {msg}", file=sys.stderr)
+        return 2
+
+    task_id, job_id = get_slurm_info()
+    if task_id is not None:
+        replica_list = [task_id]
+        print(f"SLURM array job detected: Task {task_id} (Job {job_id})")
+    else:
+        replica_list = parse_replicas(args.replicas)
+        print(f"Local execution: Replicas {replica_list}")
+
+    start = time.time()
+    ok = fail = 0
+    for replica in replica_list:
+        frame = replica  # replica doubles as input frame (reference 1571)
+        print(f"\nRunning replica {replica}...")
+        if run_single_experiment(args, replica, frame):
+            ok += 1
+            print(f"SUCCESS: Replica {replica} completed successfully")
+        else:
+            fail += 1
+            print(f"ERROR: Replica {replica} failed")
+
+    print("\n" + "=" * 50)
+    print(f"Total replicas: {len(replica_list)}  Successful: {ok}  "
+          f"Failed: {fail}")
+    print(f"Wall time: {time.time() - start:.2f} seconds")
+    return 1 if fail else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,3 +1,7 @@
+from cavmd_tpu_torch.integrate.adaptive import (
+    compute_optimal_dt,
+    make_adaptive_step,
+)
 from cavmd_tpu_torch.integrate.forcefield import ForceField
 from cavmd_tpu_torch.integrate.integrator import (
     OBS_KEYS,
@@ -12,6 +16,7 @@ from cavmd_tpu_torch.integrate.integrator import (
     universe_energy,
 )
 from cavmd_tpu_torch.integrate.thermostats import (
+    brownian_apply,
     bussi_apply,
     bussi_noise,
     bussi_rescale_factor,
@@ -21,6 +26,8 @@ from cavmd_tpu_torch.integrate.thermostats import (
 )
 
 __all__ = [
+    "compute_optimal_dt",
+    "make_adaptive_step",
     "ForceField",
     "OBS_KEYS",
     "MDState",
@@ -32,6 +39,7 @@ __all__ = [
     "resolve_methods",
     "run_steps",
     "universe_energy",
+    "brownian_apply",
     "bussi_apply",
     "bussi_noise",
     "bussi_rescale_factor",

@@ -1,19 +1,27 @@
 """The MD integrator: one step function and a chunked runner.
 
-Port of ``cavmd_tpu/integrate/integrator.py`` (the unfused path, methods
-nve / bussi / langevin). Per step, in this order:
+Port of ``cavmd_tpu/integrate/integrator.py`` (methods nve / bussi /
+langevin / brownian). Per step, in this order:
 
 1. Bussi half-step on its group (reservoir += KE (1 - alpha^2));
-2. velocity-Verlet kick v += dt/2 a(t), drift x += dt v, re-wrap;
+2. velocity-Verlet kick v += dt/2 a(t), drift x += dt v (Brownian groups:
+   an overdamped Euler-Maruyama move and Maxwell-resampled velocities
+   instead), re-wrap;
 3. all forces (``ForceField.forward``);
-4. second kick v += dt/2 a(t + dt);
+4. second kick v += dt/2 a(t + dt) (not on Brownian groups);
 5. exact-OU Langevin on its group (reservoir += KE loss);
-6. the energy audit: every column of the reference EnergyTracker.
+6. the energy audit: every column of the reference EnergyTracker, plus
+   the optional ``extra_obs`` columns (dipole, rho(k)).
+
+For the production pattern (Bussi on the molecules, Langevin on the one
+photon) steps 1-2 and 4-6 can instead run as the two fused kernels of
+``ops/fused_integrator.py`` (K4 before the forces, K5 after), drawing the
+same random numbers; see ``make_step_fn``.
 
 Group membership is by particle type (molecular = not 'L', cavity = 'L'),
 so masks and DOF are static. ``run_steps`` runs a chunk of steps with no
 host synchronisation inside it: each step writes its observables into one
-preallocated ``(n_steps, n_obs)`` device buffer, which is copied to the
+preallocated ``(n_steps, n_cols)`` device buffer, which is copied to the
 host once at the end of the chunk.
 """
 
@@ -29,11 +37,13 @@ from cavmd_tpu_torch.core.box import rewrap
 from cavmd_tpu_torch.core.snapshot import Snapshot
 from cavmd_tpu_torch.integrate.forcefield import ENERGY_KEYS, ForceField
 from cavmd_tpu_torch.integrate.rng import (
+    STREAM_BROWNIAN,
     STREAM_BUSSI,
     STREAM_LANGEVIN,
     make_generator,
 )
 from cavmd_tpu_torch.integrate.thermostats import (
+    brownian_apply,
     bussi_apply,
     bussi_noise,
     kinetic_energy,
@@ -42,7 +52,7 @@ from cavmd_tpu_torch.integrate.thermostats import (
 
 # group slots for reservoir bookkeeping (index into the (2,) accumulators)
 MOLECULAR, CAVITY = 0, 1
-SUPPORTED_METHODS = ("nve", "bussi", "langevin")
+SUPPORTED_METHODS = ("nve", "bussi", "langevin", "brownian")
 
 OBS_KEYS = ENERGY_KEYS + (
     "kinetic_molecular", "kinetic_cavity",
@@ -54,7 +64,7 @@ OBS_KEYS = ENERGY_KEYS + (
 
 class MethodSpec(NamedTuple):
     """Static description of one integration method (HOOMD ``methods``
-    entry): ``kind`` in nve | bussi | langevin, ``group`` in molecular |
+    entry): ``kind`` in nve | bussi | langevin | brownian, ``group`` in molecular |
     cavity | all; ``tau`` and ``gamma`` in atomic units."""
 
     kind: str
@@ -72,6 +82,9 @@ class MDState:
 
     ``generators`` maps (stream, method index) to the state's
     ``torch.Generator`` for that stream; they advance as the run draws.
+    ``step`` is the host's copy of ``timestep``: host-side decisions (the
+    adaptive-dt period, the runner's timestep column) read it instead of
+    the device counter, so they cost no host sync.
     """
 
     position: torch.Tensor
@@ -89,6 +102,8 @@ class MDState:
     bussi_reservoir: torch.Tensor  # (2,) [molecular, cavity]
     bussi_instantaneous: torch.Tensor  # (2,) last-step delta
     langevin_reservoir: torch.Tensor  # (2,)
+    error_tolerance: torch.Tensor  # current adaptive tolerance (0: fixed dt)
+    step: int = 0
     seed: int = 0
     generators: dict = dataclasses.field(default_factory=dict)
 
@@ -143,7 +158,7 @@ def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
 
 
 def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
-               seed: int = 0) -> MDState:
+               seed: int = 0, error_tolerance: float = 0.0) -> MDState:
     """The initial MDState on the snapshot's device (computes the initial
     forces once)."""
     dtype = snapshot.position.dtype
@@ -169,6 +184,8 @@ def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
         bussi_reservoir=z2,
         bussi_instantaneous=z2.clone(),
         langevin_reservoir=z2.clone(),
+        error_tolerance=torch.as_tensor(error_tolerance, dtype=dtype,
+                                        device=dev),
         seed=seed,
     )
 
@@ -189,6 +206,15 @@ class StreamNoise:
             STREAM_LANGEVIN, i), dtype=state.position.dtype,
             device=state.device)
 
+    def brownian(self, state: MDState, i: int, m: MethodSpec):
+        """Two (N, 3) standard-normal draws for Brownian method ``i``: the
+        position noise, then the velocity resample."""
+        gen = state.generator(STREAM_BROWNIAN, i)
+        shape = state.position.shape
+        return tuple(torch.randn(shape, generator=gen,
+                                 dtype=state.position.dtype,
+                                 device=state.device) for _ in range(2))
+
 
 def _set_at(x, slot: int, value, add: bool):
     out = x.clone()
@@ -200,14 +226,28 @@ def _set_at(x, slot: int, value, add: bool):
 
 
 def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
+                 extra_obs=None, fuse_integrator: bool | None = None,
                  noise=None):
     """Build ``step(state) -> (new_state, obs)``.
 
-    ``obs`` is a dict of 0-d tensors with keys ``OBS_KEYS``. The step reads
-    nothing back from the device. ``noise`` supplies the random draws
-    (default :class:`StreamNoise`, which advances the state's generators in
-    place; every tensor of ``state`` itself is left unmodified — the new
-    state holds new tensors).
+    ``obs`` is a dict of tensors with keys ``OBS_KEYS`` (0-d) plus those of
+    ``extra_obs(new_state)`` (a dict of 0-d or 1-d tensors, for example
+    ``observe.make_extra_obs``). The step reads nothing back from the
+    device. ``noise`` supplies the random draws (default
+    :class:`StreamNoise`, which advances the state's generators in place;
+    every tensor of ``state`` itself is left unmodified — the new state
+    holds new tensors).
+
+    ``fuse_integrator`` selects the fused tail (``ops/fused_integrator.py``:
+    K4 before the forces, K5 after; same draws, in the same order, as the
+    unfused path). ``None`` turns it on when the state is float32 on a
+    CUDA device and the methods fit its pattern, and silently off
+    otherwise; ``True`` turns it on for any float32 state (a float64 state
+    runs unfused, as in the JAX package) and raises ``ValueError`` if the
+    methods do not fit; ``False`` turns it off. The
+    JAX package keeps ``None`` off because two kernel launches cost more
+    than the XLA tail on its TPU; on the GPU the eager unfused tail is
+    dozens of launches.
     """
     for m in methods:
         if m.kind not in SUPPORTED_METHODS:
@@ -217,6 +257,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
     noise = noise if noise is not None else StreamNoise()
     l_typeid = ff.l_typeid
     index_cache = {}
+    plan_cache = {}
+    mask_cache = {}
 
     def _indices(i, m, device):
         if m.indices is None:
@@ -227,7 +269,108 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                                                device=device)
         return index_cache[key]
 
+    def _mol_mask(state):
+        key = state.device
+        if key not in mask_cache:
+            mask_cache[key] = group_mask(state.typeid, l_typeid, "molecular")
+        return mask_cache[key]
+
+    def _fused_plan(state):
+        dtype = state.position.dtype
+        if fuse_integrator is False or dtype != torch.float32:
+            return None
+        if fuse_integrator is None and state.device.type != "cuda":
+            return None
+        key = (state.position.shape[0], dtype)
+        if key not in plan_cache:
+            from cavmd_tpu_torch.ops.fused_integrator import (
+                FusedIntegratorPlan,
+            )
+
+            try:
+                plan_cache[key] = FusedIntegratorPlan(ff, methods, key[0],
+                                                      dtype)
+            except ValueError:
+                if fuse_integrator:  # explicitly requested: surface it
+                    raise
+                plan_cache[key] = None
+        return plan_cache[key]
+
+    def _finish(state, pos, image, v, forces, energies, bussi_res,
+                bussi_inst, langevin_res, ke_mol, ke_cav):
+        """Shared step tail: Kahan time, state replace, obs dict."""
+        dt = state.dt
+        y = dt - state.time_comp
+        t_new = state.time_au + y
+        comp_new = (t_new - state.time_au) - y
+        new_state = state.replace(
+            position=pos, image=image, velocity=v, forces=forces,
+            time_au=t_new, time_comp=comp_new,
+            timestep=state.timestep + 1, step=state.step + 1,
+            bussi_reservoir=bussi_res,
+            bussi_instantaneous=bussi_inst,
+            langevin_reservoir=langevin_res,
+        )
+        obs = dict(energies)
+        obs["kinetic_molecular"] = ke_mol
+        obs["kinetic_cavity"] = ke_cav
+        obs["bussi_reservoir_molecular"] = bussi_res[MOLECULAR]
+        obs["bussi_reservoir_cavity"] = bussi_res[CAVITY]
+        obs["langevin_reservoir_molecular"] = langevin_res[MOLECULAR]
+        obs["langevin_reservoir_cavity"] = langevin_res[CAVITY]
+        obs["dt"] = dt
+        obs["time_au"] = t_new
+        obs["timestep"] = new_state.timestep
+        if extra_obs is not None:
+            obs.update(extra_obs(new_state))
+        return new_state, obs
+
+    def _fused_step(state: MDState, plan):
+        """K4 + forces + K5: the same draws and update sequence as the
+        unfused path below; differs only in reduction order."""
+        from cavmd_tpu_torch.ops.fused_integrator import (
+            post_force_apply,
+            pre_force_apply,
+        )
+
+        dt = state.dt
+        mol = _mol_mask(state)
+        mb = plan.bussi
+        r1, r_gamma = noise.bussi(state, plan.i_bussi, mb)
+        c = (torch.exp(-dt / mb.tau) if mb.tau != 0.0
+             else torch.zeros_like(dt))
+        pos, image, v, dres_b = pre_force_apply(
+            plan, state.position, state.image, state.velocity, state.forces,
+            state.mass, mol, state.box_L, dt, c, mb.kT, r1, r_gamma)
+        bussi_res = _set_at(state.bussi_reservoir, MOLECULAR, dres_b,
+                            add=True)
+        bussi_inst = _set_at(state.bussi_instantaneous, MOLECULAR, dres_b,
+                             add=False)
+
+        forces, energies = ff(pos, image, state.box_L, state.charge,
+                              state.typeid)
+
+        langevin_res = state.langevin_reservoir
+        if plan.langevin is not None:
+            ml = plan.langevin
+            xi = noise.langevin(state, plan.i_langevin, ml, (1, 3))
+            c_ou = torch.exp(-ml.gamma * dt)
+            sig = torch.sqrt((1.0 - c_ou * c_ou) * ml.kT
+                             / state.mass[plan.photon])
+            v, ke_mol, ke_cav, dres_l = post_force_apply(
+                plan, v, forces, state.mass, mol, dt, c_ou, sig, xi)
+            langevin_res = _set_at(langevin_res, CAVITY, dres_l, add=True)
+        else:
+            v, ke_mol, ke_cav, _ = post_force_apply(
+                plan, v, forces, state.mass, mol, dt, None, None, None)
+        return _finish(state, pos, image, v, forces, energies, bussi_res,
+                       bussi_inst, langevin_res, ke_mol, ke_cav)
+
     def step(state: MDState):
+        plan = _fused_plan(state)
+        if plan is not None:
+            return _fused_step(state, plan)
+
         dev = state.device
         dt = state.dt
         v = state.velocity
@@ -250,11 +393,30 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         inv_m = 1.0 / state.mass[:, None]
         v = v + 0.5 * dt * state.forces * inv_m
         pos = state.position + dt * v
+        # Brownian groups: the overdamped move replaces the VV drift; their
+        # velocities are Maxwell-resampled and skip the second kick
+        brownian_mask = None
+        for i, m in enumerate(methods):
+            if m.kind == "brownian":
+                mask = group_mask(state.typeid, l_typeid, m.group)
+                slot = group_slot(m.group)
+                xi_pos, xi_vel = noise.brownian(state, i, m)
+                bpos, bv, dres = brownian_apply(
+                    state.position, state.velocity, state.forces,
+                    state.mass, mask, m.gamma, m.kT, dt, xi_pos, xi_vel)
+                pos = torch.where(mask[:, None], bpos, pos)
+                v = torch.where(mask[:, None], bv, v)
+                langevin_res = _set_at(langevin_res, slot, dres, add=True)
+                brownian_mask = (mask if brownian_mask is None
+                                 else brownian_mask | mask)
         pos, image = rewrap(pos, state.image, state.box_L)
 
         forces, energies = ff(pos, image, state.box_L, state.charge,
                               state.typeid)
-        v = v + 0.5 * dt * forces * inv_m
+        kick2 = 0.5 * dt * forces * inv_m
+        if brownian_mask is not None:
+            kick2 = torch.where(brownian_mask[:, None], 0.0, kick2)
+        v = v + kick2
 
         # ---- Langevin O-step ----
         for i, m in enumerate(methods):
@@ -272,54 +434,45 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         mol_mask = group_mask(state.typeid, l_typeid, "molecular")
         ke_mol = kinetic_energy(v, state.mass, mol_mask)
         ke_cav = kinetic_energy(v, state.mass, ~mol_mask)
-
-        y = dt - state.time_comp
-        t_new = state.time_au + y
-        comp_new = (t_new - state.time_au) - y
-        new_state = state.replace(
-            position=pos, image=image, velocity=v, forces=forces,
-            time_au=t_new, time_comp=comp_new,
-            timestep=state.timestep + 1,
-            bussi_reservoir=bussi_res,
-            bussi_instantaneous=bussi_inst,
-            langevin_reservoir=langevin_res,
-        )
-        obs = dict(energies)
-        obs["kinetic_molecular"] = ke_mol
-        obs["kinetic_cavity"] = ke_cav
-        obs["bussi_reservoir_molecular"] = bussi_res[MOLECULAR]
-        obs["bussi_reservoir_cavity"] = bussi_res[CAVITY]
-        obs["langevin_reservoir_molecular"] = langevin_res[MOLECULAR]
-        obs["langevin_reservoir_cavity"] = langevin_res[CAVITY]
-        obs["dt"] = dt
-        obs["time_au"] = t_new
-        obs["timestep"] = new_state.timestep
-        return new_state, obs
+        return _finish(state, pos, image, v, forces, energies, bussi_res,
+                       bussi_inst, langevin_res, ke_mol, ke_cav)
 
     return step
 
 
 def run_steps(step_fn, state: MDState, n_steps: int):
     """Run ``n_steps`` steps; returns (final_state, obs) where obs maps each
-    key of ``OBS_KEYS`` to a NumPy array of length ``n_steps``.
+    observable key to a NumPy array of length ``n_steps`` (scalars) or of
+    shape ``(n_steps, d)`` (the vector columns of ``extra_obs``).
 
-    The per-step observables go into one preallocated (n_steps, n_obs)
-    device buffer (one stack-and-copy per step, no host sync); the buffer
-    crosses to the host once, after the last step. The integer timestep
-    column is rebuilt on the host from the final state's counter, so it
-    stays exact whatever the float precision.
+    Every per-step observable goes into one preallocated
+    ``(n_steps, n_cols)`` device buffer (one concatenate-and-copy per step,
+    no host sync); the buffer crosses to the host once, after the last
+    step. The integer timestep column is rebuilt on the host from the
+    state's host step counter, so it stays exact whatever the float
+    precision.
     """
-    dtype = state.position.dtype
-    keys = [k for k in OBS_KEYS if k != "timestep"]
-    buf = torch.empty((n_steps, len(keys)), dtype=dtype, device=state.device)
+    if n_steps < 1:
+        return state, {}
+    buf = keys = shapes = None
     with torch.no_grad():
         for s in range(n_steps):
             state, obs = step_fn(state)
-            buf[s] = torch.stack([obs[k] for k in keys])
+            if buf is None:
+                keys = [k for k in obs if k != "timestep"]
+                shapes = [tuple(obs[k].shape) for k in keys]
+                width = sum(int(np.prod(sh)) for sh in shapes)
+                buf = torch.empty((n_steps, width), dtype=state.dt.dtype,
+                                  device=state.device)
+            buf[s] = torch.cat([obs[k].reshape(-1) for k in keys])
     host = buf.cpu().numpy()
-    out = {k: host[:, c] for c, k in enumerate(keys)}
-    last = int(state.timestep)
-    out["timestep"] = np.arange(last - n_steps + 1, last + 1, dtype=np.int64)
+    out, col = {}, 0
+    for k, sh in zip(keys, shapes):
+        w = int(np.prod(sh))
+        out[k] = host[:, col] if sh == () else host[:, col:col + w]
+        col += w
+    out["timestep"] = np.arange(state.step - n_steps + 1, state.step + 1,
+                                dtype=np.int64)
     return state, out
 
 

@@ -13,10 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cavmd_tpu_torch.core.device import resolve_device
+
 # stream identifiers (same values as the JAX package)
 STREAM_BUSSI = 1
 STREAM_LANGEVIN = 2
 STREAM_THERMALIZE = 4
+STREAM_BROWNIAN = 5
 
 
 def stream_seed(seed: int, stream: int, instance: int = 0) -> int:
@@ -27,8 +30,9 @@ def stream_seed(seed: int, stream: int, instance: int = 0) -> int:
 
 
 def make_generator(seed: int, stream: int, instance: int = 0,
-                   device="cpu") -> torch.Generator:
-    """A fresh generator on ``device`` for (seed, stream, instance)."""
-    gen = torch.Generator(device=device)
+                   device=None) -> torch.Generator:
+    """A fresh generator on ``device`` (None: the CUDA device) for
+    (seed, stream, instance)."""
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(stream_seed(seed, stream, instance))
     return gen

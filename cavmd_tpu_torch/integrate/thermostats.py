@@ -1,13 +1,15 @@
-"""Thermostats: Bussi (with reservoir tally) and exact-OU Langevin.
+"""Thermostats: Bussi (with reservoir tally), exact-OU Langevin, Brownian.
 
-Port of ``cavmd_tpu/integrate/thermostats.py`` for the methods of the main
-path:
+Port of ``cavmd_tpu/integrate/thermostats.py`` for the methods the CLI
+offers (MTTK and Berendsen are not ported):
 
 - Bussi stochastic velocity rescaling with the Bussi 2009 Eq. A8 sign
   correction and the exact reservoir tally ``dE_res = KE (1 - alpha^2)``
   (reference ``src/BussiReservoirThermostat.h:43-225``);
 - Langevin as the exact Ornstein-Uhlenbeck velocity update (the BAOAB "O"
   step) with the exact kinetic-energy tally;
+- Brownian (overdamped Euler-Maruyama) with the exact tally of its
+  velocity resample;
 - Maxwell-Boltzmann thermalization.
 
 The random draws are separate from the updates: ``bussi_noise`` draws from
@@ -109,6 +111,28 @@ def langevin_ou_apply(velocity, mass, mask, gamma, kT, dt, noise,
     ke_before = kinetic_energy(velocity, mass, mask)
     ke_after = kinetic_energy(new_v, mass, mask)
     return new_v, ke_before - ke_after
+
+
+def brownian_apply(position, velocity, forces, mass, mask, gamma, kT, dt,
+                   noise_pos, noise_vel):
+    """Overdamped (Brownian / Euler-Maruyama) update for one group.
+
+    dx = F dt / (m gamma) + sqrt(2 kT dt / (m gamma)) xi, with ``gamma``
+    the friction rate (1/time), so the drag coefficient is m gamma. The
+    group's velocities are resampled from the Maxwell distribution
+    (``noise_vel`` scaled by sqrt(kT/m)). ``noise_pos`` and ``noise_vel``
+    are (N, 3) standard-normal draws. Returns (new_position, new_velocity,
+    reservoir_delta = KE_before - KE_after).
+    """
+    drag = mass * gamma
+    dx = forces * (dt / drag)[:, None] + (
+        torch.sqrt(2.0 * kT * dt / drag)[:, None] * noise_pos)
+    new_pos = torch.where(mask[:, None], position + dx, position)
+    vmb = torch.sqrt(kT / mass)[:, None] * noise_vel
+    new_v = torch.where(mask[:, None], vmb, velocity)
+    ke_before = kinetic_energy(velocity, mass, mask)
+    ke_after = kinetic_energy(new_v, mass, mask)
+    return new_pos, new_v, ke_before - ke_after
 
 
 def thermalize_velocities(generator, mass, mask, kT, *, remove_drift=True):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cavmd_tpu_torch.core.device import resolve_device
 from cavmd_tpu_torch.integrate.forcefield import ForceField
 from cavmd_tpu_torch.integrate.integrator import MDState
 
@@ -40,8 +41,9 @@ def forcefield_from_numpy(*, rows_eps, rows_sig2, rows_rcut2, rows_vshift, oh,
     ``influence``/``volume`` come from ``ff.pppm``; ``omegac``/
     ``couplstr``/``phmass`` from ``ff.cavity``; ``bond_k``/``bond_r0`` are
     the per-type bond tables and ``bond_group``/``bond_typeid`` the
-    snapshot's bond table.
+    snapshot's bond table. ``device=None`` is the CUDA device.
     """
+    device = resolve_device(device)
     oh = np.asarray(oh)
     typeid = np.argmax(oh, axis=1)
     ntypes = oh.shape[1]
@@ -71,9 +73,12 @@ def forcefield_from_numpy(*, rows_eps, rows_sig2, rows_rcut2, rows_vshift, oh,
 def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
                      box_L, forces, dt, time_au, time_comp, timestep,
                      bussi_reservoir, bussi_instantaneous, langevin_reservoir,
-                     seed=0, dtype=torch.float64, device=None) -> MDState:
+                     error_tolerance=0.0, seed=0, dtype=torch.float64,
+                     device=None) -> MDState:
     """A port ``MDState`` from the JAX ``MDState`` leaves (the JAX RNG key
-    has no counterpart; ``seed`` seeds the port's generators)."""
+    has no counterpart; ``seed`` seeds the port's generators).
+    ``device=None`` is the CUDA device."""
+    device = resolve_device(device)
 
     def f(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -88,5 +93,7 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
         time_comp=f(time_comp), timestep=i32(timestep),
         bussi_reservoir=f(bussi_reservoir),
         bussi_instantaneous=f(bussi_instantaneous),
-        langevin_reservoir=f(langevin_reservoir), seed=seed,
+        langevin_reservoir=f(langevin_reservoir),
+        error_tolerance=f(error_tolerance), step=int(np.asarray(timestep)),
+        seed=seed,
     )

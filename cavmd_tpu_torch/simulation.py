@@ -1,19 +1,26 @@
-"""Simulation facade: state, forces and methods run in chunks.
+"""Simulation facade: state, forces, methods, trackers and writers run in
+chunks.
 
-Port of ``cavmd_tpu/simulation.py`` (the ``hoomd.Simulation`` analog) for
-the main path: create from a snapshot, thermalize momenta, ``run``. The
-device runs ``chunk_size`` steps per chunk with no host sync inside it; the
-observables of the latest chunk arrive on the host as NumPy arrays in
-``last_obs``.
+Port of ``cavmd_tpu/simulation.py`` (the ``hoomd.Simulation`` analog) on one
+device: create from a snapshot, thermalize momenta, bootstrap an adaptive
+dt, ``run``. The device runs ``chunk_size`` steps per chunk with no host
+sync inside it; between chunks the host hands the chunk's observables (one
+NumPy dict) to every tracker and writer, and keeps them in ``last_obs``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from cavmd_tpu_torch.core.snapshot import Snapshot
+from cavmd_tpu_torch.core.units import PhysicalConstants
+from cavmd_tpu_torch.integrate.adaptive import (
+    compute_optimal_dt,
+    make_adaptive_step,
+)
 from cavmd_tpu_torch.integrate.forcefield import ForceField
 from cavmd_tpu_torch.integrate.integrator import (
     MDState,
@@ -33,6 +40,12 @@ class Simulation:
 
     def __init__(self, snapshot: Snapshot, forcefield: ForceField,
                  methods: Sequence[MethodSpec], *, dt: float, seed: int = 0,
+                 error_tolerance: float = 0.0,
+                 adaptive_initial_fraction: float = 1e-3,
+                 adaptive_time_constant_ps: float = 50.0,
+                 adaptive_period: int = 1,
+                 extra_obs: Callable | None = None,
+                 fuse_integrator: bool | None = None,
                  chunk_size: int = 1000):
         self.snapshot = snapshot
         self.ff = forcefield
@@ -40,11 +53,24 @@ class Simulation:
                                        forcefield.l_typeid)
         self.seed = seed
         self.chunk_size = chunk_size
+        self.trackers: list = []
+        self.writers: list = []
+        self.error_tolerance = error_tolerance
         self.state: MDState = init_state(snapshot, forcefield, dt=dt,
-                                         seed=seed)
-        self._step = make_step_fn(forcefield, self.methods)
+                                         seed=seed,
+                                         error_tolerance=error_tolerance)
+        step = make_step_fn(forcefield, self.methods, extra_obs=extra_obs,
+                            fuse_integrator=fuse_integrator)
+        if error_tolerance > 0:
+            step = make_adaptive_step(
+                step, error_tolerance=error_tolerance,
+                initial_fraction=adaptive_initial_fraction,
+                time_constant_ps=adaptive_time_constant_ps,
+                period=adaptive_period)
+        self._step = step
         self.last_obs = None
 
+    # ------------------------------------------------------------------ setup
     def thermalize(self, kT, *, molecular_only=True, photon_kT=None,
                    seed=None):
         """Maxwell-Boltzmann momenta: the molecular group with its drift
@@ -68,17 +94,66 @@ class Simulation:
                 remove_drift=False)
         self.state = st.replace(velocity=v)
 
-    def run(self, *, n_steps: int) -> int:
-        """Run ``n_steps`` steps in chunks of ``chunk_size``; returns the
-        number of steps run."""
+    def set_optimal_timestep(self, tolerance: float) -> float:
+        """Bootstrap dt from the current forces; returns it (one read-back)."""
+        new_dt = compute_optimal_dt(self.state.forces, self.state.mass,
+                                    tolerance)
+        self.state = self.state.replace(dt=new_dt)
+        return float(new_dt)
+
+    # -------------------------------------------------------------------- run
+    def run(self, *, n_steps: int | None = None,
+            runtime_ps: float | None = None) -> int:
+        """Run ``n_steps`` steps, or until the simulated time reaches
+        ``runtime_ps``, in chunks of at most ``chunk_size``; returns the
+        number of steps run.
+
+        With ``runtime_ps`` the chunk length is estimated from the current
+        dt (read back once per chunk, with the time), so the run stops
+        within about one step of ``runtime_ps``; with adaptive dt the
+        estimate is refreshed every chunk and a short follow-up chunk
+        cleans up any residual.
+        """
+        if n_steps is None and runtime_ps is None:
+            raise ValueError("give n_steps or runtime_ps")
+        to_ps = PhysicalConstants.TIME_PS_CONVERSION
         done = 0
-        while done < n_steps:
-            chunk = min(self.chunk_size, n_steps - done)
-            self.state, self.last_obs = run_steps(self._step, self.state,
-                                                  chunk)
+        while True:
+            if n_steps is not None:
+                if done >= n_steps:
+                    break
+                chunk = min(self.chunk_size, n_steps - done)
+            else:
+                remaining_ps = runtime_ps - float(self.state.time_au) * to_ps
+                if remaining_ps <= 0:
+                    break
+                dt_ps = float(self.state.dt) * to_ps
+                est = int(np.ceil(remaining_ps / max(dt_ps, 1e-30)))
+                chunk = min(self.chunk_size, max(1, est))
+            self.state, obs = run_steps(self._step, self.state, chunk)
+            self.last_obs = obs
+            for tracker in self.trackers:
+                tracker.consume(obs)
+            for writer in self.writers:
+                writer.consume(obs, self)
             done += chunk
+            if runtime_ps is not None and (
+                    float(obs["time_au"][-1]) * to_ps >= runtime_ps):
+                break
         return done
 
+    # ------------------------------------------------------------------ state
     @property
     def timestep(self) -> int:
-        return int(self.state.timestep)
+        return self.state.step
+
+    @property
+    def elapsed_ps(self) -> float:
+        return (float(self.state.time_au)
+                * PhysicalConstants.TIME_PS_CONVERSION)
+
+    def get_snapshot(self) -> Snapshot:
+        """The current state as a Snapshot (GSD-compatible)."""
+        s = self.state
+        return self.snapshot.replace(position=s.position, image=s.image,
+                                     velocity=s.velocity)

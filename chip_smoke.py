@@ -8,19 +8,29 @@ including when no CUDA device is present or the package is not next to it.
 
 Phases:
   0. device: the card's name and power limit (nvidia-smi);
-  1. build: compile the kernels with nvcc (sm_90a), print the seconds;
+  1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
+     source, all started together; print the seconds;
   2. kernels against their plain PyTorch twins on the card, at the N = 501
      reference scene and at N = 4001 (reference density), float32 and
-     float64, 32^3 order-6 mesh: max |diff|; in float32 also the median
-     device time of one call (``ms``, CUDA events with the host out of the
-     way) and the median host-bound time of one call (``host_call_ms``);
-  3. main path: the reference scene (250 O2/N2 + photon, f32, dense
-     ForceField, Bussi 100 K tau 5 ps on the molecules, Langevin tau 5 ps on
-     the photon, dt 0.25 fs) through ``Simulation.run``: one warm-up chunk,
-     then 5 x 1000 steps; launch counts, finiteness, universe-energy drift,
-     steps/s (median of the five chunks);
+     float64: the pair pass (K1), the 32^3 order-6 PPPM spread (K2) and
+     interpolation (K3), and the fused integrator tail (K4 pre-force,
+     K5 post-force, with particles pushed across the box faces) — max
+     |diff|; in float32 also the median device time of one call (``ms``,
+     CUDA events with the host out of the way) and the median host-bound
+     time of one call (``host_call_ms``);
+  3. ``Simulation.run`` on the reference scene (250 O2/N2 + photon, f32,
+     dense ForceField, Bussi 100 K tau 5 ps on the molecules, Langevin
+     tau 5 ps on the photon, dt 0.25 fs), twice: with the fused tail (the
+     default on the card) and without it (``fuse_integrator=False``);
+     each one warm-up chunk, then 5 x 1000 steps: launch counts,
+     finiteness, universe-energy drift, steps/s (median of the chunks);
   4. a float64 NVE trajectory of 20 steps on the card (kernels) against the
-     same steps on the CPU (plain twins).
+     same steps on the CPU (plain twins);
+  5. the main path of this slice: the ``advanced_run`` CLI in this process
+     (``main([...])``, default adaptive dt and baths, N = 501) in a
+     temporary directory: exit code, output files and their header lines,
+     the GSD read back, launches of K1-K5 per step, universe drift,
+     steps/s and ns/day.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -28,16 +38,24 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import io
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # stated tolerances (see PERF.md):
-# f32: reordered f32 sums over ~N pair terms / p^3 stencil terms and
-# nondeterministic f32 atomicAdd order in the spread -> 2e-5 of the scale.
-# f64: same math in double -> 1e-11 of the scale.
+# f32: reordered f32 sums over ~N pair terms / p^3 stencil terms / the
+# kinetic-energy reductions, and nondeterministic f32 atomicAdd order in
+# the spread -> 2e-5 of the scale. f64: same math in double -> 1e-11 of
+# the scale. K4's image flags must match exactly.
 TOL = {"float32": 2e-5, "float64": 1e-11}
 TRAJ_TOL_BOHR = 1e-9  # phase 4, f64 positions after 20 steps
 # phase 3: max |U - U[0]| of the universe energy over the 5000-step
@@ -51,6 +69,65 @@ TRAJ_TOL_BOHR = 1e-9  # phase 4, f64 positions after 20 steps
 # 1.7e-1 Ha, a Bussi step without its reservoir tally 3.1e-1 Ha.
 DRIFT_BOUND_HA = 3.8e-3
 N_WARM, N_CHUNKS, CHUNK = 1000, 5, 1000
+# phase 5: the CLI's default adaptive dt covers CLI_RUNTIME_PS in ~4900
+# steps at N = 501 (energy rows every 1000 steps). The drift bound is 3x
+# the JAX CLI's own reading on the same arguments with --device CPU
+# --precision f32: max |U - U[0]| of the universe_total_energy column is
+# 4.0e-6 Ha at seed 0 and 2.0e-6, 1.2e-5, 3.0e-6, 7.0e-6 Ha at seeds 1-4
+# (the printed energies are rounded to 1e-6 Ha); the bound is 3x the
+# largest. The port's CLI on the CPU gives 3.0e-6 Ha at seed 0; a copy of
+# the port whose Bussi step drops its reservoir tally gives 4.3e-3 Ha.
+CLI_RUNTIME_PS = 0.08
+CLI_DRIFT_BOUND_HA = 3.6e-5
+CLI_ARGS = ["--device", "GPU", "--n-molecules", "250",
+            "--enable-energy-tracker", "--enable-fkt", "--seed", "0",
+            "--runtime", str(CLI_RUNTIME_PS)]
+# header lines of the JAX package's tracker files
+# (cavmd_tpu/observe/trackers.py), as the CLI writes them with its
+# default periods; None = a line whose value depends on the run
+CLI_HEADERS = {
+    "prod-1_energy_tracker.txt": [
+        "# Energy tracking (cavmd_tpu)",
+        "# Output period: 1000 steps",
+        "# All energies in Hartree (atomic units)",
+        "#   universe_total_energy: system + reservoir [CONSERVED]",
+        "time(ps) timestep harmonic_energy lj_energy ewald_short_energy "
+        "ewald_long_energy cavity_harmonic_energy cavity_coupling_energy "
+        "cavity_dipole_self_energy cavity_total_potential_energy "
+        "molecular_kinetic_energy cavity_kinetic_energy total_kinetic_energy "
+        "total_potential_energy system_total_energy "
+        "molecular_reservoir_energy cavity_reservoir_energy "
+        "total_reservoir_energy universe_total_energy temperature"],
+    "prod-1_cavity_mode.txt": [
+        "# Cavity mode tracking",
+        "# Output period: 1000 steps",
+        "# timestep time(ps) cavity_kinetic_energy cavity_potential_energy "
+        "cavity_total_energy cavity_temperature"],
+    "prod-1_ref0.txt": [
+        "# Density_correlation field autocorrelation", None,
+        "# Output period: 10000 steps",
+        "# timestep lag_time(ps) field_autocorr"],
+    "dipole_autocorr_0.txt": [
+        "# Dipole autocorrelation data", "# Reference number: 0",
+        "# Output period: 10000 steps", "# timestep t(ps) C(t)"],
+}
+SOURCES = ("pair", "pppm_spread", "fused_integrator")
+KERNELS = {  # name -> (source file, the TPU kernel it replaces)
+    "dense_pair": ("cavmd_tpu_torch/csrc/pair.cu",
+                   "cavmd_tpu/ops/pallas_kernels.py:114"),
+    "pppm_spread": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
+                    "cavmd_tpu/ops/pppm_pallas.py:272"),
+    "pppm_interpolate": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
+                         "cavmd_tpu/ops/pppm_pallas.py:307"),
+    "fused_pre_force": ("cavmd_tpu_torch/csrc/fused_integrator.cu",
+                        "cavmd_tpu/ops/fused_integrator.py:71"),
+    "fused_post_force": ("cavmd_tpu_torch/csrc/fused_integrator.cu",
+                         "cavmd_tpu/ops/fused_integrator.py:113"),
+}
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -128,16 +205,77 @@ def device_ms(torch, fn, reps=15, inner=10):
     return statistics.median(samples)
 
 
+def bound_ms(n_bytes, n_ops):
+    """(bound in ms, "bytes" or "operations"): the larger of the bytes the
+    call must move over the HBM rate and its f32 operations over the f32
+    peak."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def reference_scene(pt, n_molecules, box_L, dtype, device):
     snap = pt.make_diatomic_system(n_molecules, box_L=box_L,
-                                   temperature_K=100.0, seed=0)
+                                   temperature_K=100.0, seed=0,
+                                   device=device)
     snap = pt.add_cavity_particle(snap, coupling=1e-3, freq_cm1=2000.0,
                                   temperature_K=100.0, seed=1)
-    return snap.astype(dtype).to(device)
+    return snap.astype(dtype)
+
+
+def main_methods(pt, kT):
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+
+    return (
+        pt.MethodSpec(kind="bussi", group="molecular", kT=kT,
+                      tau=PC.ps_to_atomic_units(5.0)),
+        pt.MethodSpec(kind="langevin", group="cavity", kT=kT,
+                      gamma=PC.gamma_from_tau_ps(5.0)),
+    )
+
+
+def integrator_inputs(torch, pt, snap, ff):
+    """Seeded K4/K5 inputs on the scene: thermal velocities, the scene's
+    forces, eight particles pushed across the +x face and eight across the
+    -y face (so the rewrap updates image flags), and the step's scalars as
+    device tensors."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.ops import fused_integrator as fi
+
+    dev, dtype = snap.device, snap.position.dtype
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, main_methods(pt, kT), ff.l_typeid)
+    plan = fi.FusedIntegratorPlan(ff, methods, snap.N, dtype)
+    forces, _ = ff(snap.position, snap.image, snap.box_L, snap.charge,
+                   snap.typeid)
+    L = float(snap.box_L[0])
+    pos, vel = snap.position.clone(), snap.velocity.clone()
+    pos[:8, 0], vel[:8, 0] = 0.5 * L - 1e-3, 5e-3
+    pos[8:16, 1], vel[8:16, 1] = -0.5 * L + 1e-3, -5e-3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    draws = torch.randn(5, generator=gen, dtype=dtype, device=dev)
+    dt = torch.tensor(PC.fs_to_atomic_units(0.25), dtype=dtype, device=dev)
+    mol = snap.typeid != ff.l_typeid
+    mb, ml = methods
+    r_gamma = torch.tensor(mb.dof - 1.0, dtype=dtype, device=dev)
+    pre = (plan, pos, snap.image, vel, forces, snap.mass, mol, snap.box_L,
+           dt, torch.exp(-dt / mb.tau), kT, draws[0], r_gamma)
+    c_ou = torch.exp(-ml.gamma * dt)
+    sig = torch.sqrt((1.0 - c_ou * c_ou) * kT / snap.mass[plan.photon])
+    post = (plan, vel, forces, snap.mass, mol, dt, c_ou, sig,
+            draws[2:].reshape(1, 3))
+    return pre, post
+
+
+def max_err(a, b):
+    return float((a.double() - b.double()).abs().max()), float(
+        b.double().abs().max())
 
 
 def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
     """Each kernel against its plain twin on the same CUDA tensors."""
+    from cavmd_tpu_torch.ops import fused_integrator as fi
     from cavmd_tpu_torch.ops import pair_kernels as pk
     from cavmd_tpu_torch.ops import pppm_kernels as sk
     from cavmd_tpu_torch.ops.pppm import mesh_energy
@@ -151,33 +289,30 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
     tol = TOL[name]
     out = {}
 
+    def hold(key, pairs, what):
+        errs = [max_err(k, p) for k, p in pairs]
+        for (err, scale), (k, _) in zip(errs, pairs):
+            check(bool(torch.isfinite(k).all()),
+                  f"{key} N={snap.N} {name}: non-finite {what}")
+            check(err <= tol * max(scale, 1e-300),
+                  f"{key} N={snap.N} {name}: max|d{what}| {err} > "
+                  f"{tol}*{scale}")
+        out[key] = dict(max_abs_err=errs[0][0], scale=errs[0][1])
+        if len(errs) > 1:
+            out[key]["max_abs_err_other_outputs"] = [e for e, _ in errs[1:]]
+
     pair_args = (pos, box, tid, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2,
                  ff.lj_vshift, q, ff.lj_active, ff.coulomb_active,
                  ff.kappa_value, ff.coulomb_rcut ** 2)
     f_k, elj_k, eew_k = pk.dense_pair_force(*pair_args)
     f_p, elj_p, eew_p = pk.dense_pair_force_plain(*pair_args)
     torch.cuda.synchronize()
-    f_err = float((f_k - f_p).abs().max())
-    f_scale = float(f_p.abs().max())
-    e_err = max(abs(float(elj_k - elj_p)), abs(float(eew_k - eew_p)))
-    e_scale = max(abs(float(elj_p)), abs(float(eew_p)))
-    check(torch.isfinite(f_k).all().item(), "pair kernel: non-finite force")
-    check(f_err <= tol * f_scale,
-          f"pair kernel N={snap.N} {name}: max|dF| {f_err} > {tol}*{f_scale}")
-    check(e_err <= tol * e_scale,
-          f"pair kernel N={snap.N} {name}: max|dE| {e_err} > {tol}*{e_scale}")
-    out["dense_pair"] = dict(max_abs_err=f_err, scale=f_scale,
-                             max_abs_energy_err=e_err)
+    hold("dense_pair", [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)], "F,E")
 
     g_k = sk.spread_grid(pos, q, box, order, mesh)
     g_p = sk.spread_grid_plain(pos, q, box, order, mesh)
     torch.cuda.synchronize()
-    g_err = float((g_k - g_p).abs().max())
-    g_scale = float(g_p.abs().max())
-    check(g_err <= tol * g_scale,
-          f"spread kernel N={snap.N} {name}: max|dgrid| {g_err} > "
-          f"{tol}*{g_scale}")
-    out["pppm_spread"] = dict(max_abs_err=g_err, scale=g_scale)
+    hold("pppm_spread", [(g_k, g_p)], "grid")
 
     grid = g_p.detach().requires_grad_(True)
     (ct,) = torch.autograd.grad(mesh_energy(grid, ff.pppm), grid)
@@ -185,35 +320,114 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
     d_k = sk.interpolate_grad(ct, pos, q, box, order, mesh)
     d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
     torch.cuda.synchronize()
-    d_err = float((d_k - d_p).abs().max())
-    d_scale = float(d_p.abs().max())
-    check(d_err <= tol * d_scale,
-          f"interpolation kernel N={snap.N} {name}: max|dgrad| {d_err} > "
-          f"{tol}*{d_scale}")
-    out["pppm_interpolate"] = dict(max_abs_err=d_err, scale=d_scale)
+    hold("pppm_interpolate", [(d_k, d_p)], "dE/dr")
+
+    pre, post = integrator_inputs(torch, pt, snap, ff)
+    k4 = fi.pre_force_apply(*pre)
+    p4 = fi.pre_force_apply_plain(*pre)
+    torch.cuda.synchronize()
+    check(torch.equal(k4[1], p4[1]),
+          f"fused_pre_force N={snap.N} {name}: image flags differ")
+    check(int((k4[1] != pre[2]).sum()) >= 16,
+          f"fused_pre_force N={snap.N} {name}: no particle crossed a face")
+    hold("fused_pre_force", [(k4[0], p4[0]), (k4[2], p4[2]),
+                             (k4[3], p4[3])], "x,v,dE_res")
+    k5 = fi.post_force_apply(*post)
+    p5 = fi.post_force_apply_plain(*post)
+    torch.cuda.synchronize()
+    hold("fused_post_force", list(zip(k5, p5)), "v,KE,dE_res")
 
     if timed:
-        for key, kern, plain in (
-                ("dense_pair", lambda: pk.dense_pair_force(*pair_args),
-                 lambda: pk.dense_pair_force_plain(*pair_args)),
-                ("pppm_spread",
-                 lambda: sk.spread_grid(pos, q, box, order, mesh),
-                 lambda: sk.spread_grid_plain(pos, q, box, order, mesh)),
-                ("pppm_interpolate",
-                 lambda: sk.interpolate_grad(ct, pos, q, box, order, mesh),
-                 lambda: sk.interpolate_grad_plain(ct, pos, q, box, order,
-                                                   mesh))):
+        calls = {
+            "dense_pair": (lambda: pk.dense_pair_force(*pair_args),
+                           lambda: pk.dense_pair_force_plain(*pair_args)),
+            "pppm_spread": (
+                lambda: sk.spread_grid(pos, q, box, order, mesh),
+                lambda: sk.spread_grid_plain(pos, q, box, order, mesh)),
+            "pppm_interpolate": (
+                lambda: sk.interpolate_grad(ct, pos, q, box, order, mesh),
+                lambda: sk.interpolate_grad_plain(ct, pos, q, box, order,
+                                                  mesh)),
+            "fused_pre_force": (lambda: fi.pre_force_apply(*pre),
+                                lambda: fi.pre_force_apply_plain(*pre)),
+            "fused_post_force": (lambda: fi.post_force_apply(*post),
+                                 lambda: fi.post_force_apply_plain(*post)),
+        }
+        for key, (kern, plain) in calls.items():
             out[key]["ms"] = device_ms(torch, kern)
             out[key]["plain_ms"] = device_ms(torch, plain)
             out[key]["host_call_ms"] = host_call_ms(torch, kern)
             out[key]["plain_host_call_ms"] = host_call_ms(torch, plain)
+        for key, (n_bytes, n_ops) in work_counts(torch, snap, ff,
+                                                 pre).items():
+            out[key]["bound_ms"], out[key]["bound_by"] = bound_ms(n_bytes,
+                                                                  n_ops)
+            out[key]["bytes"], out[key]["ops"] = n_bytes, n_ops
     for key, r in out.items():
         print(f"phase 2: N={snap.N} {name} {key}: " + ", ".join(
             f"{k}={v!r}" for k, v in r.items()), flush=True)
     return out
 
 
-def main_path(torch, pt):
+def work_counts(torch, snap, ff, pre):
+    """(bytes moved, operations) of one call of each kernel on this run's
+    inputs: each input read once, each output written once; operations as
+    the kernel sources do them (sqrt, erfc, exp, floor counted as one), and
+    only for the pairs / particles these inputs make it do."""
+    from cavmd_tpu_torch.core.box import minimum_image
+
+    n, e = snap.N, snap.position.element_size()
+    T = ff.lj_eps.shape[0]
+    pos = snap.position.double()
+    dr = minimum_image(pos[:, None, :] - pos[None, :, :], snap.box_L.double())
+    r2 = (dr * dr).sum(-1)
+    lj, cw = ff.lj_active.bool(), ff.coulomb_active.bool()
+    tid = snap.typeid.long()
+    rc2 = ff.lj_rcut2.double()[tid[:, None], tid[None, :]]
+    n_masked = int((lj | cw).sum())
+    n_lj = int((lj & (r2 < rc2)).sum())
+    n_cw = int((cw & (r2 < ff.coulomb_rcut ** 2)).sum())
+    blocks = (n + 3) // 4
+    n_q = int((snap.charge != 0).sum())
+    n_mesh = ff.pppm_mesh[0] * ff.pppm_mesh[1] * ff.pppm_mesh[2]
+    p = ff.pppm_order
+    stencil = 3 * (5 + 5 * (p * (p + 1) // 2 - 1))  # u, floor, Cox-de Boor
+    n_mol = int(pre[6].sum())
+    return {
+        # pos, box, typeid, 4 (T, T) tables, charge, two (N, N) uint8 masks
+        # in; forces and the per-block energy partials out. Per masked pair
+        # 26 ops (min image, r^2, force accumulation), +15 inside the LJ
+        # cutoff, +18 inside the Coulomb cutoff
+        "dense_pair": (e * (3 * n + 3 + 4 * T * T + n) + 4 * n
+                       + 2 * n * n + e * (3 * n + 2 * blocks),
+                       26 * n_masked + 15 * n_lj + 18 * n_cw),
+        # pos, charge, box in; the mesh out. Per charged particle: three
+        # stencils and p^3 (product, atomic add) pairs
+        "pppm_spread": (e * (3 * n + n + 3 + n_mesh),
+                        n_q * (stencil + 2 * p ** 3 + p * p)),
+        # the mesh cotangent, pos, charge, box in; dE/dr out. Per charged
+        # particle: stencils with derivatives and 9 ops per stencil cell
+        "pppm_interpolate": (e * (n_mesh + 3 * n + n + 3 + 3 * n),
+                             n_q * (2 * stencil + 9 * p ** 3 + 6)),
+        # v, pos, f, image, mass, mask (1 B), box, 4 scalars in; v, pos,
+        # image, the reservoir delta out. 9 ops per molecular KE term, 13
+        # per coordinate update (rescale, kick, drift, rewrap)
+        "fused_pre_force": (e * (3 * 3 * n + n + 3 + 4) + 4 * 3 * n + n
+                            + e * (2 * 3 * n + 1) + 4 * 3 * n,
+                            9 * n_mol + 39 * n + 20),
+        # v, f, mass, mask (1 B), 6 scalars in; v and 3 sums out. 9 ops
+        # per kick, 9 per KE term, ~30 for the photon's OU step
+        "fused_post_force": (e * (2 * 3 * n + n + 6) + n
+                             + e * (3 * n + 3),
+                             18 * n + 30),
+    }
+
+
+def main_path(torch, pt, fuse):
+    """Simulation.run on the reference scene; ``fuse`` is passed as
+    ``fuse_integrator`` (None = the default: fused on the card)."""
+    import numpy as np
+
     from cavmd_tpu_torch.core import PhysicalConstants as PC
     from cavmd_tpu_torch.integrate import universe_energy
     from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
@@ -223,17 +437,13 @@ def main_path(torch, pt):
     snap = reference_scene(pt, 250, 46.0, torch.float32, dev)
     ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
     kT = PC.kT_from_kelvin(100.0)
-    methods = (
-        pt.MethodSpec(kind="bussi", group="molecular", kT=kT,
-                      tau=PC.ps_to_atomic_units(5.0)),
-        pt.MethodSpec(kind="langevin", group="cavity", kT=kT,
-                      gamma=PC.gamma_from_tau_ps(5.0)),
-    )
-    # every count from here on is the main path's own: the Simulation's
+    label = "fused" if fuse is None else "unfused"
+    # every count from here on is this run's own: the Simulation's
     # initial force evaluation, the warm-up chunk and the measured window
     _cuda.reset_launches()
-    sim = pt.Simulation(snap, ff, methods, dt=PC.fs_to_atomic_units(0.25),
-                        seed=7, chunk_size=CHUNK)
+    sim = pt.Simulation(snap, ff, main_methods(pt, kT),
+                        dt=PC.fs_to_atomic_units(0.25), seed=7,
+                        chunk_size=CHUNK, fuse_integrator=fuse)
     t0 = time.perf_counter()
     sim.run(n_steps=N_WARM)
     torch.cuda.synchronize()
@@ -246,39 +456,42 @@ def main_path(torch, pt):
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
         chunks.append(sim.last_obs)
-    run_s = sum(chunk_s)
     launches = dict(_cuda.launches)
     n_steps = N_CHUNKS * CHUNK
+    total = N_WARM + n_steps
 
-    obs = {k: [v for c in chunks for v in c[k]] for k in OBS_KEYS}
-    import numpy as np
-
-    obs = {k: np.asarray(v) for k, v in obs.items()}
+    obs = {k: np.concatenate([c[k] for c in chunks]) for k in OBS_KEYS}
     for k in OBS_KEYS:
-        check(np.all(np.isfinite(obs[k])), f"main path: non-finite {k}")
+        check(np.all(np.isfinite(obs[k])), f"{label} path: non-finite {k}")
     for name in ("position", "velocity", "forces"):
         t = getattr(sim.state, name)
         check(tuple(t.shape) == (snap.N, 3) and bool(torch.isfinite(t).all()),
-              f"main path: bad final {name}")
-    check(int(obs["timestep"][-1]) == N_WARM + n_steps,
-          f"main path: timestep {obs['timestep'][-1]}")
-    for kname in ("dense_pair", "pppm_spread", "pppm_interpolate"):
-        check(launches.get(kname, 0) >= N_WARM + n_steps,
-              f"main path: kernel {kname} launched "
-              f"{launches.get(kname, 0)} < {N_WARM + n_steps} times")
+              f"{label} path: bad final {name}")
+    check(int(obs["timestep"][-1]) == total,
+          f"{label} path: timestep {obs['timestep'][-1]}")
+    expect = ["dense_pair", "pppm_spread", "pppm_interpolate"]
+    if fuse is None:
+        expect += ["fused_pre_force", "fused_post_force"]
+    else:
+        check(launches.get("fused_pre_force", 0) == 0,
+              "unfused path launched the fused kernels")
+    for kname in expect:
+        check(launches.get(kname, 0) >= total,
+              f"{label} path: kernel {kname} launched "
+              f"{launches.get(kname, 0)} < {total} times")
     U = universe_energy(obs)
     drift = float(np.abs(U - U[0]).max())
     check(drift < DRIFT_BOUND_HA,
-          f"main path: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
+          f"{label} path: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
     T_mol = 2.0 * obs["kinetic_molecular"] / (3.0 * (snap.N - 1) * kT) * 100.0
     chunk_rates = [CHUNK / s for s in chunk_s]
-    res = dict(steps=n_steps, seconds=run_s,
+    res = dict(steps=n_steps, seconds=sum(chunk_s),
                steps_per_s=statistics.median(chunk_rates),
-               chunk_steps_per_s=chunk_rates, warmup_chunk_s=warm_s, universe_drift_ha=drift,
-               universe_first_ha=float(U[0]),
+               chunk_steps_per_s=chunk_rates, warmup_chunk_s=warm_s,
+               universe_drift_ha=drift, universe_first_ha=float(U[0]),
                mean_T_molecular_K=float(T_mol.mean()), launches=launches)
-    print("phase 3: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
-          flush=True)
+    print(f"phase 3 ({label}): " + ", ".join(
+        f"{k}={v!r}" for k, v in res.items()), flush=True)
     return res
 
 
@@ -306,6 +519,91 @@ def f64_trajectory(torch, pt):
     return err
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_phase(torch, pt):
+    """The advanced_run CLI in this process, in a temporary directory."""
+    import numpy as np
+
+    from cavmd_tpu_torch.drivers import advanced_run
+    from cavmd_tpu_torch.io import open_gsd
+    from cavmd_tpu_torch.ops import _cuda
+
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="cavmd_cli_")
+    tee = _Tee(sys.stdout)
+    try:
+        os.chdir(work)
+        _cuda.reset_launches()
+        with contextlib.redirect_stdout(tee):
+            rc = advanced_run.main(CLI_ARGS)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+        check(rc == 0, f"CLI exited with {rc}")
+        log = tee.buf.getvalue()
+        m = re.search(r"Completed (\d+) steps, ([0-9.]+) ps in ([0-9.]+) s",
+                      log)
+        check(m is not None, "CLI: no 'Completed ... steps' line")
+        steps, sim_ps, wall = int(m.group(1)), float(m.group(2)), float(
+            m.group(3))
+        out_dir = os.path.join(work, "cavity_coupling_1eneg03")
+        for fname, header in CLI_HEADERS.items():
+            path = os.path.join(out_dir, fname)
+            check(os.path.isfile(path), f"CLI: {fname} missing")
+            with open(path) as f:
+                lines = f.read().splitlines()
+            for k, want in enumerate(header):
+                got = lines[k] if k < len(lines) else "<missing>"
+                ok = (got.startswith("# Reference 0 at t=") if want is None
+                      else got == want)
+                check(ok, f"CLI: {fname} header line {k}: {got!r}")
+        gsd = os.path.join(out_dir, "prod-1.gsd")
+        check(os.path.isfile(gsd), "CLI: prod-1.gsd missing")
+        with open_gsd(gsd) as t:
+            frame = t.read_frame(len(t) - 1, device="cuda")
+            check(frame.N == 501 and bool(
+                torch.isfinite(frame.position).all()),
+                  f"CLI: GSD frame has N={frame.N}")
+            n_frames = len(t)
+        for kname in KERNELS:
+            check(launches.get(kname, 0) >= steps,
+                  f"CLI: kernel {kname} launched {launches.get(kname, 0)} "
+                  f"< {steps} times")
+        rows = np.loadtxt(os.path.join(out_dir, "prod-1_energy_tracker.txt"),
+                          comments=("#", "time"), ndmin=2)
+        check(rows.shape[0] >= 3 and rows.shape[1] == 20,
+              f"CLI: energy tracker rows {rows.shape}")
+        check(bool(np.isfinite(rows).all()), "CLI: non-finite energy rows")
+        uni = rows[:, 18]
+        drift = float(np.abs(uni - uni[0]).max())
+        check(drift < CLI_DRIFT_BOUND_HA,
+              f"CLI: universe drift {drift} >= {CLI_DRIFT_BOUND_HA} Ha")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    res = dict(steps=steps, simulated_ps=sim_ps, run_seconds=wall,
+               steps_per_s=steps / wall,
+               ns_per_day=sim_ps / 1000.0 / wall * 86400.0,
+               universe_drift_ha=drift, universe_ha=uni.tolist(),
+               energy_rows=int(rows.shape[0]),
+               gsd_frames=n_frames, launches=launches)
+    print("phase 5: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -328,10 +626,10 @@ def main() -> None:
     print(f"phase 0: device {kind}; nvidia-smi name, power.limit: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # phase 1: build
+    # phase 1: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    for src in ("pair", "pppm_spread"):
-        _cuda.build(src)
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_cuda.build, SOURCES))
     build_s = time.perf_counter() - t0
     fresh = sorted(_cuda.build_log)
     print(f"phase 1: kernels ready in {build_s:.2f} s (compiled now: "
@@ -351,31 +649,32 @@ def main() -> None:
                 main_shape = r
         torch.cuda.empty_cache()
 
-    # phase 3: main path
-    main = main_path(torch, pt)
+    # phase 3: Simulation.run, fused (default) and unfused
+    fused = main_path(torch, pt, None)
+    unfused = main_path(torch, pt, False)
 
     # phase 4: f64 trajectory against the CPU
     f64_trajectory(torch, pt)
 
+    # phase 5: the slice's main path, the CLI
+    cli = cli_phase(torch, pt)
+    check("jax" not in sys.modules, "the port imported jax")
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
-          f"{main['steps_per_s']:.1f} steps/s (median of {N_CHUNKS} "
-          f"{CHUNK}-step chunks), universe drift "
-          f"{main['universe_drift_ha']:.3e} Ha over {main['steps']} steps",
-          flush=True)
-    sources = {
-        "dense_pair": ("cavmd_tpu_torch/csrc/pair.cu",
-                       "cavmd_tpu/ops/pallas_kernels.py:114"),
-        "pppm_spread": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
-                        "cavmd_tpu/ops/pppm_pallas.py:272"),
-        "pppm_interpolate": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
-                             "cavmd_tpu/ops/pppm_pallas.py:307"),
-    }
+          f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
+          f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
+          f"{CHUNK}-step chunks), drift {fused['universe_drift_ha']:.3e} / "
+          f"{unfused['universe_drift_ha']:.3e} Ha; CLI {cli['steps']} steps "
+          f"{cli['steps_per_s']:.1f} steps/s {cli['ns_per_day']:.4f} ns/day, "
+          f"drift {cli['universe_drift_ha']:.3e} Ha", flush=True)
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=main["launches"].get(k, 0),
+             launches=cli["launches"].get(k, 0),
              max_abs_err=main_shape[k]["max_abs_err"],
-             ms=main_shape[k]["ms"], plain_ms=main_shape[k]["plain_ms"])
-        for k, (src, rep) in sources.items()
+             ms=main_shape[k]["ms"], plain_ms=main_shape[k]["plain_ms"],
+             bound_ms=main_shape[k]["bound_ms"],
+             bound_by=main_shape[k]["bound_by"], library_ms=None)
+        for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

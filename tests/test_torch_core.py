@@ -19,7 +19,8 @@ def _both_scenes(n_mol, box_L, temperature_K, seed, cav):
     js = jcore.make_diatomic_system(n_mol, box_L=box_L,
                                     temperature_K=temperature_K, seed=seed)
     ts = tcore.make_diatomic_system(n_mol, box_L=box_L,
-                                    temperature_K=temperature_K, seed=seed)
+                                    temperature_K=temperature_K, seed=seed,
+                                    device="cpu")
     if cav:
         js = jcore.add_cavity_particle(js, **cav)
         ts = tcore.add_cavity_particle(ts, **cav)
@@ -104,7 +105,7 @@ def test_box_helpers_match_jax():
 
 def test_snapshot_astype_to_replace():
     ts = tcore.add_cavity_particle(
-        tcore.make_diatomic_system(6, box_L=15.0, seed=2),
+        tcore.make_diatomic_system(6, box_L=15.0, seed=2, device="cpu"),
         coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0)
     s32 = ts.astype(torch.float32)
     assert s32.position.dtype == torch.float32
@@ -118,3 +119,38 @@ def test_snapshot_astype_to_replace():
     r = ts.replace(velocity=torch.ones_like(ts.velocity))
     assert float(r.velocity.sum()) == 3 * ts.N
     assert ts.types == ("O", "N", "L")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """With no device named, the entry points put their tensors on the CUDA
+    device; without one they raise instead of running on the CPU. A named
+    CPU device still works."""
+    from cavmd_tpu_torch.integrate.rng import make_generator
+    from cavmd_tpu_torch.interop import state_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.make_diatomic_system(10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.Snapshot.create(np.zeros((2, 3)), np.ones(3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_generator(0, 1)
+    z = np.zeros(2)
+    kw = dict(position=np.zeros((2, 3)), image=np.zeros((2, 3)),
+              velocity=np.zeros((2, 3)), mass=np.ones(2), charge=z,
+              typeid=z, box_L=np.ones(3), forces=np.zeros((2, 3)), dt=1.0,
+              time_au=0.0, time_comp=0.0, timestep=0, bussi_reservoir=z,
+              bussi_instantaneous=z, langevin_reservoir=z)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_from_numpy(**kw)
+    assert state_from_numpy(**kw, device="cpu").device.type == "cpu"
+    ts = tcore.make_diatomic_system(10, device="cpu")
+    assert ts.device.type == "cpu"
+    # the photon and the force field follow the snapshot's device
+    ts = tcore.add_cavity_particle(ts, coupling=1e-3, freq_cm1=2000.0,
+                                   temperature_K=100.0)
+    from cavmd_tpu_torch import ForceField
+
+    ff = ForceField.create(ts, r_cut=6.0, pppm_mesh=(8, 8, 8))
+    assert ts.device.type == "cpu" and ff.lj_eps.device.type == "cpu"
+    assert make_generator(0, 1, device="cpu").device.type == "cpu"

@@ -7,7 +7,9 @@ import pytest
 import torch
 
 import cavmd_tpu_torch as pt
+from cavmd_tpu_torch.core import PhysicalConstants as PC
 from cavmd_tpu_torch.ops import _cuda
+from cavmd_tpu_torch.ops import fused_integrator as fi
 from cavmd_tpu_torch.ops import pair_kernels as pk
 from cavmd_tpu_torch.ops import pppm_kernels as sk
 from cavmd_tpu_torch.ops.pppm import mesh_energy
@@ -27,7 +29,7 @@ def cuda():
 def _scene(dtype, device, n_mol=20, box_L=24.0):
     snap = pt.add_cavity_particle(
         pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
-                                seed=0),
+                                seed=0, device="cpu"),
         coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=1)
     snap = snap.astype(dtype).to(device)
     ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=10.0,
@@ -82,3 +84,56 @@ def test_forcefield_on_cuda_matches_cpu_f64(cuda):
     for k in e_cpu:
         assert abs(float(e_gpu[k]) - float(e_cpu[k])) <= 1e-11 * max(
             abs(float(e_cpu[k])), 1e-12)
+
+
+def _integrator_inputs(dtype, device, n_mol=200, box_L=40.0):
+    """K4/K5 inputs at a reference-density scene, with particles pushed
+    across the +x face so the image update runs."""
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
+                                seed=0, device=device),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=1)
+    snap = snap.astype(dtype)
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, (
+        pt.MethodSpec("bussi", "molecular", kT=kT,
+                      tau=PC.ps_to_atomic_units(5.0)),
+        pt.MethodSpec("langevin", "cavity", kT=kT,
+                      gamma=PC.gamma_from_tau_ps(5.0))), 2)
+    plan = fi.FusedIntegratorPlan(None, methods, snap.N, dtype)
+    g = torch.Generator(device=device)
+    g.manual_seed(3)
+    pos = snap.position.clone()
+    pos[:8, 0] = 0.5 * box_L - 1e-3
+    vel = snap.velocity.clone()
+    vel[:8, 0] = 5e-3
+    frc = 1e-3 * torch.randn(pos.shape, generator=g, dtype=dtype,
+                             device=device)
+    dt = torch.tensor(20.0, dtype=dtype, device=device)
+    scal = torch.randn(5, generator=g, dtype=dtype, device=device)
+    mol = snap.typeid != 2
+    pre = (plan, pos, snap.image, vel, frc, snap.mass, mol, snap.box_L, dt,
+           torch.exp(-dt / methods[0].tau), kT, scal[0],
+           torch.tensor(methods[0].dof - 1.0, dtype=dtype, device=device))
+    c_ou = torch.exp(-methods[1].gamma * dt)
+    sig = torch.sqrt((1.0 - c_ou * c_ou) * kT / snap.mass[plan.photon])
+    post = (plan, vel, frc, snap.mass, mol, dt, c_ou, sig,
+            scal[2:].reshape(1, 3))
+    return pre, post
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_integrator_kernels_match_twins(cuda, dtype):
+    pre, post = _integrator_inputs(dtype, cuda)
+    before = dict(_cuda.launches)
+    k = fi.pre_force_apply(*pre)
+    p = fi.pre_force_apply_plain(*pre)
+    kp = fi.post_force_apply(*post)
+    pp = fi.post_force_apply_plain(*post)
+    torch.cuda.synchronize()
+    for name in ("fused_pre_force", "fused_post_force"):
+        assert _cuda.launches[name] == before.get(name, 0) + 1
+    assert torch.equal(k[1], p[1]) and not torch.equal(k[1], pre[2])
+    for a, b in zip((k[0], k[2], k[3]) + tuple(kp), (p[0], p[2], p[3])
+                    + tuple(pp)):
+        assert _close(a, b, TOL[dtype])

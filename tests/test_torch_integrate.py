@@ -19,7 +19,12 @@ from cavmd_tpu.integrate import init_state as j_init_state
 from cavmd_tpu.integrate import make_step_fn as j_make_step_fn
 from cavmd_tpu.integrate import resolve_methods as j_resolve_methods
 from cavmd_tpu.integrate import run_steps as j_run_steps
-from cavmd_tpu.integrate.rng import STREAM_BUSSI, STREAM_LANGEVIN, stream_key
+from cavmd_tpu.integrate.rng import (
+    STREAM_BROWNIAN,
+    STREAM_BUSSI,
+    STREAM_LANGEVIN,
+    stream_key,
+)
 from cavmd_tpu.integrate.thermostats import bussi_noise as j_bussi_noise
 from cavmd_tpu_torch import Simulation
 from cavmd_tpu_torch.integrate import (
@@ -62,28 +67,37 @@ def port_state(jstate, seed=0):
             "position", "image", "velocity", "mass", "charge", "typeid",
             "box_L", "forces", "dt", "time_au", "time_comp", "timestep",
             "bussi_reservoir", "bussi_instantaneous", "langevin_reservoir")},
-        seed=seed)
+        seed=seed, device="cpu")
 
 
 class JaxNoise:
     """Hands the JAX package's own per-step draws to the port's step
-    (integrator.py:_fused_step draws them the same way)."""
+    (integrator.py:_fused_step draws them the same way), in ``dtype``."""
 
-    def __init__(self, key):
+    def __init__(self, key, dtype=jnp.float64):
         self.key = key
+        self.dtype = dtype
+        self.tdtype = torch.float32 if dtype == jnp.float32 else torch.float64
+
+    def _t(self, x):
+        return torch.tensor(np.asarray(x), dtype=self.tdtype)
 
     def bussi(self, state, i, m):
-        t = int(state.timestep)
-        r1, rg = j_bussi_noise(stream_key(self.key, STREAM_BUSSI, t, i),
-                               m.dof, jnp.float64)
-        return (torch.tensor(float(r1), dtype=torch.float64),
-                torch.tensor(float(rg), dtype=torch.float64))
+        r1, rg = j_bussi_noise(
+            stream_key(self.key, STREAM_BUSSI, state.step, i), m.dof,
+            self.dtype)
+        return self._t(r1), self._t(rg)
 
     def langevin(self, state, i, m, shape):
-        t = int(state.timestep)
-        key = stream_key(self.key, STREAM_LANGEVIN, t, i)
-        return torch.tensor(np.asarray(
-            jax.random.normal(key, shape, dtype=jnp.float64)))
+        key = stream_key(self.key, STREAM_LANGEVIN, state.step, i)
+        return self._t(jax.random.normal(key, shape, dtype=self.dtype))
+
+    def brownian(self, state, i, m):
+        key = stream_key(self.key, STREAM_BROWNIAN, state.step, i)
+        k1, k2 = jax.random.split(key)
+        shape = tuple(state.position.shape)
+        return (self._t(jax.random.normal(k1, shape, dtype=self.dtype)),
+                self._t(jax.random.normal(k2, shape, dtype=self.dtype)))
 
 
 def _trajectories(methods_j, methods_t, n_steps, noise_for):
@@ -137,6 +151,58 @@ def test_bussi_langevin_trajectory_matches_jax_with_injected_noise():
     _assert_traj(jfinal, jobs, tfinal, tobs, 1e-9)
     assert abs(tobs["bussi_reservoir_molecular"][-1]) > 0
     assert abs(tobs["langevin_reservoir_cavity"][-1]) > 0
+
+
+@pytest.mark.parametrize("cavity", ["langevin", "brownian"])
+def test_brownian_trajectory_matches_jax_with_injected_noise(cavity):
+    """Brownian molecules (the overdamped move, the velocity resample and
+    its tally) with a Langevin or Brownian photon, JAX's noise injected:
+    20 steps agree to roundoff, reservoirs included. The friction rate is
+    1/(1 fs), so each overdamped move is ~1e-3 bohr; at the production
+    1/(5 ps) the moves reach ~1 bohr a step, the atoms overlap and the two
+    packages' roundoff grows to O(1) within 20 steps."""
+    gamma_b = PC.gamma_from_tau_ps(0.001)
+    specs = []
+    for mod in (JMethodSpec, MethodSpec):
+        photon = (mod(kind="langevin", group="cavity", kT=KT, gamma=GAMMA)
+                  if cavity == "langevin" else
+                  mod(kind="brownian", group="cavity", kT=KT,
+                      gamma=gamma_b))
+        specs.append((mod(kind="brownian", group="molecular", kT=KT,
+                          gamma=gamma_b), photon))
+    jfinal, jobs, tfinal, tobs = _trajectories(
+        specs[0], specs[1], 20, lambda s: JaxNoise(s.key))
+    _assert_traj(jfinal, jobs, tfinal, tobs, 1e-9)
+    assert abs(tobs["langevin_reservoir_molecular"][-1]) > 0
+
+
+def test_extra_obs_columns_match_jax():
+    """make_extra_obs columns (dipole (3,), rho(k) (nk,)) pack into the
+    runner's one buffer and unpack into (n_steps, d) arrays equal to the
+    JAX package's run_steps output (NVE, float64)."""
+    from cavmd_tpu.observe import make_extra_obs as j_extra
+    from cavmd_tpu_torch.observe import make_extra_obs as t_extra
+
+    js, ts, jff, _ = build()
+    wv = np.random.default_rng(0).normal(size=(7, 3))
+    jm = j_resolve_methods(js, (JMethodSpec(kind="nve", group="all"),),
+                           jff.l_typeid)
+    jstate = j_init_state(js, jff, dt=DT, seed=3)
+    jstep = j_make_step_fn(jff, jm, extra_obs=j_extra(dipole=True,
+                                                      wavevectors=wv))
+    _, jobs = jax.jit(lambda s: j_run_steps(jstep, s, 6))(jstate)
+    tff = port_forcefield(jff, js)
+    tm = resolve_methods(ts, (MethodSpec(kind="nve", group="all"),),
+                         tff.l_typeid)
+    tstep = make_step_fn(tff, tm, extra_obs=t_extra(dipole=True,
+                                                    wavevectors=wv))
+    _, tobs = run_steps(tstep, port_state(jstate, seed=3), 6)
+    assert set(tobs) == set(jobs)
+    for k, w in (("dipole", 3), ("rho_k_re", 7), ("rho_k_im", 7)):
+        j = np.asarray(jobs[k])
+        assert tobs[k].shape == j.shape == (6, w), k
+        np.testing.assert_allclose(tobs[k], j, rtol=0,
+                                   atol=1e-10 * np.abs(j).max(), err_msg=k)
 
 
 def test_universe_energy_conservation_bussi_langevin():

@@ -41,7 +41,8 @@ def scene(n_mol=20, box_L=24.0, seed=0, jitter=0.05):
     js = j_add(j_make(n_mol, box_L=box_L, temperature_K=100.0, seed=seed),
                coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
                seed=seed + 1)
-    ts = t_add(t_make(n_mol, box_L=box_L, temperature_K=100.0, seed=seed),
+    ts = t_add(t_make(n_mol, box_L=box_L, temperature_K=100.0, seed=seed,
+                      device="cpu"),
                coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
                seed=seed + 1)
     if jitter:
@@ -53,7 +54,7 @@ def scene(n_mol=20, box_L=24.0, seed=0, jitter=0.05):
     return js, ts
 
 
-def port_forcefield(jff, jsnap, dtype=torch.float64, device=None):
+def port_forcefield(jff, jsnap, dtype=torch.float64, device="cpu"):
     """The port ForceField built from the JAX ForceField's leaves."""
     p = jff.lj_pair
     return forcefield_from_numpy(
@@ -156,7 +157,7 @@ def test_cavity_matches_jax_and_oracle():
 
 
 def test_cavity_without_photon_is_zero():
-    ts = t_make(6, box_L=15.0, seed=1)
+    ts = t_make(6, box_L=15.0, seed=1, device="cpu")
     f, e = tcavity.cavity_force(ts.position, ts.image, ts.box_L, ts.charge,
                                 ts.typeid, 2,
                                 tcavity.CavityParams.create(0.01, 1e-3))
@@ -289,7 +290,7 @@ def test_reference_scene_forcefield_matches_jax(build):
 
 
 def test_forcefield_rejects_unported_modes():
-    ts = t_make(4, box_L=12.0, seed=0)
+    ts = t_make(4, box_L=12.0, seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
         ForceField.create(ts, pair_mode="cell")
     with pytest.raises(NotImplementedError):
