@@ -1,19 +1,22 @@
 """ForceField: every force of the reference workflow in one module.
 
-Port of ``cavmd_tpu/integrate/forcefield.py`` for the dense pair mode (the
-JAX package's choice for N <= 4096, which covers the N = 501 reference
-scene). ``ForceField`` is an ``nn.Module`` whose tables are buffers, so
-``.to(device)`` moves it; ``forward`` evaluates cavity + bonds + LJ + Ewald
-short + PPPM long and returns the forces and a dict of energy components
-with the JAX package's keys.
+Port of ``cavmd_tpu/integrate/forcefield.py`` for its two pair modes:
+dense all-pairs (the JAX package's choice for N <= 4096, which covers the
+N = 501 reference scene) and cell lists (above 4096). ``ForceField`` is an
+``nn.Module`` whose tables are buffers, so ``.to(device)`` moves it;
+``forward`` evaluates cavity + bonds + LJ + Ewald short + PPPM long and
+returns the forces and a dict of energy components with the JAX package's
+keys (in cell mode also ``cell_overflow``, a 0/1 flag, not an energy).
 
-On CUDA tensors the pair pass and the PPPM spread/interpolation run in the
-hand-written kernels (``ops/pair_kernels.py``, ``ops/pppm_kernels.py``);
-on CPU tensors in their plain twins.
+On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
+``ops/cell_kernels.py``) and the PPPM spread/interpolation
+(``ops/pppm_kernels.py``) run in the hand-written kernels; on CPU tensors
+in their plain twins. Cell mode builds no (N, N) tensor.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Tuple
 
 import numpy as np
@@ -39,6 +42,15 @@ from cavmd_tpu_torch.ops.lj import (
     lj_kernel_tables,
     lj_pair_tables,
 )
+from cavmd_tpu_torch.ops.cell_kernels import cell_pair_force_fused
+from cavmd_tpu_torch.ops.neighbor import (
+    CellListConfig,
+    build_cell_list,
+    cell_block_for,
+    exclusion_table,
+    neighbor_cell_table,
+    plan_cells,
+)
 from cavmd_tpu_torch.ops.pair_kernels import dense_pair_force
 from cavmd_tpu_torch.ops.pppm import PPPMParams, pppm_force_and_energy
 
@@ -55,15 +67,25 @@ class ForceField(nn.Module):
     Build it with :meth:`create` from a snapshot, or from the JAX package's
     leaves with ``cavmd_tpu_torch.interop.forcefield_from_numpy``. Array
     arguments may be NumPy arrays or tensors.
+
+    Dense mode (``cell_cfg`` None) takes the two static (N, N) masks
+    ``lj_active`` / ``coulomb_active``. Cell mode takes ``cell_cfg`` (a
+    ``CellListConfig``), the (N+1, max_excl) ``cell_exclusions`` table, the
+    (C, 27) ``cell_neighbors`` table, the (N,) ``pair_inert`` flags
+    (particles with no LJ type pair and no charge, which the carried cell
+    list ignores when it decides to rebuild) and ``cell_block`` (cells per
+    tile block of the plain twin).
     """
 
     def __init__(self, *, bond_k, bond_r0, bond_k_per, bond_r0_per,
                  bond_group, bond_typeid, lj_eps, lj_sig2, lj_rcut2,
-                 lj_vshift, lj_active, coulomb_active, kappa, influence,
-                 volume, omegac, couplstr, phmass, l_typeid: int,
-                 coulomb_rcut: float, pppm_order: int, pppm_mesh,
-                 enable_cavity=True, enable_coulomb=True, enable_lj=True,
-                 enable_bonds=True, dtype=torch.float64, device=None):
+                 lj_vshift, kappa, influence, volume, omegac, couplstr,
+                 phmass, l_typeid: int, coulomb_rcut: float, pppm_order: int,
+                 pppm_mesh, lj_active=None, coulomb_active=None,
+                 cell_cfg=None, cell_exclusions=None, cell_neighbors=None,
+                 pair_inert=None, cell_block=None, enable_cavity=True,
+                 enable_coulomb=True, enable_lj=True, enable_bonds=True,
+                 dtype=torch.float64, device=None):
         super().__init__()
 
         def buf(name, x, dt=dtype):
@@ -86,12 +108,21 @@ class ForceField(nn.Module):
             buf(name, x)
         buf("bond_group", np.asarray(bond_group).reshape(-1, 2), torch.int32)
         buf("bond_typeid", bond_typeid, torch.int32)
-        # static (N, N) masks, 1 byte per pair; a disabled interaction is an
-        # all-zero mask, which contributes exactly zero in the pair pass
-        lj_on = np.asarray(lj_active, bool) & bool(enable_lj)
-        coul_on = np.asarray(coulomb_active, bool) & bool(enable_coulomb)
-        buf("lj_active", lj_on, torch.uint8)
-        buf("coulomb_active", coul_on, torch.uint8)
+        self.cell_cfg = (None if cell_cfg is None
+                         else CellListConfig(*cell_cfg))
+        self.pair_mode = "dense" if cell_cfg is None else "cell"
+        self.cell_block = cell_block
+        if self.pair_mode == "dense":
+            # static (N, N) masks, 1 byte per pair; a disabled interaction
+            # is an all-zero mask, which contributes exactly zero
+            lj_on = np.asarray(lj_active, bool) & bool(enable_lj)
+            coul_on = np.asarray(coulomb_active, bool) & bool(enable_coulomb)
+            buf("lj_active", lj_on, torch.uint8)
+            buf("coulomb_active", coul_on, torch.uint8)
+        else:
+            buf("cell_exclusions", cell_exclusions, torch.int32)
+            buf("cell_neighbors", cell_neighbors, torch.int32)
+            buf("pair_inert", pair_inert, torch.bool)
         # host copy of kappa at the working precision: the kernel launch
         # takes it by value, so the step never reads it back from the device
         self.kappa_value = float(self.kappa)
@@ -112,9 +143,25 @@ class ForceField(nn.Module):
     def cavity(self) -> CavityParams:
         return CavityParams(self.omegac, self.couplstr, self.phmass)
 
-    def forward(self, position, image, box_L, charge, typeid):
+    def build_cells(self, position, box_L):
+        """Bin the particles into the cell buckets (cell mode only); the
+        integrator carries the list and rebuilds it on displacement."""
+        return build_cell_list(position, box_L, self.cell_cfg,
+                               self.cell_neighbors)
+
+    def with_cell_capacity(self, cap: int) -> "ForceField":
+        """A copy planned for bucket capacity ``cap`` (the overflow retry);
+        it shares every buffer with this one."""
+        ff = copy.copy(self)
+        ff.cell_cfg = self.cell_cfg._replace(cap=int(cap))
+        return ff
+
+    def forward(self, position, image, box_L, charge, typeid, clist=None):
         """Total forces (N, 3) and the energy components (dict of 0-d
-        tensors, keys ``ENERGY_KEYS``)."""
+        tensors, keys ``ENERGY_KEYS``, plus ``cell_overflow`` in cell mode).
+
+        ``clist``: in cell mode, a carried ``CellList``; None builds one
+        from ``position``."""
         forces = torch.zeros_like(position)
         zero = position.new_zeros(())
         energies = {k: zero for k in ENERGY_KEYS}
@@ -131,7 +178,23 @@ class ForceField(nn.Module):
             forces = forces + f
             energies["harmonic"] = e
 
-        if self.enable_lj or self.enable_coulomb:
+        if self.pair_mode == "cell" and (self.enable_lj
+                                         or self.enable_coulomb):
+            if clist is None:
+                clist = self.build_cells(position, box_L)
+            # a bucket overflow drops pairs: the flag rides the
+            # observables so Simulation.run can grow the cap and retry
+            energies["cell_overflow"] = clist.overflow.to(position.dtype)
+            f, e_lj, e_ew = cell_pair_force_fused(
+                position, box_L, clist, self.cell_cfg, typeid, charge,
+                self.lj_eps, self.lj_sig2, self.lj_rcut2, self.lj_vshift,
+                self.cell_exclusions, self.kappa_value,
+                lj_on=self.enable_lj, coul_on=self.enable_coulomb,
+                cell_block=self.cell_block)
+            forces = forces + f
+            energies["lj"] = e_lj
+            energies["ewald_short"] = e_ew
+        elif self.enable_lj or self.enable_coulomb:
             f, e_lj, e_ew = dense_pair_force(
                 position, box_L, typeid, self.lj_eps, self.lj_sig2,
                 self.lj_rcut2, self.lj_vshift, charge, self.lj_active,
@@ -184,6 +247,8 @@ class ForceField(nn.Module):
         kappa: float | None = None,
         ewald_accuracy: float = 1e-6,
         pair_mode: str | None = None,
+        cell_skin: float = 0.5,
+        cell_cap: int | None = None,
         dtype=None,
         device=None,
     ) -> "ForceField":
@@ -192,9 +257,12 @@ class ForceField(nn.Module):
         bonds, shifted LJ with r_cut 15 and inert photon rows, PPPM 32^3
         order 6.
 
-        Only the dense pair mode is ported: ``pair_mode`` must be None or
-        'dense', and None picks dense only for N <= 4096 as the JAX package
-        does — a larger system raises instead of silently running dense.
+        ``pair_mode``: 'dense' (all pairs, two (N, N) masks) or 'cell'
+        (cell lists); None picks dense for N <= 4096 and cell above, as the
+        JAX package does. ``cell_skin`` is the requested minimum Verlet
+        skin (snapped up to the free slack of the cell grid; 0 rebuilds
+        the list every step) and ``cell_cap`` the bucket capacity (None
+        plans it from the density).
         """
         from cavmd_tpu_torch.core.system import BOND_PARAMS, LJ_PARAMS
         from cavmd_tpu_torch.core.units import PhysicalConstants
@@ -202,10 +270,10 @@ class ForceField(nn.Module):
         n = snapshot.N
         if pair_mode is None:
             pair_mode = "dense" if n <= DENSE_MAX_N else "cell"
-        if pair_mode != "dense":
+        if pair_mode not in ("dense", "cell"):
             raise NotImplementedError(
-                f"pair_mode={pair_mode!r} (N={n}): only the dense pair mode "
-                "is ported to cavmd_tpu_torch")
+                f"pair_mode={pair_mode!r}: cavmd_tpu_torch ports the dense "
+                "and cell pair modes")
         dtype = dtype or snapshot.position.dtype
         device = device if device is not None else snapshot.device
         lj_params = lj_params if lj_params is not None else LJ_PARAMS
@@ -231,12 +299,24 @@ class ForceField(nn.Module):
             dtype=dtype,
         )
         eps_t, sig2_t, rcut2_t, vshift_t = lj_kernel_tables(eps, sig, rcut_t)
-        excl = bond_exclusion_mask(n, snapshot.bond_group)
         typeid = host(snapshot.typeid)
-        lj_active = lj_active_mask(typeid, eps_t, rcut2_t, excl)
         charge = host(snapshot.charge, dtype)
-        qq = charge[:, None] * charge[None, :]
-        coulomb_active = (~np.eye(n, dtype=bool)) & (qq != 0) & ~excl
+        bond_group = host(snapshot.bond_group)
+        if pair_mode == "dense":
+            excl = bond_exclusion_mask(n, bond_group)
+            qq = charge[:, None] * charge[None, :]
+            pair_data = dict(
+                lj_active=lj_active_mask(typeid, eps_t, rcut2_t, excl),
+                coulomb_active=(~np.eye(n, dtype=bool)) & (qq != 0) & ~excl)
+        else:
+            cfg = plan_cells(host(snapshot.box_L, torch.float64), r_cut,
+                             skin=cell_skin, n=n, cap=cell_cap)
+            lj_type = np.any(eps_t != 0, axis=1)
+            pair_data = dict(
+                cell_cfg=cfg, cell_block=cell_block_for(cfg),
+                cell_exclusions=exclusion_table(n, bond_group),
+                cell_neighbors=neighbor_cell_table(cfg.ncells),
+                pair_inert=~lj_type[typeid] & (charge == 0))
 
         kappa_val = kappa if kappa is not None else auto_kappa(
             r_cut, ewald_accuracy)
@@ -247,11 +327,10 @@ class ForceField(nn.Module):
         return ForceField(
             bond_k=bond_k, bond_r0=bond_r0,
             bond_k_per=bond_k[btid], bond_r0_per=bond_r0[btid],
-            bond_group=host(snapshot.bond_group),
+            bond_group=bond_group,
             bond_typeid=btid,
             lj_eps=eps_t, lj_sig2=sig2_t, lj_rcut2=rcut2_t,
-            lj_vshift=vshift_t, lj_active=lj_active,
-            coulomb_active=coulomb_active,
+            lj_vshift=vshift_t, **pair_data,
             kappa=pppm.kappa, influence=pppm.influence, volume=pppm.volume,
             omegac=omegac, couplstr=coupling, phmass=phmass,
             l_typeid=types.index("L") if "L" in types else -1,

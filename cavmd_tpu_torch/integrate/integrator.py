@@ -33,7 +33,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from cavmd_tpu_torch.core.box import rewrap
+from cavmd_tpu_torch.core.box import minimum_image, rewrap
 from cavmd_tpu_torch.core.snapshot import Snapshot
 from cavmd_tpu_torch.integrate.forcefield import ENERGY_KEYS, ForceField
 from cavmd_tpu_torch.integrate.rng import (
@@ -84,7 +84,9 @@ class MDState:
     ``torch.Generator`` for that stream; they advance as the run draws.
     ``step`` is the host's copy of ``timestep``: host-side decisions (the
     adaptive-dt period, the runner's timestep column) read it instead of
-    the device counter, so they cost no host sync.
+    the device counter, so they cost no host sync. In cell mode with a
+    skin, ``cell_list`` is the carried ``CellList`` and ``cell_anchor`` the
+    positions it was built from (None otherwise).
     """
 
     position: torch.Tensor
@@ -106,6 +108,8 @@ class MDState:
     step: int = 0
     seed: int = 0
     generators: dict = dataclasses.field(default_factory=dict)
+    cell_list: object = None
+    cell_anchor: torch.Tensor | None = None
 
     def replace(self, **kw) -> "MDState":
         return dataclasses.replace(self, **kw)
@@ -157,15 +161,25 @@ def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
     return tuple(out)
 
 
+def carries_cell_list(ff: ForceField) -> bool:
+    """Cell mode with a skin: the state carries the list between steps."""
+    return ff.pair_mode == "cell" and ff.cell_cfg.skin > 0
+
+
 def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
                seed: int = 0, error_tolerance: float = 0.0) -> MDState:
     """The initial MDState on the snapshot's device (computes the initial
-    forces once)."""
+    forces once; in cell mode with a skin also builds the carried cell
+    list)."""
     dtype = snapshot.position.dtype
     dev = snapshot.device
+    clist = anchor = None
     with torch.no_grad():
+        if carries_cell_list(ff):
+            clist = ff.build_cells(snapshot.position, snapshot.box_L)
+            anchor = snapshot.position
         forces, _ = ff(snapshot.position, snapshot.image, snapshot.box_L,
-                       snapshot.charge, snapshot.typeid)
+                       snapshot.charge, snapshot.typeid, clist=clist)
     z2 = torch.zeros(2, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     return MDState(
@@ -187,6 +201,8 @@ def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
         error_tolerance=torch.as_tensor(error_tolerance, dtype=dtype,
                                         device=dev),
         seed=seed,
+        cell_list=clist,
+        cell_anchor=anchor,
     )
 
 
@@ -296,8 +312,31 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                 plan_cache[key] = None
         return plan_cache[key]
 
+    def _cond_rebuild(state, pos):
+        """The carried cell list for the new positions: rebuilt when some
+        pair-active particle has moved more than skin/2 since the anchor
+        (the HOOMD buffer policy; the photon is pair-inert and ignored).
+        The JAX package skips the rebuild with ``lax.cond``; a host branch
+        here would read the flag back every step, so the rebuild always
+        runs and ``torch.where`` picks the new or the carried list, anchor
+        included, on the device."""
+        if state.cell_list is None:
+            return None, None
+        half_skin = 0.5 * ff.cell_cfg.skin
+        disp = minimum_image(pos - state.cell_anchor, state.box_L)
+        disp2 = torch.where(ff.pair_inert, 0.0,
+                            torch.sum(disp * disp, dim=-1))
+        need = torch.max(disp2) > half_skin * half_skin
+        new = ff.build_cells(pos, state.box_L)
+        old = state.cell_list
+        clist = old._replace(
+            bucket_idx=torch.where(need, new.bucket_idx, old.bucket_idx),
+            overflow=torch.where(need, new.overflow, old.overflow),
+            slot_of=torch.where(need, new.slot_of, old.slot_of))
+        return clist, torch.where(need, pos, state.cell_anchor)
+
     def _finish(state, pos, image, v, forces, energies, bussi_res,
-                bussi_inst, langevin_res, ke_mol, ke_cav):
+                bussi_inst, langevin_res, ke_mol, ke_cav, clist, anchor):
         """Shared step tail: Kahan time, state replace, obs dict."""
         dt = state.dt
         y = dt - state.time_comp
@@ -310,6 +349,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
             bussi_reservoir=bussi_res,
             bussi_instantaneous=bussi_inst,
             langevin_reservoir=langevin_res,
+            cell_list=clist, cell_anchor=anchor,
         )
         obs = dict(energies)
         obs["kinetic_molecular"] = ke_mol
@@ -347,8 +387,9 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         bussi_inst = _set_at(state.bussi_instantaneous, MOLECULAR, dres_b,
                              add=False)
 
+        clist, anchor = _cond_rebuild(state, pos)
         forces, energies = ff(pos, image, state.box_L, state.charge,
-                              state.typeid)
+                              state.typeid, clist=clist)
 
         langevin_res = state.langevin_reservoir
         if plan.langevin is not None:
@@ -364,7 +405,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
             v, ke_mol, ke_cav, _ = post_force_apply(
                 plan, v, forces, state.mass, mol, dt, None, None, None)
         return _finish(state, pos, image, v, forces, energies, bussi_res,
-                       bussi_inst, langevin_res, ke_mol, ke_cav)
+                       bussi_inst, langevin_res, ke_mol, ke_cav, clist,
+                       anchor)
 
     def step(state: MDState):
         plan = _fused_plan(state)
@@ -411,8 +453,9 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                                  else brownian_mask | mask)
         pos, image = rewrap(pos, state.image, state.box_L)
 
+        clist, anchor = _cond_rebuild(state, pos)
         forces, energies = ff(pos, image, state.box_L, state.charge,
-                              state.typeid)
+                              state.typeid, clist=clist)
         kick2 = 0.5 * dt * forces * inv_m
         if brownian_mask is not None:
             kick2 = torch.where(brownian_mask[:, None], 0.0, kick2)
@@ -435,7 +478,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         ke_mol = kinetic_energy(v, state.mass, mol_mask)
         ke_cav = kinetic_energy(v, state.mass, ~mol_mask)
         return _finish(state, pos, image, v, forces, energies, bussi_res,
-                       bussi_inst, langevin_res, ke_mol, ke_cav)
+                       bussi_inst, langevin_res, ke_mol, ke_cav, clist,
+                       anchor)
 
     return step
 
@@ -477,7 +521,8 @@ def run_steps(step_fn, state: MDState, n_steps: int):
 
 
 def potential_energy(energies):
-    """Total PE = molecular + cavity components."""
+    """Total PE = molecular + cavity components (the ``cell_overflow``
+    flag of cell mode is not an energy and is left out)."""
     return (energies["harmonic"] + energies["lj"] + energies["ewald_short"]
             + energies["ewald_long"] + energies["cavity_harmonic"]
             + energies["cavity_coupling"] + energies["cavity_dipole_self"])

@@ -13,7 +13,8 @@ import torch
 
 from cavmd_tpu_torch.core.device import resolve_device
 from cavmd_tpu_torch.integrate.forcefield import ForceField
-from cavmd_tpu_torch.integrate.integrator import MDState
+from cavmd_tpu_torch.integrate.integrator import MDState, carries_cell_list
+from cavmd_tpu_torch.ops.lj import lj_kernel_tables
 
 
 def _type_table(rows, typeid, ntypes):
@@ -27,28 +28,47 @@ def _type_table(rows, typeid, ntypes):
     return table
 
 
-def forcefield_from_numpy(*, rows_eps, rows_sig2, rows_rcut2, rows_vshift, oh,
-                          active, coulomb_active, kappa, influence, volume,
-                          omegac, couplstr, phmass, bond_k, bond_r0,
-                          bond_group, bond_typeid, l_typeid, coulomb_rcut,
-                          pppm_order, pppm_mesh, enable_cavity=True,
+def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
+                          phmass, bond_k, bond_r0, bond_group, bond_typeid,
+                          l_typeid, coulomb_rcut, pppm_order, pppm_mesh,
+                          rows_eps=None, rows_sig2=None, rows_rcut2=None,
+                          rows_vshift=None, oh=None, active=None,
+                          coulomb_active=None, lj_eps=None, lj_sigma=None,
+                          lj_rcut=None, cell_cfg=None, cell_exclusions=None,
+                          cell_neighbors=None, pair_inert=None,
+                          cell_block=None, enable_cavity=True,
                           enable_coulomb=True, enable_lj=True,
                           enable_bonds=True, dtype=torch.float64,
                           device=None) -> ForceField:
-    """A port ``ForceField`` from the JAX dense-mode leaves.
+    """A port ``ForceField`` from the JAX ForceField's leaves.
 
-    ``rows_*``/``oh``/``active`` are ``ff.lj_pair``'s fields;
+    Dense mode: ``rows_*``/``oh``/``active`` are ``ff.lj_pair``'s fields
+    and ``coulomb_active`` the (N, N) mask. Cell mode (``cell_cfg`` given,
+    ``tuple(ff.cell_cfg)``): ``lj_eps``/``lj_sigma``/``lj_rcut`` are the
+    (T, T) tables and ``cell_exclusions``/``cell_neighbors``/``pair_inert``/
+    ``cell_block`` the cell fields of the same names. Both:
     ``influence``/``volume`` come from ``ff.pppm``; ``omegac``/
     ``couplstr``/``phmass`` from ``ff.cavity``; ``bond_k``/``bond_r0`` are
     the per-type bond tables and ``bond_group``/``bond_typeid`` the
     snapshot's bond table. ``device=None`` is the CUDA device.
     """
     device = resolve_device(device)
-    oh = np.asarray(oh)
-    typeid = np.argmax(oh, axis=1)
-    ntypes = oh.shape[1]
-    tables = [_type_table(np.asarray(r), typeid, ntypes)
-              for r in (rows_eps, rows_sig2, rows_rcut2, rows_vshift)]
+    if cell_cfg is None:
+        oh = np.asarray(oh)
+        typeid = np.argmax(oh, axis=1)
+        ntypes = oh.shape[1]
+        tables = [_type_table(np.asarray(r), typeid, ntypes)
+                  for r in (rows_eps, rows_sig2, rows_rcut2, rows_vshift)]
+        pair_data = dict(lj_active=np.asarray(active),
+                         coulomb_active=np.asarray(coulomb_active))
+    else:
+        tables = lj_kernel_tables(*(np.asarray(x) for x in (
+            lj_eps, lj_sigma, lj_rcut)))
+        pair_data = dict(cell_cfg=cell_cfg,
+                         cell_exclusions=np.asarray(cell_exclusions),
+                         cell_neighbors=np.asarray(cell_neighbors),
+                         pair_inert=np.asarray(pair_inert),
+                         cell_block=cell_block)
     bond_k = np.asarray(bond_k)
     bond_r0 = np.asarray(bond_r0)
     btid = np.asarray(bond_typeid)
@@ -57,8 +77,7 @@ def forcefield_from_numpy(*, rows_eps, rows_sig2, rows_rcut2, rows_vshift, oh,
         bond_k_per=bond_k[btid], bond_r0_per=bond_r0[btid],
         bond_group=np.asarray(bond_group), bond_typeid=btid,
         lj_eps=tables[0], lj_sig2=tables[1], lj_rcut2=tables[2],
-        lj_vshift=tables[3], lj_active=np.asarray(active),
-        coulomb_active=np.asarray(coulomb_active),
+        lj_vshift=tables[3], **pair_data,
         kappa=np.asarray(kappa), influence=np.asarray(influence),
         volume=np.asarray(volume), omegac=np.asarray(omegac),
         couplstr=np.asarray(couplstr), phmass=np.asarray(phmass),
@@ -73,11 +92,13 @@ def forcefield_from_numpy(*, rows_eps, rows_sig2, rows_rcut2, rows_vshift, oh,
 def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
                      box_L, forces, dt, time_au, time_comp, timestep,
                      bussi_reservoir, bussi_instantaneous, langevin_reservoir,
-                     error_tolerance=0.0, seed=0, dtype=torch.float64,
-                     device=None) -> MDState:
+                     error_tolerance=0.0, seed=0, forcefield=None,
+                     dtype=torch.float64, device=None) -> MDState:
     """A port ``MDState`` from the JAX ``MDState`` leaves (the JAX RNG key
     has no counterpart; ``seed`` seeds the port's generators).
-    ``device=None`` is the CUDA device."""
+    ``device=None`` is the CUDA device. With a cell-mode ``forcefield``
+    that carries its list, the list is built from ``position``, as the
+    JAX package's ``init_state`` does (pass the initial state's leaves)."""
     device = resolve_device(device)
 
     def f(x):
@@ -86,8 +107,12 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
     def i32(x):
         return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
 
+    pos = f(position)
+    clist = None
+    if forcefield is not None and carries_cell_list(forcefield):
+        clist = forcefield.build_cells(pos, f(box_L))
     return MDState(
-        position=f(position), image=i32(image), velocity=f(velocity),
+        position=pos, image=i32(image), velocity=f(velocity),
         mass=f(mass), charge=f(charge), typeid=i32(typeid), box_L=f(box_L),
         forces=f(forces), dt=f(dt), time_au=f(time_au),
         time_comp=f(time_comp), timestep=i32(timestep),
@@ -95,5 +120,6 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
         bussi_instantaneous=f(bussi_instantaneous),
         langevin_reservoir=f(langevin_reservoir),
         error_tolerance=f(error_tolerance), step=int(np.asarray(timestep)),
-        seed=seed,
+        seed=seed, cell_list=clist,
+        cell_anchor=pos if clist is not None else None,
     )

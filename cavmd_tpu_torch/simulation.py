@@ -6,10 +6,13 @@ device: create from a snapshot, thermalize momenta, bootstrap an adaptive
 dt, ``run``. The device runs ``chunk_size`` steps per chunk with no host
 sync inside it; between chunks the host hands the chunk's observables (one
 NumPy dict) to every tracker and writer, and keeps them in ``last_obs``.
+In cell mode a chunk whose cell list overflowed is run again from its
+start with a larger bucket capacity (``_grow_cell_capacity``).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Sequence
 
 import numpy as np
@@ -59,16 +62,53 @@ class Simulation:
         self.state: MDState = init_state(snapshot, forcefield, dt=dt,
                                          seed=seed,
                                          error_tolerance=error_tolerance)
-        step = make_step_fn(forcefield, self.methods, extra_obs=extra_obs,
-                            fuse_integrator=fuse_integrator)
-        if error_tolerance > 0:
-            step = make_adaptive_step(
-                step, error_tolerance=error_tolerance,
-                initial_fraction=adaptive_initial_fraction,
-                time_constant_ps=adaptive_time_constant_ps,
-                period=adaptive_period)
-        self._step = step
+        self._step_kwargs = dict(extra_obs=extra_obs,
+                                 fuse_integrator=fuse_integrator)
+        self._adaptive_kwargs = dict(
+            error_tolerance=error_tolerance,
+            initial_fraction=adaptive_initial_fraction,
+            time_constant_ps=adaptive_time_constant_ps,
+            period=adaptive_period)
+        self._build_step()
         self.last_obs = None
+
+    def _build_step(self):
+        """(Re)build the step function from the current ForceField: at
+        init and after the overflow retry re-plans the cell list."""
+        step = make_step_fn(self.ff, self.methods, **self._step_kwargs)
+        if self.error_tolerance > 0:
+            step = make_adaptive_step(step, **self._adaptive_kwargs)
+        self._step = step
+
+    def _grow_cell_capacity(self) -> int:
+        """Re-plan the cell list with capacity max(cap + 4, 2 cap), as the
+        JAX package does; returns the new capacity."""
+        cap = self.ff.cell_cfg.cap
+        self.ff = self.ff.with_cell_capacity(max(cap + 4, 2 * cap))
+        self._build_step()
+        return self.ff.cell_cfg.cap
+
+    def _retry_state(self, start: MDState, rng_states: dict) -> MDState:
+        """The chunk's start state for a retry under the re-planned cell
+        list: the random streams go back to where they stood (a stream first
+        drawn in the failed chunk starts afresh), the carried list is
+        rebuilt, and so are the start forces (an overflowing list may have
+        dropped pairs from them)."""
+        gens = start.generators
+        for key in list(gens):
+            if key in rng_states:
+                gens[key].set_state(rng_states[key])
+            else:
+                del gens[key]
+        clist = anchor = None
+        if start.cell_list is not None:
+            clist = self.ff.build_cells(start.position, start.box_L)
+            anchor = start.position
+        with torch.no_grad():
+            forces, _ = self.ff(start.position, start.image, start.box_L,
+                                start.charge, start.typeid, clist=clist)
+        return start.replace(forces=forces, cell_list=clist,
+                             cell_anchor=anchor)
 
     # ------------------------------------------------------------------ setup
     def thermalize(self, kT, *, molecular_only=True, photon_kT=None,
@@ -130,7 +170,28 @@ class Simulation:
                 dt_ps = float(self.state.dt) * to_ps
                 est = int(np.ceil(remaining_ps / max(dt_ps, 1e-30)))
                 chunk = min(self.chunk_size, max(1, est))
-            self.state, obs = run_steps(self._step, self.state, chunk)
+            start = self.state
+            rng_states = {k: g.get_state()
+                          for k, g in start.generators.items()}
+            retries = 0
+            while True:
+                self.state, obs = run_steps(self._step, self.state, chunk)
+                if not ("cell_overflow" in obs
+                        and obs["cell_overflow"].any()):
+                    break
+                # the chunk dropped pairs: grow the buckets and run it again
+                # from its start (at most 4 times, 16x the capacity)
+                retries += 1
+                if retries > 4:
+                    raise RuntimeError(
+                        "cell-list bucket overflow persists after 4 "
+                        "capacity doublings: the system's density is "
+                        "collapsing or the configuration is pathological")
+                cap = self._grow_cell_capacity()
+                logging.getLogger(__name__).warning(
+                    "cell-list overflow: re-planned with cap=%d, retrying "
+                    "the chunk", cap)
+                self.state = self._retry_state(start, rng_states)
             self.last_obs = obs
             for tracker in self.trackers:
                 tracker.consume(obs)

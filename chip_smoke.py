@@ -10,14 +10,19 @@ Phases:
   0. device: the card's name and power limit (nvidia-smi);
   1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
      source, all started together; print the seconds;
-  2. kernels against their plain PyTorch twins on the card, at the N = 501
-     reference scene and at N = 4001 (reference density), float32 and
-     float64: the pair pass (K1), the 32^3 order-6 PPPM spread (K2) and
-     interpolation (K3), and the fused integrator tail (K4 pre-force,
-     K5 post-force, with particles pushed across the box faces) — max
-     |diff|; in float32 also the median device time of one call (``ms``,
-     CUDA events with the host out of the way) and the median host-bound
-     time of one call (``host_call_ms``);
+  2. kernels against their plain PyTorch twins on the card, float32 and
+     float64: at the N = 501 reference scene and at N = 4001 (reference
+     density) in dense mode, the pair pass (K1), the 32^3 order-6 PPPM
+     spread (K2) and interpolation (K3), and the fused integrator tail (K4
+     pre-force, K5 post-force, with particles pushed across the box
+     faces); at N = 100,001 in cell mode (17^3 cells) the cell kernel
+     (K6's counterpart) and K2-K5; on the N = 501 scene in cell mode (2^3
+     cells, K8's counterpart) the cell kernel — max |diff|; in float32
+     also the median device time of one call (``ms``, CUDA events with the
+     host out of the way), the median host-bound time of one call
+     (``host_call_ms``), the twin's times, and the bound from the call's
+     bytes and operations (the cell kernel's counted cell by cell); the
+     cell-list build's times beside them;
   3. ``Simulation.run`` on the reference scene (250 O2/N2 + photon, f32,
      dense ForceField, Bussi 100 K tau 5 ps on the molecules, Langevin
      tau 5 ps on the photon, dt 0.25 fs), twice: with the fused tail (the
@@ -25,13 +30,24 @@ Phases:
      each one warm-up chunk, then 5 x 1000 steps: launch counts,
      finiteness, universe-energy drift, steps/s (median of the chunks);
   4. a float64 NVE trajectory of 20 steps on the card (kernels) against the
-     same steps on the CPU (plain twins);
-  5. the main path of this slice: the ``advanced_run`` CLI in this process
-     (``main([...])``, default adaptive dt and baths, N = 501) in a
-     temporary directory: exit code, output files and their header lines,
-     the GSD read back, launches of K1-K5 per step, universe drift,
-     steps/s and ns/day.
+     same steps on the CPU (plain twins), N = 501 dense;
+  5. the ``advanced_run`` CLI in this process (``main([...])``, default
+     adaptive dt and baths, N = 501) in a temporary directory: exit code,
+     output files and their header lines, the GSD read back, launches of
+     K1-K5 per step, universe drift, steps/s and ns/day;
+  6. the large-N main path of this slice: ``build_large_n`` through
+     ``Simulation.run`` (one warm-up chunk, then 5 x 100 steps, as
+     ``scripts/bench_large_n.py`` runs it) at N = 20,001 (the universe
+     band held to 3x the JAX package's reading) and N = 100,001 (reported):
+     no overflow, finite observables, the cell kernel and K2-K5 launched
+     every step, ms per step; then the N = 501 scene in cell mode (the
+     small grid) through ``Simulation.run``;
+  7. a float64 NVE trajectory of 20 steps in cell mode (N = 4001, 5^3
+     cells) on the card against the CPU;
+  8. the CLI at 10,000 molecules (N = 20,001, drift held) and at 50,000
+     (N = 100,001, reported): files, headers, the GSD frame, launches.
 
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -55,7 +71,10 @@ import time
 # f32: reordered f32 sums over ~N pair terms / p^3 stencil terms / the
 # kinetic-energy reductions, and nondeterministic f32 atomicAdd order in
 # the spread -> 2e-5 of the scale. f64: same math in double -> 1e-11 of
-# the scale. K4's image flags must match exactly.
+# the scale. K4's image flags must match exactly. The scale is the twin's
+# largest value, except for the two reservoir deltas, which are small
+# differences of kinetic energies: their scale is that energy (K4: the
+# molecules' KE; K5: the photon's KE before its OU step).
 TOL = {"float32": 2e-5, "float64": 1e-11}
 TRAJ_TOL_BOHR = 1e-9  # phase 4, f64 positions after 20 steps
 # phase 3: max |U - U[0]| of the universe energy over the 5000-step
@@ -82,6 +101,42 @@ CLI_DRIFT_BOUND_HA = 3.6e-5
 CLI_ARGS = ["--device", "GPU", "--n-molecules", "250",
             "--enable-energy-tracker", "--enable-fkt", "--seed", "0",
             "--runtime", str(CLI_RUNTIME_PS)]
+# phase 6: build_large_n through Simulation.run, the protocol of
+# scripts/bench_large_n.py: one warm-up chunk, then LARGE_CHUNKS chunks of
+# LARGE_CHUNK steps, f32, dt 0.25 fs; the metric is that script's band
+# max(U) - min(U) of the universe energy over the window. The bound is 3x
+# the JAX package's own reading on the CPU at N = 20,001
+# (``python scripts/bench_large_n.py 10000`` with JAX_PLATFORMS=cpu):
+# 1.96e-2 Ha over the 500 steps, 1.8e-2 to 1.9e-2 Ha in each chunk, so the
+# band is the cavity dipole-self oscillation that the script's notes
+# describe, not a drift. The JAX reading at N = 100,001 is not taken on the
+# CPU (a full-size run), so N = 100,001 is reported, not held.
+LARGE_N_MOL, HELD_N_MOL = 50_000, 10_000
+LARGE_CHUNK, LARGE_CHUNKS = 100, 5
+LARGE_BAND_BOUND_HA = 5.9e-2
+SMALL_GRID_CHUNKS = 2  # phase 6, N = 501 in cell mode, after N_WARM
+# phase 8: the CLI at 10,000 molecules (held) and 50,000 (reported), with
+# its default adaptive dt, for LARGE_CLI_RUNTIME_PS with energy rows every
+# LARGE_CLI_ENERGY_PERIOD_STEPS steps. The bound is 3x the JAX CLI's own
+# reading on the same arguments with --device CPU --precision f32 at
+# 10,000 molecules: max |U - U[0]| of the universe column is 1.446e-3 Ha
+# at seed 0 (232 steps, 4 rows), 1.441e-3 Ha at seed 1 (294 steps) and
+# 2.76e-4 Ha at seed 2 (189 steps); the bound is 3x the largest. The FIRE
+# minimisation leaves the bonds cold, and their energy rises ~10x over
+# the run, so this is the settling of the scene, not the integrator.
+LARGE_CLI_RUNTIME_PS = 0.0005
+LARGE_CLI_ENERGY_PERIOD_STEPS = 50
+LARGE_CLI_DRIFT_BOUND_HA = 4.4e-3
+
+
+def large_cli_args(n_molecules):
+    return ["--device", "GPU", "--n-molecules", str(n_molecules),
+            "--enable-energy-tracker", "--enable-fkt", "--seed", "0",
+            "--runtime", str(LARGE_CLI_RUNTIME_PS),
+            "--energy-output-period-ps",
+            str(LARGE_CLI_ENERGY_PERIOD_STEPS * 1e-4)]
+
+
 # header lines of the JAX package's tracker files
 # (cavmd_tpu/observe/trackers.py), as the CLI writes them with its
 # default periods; None = a line whose value depends on the run
@@ -111,10 +166,14 @@ CLI_HEADERS = {
         "# Dipole autocorrelation data", "# Reference number: 0",
         "# Output period: 10000 steps", "# timestep t(ps) C(t)"],
 }
-SOURCES = ("pair", "pppm_spread", "fused_integrator")
+SOURCES = ("pair", "pppm_spread", "fused_integrator", "cell_pair")
 KERNELS = {  # name -> (source file, the TPU kernel it replaces)
     "dense_pair": ("cavmd_tpu_torch/csrc/pair.cu",
                    "cavmd_tpu/ops/pallas_kernels.py:114"),
+    "cell_pair": ("cavmd_tpu_torch/csrc/cell_pair.cu",
+                  "cavmd_tpu/ops/pallas_kernels.py:617"),
+    "cell_pair_small_grid": ("cavmd_tpu_torch/csrc/cell_pair.cu",
+                             "cavmd_tpu/ops/pallas_kernels.py:529"),
     "pppm_spread": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
                     "cavmd_tpu/ops/pppm_pallas.py:272"),
     "pppm_interpolate": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
@@ -149,14 +208,30 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def _call_plan(torch, fn, reps, inner):
+    """Warm ``fn`` up and size a sample to it: (reps, inner, seconds the
+    host takes to issue one call). A call that takes the host more than
+    20 ms (the plain twins at N = 100,001) gets fewer calls per sample and
+    five samples, so one timing stays within seconds."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    inner = max(1, min(inner, int(0.1 / max(issue_s, 1e-6))))
+    if issue_s > 0.02:
+        reps = min(reps, 5)
+    return reps, inner, issue_s
+
+
 def host_call_ms(torch, fn, reps=15, inner=10):
     """Median over ``reps`` samples of the mean time of ``inner``
     back-to-back calls, from CUDA events (warmed up first). At these sizes
     the device waits on the host, so this is the cost of a call as the
     caller sees it: argument checks, allocation, launches and all."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
+    reps, inner, _ = _call_plan(torch, fn, reps, inner)
     samples = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -173,14 +248,14 @@ def host_call_ms(torch, fn, reps=15, inner=10):
 def device_ms(torch, fn, reps=15, inner=10):
     """Median over ``reps`` samples of the device time of one call: CUDA
     events around ``inner`` back-to-back calls queued behind a spin kernel,
-    so the device runs them without waiting on the host. A sample counts
-    only if the spin was still running when the end event was queued (the
-    start event not yet reached); otherwise the spin is doubled. A call
-    that synchronises with the host raises (sync debug mode "error")."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    spin_cycles = 50_000_000  # ~25-30 ms at H100 clocks
+    so the device runs them without waiting on the host. The spin is sized
+    to outlast the host's issuing of the calls; a sample counts only if the
+    spin was still running when the end event was queued (the start event
+    not yet reached), otherwise the spin is doubled. A call that
+    synchronises with the host raises (sync debug mode "error")."""
+    reps, inner, issue_s = _call_plan(torch, fn, reps, inner)
+    # ~2e9 spin cycles a second at H100 clocks, with a 3x margin
+    spin_cycles = max(50_000_000, int(6e9 * inner * issue_s))
     samples = []
     while len(samples) < reps:
         start = torch.cuda.Event(enable_timing=True)
@@ -200,9 +275,39 @@ def device_ms(torch, fn, reps=15, inner=10):
             samples.append(start.elapsed_time(end) / inner)
         else:
             spin_cycles *= 2
-            check(spin_cycles < 2_000_000_000,
+            check(spin_cycles < 40_000_000_000,
                   "device_ms: the host never got ahead of the device")
     return statistics.median(samples)
+
+
+def profiled_device_ms(torch, fn, reps=5):
+    """Device time of one call as the sum of its device operations'
+    durations in a ``torch.profiler`` trace of ``reps`` calls (one stream,
+    so the sum is the busy time). For the plain twins, which issue
+    hundreds to thousands of launches a call: queued behind a spin kernel
+    they fill the launch queue, the host then waits on the device, and
+    ``device_ms`` cannot keep the host out of the way. One call runs
+    first under sync debug mode "error", so a call that synchronises with
+    the host raises here too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(dev) >= reps, "profiled_device_ms: the trace has no device "
+          "operations")
+    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
 
 
 def bound_ms(n_bytes, n_ops):
@@ -273,8 +378,12 @@ def max_err(a, b):
         b.double().abs().max())
 
 
-def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
-    """Each kernel against its plain twin on the same CUDA tensors."""
+def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
+                 pair_mode=None, pair_only=False):
+    """Each kernel against its plain twin on the same CUDA tensors: the
+    ForceField's pair kernel (dense K1, or the cell kernel in cell mode)
+    and, unless ``pair_only``, K2-K5."""
+    from cavmd_tpu_torch.ops import cell_kernels as ck
     from cavmd_tpu_torch.ops import fused_integrator as fi
     from cavmd_tpu_torch.ops import pair_kernels as pk
     from cavmd_tpu_torch.ops import pppm_kernels as sk
@@ -282,15 +391,22 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
 
     dev = torch.device("cuda")
     snap = reference_scene(pt, n_molecules, box_L, dtype, dev)
-    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode=pair_mode)
     pos, box, q, tid = snap.position, snap.box_L, snap.charge, snap.typeid
     order, mesh = ff.pppm_order, ff.pppm_mesh
     name = str(dtype).replace("torch.", "")
     tol = TOL[name]
     out = {}
 
-    def hold(key, pairs, what):
+    def hold(key, pairs, what, scales=()):
+        """Each kernel output within ``tol`` of its twin's, relative to
+        the twin's largest value, or to the given scale where the output
+        is a difference of larger terms."""
         errs = [max_err(k, p) for k, p in pairs]
+        for i, s in enumerate(scales):
+            if s is not None:
+                errs[i] = (errs[i][0], max(errs[i][1], s))
         for (err, scale), (k, _) in zip(errs, pairs):
             check(bool(torch.isfinite(k).all()),
                   f"{key} N={snap.N} {name}: non-finite {what}")
@@ -301,46 +417,82 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
         if len(errs) > 1:
             out[key]["max_abs_err_other_outputs"] = [e for e, _ in errs[1:]]
 
-    pair_args = (pos, box, tid, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2,
-                 ff.lj_vshift, q, ff.lj_active, ff.coulomb_active,
-                 ff.kappa_value, ff.coulomb_rcut ** 2)
-    f_k, elj_k, eew_k = pk.dense_pair_force(*pair_args)
-    f_p, elj_p, eew_p = pk.dense_pair_force_plain(*pair_args)
-    torch.cuda.synchronize()
-    hold("dense_pair", [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)], "F,E")
+    calls = {}
+    clist = None
+    if ff.pair_mode == "dense":
+        pair_args = (pos, box, tid, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2,
+                     ff.lj_vshift, q, ff.lj_active, ff.coulomb_active,
+                     ff.kappa_value, ff.coulomb_rcut ** 2)
+        f_k, elj_k, eew_k = pk.dense_pair_force(*pair_args)
+        f_p, elj_p, eew_p = pk.dense_pair_force_plain(*pair_args)
+        torch.cuda.synchronize()
+        hold("dense_pair", [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)],
+             "F,E")
+        calls["dense_pair"] = (lambda: pk.dense_pair_force(*pair_args),
+                               lambda: pk.dense_pair_force_plain(*pair_args))
+    else:
+        clist = ff.build_cells(pos, box)
+        check(not bool(clist.overflow), f"cell list N={snap.N} overflowed")
+        cell_args = (pos, box, clist, ff.cell_cfg, tid, q, ff.lj_eps,
+                     ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+                     ff.cell_exclusions, ff.kappa_value)
+        key = ck.kernel_name(ff.cell_cfg)
+        f_k, elj_k, eew_k = ck.cell_pair_force_fused(*cell_args)
+        f_p, elj_p, eew_p = ck.cell_pair_force_fused_plain(
+            *cell_args, cell_block=ff.cell_block)
+        torch.cuda.synchronize()
+        hold(key, [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)], "F,E")
+        out[key]["grid"] = dict(ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap,
+                                cell_block=ff.cell_block)
+        calls[key] = (
+            lambda: ck.cell_pair_force_fused(*cell_args),
+            lambda: ck.cell_pair_force_fused_plain(
+                *cell_args, cell_block=ff.cell_block))
+        # the list build, on the main path once a step (no kernel of its
+        # own: sort, running maximum and scatters in PyTorch)
+        calls["cell_list_build"] = (lambda: ff.build_cells(pos, box), None)
+        out["cell_list_build"] = {}
 
-    g_k = sk.spread_grid(pos, q, box, order, mesh)
-    g_p = sk.spread_grid_plain(pos, q, box, order, mesh)
-    torch.cuda.synchronize()
-    hold("pppm_spread", [(g_k, g_p)], "grid")
+    pre = None
+    if not pair_only:
+        g_k = sk.spread_grid(pos, q, box, order, mesh)
+        g_p = sk.spread_grid_plain(pos, q, box, order, mesh)
+        torch.cuda.synchronize()
+        hold("pppm_spread", [(g_k, g_p)], "grid")
 
-    grid = g_p.detach().requires_grad_(True)
-    (ct,) = torch.autograd.grad(mesh_energy(grid, ff.pppm), grid)
-    ct = ct.contiguous()
-    d_k = sk.interpolate_grad(ct, pos, q, box, order, mesh)
-    d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
-    torch.cuda.synchronize()
-    hold("pppm_interpolate", [(d_k, d_p)], "dE/dr")
+        grid = g_p.detach().requires_grad_(True)
+        (ct,) = torch.autograd.grad(mesh_energy(grid, ff.pppm), grid)
+        ct = ct.contiguous()
+        d_k = sk.interpolate_grad(ct, pos, q, box, order, mesh)
+        d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
+        torch.cuda.synchronize()
+        hold("pppm_interpolate", [(d_k, d_p)], "dE/dr")
 
-    pre, post = integrator_inputs(torch, pt, snap, ff)
-    k4 = fi.pre_force_apply(*pre)
-    p4 = fi.pre_force_apply_plain(*pre)
-    torch.cuda.synchronize()
-    check(torch.equal(k4[1], p4[1]),
-          f"fused_pre_force N={snap.N} {name}: image flags differ")
-    check(int((k4[1] != pre[2]).sum()) >= 16,
-          f"fused_pre_force N={snap.N} {name}: no particle crossed a face")
-    hold("fused_pre_force", [(k4[0], p4[0]), (k4[2], p4[2]),
-                             (k4[3], p4[3])], "x,v,dE_res")
-    k5 = fi.post_force_apply(*post)
-    p5 = fi.post_force_apply_plain(*post)
-    torch.cuda.synchronize()
-    hold("fused_post_force", list(zip(k5, p5)), "v,KE,dE_res")
-
-    if timed:
-        calls = {
-            "dense_pair": (lambda: pk.dense_pair_force(*pair_args),
-                           lambda: pk.dense_pair_force_plain(*pair_args)),
+        pre, post = integrator_inputs(torch, pt, snap, ff)
+        k4 = fi.pre_force_apply(*pre)
+        p4 = fi.pre_force_apply_plain(*pre)
+        torch.cuda.synchronize()
+        check(torch.equal(k4[1], p4[1]),
+              f"fused_pre_force N={snap.N} {name}: image flags differ")
+        check(int((k4[1] != pre[2]).sum()) >= 16,
+              f"fused_pre_force N={snap.N} {name}: no particle crossed a "
+              "face")
+        # the reservoir deltas are differences of kinetic energies: K4's
+        # KE (1 - alpha^2) with alpha from the molecules' KE, K5's the
+        # photon's KE before its OU step less after; their rounding scales
+        # with those energies, the group KE and the photon's KE before
+        vel, mass, mol = pre[3], pre[5], pre[6]
+        ke_mol = float(0.5 * (mass[:, None] * vel * vel)[mol].sum())
+        hold("fused_pre_force", [(k4[0], p4[0]), (k4[2], p4[2]),
+                                 (k4[3], p4[3])], "x,v,dE_res",
+             scales=(None, None, ke_mol))
+        k5 = fi.post_force_apply(*post)
+        p5 = fi.post_force_apply_plain(*post)
+        torch.cuda.synchronize()
+        ke_photon = float(p5[2].abs() + p5[3].abs())
+        hold("fused_post_force", list(zip(k5, p5)), "v,KE,dE_res",
+             scales=(None, None, None, ke_photon))
+        calls.update({
             "pppm_spread": (
                 lambda: sk.spread_grid(pos, q, box, order, mesh),
                 lambda: sk.spread_grid_plain(pos, q, box, order, mesh)),
@@ -352,55 +504,117 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed):
                                 lambda: fi.pre_force_apply_plain(*pre)),
             "fused_post_force": (lambda: fi.post_force_apply(*post),
                                  lambda: fi.post_force_apply_plain(*post)),
-        }
+        })
+
+    if timed:
         for key, (kern, plain) in calls.items():
             out[key]["ms"] = device_ms(torch, kern)
-            out[key]["plain_ms"] = device_ms(torch, plain)
             out[key]["host_call_ms"] = host_call_ms(torch, kern)
-            out[key]["plain_host_call_ms"] = host_call_ms(torch, plain)
-        for key, (n_bytes, n_ops) in work_counts(torch, snap, ff,
-                                                 pre).items():
+            if plain is not None:
+                out[key]["plain_ms"] = profiled_device_ms(torch, plain)
+                out[key]["plain_host_call_ms"] = host_call_ms(torch, plain)
+        counts = (work_counts(torch, snap, ff, pre) if pre is not None
+                  else {})
+        if clist is not None:
+            counts[ck.kernel_name(ff.cell_cfg)] = cell_work_counts(
+                torch, snap, ff, clist)
+        for key, (n_bytes, n_ops, *extra) in counts.items():
             out[key]["bound_ms"], out[key]["bound_by"] = bound_ms(n_bytes,
                                                                   n_ops)
             out[key]["bytes"], out[key]["ops"] = n_bytes, n_ops
+            if extra:
+                out[key]["pairs"] = extra[0]
     for key, r in out.items():
         print(f"phase 2: N={snap.N} {name} {key}: " + ", ".join(
             f"{k}={v!r}" for k, v in r.items()), flush=True)
     return out
 
 
+def cell_work_counts(torch, snap, ff, clist):
+    """(bytes moved, operations, pair counts) of one cell-kernel call on
+    this run's inputs, counted cell by cell from the plain twin's tiles
+    (block by block; no (N, N) tensor). Bytes: positions, box, typeid,
+    charge, the four (T, T) tables, the bucket, neighbour and exclusion
+    tables in; forces and the per-cell energy partials out. Operations as
+    csrc/cell_pair.cu does them, for the pairs these inputs make it visit:
+    per candidate (both slots occupied, neighbour cells deduplicated) the
+    self test, the exclusion compares, the minimum image (3 subtractions,
+    3 divides, 3 rints, 6 multiply-subtracts) and r^2 (5) and the cutoff
+    test; per pair inside the cutoff 6 to accumulate the force; 17 more in
+    the LJ range, 20 more (sqrt, erfc and exp each counted as one) for a
+    charged pair."""
+    from cavmd_tpu_torch.ops.neighbor import cell_tiles
+
+    n, e = snap.N, snap.position.element_size()
+    C, cap = clist.bucket_idx.shape
+    T = ff.lj_eps.shape[0]
+    E = ff.cell_exclusions.shape[1]
+    rc2 = ff.cell_cfg.r_cut * ff.cell_cfg.r_cut
+    occ = (clist.bucket_idx < n).sum(dim=1)
+    occ_x = torch.cat([occ, occ.new_zeros(1)])
+    n_cand = int((occ * occ_x[clist.neighbor_cells.long()].sum(dim=1)).sum())
+    tid = torch.cat([snap.typeid.long(), snap.typeid.new_zeros(1).long()])
+    q = torch.cat([snap.charge, snap.charge.new_zeros(1)])
+    n_in = n_lj = n_ew = 0
+    for cells, idx_i, id_j, dxs, r2 in cell_tiles(
+            snap.position, snap.box_L, clist, ff.cell_block):
+        excl = ff.cell_exclusions[idx_i].long()
+        hit = (excl[:, :, None, :] == id_j[:, None, :, None]).any(-1)
+        inside = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
+                  & (idx_i[:, :, None] != id_j[:, None, :]) & ~hit
+                  & (r2 < rc2))
+        ti, tj = tid[idx_i][:, :, None], tid[id_j][:, None, :]
+        lj = inside & (ff.lj_eps[ti, tj] != 0) & (r2 < ff.lj_rcut2[ti, tj])
+        ew = inside & ((q[idx_i][:, :, None] * q[id_j][:, None, :]) != 0)
+        n_in += int(inside.sum())
+        n_lj += int(lj.sum())
+        n_ew += int(ew.sum())
+    n_bytes = (e * (3 * n + 3 + n + 4 * T * T) + 4 * n
+               + 4 * (C * cap + 27 * C + (n + 1) * E)
+               + e * (3 * n + 2 * C))
+    n_ops = (22 + E) * n_cand + 6 * n_in + 17 * n_lj + 20 * n_ew
+    return n_bytes, n_ops, dict(candidates=n_cand, inside_cutoff=n_in,
+                                lj=n_lj, ewald=n_ew)
+
+
 def work_counts(torch, snap, ff, pre):
     """(bytes moved, operations) of one call of each kernel on this run's
     inputs: each input read once, each output written once; operations as
     the kernel sources do them (sqrt, erfc, exp, floor counted as one), and
-    only for the pairs / particles these inputs make it do."""
+    only for the pairs / particles these inputs make it do. The dense pair
+    kernel only in dense mode (its count builds (N, N) tensors)."""
     from cavmd_tpu_torch.core.box import minimum_image
 
     n, e = snap.N, snap.position.element_size()
     T = ff.lj_eps.shape[0]
-    pos = snap.position.double()
-    dr = minimum_image(pos[:, None, :] - pos[None, :, :], snap.box_L.double())
-    r2 = (dr * dr).sum(-1)
-    lj, cw = ff.lj_active.bool(), ff.coulomb_active.bool()
-    tid = snap.typeid.long()
-    rc2 = ff.lj_rcut2.double()[tid[:, None], tid[None, :]]
-    n_masked = int((lj | cw).sum())
-    n_lj = int((lj & (r2 < rc2)).sum())
-    n_cw = int((cw & (r2 < ff.coulomb_rcut ** 2)).sum())
-    blocks = (n + 3) // 4
+    counts = {}
+    if ff.pair_mode == "dense":
+        pos = snap.position.double()
+        dr = minimum_image(pos[:, None, :] - pos[None, :, :],
+                           snap.box_L.double())
+        r2 = (dr * dr).sum(-1)
+        lj, cw = ff.lj_active.bool(), ff.coulomb_active.bool()
+        tid = snap.typeid.long()
+        rc2 = ff.lj_rcut2.double()[tid[:, None], tid[None, :]]
+        n_masked = int((lj | cw).sum())
+        n_lj = int((lj & (r2 < rc2)).sum())
+        n_cw = int((cw & (r2 < ff.coulomb_rcut ** 2)).sum())
+        blocks = (n + 3) // 4
+        # pos, box, typeid, 4 (T, T) tables, charge, two (N, N) uint8
+        # masks in; forces and the per-block energy partials out. Per
+        # masked pair 26 ops (min image, r^2, force accumulation), +15
+        # inside the LJ cutoff, +18 inside the Coulomb cutoff
+        counts["dense_pair"] = (
+            e * (3 * n + 3 + 4 * T * T + n) + 4 * n + 2 * n * n
+            + e * (3 * n + 2 * blocks),
+            26 * n_masked + 15 * n_lj + 18 * n_cw)
     n_q = int((snap.charge != 0).sum())
     n_mesh = ff.pppm_mesh[0] * ff.pppm_mesh[1] * ff.pppm_mesh[2]
     p = ff.pppm_order
     stencil = 3 * (5 + 5 * (p * (p + 1) // 2 - 1))  # u, floor, Cox-de Boor
     n_mol = int(pre[6].sum())
     return {
-        # pos, box, typeid, 4 (T, T) tables, charge, two (N, N) uint8 masks
-        # in; forces and the per-block energy partials out. Per masked pair
-        # 26 ops (min image, r^2, force accumulation), +15 inside the LJ
-        # cutoff, +18 inside the Coulomb cutoff
-        "dense_pair": (e * (3 * n + 3 + 4 * T * T + n) + 4 * n
-                       + 2 * n * n + e * (3 * n + 2 * blocks),
-                       26 * n_masked + 15 * n_lj + 18 * n_cw),
+        **counts,
         # pos, charge, box in; the mesh out. Per charged particle: three
         # stencils and p^3 (product, atomic add) pairs
         "pppm_spread": (e * (3 * n + n + 3 + n_mesh),
@@ -495,28 +709,157 @@ def main_path(torch, pt, fuse):
     return res
 
 
-def f64_trajectory(torch, pt):
+def f64_trajectory(torch, pt, phase, n_molecules, box_L, pair_mode=None):
+    """20 float64 NVE steps on the card (kernels) against the same steps
+    on the CPU (plain twins): positions within TRAJ_TOL_BOHR, image flags
+    equal."""
     from cavmd_tpu_torch.core import PhysicalConstants as PC
     from cavmd_tpu_torch.integrate import init_state, make_step_fn, run_steps
 
     out = {}
     for dev in ("cuda", "cpu"):
-        snap = reference_scene(pt, 250, 46.0, torch.float64,
+        snap = reference_scene(pt, n_molecules, box_L, torch.float64,
                                torch.device(dev))
-        ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+        ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                                  pair_mode=pair_mode)
         methods = pt.resolve_methods(
             snap, (pt.MethodSpec(kind="nve", group="all"),), ff.l_typeid)
         state = init_state(snap, ff, dt=PC.fs_to_atomic_units(0.25), seed=0)
-        final, _ = run_steps(make_step_fn(ff, methods), state, 20)
+        final, obs = run_steps(make_step_fn(ff, methods), state, 20)
+        if "cell_overflow" in obs:
+            check(not obs["cell_overflow"].any(),
+                  f"phase {phase}: the cell list overflowed")
         out[dev] = final
     err = float((out["cuda"].position.cpu() - out["cpu"].position).abs().max())
     img_ok = bool(torch.equal(out["cuda"].image.cpu(), out["cpu"].image))
-    print(f"phase 4: f64 NVE 20 steps, CUDA kernels vs CPU plain: "
-          f"max|dx| = {err!r} bohr (bound {TRAJ_TOL_BOHR}), images equal: "
-          f"{img_ok}", flush=True)
+    print(f"phase {phase}: f64 NVE 20 steps at N={snap.N} ({ff.pair_mode}"
+          f" pair mode), CUDA kernels vs CPU plain: max|dx| = {err!r} bohr "
+          f"(bound {TRAJ_TOL_BOHR}), images equal: {img_ok}", flush=True)
     check(err <= TRAJ_TOL_BOHR and img_ok,
-          f"f64 trajectory: max|dx| {err} bohr > {TRAJ_TOL_BOHR}")
+          f"phase {phase} f64 trajectory: max|dx| {err} bohr > "
+          f"{TRAJ_TOL_BOHR} or images differ")
     return err
+
+
+def large_n_path(torch, pt, n_mol, drift_bound):
+    """The large-N main path: build_large_n(n_mol) through Simulation.run,
+    one warm-up chunk then LARGE_CHUNKS chunks of LARGE_CHUNK steps (the
+    protocol of scripts/bench_large_n.py). Checks: no overflow (and no
+    retry), finite observables, every kernel of the path launched at least
+    once a step; the universe-energy band max(U) - min(U) over the window
+    is held to ``drift_bound`` when one is given, else reported."""
+    import numpy as np
+
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate import universe_energy
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.ops.cell_kernels import kernel_name
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    sim, snap, ff = build_large_n(n_mol)
+    cap = ff.cell_cfg.cap
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim.run(n_steps=LARGE_CHUNK)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    chunks, chunk_s = [], []
+    for _ in range(LARGE_CHUNKS):
+        t0 = time.perf_counter()
+        sim.run(n_steps=LARGE_CHUNK)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        chunks.append(sim.last_obs)
+    launches = dict(_cuda.launches)
+    total = LARGE_CHUNK * (LARGE_CHUNKS + 1)
+    label = f"large-N N={snap.N}"
+    obs = {k: np.concatenate([c[k] for c in chunks])
+           for k in OBS_KEYS + ("cell_overflow",)}
+    check(not obs["cell_overflow"].any() and sim.ff.cell_cfg.cap == cap,
+          f"{label}: the cell list overflowed")
+    for k in OBS_KEYS:
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    check(bool(torch.isfinite(sim.state.position).all()),
+          f"{label}: non-finite positions")
+    kernels = [kernel_name(ff.cell_cfg), "pppm_spread", "pppm_interpolate",
+               "fused_pre_force", "fused_post_force"]
+    for kname in kernels:
+        check(launches.get(kname, 0) >= total,
+              f"{label}: kernel {kname} launched {launches.get(kname, 0)} "
+              f"< {total} times")
+    U = universe_energy(obs)
+    band = float(U.max() - U.min())
+    if drift_bound is not None:
+        check(band < drift_bound,
+              f"{label}: universe band {band} >= {drift_bound} Ha")
+    ms = [s / LARGE_CHUNK * 1e3 for s in chunk_s]
+    res = dict(n=snap.N, ncells=ff.cell_cfg.ncells, cap=cap,
+               steps=LARGE_CHUNK * LARGE_CHUNKS,
+               ms_per_step=statistics.median(ms), chunk_ms_per_step=ms,
+               setup_s=setup_s, warmup_chunk_s=warm_s,
+               universe_band_ha=band, band_bound_ha=drift_bound,
+               launches=launches)
+    print(f"phase 6 ({label}): " + ", ".join(
+        f"{k}={v!r}" for k, v in res.items()), flush=True)
+    return res
+
+
+def small_grid_path(torch, pt):
+    """The cell pass on a grid with < 3 cells per axis (the K8 grid): the
+    N = 501 reference scene with pair_mode='cell' (2^3 cells, the
+    deduplicated neighbour table) through Simulation.run, phase 3's
+    protocol with fewer chunks. Its universe drift is held to phase 3's
+    bound: the window is a prefix of phase 3's, from the same first step."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import universe_energy
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+
+    snap = reference_scene(pt, 250, 46.0, torch.float32,
+                           torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell")
+    check(min(ff.cell_cfg.ncells) < 3, "small-grid path: not a small grid")
+    _cuda.reset_launches()
+    sim = pt.Simulation(snap, ff, main_methods(pt, PC.kT_from_kelvin(100.0)),
+                        dt=PC.fs_to_atomic_units(0.25), seed=7,
+                        chunk_size=CHUNK)
+    sim.run(n_steps=N_WARM)
+    chunks, chunk_s = [], []
+    for _ in range(SMALL_GRID_CHUNKS):
+        t0 = time.perf_counter()
+        sim.run(n_steps=CHUNK)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        chunks.append(sim.last_obs)
+    launches = dict(_cuda.launches)
+    total = N_WARM + SMALL_GRID_CHUNKS * CHUNK
+    obs = {k: np.concatenate([c[k] for c in chunks])
+           for k in OBS_KEYS + ("cell_overflow",)}
+    check(not obs["cell_overflow"].any(), "small-grid path: overflow")
+    for k in OBS_KEYS:
+        check(bool(np.all(np.isfinite(obs[k]))),
+              f"small-grid path: non-finite {k}")
+    for kname in ("cell_pair_small_grid", "pppm_spread", "fused_pre_force"):
+        check(launches.get(kname, 0) >= total,
+              f"small-grid path: kernel {kname} launched "
+              f"{launches.get(kname, 0)} < {total} times")
+    U = universe_energy(obs)
+    drift = float(np.abs(U - U[0]).max())
+    check(drift < DRIFT_BOUND_HA,
+          f"small-grid path: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
+    res = dict(n=snap.N, ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap,
+               steps=SMALL_GRID_CHUNKS * CHUNK,
+               steps_per_s=statistics.median(CHUNK / t for t in chunk_s),
+               universe_drift_ha=drift, launches=launches)
+    print("phase 6 (small grid, N=501 cell mode): " + ", ".join(
+        f"{k}={v!r}" for k, v in res.items()), flush=True)
+    return res
 
 
 class _Tee(io.TextIOBase):
@@ -533,8 +876,13 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def cli_phase(torch, pt):
-    """The advanced_run CLI in this process, in a temporary directory."""
+def cli_phase(torch, pt, phase, args, n_particles, energy_period_steps,
+              kernels, drift_bound):
+    """The advanced_run CLI in this process, in a temporary directory:
+    exit code, output files and their header lines, the last GSD frame
+    (``n_particles``, finite), launches of ``kernels`` per step, and the
+    universe column's max |U - U0|, held to ``drift_bound`` when one is
+    given, else reported."""
     import numpy as np
 
     from cavmd_tpu_torch.drivers import advanced_run
@@ -544,62 +892,71 @@ def cli_phase(torch, pt):
     cwd = os.getcwd()
     work = tempfile.mkdtemp(prefix="cavmd_cli_")
     tee = _Tee(sys.stdout)
+    label = f"phase {phase} CLI N={n_particles}"
     try:
         os.chdir(work)
         _cuda.reset_launches()
         with contextlib.redirect_stdout(tee):
-            rc = advanced_run.main(CLI_ARGS)
+            rc = advanced_run.main(args)
         torch.cuda.synchronize()
         launches = dict(_cuda.launches)
-        check(rc == 0, f"CLI exited with {rc}")
+        check(rc == 0, f"{label}: exited with {rc}")
         log = tee.buf.getvalue()
         m = re.search(r"Completed (\d+) steps, ([0-9.]+) ps in ([0-9.]+) s",
                       log)
-        check(m is not None, "CLI: no 'Completed ... steps' line")
+        check(m is not None, f"{label}: no 'Completed ... steps' line")
         steps, sim_ps, wall = int(m.group(1)), float(m.group(2)), float(
             m.group(3))
         out_dir = os.path.join(work, "cavity_coupling_1eneg03")
-        for fname, header in CLI_HEADERS.items():
+        headers = dict(CLI_HEADERS)
+        headers["prod-1_energy_tracker.txt"] = [
+            f"# Output period: {energy_period_steps} steps" if k == 1 else h
+            for k, h in enumerate(CLI_HEADERS["prod-1_energy_tracker.txt"])]
+        headers["prod-1_cavity_mode.txt"] = [
+            f"# Output period: {energy_period_steps} steps" if k == 1 else h
+            for k, h in enumerate(CLI_HEADERS["prod-1_cavity_mode.txt"])]
+        for fname, header in headers.items():
             path = os.path.join(out_dir, fname)
-            check(os.path.isfile(path), f"CLI: {fname} missing")
+            check(os.path.isfile(path), f"{label}: {fname} missing")
             with open(path) as f:
                 lines = f.read().splitlines()
             for k, want in enumerate(header):
                 got = lines[k] if k < len(lines) else "<missing>"
                 ok = (got.startswith("# Reference 0 at t=") if want is None
                       else got == want)
-                check(ok, f"CLI: {fname} header line {k}: {got!r}")
+                check(ok, f"{label}: {fname} header line {k}: {got!r}")
         gsd = os.path.join(out_dir, "prod-1.gsd")
-        check(os.path.isfile(gsd), "CLI: prod-1.gsd missing")
+        check(os.path.isfile(gsd), f"{label}: prod-1.gsd missing")
         with open_gsd(gsd) as t:
             frame = t.read_frame(len(t) - 1, device="cuda")
-            check(frame.N == 501 and bool(
+            check(frame.N == n_particles and bool(
                 torch.isfinite(frame.position).all()),
-                  f"CLI: GSD frame has N={frame.N}")
+                  f"{label}: GSD frame has N={frame.N}")
             n_frames = len(t)
-        for kname in KERNELS:
+        for kname in kernels:
             check(launches.get(kname, 0) >= steps,
-                  f"CLI: kernel {kname} launched {launches.get(kname, 0)} "
-                  f"< {steps} times")
+                  f"{label}: kernel {kname} launched "
+                  f"{launches.get(kname, 0)} < {steps} times")
         rows = np.loadtxt(os.path.join(out_dir, "prod-1_energy_tracker.txt"),
                           comments=("#", "time"), ndmin=2)
         check(rows.shape[0] >= 3 and rows.shape[1] == 20,
-              f"CLI: energy tracker rows {rows.shape}")
-        check(bool(np.isfinite(rows).all()), "CLI: non-finite energy rows")
+              f"{label}: energy tracker rows {rows.shape}")
+        check(bool(np.isfinite(rows).all()), f"{label}: non-finite rows")
         uni = rows[:, 18]
         drift = float(np.abs(uni - uni[0]).max())
-        check(drift < CLI_DRIFT_BOUND_HA,
-              f"CLI: universe drift {drift} >= {CLI_DRIFT_BOUND_HA} Ha")
+        if drift_bound is not None:
+            check(drift < drift_bound,
+                  f"{label}: universe drift {drift} >= {drift_bound} Ha")
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
     res = dict(steps=steps, simulated_ps=sim_ps, run_seconds=wall,
                steps_per_s=steps / wall,
                ns_per_day=sim_ps / 1000.0 / wall * 86400.0,
-               universe_drift_ha=drift, universe_ha=uni.tolist(),
-               energy_rows=int(rows.shape[0]),
+               universe_drift_ha=drift, drift_bound_ha=drift_bound,
+               universe_ha=uni.tolist(), energy_rows=int(rows.shape[0]),
                gsd_frames=n_frames, launches=launches)
-    print("phase 5: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
           flush=True)
     return res
 
@@ -638,26 +995,65 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1: ptxas {src}: {line.strip()}", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
 
-    # phase 2: kernels against plain twins
-    main_shape = None
-    for n_mol, box in ((250, 46.0), (2000, reference_box_for(2000))):
+    # phase 2: kernels against plain twins: N = 501 and 4001 (dense, K1-K5),
+    # N = 100,001 (cell mode: the cell kernel on 17^3 cells, K2-K5), and the
+    # N = 501 scene in cell mode (the cell kernel on 2^3 cells)
+    shapes = {}
+    for n_mol, box, mode, pair_only in (
+            (250, 46.0, None, False),
+            (2000, reference_box_for(2000), None, False),
+            (LARGE_N_MOL, reference_box_for(LARGE_N_MOL), None, False),
+            (250, 46.0, "cell", True)):
         for dtype in (torch.float32, torch.float64):
             r = kernel_phase(torch, pt, n_mol, box, dtype,
-                             timed=dtype == torch.float32)
-            if n_mol == 250 and dtype == torch.float32:
-                main_shape = r
+                             timed=dtype == torch.float32, pair_mode=mode,
+                             pair_only=pair_only)
+            if dtype == torch.float32:
+                shapes[(n_mol, mode)] = r
         torch.cuda.empty_cache()
+    check("jax" not in sys.modules, "the port imported jax")
 
-    # phase 3: Simulation.run, fused (default) and unfused
+    # phase 3: Simulation.run at N = 501, fused (default) and unfused
     fused = main_path(torch, pt, None)
     unfused = main_path(torch, pt, False)
 
-    # phase 4: f64 trajectory against the CPU
-    f64_trajectory(torch, pt)
+    # phase 4: a float64 trajectory against the CPU, dense mode
+    f64_trajectory(torch, pt, 4, 250, 46.0)
+    check("jax" not in sys.modules, "the port imported jax")
 
-    # phase 5: the slice's main path, the CLI
-    cli = cli_phase(torch, pt)
+    # phase 5: the N = 501 CLI
+    cli = cli_phase(torch, pt, 5, CLI_ARGS, 501, 1000,
+                    ["dense_pair", "pppm_spread", "pppm_interpolate",
+                     "fused_pre_force", "fused_post_force"],
+                    CLI_DRIFT_BOUND_HA)
+    check("jax" not in sys.modules, "the port imported jax")
+
+    # phase 6: the large-N main path, held at N = 20,001 and run at
+    # N = 100,001; then the small-grid cell path at N = 501
+    held = large_n_path(torch, pt, HELD_N_MOL, LARGE_BAND_BOUND_HA)
+    torch.cuda.empty_cache()
+    large = large_n_path(torch, pt, LARGE_N_MOL, None)
+    torch.cuda.empty_cache()
+    small = small_grid_path(torch, pt)
+    check("jax" not in sys.modules, "the port imported jax")
+
+    # phase 7: a float64 cell-mode trajectory against the CPU (5^3 cells)
+    f64_trajectory(torch, pt, 7, 2000, reference_box_for(2000),
+                   pair_mode="cell")
+    check("jax" not in sys.modules, "the port imported jax")
+
+    # phase 8: the CLI at 10,000 molecules (held) and 50,000 (reported)
+    cell_kernels = ["cell_pair", "pppm_spread", "pppm_interpolate",
+                    "fused_pre_force", "fused_post_force"]
+    cli_held = cli_phase(torch, pt, 8, large_cli_args(HELD_N_MOL),
+                         2 * HELD_N_MOL + 1, LARGE_CLI_ENERGY_PERIOD_STEPS,
+                         cell_kernels, LARGE_CLI_DRIFT_BOUND_HA)
+    torch.cuda.empty_cache()
+    cli_large = cli_phase(torch, pt, 8, large_cli_args(LARGE_N_MOL),
+                          2 * LARGE_N_MOL + 1, LARGE_CLI_ENERGY_PERIOD_STEPS,
+                          cell_kernels, None)
     check("jax" not in sys.modules, "the port imported jax")
 
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
@@ -666,16 +1062,35 @@ def main() -> None:
           f"{CHUNK}-step chunks), drift {fused['universe_drift_ha']:.3e} / "
           f"{unfused['universe_drift_ha']:.3e} Ha; CLI {cli['steps']} steps "
           f"{cli['steps_per_s']:.1f} steps/s {cli['ns_per_day']:.4f} ns/day, "
-          f"drift {cli['universe_drift_ha']:.3e} Ha", flush=True)
-    kernels = [
-        dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=cli["launches"].get(k, 0),
-             max_abs_err=main_shape[k]["max_abs_err"],
-             ms=main_shape[k]["ms"], plain_ms=main_shape[k]["plain_ms"],
-             bound_ms=main_shape[k]["bound_ms"],
-             bound_by=main_shape[k]["bound_by"], library_ms=None)
-        for k, (src, rep) in KERNELS.items()
-    ]
+          f"drift {cli['universe_drift_ha']:.3e} Ha | large N: "
+          f"N={held['n']} {held['ms_per_step']:.3f} ms/step band "
+          f"{held['universe_band_ha']:.3e} Ha, N={large['n']} "
+          f"{large['ms_per_step']:.3f} ms/step band "
+          f"{large['universe_band_ha']:.3e} Ha; N=501 cell mode "
+          f"{small['steps_per_s']:.1f} steps/s; CLI N={2 * HELD_N_MOL + 1} "
+          f"{cli_held['steps']} steps drift "
+          f"{cli_held['universe_drift_ha']:.3e} Ha, N={2 * LARGE_N_MOL + 1} "
+          f"{cli_large['steps']} steps {cli_large['steps_per_s']:.1f} "
+          f"steps/s drift {cli_large['universe_drift_ha']:.3e} Ha",
+          flush=True)
+    # each kernel's numbers at the shapes of the path it serves: K1 at
+    # N = 501 (phase 5's launches), the cell kernel and K2-K5 at
+    # N = 100,001 (phase 6's launches), the small-grid entry at N = 501 in
+    # cell mode (phase 6's small-grid launches)
+    where = {k: ((250, None), cli["launches"]) for k in KERNELS}
+    for k in ("cell_pair", "pppm_spread", "pppm_interpolate",
+              "fused_pre_force", "fused_post_force"):
+        where[k] = ((LARGE_N_MOL, None), large["launches"])
+    where["cell_pair_small_grid"] = ((250, "cell"), small["launches"])
+    kernels = []
+    for k, (src, rep) in KERNELS.items():
+        shape, launches = where[k]
+        r = shapes[shape][k]
+        kernels.append(dict(
+            name=k, route="cuda", source=src, replaces=rep,
+            launches=launches.get(k, 0), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of one N = 501 step of cavmd_tpu_torch goes, on one GPU.
+"""Where the time of one step of cavmd_tpu_torch goes, on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA device:
 ``python3 scripts/profile_torch_step.py [--variants unfused,default,cli]
-[--root DIR] [--no-profile]``. For each step variant of the reference
-scene (250 O2/N2 + photon, f32, dense ForceField, Bussi + Langevin, dt
-0.25 fs) it prints one JSON line:
+[--n-molecules 250] [--root DIR] [--no-profile]``. For each step variant
+of the scene (``--n-molecules`` O2/N2 + photon at the reference density,
+250 by default: the N = 501 reference scene in a 46-bohr box; f32, the
+ForceField's own pair mode, dense up to N = 4096 and cell lists above;
+Bussi + Langevin, dt 0.25 fs) it prints one JSON line:
 
 - ``default``: ``Simulation`` with no options (on the card: the fused
   tail, K4/K5 around the force pass);
@@ -18,8 +20,9 @@ five 200-step chunks, each ended by ``torch.cuda.synchronize()``); and,
 unless ``--no-profile``, from ``torch.profiler`` over 50 steps: the device
 kernels (and memory operations) per step, their summed device time per
 step, the union of their intervals per step, the device busy share (that
-union over the unprofiled wall time) and the eight largest kernels by
-device time. ``--root`` imports ``cavmd_tpu_torch`` from another checkout
+union over the unprofiled wall time) and the twelve largest kernels by
+device time (at N > 4096 the cell pass, the list build's sort and scan,
+and K2-K5 each show). ``--root`` imports ``cavmd_tpu_torch`` from another checkout
 (for example an unpacked parent commit; only ``default`` runs there), so
 two versions can be timed in one run on one card. The last line names
 the card and its power limit as nvidia-smi reports them.
@@ -38,12 +41,13 @@ import time
 PROFILED_STEPS = 50
 
 
-def build(pt, torch, variant):
+def build(pt, torch, variant, n_mol):
     from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
 
     snap = pt.add_cavity_particle(
-        pt.make_diatomic_system(250, box_L=46.0, temperature_K=100.0,
-                                seed=0),
+        pt.make_diatomic_system(n_mol, box_L=reference_box_for(n_mol),
+                                temperature_K=100.0, seed=0),
         coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
         seed=1).astype(torch.float32).to(torch.device("cuda"))
     ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
@@ -85,12 +89,12 @@ def union_us(intervals):
     return total
 
 
-def profile(pt, torch, variant, with_profiler):
+def profile(pt, torch, variant, with_profiler, n_mol):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    sim = build(pt, torch, variant)
+    sim = build(pt, torch, variant, n_mol)
     sim.run(n_steps=400)
     torch.cuda.synchronize()
     walls = []
@@ -100,7 +104,8 @@ def profile(pt, torch, variant, with_profiler):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / 200 * 1e3)
     wall_ms = statistics.median(walls)
-    res = dict(variant=variant, wall_ms_per_step=wall_ms,
+    res = dict(variant=variant, n_particles=sim.snapshot.N,
+               pair_mode=sim.ff.pair_mode, wall_ms_per_step=wall_ms,
                steps_per_s=1e3 / wall_ms, chunk_wall_ms_per_step=walls)
     if not with_profiler:
         return res
@@ -114,7 +119,7 @@ def profile(pt, torch, variant, with_profiler):
     for e in dev:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     busy_us = union_us(intervals) / PROFILED_STEPS
     return dict(
         res, device_ops_per_step=len(dev) / PROFILED_STEPS,
@@ -122,7 +127,7 @@ def profile(pt, torch, variant, with_profiler):
         / PROFILED_STEPS,
         device_us_per_step_union=busy_us,
         device_busy_share=busy_us / (wall_ms * 1e3),
-        top_kernels_us_per_step={k[:60]: v / PROFILED_STEPS
+        top_kernels_us_per_step={k[:80]: v / PROFILED_STEPS
                                  for k, v in top})
 
 
@@ -133,6 +138,9 @@ def main():
         os.path.abspath(__file__))),
         help="checkout whose cavmd_tpu_torch is imported")
     ap.add_argument("--no-profile", action="store_true")
+    ap.add_argument("--n-molecules", type=int, default=250,
+                    help="diatomics at the reference density (50000: the "
+                         "N = 100,001 cell-mode scene)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -142,7 +150,8 @@ def main():
     import cavmd_tpu_torch as pt
 
     for variant in args.variants.split(","):
-        res = profile(pt, torch, variant, not args.no_profile)
+        res = profile(pt, torch, variant, not args.no_profile,
+                      args.n_molecules)
         res["root"] = args.root
         print(json.dumps(res), flush=True)
     card = subprocess.run(

@@ -9,6 +9,7 @@ import torch
 import cavmd_tpu_torch as pt
 from cavmd_tpu_torch.core import PhysicalConstants as PC
 from cavmd_tpu_torch.ops import _cuda
+from cavmd_tpu_torch.ops import cell_kernels as ck
 from cavmd_tpu_torch.ops import fused_integrator as fi
 from cavmd_tpu_torch.ops import pair_kernels as pk
 from cavmd_tpu_torch.ops import pppm_kernels as sk
@@ -137,3 +138,34 @@ def test_fused_integrator_kernels_match_twins(cuda, dtype):
     for a, b in zip((k[0], k[2], k[3]) + tuple(kp), (p[0], p[2], p[3])
                     + tuple(pp)):
         assert _close(a, b, TOL[dtype])
+
+
+# (n_mol, box_L, r_cut): 3^3 cells (the K6 grid) and 2^3 cells (the K8
+# grid, deduplicated neighbour table)
+CELL_GRIDS = {"k6_3cells": (60, 40.0, 12.0), "k8_2cells": (60, 34.0, 15.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", sorted(CELL_GRIDS))
+def test_cell_kernel_matches_twin(cuda, grid, dtype):
+    n_mol, box_L, r_cut = CELL_GRIDS[grid]
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
+                                seed=3, device="cpu"),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=4)
+    snap = snap.astype(dtype).to(cuda)
+    ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=r_cut,
+                              pppm_mesh=(8, 8, 8), pair_mode="cell")
+    assert (min(ff.cell_cfg.ncells) >= 3) == (grid == "k6_3cells")
+    clist = ff.build_cells(snap.position, snap.box_L)
+    args = (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
+            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value)
+    name = ck.kernel_name(ff.cell_cfg)
+    before = _cuda.launches[name]
+    out_k = ck.cell_pair_force_fused(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == before + 1
+    out_p = ck.cell_pair_force_fused_plain(*args)
+    for k, p in zip(out_k, out_p):
+        assert _close(k, p, TOL[dtype])

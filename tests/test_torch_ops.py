@@ -290,8 +290,11 @@ def test_reference_scene_forcefield_matches_jax(build):
 
 
 def test_forcefield_rejects_unported_modes():
+    """Dense and cell modes are ported; the TPU-only 'pallas' and the
+    opt-in 'zcol' modes raise."""
     ts = t_make(4, box_L=12.0, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ForceField.create(ts, pair_mode="cell")
-    with pytest.raises(NotImplementedError):
-        ForceField.create(ts, pair_mode="pallas")
+    assert ForceField.create(ts, pair_mode="cell",
+                             pppm_mesh=(8, 8, 8)).pair_mode == "cell"
+    for mode in ("pallas", "zcol"):
+        with pytest.raises(NotImplementedError):
+            ForceField.create(ts, pair_mode=mode)
