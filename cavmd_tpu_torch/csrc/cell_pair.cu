@@ -67,9 +67,9 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Bytes of dynamic shared memory for one block: 27 * cap staged rows (the
-// wrapper checks the same count against the 223 KB left beside the static
-// arrays of the 227 KB a block may use).
+// Bytes of dynamic shared memory for one block: 27 * cap staged rows. A
+// count past what a block may use beside the static arrays (227 KB in all)
+// makes cudaFuncSetAttribute fail, and the launch returns its error.
 template <typename T>
 size_t smem_bytes(int cap) {
   return (size_t)kNeighbors * cap * (4 * sizeof(T) + 2 * sizeof(int32_t));

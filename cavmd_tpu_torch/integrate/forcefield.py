@@ -46,7 +46,6 @@ from cavmd_tpu_torch.ops.cell_kernels import cell_pair_force_fused
 from cavmd_tpu_torch.ops.neighbor import (
     CellListConfig,
     build_cell_list,
-    cell_block_for,
     exclusion_table,
     neighbor_cell_table,
     plan_cells,
@@ -73,8 +72,7 @@ class ForceField(nn.Module):
     ``CellListConfig``), the (N+1, max_excl) ``cell_exclusions`` table, the
     (C, 27) ``cell_neighbors`` table, the (N,) ``pair_inert`` flags
     (particles with no LJ type pair and no charge, which the carried cell
-    list ignores when it decides to rebuild) and ``cell_block`` (cells per
-    tile block of the plain twin).
+    list ignores when it decides to rebuild).
     """
 
     def __init__(self, *, bond_k, bond_r0, bond_k_per, bond_r0_per,
@@ -83,7 +81,7 @@ class ForceField(nn.Module):
                  phmass, l_typeid: int, coulomb_rcut: float, pppm_order: int,
                  pppm_mesh, lj_active=None, coulomb_active=None,
                  cell_cfg=None, cell_exclusions=None, cell_neighbors=None,
-                 pair_inert=None, cell_block=None, enable_cavity=True,
+                 pair_inert=None, enable_cavity=True,
                  enable_coulomb=True, enable_lj=True, enable_bonds=True,
                  dtype=torch.float64, device=None):
         super().__init__()
@@ -111,7 +109,6 @@ class ForceField(nn.Module):
         self.cell_cfg = (None if cell_cfg is None
                          else CellListConfig(*cell_cfg))
         self.pair_mode = "dense" if cell_cfg is None else "cell"
-        self.cell_block = cell_block
         if self.pair_mode == "dense":
             # static (N, N) masks, 1 byte per pair; a disabled interaction
             # is an all-zero mask, which contributes exactly zero
@@ -150,9 +147,9 @@ class ForceField(nn.Module):
                                self.cell_neighbors)
 
     def with_cell_capacity(self, cap: int) -> "ForceField":
-        """A copy planned for bucket capacity ``cap`` (the overflow retry);
-        it shares every buffer with this one."""
-        ff = copy.copy(self)
+        """A copy planned for bucket capacity ``cap`` (the overflow retry),
+        with buffers of its own."""
+        ff = copy.deepcopy(self)
         ff.cell_cfg = self.cell_cfg._replace(cap=int(cap))
         return ff
 
@@ -189,8 +186,7 @@ class ForceField(nn.Module):
                 position, box_L, clist, self.cell_cfg, typeid, charge,
                 self.lj_eps, self.lj_sig2, self.lj_rcut2, self.lj_vshift,
                 self.cell_exclusions, self.kappa_value,
-                lj_on=self.enable_lj, coul_on=self.enable_coulomb,
-                cell_block=self.cell_block)
+                lj_on=self.enable_lj, coul_on=self.enable_coulomb)
             forces = forces + f
             energies["lj"] = e_lj
             energies["ewald_short"] = e_ew
@@ -313,7 +309,7 @@ class ForceField(nn.Module):
                              skin=cell_skin, n=n, cap=cell_cap)
             lj_type = np.any(eps_t != 0, axis=1)
             pair_data = dict(
-                cell_cfg=cfg, cell_block=cell_block_for(cfg),
+                cell_cfg=cfg,
                 cell_exclusions=exclusion_table(n, bond_group),
                 cell_neighbors=neighbor_cell_table(cfg.ncells),
                 pair_inert=~lj_type[typeid] & (charge == 0))

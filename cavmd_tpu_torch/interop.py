@@ -36,7 +36,7 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
                           coulomb_active=None, lj_eps=None, lj_sigma=None,
                           lj_rcut=None, cell_cfg=None, cell_exclusions=None,
                           cell_neighbors=None, pair_inert=None,
-                          cell_block=None, enable_cavity=True,
+                          enable_cavity=True,
                           enable_coulomb=True, enable_lj=True,
                           enable_bonds=True, dtype=torch.float64,
                           device=None) -> ForceField:
@@ -45,8 +45,8 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
     Dense mode: ``rows_*``/``oh``/``active`` are ``ff.lj_pair``'s fields
     and ``coulomb_active`` the (N, N) mask. Cell mode (``cell_cfg`` given,
     ``tuple(ff.cell_cfg)``): ``lj_eps``/``lj_sigma``/``lj_rcut`` are the
-    (T, T) tables and ``cell_exclusions``/``cell_neighbors``/``pair_inert``/
-    ``cell_block`` the cell fields of the same names. Both:
+    (T, T) tables and ``cell_exclusions``/``cell_neighbors``/``pair_inert``
+    the cell fields of the same names. Both:
     ``influence``/``volume`` come from ``ff.pppm``; ``omegac``/
     ``couplstr``/``phmass`` from ``ff.cavity``; ``bond_k``/``bond_r0`` are
     the per-type bond tables and ``bond_group``/``bond_typeid`` the
@@ -67,8 +67,7 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
         pair_data = dict(cell_cfg=cell_cfg,
                          cell_exclusions=np.asarray(cell_exclusions),
                          cell_neighbors=np.asarray(cell_neighbors),
-                         pair_inert=np.asarray(pair_inert),
-                         cell_block=cell_block)
+                         pair_inert=np.asarray(pair_inert))
     bond_k = np.asarray(bond_k)
     bond_r0 = np.asarray(bond_r0)
     btid = np.asarray(bond_typeid)

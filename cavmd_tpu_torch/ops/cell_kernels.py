@@ -30,6 +30,7 @@ from cavmd_tpu_torch.ops import _cuda
 from cavmd_tpu_torch.ops.neighbor import (
     CellList,
     CellListConfig,
+    cell_block_for,
     cell_pair_force,
     make_ewald_cell_kernel,
     make_fused_cell_kernel,
@@ -44,9 +45,6 @@ _ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _I, _I, _D,
          _D, _I, _I, _V, _V, _V]
 _SIGNATURES = {"cavmd_cell_pair_f32": _ARGS, "cavmd_cell_pair_f64": _ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-MAX_TYPES = 8  # csrc/cell_pair.cu kMaxTypes
-MAX_EXCL = 8  # csrc/cell_pair.cu kMaxExcl
-SMEM_BYTES = 223 * 1024  # dynamic shared memory a block may stage
 
 
 def kernel_name(cfg: CellListConfig) -> str:
@@ -58,8 +56,9 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
                                 cfg: CellListConfig, typeid, charge, eps,
                                 sig2, rcut2, vshift, exclusions,
                                 kappa: float, lj_on: bool = True,
-                                coul_on: bool = True, cell_block=None):
-    """Plain twin of the cell kernel: the tile path of ``ops/neighbor.py``.
+                                coul_on: bool = True):
+    """Plain twin of the cell kernel: the tile path of ``ops/neighbor.py``,
+    in blocks of cells sized by ``cell_block_for`` (bounded tile memory).
     Returns (forces (N, 3), e_lj, e_ewald_short)."""
     n_types = eps.shape[0]
     zero = position.new_zeros(())
@@ -68,7 +67,7 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
     features = make_particle_features(typeid, charge, n_types)
     args = (position, box_L, clist, cfg)
     kw = dict(features=features, exclusions=exclusions,
-              cell_block=cell_block)
+              cell_block=cell_block_for(cfg, position.element_size()))
     if lj_on and coul_on:
         kern = make_fused_cell_kernel(eps, sig2, rcut2, vshift, kappa,
                                       n_types)
@@ -87,16 +86,16 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
 def cell_pair_force_fused(position, box_L, clist: CellList,
                           cfg: CellListConfig, typeid, charge, eps, sig2,
                           rcut2, vshift, exclusions, kappa: float,
-                          lj_on: bool = True, coul_on: bool = True,
-                          cell_block=None):
+                          lj_on: bool = True, coul_on: bool = True):
     """Forces and the two pair energies over the cell list: the CUDA
     kernel on a CUDA device, the plain twin on the CPU. ``kappa`` is a host
-    float; ``cell_block`` bounds the twin's tile memory and is not read by
-    the kernel."""
+    float. The launcher rejects what the kernel does not take (more than 8
+    types or 8 exclusions a particle, a capacity whose staged rows outgrow
+    a block's shared memory) with an error that ``_cuda.check`` raises."""
     if position.device.type == "cpu":
         return cell_pair_force_fused_plain(
             position, box_L, clist, cfg, typeid, charge, eps, sig2, rcut2,
-            vshift, exclusions, kappa, lj_on, coul_on, cell_block)
+            vshift, exclusions, kappa, lj_on, coul_on)
     if position.device.type != "cuda":
         raise ValueError(
             f"cell_pair_force_fused: unsupported device {position.device}")
@@ -111,15 +110,6 @@ def cell_pair_force_fused(position, box_L, clist: CellList,
         raise ValueError(
             f"cell_pair_force_fused: cell list {(C, cap)} does not match "
             f"the config {(cfg.total_cells, cfg.cap)}")
-    if not (1 <= ntypes <= MAX_TYPES and 1 <= max_excl <= MAX_EXCL):
-        raise ValueError(
-            f"cell_pair_force_fused: the kernel takes at most {MAX_TYPES} "
-            f"types and {MAX_EXCL} exclusions a particle, got {ntypes} and "
-            f"{max_excl}")
-    if 27 * cap * (4 * position.element_size() + 8) > SMEM_BYTES:
-        raise ValueError(
-            f"cell_pair_force_fused: bucket capacity {cap} does not fit one "
-            f"block's shared memory in {dtype}")
     checks = dict(position=(position, dtype, (n, 3)),
                   box_L=(box_L, dtype, (3,)),
                   typeid=(typeid, torch.int32, (n,)),

@@ -174,10 +174,10 @@ def build_cell_list(position, box_L, cfg: CellListConfig,
                     neighbor_cells=neighbor_cells, slot_of=slot_of)
 
 
-def cell_block_for(cfg: CellListConfig, itemsize: int = 4):
-    """Cells per tile block so one (block, cap, 27 cap) tile holds about
-    256 MB (the JAX package's choice, a divisor of the cell count); None
-    when all cells fit in one block."""
+def cell_block_for(cfg: CellListConfig, itemsize: int):
+    """Cells per tile block so one (block, cap, 27 cap) tile of
+    ``itemsize``-byte values holds about 256 MB (the JAX package's choice,
+    a divisor of the cell count); None when all cells fit in one block."""
     per_cell = cfg.cap * 27 * cfg.cap * itemsize
     max_block = max(1, (256 << 20) // max(per_cell, 1))
     C = cfg.total_cells

@@ -38,14 +38,16 @@ Phases:
   6. the large-N main path of this slice: ``build_large_n`` through
      ``Simulation.run`` (one warm-up chunk, then 5 x 100 steps, as
      ``scripts/bench_large_n.py`` runs it) at N = 20,001 (the universe
-     band held to 3x the JAX package's reading) and N = 100,001 (reported):
-     no overflow, finite observables, the cell kernel and K2-K5 launched
-     every step, ms per step; then the N = 501 scene in cell mode (the
-     small grid) through ``Simulation.run``;
+     band held to 3x the JAX package's reading) and N = 100,001 (its band
+     reported, and held to shrink as dt^2 against a second run at half
+     the time step): no overflow, finite observables, the cell kernel and
+     K2-K5 launched every step, ms per step; then the N = 501 scene in
+     cell mode (the small grid) through ``Simulation.run``;
   7. a float64 NVE trajectory of 20 steps in cell mode (N = 4001, 5^3
      cells) on the card against the CPU;
   8. the CLI at 10,000 molecules (N = 20,001, drift held) and at 50,000
-     (N = 100,001, reported): files, headers, the GSD frame, launches.
+     (N = 100,001): in float32 (the default on the card; drift reported)
+     and in float64 (drift held): files, headers, the GSD frame, launches.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object of per-kernel results; the last
@@ -109,21 +111,34 @@ CLI_ARGS = ["--device", "GPU", "--n-molecules", "250",
 # (``python scripts/bench_large_n.py 10000`` with JAX_PLATFORMS=cpu):
 # 1.96e-2 Ha over the 500 steps, 1.8e-2 to 1.9e-2 Ha in each chunk, so the
 # band is the cavity dipole-self oscillation that the script's notes
-# describe, not a drift. The JAX reading at N = 100,001 is not taken on the
-# CPU (a full-size run), so N = 100,001 is reported, not held.
+# describe, not a drift. The JAX package on the CPU takes 0.553 s a step
+# at N = 20,001 on that protocol, and cell mode's work grows as N, so its
+# reading at N = 100,001 (~28 min for 600 steps) is not taken: the band
+# there is reported. It is held to behave as velocity-Verlet error, which
+# shrinks as dt^2: the same protocol at half the time step must give a
+# band at least LARGE_DT2_RATIO times smaller (4 for pure dt^2; the JAX
+# package's reading on a TPU v5e, in the notes of scripts/bench_large_n.py,
+# is 1.4 Ha at 0.25 fs and 0.38 Ha at 0.125 fs, a ratio of 3.7). An error
+# that grows with simulated time instead gives a ratio near 1 or 2.
 LARGE_N_MOL, HELD_N_MOL = 50_000, 10_000
 LARGE_CHUNK, LARGE_CHUNKS = 100, 5
 LARGE_BAND_BOUND_HA = 5.9e-2
+LARGE_DT_FS, LARGE_DT2_RATIO = 0.25, 2.5
 SMALL_GRID_CHUNKS = 2  # phase 6, N = 501 in cell mode, after N_WARM
-# phase 8: the CLI at 10,000 molecules (held) and 50,000 (reported), with
+# phase 8: the CLI at 10,000 molecules (held) and 50,000, with
 # its default adaptive dt, for LARGE_CLI_RUNTIME_PS with energy rows every
 # LARGE_CLI_ENERGY_PERIOD_STEPS steps. The bound is 3x the JAX CLI's own
 # reading on the same arguments with --device CPU --precision f32 at
 # 10,000 molecules: max |U - U[0]| of the universe column is 1.446e-3 Ha
 # at seed 0 (232 steps, 4 rows), 1.441e-3 Ha at seed 1 (294 steps) and
-# 2.76e-4 Ha at seed 2 (189 steps); the bound is 3x the largest. The FIRE
-# minimisation leaves the bonds cold, and their energy rises ~10x over
-# the run, so this is the settling of the scene, not the integrator.
+# 2.76e-4 Ha at seed 2 (189 steps); the bound is 3x the largest. At 50,000
+# molecules the float32 run is reported, not held: the adaptive dt
+# (~0.0015 fs) moves a particle ~6e-6 bohr a step, under the float32
+# spacing of coordinates past 64 bohr (7.6e-6 bohr, 1.5e-5 past 128), and
+# its universe energy climbs ~2.5e-2 Ha over ~350 steps with the baths on
+# or off, while the same command in float64 keeps it within 5e-6 Ha (H100,
+# this phase). So the float64 run is held, to the 10,000-molecule float32
+# bound.
 LARGE_CLI_RUNTIME_PS = 0.0005
 LARGE_CLI_ENERGY_PERIOD_STEPS = 50
 LARGE_CLI_DRIFT_BOUND_HA = 4.4e-3
@@ -438,16 +453,13 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
                      ff.cell_exclusions, ff.kappa_value)
         key = ck.kernel_name(ff.cell_cfg)
         f_k, elj_k, eew_k = ck.cell_pair_force_fused(*cell_args)
-        f_p, elj_p, eew_p = ck.cell_pair_force_fused_plain(
-            *cell_args, cell_block=ff.cell_block)
+        f_p, elj_p, eew_p = ck.cell_pair_force_fused_plain(*cell_args)
         torch.cuda.synchronize()
         hold(key, [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)], "F,E")
-        out[key]["grid"] = dict(ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap,
-                                cell_block=ff.cell_block)
+        out[key]["grid"] = dict(ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap)
         calls[key] = (
             lambda: ck.cell_pair_force_fused(*cell_args),
-            lambda: ck.cell_pair_force_fused_plain(
-                *cell_args, cell_block=ff.cell_block))
+            lambda: ck.cell_pair_force_fused_plain(*cell_args))
         # the list build, on the main path once a step (no kernel of its
         # own: sort, running maximum and scatters in PyTorch)
         calls["cell_list_build"] = (lambda: ff.build_cells(pos, box), None)
@@ -535,15 +547,18 @@ def cell_work_counts(torch, snap, ff, clist):
     this run's inputs, counted cell by cell from the plain twin's tiles
     (block by block; no (N, N) tensor). Bytes: positions, box, typeid,
     charge, the four (T, T) tables, the bucket, neighbour and exclusion
-    tables in; forces and the per-cell energy partials out. Operations as
-    csrc/cell_pair.cu does them, for the pairs these inputs make it visit:
-    per candidate (both slots occupied, neighbour cells deduplicated) the
-    self test, the exclusion compares, the minimum image (3 subtractions,
-    3 divides, 3 rints, 6 multiply-subtracts) and r^2 (5) and the cutoff
-    test; per pair inside the cutoff 6 to accumulate the force; 17 more in
-    the LJ range, 20 more (sqrt, erfc and exp each counted as one) for a
-    charged pair."""
-    from cavmd_tpu_torch.ops.neighbor import cell_tiles
+    tables in; forces and the per-cell energy partials out. Operations are
+    what the pair sum over each cell's deduplicated 27-cell window needs,
+    for the pairs these inputs hold: per staged neighbour row (an occupied
+    slot of a neighbour cell of an occupied cell) its image shift (3); per
+    candidate (both slots occupied) the displacement (3), r^2 (5) and the
+    cutoff test (1), and on each axis with fewer than 3 cells, where one
+    cell is the image of several offsets, a per-pair minimum image (4: a
+    divide, a rint, a multiply and a subtraction); per pair inside the
+    cutoff the self test and the exclusion compares (1 + E); per counted
+    pair 6 to accumulate the force, 17 more in the LJ range, 20 more (sqrt,
+    erfc and exp each counted as one) for a charged pair."""
+    from cavmd_tpu_torch.ops.neighbor import cell_block_for, cell_tiles
 
     n, e = snap.N, snap.position.element_size()
     C, cap = clist.bucket_idx.shape
@@ -552,28 +567,34 @@ def cell_work_counts(torch, snap, ff, clist):
     rc2 = ff.cell_cfg.r_cut * ff.cell_cfg.r_cut
     occ = (clist.bucket_idx < n).sum(dim=1)
     occ_x = torch.cat([occ, occ.new_zeros(1)])
-    n_cand = int((occ * occ_x[clist.neighbor_cells.long()].sum(dim=1)).sum())
+    window = occ_x[clist.neighbor_cells.long()].sum(dim=1)
+    n_cand = int((occ * window).sum())
+    n_staged = int(window[occ > 0].sum())
+    small_axes = sum(1 for k in ff.cell_cfg.ncells if k < 3)
     tid = torch.cat([snap.typeid.long(), snap.typeid.new_zeros(1).long()])
     q = torch.cat([snap.charge, snap.charge.new_zeros(1)])
-    n_in = n_lj = n_ew = 0
+    n_near = n_in = n_lj = n_ew = 0
     for cells, idx_i, id_j, dxs, r2 in cell_tiles(
-            snap.position, snap.box_L, clist, ff.cell_block):
+            snap.position, snap.box_L, clist, cell_block_for(ff.cell_cfg, e)):
         excl = ff.cell_exclusions[idx_i].long()
         hit = (excl[:, :, None, :] == id_j[:, None, :, None]).any(-1)
-        inside = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
-                  & (idx_i[:, :, None] != id_j[:, None, :]) & ~hit
-                  & (r2 < rc2))
+        near = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
+                & (r2 < rc2))
+        inside = near & (idx_i[:, :, None] != id_j[:, None, :]) & ~hit
         ti, tj = tid[idx_i][:, :, None], tid[id_j][:, None, :]
         lj = inside & (ff.lj_eps[ti, tj] != 0) & (r2 < ff.lj_rcut2[ti, tj])
         ew = inside & ((q[idx_i][:, :, None] * q[id_j][:, None, :]) != 0)
+        n_near += int(near.sum())
         n_in += int(inside.sum())
         n_lj += int(lj.sum())
         n_ew += int(ew.sum())
     n_bytes = (e * (3 * n + 3 + n + 4 * T * T) + 4 * n
                + 4 * (C * cap + 27 * C + (n + 1) * E)
                + e * (3 * n + 2 * C))
-    n_ops = (22 + E) * n_cand + 6 * n_in + 17 * n_lj + 20 * n_ew
-    return n_bytes, n_ops, dict(candidates=n_cand, inside_cutoff=n_in,
+    n_ops = (3 * n_staged + (9 + 4 * small_axes) * n_cand
+             + (1 + E) * n_near + 6 * n_in + 17 * n_lj + 20 * n_ew)
+    return n_bytes, n_ops, dict(candidates=n_cand, staged_rows=n_staged,
+                                inside_cutoff=n_near, counted=n_in,
                                 lj=n_lj, ewald=n_ew)
 
 
@@ -741,13 +762,14 @@ def f64_trajectory(torch, pt, phase, n_molecules, box_L, pair_mode=None):
     return err
 
 
-def large_n_path(torch, pt, n_mol, drift_bound):
+def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS):
     """The large-N main path: build_large_n(n_mol) through Simulation.run,
     one warm-up chunk then LARGE_CHUNKS chunks of LARGE_CHUNK steps (the
-    protocol of scripts/bench_large_n.py). Checks: no overflow (and no
-    retry), finite observables, every kernel of the path launched at least
-    once a step; the universe-energy band max(U) - min(U) over the window
-    is held to ``drift_bound`` when one is given, else reported."""
+    protocol of scripts/bench_large_n.py) at time step ``dt_fs``. Checks:
+    no overflow (and no retry), finite observables, every kernel of the
+    path launched at least once a step; the universe-energy band
+    max(U) - min(U) over the window is held to ``drift_bound`` when one is
+    given, else reported."""
     import numpy as np
 
     from cavmd_tpu_torch.drivers.workloads import build_large_n
@@ -758,7 +780,7 @@ def large_n_path(torch, pt, n_mol, drift_bound):
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    sim, snap, ff = build_large_n(n_mol)
+    sim, snap, ff = build_large_n(n_mol, dt_fs=dt_fs)
     cap = ff.cell_cfg.cap
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -775,7 +797,7 @@ def large_n_path(torch, pt, n_mol, drift_bound):
         chunks.append(sim.last_obs)
     launches = dict(_cuda.launches)
     total = LARGE_CHUNK * (LARGE_CHUNKS + 1)
-    label = f"large-N N={snap.N}"
+    label = f"large-N N={snap.N} dt={dt_fs} fs"
     obs = {k: np.concatenate([c[k] for c in chunks])
            for k in OBS_KEYS + ("cell_overflow",)}
     check(not obs["cell_overflow"].any() and sim.ff.cell_cfg.cap == cap,
@@ -796,7 +818,7 @@ def large_n_path(torch, pt, n_mol, drift_bound):
         check(band < drift_bound,
               f"{label}: universe band {band} >= {drift_bound} Ha")
     ms = [s / LARGE_CHUNK * 1e3 for s in chunk_s]
-    res = dict(n=snap.N, ncells=ff.cell_cfg.ncells, cap=cap,
+    res = dict(n=snap.N, dt_fs=dt_fs, ncells=ff.cell_cfg.ncells, cap=cap,
                steps=LARGE_CHUNK * LARGE_CHUNKS,
                ms_per_step=statistics.median(ms), chunk_ms_per_step=ms,
                setup_s=setup_s, warmup_chunk_s=warm_s,
@@ -1031,11 +1053,23 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
 
     # phase 6: the large-N main path, held at N = 20,001 and run at
-    # N = 100,001; then the small-grid cell path at N = 501
+    # N = 100,001, there also at half the time step (the band must shrink
+    # as dt^2); then the small-grid cell path at N = 501
     held = large_n_path(torch, pt, HELD_N_MOL, LARGE_BAND_BOUND_HA)
     torch.cuda.empty_cache()
     large = large_n_path(torch, pt, LARGE_N_MOL, None)
     torch.cuda.empty_cache()
+    half = large_n_path(torch, pt, LARGE_N_MOL, None, LARGE_DT_FS / 2)
+    torch.cuda.empty_cache()
+    ratio = large["universe_band_ha"] / half["universe_band_ha"]
+    print(f"phase 6: N={large['n']} universe band "
+          f"{large['universe_band_ha']!r} Ha at dt {LARGE_DT_FS} fs, "
+          f"{half['universe_band_ha']!r} Ha at "
+          f"{LARGE_DT_FS / 2} fs: ratio {ratio!r} (bound >= "
+          f"{LARGE_DT2_RATIO})", flush=True)
+    check(ratio >= LARGE_DT2_RATIO,
+          f"large-N N={large['n']}: the universe band shrank {ratio}x at "
+          f"half the time step, < {LARGE_DT2_RATIO}x: not dt^2 error")
     small = small_grid_path(torch, pt)
     check("jax" not in sys.modules, "the port imported jax")
 
@@ -1044,7 +1078,8 @@ def main() -> None:
                    pair_mode="cell")
     check("jax" not in sys.modules, "the port imported jax")
 
-    # phase 8: the CLI at 10,000 molecules (held) and 50,000 (reported)
+    # phase 8: the CLI at 10,000 molecules (held) and 50,000 (float32
+    # reported, float64 held)
     cell_kernels = ["cell_pair", "pppm_spread", "pppm_interpolate",
                     "fused_pre_force", "fused_post_force"]
     cli_held = cli_phase(torch, pt, 8, large_cli_args(HELD_N_MOL),
@@ -1054,6 +1089,12 @@ def main() -> None:
     cli_large = cli_phase(torch, pt, 8, large_cli_args(LARGE_N_MOL),
                           2 * LARGE_N_MOL + 1, LARGE_CLI_ENERGY_PERIOD_STEPS,
                           cell_kernels, None)
+    torch.cuda.empty_cache()
+    # float64 runs the unfused tail: K4/K5 take float32 only
+    cli_f64 = cli_phase(torch, pt, 8, large_cli_args(LARGE_N_MOL)
+                        + ["--precision", "f64"], 2 * LARGE_N_MOL + 1,
+                        LARGE_CLI_ENERGY_PERIOD_STEPS, cell_kernels[:3],
+                        LARGE_CLI_DRIFT_BOUND_HA)
     check("jax" not in sys.modules, "the port imported jax")
 
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
@@ -1066,12 +1107,14 @@ def main() -> None:
           f"N={held['n']} {held['ms_per_step']:.3f} ms/step band "
           f"{held['universe_band_ha']:.3e} Ha, N={large['n']} "
           f"{large['ms_per_step']:.3f} ms/step band "
-          f"{large['universe_band_ha']:.3e} Ha; N=501 cell mode "
+          f"{large['universe_band_ha']:.3e} Ha ({ratio:.2f}x that at half "
+          f"dt); N=501 cell mode "
           f"{small['steps_per_s']:.1f} steps/s; CLI N={2 * HELD_N_MOL + 1} "
           f"{cli_held['steps']} steps drift "
           f"{cli_held['universe_drift_ha']:.3e} Ha, N={2 * LARGE_N_MOL + 1} "
           f"{cli_large['steps']} steps {cli_large['steps_per_s']:.1f} "
-          f"steps/s drift {cli_large['universe_drift_ha']:.3e} Ha",
+          f"steps/s drift {cli_large['universe_drift_ha']:.3e} Ha (f64: "
+          f"{cli_f64['universe_drift_ha']:.3e} Ha)",
           flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at

@@ -23,6 +23,7 @@ from cavmd_tpu_torch.core import add_cavity_particle, make_diatomic_system
 from cavmd_tpu_torch.integrate import ForceField
 from cavmd_tpu_torch.interop import forcefield_from_numpy
 from cavmd_tpu_torch.ops import cell_kernels as ck
+from cavmd_tpu_torch.ops import neighbor as pn
 
 from test_torch_ops import assert_energy, assert_forces, scene
 
@@ -37,7 +38,7 @@ def port_cell_forcefield(jff, js, dtype=torch.float64):
         lj_rcut=np.asarray(jff.lj_rcut), cell_cfg=jff.cell_cfg,
         cell_exclusions=np.asarray(jff.cell_exclusions),
         cell_neighbors=np.asarray(jff.cell_neighbors),
-        pair_inert=np.asarray(jff.pair_inert), cell_block=jff.cell_block,
+        pair_inert=np.asarray(jff.pair_inert),
         kappa=np.asarray(jff.kappa), influence=np.asarray(jff.pppm.influence),
         volume=np.asarray(jff.pppm.volume),
         omegac=np.asarray(jff.cavity.omegac),
@@ -76,8 +77,10 @@ def _pair_args(ff, ts, clist):
                                         ("k8_2cells", 2)])
 def test_plain_twin_matches_xla_tile_path_f64(grid, block, terms):
     """f64, forces to 1e-10 max|F| and energies to 1e-10 relative: the
-    same pairs and the same math, summed in another order; ``block`` <
-    C runs the blocked tile loop (lax.map in JAX)."""
+    same pairs and the same math, summed in another order. ``block`` None
+    goes through the wrapper (the twin picks its own block); ``block`` < C
+    runs the port's tile loop in that many cells per block, as JAX's
+    lax.map does."""
     js, ts, jff, tff = _cell_scene(grid)
     cfg = jn.CellListConfig(*jff.cell_cfg)
     assert cfg.total_cells % (block or 1) == 0
@@ -98,9 +101,25 @@ def test_plain_twin_matches_xla_tile_path_f64(grid, block, terms):
         (e_ref, 0.0) if terms == "lj" else (0.0, e_ref))
 
     clist = tff.build_cells(ts.position, ts.box_L)
-    f, e_lj, e_ew = ck.cell_pair_force_fused(
-        *_pair_args(tff, ts, clist), lj_on=terms != "ewald",
-        coul_on=terms != "lj", cell_block=block)
+    if block is None:
+        f, e_lj, e_ew = ck.cell_pair_force_fused(
+            *_pair_args(tff, ts, clist), lj_on=terms != "ewald",
+            coul_on=terms != "lj")
+    else:
+        tables = (tff.lj_eps, tff.lj_sig2, tff.lj_rcut2, tff.lj_vshift)
+        T = tff.lj_eps.shape[0]
+        if terms == "fused":
+            tkern = pn.make_fused_cell_kernel(*tables, tff.kappa_value, T)
+        elif terms == "lj":
+            tkern = pn.make_lj_cell_kernel(*tables, T)
+        else:
+            tkern = pn.make_ewald_cell_kernel(tff.kappa_value, T)
+        f, e = pn.cell_pair_force(
+            ts.position, ts.box_L, clist, tff.cell_cfg, tkern,
+            features=pn.make_particle_features(ts.typeid, ts.charge, T),
+            exclusions=tff.cell_exclusions, cell_block=block)
+        e_lj, e_ew = e if terms == "fused" else (
+            (e, 0.0) if terms == "lj" else (0.0, e))
     assert_forces(f, f_ref)
     for got, want in zip((e_lj, e_ew), e_ref):
         assert_energy(got, want, scale=max(abs(float(want)), 1e-12))
@@ -180,6 +199,11 @@ def test_overflow_drops_pairs_and_flags():
     """A cap below the occupancy: the flag is set in the energies, and a
     particle left without a slot gets zero pair force."""
     _, ts, _, tff = _cell_scene("k6_3cells")
+    small = tff.with_cell_capacity(4)
+    # the copy's buffers are its own: moving it leaves the original
+    assert small.cell_cfg.cap == 4 and tff.cell_cfg.cap > 4
+    assert small.to("meta").cell_exclusions.is_meta
+    assert not tff.cell_exclusions.is_meta
     small = tff.with_cell_capacity(4)
     clist = small.build_cells(ts.position, ts.box_L)
     assert bool(clist.overflow)
