@@ -40,6 +40,22 @@
 // The launch allocates nothing and does not synchronise; it returns
 // cudaGetLastError(). The caller zeroes the forces: a particle that an
 // overflow left without a slot keeps zero, as slot_gather_forces gives it.
+//
+// The same kernel is the tile pass of the slab domain pipeline, replacing
+// fused_cell_cols_slab_pallas (pallas_kernels.py:1044): the grid is a
+// slab's extended local grid (cxl + 2, cy, cz), whose x-layers 0 and
+// cxl + 1 hold halo copies of the neighbour slabs' edge layers, the ids
+// index the (Mtot, 3) table of residents and halo copies, and positions
+// are raw (the per-pair minimum image takes the periodic images). Two
+// arguments serve it:
+//   - cell_begin, cell_count: blocks run for cells [cell_begin,
+//     cell_begin + cell_count) only, the own cells; halo cells have
+//     sentinel neighbour rows and no pairs, so they launch no block. The
+//     energy partials are per launched block;
+//   - key (nullable): the id that the self and exclusion tests compare,
+//     key[id] instead of id. At one slab the halo layers are copies of the
+//     slab's own edge layers, and a bonded partner met through its copy
+//     must still be excluded; key maps the copy to its resident id.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +100,8 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
                  int ntypes, const int32_t* __restrict__ bucket,
                  const int32_t* __restrict__ nbr, const int32_t* __restrict__ excl,
                  int max_excl, int n, int ncells, int cap, T rc2, T kappa,
-                 int lj_on, int coul_on, T* __restrict__ forces,
+                 int lj_on, int coul_on, int cell_begin,
+                 const int32_t* __restrict__ key, T* __restrict__ forces,
                  T* __restrict__ e_partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = kNeighbors * cap;
@@ -104,7 +121,7 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   __shared__ int s_occ_self;
   __shared__ T s_red[kWarps][2];
 
-  const int c = blockIdx.x;
+  const int c = cell_begin + blockIdx.x;
   for (int t = threadIdx.x; t < ntypes * ntypes; t += blockDim.x) {
     s_eps[t] = eps_t[t];
     s_sig2[t] = sig2_t[t];
@@ -145,7 +162,7 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
       sy[d] = pos[3 * (size_t)id + 1];
       sz[d] = pos[3 * (size_t)id + 2];
       sq[d] = charge[id];
-      sid[d] = id;
+      sid[d] = key ? key[id] : id;
       stype[d] = type_id[id];
     }
   }
@@ -161,6 +178,7 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
 
   for (int i = warp; i < occ_self; i += kWarps) {  // warp-uniform
     const int idi = bucket[(size_t)c * cap + i];
+    const int kid = key ? key[idi] : idi;
     const T xi = pos[3 * (size_t)idi], yi = pos[3 * (size_t)idi + 1];
     const T zi = pos[3 * (size_t)idi + 2];
     const T qi = charge[idi];
@@ -172,7 +190,7 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
     T fx = 0, fy = 0, fz = 0;
     for (int j = lane; j < m; j += 32) {
       const int idj = sid[j];
-      bool skip = idj == idi;
+      bool skip = idj == kid;
 #pragma unroll
       for (int e = 0; e < kMaxExcl; ++e) skip |= ex[e] == idj;
       if (skip) continue;
@@ -232,8 +250,8 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
       a += s_red[w][0];
       b += s_red[w][1];
     }
-    e_partial[2 * (size_t)c] = a;
-    e_partial[2 * (size_t)c + 1] = b;
+    e_partial[2 * (size_t)blockIdx.x] = a;
+    e_partial[2 * (size_t)blockIdx.x + 1] = b;
   }
 }
 
@@ -243,9 +261,11 @@ int launch(const void* pos, const void* box, const void* type_id,
            const void* rcut2, const void* vshift, int ntypes,
            const void* bucket, const void* nbr, const void* excl, int max_excl,
            int n, int ncells, int cap, double rc2, double kappa, int lj_on,
-           int coul_on, void* forces, void* e_partial, void* stream) {
+           int coul_on, int cell_begin, int cell_count, const void* key,
+           void* forces, void* e_partial, void* stream) {
   if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
-      n < 1 || ncells < 1 || cap < 1)
+      n < 1 || ncells < 1 || cap < 1 || cell_begin < 0 || cell_count < 1 ||
+      cell_begin + cell_count > ncells)
     return (int)cudaErrorInvalidValue;
   // set the kernel's dynamic shared memory limit when a launch needs more
   // than the last one set, not on every launch (the overflow retry grows
@@ -259,11 +279,12 @@ int launch(const void* pos, const void* box, const void* type_id,
     if (err != cudaSuccess) return (int)err;
     raised_to = smem;
   }
-  cell_pair_kernel<T><<<ncells, kThreads, smem, (cudaStream_t)stream>>>(
+  cell_pair_kernel<T><<<cell_count, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)pos, (const T*)box, (const int32_t*)type_id, (const T*)charge,
       (const T*)eps, (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)nbr, (const int32_t*)excl, max_excl,
-      n, ncells, cap, (T)rc2, (T)kappa, lj_on, coul_on, (T*)forces, (T*)e_partial);
+      n, ncells, cap, (T)rc2, (T)kappa, lj_on, coul_on, cell_begin,
+      (const int32_t*)key, (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
 }
 
@@ -276,11 +297,13 @@ int cavmd_cell_pair_f32(const void* pos, const void* box, const void* type_id,
                         const void* rcut2, const void* vshift, int ntypes,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
-                        double kappa, int lj_on, int coul_on, void* forces,
+                        double kappa, int lj_on, int coul_on, int cell_begin,
+                        int cell_count, const void* key, void* forces,
                         void* e_partial, void* stream) {
   return launch<float>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
                        ntypes, bucket, nbr, excl, max_excl, n, ncells, cap, rc2,
-                       kappa, lj_on, coul_on, forces, e_partial, stream);
+                       kappa, lj_on, coul_on, cell_begin, cell_count, key,
+                       forces, e_partial, stream);
 }
 
 int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
@@ -288,11 +311,13 @@ int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
                         const void* rcut2, const void* vshift, int ntypes,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
-                        double kappa, int lj_on, int coul_on, void* forces,
+                        double kappa, int lj_on, int coul_on, int cell_begin,
+                        int cell_count, const void* key, void* forces,
                         void* e_partial, void* stream) {
   return launch<double>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
                         ntypes, bucket, nbr, excl, max_excl, n, ncells, cap, rc2,
-                        kappa, lj_on, coul_on, forces, e_partial, stream);
+                        kappa, lj_on, coul_on, cell_begin, cell_count, key,
+                       forces, e_partial, stream);
 }
 
 }  // extern "C"

@@ -12,19 +12,31 @@ Differences from the JAX driver:
 - ``--device`` is ``GPU`` (the default: the CUDA device, an error when
   there is none) or ``CPU``; ``--precision auto`` is f32 on the GPU and
   f64 on the CPU.
+- ``--shard-atoms S`` (S > 1) runs the slab domain pipeline
+  (``parallel/domain.py``) on S processes started by
+  ``python -m torch.distributed.run --nproc-per-node S`` (gloo with
+  ``--device CPU``, NCCL with one card per rank), or in an already
+  initialised process group. The force field is in cell mode whatever N
+  (the slab path needs cell lists; the JAX driver's GSPMD fallback is not
+  ported). Every rank runs the simulation; rank 0 alone writes the input
+  GSD, the trackers, the trajectory and the console table.
 - The paths the port does not have yet (``--vmap-replicas``,
-  ``--shard-replicas``, ``--shard-atoms``, ``--pad-atoms``, a
-  ``--rng-impl`` other than ``auto``) exit with an error naming
-  ``ROADMAP.md``; nothing else runs in their place.
+  ``--shard-replicas``, ``--pad-atoms``, a ``--rng-impl`` other than
+  ``auto``) exit with an error naming ``ROADMAP.md``; nothing else runs in
+  their place.
 
 Usage:
     python -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
         --n-molecules 20 --runtime 0.02 --enable-energy-tracker
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
+        --shard-atoms 2 --n-molecules 40 --box-L 64 --runtime 0.02
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -66,6 +78,7 @@ class CavityMDSimulation:
         gsd_output_period_ps=50.0, console_output_period_ps=1.0,
         truncate_gsd=False, seed=None, n_molecules=250, box_L=46.0,
         chunk_size=500, precision="auto", pppm_resolution=32,
+        shard_atoms=0,
     ):
         self.job_dir = job_dir
         self.replica = replica
@@ -106,6 +119,13 @@ class CavityMDSimulation:
         self.chunk_size = chunk_size
         self.precision = precision
         self.pppm_resolution = pppm_resolution
+        self.shard_atoms = shard_atoms
+        self.comm = None
+        if shard_atoms > 1:
+            from cavmd_tpu_torch.parallel import Communicator
+
+            self.comm = Communicator.from_process_group()
+        self.writes = self.comm is None or self.comm.rank == 0
         self.logger = None
         self.sim = None
 
@@ -113,7 +133,9 @@ class CavityMDSimulation:
     def setup_logging(self):
         logger_name = f"CavityMD_{self.name}_{self.replica}"
         self.logger = logging.getLogger(logger_name)
-        self.logger.setLevel(getattr(logging, self.log_level.upper()))
+        # ranks other than 0 report errors only
+        self.logger.setLevel(getattr(logging, self.log_level.upper())
+                             if self.writes else logging.ERROR)
         self.logger.handlers.clear()
         h = logging.StreamHandler(sys.stdout)
         h.setFormatter(
@@ -156,10 +178,11 @@ class CavityMDSimulation:
             self._setup_simulation()
             self.log_info("=== Phase 3.5: Computing optimal timestep ===")
             self._set_timestep()
-            self.log_info("=== Phase 4: Trackers and loggers ===")
-            self._setup_trackers()
-            self.log_info("=== Phase 5: Output writers ===")
-            self._setup_writers()
+            if self.writes:
+                self.log_info("=== Phase 4: Trackers and loggers ===")
+                self._setup_trackers()
+                self.log_info("=== Phase 5: Output writers ===")
+                self._setup_writers()
             self.log_info("=== Phase 6: Running simulation ===")
             t0 = time.time()
             steps = self.sim.run(runtime_ps=self.runtime_ps)
@@ -204,7 +227,10 @@ class CavityMDSimulation:
         os.makedirs(self.job_dir, exist_ok=True)
         os.chdir(self.job_dir)
 
-        if os.path.exists(self.input_gsd):
+        exists = os.path.exists(self.input_gsd)
+        if self.comm is not None:  # every rank has looked before rank 0
+            self.comm.barrier()    # writes a generated input
+        if exists:
             with open_gsd(self.input_gsd) as t:
                 frame = (self.frame if self.frame >= 0
                          else max(len(t) + self.frame, 0))
@@ -237,8 +263,13 @@ class CavityMDSimulation:
 
             ff0 = ForceField.create(snap, enable_cavity=False)
             snap = fire_minimize(snap, ff0, n_steps=300)
-            with HOOMDTrajectory(self.input_gsd, "w") as t:
-                t.append(snap, step=0, dtype=np_dtype)
+            if self.comm is not None:  # rank 0's minimum on every rank
+                snap = snap.replace(
+                    position=self.comm.broadcast(snap.position),
+                    image=self.comm.broadcast(snap.image))
+            if self.writes:
+                with HOOMDTrajectory(self.input_gsd, "w") as t:
+                    t.append(snap, step=0, dtype=np_dtype)
 
         if self.incavity and self.add_cavity_particle and "L" not in snap.types:
             snap = inject(
@@ -264,6 +295,7 @@ class CavityMDSimulation:
             self.snapshot, coupling=self.couplstr, freq_cm1=self.freq,
             enable_cavity=self.incavity,
             pppm_mesh=(self.pppm_resolution,) * 3,
+            pair_mode="cell" if self.comm is not None else None,
         )
 
         kT = PC.kT_from_kelvin(self.temperature)
@@ -349,7 +381,12 @@ class CavityMDSimulation:
             adaptive_period=min(adaptive_period, self.chunk_size),
             chunk_size=self.chunk_size,
             extra_obs=extra,
+            shard_atoms=self.shard_atoms,
+            comm=self.comm,
         )
+        if self.comm is not None:
+            self.log_info(f"Slab domain pipeline: {self.shard_atoms} ranks, "
+                          f"grid {self.sim._domain_plan.ncells}")
         self.sim.thermalize(self.kT)
         self.log_info("Thermalized molecular momenta (+ photon velocity)")
 
@@ -526,6 +563,7 @@ def run_single_experiment(args, replica, frame):
         box_L=resolved_box(args),
         precision=args.precision,
         pppm_resolution=args.pppm_resolution,
+        shard_atoms=args.shard_atoms if args.shard_atoms > 1 else 0,
     )
     return sim.run() == 0
 
@@ -541,8 +579,6 @@ def unported_flags(args) -> list:
         out.append(f"--vmap-replicas: replica batching is {where}")
     if args.shard_replicas:
         out.append(f"--shard-replicas: sharded replicas are {where}")
-    if args.shard_atoms:
-        out.append(f"--shard-atoms: atom sharding is {where}")
     if args.pad_atoms:
         out.append(f"--pad-atoms: ghost padding is {where}")
     if args.rng_impl != "auto":
@@ -597,7 +633,10 @@ def build_parser():
     parser.add_argument("--shard-replicas", type=int, default=0,
                         help="not ported yet (ROADMAP.md)")
     parser.add_argument("--shard-atoms", type=int, default=0,
-                        help="not ported yet (ROADMAP.md)")
+                        help="run the slab domain pipeline on this many "
+                             "ranks (one process each, started by python "
+                             "-m torch.distributed.run --nproc-per-node "
+                             "S); cell mode")
     parser.add_argument("--rng-impl", choices=("auto", "threefry", "rbg"),
                         default="auto",
                         help="only auto (torch.Generator streams) is "
@@ -621,19 +660,64 @@ def build_parser():
     return parser
 
 
+def init_ranks(args) -> bool:
+    """With ``--shard-atoms S`` (S > 1): join the process group that
+    ``torch.distributed.run`` describes in the environment (gloo for
+    ``--device CPU``, NCCL with the card ``LOCAL_RANK`` for GPU), unless
+    one is initialised already. Returns whether this call made it (and
+    must destroy it). Raises when the world size is not S."""
+    import torch.distributed as dist
+
+    made = False
+    if not dist.is_initialized():
+        backend = "gloo" if args.device.upper() == "CPU" else "nccl"
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+        made = True
+    if dist.get_world_size() != args.shard_atoms:
+        raise RuntimeError(
+            f"--shard-atoms {args.shard_atoms} in a process group of "
+            f"{dist.get_world_size()} ranks")
+    return made
+
+
 def main(argv=None):
     """Parity: reference main() (05_advanced_run.py:1441-1632). Returns 0
     when every replica succeeded, 1 when one failed, 2 for a flag whose
     path is not ported."""
     args = build_parser().parse_args(argv)
-
-    print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
-    print("=" * 50)
     unported = unported_flags(args)
     if unported:
         for msg in unported:
             print(f"error: {msg}", file=sys.stderr)
         return 2
+    if args.shard_atoms <= 1:
+        return run_replicas(args)
+    import torch.distributed as dist
+
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        print(f"error: --shard-atoms {args.shard_atoms} runs one process per "
+              "slab: start it with python -m torch.distributed.run "
+              f"--nproc-per-node {args.shard_atoms} (ROADMAP.md, Queue 1 "
+              "item 9)", file=sys.stderr)
+        return 2
+    made = init_ranks(args)
+    try:
+        if dist.get_rank() == 0:
+            return run_replicas(args)
+        with open(os.devnull, "w") as quiet:  # rank 0 alone reports
+            with contextlib.redirect_stdout(quiet):
+                return run_replicas(args)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def run_replicas(args):
+    """Run every replica of ``args``; 0 when all succeeded, else 1."""
+    print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
+    print("=" * 50)
 
     task_id, job_id = get_slurm_info()
     if task_id is not None:

@@ -484,37 +484,58 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
     return step
 
 
+class ObsBuffer:
+    """The observables of ``n_steps`` steps in one preallocated
+    ``(n_steps, n_cols)`` device buffer: each step's dict is concatenated
+    into its row (no host sync); ``to_numpy`` copies the buffer to the
+    host once and splits it into NumPy columns."""
+
+    def __init__(self, n_steps: int):
+        self.n_steps = n_steps
+        self.buf = self.keys = self.shapes = None
+        self.row = 0
+
+    def add(self, obs: dict):
+        if self.buf is None:
+            self.keys = [k for k in obs if k != "timestep"]
+            self.shapes = [tuple(obs[k].shape) for k in self.keys]
+            width = sum(int(np.prod(sh)) for sh in self.shapes)
+            first = obs[self.keys[0]]
+            self.buf = torch.empty((self.n_steps, width), dtype=first.dtype,
+                                   device=first.device)
+        self.buf[self.row] = torch.cat([obs[k].reshape(-1)
+                                        for k in self.keys])
+        self.row += 1
+
+    def to_numpy(self) -> dict:
+        host = self.buf.cpu().numpy()
+        out, col = {}, 0
+        for k, sh in zip(self.keys, self.shapes):
+            w = int(np.prod(sh))
+            out[k] = host[:, col] if sh == () else host[:, col:col + w]
+            col += w
+        return out
+
+
 def run_steps(step_fn, state: MDState, n_steps: int):
     """Run ``n_steps`` steps; returns (final_state, obs) where obs maps each
     observable key to a NumPy array of length ``n_steps`` (scalars) or of
     shape ``(n_steps, d)`` (the vector columns of ``extra_obs``).
 
-    Every per-step observable goes into one preallocated
-    ``(n_steps, n_cols)`` device buffer (one concatenate-and-copy per step,
-    no host sync); the buffer crosses to the host once, after the last
-    step. The integer timestep column is rebuilt on the host from the
-    state's host step counter, so it stays exact whatever the float
-    precision.
+    Every per-step observable goes into one ``ObsBuffer`` (one
+    concatenate-and-copy per step, no host sync); the buffer crosses to
+    the host once, after the last step. The integer timestep column is
+    rebuilt on the host from the state's host step counter, so it stays
+    exact whatever the float precision.
     """
     if n_steps < 1:
         return state, {}
-    buf = keys = shapes = None
+    buf = ObsBuffer(n_steps)
     with torch.no_grad():
-        for s in range(n_steps):
+        for _ in range(n_steps):
             state, obs = step_fn(state)
-            if buf is None:
-                keys = [k for k in obs if k != "timestep"]
-                shapes = [tuple(obs[k].shape) for k in keys]
-                width = sum(int(np.prod(sh)) for sh in shapes)
-                buf = torch.empty((n_steps, width), dtype=state.dt.dtype,
-                                  device=state.device)
-            buf[s] = torch.cat([obs[k].reshape(-1) for k in keys])
-    host = buf.cpu().numpy()
-    out, col = {}, 0
-    for k, sh in zip(keys, shapes):
-        w = int(np.prod(sh))
-        out[k] = host[:, col] if sh == () else host[:, col:col + w]
-        col += w
+            buf.add(obs)
+    out = buf.to_numpy()
     out["timestep"] = np.arange(state.step - n_steps + 1, state.step + 1,
                                 dtype=np.int64)
     return state, out

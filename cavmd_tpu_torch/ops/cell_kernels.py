@@ -18,6 +18,12 @@ terms. The wrapper runs the plain twin only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. Launches count as
 ``cell_pair`` or, when an axis has fewer than 3 cells (the grid of the
 TPU's ``fused_cell_pallas``), ``cell_pair_small_grid``.
+
+``cell_pair_force_slab`` is the counterpart of a third TPU kernel,
+``fused_cell_cols_slab_pallas`` (the tile pass of the slab domain
+pipeline, ``parallel/domain.py``): the same kernel launched over the own
+cells of a slab's extended grid, with pair keys. Its launches count as
+``cell_pair_slab``.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _I, _I, _D,
-         _D, _I, _I, _V, _V, _V]
+         _D, _I, _I, _I, _I, _V, _V, _V, _V]
 _SIGNATURES = {"cavmd_cell_pair_f32": _ARGS, "cavmd_cell_pair_f64": _ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -56,7 +62,7 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
                                 cfg: CellListConfig, typeid, charge, eps,
                                 sig2, rcut2, vshift, exclusions,
                                 kappa: float, lj_on: bool = True,
-                                coul_on: bool = True):
+                                coul_on: bool = True, pair_key=None):
     """Plain twin of the cell kernel: the tile path of ``ops/neighbor.py``,
     in blocks of cells sized by ``cell_block_for`` (bounded tile memory).
     Returns (forces (N, 3), e_lj, e_ewald_short)."""
@@ -67,7 +73,8 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
     features = make_particle_features(typeid, charge, n_types)
     args = (position, box_L, clist, cfg)
     kw = dict(features=features, exclusions=exclusions,
-              cell_block=cell_block_for(cfg, position.element_size()))
+              cell_block=cell_block_for(cfg, position.element_size()),
+              pair_key=pair_key)
     if lj_on and coul_on:
         kern = make_fused_cell_kernel(eps, sig2, rcut2, vshift, kappa,
                                       n_types)
@@ -96,20 +103,58 @@ def cell_pair_force_fused(position, box_L, clist: CellList,
         return cell_pair_force_fused_plain(
             position, box_L, clist, cfg, typeid, charge, eps, sig2, rcut2,
             vshift, exclusions, kappa, lj_on, coul_on)
+    return _launch(kernel_name(cfg), position, box_L, clist, cfg, typeid,
+                   charge, eps, sig2, rcut2, vshift, exclusions, kappa,
+                   lj_on, coul_on, (0, cfg.total_cells), None)
+
+
+def cell_pair_force_slab(position, box_L, clist: CellList,
+                         cfg: CellListConfig, typeid, charge, eps, sig2,
+                         rcut2, vshift, exclusions, kappa: float, cells,
+                         pair_key):
+    """The tile pass of the slab domain pipeline (K7's counterpart):
+    LJ + Ewald short over a slab's extended grid ``cfg.ncells = (cxl + 2,
+    cy, cz)``, whose x-layers 0 and cxl + 1 hold halo copies of the
+    neighbour slabs' edge layers. ``position`` is the (Mtot, 3) table of
+    residents and halo copies, raw (per-pair minimum image takes the
+    periodic images); ``clist`` has the extended neighbour table (halo
+    cells have sentinel rows) and ``exclusions`` the (Mtot + 1, B) local
+    ids. ``cells = (first, count)`` is the own-cell range the kernel
+    launches blocks for (halo cells have no pairs); ``pair_key`` (Mtot,)
+    int32 is the id the self and exclusion tests compare. Returns (forces
+    (Mtot, 3), e_lj, e_ewald_short); a halo row's force is zero. The plain
+    twin on the CPU, the kernel (counted ``cell_pair_slab``) on CUDA."""
+    if position.device.type == "cpu":
+        return cell_pair_force_fused_plain(
+            position, box_L, clist, cfg, typeid, charge, eps, sig2, rcut2,
+            vshift, exclusions, kappa, pair_key=pair_key)
+    return _launch("cell_pair_slab", position, box_L, clist, cfg, typeid,
+                   charge, eps, sig2, rcut2, vshift, exclusions, kappa, True,
+                   True, cells, pair_key)
+
+
+def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
+            rcut2, vshift, exclusions, kappa, lj_on, coul_on, cells,
+            pair_key):
+    """Check the inputs, launch the kernel over ``cells = (first, count)``
+    and count the launch as ``name``."""
     if position.device.type != "cuda":
         raise ValueError(
-            f"cell_pair_force_fused: unsupported device {position.device}")
+            f"{name}: unsupported device {position.device}")
     dtype = position.dtype
     if dtype not in _SUFFIX:
-        raise TypeError(f"cell_pair_force_fused: no kernel for {dtype}")
+        raise TypeError(f"{name}: no kernel for {dtype}")
     n = position.shape[0]
     C, cap = clist.bucket_idx.shape
     ntypes = eps.shape[0]
     max_excl = exclusions.shape[1]
     if C != cfg.total_cells or cap != cfg.cap:
         raise ValueError(
-            f"cell_pair_force_fused: cell list {(C, cap)} does not match "
-            f"the config {(cfg.total_cells, cfg.cap)}")
+            f"{name}: cell list {(C, cap)} does not match the config "
+            f"{(cfg.total_cells, cfg.cap)}")
+    first, count = (int(x) for x in cells)
+    if first < 0 or count < 1 or first + count > C:
+        raise ValueError(f"{name}: cell range {cells} outside {C} cells")
     checks = dict(position=(position, dtype, (n, 3)),
                   box_L=(box_L, dtype, (3,)),
                   typeid=(typeid, torch.int32, (n,)),
@@ -121,25 +166,28 @@ def cell_pair_force_fused(position, box_L, clist: CellList,
                   bucket_idx=(clist.bucket_idx, torch.int32, (C, cap)),
                   neighbor_cells=(clist.neighbor_cells, torch.int32, (C, 27)),
                   exclusions=(exclusions, torch.int32, (n + 1, max_excl)))
-    for name, (t, want_dtype, shape) in checks.items():
+    if pair_key is not None:
+        checks["pair_key"] = (pair_key, torch.int32, (n,))
+    for arg, (t, want_dtype, shape) in checks.items():
         if not t.is_cuda or t.dtype != want_dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
-                f"cell_pair_force_fused: {name} must be a contiguous CUDA "
-                f"{want_dtype} tensor of shape {shape}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+                f"{name}: {arg} must be a contiguous CUDA {want_dtype} "
+                f"tensor of shape {shape}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}")
     lib = _cuda.load("cell_pair", _SIGNATURES)
     forces = torch.zeros_like(position)
-    partial = torch.empty((C, 2), dtype=dtype, device=position.device)
+    partial = torch.empty((count, 2), dtype=dtype, device=position.device)
     p = _cuda.ptr
     rc = getattr(lib, f"cavmd_cell_pair_{_SUFFIX[dtype]}")(
         p(position), p(box_L), p(typeid), p(charge), p(eps), p(sig2),
         p(rcut2), p(vshift), ntypes, p(clist.bucket_idx),
         p(clist.neighbor_cells), p(exclusions), max_excl, n, C, cap,
         cfg.r_cut * cfg.r_cut, float(kappa), int(bool(lj_on)),
-        int(bool(coul_on)), p(forces), p(partial),
-        _cuda.stream_ptr(position.device))
-    _cuda.check(rc, "cell_pair")
-    _cuda.count_launch(kernel_name(cfg))
+        int(bool(coul_on)), first, count,
+        p(pair_key) if pair_key is not None else None, p(forces),
+        p(partial), _cuda.stream_ptr(position.device))
+    _cuda.check(rc, name)
+    _cuda.count_launch(name)
     energies = 0.5 * torch.sum(partial, dim=0)
     return forces, energies[0], energies[1]

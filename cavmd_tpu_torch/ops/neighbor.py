@@ -118,7 +118,7 @@ def exclusion_table(n, bond_group, max_excl=None) -> np.ndarray:
     return table
 
 
-def _rank_and_bucket(order, sorted_bin, n, n_bins, cap):
+def _rank_and_bucket(order, sorted_bin, n, n_bins, cap, n_real_bins=None):
     """Buckets from particle ids in bin-sorted order.
 
     The rank within a bin is the distance to the bin's first element, a
@@ -127,6 +127,8 @@ def _rank_and_bucket(order, sorted_bin, n, n_bins, cap):
     cap - 1, where the bin's last particle wins (the JAX package's
     scatter applies its updates in order); every other particle of an
     over-full bin owns no slot and maps to the dump slot ``n_bins * cap``.
+    Bins from ``n_real_bins`` on are dump bins, which may hold more than
+    ``cap`` without flagging an overflow (None: every bin is real).
     """
     dev = order.device
     iota = torch.arange(n, device=dev)
@@ -136,7 +138,10 @@ def _rank_and_bucket(order, sorted_bin, n, n_bins, cap):
     is_last = torch.cat([change, true1])
     first = torch.cummax(torch.where(is_start, iota, 0), dim=0).values
     rank = iota - first
-    overflow = torch.any(rank >= cap)
+    over = rank >= cap
+    if n_real_bins is not None:
+        over = over & (sorted_bin < n_real_bins)
+    overflow = torch.any(over)
     flat = sorted_bin * cap + torch.clamp_max(rank, cap - 1)
     dump = n_bins * cap
     # one writer per slot: ranks below cap - 1, and the last of each bin
@@ -226,20 +231,28 @@ def cell_tiles(position, box_L, clist: CellList, cell_block=None):
 
 
 def cell_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
-                    pair_kernel, features, exclusions=None, cell_block=None):
+                    pair_kernel, features, exclusions=None, cell_block=None,
+                    pair_key=None):
     """A pair interaction over the cell tiles (the plain tile path).
 
     ``pair_kernel(r2_safe, active, feat_i, feat_j) -> (e, f_over_r)`` with
     ``e`` one tile or a tuple of tiles; ``features`` (N+1, F) per-particle
     rows (last row the sentinel), ``exclusions`` an (N+1, max_excl) table.
     A pair is active when both slots are real, it is not a self pair, not
-    excluded, and r^2 < r_cut^2. Forces go to the slot owners (an
-    overflow-dropped particle gets zero). Returns (forces (N, 3), energy)
-    or (forces, tuple of energies), each energy half the tile sum.
+    excluded, and r^2 < r_cut^2. ``pair_key`` (N,), when given, is the id
+    the self and exclusion tests compare instead of the row id (the slab
+    grid maps a halo copy to its resident row). Forces go to the slot
+    owners (an overflow-dropped particle gets zero). Returns (forces
+    (N, 3), energy) or (forces, tuple of energies), each energy half the
+    tile sum.
     """
     n = position.shape[0]
     C, cap = clist.bucket_idx.shape
     rc2 = cfg.r_cut * cfg.r_cut
+    key_x = None
+    if pair_key is not None:
+        key_x = torch.cat([pair_key.long(),
+                           pair_key.new_full((1,), n).long()])
     feat_x = torch.cat([features[clist.bucket_idx.long()],
                         torch.zeros_like(features[:1])[None].expand(
                             1, cap, -1)])
@@ -248,11 +261,13 @@ def cell_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
     for cells, idx_i, id_j, dxs, r2 in cell_tiles(position, box_L, clist,
                                                   cell_block):
         b = idx_i.shape[0]
+        key_i, key_j = ((idx_i, id_j) if key_x is None
+                        else (key_x[idx_i], key_x[id_j]))
         active = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
-                  & (idx_i[:, :, None] != id_j[:, None, :]) & (r2 < rc2))
+                  & (key_i[:, :, None] != key_j[:, None, :]) & (r2 < rc2))
         if exclusions is not None:
             excl_i = exclusions[idx_i].long()  # (B, cap, E)
-            hit = (excl_i[:, :, None, :] == id_j[:, None, :, None]).any(-1)
+            hit = (excl_i[:, :, None, :] == key_j[:, None, :, None]).any(-1)
             active = active & ~hit
         feat_j = feat_x[clist.neighbor_cells[cells].long()].reshape(
             b, 27 * cap, -1)

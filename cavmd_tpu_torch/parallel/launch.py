@@ -1,0 +1,122 @@
+"""Run an S-rank program on one host, and the slab pipeline's dry run.
+
+``run_ranks`` starts S processes (``spawn``), joins them in a gloo process
+group through a file in a fresh temporary directory (no network port), and
+runs a list of jobs ``(fn, args)`` in order on every rank; it returns each
+job's result on each rank. A job is a module-level function of an
+importable module (the spawned ranks import it): for example
+``drivers.advanced_run.main`` with ``--shard-atoms S``, or
+``slab_dryrun``. Results must pickle; keep them NumPy.
+
+``slab_dryrun`` runs a seeded diatomic scene through ``Simulation``: with
+``shard_atoms`` equal to the world size under a process group, and
+unsharded without one, so the same call gives both sides of a
+comparison. It is the CPU dry run of an S-slab program::
+
+    from cavmd_tpu_torch.parallel.launch import run_ranks, slab_dryrun
+    runs = run_ranks([(slab_dryrun, {})], 2)
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+
+
+def _rank_main(rank, world_size, init_file, out_dir, jobs):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # S ranks share the host's cores
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world_size)
+    try:
+        results = [fn(**args) if isinstance(args, dict) else fn(*args)
+                   for fn, args in jobs]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def run_ranks(jobs, world_size: int):
+    """Run ``jobs`` (a list of ``(fn, args)``, ``args`` a tuple or a dict
+    of keywords) on ``world_size`` local gloo ranks, one torch thread
+    each; returns ``results[job][rank]``. A failing rank raises here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="cavmd_ranks_") as tmp:
+        init_file = os.path.join(tmp, "pg_init")
+        mp.spawn(_rank_main, args=(world_size, init_file, tmp, list(jobs)),
+                 nprocs=world_size, join=True)
+        per_rank = []
+        for r in range(world_size):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                per_rank.append(pickle.load(f))
+    return [[per_rank[r][j] for r in range(world_size)]
+            for j in range(len(per_rank[0]))]
+
+
+def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None):
+    """The tests/test_domain.py scene (550 O2/N2 diatomics + the photon in
+    a 65-bohr box, float64, cell mode with r_cut 8 and PPPM 16^3, Bussi
+    100 K on the molecules and Langevin on the photon, thermalised with
+    seed 3, dt 0.5 fs) through ``Simulation.run`` for 12 steps in chunks
+    of 6 (a rebuild at the start of each): on ``shard_atoms`` = the world
+    size when a process group is up, unsharded otherwise. ``cap``
+    cripples the slab plan's bucket capacity (the retry must grow it);
+    ``error_tolerance`` > 0 turns on the adaptive dt (period 2);
+    ``wavevectors`` adds the dipole and rho(k) observables. Returns NumPy:
+    the final position, velocity and image, every observable over the
+    run, and the slab plan's final capacity and cadence (None
+    unsharded)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import cavmd_tpu_torch as pt
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.observe import make_extra_obs
+
+    S = dist.get_world_size() if dist.is_initialized() else 0
+    snap = pt.make_diatomic_system(550, box_L=65.0, temperature_K=100.0,
+                                   seed=0, dtype=torch.float64, device="cpu")
+    snap = pt.add_cavity_particle(snap, coupling=1e-3, freq_cm1=2000.0,
+                                  temperature_K=100.0, seed=1)
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              r_cut=8.0, pair_mode="cell",
+                              pppm_mesh=(16, 16, 16))
+    kT = PC.kT_from_kelvin(100.0)
+    methods = (pt.MethodSpec("bussi", "molecular", kT=kT,
+                             tau=PC.ps_to_atomic_units(5.0)),
+               pt.MethodSpec("langevin", "cavity", kT=kT,
+                             gamma=PC.gamma_from_tau_ps(5.0)))
+    extra = (None if wavevectors is None
+             else make_extra_obs(dipole=True, wavevectors=wavevectors))
+    sim = pt.Simulation(snap, ff, methods, dt=PC.fs_to_atomic_units(0.5),
+                        seed=3, chunk_size=6,
+                        error_tolerance=error_tolerance, adaptive_period=2,
+                        extra_obs=extra, shard_atoms=S)
+    if cap is not None and sim._domain_plan is not None:
+        sim._domain_plan = sim._domain_plan._replace(cap=cap)
+        sim._build_step()
+    sim.thermalize(kT)
+
+    chunks = []
+
+    class Keep:
+        def consume(self, obs):
+            chunks.append(obs)
+
+    sim.trackers.append(Keep())
+    sim.run(n_steps=12)
+    plan = sim._domain_plan
+    st = sim.state
+    return dict(
+        position=st.position.numpy(), velocity=st.velocity.numpy(),
+        image=st.image.numpy(),
+        obs={k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]},
+        cap=None if plan is None else plan.cap,
+        rebuild_every=None if plan is None else sim._domain_rebuild_every)

@@ -8,6 +8,16 @@ sync inside it; between chunks the host hands the chunk's observables (one
 NumPy dict) to every tracker and writer, and keeps them in ``last_obs``.
 In cell mode a chunk whose cell list overflowed is run again from its
 start with a larger bucket capacity (``_grow_cell_capacity``).
+
+With ``shard_atoms=S`` the chunks run on the slab domain pipeline
+(``parallel/domain.py``) over S processes, this one being one rank: every
+rank builds the same Simulation, the state is replicated between chunks,
+and trackers and writers see the same observables on every rank. The JAX
+package falls back to GSPMD atom sharding for what the slab path does not
+take (dense mode, an opaque ``extra_obs``); GSPMD is not ported, so here
+those raise. ``shard_atoms=1`` runs the slab pipeline in this process
+alone, with no process group (the JAX facade treats 1 as unsharded): the
+single-device cost of the slab layout.
 """
 
 from __future__ import annotations
@@ -37,6 +47,12 @@ from cavmd_tpu_torch.integrate.integrator import (
 from cavmd_tpu_torch.integrate.rng import STREAM_THERMALIZE, make_generator
 from cavmd_tpu_torch.integrate.thermostats import thermalize_velocities
 
+# Default residency-rebuild cadence (steps) of the slab domain pipeline, as
+# in the JAX package; a coverage violation halves it for the retry.
+DOMAIN_REBUILD_EVERY = 20
+_NOT_PORTED = ("the JAX package falls back to GSPMD atom sharding there, "
+               "which is not ported (ROADMAP.md, Queue 1 item 9)")
+
 
 class Simulation:
     """A single MD simulation on the snapshot's device."""
@@ -49,7 +65,7 @@ class Simulation:
                  adaptive_period: int = 1,
                  extra_obs: Callable | None = None,
                  fuse_integrator: bool | None = None,
-                 chunk_size: int = 1000):
+                 chunk_size: int = 1000, shard_atoms: int = 0, comm=None):
         self.snapshot = snapshot
         self.ff = forcefield
         self.methods = resolve_methods(snapshot, tuple(methods),
@@ -59,9 +75,21 @@ class Simulation:
         self.trackers: list = []
         self.writers: list = []
         self.error_tolerance = error_tolerance
+        self._domain_plan = None
+        self._domain_rebuild_every = DOMAIN_REBUILD_EVERY
+        self._comm = None
+        if shard_atoms >= 1:
+            self._plan_domain(snapshot, forcefield, shard_atoms, extra_obs,
+                              comm)
         self.state: MDState = init_state(snapshot, forcefield, dt=dt,
                                          seed=seed,
                                          error_tolerance=error_tolerance)
+        if self._domain_plan is not None:
+            # the slab path bins each chunk itself; the start forces are
+            # made replicated
+            self.state = self.state.replace(
+                forces=self._comm.broadcast(self.state.forces),
+                cell_list=None, cell_anchor=None)
         self._step_kwargs = dict(extra_obs=extra_obs,
                                  fuse_integrator=fuse_integrator)
         self._adaptive_kwargs = dict(
@@ -72,21 +100,89 @@ class Simulation:
         self._build_step()
         self.last_obs = None
 
-    def _build_step(self):
-        """(Re)build the step function from the current ForceField: at
-        init and after the overflow retry re-plans the cell list."""
-        step = make_step_fn(self.ff, self.methods, **self._step_kwargs)
-        if self.error_tolerance > 0:
-            step = make_adaptive_step(step, **self._adaptive_kwargs)
-        self._step = step
+    def _plan_domain(self, snapshot, ff, shard_atoms, extra_obs, comm):
+        """Plan the slabs and take the communicator (at one slab the local
+        one, else the default process group, unless one is given); raise
+        for what the slab path does not take."""
+        from cavmd_tpu_torch.parallel.comm import Communicator
+        from cavmd_tpu_torch.parallel.domain import (
+            _validate_methods,
+            plan_domain,
+        )
 
-    def _grow_cell_capacity(self) -> int:
-        """Re-plan the cell list with capacity max(cap + 4, 2 cap), as the
-        JAX package does; returns the new capacity."""
+        if ff.pair_mode != "cell":
+            raise NotImplementedError(
+                f"shard_atoms={shard_atoms} needs pair_mode='cell' (got "
+                f"{ff.pair_mode!r}); {_NOT_PORTED}")
+        if extra_obs is not None and not (hasattr(extra_obs, "dipole")
+                                          and hasattr(extra_obs,
+                                                      "wavevectors")):
+            raise NotImplementedError(
+                f"shard_atoms={shard_atoms}: extra_obs is an opaque "
+                "state-based callable (build it with "
+                f"observe.make_extra_obs for the slab path); {_NOT_PORTED}")
+        _validate_methods(self.methods)
+        try:
+            self._domain_plan = plan_domain(snapshot, ff, shard_atoms)
+        except ValueError as e:
+            raise ValueError(f"shard_atoms={shard_atoms}: {e}; "
+                             f"{_NOT_PORTED}") from e
+        if comm is None:
+            comm = (Communicator() if shard_atoms == 1
+                    else Communicator.from_process_group())
+        self._comm = comm
+        if self._comm.world_size != shard_atoms:
+            raise ValueError(
+                f"shard_atoms={shard_atoms} but the process group has "
+                f"{self._comm.world_size} ranks")
+
+    def _build_step(self):
+        """(Re)build the chunk runner from the current ForceField (or
+        domain plan): at init and after the overflow retry re-plans."""
+        adaptive = self.error_tolerance > 0
+        if self._domain_plan is not None:
+            from cavmd_tpu_torch.parallel.domain import make_domain_runner
+
+            extra = self._step_kwargs["extra_obs"]
+            self._run_chunk = make_domain_runner(
+                self.ff, self.methods, self._domain_plan, self._comm,
+                rebuild_every=self._domain_rebuild_every,
+                adaptive=self._adaptive_kwargs if adaptive else None,
+                obs_spec=(None if extra is None
+                          else (bool(extra.dipole), extra.wavevectors)))
+            return
+        step = make_step_fn(self.ff, self.methods, **self._step_kwargs)
+        if adaptive:
+            step = make_adaptive_step(step, **self._adaptive_kwargs)
+        self._run_chunk = lambda state, n: run_steps(step, state, n)
+
+    def _grow_cell_capacity(self, *,
+                            domain_capacity_overflow: bool = False) -> int:
+        """Re-plan after an overflow, as the JAX package does, and return
+        the bucket capacity now planned. Unsharded: the cell list's
+        capacity becomes max(cap + 4, 2 cap). On the slab path only the
+        lever of the failure that fired moves: a capacity overflow at the
+        rebuild grows the plan (``DomainPlan.grow_cap``); otherwise the
+        coverage invariant fired, and the rebuild cadence halves."""
+        if self._domain_plan is not None:
+            if domain_capacity_overflow:
+                self._domain_plan = self._domain_plan.grow_cap()
+            else:
+                self._domain_rebuild_every = max(
+                    1, self._domain_rebuild_every // 2)
+            self._build_step()
+            return self._domain_plan.cap
         cap = self.ff.cell_cfg.cap
         self.ff = self.ff.with_cell_capacity(max(cap + 4, 2 * cap))
         self._build_step()
         return self.ff.cell_cfg.cap
+
+    def _plan_text(self) -> str:
+        p = self._domain_plan
+        if p is None:
+            return f"cap={self.ff.cell_cfg.cap}"
+        return (f"slab cap nb_cap={p.nb_cap}, bucket cap={p.cap}, "
+                f"rebuild_every={self._domain_rebuild_every}")
 
     def _retry_state(self, start: MDState, rng_states: dict) -> MDState:
         """The chunk's start state for a retry under the re-planned cell
@@ -107,6 +203,8 @@ class Simulation:
         with torch.no_grad():
             forces, _ = self.ff(start.position, start.image, start.box_L,
                                 start.charge, start.typeid, clist=clist)
+        if self._comm is not None:
+            forces = self._comm.broadcast(forces)
         return start.replace(forces=forces, cell_list=clist,
                              cell_anchor=anchor)
 
@@ -175,22 +273,25 @@ class Simulation:
                           for k, g in start.generators.items()}
             retries = 0
             while True:
-                self.state, obs = run_steps(self._step, self.state, chunk)
+                self.state, obs = self._run_chunk(self.state, chunk)
                 if not ("cell_overflow" in obs
                         and obs["cell_overflow"].any()):
                     break
-                # the chunk dropped pairs: grow the buckets and run it again
-                # from its start (at most 4 times, 16x the capacity)
+                # the chunk dropped pairs: re-plan and run it again from its
+                # start (at most 4 times, 16x the capacity)
                 retries += 1
                 if retries > 4:
                     raise RuntimeError(
                         "cell-list bucket overflow persists after 4 "
-                        "capacity doublings: the system's density is "
-                        "collapsing or the configuration is pathological")
-                cap = self._grow_cell_capacity()
+                        "re-plans (the last: " + self._plan_text() + "): "
+                        "the system's density is collapsing or the "
+                        "configuration is pathological")
+                cap_flag = obs.get("domain_capacity_overflow")
+                self._grow_cell_capacity(domain_capacity_overflow=bool(
+                    cap_flag is not None and cap_flag.any()))
                 logging.getLogger(__name__).warning(
-                    "cell-list overflow: re-planned with cap=%d, retrying "
-                    "the chunk", cap)
+                    "cell-list overflow: re-planned (%s), retrying the "
+                    "chunk", self._plan_text())
                 self.state = self._retry_state(start, rng_states)
             self.last_obs = obs
             for tracker in self.trackers:

@@ -47,7 +47,18 @@ Phases:
      cells) on the card against the CPU;
   8. the CLI at 10,000 molecules (N = 20,001, drift held) and at 50,000
      (N = 100,001): in float32 (the default on the card; drift reported)
-     and in float64 (drift held): files, headers, the GSD frame, launches.
+     and in float64 (drift held): files, headers, the GSD frame, launches;
+  9. the slab domain pipeline at one slab (``parallel/domain.py``, world
+     size 1: the halo is a local copy, the sums the identity): its tile
+     kernel (``cell_pair_slab``, K7's counterpart) against its plain twin
+     on the first chunk's slab grid of ``build_large_n(50_000)`` (N =
+     100,001, 19 x 17 x 17 extended cells), float32 and float64, with its
+     times and bound as in phase 2; a float64 trajectory of 40 steps (two
+     rebuilds) at N = 20,001 against the unsharded runner on the card,
+     same draws; and the scene of ``build_large_n(50_000)`` through
+     ``Simulation(shard_atoms=1)`` on phase 6's protocol: launches, ms per
+     step beside phase 6's, and its universe band held to phase 6's band
+     at N = 100,001.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object of per-kernel results; the last
@@ -142,6 +153,16 @@ SMALL_GRID_CHUNKS = 2  # phase 6, N = 501 in cell mode, after N_WARM
 LARGE_CLI_RUNTIME_PS = 0.0005
 LARGE_CLI_ENERGY_PERIOD_STEPS = 50
 LARGE_CLI_DRIFT_BOUND_HA = 4.4e-3
+# phase 9: the domain runner at one slab, rebuilt every
+# DOMAIN_REBUILD_EVERY = 20 steps (the Simulation default). The float64 trajectory runs
+# DOMAIN_F64_STEPS steps at N = 2 * HELD_N_MOL + 1 and is held to phase 7's
+# TRAJ_TOL_BOHR against the unsharded runner with the same draws. The
+# float32 run at N = 100,001 takes phase 6's protocol (same scene, seed,
+# time step and draws); its universe band is the same velocity-Verlet
+# oscillation as phase 6's unsharded one, so it is held to
+# DOMAIN_BAND_RATIO times that band from this run.
+DOMAIN_F64_STEPS = 40
+DOMAIN_BAND_RATIO = 1.1
 
 
 def large_cli_args(n_molecules):
@@ -189,6 +210,8 @@ KERNELS = {  # name -> (source file, the TPU kernel it replaces)
                   "cavmd_tpu/ops/pallas_kernels.py:617"),
     "cell_pair_small_grid": ("cavmd_tpu_torch/csrc/cell_pair.cu",
                              "cavmd_tpu/ops/pallas_kernels.py:529"),
+    "cell_pair_slab": ("cavmd_tpu_torch/csrc/cell_pair.cu",
+                       "cavmd_tpu/ops/pallas_kernels.py:1044"),
     "pppm_spread": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
                     "cavmd_tpu/ops/pppm_pallas.py:272"),
     "pppm_interpolate": ("cavmd_tpu_torch/csrc/pppm_spread.cu",
@@ -529,7 +552,8 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
                   else {})
         if clist is not None:
             counts[ck.kernel_name(ff.cell_cfg)] = cell_work_counts(
-                torch, snap, ff, clist)
+                torch, *cell_args[:4], snap.typeid, snap.charge, ff,
+                ff.cell_exclusions)
         for key, (n_bytes, n_ops, *extra) in counts.items():
             out[key]["bound_ms"], out[key]["bound_by"] = bound_ms(n_bytes,
                                                                   n_ops)
@@ -542,12 +566,16 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
     return out
 
 
-def cell_work_counts(torch, snap, ff, clist):
+def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
+                     exclusions, pair_key=None, n_blocks=None):
     """(bytes moved, operations, pair counts) of one cell-kernel call on
     this run's inputs, counted cell by cell from the plain twin's tiles
     (block by block; no (N, N) tensor). Bytes: positions, box, typeid,
     charge, the four (T, T) tables, the bucket, neighbour and exclusion
-    tables in; forces and the per-cell energy partials out. Operations are
+    tables (and the pair keys, when given) in; forces and the energy
+    partials of ``n_blocks`` blocks (default: one per cell) out. Cells
+    whose neighbour rows are all sentinels (a slab's halo cells) count
+    nothing. Operations are
     what the pair sum over each cell's deduplicated 27-cell window needs,
     for the pairs these inputs hold: per staged neighbour row (an occupied
     slot of a neighbour cell of an occupied cell) its image shift (3); per
@@ -560,27 +588,32 @@ def cell_work_counts(torch, snap, ff, clist):
     erfc and exp each counted as one) for a charged pair."""
     from cavmd_tpu_torch.ops.neighbor import cell_block_for, cell_tiles
 
-    n, e = snap.N, snap.position.element_size()
+    n, e = position.shape[0], position.element_size()
     C, cap = clist.bucket_idx.shape
+    n_blocks = C if n_blocks is None else n_blocks
     T = ff.lj_eps.shape[0]
-    E = ff.cell_exclusions.shape[1]
-    rc2 = ff.cell_cfg.r_cut * ff.cell_cfg.r_cut
+    E = exclusions.shape[1]
+    rc2 = cfg.r_cut * cfg.r_cut
     occ = (clist.bucket_idx < n).sum(dim=1)
     occ_x = torch.cat([occ, occ.new_zeros(1)])
     window = occ_x[clist.neighbor_cells.long()].sum(dim=1)
     n_cand = int((occ * window).sum())
     n_staged = int(window[occ > 0].sum())
-    small_axes = sum(1 for k in ff.cell_cfg.ncells if k < 3)
-    tid = torch.cat([snap.typeid.long(), snap.typeid.new_zeros(1).long()])
-    q = torch.cat([snap.charge, snap.charge.new_zeros(1)])
+    small_axes = sum(1 for k in cfg.ncells if k < 3)
+    tid = torch.cat([typeid.long(), typeid.new_zeros(1).long()])
+    q = torch.cat([charge, charge.new_zeros(1)])
+    key = torch.arange(n + 1, device=position.device)
+    if pair_key is not None:
+        key[:n] = pair_key.long()
     n_near = n_in = n_lj = n_ew = 0
     for cells, idx_i, id_j, dxs, r2 in cell_tiles(
-            snap.position, snap.box_L, clist, cell_block_for(ff.cell_cfg, e)):
-        excl = ff.cell_exclusions[idx_i].long()
-        hit = (excl[:, :, None, :] == id_j[:, None, :, None]).any(-1)
+            position, box_L, clist, cell_block_for(cfg, e)):
+        ki, kj = key[idx_i], key[id_j]
+        excl = exclusions[idx_i].long()
+        hit = (excl[:, :, None, :] == kj[:, None, :, None]).any(-1)
         near = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
                 & (r2 < rc2))
-        inside = near & (idx_i[:, :, None] != id_j[:, None, :]) & ~hit
+        inside = near & (ki[:, :, None] != kj[:, None, :]) & ~hit
         ti, tj = tid[idx_i][:, :, None], tid[id_j][:, None, :]
         lj = inside & (ff.lj_eps[ti, tj] != 0) & (r2 < ff.lj_rcut2[ti, tj])
         ew = inside & ((q[idx_i][:, :, None] * q[id_j][:, None, :]) != 0)
@@ -590,7 +623,8 @@ def cell_work_counts(torch, snap, ff, clist):
         n_ew += int(ew.sum())
     n_bytes = (e * (3 * n + 3 + n + 4 * T * T) + 4 * n
                + 4 * (C * cap + 27 * C + (n + 1) * E)
-               + e * (3 * n + 2 * C))
+               + (4 * n if pair_key is not None else 0)
+               + e * (3 * n + 2 * n_blocks))
     n_ops = (3 * n_staged + (9 + 4 * small_axes) * n_cand
              + (1 + E) * n_near + 6 * n_in + 17 * n_lj + 20 * n_ew)
     return n_bytes, n_ops, dict(candidates=n_cand, staged_rows=n_staged,
@@ -884,6 +918,176 @@ def small_grid_path(torch, pt):
     return res
 
 
+def slab_kernel_phase(torch, pt, dtype, timed):
+    """Phase 9: the slab tile kernel (``cell_pair_slab``) against its
+    plain twin on the first chunk's extended grid of one slab at
+    N = 100,001; in float32 also its device time, host-bound time, the
+    twin's device time and the bound, counted on the extended grid."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.integrate import init_state
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.parallel import domain as dm
+
+    snap = reference_scene(pt, LARGE_N_MOL, reference_box_for(LARGE_N_MOL),
+                           dtype, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell")
+    plan = dm.plan_domain(snap, ff, 1)
+    state = init_state(snap, ff, dt=1.0)
+    args, cells, key = dm.tile_pass_inputs(ff, plan, state)
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]
+    k = ck.cell_pair_force_slab(*args, cells, key)
+    p = ck.cell_pair_force_fused_plain(*args, pair_key=key)
+    torch.cuda.synchronize()
+    errs = [max_err(a, b) for a, b in zip(k, p)]
+    for (err, scale), a in zip(errs, k):
+        check(bool(torch.isfinite(a).all()),
+              f"cell_pair_slab N={snap.N} {name}: non-finite output")
+        check(err <= tol * max(scale, 1e-300),
+              f"cell_pair_slab N={snap.N} {name}: max|dF,E| {err} > "
+              f"{tol}*{scale}")
+    out = dict(max_abs_err=errs[0][0], scale=errs[0][1],
+               max_abs_err_other_outputs=[e for e, _ in errs[1:]],
+               grid=dict(ncells=args[3].ncells, cap=plan.cap,
+                         own_cells=cells, rows=plan.Mtot))
+    if timed:
+        out["ms"] = device_ms(torch, lambda: ck.cell_pair_force_slab(
+            *args, cells, key))
+        out["host_call_ms"] = host_call_ms(
+            torch, lambda: ck.cell_pair_force_slab(*args, cells, key))
+        out["plain_ms"] = profiled_device_ms(
+            torch, lambda: ck.cell_pair_force_fused_plain(*args,
+                                                          pair_key=key))
+        n_bytes, n_ops, pairs = cell_work_counts(
+            torch, *args[:6], ff, args[10], pair_key=key, n_blocks=cells[1])
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
+        out.update(bytes=n_bytes, ops=n_ops, pairs=pairs)
+    print(f"phase 9: N={snap.N} {name} cell_pair_slab: " + ", ".join(
+        f"{k}={v!r}" for k, v in out.items()), flush=True)
+    return out
+
+
+def domain_f64_trajectory(torch, pt):
+    """Phase 9: DOMAIN_F64_STEPS float64 steps of the domain runner at one
+    slab (the Simulation's cadence) against the unsharded runner,
+    both on the card, Bussi + Langevin with the same draws (each state's
+    own generators, seeded alike): positions within TRAJ_TOL_BOHR, image
+    flags equal, no overflow, the slab kernel launched every step."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.integrate import init_state, make_step_fn, run_steps
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import make_domain_runner, plan_domain
+    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY
+
+    snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                           torch.float64, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell")
+    methods = pt.resolve_methods(
+        snap, main_methods(pt, PC.kT_from_kelvin(100.0)), ff.l_typeid)
+    dt = PC.fs_to_atomic_units(LARGE_DT_FS)
+    ref, _ = run_steps(make_step_fn(ff, methods),
+                       init_state(snap, ff, dt=dt, seed=7), DOMAIN_F64_STEPS)
+    run = make_domain_runner(ff, methods, plan_domain(snap, ff, 1),
+                             rebuild_every=DOMAIN_REBUILD_EVERY)
+    start = init_state(snap, ff, dt=dt, seed=7).replace(cell_list=None,
+                                                         cell_anchor=None)
+    _cuda.reset_launches()
+    fin, obs = run(start, DOMAIN_F64_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    err = float((fin.position - ref.position).abs().max())
+    img_ok = bool(torch.equal(fin.image, ref.image))
+    print(f"phase 9: f64 Bussi + Langevin {DOMAIN_F64_STEPS} steps at "
+          f"N={snap.N}, domain (1 slab, rebuilt every "
+          f"{DOMAIN_REBUILD_EVERY}) vs "
+          f"unsharded on the card: max|dx| = {err!r} bohr (bound "
+          f"{TRAJ_TOL_BOHR}), images equal: {img_ok}, launches {launches}",
+          flush=True)
+    check(not obs["cell_overflow"].any(), "phase 9 f64: overflow")
+    check(err <= TRAJ_TOL_BOHR and img_ok,
+          f"phase 9 f64 domain trajectory: max|dx| {err} bohr > "
+          f"{TRAJ_TOL_BOHR} or images differ")
+    for kname in ("cell_pair_slab", "pppm_spread", "pppm_interpolate"):
+        check(launches.get(kname, 0) >= DOMAIN_F64_STEPS,
+              f"phase 9 f64: kernel {kname} launched "
+              f"{launches.get(kname, 0)} < {DOMAIN_F64_STEPS} times")
+    return err
+
+
+def domain_large_path(torch, pt, unsharded):
+    """Phase 9: the scene of build_large_n(LARGE_N_MOL) through
+    ``Simulation(shard_atoms=1)`` (the slab pipeline in this process,
+    rebuilt every 20 steps) on phase 6's protocol (one warm-up
+    chunk, then LARGE_CHUNKS chunks of LARGE_CHUNK steps): no overflow and
+    no retry, finite observables, the slab kernel and K2/K3 launched every
+    step, ms per step; the universe band held to DOMAIN_BAND_RATIO times
+    phase 6's (``unsharded``)."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate import universe_energy
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY
+
+    _, snap, ff = build_large_n(LARGE_N_MOL)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    sim = pt.Simulation(snap, ff, main_methods(pt, PC.kT_from_kelvin(100.0)),
+                        dt=PC.fs_to_atomic_units(LARGE_DT_FS), seed=7,
+                        shard_atoms=1)
+    plan = sim._domain_plan
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim.run(n_steps=LARGE_CHUNK)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    chunks, chunk_s = [], []
+    for _ in range(LARGE_CHUNKS):
+        t0 = time.perf_counter()
+        sim.run(n_steps=LARGE_CHUNK)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        chunks.append(sim.last_obs)
+    launches = dict(_cuda.launches)
+    total = LARGE_CHUNK * (LARGE_CHUNKS + 1)
+    label = f"phase 9 domain N={snap.N}"
+    obs = {k: np.concatenate([c[k] for c in chunks])
+           for k in OBS_KEYS + ("cell_overflow",)}
+    check(not obs["cell_overflow"].any() and sim._domain_plan == plan
+          and sim._domain_rebuild_every == DOMAIN_REBUILD_EVERY,
+          f"{label}: overflow or retry")
+    for k in OBS_KEYS:
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    check(bool(torch.isfinite(sim.state.position).all()),
+          f"{label}: non-finite positions")
+    for kname in ("cell_pair_slab", "pppm_spread", "pppm_interpolate"):
+        check(launches.get(kname, 0) >= total,
+              f"{label}: kernel {kname} launched {launches.get(kname, 0)} "
+              f"< {total} times")
+    U = universe_energy(obs)
+    band = float(U.max() - U.min())
+    bound = DOMAIN_BAND_RATIO * unsharded["universe_band_ha"]
+    check(band < bound, f"{label}: universe band {band} >= {bound} Ha")
+    ms = [t / LARGE_CHUNK * 1e3 for t in chunk_s]
+    res = dict(n=snap.N, ncells=plan.ncells, cap=plan.cap, Mrow=plan.Mrow,
+               rebuild_every=DOMAIN_REBUILD_EVERY,
+               steps=LARGE_CHUNK * LARGE_CHUNKS,
+               ms_per_step=statistics.median(ms), chunk_ms_per_step=ms,
+               unsharded_ms_per_step=unsharded["ms_per_step"],
+               setup_s=setup_s, warmup_chunk_s=warm_s,
+               universe_band_ha=band, band_bound_ha=bound,
+               launches=launches)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
 class _Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -1097,6 +1301,19 @@ def main() -> None:
                         LARGE_CLI_DRIFT_BOUND_HA)
     check("jax" not in sys.modules, "the port imported jax")
 
+    # phase 9: the slab domain pipeline at one slab
+    slab = {}
+    for dtype in (torch.float32, torch.float64):
+        r = slab_kernel_phase(torch, pt, dtype, timed=dtype == torch.float32)
+        if dtype == torch.float32:
+            slab = r
+        torch.cuda.empty_cache()
+    dom_f64 = domain_f64_trajectory(torch, pt)
+    torch.cuda.empty_cache()
+    dom = domain_large_path(torch, pt, large)
+    torch.cuda.empty_cache()
+    check("jax" not in sys.modules, "the port imported jax")
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -1114,7 +1331,12 @@ def main() -> None:
           f"{cli_held['universe_drift_ha']:.3e} Ha, N={2 * LARGE_N_MOL + 1} "
           f"{cli_large['steps']} steps {cli_large['steps_per_s']:.1f} "
           f"steps/s drift {cli_large['universe_drift_ha']:.3e} Ha (f64: "
-          f"{cli_f64['universe_drift_ha']:.3e} Ha)",
+          f"{cli_f64['universe_drift_ha']:.3e} Ha) | domain, 1 slab: "
+          f"cell_pair_slab {slab['ms']:.4f} ms (twin {slab['plain_ms']:.2f} "
+          f"ms, bound {slab['bound_ms']:.5f} ms), f64 40 steps max|dx| "
+          f"{dom_f64:.2e} bohr, N={dom['n']} {dom['ms_per_step']:.3f} "
+          f"ms/step (unsharded {large['ms_per_step']:.3f}) band "
+          f"{dom['universe_band_ha']:.3e} Ha",
           flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at
@@ -1125,6 +1347,9 @@ def main() -> None:
               "fused_pre_force", "fused_post_force"):
         where[k] = ((LARGE_N_MOL, None), large["launches"])
     where["cell_pair_small_grid"] = ((250, "cell"), small["launches"])
+    # the slab kernel at N = 100,001 (phase 9's domain run's launches)
+    shapes["slab"] = {"cell_pair_slab": slab}
+    where["cell_pair_slab"] = ("slab", dom["launches"])
     kernels = []
     for k, (src, rep) in KERNELS.items():
         shape, launches = where[k]

@@ -13,7 +13,9 @@ Bussi + Langevin, dt 0.25 fs) it prints one JSON line:
   tail, K4/K5 around the force pass);
 - ``unfused``: ``fuse_integrator=False``;
 - ``cli``: the CLI's step: fused, adaptive dt (period 500) and the F(k,t)
-  observables (dipole + 50 wavevectors), as ``advanced_run`` runs it.
+  observables (dipole + 50 wavevectors), as ``advanced_run`` runs it;
+- ``domain``: ``shard_atoms=1``, the slab domain pipeline on one process
+  (cell mode whatever N; a rebuild every 20 steps).
 
 Per variant: the host wall time per step without the profiler (median of
 five 200-step chunks, each ended by ``torch.cuda.synchronize()``); and,
@@ -50,7 +52,9 @@ def build(pt, torch, variant, n_mol):
                                 temperature_K=100.0, seed=0),
         coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
         seed=1).astype(torch.float32).to(torch.device("cuda"))
-    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell" if variant == "domain"
+                              else None)
     kT = PC.kT_from_kelvin(100.0)
     methods = (
         pt.MethodSpec(kind="bussi", group="molecular", kT=kT,
@@ -61,6 +65,8 @@ def build(pt, torch, variant, n_mol):
     kw = dict(dt=PC.fs_to_atomic_units(0.25), seed=7, chunk_size=200)
     if variant == "unfused":
         kw["fuse_integrator"] = False
+    if variant == "domain":
+        kw["shard_atoms"] = 1
     if variant == "cli":
         from cavmd_tpu_torch.observe import (
             generate_fibonacci_sphere,

@@ -8,6 +8,7 @@ import torch
 
 import cavmd_tpu_torch as pt
 from cavmd_tpu_torch.core import PhysicalConstants as PC
+from cavmd_tpu_torch.core.box import wrap_positions
 from cavmd_tpu_torch.ops import _cuda
 from cavmd_tpu_torch.ops import cell_kernels as ck
 from cavmd_tpu_torch.ops import fused_integrator as fi
@@ -169,3 +170,50 @@ def test_cell_kernel_matches_twin(cuda, grid, dtype):
     out_p = ck.cell_pair_force_fused_plain(*args)
     for k, p in zip(out_k, out_p):
         assert _close(k, p, TOL[dtype])
+
+
+def _slab_scene(dtype, device, shift_x=0.0):
+    """tests/test_domain.py's scene (550 diatomics + photon, 65-bohr box,
+    r_cut 8, 7^3 cells), its x coordinates shifted by ``shift_x`` and
+    wrapped (32.5 bohr puts 62 molecules across the periodic x face)."""
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(550, box_L=65.0, temperature_K=100.0,
+                                seed=0, device="cpu"),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=1)
+    pos, image = wrap_positions(snap.position + torch.tensor(
+        [shift_x, 0.0, 0.0], dtype=snap.position.dtype), snap.box_L)
+    snap = snap.replace(position=pos, image=snap.image + image)
+    snap = snap.astype(dtype).to(device)
+    ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=8.0,
+                              pppm_mesh=(16, 16, 16), pair_mode="cell")
+    return snap, ff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,shift_x", [(1, 0.0), (1, 32.5), (2, 0.0)])
+def test_slab_kernel_matches_twin(cuda, S, shift_x, dtype):
+    """The slab tile kernel (K7's counterpart) against its plain twin on
+    rank 0's extended grid of the first chunk; at S = 1 also with bonded
+    pairs across the periodic x face (met through the halo copies). The
+    Ewald energy of one slab is a small sum of larger terms of both signs
+    (5e-6 Ha at S = 2), so its scale is the same sum over |q_i q_j|."""
+    from cavmd_tpu_torch.integrate import init_state
+    from cavmd_tpu_torch.parallel import domain as dm
+
+    snap, ff = _slab_scene(dtype, cuda, shift_x)
+    plan = dm.plan_domain(snap, ff, S)
+    args, cells, key = dm.tile_pass_inputs(ff, plan,
+                                           init_state(snap, ff, dt=1.0))
+    before = _cuda.launches["cell_pair_slab"]
+    out_k = ck.cell_pair_force_slab(*args, cells, key)
+    torch.cuda.synchronize()
+    assert _cuda.launches["cell_pair_slab"] == before + 1
+    out_p = ck.cell_pair_force_fused_plain(*args, pair_key=key)
+    abs_q = list(args)
+    abs_q[5] = args[5].abs()
+    ew_scale = float(ck.cell_pair_force_fused_plain(*abs_q,
+                                                    pair_key=key)[2])
+    tol = TOL[dtype]
+    assert _close(out_k[0], out_p[0], tol)
+    assert _close(out_k[1], out_p[1], tol)
+    assert float((out_k[2] - out_p[2]).abs()) <= tol * ew_scale
