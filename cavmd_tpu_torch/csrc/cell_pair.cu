@@ -60,28 +60,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_term.cuh"
+
 namespace {
+
+using namespace cavmd;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTypes = 8;
-constexpr int kMaxExcl = 8;
 constexpr int kNeighbors = 27;
-
-__device__ __forceinline__ float m_rint(float x) { return rintf(x); }
-__device__ __forceinline__ double m_rint(double x) { return rint(x); }
-__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float m_erfc(float x) { return erfcf(x); }
-__device__ __forceinline__ double m_erfc(double x) { return erfc(x); }
-__device__ __forceinline__ float m_exp(float x) { return expf(x); }
-__device__ __forceinline__ double m_exp(double x) { return exp(x); }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // Bytes of dynamic shared memory for one block: 27 * cap staged rows. A
 // count past what a block may use beside the static arrays (227 KB in all)
@@ -173,7 +160,6 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const T Lx = box[0], Ly = box[1], Lz = box[2];
-  const T two_over_sqrt_pi = T(1.1283791670955126);
   T e_lj = 0, e_ew = 0;
 
   for (int i = warp; i < occ_self; i += kWarps) {  // warp-uniform
@@ -202,28 +188,8 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
       dz = dz - Lz * m_rint(dz / Lz);
       const T r2 = dx * dx + dy * dy + dz * dz;
       if (!(r2 < rc2)) continue;
-      T f = 0;
-      if (lj_on) {
-        const int tt = ti + stype[j];
-        const T eps = s_eps[tt];
-        if (eps != T(0) && r2 < s_rc2[tt]) {
-          const T inv = s_sig2[tt] / r2;
-          const T s6 = inv * inv * inv;
-          const T s12 = s6 * s6;
-          e_lj += T(4) * eps * (s12 - s6) - s_vsh[tt];
-          f += T(24) * eps * (T(2) * s12 - s6) / r2;
-        }
-      }
-      if (coul_on) {
-        const T qq = qi * sq[j];
-        if (qq != T(0)) {
-          const T r = m_sqrt(r2);
-          const T kr = kappa * r;
-          const T ec = m_erfc(kr);
-          e_ew += qq * ec / r;
-          f += qq * (ec / r2 + kappa * two_over_sqrt_pi * m_exp(-(kr * kr)) / r) / r;
-        }
-      }
+      const T f = lj_ewald_pair(r2, ti + stype[j], qi * sq[j], s_eps, s_sig2,
+                                s_rc2, s_vsh, kappa, lj_on, coul_on, e_lj, e_ew);
       fx += f * dx;
       fy += f * dy;
       fz += f * dz;

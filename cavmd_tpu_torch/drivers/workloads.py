@@ -9,17 +9,19 @@ chunk runner (with the cell-list overflow retry).
 from __future__ import annotations
 
 
-def build_large_n(n_mol=50_000, *, mesh=(32, 32, 32), seed=0, dt_fs=0.25,
-                  device=None):
+def build_large_n(n_mol=50_000, *, mesh=(32, 32, 32), pair_mode="cell",
+                  seed=0, dt_fs=0.25, device=None):
     """The large-N stress workload: ``n_mol`` diatomics + the cavity
     photon at the reference density, the full force mix (cavity + bonds +
-    LJ + Ewald short + PPPM) in cell mode, Bussi molecular bath + Langevin
-    cavity bath (both tau 5 ps, 100 K), float32. Returns
-    ``(sim, snap, ff)``; the Simulation's generators are seeded with 7, as
-    the JAX builder seeds its state. ``device=None`` is the CUDA device.
+    LJ + Ewald short + PPPM) in ``pair_mode`` ('cell' or 'zcol'), Bussi
+    molecular bath + Langevin cavity bath (both tau 5 ps, 100 K), float32.
+    Returns ``(sim, snap, ff)``; the Simulation's generators are seeded
+    with 7, as the JAX builder seeds its state. ``device=None`` is the CUDA
+    device.
 
     At ``n_mol=50_000`` (N = 100,001, box 269.01 bohr) the cell grid is
-    17^3 with bucket capacity 45.
+    17^3 with bucket capacity 45; the zcol grid 17 x 17 columns of
+    capacity 512 with a visit window of 8 blocks.
     """
     import torch
 
@@ -37,7 +39,7 @@ def build_large_n(n_mol=50_000, *, mesh=(32, 32, 32), seed=0, dt_fs=0.25,
                                temperature_K=100.0, seed=seed + 1)
     snap = snap.astype(torch.float32)
     ff = ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
-                           dtype=torch.float32, pair_mode="cell",
+                           dtype=torch.float32, pair_mode=pair_mode,
                            pppm_mesh=tuple(mesh))
     kT = PC.kT_from_kelvin(100.0)
     methods = (

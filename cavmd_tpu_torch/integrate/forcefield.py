@@ -1,17 +1,20 @@
 """ForceField: every force of the reference workflow in one module.
 
-Port of ``cavmd_tpu/integrate/forcefield.py`` for its two pair modes:
-dense all-pairs (the JAX package's choice for N <= 4096, which covers the
-N = 501 reference scene) and cell lists (above 4096). ``ForceField`` is an
-``nn.Module`` whose tables are buffers, so ``.to(device)`` moves it;
+Port of ``cavmd_tpu/integrate/forcefield.py`` for its pair modes: dense
+all-pairs (the JAX package's choice for N <= 4096, which covers the
+N = 501 reference scene), cell lists (above 4096) and the opt-in z-sorted
+columns ('zcol'); the TPU-only 'pallas' mode is not ported. ``ForceField``
+is an ``nn.Module`` whose tables are buffers, so ``.to(device)`` moves it;
 ``forward`` evaluates cavity + bonds + LJ + Ewald short + PPPM long and
 returns the forces and a dict of energy components with the JAX package's
-keys (in cell mode also ``cell_overflow``, a 0/1 flag, not an energy).
+keys (in cell and zcol mode also ``cell_overflow``, a 0/1 flag, not an
+energy; in zcol mode it also carries the visit-window overflow).
 
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
-``ops/cell_kernels.py``) and the PPPM spread/interpolation
-(``ops/pppm_kernels.py``) run in the hand-written kernels; on CPU tensors
-in their plain twins. Cell mode builds no (N, N) tensor.
+``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
+spread/interpolation (``ops/pppm_kernels.py``) run in the hand-written
+kernels; on CPU tensors in their plain twins. Cell and zcol mode build no
+(N, N) tensor.
 """
 
 from __future__ import annotations
@@ -46,12 +49,16 @@ from cavmd_tpu_torch.ops.cell_kernels import cell_pair_force_fused
 from cavmd_tpu_torch.ops.neighbor import (
     CellListConfig,
     build_cell_list,
+    build_zcol_list,
     exclusion_table,
     neighbor_cell_table,
     plan_cells,
+    plan_zcolumns,
+    xy_neighbor_table,
 )
 from cavmd_tpu_torch.ops.pair_kernels import dense_pair_force
 from cavmd_tpu_torch.ops.pppm import PPPMParams, pppm_force_and_energy
+from cavmd_tpu_torch.ops.zcol_kernels import plan_zcol_window, zcol_pair_force
 
 ENERGY_KEYS = (
     "harmonic", "lj", "ewald_short", "ewald_long",
@@ -67,12 +74,17 @@ class ForceField(nn.Module):
     leaves with ``cavmd_tpu_torch.interop.forcefield_from_numpy``. Array
     arguments may be NumPy arrays or tensors.
 
-    Dense mode (``cell_cfg`` None) takes the two static (N, N) masks
-    ``lj_active`` / ``coulomb_active``. Cell mode takes ``cell_cfg`` (a
-    ``CellListConfig``), the (N+1, max_excl) ``cell_exclusions`` table, the
-    (C, 27) ``cell_neighbors`` table, the (N,) ``pair_inert`` flags
-    (particles with no LJ type pair and no charge, which the carried cell
-    list ignores when it decides to rebuild).
+    ``pair_mode`` is 'dense', 'cell' or 'zcol' (None: 'cell' when
+    ``cell_cfg`` is given, else 'dense'). Dense mode takes the two static
+    (N, N) masks ``lj_active`` / ``coulomb_active``. Cell mode takes
+    ``cell_cfg`` (a ``CellListConfig``), the (N+1, max_excl)
+    ``cell_exclusions`` table, the (C, 27) ``cell_neighbors`` table, the
+    (N,) ``pair_inert`` flags (particles with no LJ type pair and no
+    charge, which the carried cell list ignores when it decides to
+    rebuild). Zcol mode takes the same but ``cell_neighbors`` (its
+    ``cell_cfg`` is the column plan of ``plan_zcolumns``; the (XY, 9)
+    neighbour-column table is made here) and the visit window ``zcol_W``;
+    it needs LJ and Coulomb both on.
     """
 
     def __init__(self, *, bond_k, bond_r0, bond_k_per, bond_r0_per,
@@ -80,10 +92,10 @@ class ForceField(nn.Module):
                  lj_vshift, kappa, influence, volume, omegac, couplstr,
                  phmass, l_typeid: int, coulomb_rcut: float, pppm_order: int,
                  pppm_mesh, lj_active=None, coulomb_active=None,
-                 cell_cfg=None, cell_exclusions=None, cell_neighbors=None,
-                 pair_inert=None, enable_cavity=True,
-                 enable_coulomb=True, enable_lj=True, enable_bonds=True,
-                 dtype=torch.float64, device=None):
+                 pair_mode=None, cell_cfg=None, cell_exclusions=None,
+                 cell_neighbors=None, pair_inert=None, zcol_W=None,
+                 enable_cavity=True, enable_coulomb=True, enable_lj=True,
+                 enable_bonds=True, dtype=torch.float64, device=None):
         super().__init__()
 
         def buf(name, x, dt=dtype):
@@ -108,7 +120,16 @@ class ForceField(nn.Module):
         buf("bond_typeid", bond_typeid, torch.int32)
         self.cell_cfg = (None if cell_cfg is None
                          else CellListConfig(*cell_cfg))
-        self.pair_mode = "dense" if cell_cfg is None else "cell"
+        if pair_mode is None:
+            pair_mode = "dense" if cell_cfg is None else "cell"
+        if pair_mode not in ("dense", "cell", "zcol"):
+            raise ValueError(f"unknown pair_mode {pair_mode!r}")
+        self.pair_mode = pair_mode
+        self.zcol_W = None if zcol_W is None else int(zcol_W)
+        if pair_mode == "zcol" and not (enable_lj and enable_coulomb
+                                        and self.zcol_W):
+            raise ValueError("pair_mode='zcol' needs LJ and Coulomb both on "
+                             "and a visit window zcol_W")
         if self.pair_mode == "dense":
             # static (N, N) masks, 1 byte per pair; a disabled interaction
             # is an all-zero mask, which contributes exactly zero
@@ -118,8 +139,14 @@ class ForceField(nn.Module):
             buf("coulomb_active", coul_on, torch.uint8)
         else:
             buf("cell_exclusions", cell_exclusions, torch.int32)
-            buf("cell_neighbors", cell_neighbors, torch.int32)
             buf("pair_inert", pair_inert, torch.bool)
+            if self.pair_mode == "cell":
+                buf("cell_neighbors", cell_neighbors, torch.int32)
+            else:  # zcol merges the 9 xy-neighbour columns instead
+                self.register_buffer("cell_neighbors", None)
+                cx, cy, _ = self.cell_cfg.ncells
+                buf("zcol_neighbors", xy_neighbor_table(cx, cy),
+                    torch.int32)
         # host copy of kappa at the working precision: the kernel launch
         # takes it by value, so the step never reads it back from the device
         self.kappa_value = float(self.kappa)
@@ -141,16 +168,27 @@ class ForceField(nn.Module):
         return CavityParams(self.omegac, self.couplstr, self.phmass)
 
     def build_cells(self, position, box_L):
-        """Bin the particles into the cell buckets (cell mode only); the
-        integrator carries the list and rebuilds it on displacement."""
+        """Bin the particles into the cell buckets (cell mode) or the
+        z-sorted columns (zcol mode); the integrator carries the list and
+        rebuilds it on displacement."""
+        if self.pair_mode == "zcol":
+            return build_zcol_list(position, box_L, self.cell_cfg,
+                                   self.zcol_neighbors)
         return build_cell_list(position, box_L, self.cell_cfg,
                                self.cell_neighbors)
 
     def with_cell_capacity(self, cap: int) -> "ForceField":
         """A copy planned for bucket capacity ``cap`` (the overflow retry),
-        with buffers of its own."""
+        with buffers of its own. In zcol mode the capacity is rounded up to
+        a multiple of 128 and the visit window grows by 2 blocks, as the
+        JAX package's retry grows it: a hull wider than the window is not
+        fixed by more slots alone."""
         ff = copy.deepcopy(self)
-        ff.cell_cfg = self.cell_cfg._replace(cap=int(cap))
+        cap = int(cap)
+        if self.pair_mode == "zcol":
+            cap = -(-cap // 128) * 128
+            ff.zcol_W = self.zcol_W + 2
+        ff.cell_cfg = self.cell_cfg._replace(cap=cap)
         return ff
 
     def forward(self, position, image, box_L, charge, typeid, clist=None):
@@ -175,18 +213,28 @@ class ForceField(nn.Module):
             forces = forces + f
             energies["harmonic"] = e
 
-        if self.pair_mode == "cell" and (self.enable_lj
-                                         or self.enable_coulomb):
+        if self.pair_mode in ("cell", "zcol") and (self.enable_lj
+                                                   or self.enable_coulomb):
             if clist is None:
                 clist = self.build_cells(position, box_L)
             # a bucket overflow drops pairs: the flag rides the
             # observables so Simulation.run can grow the cap and retry
             energies["cell_overflow"] = clist.overflow.to(position.dtype)
-            f, e_lj, e_ew = cell_pair_force_fused(
-                position, box_L, clist, self.cell_cfg, typeid, charge,
-                self.lj_eps, self.lj_sig2, self.lj_rcut2, self.lj_vshift,
-                self.cell_exclusions, self.kappa_value,
-                lj_on=self.enable_lj, coul_on=self.enable_coulomb)
+            tables = (typeid, charge, self.lj_eps, self.lj_sig2,
+                      self.lj_rcut2, self.lj_vshift, self.cell_exclusions,
+                      self.kappa_value)
+            if self.pair_mode == "zcol":
+                f, e_lj, e_ew, win = zcol_pair_force(
+                    position, box_L, clist, self.cell_cfg, *tables,
+                    self.zcol_W)
+                # a hull wider than the visit window drops pair blocks:
+                # the same failure, the same channel
+                energies["cell_overflow"] = torch.maximum(
+                    energies["cell_overflow"], win.to(position.dtype))
+            else:
+                f, e_lj, e_ew = cell_pair_force_fused(
+                    position, box_L, clist, self.cell_cfg, *tables,
+                    lj_on=self.enable_lj, coul_on=self.enable_coulomb)
             forces = forces + f
             energies["lj"] = e_lj
             energies["ewald_short"] = e_ew
@@ -253,12 +301,15 @@ class ForceField(nn.Module):
         bonds, shifted LJ with r_cut 15 and inert photon rows, PPPM 32^3
         order 6.
 
-        ``pair_mode``: 'dense' (all pairs, two (N, N) masks) or 'cell'
-        (cell lists); None picks dense for N <= 4096 and cell above, as the
-        JAX package does. ``cell_skin`` is the requested minimum Verlet
-        skin (snapped up to the free slack of the cell grid; 0 rebuilds
-        the list every step) and ``cell_cap`` the bucket capacity (None
-        plans it from the density).
+        ``pair_mode``: 'dense' (all pairs, two (N, N) masks), 'cell' (cell
+        lists) or 'zcol' (z-sorted xy columns, opt-in); None picks dense
+        for N <= 4096 and cell above, as the JAX package does. ``cell_skin``
+        is the requested minimum Verlet skin (snapped up to the free slack
+        of the cell or column grid; 0 rebuilds the list every step) and
+        ``cell_cap`` the bucket capacity (None plans it from the density;
+        zcol rounds it up to a multiple of 128). Zcol mode needs one cutoff
+        for every LJ type pair, LJ and Coulomb both on, and at least 3
+        columns along x and y; its visit window is planned here.
         """
         from cavmd_tpu_torch.core.system import BOND_PARAMS, LJ_PARAMS
         from cavmd_tpu_torch.core.units import PhysicalConstants
@@ -266,10 +317,10 @@ class ForceField(nn.Module):
         n = snapshot.N
         if pair_mode is None:
             pair_mode = "dense" if n <= DENSE_MAX_N else "cell"
-        if pair_mode not in ("dense", "cell"):
+        if pair_mode not in ("dense", "cell", "zcol"):
             raise NotImplementedError(
-                f"pair_mode={pair_mode!r}: cavmd_tpu_torch ports the dense "
-                "and cell pair modes")
+                f"pair_mode={pair_mode!r}: cavmd_tpu_torch ports the dense, "
+                "cell and zcol pair modes")
         dtype = dtype or snapshot.position.dtype
         device = device if device is not None else snapshot.device
         lj_params = lj_params if lj_params is not None else LJ_PARAMS
@@ -305,14 +356,34 @@ class ForceField(nn.Module):
                 lj_active=lj_active_mask(typeid, eps_t, rcut2_t, excl),
                 coulomb_active=(~np.eye(n, dtype=bool)) & (qq != 0) & ~excl)
         else:
-            cfg = plan_cells(host(snapshot.box_L, torch.float64), r_cut,
-                             skin=cell_skin, n=n, cap=cell_cap)
+            box = host(snapshot.box_L, torch.float64)
             lj_type = np.any(eps_t != 0, axis=1)
             pair_data = dict(
-                cell_cfg=cfg,
+                pair_mode=pair_mode,
                 cell_exclusions=exclusion_table(n, bond_group),
-                cell_neighbors=neighbor_cell_table(cfg.ncells),
                 pair_inert=~lj_type[typeid] & (charge == 0))
+            if pair_mode == "cell":
+                cfg = plan_cells(box, r_cut, skin=cell_skin, n=n,
+                                 cap=cell_cap)
+                pair_data["cell_neighbors"] = neighbor_cell_table(cfg.ncells)
+            else:
+                rc_enabled = np.unique(rcut_t.numpy()[eps.numpy() != 0])
+                if len(rc_enabled) != 1 or not (enable_lj and enable_coulomb):
+                    raise ValueError(
+                        "pair_mode='zcol' needs a uniform cutoff with both "
+                        "LJ and Coulomb enabled (the fused kernel's "
+                        "contract); use pair_mode='cell'")
+                cfg = plan_zcolumns(box, r_cut, skin=cell_skin, n=n)
+                if min(cfg.ncells[:2]) < 3:
+                    raise ValueError(
+                        "pair_mode='zcol' needs >=3 columns per xy axis "
+                        f"(got {cfg.ncells[:2]}); use pair_mode='cell'")
+                if cell_cap is not None:
+                    # the column capacity stays a multiple of the j-block
+                    cfg = cfg._replace(cap=((cell_cap + 127) // 128) * 128)
+                pair_data["zcol_W"] = plan_zcol_window(
+                    n, cfg.ncells[0] * cfg.ncells[1], cfg.ncells[:2])
+            pair_data["cell_cfg"] = cfg
 
         kappa_val = kappa if kappa is not None else auto_kappa(
             r_cut, ewald_accuracy)

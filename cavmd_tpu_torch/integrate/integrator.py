@@ -162,8 +162,9 @@ def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
 
 
 def carries_cell_list(ff: ForceField) -> bool:
-    """Cell mode with a skin: the state carries the list between steps."""
-    return ff.pair_mode == "cell" and ff.cell_cfg.skin > 0
+    """Cell or zcol mode with a skin: the state carries the list between
+    steps."""
+    return ff.pair_mode in ("cell", "zcol") and ff.cell_cfg.skin > 0
 
 
 def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
@@ -319,7 +320,9 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         The JAX package skips the rebuild with ``lax.cond``; a host branch
         here would read the flag back every step, so the rebuild always
         runs and ``torch.where`` picks the new or the carried list, anchor
-        included, on the device."""
+        included, on the device. A zcol list also swaps its anchors and
+        merged halo with it: a new anchor against stale local coordinates
+        would break the window pruning."""
         if state.cell_list is None:
             return None, None
         half_skin = 0.5 * ff.cell_cfg.skin
@@ -329,10 +332,12 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         need = torch.max(disp2) > half_skin * half_skin
         new = ff.build_cells(pos, state.box_L)
         old = state.cell_list
-        clist = old._replace(
-            bucket_idx=torch.where(need, new.bucket_idx, old.bucket_idx),
-            overflow=torch.where(need, new.overflow, old.overflow),
-            slot_of=torch.where(need, new.slot_of, old.slot_of))
+        fields = ["bucket_idx", "overflow", "slot_of"]
+        if old.halo_idx is not None:
+            fields += ["anchor", "local_anchor", "halo_idx"]
+        clist = old._replace(**{
+            k: torch.where(need, getattr(new, k), getattr(old, k))
+            for k in fields})
         return clist, torch.where(need, pos, state.cell_anchor)
 
     def _finish(state, pos, image, v, forces, energies, bussi_res,

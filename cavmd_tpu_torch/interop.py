@@ -34,9 +34,9 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
                           rows_eps=None, rows_sig2=None, rows_rcut2=None,
                           rows_vshift=None, oh=None, active=None,
                           coulomb_active=None, lj_eps=None, lj_sigma=None,
-                          lj_rcut=None, cell_cfg=None, cell_exclusions=None,
-                          cell_neighbors=None, pair_inert=None,
-                          enable_cavity=True,
+                          lj_rcut=None, pair_mode=None, cell_cfg=None,
+                          cell_exclusions=None, cell_neighbors=None,
+                          pair_inert=None, zcol_W=None, enable_cavity=True,
                           enable_coulomb=True, enable_lj=True,
                           enable_bonds=True, dtype=torch.float64,
                           device=None) -> ForceField:
@@ -46,7 +46,9 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
     and ``coulomb_active`` the (N, N) mask. Cell mode (``cell_cfg`` given,
     ``tuple(ff.cell_cfg)``): ``lj_eps``/``lj_sigma``/``lj_rcut`` are the
     (T, T) tables and ``cell_exclusions``/``cell_neighbors``/``pair_inert``
-    the cell fields of the same names. Both:
+    the cell fields of the same names. Zcol mode (``pair_mode='zcol'``,
+    ``ff.pair_mode``) takes the same without ``cell_neighbors``, and
+    ``zcol_W`` (``ff.zcol_W``). All modes:
     ``influence``/``volume`` come from ``ff.pppm``; ``omegac``/
     ``couplstr``/``phmass`` from ``ff.cavity``; ``bond_k``/``bond_r0`` are
     the per-type bond tables and ``bond_group``/``bond_typeid`` the
@@ -64,10 +66,11 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
     else:
         tables = lj_kernel_tables(*(np.asarray(x) for x in (
             lj_eps, lj_sigma, lj_rcut)))
-        pair_data = dict(cell_cfg=cell_cfg,
+        pair_data = dict(pair_mode=pair_mode, cell_cfg=cell_cfg,
                          cell_exclusions=np.asarray(cell_exclusions),
-                         cell_neighbors=np.asarray(cell_neighbors),
-                         pair_inert=np.asarray(pair_inert))
+                         pair_inert=np.asarray(pair_inert), zcol_W=zcol_W)
+        if pair_mode != "zcol":
+            pair_data["cell_neighbors"] = np.asarray(cell_neighbors)
     bond_k = np.asarray(bond_k)
     bond_r0 = np.asarray(bond_r0)
     btid = np.asarray(bond_typeid)
@@ -95,8 +98,9 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
                      dtype=torch.float64, device=None) -> MDState:
     """A port ``MDState`` from the JAX ``MDState`` leaves (the JAX RNG key
     has no counterpart; ``seed`` seeds the port's generators).
-    ``device=None`` is the CUDA device. With a cell-mode ``forcefield``
-    that carries its list, the list is built from ``position``, as the
+    ``device=None`` is the CUDA device. With a cell- or zcol-mode
+    ``forcefield`` that carries its list, the list is built from
+    ``position``, as the
     JAX package's ``init_state`` does (pass the initial state's leaves)."""
     device = resolve_device(device)
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a shared
 library under ``cavmd_tpu_torch/_build/`` (listed in ``.gitignore``), named
 by a hash of its source and flags so an edited source is rebuilt. The
-library is loaded with ``ctypes``. Every C entry point returns the
+library is loaded with ``ctypes``; the hash also covers the shared headers
+``csrc/*.cuh``. Every C entry point returns the
 ``cudaError_t`` of its launch (``cudaGetLastError()``); :func:`check` raises
 on a non-zero code. Nothing here runs at import time.
 
@@ -69,6 +70,8 @@ def build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     flags = ARCH_FLAGS + NVCC_FLAGS
     digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
+        digest.update(header.read_bytes())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
     if out.is_file():
         return out

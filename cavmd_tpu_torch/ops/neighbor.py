@@ -1,10 +1,11 @@
 """Cell lists for large N: host planning, the bucket build on the device,
 and the plain tile path of the cell pair pass.
 
-Port of ``cavmd_tpu/ops/neighbor.py`` (the bucket layout; the z-sorted
-column layout is not ported). Particles are binned into fixed-capacity
-cell buckets; a pair pass visits, for every cell, its own bucket against
-the buckets of its 27 neighbour cells:
+Port of ``cavmd_tpu/ops/neighbor.py``: the bucket layout and the z-sorted
+column layout (``plan_zcolumns``, ``build_zcol_list``; its pair pass is
+``ops/zcol_kernels.py``). Particles are binned into fixed-capacity cell
+buckets; a pair pass visits, for every cell, its own bucket against the
+buckets of its 27 neighbour cells:
 
 - host planning (``plan_cells``, ``neighbor_cell_table``,
   ``exclusion_table``) is NumPy and gives the JAX package's numbers;
@@ -66,6 +67,15 @@ class CellList(NamedTuple):
     # (N,) int32 flat slot c * cap + rank of each particle; C * cap for a
     # particle that an overflow left without a slot
     slot_of: torch.Tensor
+    # z-sorted column layout only (build_zcol_list): the positions at build
+    # time, raw and in the assigned column's image. The pair pass takes
+    # local_anchor + minimage(position - anchor), so a particle that
+    # re-wraps between rebuilds stays next to its sorted neighbours.
+    anchor: torch.Tensor | None = None  # (N, 3)
+    local_anchor: torch.Tensor | None = None  # (N, 3)
+    # (XY, 9 cap) int32: each column's 9 xy-neighbour columns' slots merged
+    # into one list by ascending quantised z, empty slots (id N) last
+    halo_idx: torch.Tensor | None = None
 
 
 def neighbor_cell_table(ncells) -> np.ndarray:
@@ -177,6 +187,93 @@ def build_cell_list(position, box_L, cfg: CellListConfig,
         order, packed >> bits, n, cfg.total_cells, cfg.cap)
     return CellList(bucket_idx=bucket_idx, overflow=overflow,
                     neighbor_cells=neighbor_cells, slot_of=slot_of)
+
+
+def plan_zcolumns(box_L, r_cut, *, skin=1.0, n=None):
+    """The xy columns of the z-sorted layout (host side), as the JAX
+    package plans them: columns at least r_cut + skin wide, the skin
+    snapped up to the free slack, and a per-column capacity of the mean
+    occupancy plus a Poisson tail, rounded up to a multiple of 128 (the
+    j-block). Returned as a ``CellListConfig`` with ``ncells = (cx, cy,
+    1)``, so the carried-list and overflow-retry plumbing is shared."""
+    box_L = np.asarray(box_L, float)
+    width = r_cut + skin
+    cx = int(max(np.floor(box_L[0] / width), 1))
+    cy = int(max(np.floor(box_L[1] / width), 1))
+    if skin > 0:
+        skin = float(min(box_L[0] / cx, box_L[1] / cy) - r_cut)
+    mean = (n or 1) / (cx * cy)
+    cap = mean + 4.5 * np.sqrt(mean) + 16  # Poisson tail + drift headroom
+    cap = int(np.ceil(cap / 128.0)) * 128
+    return CellListConfig(ncells=(cx, cy, 1), cap=cap, r_cut=float(r_cut),
+                          skin=float(skin))
+
+
+def xy_neighbor_table(cx: int, cy: int) -> np.ndarray:
+    """(cx cy, 9) wrapped ids of each xy column's neighbour columns, itself
+    included, in the JAX package's order (dx outer, dy inner; host
+    side)."""
+    ids = np.arange(cx * cy)
+    x, y = ids // cy, ids % cy
+    cols = [((x + dx) % cx) * cy + (y + dy) % cy
+            for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+    return np.stack(cols, axis=1).astype(np.int32)
+
+
+def build_zcol_list(position, box_L, cfg: CellListConfig,
+                    neighbor_columns) -> CellList:
+    """Bin particles into z-sorted xy-column buckets, on the particles'
+    device and with no read-back. ``neighbor_columns`` is the (XY, 9)
+    table of ``xy_neighbor_table`` on that device.
+
+    ``bucket_idx`` (XY, cap), ``overflow`` and ``slot_of`` as in
+    :func:`build_cell_list`; within a column the slots ascend in wrapped z
+    quantised to 2^14 levels (one stable argsort of ``col * 16384 + zq``).
+    Also the anchor fields and the merged halo: the 9 neighbour columns'
+    slots re-sorted by quantised z with a stable row-wise sort, empty slots
+    keyed past every real z so they come last. The key quantisation only
+    sets how tightly blocks pack: the pair pass bounds its blocks from the
+    live positions."""
+    n = position.shape[0]
+    dtype = position.dtype
+    dev = position.device
+    cx, cy, _ = cfg.ncells
+    XY = cx * cy
+    box = box_L.to(dtype)
+    frac = position / box + 0.5
+    col2 = [torch.clamp(torch.floor(frac[:, d] * float(nc)).to(torch.int64),
+                        0, nc - 1) for d, nc in enumerate((cx, cy))]
+    col = col2[0] * cy + col2[1]
+    zf = frac[:, 2]
+    zq = torch.clamp(torch.floor((zf - torch.floor(zf)) * 16384.0)
+                     .to(torch.int64), 0, 16383)
+    order = torch.argsort(col * 16384 + zq, stable=True)
+    bucket_idx, overflow, slot_of = _rank_and_bucket(order, col[order], n,
+                                                     XY, cfg.cap)
+
+    # build-time coordinates: xy in the assigned column's centre image, z
+    # in the primary image
+    colf = torch.stack(col2, dim=1).to(dtype)
+    ncol = torch.stack([torch.full((), float(cx), dtype=dtype, device=dev),
+                        torch.full((), float(cy), dtype=dtype, device=dev)])
+    center = ((colf + 0.5) / ncol - 0.5) * box[:2]
+    off_xy = position[:, :2] - center
+    loc_xy = center + off_xy - box[:2] * torch.round(off_xy / box[:2])
+    loc_z = position[:, 2:3] - box[2] * torch.round(position[:, 2:3] / box[2])
+    local_anchor = torch.cat([loc_xy, loc_z], dim=1)
+
+    xy_nb = neighbor_columns.long()
+    sentinel = torch.full((1,), 1 << 20, dtype=torch.int64, device=dev)
+    zq_slot = torch.cat([zq, sentinel])[bucket_idx.long()]
+    cand_idx = bucket_idx[xy_nb].reshape(XY, 9 * cfg.cap)
+    cand_zq = zq_slot[xy_nb].reshape(XY, 9 * cfg.cap)
+    morder = torch.argsort(cand_zq, dim=-1, stable=True)
+    halo_idx = torch.take_along_dim(cand_idx, morder, dim=-1)
+    return CellList(bucket_idx=bucket_idx, overflow=overflow,
+                    neighbor_cells=torch.zeros(0, dtype=torch.int32,
+                                               device=dev),
+                    slot_of=slot_of, anchor=position,
+                    local_anchor=local_anchor, halo_idx=halo_idx)
 
 
 def cell_block_for(cfg: CellListConfig, itemsize: int):

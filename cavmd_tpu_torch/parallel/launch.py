@@ -22,15 +22,19 @@ from __future__ import annotations
 import os
 import pickle
 import tempfile
+import time
 
 
-def _rank_main(rank, world_size, init_file, out_dir, jobs):
+def _rank_main(rank, world_size, init_file, out_dir, jobs, timeout):
+    import datetime
+
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)  # S ranks share the host's cores
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world_size)
+                            rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout))
     try:
         results = [fn(**args) if isinstance(args, dict) else fn(*args)
                    for fn, args in jobs]
@@ -41,16 +45,31 @@ def _rank_main(rank, world_size, init_file, out_dir, jobs):
         pickle.dump(results, f)
 
 
-def run_ranks(jobs, world_size: int):
+def run_ranks(jobs, world_size: int, timeout: float = 600.0):
     """Run ``jobs`` (a list of ``(fn, args)``, ``args`` a tuple or a dict
     of keywords) on ``world_size`` local gloo ranks, one torch thread
-    each; returns ``results[job][rank]``. A failing rank raises here."""
+    each; returns ``results[job][rank]``. A failing rank raises here. The
+    ranks get ``timeout`` seconds in all (and their collectives as much
+    each): past it they are killed and ``TimeoutError`` is raised, so a
+    rank that hangs cannot hold the caller forever."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="cavmd_ranks_") as tmp:
         init_file = os.path.join(tmp, "pg_init")
-        mp.spawn(_rank_main, args=(world_size, init_file, tmp, list(jobs)),
-                 nprocs=world_size, join=True)
+        ctx = mp.start_processes(
+            _rank_main, args=(world_size, init_file, tmp, list(jobs),
+                              timeout),
+            nprocs=world_size, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
+                raise TimeoutError(
+                    f"run_ranks: {world_size} ranks still running after "
+                    f"{timeout} s")
         per_rank = []
         for r in range(world_size):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -6,8 +6,9 @@ device: create from a snapshot, thermalize momenta, bootstrap an adaptive
 dt, ``run``. The device runs ``chunk_size`` steps per chunk with no host
 sync inside it; between chunks the host hands the chunk's observables (one
 NumPy dict) to every tracker and writer, and keeps them in ``last_obs``.
-In cell mode a chunk whose cell list overflowed is run again from its
-start with a larger bucket capacity (``_grow_cell_capacity``).
+In cell and zcol mode a chunk whose cell list overflowed (in zcol mode also:
+whose hull outgrew the visit window) is run again from its start with a
+larger bucket capacity and window (``_grow_cell_capacity``).
 
 With ``shard_atoms=S`` the chunks run on the slab domain pipeline
 (``parallel/domain.py``) over S processes, this one being one rank: every
@@ -160,7 +161,8 @@ class Simulation:
                             domain_capacity_overflow: bool = False) -> int:
         """Re-plan after an overflow, as the JAX package does, and return
         the bucket capacity now planned. Unsharded: the cell list's
-        capacity becomes max(cap + 4, 2 cap). On the slab path only the
+        capacity becomes max(cap + 4, 2 cap), and in zcol mode the visit
+        window grows by 2 blocks with it. On the slab path only the
         lever of the failure that fired moves: a capacity overflow at the
         rebuild grows the plan (``DomainPlan.grow_cap``); otherwise the
         coverage invariant fired, and the rebuild cadence halves."""
@@ -180,7 +182,9 @@ class Simulation:
     def _plan_text(self) -> str:
         p = self._domain_plan
         if p is None:
-            return f"cap={self.ff.cell_cfg.cap}"
+            window = ("" if self.ff.zcol_W is None
+                      else f", zcol window W={self.ff.zcol_W}")
+            return f"cap={self.ff.cell_cfg.cap}{window}"
         return (f"slab cap nb_cap={p.nb_cap}, bucket cap={p.cap}, "
                 f"rebuild_every={self._domain_rebuild_every}")
 

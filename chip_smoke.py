@@ -58,7 +58,19 @@ Phases:
      same draws; and the scene of ``build_large_n(50_000)`` through
      ``Simulation(shard_atoms=1)`` on phase 6's protocol: launches, ms per
      step beside phase 6's, and its universe band held to phase 6's band
-     at N = 100,001.
+     at N = 100,001;
+ 10. the z-sorted column mode (``pair_mode='zcol'``): its kernel
+     (``zcol_pair``, K9's counterpart) against its plain twin on the first
+     chunk's column list of ``build_large_n(50_000, pair_mode='zcol')``
+     (N = 100,001, 17 x 17 columns of cap 512), float32 and float64, with
+     its times and bound as in phase 2, the list build's and the hull's
+     device times, the candidate count and the hull statistics;
+     ``build_large_n(50_000, pair_mode='zcol')`` through ``Simulation.run``
+     on phase 6's protocol (the kernel launched once a step and the cell
+     kernel never, no overflow, ms per step beside phase 6's, the universe
+     band held to DOMAIN_BAND_RATIO times phase 6's); and a float64
+     trajectory of 40 steps at N = 20,001 in zcol mode against the cell
+     mode on the card, same draws, across a rebuild of the column list.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object of per-kernel results; the last
@@ -163,6 +175,15 @@ LARGE_CLI_DRIFT_BOUND_HA = 4.4e-3
 # DOMAIN_BAND_RATIO times that band from this run.
 DOMAIN_F64_STEPS = 40
 DOMAIN_BAND_RATIO = 1.1
+# phase 10: the zcol float64 trajectory runs ZCOL_F64_STEPS steps at
+# N = 2 * HELD_N_MOL + 1 with a 1 fs time step, so that some molecule
+# moves past half the column skin (0.37 bohr) and the carried column list
+# is rebuilt inside the window (at 0.25 fs none does in 40 steps); it is
+# held to TRAJ_TOL_BOHR against cell mode with the same draws. The zcol
+# run at N = 100,001 takes phase 6's protocol and is held to
+# DOMAIN_BAND_RATIO times phase 6's band: the forces agree to f32
+# rounding, so the band is the same dipole-self oscillation.
+ZCOL_F64_STEPS, ZCOL_F64_DT_FS = 40, 1.0
 
 
 def large_cli_args(n_molecules):
@@ -202,7 +223,8 @@ CLI_HEADERS = {
         "# Dipole autocorrelation data", "# Reference number: 0",
         "# Output period: 10000 steps", "# timestep t(ps) C(t)"],
 }
-SOURCES = ("pair", "pppm_spread", "fused_integrator", "cell_pair")
+SOURCES = ("pair", "pppm_spread", "fused_integrator", "cell_pair",
+           "zcol_pair")
 KERNELS = {  # name -> (source file, the TPU kernel it replaces)
     "dense_pair": ("cavmd_tpu_torch/csrc/pair.cu",
                    "cavmd_tpu/ops/pallas_kernels.py:114"),
@@ -220,6 +242,8 @@ KERNELS = {  # name -> (source file, the TPU kernel it replaces)
                         "cavmd_tpu/ops/fused_integrator.py:71"),
     "fused_post_force": ("cavmd_tpu_torch/csrc/fused_integrator.cu",
                          "cavmd_tpu/ops/fused_integrator.py:113"),
+    "zcol_pair": ("cavmd_tpu_torch/csrc/zcol_pair.cu",
+                  "cavmd_tpu/ops/pallas_kernels.py:1263"),
 }
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
@@ -318,12 +342,13 @@ def device_ms(torch, fn, reps=15, inner=10):
     return statistics.median(samples)
 
 
-def profiled_device_ms(torch, fn, reps=5):
+def profiled_device_ms(torch, fn, reps=5, match=None):
     """Device time of one call as the sum of its device operations'
     durations in a ``torch.profiler`` trace of ``reps`` calls (one stream,
-    so the sum is the busy time). For the plain twins, which issue
-    hundreds to thousands of launches a call: queued behind a spin kernel
-    they fill the launch queue, the host then waits on the device, and
+    so the sum is the busy time); with ``match``, only of the operations
+    whose name contains it. For the plain twins, which issue hundreds to
+    thousands of launches a call: queued behind a spin kernel they fill
+    the launch queue, the host then waits on the device, and
     ``device_ms`` cannot keep the host out of the way. One call runs
     first under sync debug mode "error", so a call that synchronises with
     the host raises here too."""
@@ -342,9 +367,10 @@ def profiled_device_ms(torch, fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and (match is None or match in e.name)]
     check(len(dev) >= reps, "profiled_device_ms: the trace has no device "
-          "operations")
+          f"operations{'' if match is None else ' named ' + match}")
     return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
 
 
@@ -566,6 +592,35 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
     return out
 
 
+def pair_counts(torch, tiles, n, exclusions, typeid, charge, ff, rc2,
+                pair_key=None):
+    """Pair counts over a pair pass's candidate tiles ``(rows, idx_i,
+    id_j, dxs, r2)``: (inside the cutoff with both slots real, counted
+    (not self, not excluded), in the LJ range, charged). ``pair_key``
+    (N,), when given, is the id the self and exclusion tests compare."""
+    tid = torch.cat([typeid.long(), typeid.new_zeros(1).long()])
+    q = torch.cat([charge, charge.new_zeros(1)])
+    key = torch.arange(n + 1, device=charge.device)
+    if pair_key is not None:
+        key[:n] = pair_key.long()
+    n_near = n_in = n_lj = n_ew = 0
+    for _, idx_i, id_j, _, r2 in tiles:
+        ki, kj = key[idx_i], key[id_j]
+        excl = exclusions[idx_i].long()
+        hit = (excl[:, :, None, :] == kj[:, None, :, None]).any(-1)
+        near = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
+                & (r2 < rc2))
+        inside = near & (ki[:, :, None] != kj[:, None, :]) & ~hit
+        ti, tj = tid[idx_i][:, :, None], tid[id_j][:, None, :]
+        lj = inside & (ff.lj_eps[ti, tj] != 0) & (r2 < ff.lj_rcut2[ti, tj])
+        ew = inside & ((q[idx_i][:, :, None] * q[id_j][:, None, :]) != 0)
+        n_near += int(near.sum())
+        n_in += int(inside.sum())
+        n_lj += int(lj.sum())
+        n_ew += int(ew.sum())
+    return n_near, n_in, n_lj, n_ew
+
+
 def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
                      exclusions, pair_key=None, n_blocks=None):
     """(bytes moved, operations, pair counts) of one cell-kernel call on
@@ -593,34 +648,15 @@ def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
     n_blocks = C if n_blocks is None else n_blocks
     T = ff.lj_eps.shape[0]
     E = exclusions.shape[1]
-    rc2 = cfg.r_cut * cfg.r_cut
     occ = (clist.bucket_idx < n).sum(dim=1)
     occ_x = torch.cat([occ, occ.new_zeros(1)])
     window = occ_x[clist.neighbor_cells.long()].sum(dim=1)
     n_cand = int((occ * window).sum())
     n_staged = int(window[occ > 0].sum())
     small_axes = sum(1 for k in cfg.ncells if k < 3)
-    tid = torch.cat([typeid.long(), typeid.new_zeros(1).long()])
-    q = torch.cat([charge, charge.new_zeros(1)])
-    key = torch.arange(n + 1, device=position.device)
-    if pair_key is not None:
-        key[:n] = pair_key.long()
-    n_near = n_in = n_lj = n_ew = 0
-    for cells, idx_i, id_j, dxs, r2 in cell_tiles(
-            position, box_L, clist, cell_block_for(cfg, e)):
-        ki, kj = key[idx_i], key[id_j]
-        excl = exclusions[idx_i].long()
-        hit = (excl[:, :, None, :] == kj[:, None, :, None]).any(-1)
-        near = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
-                & (r2 < rc2))
-        inside = near & (ki[:, :, None] != kj[:, None, :]) & ~hit
-        ti, tj = tid[idx_i][:, :, None], tid[id_j][:, None, :]
-        lj = inside & (ff.lj_eps[ti, tj] != 0) & (r2 < ff.lj_rcut2[ti, tj])
-        ew = inside & ((q[idx_i][:, :, None] * q[id_j][:, None, :]) != 0)
-        n_near += int(near.sum())
-        n_in += int(inside.sum())
-        n_lj += int(lj.sum())
-        n_ew += int(ew.sum())
+    n_near, n_in, n_lj, n_ew = pair_counts(
+        torch, cell_tiles(position, box_L, clist, cell_block_for(cfg, e)),
+        n, exclusions, typeid, charge, ff, cfg.r_cut * cfg.r_cut, pair_key)
     n_bytes = (e * (3 * n + 3 + n + 4 * T * T) + 4 * n
                + 4 * (C * cap + 27 * C + (n + 1) * E)
                + (4 * n if pair_key is not None else 0)
@@ -796,12 +832,15 @@ def f64_trajectory(torch, pt, phase, n_molecules, box_L, pair_mode=None):
     return err
 
 
-def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS):
-    """The large-N main path: build_large_n(n_mol) through Simulation.run,
-    one warm-up chunk then LARGE_CHUNKS chunks of LARGE_CHUNK steps (the
-    protocol of scripts/bench_large_n.py) at time step ``dt_fs``. Checks:
-    no overflow (and no retry), finite observables, every kernel of the
-    path launched at least once a step; the universe-energy band
+def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS,
+                 pair_mode="cell", phase=6):
+    """The large-N main path: build_large_n(n_mol, pair_mode=pair_mode)
+    through Simulation.run, one warm-up chunk then LARGE_CHUNKS chunks of
+    LARGE_CHUNK steps (the protocol of scripts/bench_large_n.py) at time
+    step ``dt_fs``. Checks: no overflow (and no retry), finite
+    observables, every kernel of the path launched at least once a step
+    (in zcol mode its pair kernel exactly once a step, the initial forces
+    included, and the cell kernel never); the universe-energy band
     max(U) - min(U) over the window is held to ``drift_bound`` when one is
     given, else reported."""
     import numpy as np
@@ -814,7 +853,7 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS):
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    sim, snap, ff = build_large_n(n_mol, dt_fs=dt_fs)
+    sim, snap, ff = build_large_n(n_mol, dt_fs=dt_fs, pair_mode=pair_mode)
     cap = ff.cell_cfg.cap
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -831,7 +870,7 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS):
         chunks.append(sim.last_obs)
     launches = dict(_cuda.launches)
     total = LARGE_CHUNK * (LARGE_CHUNKS + 1)
-    label = f"large-N N={snap.N} dt={dt_fs} fs"
+    label = f"large-N N={snap.N} dt={dt_fs} fs {pair_mode}"
     obs = {k: np.concatenate([c[k] for c in chunks])
            for k in OBS_KEYS + ("cell_overflow",)}
     check(not obs["cell_overflow"].any() and sim.ff.cell_cfg.cap == cap,
@@ -840,7 +879,15 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS):
         check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
     check(bool(torch.isfinite(sim.state.position).all()),
           f"{label}: non-finite positions")
-    kernels = [kernel_name(ff.cell_cfg), "pppm_spread", "pppm_interpolate",
+    pair_kernel = ("zcol_pair" if pair_mode == "zcol"
+                   else kernel_name(ff.cell_cfg))
+    if pair_mode == "zcol":
+        check(launches.get("zcol_pair", 0) == total + 1
+              and launches.get("cell_pair", 0) == 0,
+              f"{label}: zcol_pair launched {launches.get('zcol_pair', 0)} "
+              f"times (want {total + 1}), cell_pair "
+              f"{launches.get('cell_pair', 0)}")
+    kernels = [pair_kernel, "pppm_spread", "pppm_interpolate",
                "fused_pre_force", "fused_post_force"]
     for kname in kernels:
         check(launches.get(kname, 0) >= total,
@@ -852,13 +899,14 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS):
         check(band < drift_bound,
               f"{label}: universe band {band} >= {drift_bound} Ha")
     ms = [s / LARGE_CHUNK * 1e3 for s in chunk_s]
-    res = dict(n=snap.N, dt_fs=dt_fs, ncells=ff.cell_cfg.ncells, cap=cap,
+    res = dict(n=snap.N, dt_fs=dt_fs, pair_mode=pair_mode,
+               ncells=ff.cell_cfg.ncells, cap=cap, zcol_W=ff.zcol_W,
                steps=LARGE_CHUNK * LARGE_CHUNKS,
                ms_per_step=statistics.median(ms), chunk_ms_per_step=ms,
                setup_s=setup_s, warmup_chunk_s=warm_s,
                universe_band_ha=band, band_bound_ha=drift_bound,
                launches=launches)
-    print(f"phase 6 ({label}): " + ", ".join(
+    print(f"phase {phase} ({label}): " + ", ".join(
         f"{k}={v!r}" for k, v in res.items()), flush=True)
     return res
 
@@ -1088,6 +1136,184 @@ def domain_large_path(torch, pt, unsharded):
     return res
 
 
+def zcol_work_counts(torch, pos_loc, box_L, clist, cfg, hull, W, typeid,
+                     charge, ff):
+    """(bytes moved, operations, pair counts) of one zcol-kernel call on
+    this run's inputs. Bytes: positions, anchors and local anchors, box,
+    typeid, charge, the four (T, T) tables, the bucket, halo and exclusion
+    tables in; forces and the energy partials of one block per i-block
+    out. Operations: the local coordinates (4 a coordinate) and the hull
+    (2 per slot for the block bounds, 12 per i-block x j-block overlap
+    test), then what the pair sum over each i-block's visited hull blocks
+    needs, counted as ``cell_work_counts`` counts it: per staged row (a
+    real slot of a visited block) its image shift (3); per candidate (a
+    real i slot against a staged row) the displacement, r^2 and the cutoff
+    test (9); per pair inside the cutoff the self and exclusion tests
+    (1 + E); per counted pair 6, 17 more in the LJ range, 20 more for a
+    charged pair (the pairs counted i-block by i-block from the plain
+    twin's tiles)."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    n, e = pos_loc.shape[0], pos_loc.element_size()
+    XY, Kc = clist.bucket_idx.shape
+    NB = clist.halo_idx.shape[1] // zk.J_BLOCK
+    NIB = Kc // zk.I_BLOCK
+    T = ff.lj_eps.shape[0]
+    E = ff.cell_exclusions.shape[1]
+    # staged rows of each i-block: the real slots of its visited blocks
+    # (a halo row's real slots are its prefix)
+    real = (clist.halo_idx < n).sum(dim=1)[:, None, None]
+    t = torch.arange(W, device=pos_loc.device)
+    s1, c1, s2, cnt = (h.long()[..., None] for h in hull.unbind(-1))
+    jb = torch.where(t < c1, s1 + t, s2 + (t - c1))
+    rows = torch.clamp(real - jb * zk.J_BLOCK, 0, zk.J_BLOCK)
+    staged = torch.where(t < cnt, rows, 0).sum(dim=-1)
+    real_i = (clist.bucket_idx < n).view(XY, NIB, zk.I_BLOCK).sum(dim=-1)
+    n_staged = int(staged.sum())
+    n_cand = int((real_i * staged).sum())
+    n_near, n_in, n_lj, n_ew = pair_counts(
+        torch, zk.zcol_tiles(pos_loc, box_L, clist, hull, W,
+                             zk.rows_per_block(W, e)),
+        n, ff.cell_exclusions, typeid, charge, ff, cfg.r_cut * cfg.r_cut)
+    n_bytes = (e * (9 * n + 3 + n + 4 * T * T) + 4 * n
+               + 4 * (XY * Kc + 9 * XY * Kc + (n + 1) * E)
+               + e * (3 * n + 2 * XY * NIB))
+    n_ops = (12 * n + 2 * 10 * XY * Kc + 12 * XY * NIB * NB
+             + 3 * n_staged + 9 * n_cand + (1 + E) * n_near + 6 * n_in
+             + 17 * n_lj + 20 * n_ew)
+    return n_bytes, n_ops, dict(candidates=n_cand, staged_rows=n_staged,
+                                inside_cutoff=n_near, counted=n_in,
+                                lj=n_lj, ewald=n_ew)
+
+
+def zcol_kernel_phase(torch, pt, dtype, timed):
+    """Phase 10: the zcol kernel against its plain twin on the column list
+    of build_large_n(50_000, pair_mode='zcol')'s scene at its start (the
+    first chunk's list), N = 100,001; in float32 also its device time,
+    host-bound time, the twin's device time, the bound, the device times
+    of the list build and of the hull alone, the candidate count and the
+    hull statistics."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    snap = reference_scene(pt, LARGE_N_MOL, reference_box_for(LARGE_N_MOL),
+                           dtype, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="zcol")
+    cfg = ff.cell_cfg
+    pos, box = snap.position, snap.box_L
+    clist = ff.build_cells(pos, box)
+    check(not bool(clist.overflow), f"zcol list N={snap.N} overflowed")
+    args = (pos, box, clist, cfg, snap.typeid, snap.charge, ff.lj_eps,
+            ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift, ff.cell_exclusions,
+            ff.kappa_value, ff.zcol_W)
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]
+    k = zk.zcol_pair_force(*args)
+    p = zk.zcol_pair_force_plain(*args)
+    torch.cuda.synchronize()
+    check(not bool(k[3]) and not bool(p[3]),
+          f"zcol_pair N={snap.N} {name}: the window overflowed")
+    errs = [max_err(a, b) for a, b in zip(k[:3], p[:3])]
+    for (err, scale), a in zip(errs, k[:3]):
+        check(bool(torch.isfinite(a).all()),
+              f"zcol_pair N={snap.N} {name}: non-finite output")
+        check(err <= tol * max(scale, 1e-300),
+              f"zcol_pair N={snap.N} {name}: max|dF,E| {err} > "
+              f"{tol}*{scale}")
+    pos_loc = zk.zcol_local_positions(pos, box, clist)
+    hull, _, W = zk.zcol_hull(pos_loc, box, clist, cfg, ff.zcol_W)
+    live = hull[..., 1] > 0
+    cnt = hull[..., 3][live].double()
+    occ = (clist.bucket_idx < snap.N).sum(dim=1).double()
+    out = dict(max_abs_err=errs[0][0], scale=errs[0][1],
+               max_abs_err_other_outputs=[e for e, _ in errs[1:]],
+               grid=dict(columns=cfg.ncells[:2], cap=cfg.cap, W=W,
+                         occupancy_mean=float(occ.mean()),
+                         occupancy_max=int(occ.max()),
+                         iblocks=int(hull.shape[0] * hull.shape[1]),
+                         iblocks_live=int(live.sum()),
+                         count_mean=float(cnt.mean()),
+                         count_max=int(cnt.max()),
+                         two_run_iblocks=int((hull[..., 2] < 9 * cfg.cap
+                                              // zk.J_BLOCK).sum())))
+    if timed:
+        # the wrapper, the hull and the build each issue 40-70 launches a
+        # call: one call per sample keeps them inside the launch queue
+        # behind the spin (ten would fill it, and the host would wait)
+        one = dict(inner=1)
+        out["ms"] = device_ms(torch, lambda: zk.zcol_pair_force(*args),
+                              **one)
+        out["kernel_only_ms"] = profiled_device_ms(
+            torch, lambda: zk.zcol_pair_force(*args),
+            match="zcol_pair_kernel")
+        out["host_call_ms"] = host_call_ms(
+            torch, lambda: zk.zcol_pair_force(*args))
+        out["plain_ms"] = profiled_device_ms(
+            torch, lambda: zk.zcol_pair_force_plain(*args))
+        out["hull_ms"] = device_ms(torch, lambda: zk.zcol_hull(
+            zk.zcol_local_positions(pos, box, clist), box, clist, cfg,
+            ff.zcol_W), **one)
+        out["list_build_ms"] = device_ms(
+            torch, lambda: ff.build_cells(pos, box), **one)
+        n_bytes, n_ops, pairs = zcol_work_counts(
+            torch, pos_loc, box, clist, cfg, hull, W, snap.typeid,
+            snap.charge, ff)
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
+        out.update(bytes=n_bytes, ops=n_ops, pairs=pairs)
+    print(f"phase 10: N={snap.N} {name} zcol_pair: " + ", ".join(
+        f"{k}={v!r}" for k, v in out.items()), flush=True)
+    return out
+
+
+def zcol_f64_trajectory(torch, pt):
+    """Phase 10: ZCOL_F64_STEPS float64 Bussi + Langevin steps in zcol mode
+    against cell mode, both on the card, same draws (each state's own
+    generators, seeded alike), at N = 20,001: positions within
+    TRAJ_TOL_BOHR, image flags equal, no overflow, the zcol kernel
+    launched every step, and the carried column list rebuilt (its anchor
+    moved)."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.integrate import init_state, make_step_fn, run_steps
+    from cavmd_tpu_torch.ops import _cuda
+
+    snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                           torch.float64, torch.device("cuda"))
+    dt = PC.fs_to_atomic_units(ZCOL_F64_DT_FS)
+    finals, launches = {}, {}
+    for mode in ("cell", "zcol"):
+        ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                                  pair_mode=mode)
+        methods = pt.resolve_methods(
+            snap, main_methods(pt, PC.kT_from_kelvin(100.0)), ff.l_typeid)
+        start = init_state(snap, ff, dt=dt, seed=7)
+        _cuda.reset_launches()
+        final, obs = run_steps(make_step_fn(ff, methods), start,
+                               ZCOL_F64_STEPS)
+        torch.cuda.synchronize()
+        launches[mode] = dict(_cuda.launches)
+        check(not obs["cell_overflow"].any(), f"phase 10 f64 {mode}: overflow")
+        finals[mode] = final
+    z = finals["zcol"]
+    rebuilt = not bool(torch.equal(z.cell_anchor, snap.position))
+    err = float((z.position - finals["cell"].position).abs().max())
+    img_ok = bool(torch.equal(z.image, finals["cell"].image))
+    print(f"phase 10: f64 Bussi + Langevin {ZCOL_F64_STEPS} steps of "
+          f"{ZCOL_F64_DT_FS} fs at N={snap.N}, zcol vs cell mode on the "
+          f"card: max|dx| = {err!r} bohr (bound {TRAJ_TOL_BOHR}), images "
+          f"equal: {img_ok}, column list rebuilt: {rebuilt}, launches "
+          f"{launches['zcol']}", flush=True)
+    check(err <= TRAJ_TOL_BOHR and img_ok,
+          f"phase 10 f64 zcol trajectory: max|dx| {err} bohr > "
+          f"{TRAJ_TOL_BOHR} or images differ")
+    check(rebuilt, "phase 10 f64: the column list was never rebuilt")
+    check(launches["zcol"].get("zcol_pair", 0) == ZCOL_F64_STEPS
+          and launches["zcol"].get("cell_pair", 0) == 0,
+          f"phase 10 f64: launches {launches['zcol']}")
+    return err
+
+
 class _Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -1314,6 +1540,28 @@ def main() -> None:
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "the port imported jax")
 
+    # phase 10: the z-sorted column mode
+    zres = {}
+    for dtype in (torch.float32, torch.float64):
+        r = zcol_kernel_phase(torch, pt, dtype, timed=dtype == torch.float32)
+        if dtype == torch.float32:
+            zres = r
+        torch.cuda.empty_cache()
+    zcol = large_n_path(torch, pt, LARGE_N_MOL,
+                        DOMAIN_BAND_RATIO * large["universe_band_ha"],
+                        pair_mode="zcol", phase=10)
+    torch.cuda.empty_cache()
+    zcol_f64 = zcol_f64_trajectory(torch, pt)
+    torch.cuda.empty_cache()
+    cell100k = shapes[(LARGE_N_MOL, None)]["cell_pair"]
+    print(f"phase 10: zcol_pair {zres['ms']:.4f} ms vs cell_pair "
+          f"{cell100k['ms']:.4f} ms at N={large['n']}; candidates "
+          f"{zres['pairs']['candidates']} (cell kernel "
+          f"{cell100k['pairs']['candidates']}); "
+          f"zcol step {zcol['ms_per_step']:.3f} ms vs cell "
+          f"{large['ms_per_step']:.3f} ms", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -1336,7 +1584,13 @@ def main() -> None:
           f"ms, bound {slab['bound_ms']:.5f} ms), f64 40 steps max|dx| "
           f"{dom_f64:.2e} bohr, N={dom['n']} {dom['ms_per_step']:.3f} "
           f"ms/step (unsharded {large['ms_per_step']:.3f}) band "
-          f"{dom['universe_band_ha']:.3e} Ha",
+          f"{dom['universe_band_ha']:.3e} Ha | zcol: zcol_pair "
+          f"{zres['ms']:.4f} ms (twin {zres['plain_ms']:.2f} ms, bound "
+          f"{zres['bound_ms']:.5f} ms, hull {zres['hull_ms']:.4f} ms, list "
+          f"build {zres['list_build_ms']:.4f} ms), N={zcol['n']} "
+          f"{zcol['ms_per_step']:.3f} ms/step band "
+          f"{zcol['universe_band_ha']:.3e} Ha, f64 40 steps max|dx| "
+          f"{zcol_f64:.2e} bohr",
           flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at
@@ -1350,6 +1604,9 @@ def main() -> None:
     # the slab kernel at N = 100,001 (phase 9's domain run's launches)
     shapes["slab"] = {"cell_pair_slab": slab}
     where["cell_pair_slab"] = ("slab", dom["launches"])
+    # the zcol kernel at N = 100,001 (phase 10's zcol run's launches)
+    shapes["zcol"] = {"zcol_pair": zres}
+    where["zcol_pair"] = ("zcol", zcol["launches"])
     kernels = []
     for k, (src, rep) in KERNELS.items():
         shape, launches = where[k]

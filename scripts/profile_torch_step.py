@@ -15,7 +15,10 @@ Bussi + Langevin, dt 0.25 fs) it prints one JSON line:
 - ``cli``: the CLI's step: fused, adaptive dt (period 500) and the F(k,t)
   observables (dipole + 50 wavevectors), as ``advanced_run`` runs it;
 - ``domain``: ``shard_atoms=1``, the slab domain pipeline on one process
-  (cell mode whatever N; a rebuild every 20 steps).
+  (cell mode whatever N; a rebuild every 20 steps);
+- ``zcol``: ``Simulation`` with ``pair_mode='zcol'`` (z-sorted columns;
+  needs 3 columns of r_cut + skin per axis: ``--n-molecules`` 300 or
+  more).
 
 Per variant: the host wall time per step without the profiler (median of
 five 200-step chunks, each ended by ``torch.cuda.synchronize()``); and,
@@ -23,8 +26,8 @@ unless ``--no-profile``, from ``torch.profiler`` over 50 steps: the device
 kernels (and memory operations) per step, their summed device time per
 step, the union of their intervals per step, the device busy share (that
 union over the unprofiled wall time) and the twelve largest kernels by
-device time (at N > 4096 the cell pass, the list build's sort and scan,
-and K2-K5 each show). ``--root`` imports ``cavmd_tpu_torch`` from another checkout
+device time (at N > 4096 the cell or zcol pass, the list build's sorts
+and scan, and K2-K5 each show). ``--root`` imports ``cavmd_tpu_torch`` from another checkout
 (for example an unpacked parent commit; only ``default`` runs there), so
 two versions can be timed in one run on one card. The last line names
 the card and its power limit as nvidia-smi reports them.
@@ -52,9 +55,9 @@ def build(pt, torch, variant, n_mol):
                                 temperature_K=100.0, seed=0),
         coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
         seed=1).astype(torch.float32).to(torch.device("cuda"))
+    pair_mode = {"domain": "cell", "zcol": "zcol"}.get(variant)
     ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
-                              pair_mode="cell" if variant == "domain"
-                              else None)
+                              pair_mode=pair_mode)
     kT = PC.kT_from_kelvin(100.0)
     methods = (
         pt.MethodSpec(kind="bussi", group="molecular", kT=kT,

@@ -126,6 +126,11 @@ def _integrator_inputs(dtype, device, n_mol=200, box_L=40.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fused_integrator_kernels_match_twins(cuda, dtype):
+    """Each output within TOL of its twin's largest value, except the two
+    reservoir deltas: they are small differences of kinetic energies, so
+    their rounding scales with the energy they come from (K4: the
+    molecules' KE; K5: the photon's KE before its OU step), as
+    chip_smoke.py holds them."""
     pre, post = _integrator_inputs(dtype, cuda)
     before = dict(_cuda.launches)
     k = fi.pre_force_apply(*pre)
@@ -136,9 +141,15 @@ def test_fused_integrator_kernels_match_twins(cuda, dtype):
     for name in ("fused_pre_force", "fused_post_force"):
         assert _cuda.launches[name] == before.get(name, 0) + 1
     assert torch.equal(k[1], p[1]) and not torch.equal(k[1], pre[2])
-    for a, b in zip((k[0], k[2], k[3]) + tuple(kp), (p[0], p[2], p[3])
-                    + tuple(pp)):
+    for a, b in zip((k[0], k[2]) + tuple(kp[:3]), (p[0], p[2])
+                    + tuple(pp[:3])):
         assert _close(a, b, TOL[dtype])
+    vel, mass, mol = pre[3], pre[5], pre[6]
+    ke_mol = float(0.5 * (mass[:, None] * vel * vel)[mol].sum())
+    ke_photon = float(pp[2].abs() + pp[3].abs())
+    for a, b, scale in ((k[3], p[3], ke_mol), (kp[3], pp[3], ke_photon)):
+        assert float((a - b).abs()) <= TOL[dtype] * max(
+            float(b.abs()), scale)
 
 
 # (n_mol, box_L, r_cut): 3^3 cells (the K6 grid) and 2^3 cells (the K8
@@ -217,3 +228,48 @@ def test_slab_kernel_matches_twin(cuda, S, shift_x, dtype):
     assert _close(out_k[0], out_p[0], tol)
     assert _close(out_k[1], out_p[1], tol)
     assert float((out_k[2] - out_p[2]).abs()) <= tol * ew_scale
+
+
+def _zcol_scene(dtype, device):
+    """500 diatomics + photon at the reference density, r_cut 12: 4 x 4
+    columns of capacity 128, hulls of up to 5 of the 9 j-blocks, some of
+    them in two runs across the z seam."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(500, box_L=reference_box_for(500),
+                                temperature_K=100.0, seed=3, device="cpu"),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=4)
+    snap = snap.astype(dtype).to(device)
+    ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=12.0,
+                              pppm_mesh=(8, 8, 8), pair_mode="zcol")
+    return snap, ff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window", ["planned", "one"])
+def test_zcol_kernel_matches_twin(cuda, window, dtype):
+    """The zcol kernel (K9's counterpart) against its plain twin, on a
+    scene with two-run hulls: with the planned window, and with W = 1,
+    where both drop the same blocks and set the window flag."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    snap, ff = _zcol_scene(dtype, cuda)
+    clist = ff.build_cells(snap.position, snap.box_L)
+    pos_loc = zk.zcol_local_positions(snap.position, snap.box_L, clist)
+    hull, _, _ = zk.zcol_hull(pos_loc, snap.box_L, clist, ff.cell_cfg,
+                              ff.zcol_W)
+    nb = 9 * ff.cell_cfg.cap // 128
+    assert bool((hull[..., 2] < nb).any()), "no two-run hull"
+    W = ff.zcol_W if window == "planned" else 1
+    args = (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
+            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value, W)
+    before = _cuda.launches["zcol_pair"]
+    out_k = zk.zcol_pair_force(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches["zcol_pair"] == before + 1
+    out_p = zk.zcol_pair_force_plain(*args)
+    assert bool(out_k[3]) == bool(out_p[3]) == (window == "one")
+    for k, p in zip(out_k[:3], out_p[:3]):
+        assert _close(k, p, TOL[dtype])

@@ -290,11 +290,18 @@ def test_reference_scene_forcefield_matches_jax(build):
 
 
 def test_forcefield_rejects_unported_modes():
-    """Dense and cell modes are ported; the TPU-only 'pallas' and the
-    opt-in 'zcol' modes raise."""
+    """Dense, cell and zcol modes are ported (zcol builds where the box has
+    3 columns per axis, and raises ValueError, as in the JAX package, where
+    it has fewer); the TPU-only 'pallas' mode raises."""
     ts = t_make(4, box_L=12.0, seed=0, device="cpu")
     assert ForceField.create(ts, pair_mode="cell",
                              pppm_mesh=(8, 8, 8)).pair_mode == "cell"
-    for mode in ("pallas", "zcol"):
-        with pytest.raises(NotImplementedError):
-            ForceField.create(ts, pair_mode=mode)
+    with pytest.raises(ValueError, match="columns per xy axis"):
+        ForceField.create(ts, pair_mode="zcol", pppm_mesh=(8, 8, 8))
+    wide = t_make(60, box_L=40.0, seed=3, device="cpu")
+    ff = ForceField.create(wide, pair_mode="zcol", r_cut=12.0,
+                           pppm_mesh=(8, 8, 8))
+    assert ff.pair_mode == "zcol" and ff.cell_cfg.ncells == (3, 3, 1)
+    assert ff.zcol_W >= 1 and ff.cell_neighbors is None
+    with pytest.raises(NotImplementedError):
+        ForceField.create(ts, pair_mode="pallas")
