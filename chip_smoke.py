@@ -73,8 +73,10 @@ Phases:
      mode on the card, same draws, across a rebuild of the column list.
 
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is a JSON object of per-kernel results; the last
-line is ``{"ok": true, "device": {...}}``.
+Each phase ends with a line of the seconds it took. The last four lines are
+the summary (with the script's seconds and phase 10's), a JSON object of
+per-kernel results, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -259,6 +261,24 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+class PhaseClock:
+    """Wall seconds of each phase, printed as the phase ends."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, phase: int) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.last
+        self.last = now
+        print(f"phase {phase}: took {self.seconds[phase]:.1f} s "
+              f"({now - self.start:.1f} s into the script)", flush=True)
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
 
 
 def card_line() -> str:
@@ -1414,6 +1434,7 @@ def cli_phase(torch, pt, phase, args, n_particles, energy_period_steps,
 
 
 def main() -> None:
+    clock = PhaseClock()
     try:
         import torch
     except ImportError as e:
@@ -1434,6 +1455,7 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     print(f"phase 0: device {kind}; nvidia-smi name, power.limit: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    clock.lap(0)
 
     # phase 1: build, one nvcc per source, all at once
     t0 = time.perf_counter()
@@ -1448,6 +1470,7 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"phase 1: ptxas {src}: {line.strip()}", flush=True)
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(1)
 
     # phase 2: kernels against plain twins: N = 501 and 4001 (dense, K1-K5),
     # N = 100,001 (cell mode: the cell kernel on 17^3 cells, K2-K5), and the
@@ -1466,14 +1489,17 @@ def main() -> None:
                 shapes[(n_mol, mode)] = r
         torch.cuda.empty_cache()
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(2)
 
     # phase 3: Simulation.run at N = 501, fused (default) and unfused
     fused = main_path(torch, pt, None)
     unfused = main_path(torch, pt, False)
+    clock.lap(3)
 
     # phase 4: a float64 trajectory against the CPU, dense mode
     f64_trajectory(torch, pt, 4, 250, 46.0)
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(4)
 
     # phase 5: the N = 501 CLI
     cli = cli_phase(torch, pt, 5, CLI_ARGS, 501, 1000,
@@ -1481,6 +1507,7 @@ def main() -> None:
                      "fused_pre_force", "fused_post_force"],
                     CLI_DRIFT_BOUND_HA)
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(5)
 
     # phase 6: the large-N main path, held at N = 20,001 and run at
     # N = 100,001, there also at half the time step (the band must shrink
@@ -1502,11 +1529,13 @@ def main() -> None:
           f"half the time step, < {LARGE_DT2_RATIO}x: not dt^2 error")
     small = small_grid_path(torch, pt)
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(6)
 
     # phase 7: a float64 cell-mode trajectory against the CPU (5^3 cells)
     f64_trajectory(torch, pt, 7, 2000, reference_box_for(2000),
                    pair_mode="cell")
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(7)
 
     # phase 8: the CLI at 10,000 molecules (held) and 50,000 (float32
     # reported, float64 held)
@@ -1526,6 +1555,7 @@ def main() -> None:
                         LARGE_CLI_ENERGY_PERIOD_STEPS, cell_kernels[:3],
                         LARGE_CLI_DRIFT_BOUND_HA)
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(8)
 
     # phase 9: the slab domain pipeline at one slab
     slab = {}
@@ -1539,6 +1569,7 @@ def main() -> None:
     dom = domain_large_path(torch, pt, large)
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(9)
 
     # phase 10: the z-sorted column mode
     zres = {}
@@ -1561,6 +1592,7 @@ def main() -> None:
           f"zcol step {zcol['ms_per_step']:.3f} ms vs cell "
           f"{large['ms_per_step']:.3f} ms", flush=True)
     check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(10)
 
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
@@ -1590,7 +1622,8 @@ def main() -> None:
           f"build {zres['list_build_ms']:.4f} ms), N={zcol['n']} "
           f"{zcol['ms_per_step']:.3f} ms/step band "
           f"{zcol['universe_band_ha']:.3e} Ha, f64 40 steps max|dx| "
-          f"{zcol_f64:.2e} bohr",
+          f"{zcol_f64:.2e} bohr | script {clock.total():.1f} s, phase 10 "
+          f"{clock.seconds[10]:.1f} s",
           flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at

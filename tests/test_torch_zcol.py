@@ -14,6 +14,8 @@ up to 5 blocks) and 2000 molecules in a 92-bohr box (7 x 7 columns, cap
 256, hulls of two runs across the z seam).
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -64,6 +66,12 @@ def _scene(name, dtype=torch.float64):
     return js.astype(jdt), ts.astype(dtype)
 
 
+def _jax_build_zcol(cfg):
+    """JAX's build_zcol_list under one jit: the eager call compiles each of
+    its ~200 operations on first use, several seconds a scene."""
+    return jax.jit(lambda p, b: jn.build_zcol_list(p, b, cfg))
+
+
 def _pair_args(ff, position, box_L, clist, ts):
     return (position, box_L, clist, ff.cell_cfg, ts.typeid, ts.charge,
             ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
@@ -95,7 +103,11 @@ def test_plans_and_build_equal_jax(name, dtype):
     np.testing.assert_array_equal(table, jpk._xy_neighbor_table(cx, cy))
     tl = tn.build_zcol_list(ts.position, ts.box_L, cfg,
                             torch.as_tensor(table))
-    jl = jn.build_zcol_list(js.position, js.box_L, cfg)
+    # float32 stays eager: under jit XLA fuses local_anchor's arithmetic
+    # and rounds it 1 ulp away from the op-by-op result the port follows
+    build = (partial(jn.build_zcol_list, cfg=cfg) if dtype == torch.float32
+             else _jax_build_zcol(cfg))
+    jl = build(js.position, js.box_L)
     for k in ("bucket_idx", "slot_of", "halo_idx"):
         np.testing.assert_array_equal(getattr(tl, k).numpy(),
                                       np.asarray(getattr(jl, k)), err_msg=k)
@@ -110,8 +122,34 @@ def test_plans_and_build_equal_jax(name, dtype):
         assert (row[:len(real)] == real).all() and len(set(real)) == len(real)
 
 
+@pytest.fixture(scope="module")
+def drift_scene():
+    """The 2000-molecule scene, its port zcol ForceField and column list,
+    and the JAX XLA bucket-tile reference (fresh build_cell_list, then
+    cell_pair_force with make_fused_cell_kernel) under one jit, shared by
+    the four drift trials."""
+    js, ts = _scene("2000")
+    tff = ForceField.create(ts, coupling=1e-3, pair_mode="zcol", r_cut=R_CUT,
+                            pppm_mesh=(8, 8, 8))
+    jff = JForceField.create(js, coupling=1e-3, pair_mode="cell",
+                             r_cut=R_CUT, pppm_mesh=(8, 8, 8))
+    jcfg = jn.CellListConfig(*jff.cell_cfg)
+    kern = jn.make_fused_cell_kernel(jff.lj_eps, jff.lj_sigma, jff.lj_rcut,
+                                     jff.kappa, jff.n_types,
+                                     uniform_rcut=jff.uniform_rcut)
+
+    @jax.jit
+    def reference(pos):
+        jl = jn.build_cell_list(pos, js.box_L, jcfg, jff.cell_neighbors)
+        return jn.cell_pair_force(
+            pos, js.box_L, jl, jcfg, kern, features=jff.cell_features,
+            exclusions=jff.cell_exclusions, cell_block=jff.cell_block)
+
+    return js, ts, tff, tff.build_cells(ts.position, ts.box_L), reference
+
+
 @pytest.mark.parametrize("trial", [0, 1, 2, 3])
-def test_twin_matches_xla_tile_path_f64(trial):
+def test_twin_matches_xla_tile_path_f64(trial, drift_scene):
     """On the 2000-molecule scene, against cell_pair_force with
     make_fused_cell_kernel on a fresh bucket list, to 1e-10 (forces of
     max|F|, energies relative): at the build positions (trial 0) and after
@@ -119,12 +157,7 @@ def test_twin_matches_xla_tile_path_f64(trial):
     column list still the one built at the start
     (tests/test_pallas.py:256-294). The scene holds i-blocks with a
     second hull run and i-blocks with none, and the window prunes."""
-    js, ts = _scene("2000")
-    tff = ForceField.create(ts, coupling=1e-3, pair_mode="zcol", r_cut=R_CUT,
-                            pppm_mesh=(8, 8, 8))
-    jff = JForceField.create(js, coupling=1e-3, pair_mode="cell",
-                             r_cut=R_CUT, pppm_mesh=(8, 8, 8))
-    zlist = tff.build_cells(ts.position, ts.box_L)
+    js, ts, tff, zlist, reference = drift_scene
     cfg = tff.cell_cfg
     assert cfg.ncells == (7, 7, 1) and cfg.cap == 256
     direction = np.random.default_rng(0).uniform(-1, 1, size=(ts.N, 3))
@@ -144,16 +177,7 @@ def test_twin_matches_xla_tile_path_f64(trial):
     assert (h[..., 3] < real_blocks[:, None])[h[..., 1] > 0].any(), \
         "the window never prunes"
 
-    jcfg = jn.CellListConfig(*jff.cell_cfg)
-    jl = jn.build_cell_list(jnp.asarray(pos), js.box_L, jcfg,
-                            jff.cell_neighbors)
-    kern = jn.make_fused_cell_kernel(jff.lj_eps, jff.lj_sigma, jff.lj_rcut,
-                                     jff.kappa, jff.n_types,
-                                     uniform_rcut=jff.uniform_rcut)
-    f_ref, (elj_ref, eew_ref) = jn.cell_pair_force(
-        jnp.asarray(pos), js.box_L, jl, jcfg, kern,
-        features=jff.cell_features, exclusions=jff.cell_exclusions,
-        cell_block=jff.cell_block)
+    f_ref, (elj_ref, eew_ref) = reference(jnp.asarray(pos))
     f, e_lj, e_ew, win = zk.zcol_pair_force(
         *_pair_args(tff, position, ts.box_L, zlist, ts))
     assert not bool(win)
@@ -183,15 +207,16 @@ def test_twin_matches_pallas_zcol_kernel_f32(name):
     assert tff.zcol_W == jff.zcol_W
     cfg = tff.cell_cfg
     tl = tff.build_cells(ts.position, ts.box_L)
-    jl = jn.build_zcol_list(js.position, js.box_L, cfg)
+    jl = _jax_build_zcol(cfg)(js.position, js.box_L)
     hull, _, _ = _hull(tff, ts.position, ts.box_L, tl)
     most = int(hull[..., 3].max())
     if name == "500":
         tff.zcol_W = most - 2
         assert tff.zcol_W >= 1
-    f_ref, elj_ref, eew_ref, win_ref = jpk.fused_zsort_cols_pallas(
-        js.position, js.box_L, jl, cfg, jff.cell_pallas_pack, jff.kappa,
-        interpret=True, W=tff.zcol_W)
+    f_ref, elj_ref, eew_ref, win_ref = jax.jit(
+        lambda p, b, cl: jpk.fused_zsort_cols_pallas(
+            p, b, cl, cfg, jff.cell_pallas_pack, jff.kappa, interpret=True,
+            W=tff.zcol_W))(js.position, js.box_L, jl)
     f, e_lj, e_ew, win = zk.zcol_pair_force(
         *_pair_args(tff, ts.position, ts.box_L, tl, ts))
     assert f.dtype == torch.float32
@@ -350,7 +375,7 @@ def test_jax_zcol_f64_runs_its_pair_pass_in_f32():
     for mode in ("cell", "zcol"):
         jff = JForceField.create(js, coupling=1e-3, pair_mode=mode,
                                  r_cut=R_CUT, pppm_mesh=(8, 8, 8))
-        forces[mode] = np.asarray(jff.compute(*args)[0])
+        forces[mode] = np.asarray(jax.jit(jff.compute)(*args)[0])
     scale = np.abs(forces["cell"]).max()
     size = np.abs(forces["zcol"] - forces["cell"]).max() / scale
     assert 1e-9 < size < 1e-5, size
