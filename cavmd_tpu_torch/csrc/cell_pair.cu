@@ -17,29 +17,69 @@
 //     grid kinds: with < 3 cells per axis only the neighbour table differs
 //     (repeats replaced by the sentinel cell id C, which is empty).
 //
-// What bounds it on an H100: operations. At N = 100,001 (17^3 cells, mean
-// occupancy 20.4) the pass tests ~55 M candidate pairs and evaluates ~7.3 M
-// in-cutoff pairs (a divide per axis for the minimum image, an erfc and an
-// exp each), against ~6 MB of input; the TPU layout tricks (z-haloed
-// columns, two-tier i rows, j-split windows, lane padding) answer VMEM and
-// lane width and are not carried over. Design:
-//   - one block per cell; the block stages its 27 neighbour cells' occupied
-//     slots, compacted, in shared memory (x, y, z, q, id, type as
-//     structure-of-arrays, so neighbouring lanes read neighbouring words):
-//     loops run to the occupancy, so empty slots cost nothing and a
-//     sentinel slot is never touched (its far position could wrap onto a
-//     real coordinate and give r^2 = 0);
+// What bounds it on an H100: instructions, not bytes. At N = 100,001
+// (17^3 cells, mean occupancy 20.4) the pass tests ~56 M candidate pairs,
+// of which ~6.6 M (12%) lie inside the cutoff, against ~6 MB of input.
+// Each pair inside the cutoff costs ~150 instructions (IEEE divides and
+// sqrt, erfc, exp); each candidate its displacement, r^2 and the cutoff
+// test (~17 FP32 operations) and its share of the warp's compaction. A
+// warp that evaluates the pair term under the cutoff test pays it on
+// nearly every 32-lane step (1 - 0.88^32 = 98% of them hold a pair). With
+// the pair term moved behind a queue, the candidate loop is the cost:
+// with the pair term switched off the pass keeps 3/4 of its time on an
+// H100 (scripts/bench_cell_kernel_parts.py); more warps per SM and
+// deeper unrolling moved it by a few percent (PERF.md). Design:
+//   - one block of 256 threads per cell (times a row split on small grids,
+//     below); the block stages its 27 neighbour cells' occupied slots,
+//     compacted, in shared memory (x, y, z, q, id, type as
+//     structure-of-arrays). Occupancies: each warp reads the first 32 slots
+//     of its cells' bucket rows together and finds the first empty slot
+//     with a ballot (buckets fill from slot 0); offsets: a shuffle scan;
+//     staging: every thread takes 4 staged rows at a time, finds each
+//     row's cell by bisecting the offsets, and has their loads in flight
+//     together. Only occupied slots are staged: a sentinel's far position
+//     could wrap onto a real coordinate;
 //   - dynamic shared memory sized 27 * cap rows (29 KB at cap 45 in f32,
 //     49 KB in f64), raised past 48 KB with cudaFuncSetAttribute, so the
-//     overflow retry's larger caps still launch;
-//   - warps take the cell's i rows, lanes stride over the staged j rows,
-//     and a warp-shuffle sum closes each row: every particle owns one slot,
-//     so its force is written once, with no atomics and no slot gather;
+//     overflow retry's larger caps still launch (a cap past the 227 KB a
+//     block may use returns the attribute's error);
+//   - warps take the cell's i rows, one at a time, reading row i from the
+//     staged copy of c. Cutoff first: lanes stride over the staged j rows
+//     computing only the displacement, r^2 and the cutoff test, four steps
+//     of 32 at a time with no branch between them, and push the j rows that
+//     pass into a per-warp ring of 256 in shared memory (__ballot_sync,
+//     __popc, the lane's rank from the lanes below it). Whenever the ring
+//     holds 32, every lane takes one and runs the self test, the exclusion
+//     test and the pair term, adding to its own force accumulator; the
+//     partial ring is flushed at the end of the row. So the pair term runs
+//     on full warps, ~3 times a row at N = 100,001, instead of on ~18
+//     mostly idle steps;
+//   - the minimum image without a divide or a rint: k = d * (1/L) rounded
+//     by adding and subtracting 1.5 * 2^23 (1.5 * 2^52 in f64), then
+//     d - L k in one fma. For a pair inside the cutoff |d/L - k| < r_cut/L
+//     < 1/2, so a quotient 1-2 ulp off cannot cross a half-integer, the
+//     rounding gives the twin's k (round half to even, as rint), and L k is
+//     exact for |k| <= 2: every counted pair gets the twin's dx, and r^2 is
+//     formed with the _rn intrinsics in the twin's order, so the cutoff
+//     decides as the twin does. (This needs L > 2 r_cut per axis, which the
+//     minimum image needs anyway.) Per-row image shifts are not taken: in
+//     float32 they round pairs across a face differently from the twin;
+//   - a warp-shuffle sum closes each row: every particle owns one slot, so
+//     its force is written once, with no atomics and no slot gather;
 //   - per-block (e_lj, e_ew) partials, summed in a fixed order by the
-//     wrapper and halved, as in the dense kernel.
-// The launch allocates nothing and does not synchronise; it returns
-// cudaGetLastError(). The caller zeroes the forces: a particle that an
-// overflow left without a slot keeps zero, as slot_gather_forces gives it.
+//     wrapper and halved, as in the dense kernel. Every sum has a fixed
+//     order, so two calls on the same inputs give the same bits;
+//   - small grids: with fewer cells than ~2 blocks per SM (K8's grid: 8
+//     cells at N = 501) the wrapper splits each cell's i rows over `split`
+//     blocks (blockIdx.y), each staging the same window; the energy
+//     partials are then per (cell, row chunk).
+// Not taken: a half shell (Newton's third law) halves the pair terms but
+// needs atomics on the j forces, which makes float32 sums order-dependent
+// from run to run; a Verlet pair list would change CellList and its
+// rebuild. The launch allocates nothing and does not synchronise; it
+// returns cudaGetLastError(). The caller zeroes the forces: a particle
+// that an overflow left without a slot keeps zero, as slot_gather_forces
+// gives it.
 //
 // The same kernel is the tile pass of the slab domain pipeline, replacing
 // fused_cell_cols_slab_pallas (pallas_kernels.py:1044): the grid is a
@@ -66,9 +106,45 @@ namespace {
 
 using namespace cavmd;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // ops/cell_kernels.py:WARPS_PER_BLOCK * 32
 constexpr int kWarps = kThreads / 32;
 constexpr int kNeighbors = 27;
+constexpr int kUnroll = 4;    // candidate steps of 32 between queue checks
+constexpr int kRing = 64 * kUnroll;  // per-warp queue of in-cutoff j rows
+constexpr int kStage = 4;     // rows a thread stages at a time
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+// 1.5 * 2^(mantissa bits): t + M - M rounds t to the nearest integer, ties
+// to even, for |t| < 2^22 (f32) / 2^51 (f64), as rint does
+__device__ __forceinline__ float round_magic(float) { return 12582912.0f; }
+__device__ __forceinline__ double round_magic(double) { return 6755399441055744.0; }
+
+// One minimum-image component of d = x_i - x_j: d - L k with k the nearest
+// integer to d / L. k comes from d * (1/L) rounded by the magic constant
+// (two adds at the full FP32 rate, where rint is a conversion at 1/8 of
+// it), L k is taken in the fma exactly (|k| <= 2), so for every pair inside
+// the cutoff the result equals the twin's d - L rint(d / L) bit for bit (see
+// the note at the top).
+template <typename T>
+__device__ __forceinline__ T min_image(T d, T L, T inv_L) {
+  const T M = round_magic(T(0));
+  const T k = sub_rn(fma_rn(d, inv_L, M), M);
+  return fma_rn(-L, k, d);
+}
+
+// r^2 as the twin forms it: (dx^2 + dy^2) + dz^2, each step rounded.
+template <typename T>
+__device__ __forceinline__ T norm2(T dx, T dy, T dz) {
+  return add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
+}
 
 // Bytes of dynamic shared memory for one block: 27 * cap staged rows. A
 // count past what a block may use beside the static arrays (227 KB in all)
@@ -103,96 +179,190 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   __shared__ T s_sig2[kMaxTypes * kMaxTypes];
   __shared__ T s_rc2[kMaxTypes * kMaxTypes];
   __shared__ T s_vsh[kMaxTypes * kMaxTypes];
+  __shared__ int s_cell[kNeighbors];
   __shared__ int s_occ[kNeighbors];
-  __shared__ int s_off[kNeighbors + 1];
-  __shared__ int s_occ_self;
+  __shared__ int s_off[kNeighbors + 1];  // [27]: rows staged in all
+  __shared__ int s_self;                 // c's place in its neighbour row
+  __shared__ uint16_t s_ring[kWarps][kRing];  // staged rows < 27 cap < 2^16
   __shared__ T s_red[kWarps][2];
 
   const int c = cell_begin + blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   for (int t = threadIdx.x; t < ntypes * ntypes; t += blockDim.x) {
     s_eps[t] = eps_t[t];
     s_sig2[t] = sig2_t[t];
     s_rc2[t] = rcut2_t[t];
     s_vsh[t] = vshift_t[t];
   }
-  // occupancy of each neighbour cell (buckets fill from slot 0) and of c
-  if (threadIdx.x <= kNeighbors) {
-    const int cell = threadIdx.x < kNeighbors ? nbr[(size_t)c * kNeighbors + threadIdx.x] : c;
-    int occ = 0;
-    if (cell < ncells) {
-      const int32_t* b = bucket + (size_t)cell * cap;
-      while (occ < cap && b[occ] < n) ++occ;
+  if (threadIdx.x < kNeighbors)
+    s_cell[threadIdx.x] = nbr[(size_t)c * kNeighbors + threadIdx.x];
+  __syncthreads();
+
+  // occupancy of each neighbour cell: a warp reads a bucket row coalesced,
+  // and buckets fill from slot 0, so the first empty slot ends the row. The
+  // warp's cells' first 32 slots are read together; a row full in its first
+  // 32 slots reads on.
+  {
+    constexpr int kPerWarp = (kNeighbors + kWarps - 1) / kWarps;
+    int first[kPerWarp];
+#pragma unroll
+    for (int q = 0; q < kPerWarp; ++q) {
+      const int k = warp + q * kWarps;
+      const int cell = k < kNeighbors ? s_cell[k] : ncells;
+      first[q] = cell < ncells && lane < cap ? bucket[(size_t)cell * cap + lane] : n;
     }
-    if (threadIdx.x < kNeighbors) s_occ[threadIdx.x] = occ;
-    else s_occ_self = occ;
+#pragma unroll
+    for (int q = 0; q < kPerWarp; ++q) {
+      const int k = warp + q * kWarps;
+      if (k >= kNeighbors) break;  // warp-uniform
+      unsigned real = __ballot_sync(kFull, first[q] < n);
+      int occ = real == kFull ? 32 : __ffs(~real) - 1;
+      if (real == kFull && occ < cap) {
+        const int32_t* b = bucket + (size_t)s_cell[k] * cap;
+        for (int r0 = 32; r0 < cap; r0 += 32) {
+          const int r = r0 + lane;
+          real = __ballot_sync(kFull, r < cap && b[r] < n);
+          occ = r0 + (real == kFull ? 32 : __ffs(~real) - 1);
+          if (real != kFull) break;
+        }
+      }
+      if (lane == 0) s_occ[k] = occ < cap ? occ : cap;
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int k = 0; k < kNeighbors; ++k) {
-      s_off[k] = acc;
-      acc += s_occ[k];
+  // staging offsets: an exclusive scan of the 27 occupancies; and where c
+  // sits in its own neighbour row (its first occurrence)
+  if (warp == 0) {
+    const int v = lane < kNeighbors ? s_occ[lane] : 0;
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += u;
     }
-    s_off[kNeighbors] = acc;
+    if (lane < kNeighbors) s_off[lane] = incl - v;
+    if (lane == kNeighbors - 1) s_off[kNeighbors] = incl;
+    const unsigned self = __ballot_sync(kFull, lane < kNeighbors && s_cell[lane] == c);
+    if (lane == 0) s_self = self ? __ffs(self) - 1 : -1;
   }
   __syncthreads();
 
-  // stage the occupied neighbour slots, compacted
-  for (int s = threadIdx.x; s < rows; s += blockDim.x) {
-    const int k = s / cap;
-    const int r = s - k * cap;
-    if (r < s_occ[k]) {
-      const int cell = nbr[(size_t)c * kNeighbors + k];
-      const int id = bucket[(size_t)cell * cap + r];
-      const int d = s_off[k] + r;
-      sx[d] = pos[3 * (size_t)id];
-      sy[d] = pos[3 * (size_t)id + 1];
-      sz[d] = pos[3 * (size_t)id + 2];
-      sq[d] = charge[id];
-      sid[d] = key ? key[id] : id;
-      stype[d] = type_id[id];
-    }
-  }
-  __syncthreads();
-
+  // stage the occupied neighbour slots, compacted, all threads over all
+  // rows, kStage rows a thread at a time so that their loads are in flight
+  // together: a staged row's cell is the last one whose offset is <= the row
   const int m = s_off[kNeighbors];
-  const int occ_self = s_occ_self;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  for (int d0 = 0; d0 < m; d0 += kStage * kThreads) {
+    int id[kStage];
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int d = d0 + q * kThreads + threadIdx.x;
+      id[q] = -1;
+      if (d < m) {
+        int lo = 0;
+#pragma unroll
+        for (int half = 16; half > 0; half >>= 1)
+          if (lo + half < kNeighbors && s_off[lo + half] <= d) lo += half;
+        id[q] = bucket[(size_t)s_cell[lo] * cap + (d - s_off[lo])];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kStage; ++q) {
+      const int d = d0 + q * kThreads + threadIdx.x;
+      if (id[q] >= 0) {
+        sx[d] = pos[3 * (size_t)id[q]];
+        sy[d] = pos[3 * (size_t)id[q] + 1];
+        sz[d] = pos[3 * (size_t)id[q] + 2];
+        sq[d] = charge[id[q]];
+        sid[d] = key ? key[id[q]] : id[q];
+        stype[d] = type_id[id[q]];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int self = s_self;
+  const int occ_self = self >= 0 ? s_occ[self] : 0;
   const T Lx = box[0], Ly = box[1], Lz = box[2];
+  const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
+  const unsigned below = (1u << lane) - 1u;
+  uint16_t* ring = s_ring[warp];
   T e_lj = 0, e_ew = 0;
 
-  for (int i = warp; i < occ_self; i += kWarps) {  // warp-uniform
+  for (int i = blockIdx.y * kWarps + warp; i < occ_self;
+       i += gridDim.y * kWarps) {  // warp-uniform
+    // row i of c: its staged copy, and its particle id for the exclusion
+    // row and the force
+    const int ri = s_off[self] + i;
     const int idi = bucket[(size_t)c * cap + i];
-    const int kid = key ? key[idi] : idi;
-    const T xi = pos[3 * (size_t)idi], yi = pos[3 * (size_t)idi + 1];
-    const T zi = pos[3 * (size_t)idi + 2];
-    const T qi = charge[idi];
-    const int ti = type_id[idi] * ntypes;
+    const int kid = sid[ri];
+    const T xi = sx[ri], yi = sy[ri], zi = sz[ri], qi = sq[ri];
+    const int ti = stype[ri] * ntypes;
     int ex[kMaxExcl];
 #pragma unroll
     for (int e = 0; e < kMaxExcl; ++e)
       ex[e] = e < max_excl ? excl[(size_t)idi * max_excl + e] : -1;
     T fx = 0, fy = 0, fz = 0;
-    for (int j = lane; j < m; j += 32) {
-      const int idj = sid[j];
-      bool skip = idj == kid;
+
+    // cutoff first: push the staged rows inside the cutoff into the ring;
+    // take 32 whenever it holds 32, and the rest at the row's end
+    int head = 0, queued = 0;  // warp-uniform ring state
+    for (int j0 = 0; j0 < m || queued > 0;) {
+      if (j0 < m && queued < kRing - 32 * kUnroll) {
+        // kUnroll steps of 32 candidates: first every step's cutoff test,
+        // branch-free (a lane past the staged rows reads the last one and
+        // is never near), so the compiler interleaves the steps; then the
+        // votes. Every lane writes a slot: the near ones the next `hits`
+        // slots in lane order, the others the free slots after them.
+        bool near[kUnroll];
 #pragma unroll
-      for (int e = 0; e < kMaxExcl; ++e) skip |= ex[e] == idj;
-      if (skip) continue;
-      T dx = xi - sx[j];
-      T dy = yi - sy[j];
-      T dz = zi - sz[j];
-      dx = dx - Lx * m_rint(dx / Lx);
-      dy = dy - Ly * m_rint(dy / Ly);
-      dz = dz - Lz * m_rint(dz / Lz);
-      const T r2 = dx * dx + dy * dy + dz * dz;
-      if (!(r2 < rc2)) continue;
-      const T f = lj_ewald_pair(r2, ti + stype[j], qi * sq[j], s_eps, s_sig2,
-                                s_rc2, s_vsh, kappa, lj_on, coul_on, e_lj, e_ew);
-      fx += f * dx;
-      fy += f * dy;
-      fz += f * dz;
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 + 32 * u + lane;
+          const int jr = j < m ? j : m - 1;
+          const T dx = min_image(sub_rn(xi, sx[jr]), Lx, iLx);
+          const T dy = min_image(sub_rn(yi, sy[jr]), Ly, iLy);
+          const T dz = min_image(sub_rn(zi, sz[jr]), Lz, iLz);
+          near[u] = (norm2(dx, dy, dz) < rc2) & (j < m);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const unsigned hits = __ballot_sync(kFull, near[u]);
+          const int rank = __popc(hits & below);
+          const int total = __popc(hits);
+          const int slot = near[u] ? rank : total + lane - rank;
+          ring[(head + queued + slot) & (kRing - 1)] = j0 + 32 * u + lane;
+          queued += total;
+        }
+        j0 += 32 * kUnroll;
+      }
+      if (queued >= 32 || (queued > 0 && j0 >= m)) {
+        __syncwarp();
+        if (lane < queued) {
+          // self and exclusion tests, then the pair term into this lane's
+          // accumulators (the displacement as in the cutoff test, bit for
+          // bit)
+          const int j = ring[(head + lane) & (kRing - 1)];
+          const int idj = sid[j];
+          bool skip = idj == kid;
+#pragma unroll
+          for (int e = 0; e < kMaxExcl; ++e) skip |= ex[e] == idj;
+          if (!skip) {
+            const T dx = min_image(sub_rn(xi, sx[j]), Lx, iLx);
+            const T dy = min_image(sub_rn(yi, sy[j]), Ly, iLy);
+            const T dz = min_image(sub_rn(zi, sz[j]), Lz, iLz);
+            const T f = lj_ewald_pair(norm2(dx, dy, dz), ti + stype[j], qi * sq[j],
+                                      s_eps, s_sig2, s_rc2, s_vsh, kappa, lj_on,
+                                      coul_on, e_lj, e_ew);
+            fx += f * dx;
+            fy += f * dy;
+            fz += f * dz;
+          }
+        }
+        const int took = queued < 32 ? queued : 32;
+        head = (head + took) & (kRing - 1);
+        queued -= took;
+        __syncwarp();  // the slots just taken are free for the next pushes
+      }
     }
     fx = warp_sum(fx);
     fy = warp_sum(fy);
@@ -216,8 +386,9 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
       a += s_red[w][0];
       b += s_red[w][1];
     }
-    e_partial[2 * (size_t)blockIdx.x] = a;
-    e_partial[2 * (size_t)blockIdx.x + 1] = b;
+    const size_t blk = (size_t)blockIdx.x * gridDim.y + blockIdx.y;
+    e_partial[2 * blk] = a;
+    e_partial[2 * blk + 1] = b;
   }
 }
 
@@ -227,11 +398,12 @@ int launch(const void* pos, const void* box, const void* type_id,
            const void* rcut2, const void* vshift, int ntypes,
            const void* bucket, const void* nbr, const void* excl, int max_excl,
            int n, int ncells, int cap, double rc2, double kappa, int lj_on,
-           int coul_on, int cell_begin, int cell_count, const void* key,
-           void* forces, void* e_partial, void* stream) {
+           int coul_on, int cell_begin, int cell_count, int split,
+           const void* key, void* forces, void* e_partial, void* stream) {
   if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
       n < 1 || ncells < 1 || cap < 1 || cell_begin < 0 || cell_count < 1 ||
-      cell_begin + cell_count > ncells)
+      cell_begin + cell_count > ncells || split < 1 || split > 65535 ||
+      (long long)kNeighbors * cap + 32 * kUnroll > 65535)  // 16-bit ring rows
     return (int)cudaErrorInvalidValue;
   // set the kernel's dynamic shared memory limit when a launch needs more
   // than the last one set, not on every launch (the overflow retry grows
@@ -245,7 +417,8 @@ int launch(const void* pos, const void* box, const void* type_id,
     if (err != cudaSuccess) return (int)err;
     raised_to = smem;
   }
-  cell_pair_kernel<T><<<cell_count, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(cell_count, split);
+  cell_pair_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)pos, (const T*)box, (const int32_t*)type_id, (const T*)charge,
       (const T*)eps, (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)nbr, (const int32_t*)excl, max_excl,
@@ -264,11 +437,11 @@ int cavmd_cell_pair_f32(const void* pos, const void* box, const void* type_id,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
-                        int cell_count, const void* key, void* forces,
+                        int cell_count, int split, const void* key, void* forces,
                         void* e_partial, void* stream) {
   return launch<float>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
                        ntypes, bucket, nbr, excl, max_excl, n, ncells, cap, rc2,
-                       kappa, lj_on, coul_on, cell_begin, cell_count, key,
+                       kappa, lj_on, coul_on, cell_begin, cell_count, split, key,
                        forces, e_partial, stream);
 }
 
@@ -278,12 +451,12 @@ int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
-                        int cell_count, const void* key, void* forces,
+                        int cell_count, int split, const void* key, void* forces,
                         void* e_partial, void* stream) {
   return launch<double>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
                         ntypes, bucket, nbr, excl, max_excl, n, ncells, cap, rc2,
-                        kappa, lj_on, coul_on, cell_begin, cell_count, key,
-                       forces, e_partial, stream);
+                        kappa, lj_on, coul_on, cell_begin, cell_count, split, key,
+                        forces, e_partial, stream);
 }
 
 }  // extern "C"

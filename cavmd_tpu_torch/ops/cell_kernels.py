@@ -9,7 +9,11 @@ when an axis has fewer). It holds the semantics of the XLA tile path
 ``cavmd_tpu/ops/neighbor.py:cell_pair_force`` with
 ``make_fused_cell_kernel`` (true erfc, round-half-even minimum image). The
 source note in ``cell_pair.cu`` says what bounds it on the H100 and how
-the design answers it.
+the design answers it: the cutoff test first, then the pair term on full
+warps from a per-warp queue. Each call is one launch of a block per cell;
+a launch of fewer cells than two per SM (the small grid) splits each
+cell's i rows over ``row_split`` blocks. The energy partials are per
+block, summed here in a fixed order, so two calls give the same bits.
 
 Inputs are the carried ``CellList``, the (T, T) type tables of the dense
 kernel (eps, sigma^2, r_cut^2, v_shift), typeid and charge, and the
@@ -48,14 +52,31 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _I, _I, _D,
-         _D, _I, _I, _I, _I, _V, _V, _V, _V]
+         _D, _I, _I, _I, _I, _I, _V, _V, _V, _V]
 _SIGNATURES = {"cavmd_cell_pair_f32": _ARGS, "cavmd_cell_pair_f64": _ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+WARPS_PER_BLOCK = 8  # csrc/cell_pair.cu kThreads / 32
 
 
 def kernel_name(cfg: CellListConfig) -> str:
     """The launch-count name of the kernel on this grid."""
     return "cell_pair" if min(cfg.ncells) >= 3 else "cell_pair_small_grid"
+
+
+def row_split(n_cells: int, cap: int, sm_count: int) -> int:
+    """Blocks per cell of a launch over ``n_cells`` cells: 1 when the
+    launch has at least two blocks per SM, else enough to reach that, but
+    no more than one i row per warp of a full bucket."""
+    if n_cells >= 2 * sm_count:
+        return 1
+    return max(1, min(-(-2 * sm_count // n_cells), -(-cap // WARPS_PER_BLOCK)))
+
+
+def launch_blocks(n_cells: int, cap: int, device) -> int:
+    """Blocks (energy partials) of one kernel launch over ``n_cells`` cells
+    on ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return n_cells * row_split(n_cells, cap, sms)
 
 
 def cell_pair_force_fused_plain(position, box_L, clist: CellList,
@@ -177,14 +198,15 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
                 f"on {t.device}")
     lib = _cuda.load("cell_pair", _SIGNATURES)
     forces = torch.zeros_like(position)
-    partial = torch.empty((count, 2), dtype=dtype, device=position.device)
+    blocks = launch_blocks(count, cap, position.device)
+    partial = torch.empty((blocks, 2), dtype=dtype, device=position.device)
     p = _cuda.ptr
     rc = getattr(lib, f"cavmd_cell_pair_{_SUFFIX[dtype]}")(
         p(position), p(box_L), p(typeid), p(charge), p(eps), p(sig2),
         p(rcut2), p(vshift), ntypes, p(clist.bucket_idx),
         p(clist.neighbor_cells), p(exclusions), max_excl, n, C, cap,
         cfg.r_cut * cfg.r_cut, float(kappa), int(bool(lj_on)),
-        int(bool(coul_on)), first, count,
+        int(bool(coul_on)), first, count, blocks // count,
         p(pair_key) if pair_key is not None else None, p(forces),
         p(partial), _cuda.stream_ptr(position.device))
     _cuda.check(rc, name)

@@ -39,12 +39,14 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     **{f"cavmd_fused_pre_force_{s}": [_V] * 11 + [_D, _D, _I] + [_V] * 5
+       + [_I, _V]
        for s in ("f32", "f64")},
     **{f"cavmd_fused_post_force_{s}": [_V] * 5 + [_I] + [_V] * 3 + [_I]
        + [_V] * 3
        for s in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+PRE_FORCE_THREADS = 512  # csrc/fused_integrator.cu kPreThreads
 
 
 class FusedIntegratorPlan:
@@ -164,13 +166,17 @@ def pre_force_apply(plan, position, image, velocity, forces, mass, mol_mask,
     img_out = torch.empty_like(image)
     vel_out = torch.empty_like(velocity)
     dres = torch.empty((), dtype=dtype, device=position.device)
+    # one kinetic-energy partial per block of the grid, which is at most
+    # one block per PRE_FORCE_THREADS particles
+    n_partial = -(-n // PRE_FORCE_THREADS)
+    partial = torch.empty(n_partial, dtype=dtype, device=position.device)
     p = _cuda.ptr
     lib = _cuda.load("fused_integrator", _SIGNATURES)
     rc = getattr(lib, f"cavmd_fused_pre_force_{sfx}")(
         p(velocity), p(position), p(image), p(forces), p(mass), p(mol_mask),
         p(box_L), p(dt), p(c), p(r1), p(r_gamma), float(kT),
         float(plan.bussi.dof), n, p(vel_out), p(pos_out), p(img_out),
-        p(dres), _cuda.stream_ptr(position.device))
+        p(dres), p(partial), n_partial, _cuda.stream_ptr(position.device))
     _cuda.check(rc, "fused_pre_force")
     _cuda.count_launch("fused_pre_force")
     return pos_out, img_out, vel_out, dres

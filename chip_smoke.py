@@ -9,7 +9,9 @@ including when no CUDA device is present or the package is not next to it.
 Phases:
   0. device: the card's name and power limit (nvidia-smi);
   1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
-     source, all started together; print the seconds;
+     source, all started together; print the seconds and, from ptxas, each
+     kernel's registers and spill bytes by name (the cell kernel and K4
+     must be found in float and double);
   2. kernels against their plain PyTorch twins on the card, float32 and
      float64: at the N = 501 reference scene and at N = 4001 (reference
      density) in dense mode, the pair pass (K1), the 32^3 order-6 PPPM
@@ -17,7 +19,8 @@ Phases:
      pre-force, K5 post-force, with particles pushed across the box
      faces); at N = 100,001 in cell mode (17^3 cells) the cell kernel
      (K6's counterpart) and K2-K5; on the N = 501 scene in cell mode (2^3
-     cells, K8's counterpart) the cell kernel — max |diff|; in float32
+     cells, K8's counterpart) the cell kernel — max |diff|, and for the
+     cell kernel and K4 two calls on the same inputs bit-equal; in float32
      also the median device time of one call (``ms``, CUDA events with the
      host out of the way), the median host-bound time of one call
      (``host_call_ms``), the twin's times, and the bound from the call's
@@ -251,6 +254,43 @@ KERNELS = {  # name -> (source file, the TPU kernel it replaces)
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+
+
+# kernels whose registers and spills phase 1 must find by name in a fresh
+# build's ptxas report, in float and double
+PTXAS_NAMED = {"cell_pair": ("cell_pair_kernel",),
+               "fused_integrator": ("pre_force_kernel",)}
+
+
+def ptxas_report(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] for each
+    entry function of an ``nvcc -Xptxas -v`` log; a kernel template reads
+    as ``name<float>`` or ``name<double>``."""
+    out, entry, props, spill = [], None, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([\w$]+)'", line)
+        if m:
+            entry, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"Function properties for ([\w$]+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None and props == entry:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            k = re.search(r"([a-z][a-z_]*_kernel)I([fd])E", entry)
+            label = entry
+            if k:
+                t = "float" if k.group(2) == "f" else "double"
+                label = f"{k.group(1)}<{t}>"
+            out.append((label, int(m.group(1)), *spill))
+            entry = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -501,8 +541,15 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
         if len(errs) > 1:
             out[key]["max_abs_err_other_outputs"] = [e for e, _ in errs[1:]]
 
+    def hold_bits(key, first, second):
+        """Two calls of a kernel on the same inputs give the same bits."""
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{key} N={snap.N} {name}: two calls on the same inputs "
+              "differ")
+        out[key]["bit_equal_calls"] = True
+
     calls = {}
-    clist = None
+    cell_key = None
     if ff.pair_mode == "dense":
         pair_args = (pos, box, tid, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2,
                      ff.lj_vshift, q, ff.lj_active, ff.coulomb_active,
@@ -520,13 +567,18 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
         cell_args = (pos, box, clist, ff.cell_cfg, tid, q, ff.lj_eps,
                      ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
                      ff.cell_exclusions, ff.kappa_value)
-        key = ck.kernel_name(ff.cell_cfg)
+        cell_key = ck.kernel_name(ff.cell_cfg)
         f_k, elj_k, eew_k = ck.cell_pair_force_fused(*cell_args)
+        again = ck.cell_pair_force_fused(*cell_args)
         f_p, elj_p, eew_p = ck.cell_pair_force_fused_plain(*cell_args)
         torch.cuda.synchronize()
-        hold(key, [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)], "F,E")
-        out[key]["grid"] = dict(ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap)
-        calls[key] = (
+        hold(cell_key, [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)], "F,E")
+        hold_bits(cell_key, (f_k, elj_k, eew_k), again)
+        out[cell_key]["grid"] = dict(
+            ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap,
+            blocks=ck.launch_blocks(ff.cell_cfg.total_cells,
+                                    ff.cell_cfg.cap, dev))
+        calls[cell_key] = (
             lambda: ck.cell_pair_force_fused(*cell_args),
             lambda: ck.cell_pair_force_fused_plain(*cell_args))
         # the list build, on the main path once a step (no kernel of its
@@ -551,6 +603,7 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
 
         pre, post = integrator_inputs(torch, pt, snap, ff)
         k4 = fi.pre_force_apply(*pre)
+        k4_again = fi.pre_force_apply(*pre)
         p4 = fi.pre_force_apply_plain(*pre)
         torch.cuda.synchronize()
         check(torch.equal(k4[1], p4[1]),
@@ -567,6 +620,7 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
         hold("fused_pre_force", [(k4[0], p4[0]), (k4[2], p4[2]),
                                  (k4[3], p4[3])], "x,v,dE_res",
              scales=(None, None, ke_mol))
+        hold_bits("fused_pre_force", k4, k4_again)
         k5 = fi.post_force_apply(*post)
         p5 = fi.post_force_apply_plain(*post)
         torch.cuda.synchronize()
@@ -596,10 +650,10 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
                 out[key]["plain_host_call_ms"] = host_call_ms(torch, plain)
         counts = (work_counts(torch, snap, ff, pre) if pre is not None
                   else {})
-        if clist is not None:
-            counts[ck.kernel_name(ff.cell_cfg)] = cell_work_counts(
+        if cell_key is not None:
+            counts[cell_key] = cell_work_counts(
                 torch, *cell_args[:4], snap.typeid, snap.charge, ff,
-                ff.cell_exclusions)
+                ff.cell_exclusions, out[cell_key]["grid"]["blocks"])
         for key, (n_bytes, n_ops, *extra) in counts.items():
             out[key]["bound_ms"], out[key]["bound_by"] = bound_ms(n_bytes,
                                                                   n_ops)
@@ -642,13 +696,13 @@ def pair_counts(torch, tiles, n, exclusions, typeid, charge, ff, rc2,
 
 
 def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
-                     exclusions, pair_key=None, n_blocks=None):
+                     exclusions, n_blocks, pair_key=None):
     """(bytes moved, operations, pair counts) of one cell-kernel call on
     this run's inputs, counted cell by cell from the plain twin's tiles
     (block by block; no (N, N) tensor). Bytes: positions, box, typeid,
     charge, the four (T, T) tables, the bucket, neighbour and exclusion
     tables (and the pair keys, when given) in; forces and the energy
-    partials of ``n_blocks`` blocks (default: one per cell) out. Cells
+    partials of the launch's ``n_blocks`` blocks out. Cells
     whose neighbour rows are all sentinels (a slab's halo cells) count
     nothing. Operations are
     what the pair sum over each cell's deduplicated 27-cell window needs,
@@ -665,7 +719,6 @@ def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
 
     n, e = position.shape[0], position.element_size()
     C, cap = clist.bucket_idx.shape
-    n_blocks = C if n_blocks is None else n_blocks
     T = ff.lj_eps.shape[0]
     E = exclusions.shape[1]
     occ = (clist.bucket_idx < n).sum(dim=1)
@@ -1006,8 +1059,12 @@ def slab_kernel_phase(torch, pt, dtype, timed):
     name = str(dtype).replace("torch.", "")
     tol = TOL[name]
     k = ck.cell_pair_force_slab(*args, cells, key)
+    again = ck.cell_pair_force_slab(*args, cells, key)
     p = ck.cell_pair_force_fused_plain(*args, pair_key=key)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k, again)),
+          f"cell_pair_slab N={snap.N} {name}: two calls on the same inputs "
+          "differ")
     errs = [max_err(a, b) for a, b in zip(k, p)]
     for (err, scale), a in zip(errs, k):
         check(bool(torch.isfinite(a).all()),
@@ -1015,10 +1072,12 @@ def slab_kernel_phase(torch, pt, dtype, timed):
         check(err <= tol * max(scale, 1e-300),
               f"cell_pair_slab N={snap.N} {name}: max|dF,E| {err} > "
               f"{tol}*{scale}")
+    blocks = ck.launch_blocks(cells[1], plan.cap, snap.device)
     out = dict(max_abs_err=errs[0][0], scale=errs[0][1],
                max_abs_err_other_outputs=[e for e, _ in errs[1:]],
+               bit_equal_calls=True,
                grid=dict(ncells=args[3].ncells, cap=plan.cap,
-                         own_cells=cells, rows=plan.Mtot))
+                         own_cells=cells, rows=plan.Mtot, blocks=blocks))
     if timed:
         out["ms"] = device_ms(torch, lambda: ck.cell_pair_force_slab(
             *args, cells, key))
@@ -1028,7 +1087,7 @@ def slab_kernel_phase(torch, pt, dtype, timed):
             torch, lambda: ck.cell_pair_force_fused_plain(*args,
                                                           pair_key=key))
         n_bytes, n_ops, pairs = cell_work_counts(
-            torch, *args[:6], ff, args[10], pair_key=key, n_blocks=cells[1])
+            torch, *args[:6], ff, args[10], blocks, pair_key=key)
         out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
         out.update(bytes=n_bytes, ops=n_ops, pairs=pairs)
     print(f"phase 9: N={snap.N} {name} cell_pair_slab: " + ", ".join(
@@ -1465,10 +1524,15 @@ def main() -> None:
     fresh = sorted(_cuda.build_log)
     print(f"phase 1: kernels ready in {build_s:.2f} s (compiled now: "
           f"{fresh or 'none, found built in this checkout'})", flush=True)
-    for src, log in _cuda.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 1: ptxas {src}: {line.strip()}", flush=True)
+    for src, log in sorted(_cuda.build_log.items()):
+        entries = ptxas_report(log)
+        for label, regs, st, ld in entries:
+            print(f"phase 1: ptxas {src}: {label}: {regs} registers, "
+                  f"spill stores {st} B, spill loads {ld} B", flush=True)
+        want = {f"{k}<{t}>" for k in PTXAS_NAMED.get(src, ())
+                for t in ("float", "double")}
+        missing = want - {label for label, *_ in entries}
+        check(not missing, f"phase 1: no ptxas report for {sorted(missing)}")
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(1)
 

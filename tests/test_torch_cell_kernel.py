@@ -222,3 +222,17 @@ def test_wrapper_rejects_non_cpu_non_cuda_tensors():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ck.cell_pair_force_fused(*args)
+
+
+@pytest.mark.parametrize("n_cells,cap,split", [
+    (4913, 45, 1),   # N = 100,001: 17^3 cells fill the card
+    (264, 45, 1),    # two blocks per SM already
+    (27, 16, 2),     # a 3^3 grid: capped at one row per warp (16 / 8)
+    (27, 136, 10),   # the same at a grown cap: ceil(264 / 27)
+    (8, 121, 16),    # N = 501 in cell mode (K8's grid): ceil(121 / 8)
+])
+def test_row_split_fills_the_card_on_small_grids(n_cells, cap, split):
+    """Blocks per cell for a launch on a card of 132 SMs: one when the
+    cells alone give two blocks an SM, else enough blocks to reach that,
+    and never more than one i row per warp of a full bucket."""
+    assert ck.row_split(n_cells, cap, 132) == split

@@ -90,7 +90,7 @@ def test_forcefield_on_cuda_matches_cpu_f64(cuda):
 
 def _integrator_inputs(dtype, device, n_mol=200, box_L=40.0):
     """K4/K5 inputs at a reference-density scene, with particles pushed
-    across the +x face so the image update runs."""
+    across the +x face so the image update runs (all rows at N = 3)."""
     snap = pt.add_cavity_particle(
         pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
                                 seed=0, device=device),
@@ -152,6 +152,38 @@ def test_fused_integrator_kernels_match_twins(cuda, dtype):
             float(b.abs()), scale)
 
 
+def _cell_inputs(dtype, device, n_mol, box_L, r_cut, squeeze=1.0,
+                 cell_cap=None, seed=3):
+    """Cell-kernel arguments on a seeded scene; ``squeeze`` < 1 scales the
+    positions toward the box centre (bonds and exclusions kept), so most
+    candidate pairs lie inside the cutoff."""
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
+                                seed=seed, device="cpu"),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=seed + 1)
+    snap = snap.replace(position=snap.position * squeeze)
+    snap = snap.astype(dtype).to(device)
+    ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=r_cut,
+                              pppm_mesh=(8, 8, 8), pair_mode="cell",
+                              cell_cap=cell_cap)
+    clist = ff.build_cells(snap.position, snap.box_L)
+    assert not bool(clist.overflow)
+    return (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
+            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value)
+
+
+def _hold_cell_kernel(args, dtype):
+    name = ck.kernel_name(args[3])
+    before = _cuda.launches[name]
+    out_k = ck.cell_pair_force_fused(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == before + 1
+    out_p = ck.cell_pair_force_fused_plain(*args)
+    for k, p in zip(out_k, out_p):
+        assert _close(k, p, TOL[dtype])
+
+
 # (n_mol, box_L, r_cut): 3^3 cells (the K6 grid) and 2^3 cells (the K8
 # grid, deduplicated neighbour table)
 CELL_GRIDS = {"k6_3cells": (60, 40.0, 12.0), "k8_2cells": (60, 34.0, 15.0)}
@@ -160,27 +192,9 @@ CELL_GRIDS = {"k6_3cells": (60, 40.0, 12.0), "k8_2cells": (60, 34.0, 15.0)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("grid", sorted(CELL_GRIDS))
 def test_cell_kernel_matches_twin(cuda, grid, dtype):
-    n_mol, box_L, r_cut = CELL_GRIDS[grid]
-    snap = pt.add_cavity_particle(
-        pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
-                                seed=3, device="cpu"),
-        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=4)
-    snap = snap.astype(dtype).to(cuda)
-    ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=r_cut,
-                              pppm_mesh=(8, 8, 8), pair_mode="cell")
-    assert (min(ff.cell_cfg.ncells) >= 3) == (grid == "k6_3cells")
-    clist = ff.build_cells(snap.position, snap.box_L)
-    args = (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
-            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
-            ff.cell_exclusions, ff.kappa_value)
-    name = ck.kernel_name(ff.cell_cfg)
-    before = _cuda.launches[name]
-    out_k = ck.cell_pair_force_fused(*args)
-    torch.cuda.synchronize()
-    assert _cuda.launches[name] == before + 1
-    out_p = ck.cell_pair_force_fused_plain(*args)
-    for k, p in zip(out_k, out_p):
-        assert _close(k, p, TOL[dtype])
+    args = _cell_inputs(dtype, cuda, *CELL_GRIDS[grid])
+    assert (min(args[3].ncells) >= 3) == (grid == "k6_3cells")
+    _hold_cell_kernel(args, dtype)
 
 
 def _slab_scene(dtype, device, shift_x=0.0):
@@ -273,3 +287,103 @@ def test_zcol_kernel_matches_twin(cuda, window, dtype):
     assert bool(out_k[3]) == bool(out_p[3]) == (window == "one")
     for k, p in zip(out_k[:3], out_p[:3]):
         assert _close(k, p, TOL[dtype])
+
+
+# K4 grids of one block (N = 3, 1023), two (1025) and the full card
+# (100,001: molecules plus the photon)
+PRE_FORCE_SIZES = (1, 511, 512, 50_000)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_mol", PRE_FORCE_SIZES)
+def test_pre_force_kernel_matches_twin_at_every_grid_size(cuda, n_mol, dtype):
+    """K4's cooperative grid against its twin: image flags equal, the
+    other outputs within TOL (the reservoir delta against the molecules'
+    kinetic energy, as in test_fused_integrator_kernels_match_twins)."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    pre, _ = _integrator_inputs(dtype, cuda, n_mol=n_mol,
+                                box_L=reference_box_for(n_mol))
+    assert pre[1].shape[0] == 2 * n_mol + 1
+    before = _cuda.launches["fused_pre_force"]
+    k = fi.pre_force_apply(*pre)
+    p = fi.pre_force_apply_plain(*pre)
+    torch.cuda.synchronize()
+    assert _cuda.launches["fused_pre_force"] == before + 1
+    assert torch.equal(k[1], p[1]) and not torch.equal(k[1], pre[2])
+    assert _close(k[0], p[0], TOL[dtype]) and _close(k[2], p[2], TOL[dtype])
+    vel, mass, mol = pre[3], pre[5], pre[6]
+    ke_mol = float(0.5 * (mass[:, None] * vel * vel)[mol].sum())
+    assert float((k[3] - p[3]).abs()) <= TOL[dtype] * max(float(p[3].abs()),
+                                                          ke_mol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cell_kernel_on_a_compressed_scene(cuda, dtype):
+    """60 diatomics + photon squeezed into the central cell of a 3^3 grid
+    (r_cut 12): most candidates lie inside the cutoff, so the per-warp
+    queue fills to 32 again and again within a row."""
+    args = _cell_inputs(dtype, cuda, 60, 40.0, 12.0, squeeze=0.3,
+                        cell_cap=128)
+    pos, box, clist = args[:3]
+    n = pos.shape[0]
+    occ = (clist.bucket_idx < n).sum(dim=1)
+    window = torch.cat([occ, occ.new_zeros(1)])[
+        clist.neighbor_cells.long()].sum(dim=1)
+    candidates = int((occ * window).sum())
+    d = pos[:, None, :] - pos[None, :, :]
+    d = d - box * torch.round(d / box)
+    inside = int(((d * d).sum(-1) < args[3].r_cut ** 2).sum())
+    assert candidates == n * n and inside > 0.5 * candidates
+    _hold_cell_kernel(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cell_kernel_at_the_retry_grown_cap(cuda, dtype):
+    """The 3^3 grid at the capacity of the overflow retry's third growth
+    (max(cap + 4, 2 cap) three times): staged rows past the default 48 KB
+    of shared memory."""
+    cap = _cell_inputs(dtype, cuda, 60, 40.0, 12.0)[3].cap
+    for _ in range(3):
+        cap = max(cap + 4, 2 * cap)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert 27 * cap * (4 * itemsize + 8) > 48 * 1024
+    args = _cell_inputs(dtype, cuda, 60, 40.0, 12.0, cell_cap=cap)
+    assert args[3].cap == cap
+    _hold_cell_kernel(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_small_grid_splits_rows(cuda, dtype):
+    """The N = 501 reference scene in cell mode (2^3 cells, K8's grid):
+    each cell's rows are split over several blocks, and the result holds
+    against the twin."""
+    args = _cell_inputs(dtype, cuda, 250, 46.0, 15.0, seed=0)
+    cfg = args[3]
+    assert min(cfg.ncells) < 3
+    assert ck.launch_blocks(cfg.total_cells, cfg.cap, cuda) > 2 * \
+        cfg.total_cells
+    _hold_cell_kernel(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["cell_3cells", "cell_2cells",
+                                    "pre_force"])
+def test_two_calls_give_the_same_bits(cuda, kernel, dtype):
+    """The cell kernel and K4 sum in fixed orders (no atomics), so two
+    calls on the same inputs are bit-equal."""
+    if kernel == "pre_force":
+        from cavmd_tpu_torch.core.system import reference_box_for
+
+        pre, _ = _integrator_inputs(dtype, cuda, n_mol=2000,
+                                    box_L=reference_box_for(2000))
+        first, second = fi.pre_force_apply(*pre), fi.pre_force_apply(*pre)
+    else:
+        n_mol, box_L, r_cut = CELL_GRIDS[
+            "k6_3cells" if kernel == "cell_3cells" else "k8_2cells"]
+        args = _cell_inputs(dtype, cuda, n_mol, box_L, r_cut)
+        first = ck.cell_pair_force_fused(*args)
+        second = ck.cell_pair_force_fused(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
