@@ -26,32 +26,40 @@
 //
 // What bounds them on an H100: bytes and latency. K4 reads v/pos/f/image,
 // mass and the mask and writes v/pos/image: 42.6 KB at N = 501 (13 ns at
-// 3.35 TB/s) and ~8.9 MB at N = 100,001 in f32 (2.7 us). At N = 501 the
-// launch and one block's latency set the time; at N = 100,001 the bytes
-// must come through every SM, and a reduction (the group KE that sets
-// alpha) stands between reading v and writing it.
+// 3.35 TB/s) and ~8.9 MB at N = 100,001 in f32 (2.7 us); K5 reads v/f,
+// mass and the mask and writes v: ~4.1 MB at N = 100,001 (1.2 us). At
+// N = 501 the launch and one block's latency set the time; at N = 100,001
+// the bytes must come through every SM, and a reduction (K4: the group KE
+// that sets alpha; K5: the two group KEs it returns) stands between the
+// element-wise work and the result.
 //
-// K4: one cooperative launch (cudaLaunchCooperativeKernel) of blocks of
-// 512 threads, as many as fit on the card at once
+// Both are one cooperative launch (cudaLaunchCooperativeKernel) of blocks
+// of 512 threads, as many as fit on the card at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, computed
-// once) and no more than N needs: the grid depends on N and the card
-// only. Pass 1: a grid-stride sum of the masked m v^2 per block, in a
-// fixed order (registers, warp shuffles, shared memory), into a partials
-// buffer the wrapper allocates. A grid sync (cooperative_groups). Then
-// every block sums the partials in the same fixed order, so every block
-// computes the same K and alpha, bit for bit, run after run; block 0
-// writes the reservoir delta. Pass 2: the grid-stride rescale, kick,
-// drift and rewrap. A grid of one block syncs with __syncthreads. A
-// refused cooperative launch returns its error and the wrapper raises:
-// there is no one-block fallback. Not taken: two launches (partials,
-// then apply), one launch more a step on a host-bound step; a cluster
-// with distributed shared memory, whose 16 SMs at most do not cover the
-// card at N = 100,001.
+// once a kernel) and no more than N needs: the grid depends on N and the
+// card only (coop_grid). Each block reduces its share in a fixed order
+// (registers, warp shuffles, shared memory: block_sum) into a partials
+// buffer the wrapper allocates; a grid sync (cooperative_groups; a grid
+// of one block syncs with __syncthreads); then the partials are summed in
+// one fixed order (sum_partials), so the sums are bit-equal call after
+// call. A refused cooperative launch returns its error and the wrapper
+// raises: there is no one-block fallback.
 //
-// K5: one block of 1024 threads; each thread walks particles i = tid,
-// tid + 1024, ...; the three sums are reduced in a fixed order. At
-// N = 100,001 it leaves 131 of 132 SMs idle; its grid-wide version is
-// later work.
+// K4: pass 1 sums the masked m v^2; after the sync every block sums the
+// partials, so every block computes the same K and alpha, bit for bit;
+// block 0 writes the reservoir delta. Pass 2: the grid-stride rescale,
+// kick, drift and rewrap.
+// K5: pass 1 is the grid-stride kick, writing v; the thread that owns the
+// photon row runs its exact-OU update and writes the reservoir delta
+// itself (one row contributes to it); each block writes its partials of
+// 2 KE_mol and 2 KE_cav. After the sync block 0 sums them and writes
+// out[0] and out[1]; the other blocks are done.
+// Not taken: one block for K5 (its first version: 131 of 132 SMs idle at
+// N = 100,001); two launches (partials, then the sums), one launch more
+// a step on a host-bound step; a cluster with distributed shared memory,
+// whose 16 SMs at most do not cover the card at N = 100,001; for K5, a
+// last-block-done counter instead of the grid sync, which needs a counter
+// reset to zero every step (a device operation more).
 //
 // The element-wise updates use the _rn intrinsics so that nvcc does not
 // contract them into fused multiply-adds: the results round exactly as
@@ -68,8 +76,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kPreThreads = 512;    // K4, a block of the cooperative grid
-constexpr int kPostThreads = 1024;  // K5, its one block
+constexpr int kGridThreads = 512;  // K4 and K5: a block of the cooperative grid
+constexpr int kGridWarps = kGridThreads / 32;
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -107,6 +115,29 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
   return total;
 }
 
+// Sum of the `count` partials partial[b * stride + offset] in one fixed
+// order (each thread a strided run, then block_sum); valid in thread 0.
+// The partials were written by other blocks before a grid sync, so they
+// are read past L1.
+template <typename T>
+__device__ __forceinline__ T sum_partials(const T* partial, int count,
+                                          int stride, int offset, T* scratch) {
+  T sum = 0;
+  for (int b = threadIdx.x; b < count; b += kGridThreads) {
+    sum += __ldcg(partial + (size_t)b * stride + offset);
+  }
+  return block_sum<kGridWarps>(sum, scratch);
+}
+
+// The whole grid waits here; a grid of one block needs no grid sync.
+__device__ __forceinline__ void grid_sync() {
+  if (gridDim.x > 1) {
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
 // m v . v as the twin forms it: (m vx) vx + (m vy) vy + (m vz) vz, summed.
 template <typename T>
 __device__ __forceinline__ T mass_v2(T m, T vx, T vy, T vz) {
@@ -115,7 +146,7 @@ __device__ __forceinline__ T mass_v2(T m, T vx, T vy, T vz) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kPreThreads)
+__global__ void __launch_bounds__(kGridThreads)
 pre_force_kernel(const T* __restrict__ vel, const T* __restrict__ pos,
                  const int32_t* __restrict__ img, const T* __restrict__ frc,
                  const T* __restrict__ mass, const uint8_t* __restrict__ mol,
@@ -125,11 +156,10 @@ pre_force_kernel(const T* __restrict__ vel, const T* __restrict__ pos,
                  T* __restrict__ vel_out, T* __restrict__ pos_out,
                  int32_t* __restrict__ img_out, T* __restrict__ dres,
                  T* __restrict__ partial) {
-  constexpr int kWarps = kPreThreads / 32;
-  __shared__ T s_red[kWarps];
+  __shared__ T s_red[kGridWarps];
   __shared__ T s_alpha;
-  const int first = blockIdx.x * kPreThreads + threadIdx.x;
-  const int stride = gridDim.x * kPreThreads;
+  const int first = blockIdx.x * kGridThreads + threadIdx.x;
+  const int stride = gridDim.x * kGridThreads;
 
   // 1. this block's share of the molecular group's 2 K
   T k2 = 0;
@@ -138,19 +168,13 @@ pre_force_kernel(const T* __restrict__ vel, const T* __restrict__ pos,
       k2 += mass_v2(mass[i], vel[3 * i], vel[3 * i + 1], vel[3 * i + 2]);
     }
   }
-  k2 = block_sum<kWarps>(k2, s_red);
+  k2 = block_sum<kGridWarps>(k2, s_red);
   if (threadIdx.x == 0) partial[blockIdx.x] = k2;
-  if (gridDim.x > 1) {
-    cg::this_grid().sync();
-  } else {
-    __syncthreads();
-  }
+  grid_sync();
 
   // 2. every block: 2 K from the partials in one order, then alpha; block
   // 0 writes the reservoir delta
-  T sum = 0;
-  for (int b = threadIdx.x; b < gridDim.x; b += kPreThreads) sum += __ldcg(partial + b);
-  k2 = block_sum<kWarps>(sum, s_red);
+  k2 = sum_partials(partial, gridDim.x, 1, 0, s_red);
   if (threadIdx.x == 0) {
     const T K = T(0.5) * k2;
     const T c = *c_p, r1 = *r1_p, rg = *rg_p;
@@ -190,18 +214,22 @@ pre_force_kernel(const T* __restrict__ vel, const T* __restrict__ pos,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kPostThreads)
+__global__ void __launch_bounds__(kGridThreads)
 post_force_kernel(const T* __restrict__ vel, const T* __restrict__ frc,
                   const T* __restrict__ mass, const uint8_t* __restrict__ mol,
                   const T* __restrict__ dt_p, int photon,
                   const T* __restrict__ c_ou_p, const T* __restrict__ sig_p,
                   const T* __restrict__ noise, int n,
-                  T* __restrict__ vel_out, T* __restrict__ out) {
-  constexpr int kWarps = kPostThreads / 32;
-  __shared__ T s_red[kWarps];
+                  T* __restrict__ vel_out, T* __restrict__ out,
+                  T* __restrict__ partial) {
+  __shared__ T s_red[kGridWarps];
+  const int first = blockIdx.x * kGridThreads + threadIdx.x;
+  const int stride = gridDim.x * kGridThreads;
   const T half_dt = mul_rn(T(0.5), *dt_p);
-  T ke_mol = 0, ke_cav = 0, dres = 0;
-  for (int i = threadIdx.x; i < n; i += kPostThreads) {
+
+  // 1. kick; the photon's OU row and reservoir delta; this block's 2 KEs
+  T ke_mol = 0, ke_cav = 0;
+  for (int i = first; i < n; i += stride) {
     const T m = mass[i];
     T v[3];
 #pragma unroll
@@ -215,7 +243,7 @@ post_force_kernel(const T* __restrict__ vel, const T* __restrict__ frc,
       for (int d = 0; d < 3; ++d) {
         v[d] = add_rn(mul_rn(c_ou, v[d]), mul_rn(sig, noise[d]));
       }
-      dres = sub_rn(before, mul_rn(T(0.5), mass_v2(m, v[0], v[1], v[2])));
+      out[2] = sub_rn(before, mul_rn(T(0.5), mass_v2(m, v[0], v[1], v[2])));
     }
 #pragma unroll
     for (int d = 0; d < 3; ++d) vel_out[3 * i + d] = v[d];
@@ -226,36 +254,57 @@ post_force_kernel(const T* __restrict__ vel, const T* __restrict__ frc,
       ke_cav += e;
     }
   }
-  ke_mol = block_sum<kWarps>(ke_mol, s_red);
-  ke_cav = block_sum<kWarps>(ke_cav, s_red);
-  dres = block_sum<kWarps>(dres, s_red);
+  if (photon < 0 && blockIdx.x == 0 && threadIdx.x == 0) out[2] = T(0);
+  ke_mol = block_sum<kGridWarps>(ke_mol, s_red);
+  ke_cav = block_sum<kGridWarps>(ke_cav, s_red);
+  if (threadIdx.x == 0) {
+    partial[2 * blockIdx.x] = ke_mol;
+    partial[2 * blockIdx.x + 1] = ke_cav;
+  }
+  grid_sync();
+
+  // 2. block 0: the two sums from the partials in one order
+  if (blockIdx.x != 0) return;
+  ke_mol = sum_partials(partial, gridDim.x, 2, 0, s_red);
+  ke_cav = sum_partials(partial, gridDim.x, 2, 1, s_red);
   if (threadIdx.x == 0) {
     out[0] = T(0.5) * ke_mol;
     out[1] = T(0.5) * ke_cav;
-    out[2] = dres;
   }
 }
 
-// Blocks of K4's cooperative grid for n particles: as many as the card
-// holds at once, no more than n needs (at most ceil(n / kPreThreads), the
-// partials the wrapper allocates). 0 and the error on a failed query.
-template <typename T>
-int pre_grid(int n, int* grid) {
-  static int resident = 0;  // blocks the card holds at once (one device)
-  if (resident == 0) {
+// Blocks of a cooperative grid of `kernel` for n particles: as many as
+// the card holds at once (`resident`, computed on the first call: one
+// device), no more than n needs (at most ceil(n / kGridThreads), the
+// partials the wrappers allocate). 0, or the error of a failed query.
+template <typename Kernel>
+int coop_grid(Kernel kernel, int n, int* resident, int* grid) {
+  if (*resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pre_force_kernel<T>, kPreThreads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kGridThreads, 0);
     if (err != cudaSuccess) return (int)err;
-    resident = per_sm * sms;
+    *resident = per_sm * sms;
   }
-  const int need = (n + kPreThreads - 1) / kPreThreads;
-  *grid = need < resident ? need : resident;
+  const int need = (n + kGridThreads - 1) / kGridThreads;
+  *grid = need < *resident ? need : *resident;
   return 0;
+}
+
+template <typename T>
+int pre_grid(int n, int* grid) {
+  static int resident = 0;
+  return coop_grid(pre_force_kernel<T>, n, &resident, grid);
+}
+
+template <typename T>
+int post_grid(int n, int* grid) {
+  static int resident = 0;
+  return coop_grid(post_force_kernel<T>, n, &resident, grid);
 }
 
 template <typename T>
@@ -291,7 +340,7 @@ int launch_pre(const void* vel, const void* pos, const void* img,
                   &a_box, &a_dt, &a_c, &a_r1, &a_rg, &a_kT, &a_dof, &n,
                   &a_vel_out, &a_pos_out, &a_img_out, &a_dres, &a_partial};
   const cudaError_t launch_err = cudaLaunchCooperativeKernel(
-      (const void*)pre_force_kernel<T>, dim3(grid), dim3(kPreThreads), args, 0,
+      (const void*)pre_force_kernel<T>, dim3(grid), dim3(kGridThreads), args, 0,
       (cudaStream_t)stream);
   if (launch_err != cudaSuccess) return (int)launch_err;
   return (int)cudaGetLastError();
@@ -301,12 +350,29 @@ template <typename T>
 int launch_post(const void* vel, const void* frc, const void* mass,
                 const void* mol, const void* dt, int photon, const void* c_ou,
                 const void* sig, const void* noise, int n, void* vel_out,
-                void* out, void* stream) {
+                void* out, void* partial, int n_partial, void* stream) {
   if (n < 1 || photon >= n) return (int)cudaErrorInvalidValue;
-  post_force_kernel<T><<<1, kPostThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)vel, (const T*)frc, (const T*)mass, (const uint8_t*)mol,
-      (const T*)dt, photon, (const T*)c_ou, (const T*)sig, (const T*)noise, n,
-      (T*)vel_out, (T*)out);
+  int grid = 0;
+  const int err = post_grid<T>(n, &grid);
+  if (err != 0) return err;
+  if (grid < 1 || grid > n_partial) return (int)cudaErrorInvalidValue;
+  const T* a_vel = (const T*)vel;
+  const T* a_frc = (const T*)frc;
+  const T* a_mass = (const T*)mass;
+  const uint8_t* a_mol = (const uint8_t*)mol;
+  const T* a_dt = (const T*)dt;
+  const T* a_c_ou = (const T*)c_ou;
+  const T* a_sig = (const T*)sig;
+  const T* a_noise = (const T*)noise;
+  T* a_vel_out = (T*)vel_out;
+  T* a_out = (T*)out;
+  T* a_partial = (T*)partial;
+  void* args[] = {&a_vel, &a_frc, &a_mass, &a_mol, &a_dt, &photon, &a_c_ou,
+                  &a_sig, &a_noise, &n, &a_vel_out, &a_out, &a_partial};
+  const cudaError_t launch_err = cudaLaunchCooperativeKernel(
+      (const void*)post_force_kernel<T>, dim3(grid), dim3(kGridThreads), args,
+      0, (cudaStream_t)stream);
+  if (launch_err != cudaSuccess) return (int)launch_err;
   return (int)cudaGetLastError();
 }
 
@@ -341,17 +407,27 @@ int cavmd_fused_pre_force_f64(const void* vel, const void* pos, const void* img,
 int cavmd_fused_post_force_f32(const void* vel, const void* frc, const void* mass,
                                const void* mol, const void* dt, int photon,
                                const void* c_ou, const void* sig, const void* noise,
-                               int n, void* vel_out, void* out, void* stream) {
+                               int n, void* vel_out, void* out, void* partial,
+                               int n_partial, void* stream) {
   return launch_post<float>(vel, frc, mass, mol, dt, photon, c_ou, sig, noise, n,
-                            vel_out, out, stream);
+                            vel_out, out, partial, n_partial, stream);
 }
 
 int cavmd_fused_post_force_f64(const void* vel, const void* frc, const void* mass,
                                const void* mol, const void* dt, int photon,
                                const void* c_ou, const void* sig, const void* noise,
-                               int n, void* vel_out, void* out, void* stream) {
+                               int n, void* vel_out, void* out, void* partial,
+                               int n_partial, void* stream) {
   return launch_post<double>(vel, frc, mass, mol, dt, photon, c_ou, sig, noise, n,
-                             vel_out, out, stream);
+                             vel_out, out, partial, n_partial, stream);
+}
+
+// The blocks of K4's (kernel 4) or K5's (kernel 5) cooperative grid for n
+// particles in f32 (f64 if is_f64), into *blocks; returns the error code.
+int cavmd_fused_grid_blocks(int kernel, int is_f64, int n, int* blocks) {
+  if (n < 1 || (kernel != 4 && kernel != 5)) return (int)cudaErrorInvalidValue;
+  if (kernel == 4) return is_f64 ? pre_grid<double>(n, blocks) : pre_grid<float>(n, blocks);
+  return is_f64 ? post_grid<double>(n, blocks) : post_grid<float>(n, blocks);
 }
 
 }  // extern "C"

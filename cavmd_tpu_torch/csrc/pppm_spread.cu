@@ -14,62 +14,127 @@
 //   M_p' = M_{p-1}(x) - M_{p-1}(x - 1) from its penultimate level.
 // The grid is row-major (Kx, Ky, Kz).
 //
-// What bounds them on an H100: N p^3 grid updates (N = 501, p = 6: 108k)
-// against a 128 KB (32^3 f32) grid that sits in L2 — the spread is bound
-// by atomic throughput on a few hot cache lines, the interpolation by
-// p^3 gathered L2 reads per particle; both run in microseconds, so launch
-// latency dominates at the reference size.
-// Design: one thread per particle evaluates its three order-p weight rows
-// in registers (no (N, K) stencil matrices, no Khatri-Rao factor — the
-// TPU's MXU layout has no purpose here) and then
-//   - spread: atomicAdds its p^3 charge shares into the grid. Particles
-//     with q = 0 (the photon) add nothing and return at once. The f32
-//     atomicAdd order is not deterministic, so f32 grids differ from run
-//     to run by rounding (relative ~1e-7 of the grid scale); f64 uses the
-//     native atomicAdd(double).
-//   - interpolate: reads the p^3 grid-cotangent values and writes
-//     dE/dr_d = (K_d / L_d) q sum ct M'_p(d) M_p(others) — no atomics,
-//     deterministic.
-// The launches allocate nothing (the wrapper zeroes the grid) and do not
-// synchronise; each returns cudaGetLastError().
+// K2, the spread. What bounds it on an H100: N p^3 read-modify-writes
+// into a mesh that sits in L2 (N = 100,001, p = 6: 21.6 M adds into the
+// 32^3 mesh's 32,768 words, ~660 a word), not bytes (the inputs and the
+// mesh are ~1.7 MB, 0.5 us at 3.35 TB/s) and not arithmetic. Global
+// atomics are served by L2 one word at a time, and a word's adds queue
+// behind each other: the first version (one thread a particle, 216
+// serial atomicAdds) took 0.144 ms at N = 100,001, and ran on 4 SMs at
+// N = 501.
+// Design: a warp takes up to 32 particles at a time. Each lane computes
+// one particle's three order-p weight rows (Cox-de Boor in registers, one
+// reciprocal a level instead of a divide an entry) and stages q w_x, w_y,
+// w_z and the row offsets in the warp's shared memory; then the warp adds
+// the staged particles one after another, the lanes over the stencil:
+// lane l < min(p^2, 32) owns the pair (b, c) = (l / p, l % p), and adds
+// q w_x[a] (w_y[b] w_z[c]) for every a, so one warp instruction covers
+// ~32/p z-rows of p consecutive words; the pairs past 32 (p >= 6) go over
+// the lanes as (a, pair), so a particle takes ceil(p^3 / 32) adds a lane
+// (p = 6: 7). The adds go to one of two places:
+//   - the tile path (the wrapper's pick from 64 particles an SM up on
+//     meshes of up to 32 x 32 (x, y) rows): one block of 8 warps an SM,
+//     each block a contiguous chunk of particles (N = 100,001: 768). Run
+//     by run, the block numbers the x columns and y rows its charged
+//     particles reach (a ballot scan) and, if 8 copies of those rows fit
+//     its shared memory (~227 KB less the staging), each warp adds into
+//     its own copy with plain loads and stores (a particle's p^3 words
+//     are distinct, so all its loads go before its stores, and the warp
+//     syncs between particles: no shared-memory atomics); then the block
+//     sums the 8 copies in order and flushes the non-zero words with
+//     coalesced global atomicAdds. The row stride is Kz padded to p mod 32
+//     words, so a warp instruction's words fall in distinct banks. The
+//     scenes place molecules on a lattice in row order, so at N = 100,001
+//     each block's 768 particles reach few enough of the 1024 rows to fit
+//     in one run, and each mesh word takes a few global adds instead of
+//     ~660. A run whose rows do not fit is halved,
+//     down to 32 particles; past that (particles far apart in index
+//     order) the rest of the block's chunk adds to the global mesh.
+//   - the global path, for small N and larger meshes: the same warp-wide
+//     adds straight into the mesh with global atomicAdd. At small N a warp
+//     takes fewer particles (down to 1), so N = 501 runs ~500 warps over
+//     the card instead of 4 blocks.
+// Particles with q = 0 (the photon) add nothing. Columns wrap at the box
+// faces exactly as axis_stencil does. The wrapper zeroes the mesh and
+// launches once. The flush and the global path add with float atomics in
+// no fixed order, so the mesh's last bits change from call to call
+// (relative ~1e-7 of its scale in f32): the spread is not deterministic.
+// Tried and not taken (scripts/bench_torch_spread_tail.py times the two
+// kept paths side by side; PERF.md has the numbers): the global path
+// alone at large N (coalesced, but every add still goes to L2: no faster
+// than the first version at 32^3); float4 vector atomics on the global
+// path (L2 serves them about a word at a time too: barely faster); one
+// shared tile a block with shared-memory atomics, 2 blocks an SM (float
+// atomics on shared memory were as slow as the L2's); the tile path on
+// 64^3 and 128^3 meshes (a run's rows at 70 or 134 words leave runs of
+// ~100-200 particles, and zeroing and flushing the copies run by run
+// cost more than the global path).
+//
+// K3, the interpolation: one thread a particle evaluates its three weight
+// and derivative rows in registers and reads its p^3 mesh-cotangent
+// values, dE/dr_d = (K_d / L_d) q sum ct M'_p(d) M_p(others); no atomics,
+// deterministic. It is bound by the p^3 gathered L2 reads a particle.
+// The launches do not synchronise; each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxOrder = 8;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;        // K3: one thread a particle
+constexpr int kSpreadThreads = 256;  // K2: 8 warps a block
+constexpr int kSpreadWarps = kSpreadThreads / 32;
+constexpr int kTileMinPerSm = 64;    // K2: the tile path from N = 64 an SM
+constexpr int kTileMaxRows = 32 * 32;  // and up to 32 x 32 (x, y) rows
+constexpr int kPathAuto = 0, kPathGlobal = 1, kPathTile = 2;
 
 __device__ __forceinline__ float m_floor(float x) { return floorf(x); }
 __device__ __forceinline__ double m_floor(double x) { return floor(x); }
+
+// The stencil base on one axis, base = floor(u) with u = (r / L + 1/2) K,
+// and frac = u - base.
+template <typename T>
+__device__ __forceinline__ int axis_base(T r, T L, int K, T* frac) {
+  const T u = (r / L + T(0.5)) * T(K);
+  const T k0 = m_floor(u);
+  *frac = u - k0;
+  return (int)k0;
+}
+
+__device__ __forceinline__ int wrap_col(int c, int K) {
+  c %= K;
+  return c < 0 ? c + K : c;
+}
 
 // Weights w[j] = M_p(frac + j) and derivatives dw[j] = M_p'(frac + j),
 // j = 0..order-1, and the wrapped grid columns col[j] for one axis.
 template <typename T>
 __device__ __forceinline__ void axis_stencil(T r, T L, int K, int order,
                                              T* w, T* dw, int* col) {
-  const T u = (r / L + T(0.5)) * T(K);
-  const T k0 = m_floor(u);
-  const T frac = u - k0;
-  const int base = (int)k0;
+  T frac;
+  const int base = axis_base(r, L, K, &frac);
   T prev[kMaxOrder];
 #pragma unroll
   for (int j = 0; j < kMaxOrder; ++j) {
     w[j] = (j == 0) ? T(1) : T(0);
     prev[j] = T(0);
   }
+#pragma unroll
   for (int n = 2; n <= order; ++n) {
     if (n == order) {
 #pragma unroll
       for (int j = 0; j < kMaxOrder; ++j) prev[j] = w[j];
     }
-    // descending j keeps w[j - 1] at the previous level while w[j] updates
+    // one reciprocal a level, not a divide an entry (a divide is a
+    // subroutine of ~20 instructions); descending j keeps w[j - 1] at the
+    // previous level while w[j] updates
+    const T inv = T(1) / T(n - 1);
 #pragma unroll
     for (int j = kMaxOrder - 1; j >= 0; --j) {
       if (j < order) {
         const T x = frac + T(j);
         const T shifted = (j > 0) ? w[j - 1] : T(0);
-        w[j] = (x * w[j] + (T(n) - x) * shifted) / T(n - 1);
+        w[j] = (x * w[j] + (T(n) - x) * shifted) * inv;
       }
     }
   }
@@ -77,33 +142,237 @@ __device__ __forceinline__ void axis_stencil(T r, T L, int K, int order,
   for (int j = 0; j < kMaxOrder; ++j) {
     if (j < order) {
       dw[j] = prev[j] - ((j > 0) ? prev[j - 1] : T(0));
-      int c = (base - j) % K;
-      col[j] = c < 0 ? c + K : c;
+      col[j] = wrap_col(base - j, K);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spread_kernel(const T* __restrict__ pos, const T* __restrict__ charge,
-              const T* __restrict__ box, int n, int order, int Kx, int Ky,
-              int Kz, T* __restrict__ grid) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T q = charge[i];
-  if (q == T(0)) return;
-  T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder], d[kMaxOrder];
-  int cx[kMaxOrder], cy[kMaxOrder], cz[kMaxOrder];
-  axis_stencil<T>(pos[3 * i], box[0], Kx, order, wx, d, cx);
-  axis_stencil<T>(pos[3 * i + 1], box[1], Ky, order, wy, d, cy);
-  axis_stencil<T>(pos[3 * i + 2], box[2], Kz, order, wz, d, cz);
-  for (int a = 0; a < order; ++a) {
-    const T qa = q * wx[a];
-    T* plane = grid + (size_t)cx[a] * Ky * Kz;
-    for (int b = 0; b < order; ++b) {
-      T* row = plane + (size_t)cy[b] * Kz;
-      for (int c = 0; c < order; ++c) atomicAdd(row + cz[c], qa * (wy[b] * wz[c]));
+// Shared memory of one K2 block, in this order: the tile (tile_cap
+// values), each warp's staged particles (32 x 3p values: q w_x, w_y, w_z;
+// 32 x (2p + 1) ints: the x and y row offsets and the z base), and, on
+// the tile path, the x and y maps and their inverses (2 (Kx + Ky) ints).
+template <typename T, int P>
+constexpr size_t stage_bytes() {
+  return (size_t)kSpreadWarps * 32 * (3 * P * sizeof(T) + (2 * P + 1) * sizeof(int));
+}
+
+// The warps of a K2 block spread particles [lo, hi) into dst, whose y rows
+// are step_y and x planes step_x words apart: with kPrivate, the warp's
+// own copy of the block's tile (the columns go through xmap / ymap; plain
+// read-add-writes: the p^3 words of one particle are distinct, so no two
+// lanes of one instruction meet, and the warp syncs between particles);
+// else the mesh in device memory (atomicAdd). Lanes < group stage a
+// particle each; the warp then adds the staged particles one after
+// another, the lanes over the stencil (see the note above).
+template <typename T, int P, bool kPrivate>
+__device__ __forceinline__ void spread_warps(
+    T* __restrict__ dst, int step_y, int step_x,
+    const int* __restrict__ xmap, const int* __restrict__ ymap, T* sw,
+    int* si, const T* __restrict__ pos, const T* __restrict__ charge, T Lx,
+    T Ly, T Lz, int Kx, int Ky, int Kz, int lo, int hi, int group) {
+  constexpr int P2 = P * P;
+  constexpr int kFirst = P2 < 32 ? P2 : 32;  // (b, c) pairs, a lane each
+  constexpr int kRest = P2 - kFirst;         // pairs past 32 (p >= 6)
+  constexpr int kRestDiv = kRest > 0 ? kRest : 1;
+  constexpr int kRestSteps = (kRest * P + 31) / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T* w_warp = sw + warp * 32 * 3 * P;
+  int* c_warp = si + warp * 32 * (2 * P + 1);
+  const int b1 = lane / P, c1 = lane % P;  // this lane's pair, lane < kFirst
+  for (int g0 = lo + warp * group; g0 < hi; g0 += kSpreadWarps * group) {
+    const int i = g0 + lane;
+    const T q = (lane < group && i < hi) ? charge[i] : T(0);
+    const bool live = q != T(0);
+    if (live) {  // stage this lane's particle
+      T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder], d[kMaxOrder];
+      int cx[kMaxOrder], cy[kMaxOrder], cz[kMaxOrder];
+      axis_stencil<T>(pos[3 * i], Lx, Kx, P, wx, d, cx);
+      axis_stencil<T>(pos[3 * i + 1], Ly, Ky, P, wy, d, cy);
+      axis_stencil<T>(pos[3 * i + 2], Lz, Kz, P, wz, d, cz);
+      T* w = w_warp + lane * 3 * P;
+      int* c = c_warp + lane * (2 * P + 1);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        w[j] = q * wx[j];
+        w[P + j] = wy[j];
+        w[2 * P + j] = wz[j];
+        c[j] = (kPrivate ? xmap[cx[j]] : cx[j]) * step_x;
+        c[P + j] = (kPrivate ? ymap[cy[j]] : cy[j]) * step_y;
+      }
+      c[2 * P] = cz[0];
     }
+    unsigned todo = __ballot_sync(0xffffffffu, live);
+    __syncwarp();
+    while (todo != 0u) {  // the staged particles, one after another
+      const int s = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const T* w = w_warp + s * 3 * P;
+      const int* c = c_warp + s * (2 * P + 1);
+      const int z0 = c[2 * P];
+      // every staged value and address first; this lane's words: the
+      // pair's P (lane < kFirst), then its (a, pair) of the rest
+      T val[P + kRestSteps];
+      T* word[P + kRestSteps];
+      bool on[P + kRestSteps];
+      {
+        int z = z0 - c1;
+        if (z < 0) z += Kz;
+        const T yz = w[P + b1] * w[2 * P + c1];
+        T* row = dst + c[P + b1] + z;
+#pragma unroll
+        for (int a = 0; a < P; ++a) {
+          on[a] = lane < kFirst;
+          val[a] = w[a] * yz;
+          word[a] = row + c[a];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRestSteps; ++r) {
+        const int f = r * 32 + lane;
+        const int a = f / kRestDiv;
+        const int pair = kFirst + f % kRestDiv;
+        const int b = pair / P, k = pair % P;
+        on[P + r] = f < kRest * P;
+        const int a_ok = on[P + r] ? a : 0, b_ok = on[P + r] ? b : 0;
+        int z = z0 - k;
+        if (z < 0) z += Kz;
+        val[P + r] = w[a_ok] * (w[P + b_ok] * w[2 * P + k]);
+        word[P + r] = dst + c[a_ok] + c[P + b_ok] + z;
+      }
+      if (kPrivate) {
+        // the p^3 words of one particle are distinct: all loads, then all
+        // stores, so the adds wait for one shared-memory round trip
+        T old[P + kRestSteps];
+#pragma unroll
+        for (int j = 0; j < P + kRestSteps; ++j) old[j] = on[j] ? *word[j] : T(0);
+#pragma unroll
+        for (int j = 0; j < P + kRestSteps; ++j) {
+          if (on[j]) *word[j] = old[j] + val[j];
+        }
+        __syncwarp();  // the next particle may meet these words
+      } else {
+#pragma unroll
+        for (int j = 0; j < P + kRestSteps; ++j) {
+          if (on[j]) atomicAdd(word[j], val[j]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kSpreadThreads, 2)
+spread_kernel(const T* __restrict__ pos, const T* __restrict__ charge,
+              const T* __restrict__ box, int n, int Kx, int Ky, int Kz,
+              int group, int chunk, int tile_cap, int Sz,
+              T* __restrict__ grid, int* __restrict__ tile_runs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_nx, s_ny;
+  T* tile = reinterpret_cast<T*>(smem);
+  T* sw = tile + tile_cap;
+  int* si = reinterpret_cast<int*>(sw + kSpreadWarps * 32 * 3 * P);
+  int* xmap = si + kSpreadWarps * 32 * (2 * P + 1);
+  int* ymap = xmap + Kx;
+  int* xinv = ymap + Ky;
+  int* yinv = xinv + Kx;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * chunk;
+  const int hi = min(n, lo + chunk);
+  const T Lx = box[0], Ly = box[1], Lz = box[2];
+  if (tile_cap == 0) {  // the global path
+    spread_warps<T, P, false>(grid, Kz, Ky * Kz, xmap, ymap, sw, si, pos,
+                              charge, Lx, Ly, Lz, Kx, Ky, Kz, lo, hi, group);
+    return;
+  }
+
+  // the tile path, run by run: number the x columns and y rows a run's
+  // charged particles reach; if the warps' copies of those rows fit the
+  // tile, accumulate there and flush, else halve the run (down to one
+  // warp's 32 particles; if those do not fit either, the rest of the
+  // chunk adds to the global mesh)
+  int span = chunk;
+  for (int run_lo = lo; run_lo < hi;) {
+    const int run_hi = min(hi, run_lo + span);
+    for (int x = threadIdx.x; x < Kx; x += kSpreadThreads) xmap[x] = 0;
+    for (int y = threadIdx.x; y < Ky; y += kSpreadThreads) ymap[y] = 0;
+    __syncthreads();
+    for (int i = run_lo + threadIdx.x; i < run_hi; i += kSpreadThreads) {
+      if (charge[i] == T(0)) continue;
+      T frac;
+      const int bx = axis_base(pos[3 * i], Lx, Kx, &frac);
+      const int by = axis_base(pos[3 * i + 1], Ly, Ky, &frac);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        xmap[wrap_col(bx - j, Kx)] = 1;
+        ymap[wrap_col(by - j, Ky)] = 1;
+      }
+    }
+    __syncthreads();
+    if (warp < 2) {  // warp 0 numbers the x columns, warp 1 the y rows
+      int* map = warp == 0 ? xmap : ymap;
+      int* inv = warp == 0 ? xinv : yinv;
+      const int K = warp == 0 ? Kx : Ky;
+      int count = 0;
+      for (int c0 = 0; c0 < K; c0 += 32) {
+        const int c = c0 + lane;
+        const bool hit = c < K && map[c] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) {
+          const int k = count + __popc(m & ((1u << lane) - 1u));
+          map[c] = k;
+          inv[k] = c;
+        }
+        count += __popc(m);
+      }
+      if (lane == 0) {
+        if (warp == 0) {
+          s_nx = count;
+        } else {
+          s_ny = count;
+        }
+      }
+    }
+    __syncthreads();
+    const int nx = s_nx, ny = s_ny;
+    const int copy = nx * ny * Sz;  // words of one warp's copy
+    const bool fits = (long long)kSpreadWarps * nx * ny * Sz <= (long long)tile_cap;
+    if (!fits && span > 32) {
+      span = (span / 2 + 31) / 32 * 32;
+      continue;
+    }
+    if (!fits) {  // not even 32 particles fit: the rest of the chunk
+      spread_warps<T, P, false>(grid, Kz, Ky * Kz, xmap, ymap, sw, si, pos,
+                                charge, Lx, Ly, Lz, Kx, Ky, Kz, run_lo, hi,
+                                32);
+      return;
+    }
+    for (int t = threadIdx.x; t < kSpreadWarps * copy; t += kSpreadThreads) tile[t] = T(0);
+    if (threadIdx.x == 0 && tile_runs != nullptr) atomicAdd(tile_runs, 1);
+    __syncthreads();
+    spread_warps<T, P, true>(tile + warp * copy, Sz, ny * Sz, xmap, ymap, sw,
+                             si, pos, charge, Lx, Ly, Lz, Kx, Ky, Kz, run_lo,
+                             run_hi, 32);
+    __syncthreads();
+    // flush: the copies summed in order, coalesced adds of non-zero words
+    const int words = nx * ny * Kz;
+    for (int t = threadIdx.x; t < words; t += kSpreadThreads) {
+      const int r = t / Kz;
+      const int z = t - r * Kz;
+      T v = T(0);
+#pragma unroll
+      for (int k = 0; k < kSpreadWarps; ++k) v += tile[k * copy + r * Sz + z];
+      if (v != T(0)) {
+        const int lx = r / ny;
+        const int ly = r - lx * ny;
+        atomicAdd(grid + ((size_t)xinv[lx] * Ky + yinv[ly]) * Kz + z, v);
+      }
+    }
+    __syncthreads();  // the next run renumbers the maps
+    run_lo = run_hi;
   }
 }
 
@@ -154,15 +423,125 @@ inline bool bad_args(int n, int order, int Kx, int Ky, int Kz) {
          Kz < order;
 }
 
+// The card's SM count and shared memory an SM and a block may use, read
+// once (one device).
+struct CardLimits {
+  int sms = 0, smem_sm = 0, smem_block = 0;
+};
+
+inline int card_limits(CardLimits* out) {
+  static CardLimits cached;
+  if (cached.sms == 0) {
+    CardLimits c;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &c.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &c.smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    cached = c;
+  }
+  *out = cached;
+  return 0;
+}
+
+// K2's launch for order P. path: kPathAuto (the tile path from
+// kTileMinPerSm particles an SM up on meshes of up to kTileMaxRows (x, y)
+// rows, else the global path), kPathGlobal or kPathTile (tests and
+// benchmarks hold each path).
+template <typename T, int P>
+int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
+                    int Kx, int Ky, int Kz, int path, T* grid,
+                    int* tile_runs, cudaStream_t stream) {
+  CardLimits card;
+  const int err = card_limits(&card);
+  if (err != 0) return err;
+  // row stride of the tile: Kz padded to P mod 32 words
+  const int Sz = Kz + ((P - Kz % 32) % 32 + 32) % 32;
+  const size_t stage = stage_bytes<T, P>();
+  const size_t maps = 2 * (size_t)(Kx + Ky) * sizeof(int);
+  // the tile path: one block an SM; its shared memory, less the block's
+  // 1 KB reserve, the kernel's static words, the staging and the maps,
+  // holds kSpreadWarps copies
+  static size_t static_smem = (size_t)-1;  // per instantiation
+  if (static_smem == (size_t)-1) {
+    cudaFuncAttributes attr;
+    const cudaError_t a = cudaFuncGetAttributes(&attr, spread_kernel<T, P>);
+    if (a != cudaSuccess) return (int)a;
+    static_smem = attr.sharedSizeBytes;
+  }
+  size_t per_block = card.smem_sm > 1024 ? (size_t)card.smem_sm - 1024 : 0;
+  if (per_block > (size_t)card.smem_block) per_block = card.smem_block;
+  per_block = per_block > static_smem ? per_block - static_smem : 0;
+  long long tile_cap = 0;
+  if (per_block > stage + maps) {
+    tile_cap = (long long)((per_block - stage - maps) / sizeof(T));
+    const long long all = (long long)kSpreadWarps * Kx * Ky * Sz;
+    if (tile_cap > all) tile_cap = all;
+  }
+  bool tiled = path == kPathTile ||
+               (path == kPathAuto && (long long)n >= (long long)kTileMinPerSm * card.sms &&
+                Kx * Ky <= kTileMaxRows);
+  if (tile_cap < (long long)kSpreadWarps * Sz) {  // not one row fits
+    if (path == kPathTile) return (int)cudaErrorInvalidValue;
+    tiled = false;
+  }
+  int group, chunk, cap;
+  size_t smem;
+  if (tiled) {  // one wave of contiguous chunks, one block an SM
+    group = 32;
+    chunk = ((n + card.sms - 1) / card.sms + 31) / 32 * 32;
+    cap = (int)tile_cap;
+    smem = (size_t)tile_cap * sizeof(T) + stage + maps;
+  } else {  // ~16 warps an SM, up to 32 particles a warp
+    const int warps = 16 * card.sms;
+    group = (n + warps - 1) / warps;
+    group = group < 1 ? 1 : (group > 32 ? 32 : group);
+    chunk = group * kSpreadWarps;
+    cap = 0;
+    smem = stage;
+  }
+  static size_t opted_in = 48 * 1024;  // per instantiation
+  if (smem > opted_in) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        spread_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    opted_in = smem;
+  }
+  const int blocks = (n + chunk - 1) / chunk;
+  spread_kernel<T, P><<<blocks, kSpreadThreads, smem, stream>>>(
+      pos, charge, box, n, Kx, Ky, Kz, group, chunk, cap, Sz, grid,
+      tile_runs);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_spread(const void* pos, const void* charge, const void* box, int n,
-                  int order, int Kx, int Ky, int Kz, void* grid, void* stream) {
-  if (bad_args(n, order, Kx, Ky, Kz)) return (int)cudaErrorInvalidValue;
-  spread_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                     (cudaStream_t)stream>>>(
-      (const T*)pos, (const T*)charge, (const T*)box, n, order, Kx, Ky, Kz,
-      (T*)grid);
-  return (int)cudaGetLastError();
+                  int order, int Kx, int Ky, int Kz, int path, void* grid,
+                  void* tile_runs, void* stream) {
+  if (bad_args(n, order, Kx, Ky, Kz) || path < kPathAuto || path > kPathTile)
+    return (int)cudaErrorInvalidValue;
+  const T* p = (const T*)pos;
+  const T* q = (const T*)charge;
+  const T* b = (const T*)box;
+  T* g = (T*)grid;
+  int* t = (int*)tile_runs;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (order) {
+    case 2: return launch_spread_p<T, 2>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    case 3: return launch_spread_p<T, 3>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    case 4: return launch_spread_p<T, 4>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    case 5: return launch_spread_p<T, 5>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    case 6: return launch_spread_p<T, 6>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    case 7: return launch_spread_p<T, 7>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    default: return launch_spread_p<T, 8>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+  }
 }
 
 template <typename T>
@@ -181,16 +560,21 @@ int launch_interpolate(const void* ct, const void* pos, const void* charge,
 
 extern "C" {
 
+// path: 0 = by shape, 1 = the global path, 2 = the tile path.
+// tile_runs: NULL, or an int to which each run of particles a block
+// accumulated in its shared-memory tile adds 1.
 int cavmd_pppm_spread_f32(const void* pos, const void* charge, const void* box,
-                          int n, int order, int Kx, int Ky, int Kz, void* grid,
-                          void* stream) {
-  return launch_spread<float>(pos, charge, box, n, order, Kx, Ky, Kz, grid, stream);
+                          int n, int order, int Kx, int Ky, int Kz, int path,
+                          void* grid, void* tile_runs, void* stream) {
+  return launch_spread<float>(pos, charge, box, n, order, Kx, Ky, Kz, path,
+                              grid, tile_runs, stream);
 }
 
 int cavmd_pppm_spread_f64(const void* pos, const void* charge, const void* box,
-                          int n, int order, int Kx, int Ky, int Kz, void* grid,
-                          void* stream) {
-  return launch_spread<double>(pos, charge, box, n, order, Kx, Ky, Kz, grid, stream);
+                          int n, int order, int Kx, int Ky, int Kz, int path,
+                          void* grid, void* tile_runs, void* stream) {
+  return launch_spread<double>(pos, charge, box, n, order, Kx, Ky, Kz, path,
+                               grid, tile_runs, stream);
 }
 
 int cavmd_pppm_interpolate_f32(const void* ct, const void* pos,

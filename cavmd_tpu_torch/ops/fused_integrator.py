@@ -42,11 +42,12 @@ _SIGNATURES = {
        + [_I, _V]
        for s in ("f32", "f64")},
     **{f"cavmd_fused_post_force_{s}": [_V] * 5 + [_I] + [_V] * 3 + [_I]
-       + [_V] * 3
+       + [_V] * 3 + [_I, _V]
        for s in ("f32", "f64")},
+    "cavmd_fused_grid_blocks": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-PRE_FORCE_THREADS = 512  # csrc/fused_integrator.cu kPreThreads
+GRID_THREADS = 512  # csrc/fused_integrator.cu kGridThreads (K4 and K5)
 
 
 class FusedIntegratorPlan:
@@ -144,6 +145,21 @@ def _kernel_suffix(position, what):
     return _SUFFIX[position.dtype]
 
 
+def _lib():
+    return _cuda.load("fused_integrator", _SIGNATURES)
+
+
+def grid_blocks(kernel: str, n: int, dtype) -> int:
+    """Blocks of the cooperative grid of ``kernel`` ("pre_force": K4,
+    "post_force": K5) for ``n`` particles on the current CUDA device."""
+    blocks = ctypes.c_int(0)
+    rc = _lib().cavmd_fused_grid_blocks(
+        {"pre_force": 4, "post_force": 5}[kernel],
+        int(dtype == torch.float64), n, ctypes.byref(blocks))
+    _cuda.check(rc, f"fused_{kernel} grid")
+    return blocks.value
+
+
 def pre_force_apply(plan, position, image, velocity, forces, mass, mol_mask,
                     box_L, dt, c, kT: float, r1, r_gamma):
     """Returns (position', image', velocity', bussi_reservoir_delta): K4 on
@@ -167,11 +183,11 @@ def pre_force_apply(plan, position, image, velocity, forces, mass, mol_mask,
     vel_out = torch.empty_like(velocity)
     dres = torch.empty((), dtype=dtype, device=position.device)
     # one kinetic-energy partial per block of the grid, which is at most
-    # one block per PRE_FORCE_THREADS particles
-    n_partial = -(-n // PRE_FORCE_THREADS)
+    # one block per GRID_THREADS particles
+    n_partial = -(-n // GRID_THREADS)
     partial = torch.empty(n_partial, dtype=dtype, device=position.device)
     p = _cuda.ptr
-    lib = _cuda.load("fused_integrator", _SIGNATURES)
+    lib = _lib()
     rc = getattr(lib, f"cavmd_fused_pre_force_{sfx}")(
         p(velocity), p(position), p(image), p(forces), p(mass), p(mol_mask),
         p(box_L), p(dt), p(c), p(r1), p(r_gamma), float(kT),
@@ -207,11 +223,14 @@ def post_force_apply(plan, velocity, forces, mass, mol_mask, dt, c_ou, sig_ou,
     _check("post_force_apply", tensors, dtype, n)
     vel_out = torch.empty_like(velocity)
     out = torch.empty(3, dtype=dtype, device=velocity.device)
+    # (2 KE_mol, 2 KE_cav) per block of the grid, as for K4
+    n_partial = -(-n // GRID_THREADS)
+    partial = torch.empty(2 * n_partial, dtype=dtype, device=velocity.device)
     p = _cuda.ptr
-    lib = _cuda.load("fused_integrator", _SIGNATURES)
-    rc = getattr(lib, f"cavmd_fused_post_force_{sfx}")(
+    rc = getattr(_lib(), f"cavmd_fused_post_force_{sfx}")(
         p(velocity), p(forces), p(mass), p(mol_mask), p(dt), plan.photon,
-        *ou, n, p(vel_out), p(out), _cuda.stream_ptr(velocity.device))
+        *ou, n, p(vel_out), p(out), p(partial), n_partial,
+        _cuda.stream_ptr(velocity.device))
     _cuda.check(rc, "fused_post_force")
     _cuda.count_launch("fused_post_force")
     return vel_out, out[0], out[1], out[2]

@@ -26,13 +26,17 @@ from cavmd_tpu_torch.ops.pppm import bspline_stencils, mesh_vector
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    **{f"cavmd_pppm_spread_{s}": [_V, _V, _V, _I, _I, _I, _I, _I, _V, _V]
+    **{f"cavmd_pppm_spread_{s}": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V,
+                                   _V, _V]
        for s in ("f32", "f64")},
     **{f"cavmd_pppm_interpolate_{s}": [_V, _V, _V, _V, _I, _I, _I, _I, _I,
                                        _V, _V]
        for s in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# kernel 2's paths (csrc/pppm_spread.cu): by shape, the global mesh, the
+# per-block shared-memory tile
+SPREAD_PATHS = {"auto": 0, "global": 1, "tile": 2}
 
 
 def _flat_columns(idx, mesh):
@@ -97,6 +101,16 @@ def spread_grid(position, charge, box_L, order: int, mesh):
     """(Kx, Ky, Kz) charge grid: kernel 2 on CUDA, the plain twin on CPU."""
     if position.device.type == "cpu":
         return spread_grid_plain(position, charge, box_L, order, mesh)
+    return spread_grid_cuda(position, charge, box_L, order, mesh)
+
+
+def spread_grid_cuda(position, charge, box_L, order: int, mesh,
+                     path: str = "auto", tile_runs=None):
+    """Kernel 2 on CUDA tensors. ``path`` picks the kernel's path: "auto"
+    (by shape, as ``spread_grid`` runs it), "global" or "tile" (each held
+    on its own by the tests and ``chip_smoke.py``). ``tile_runs``, a
+    CUDA int32 tensor of one element, gets 1 added for each run of
+    particles that a block accumulated in its shared-memory tile."""
     if position.device.type != "cuda":
         raise ValueError(f"spread_grid: unsupported device {position.device}")
     sfx = _kernel_dtype(position, "spread_grid")
@@ -105,9 +119,11 @@ def spread_grid(position, charge, box_L, order: int, mesh):
     n = position.shape[0]
     Kx, Ky, Kz = mesh
     grid = torch.zeros(mesh, dtype=position.dtype, device=position.device)
+    tiled = None if tile_runs is None else _cuda.ptr(tile_runs)
     rc = getattr(_lib(), f"cavmd_pppm_spread_{sfx}")(
         _cuda.ptr(position), _cuda.ptr(charge), _cuda.ptr(box_L), n, order,
-        Kx, Ky, Kz, _cuda.ptr(grid), _cuda.stream_ptr(position.device))
+        Kx, Ky, Kz, SPREAD_PATHS[path], _cuda.ptr(grid), tiled,
+        _cuda.stream_ptr(position.device))
     _cuda.check(rc, "pppm_spread")
     _cuda.count_launch("pppm_spread")
     return grid

@@ -10,8 +10,8 @@ Phases:
   0. device: the card's name and power limit (nvidia-smi);
   1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
      source, all started together; print the seconds and, from ptxas, each
-     kernel's registers and spill bytes by name (the cell kernel and K4
-     must be found in float and double);
+     kernel's registers and spill bytes by name (the cell kernel, K2, K4
+     and K5 must be found in float and double);
   2. kernels against their plain PyTorch twins on the card, float32 and
      float64: at the N = 501 reference scene and at N = 4001 (reference
      density) in dense mode, the pair pass (K1), the 32^3 order-6 PPPM
@@ -19,8 +19,11 @@ Phases:
      pre-force, K5 post-force, with particles pushed across the box
      faces); at N = 100,001 in cell mode (17^3 cells) the cell kernel
      (K6's counterpart) and K2-K5; on the N = 501 scene in cell mode (2^3
-     cells, K8's counterpart) the cell kernel — max |diff|, and for the
-     cell kernel and K4 two calls on the same inputs bit-equal; in float32
+     cells, K8's counterpart) the cell kernel; at N = 100,001 also K2 on
+     the 64^3 and 128^3 meshes — max |diff|, K4's and K5's velocities
+     bit-equal to the twins', for the cell kernel, K4 and K5 two calls on
+     the same inputs bit-equal, K4's and K5's block counts, and the blocks
+     of K2 that accumulated in their shared-memory tile; in float32
      also the median device time of one call (``ms``, CUDA events with the
      host out of the way), the median host-bound time of one call
      (``host_call_ms``), the twin's times, and the bound from the call's
@@ -259,13 +262,15 @@ PEAK_F32_OPS_PER_S = 67e12
 # kernels whose registers and spills phase 1 must find by name in a fresh
 # build's ptxas report, in float and double
 PTXAS_NAMED = {"cell_pair": ("cell_pair_kernel",),
-               "fused_integrator": ("pre_force_kernel",)}
+               "fused_integrator": ("pre_force_kernel", "post_force_kernel"),
+               "pppm_spread": ("spread_kernel",)}
 
 
 def ptxas_report(log):
     """[(kernel, registers, spill store bytes, spill load bytes)] for each
     entry function of an ``nvcc -Xptxas -v`` log; a kernel template reads
-    as ``name<float>`` or ``name<double>``."""
+    as ``name<float>`` or ``name<double>``, one with an order as
+    ``name<float, 6>``."""
     out, entry, props, spill = [], None, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([\w$]+)'", line)
@@ -283,11 +288,13 @@ def ptxas_report(log):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            k = re.search(r"([a-z][a-z_]*_kernel)I([fd])E", entry)
+            k = re.search(r"([a-z][a-z_]*_kernel)I([fd])(?:Li(\d+)E)?E",
+                          entry)
             label = entry
             if k:
                 t = "float" if k.group(2) == "f" else "double"
-                label = f"{k.group(1)}<{t}>"
+                order = f", {k.group(3)}" if k.group(3) else ""
+                label = f"{k.group(1)}<{t}{order}>"
             out.append((label, int(m.group(1)), *spill))
             entry = None
     return out
@@ -586,12 +593,32 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
         calls["cell_list_build"] = (lambda: ff.build_cells(pos, box), None)
         out["cell_list_build"] = {}
 
-    pre = None
+    pre, big_meshes = None, []
     if not pair_only:
         g_k = sk.spread_grid(pos, q, box, order, mesh)
         g_p = sk.spread_grid_plain(pos, q, box, order, mesh)
+        tiled = torch.zeros(1, dtype=torch.int32, device=dev)
+        sk.spread_grid_cuda(pos, q, box, order, mesh, tile_runs=tiled)
         torch.cuda.synchronize()
         hold("pppm_spread", [(g_k, g_p)], "grid")
+        out["pppm_spread"]["tile_runs"] = int(tiled)
+        # at N = 100,001 also the 64^3 and 128^3 meshes (the tile path's
+        # rows per block grow with the mesh; past them a block adds to the
+        # global mesh itself)
+        if snap.N > 50_000:
+            big_meshes = [(64, 64, 64), (128, 128, 128)]
+        for big in big_meshes:
+            key = f"pppm_spread_{big[0]}"
+            tiled.zero_()
+            g_big = sk.spread_grid_cuda(pos, q, box, order, big,
+                                        tile_runs=tiled)
+            g_big_p = sk.spread_grid_plain(pos, q, box, order, big)
+            torch.cuda.synchronize()
+            hold(key, [(g_big, g_big_p)], "grid")
+            out[key]["tile_runs"] = int(tiled)
+            calls[key] = (
+                lambda m=big: sk.spread_grid(pos, q, box, order, m),
+                lambda m=big: sk.spread_grid_plain(pos, q, box, order, m))
 
         grid = g_p.detach().requires_grad_(True)
         (ct,) = torch.autograd.grad(mesh_energy(grid, ff.pppm), grid)
@@ -622,11 +649,19 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
              scales=(None, None, ke_mol))
         hold_bits("fused_pre_force", k4, k4_again)
         k5 = fi.post_force_apply(*post)
+        k5_again = fi.post_force_apply(*post)
         p5 = fi.post_force_apply_plain(*post)
         torch.cuda.synchronize()
+        check(torch.equal(k5[0], p5[0]),
+              f"fused_post_force N={snap.N} {name}: velocities differ from "
+              "the twin's")
         ke_photon = float(p5[2].abs() + p5[3].abs())
         hold("fused_post_force", list(zip(k5, p5)), "v,KE,dE_res",
              scales=(None, None, None, ke_photon))
+        hold_bits("fused_post_force", k5, k5_again)
+        for key, kname in (("fused_pre_force", "pre_force"),
+                           ("fused_post_force", "post_force")):
+            out[key]["blocks"] = fi.grid_blocks(kname, snap.N, dtype)
         calls.update({
             "pppm_spread": (
                 lambda: sk.spread_grid(pos, q, box, order, mesh),
@@ -654,6 +689,9 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
             counts[cell_key] = cell_work_counts(
                 torch, *cell_args[:4], snap.typeid, snap.charge, ff,
                 ff.cell_exclusions, out[cell_key]["grid"]["blocks"])
+        for big in big_meshes:
+            counts[f"pppm_spread_{big[0]}"] = spread_work(
+                pos.element_size(), snap.N, int((q != 0).sum()), big, order)
         for key, (n_bytes, n_ops, *extra) in counts.items():
             out[key]["bound_ms"], out[key]["bound_by"] = bound_ms(n_bytes,
                                                                   n_ops)
@@ -741,6 +779,21 @@ def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
                                 lj=n_lj, ewald=n_ew)
 
 
+def stencil_ops(p):
+    """Operations of one particle's three order-p stencils: u, floor and
+    the Cox-de Boor recursion on each axis."""
+    return 3 * (5 + 5 * (p * (p + 1) // 2 - 1))
+
+
+def spread_work(e, n, n_q, mesh, p):
+    """(bytes, operations) of one spread: pos, charge, box in, the mesh
+    out; per charged particle its three stencils and p^3 (product, add)
+    pairs."""
+    n_mesh = mesh[0] * mesh[1] * mesh[2]
+    return (e * (3 * n + n + 3 + n_mesh),
+            n_q * (stencil_ops(p) + 2 * p ** 3 + p * p))
+
+
 def work_counts(torch, snap, ff, pre):
     """(bytes moved, operations) of one call of each kernel on this run's
     inputs: each input read once, each output written once; operations as
@@ -775,14 +828,11 @@ def work_counts(torch, snap, ff, pre):
     n_q = int((snap.charge != 0).sum())
     n_mesh = ff.pppm_mesh[0] * ff.pppm_mesh[1] * ff.pppm_mesh[2]
     p = ff.pppm_order
-    stencil = 3 * (5 + 5 * (p * (p + 1) // 2 - 1))  # u, floor, Cox-de Boor
+    stencil = stencil_ops(p)
     n_mol = int(pre[6].sum())
     return {
         **counts,
-        # pos, charge, box in; the mesh out. Per charged particle: three
-        # stencils and p^3 (product, atomic add) pairs
-        "pppm_spread": (e * (3 * n + n + 3 + n_mesh),
-                        n_q * (stencil + 2 * p ** 3 + p * p)),
+        "pppm_spread": spread_work(e, n, n_q, ff.pppm_mesh, p),
         # the mesh cotangent, pos, charge, box in; dE/dr out. Per charged
         # particle: stencils with derivatives and 9 ops per stencil cell
         "pppm_interpolate": (e * (n_mesh + 3 * n + n + 3 + 3 * n),
@@ -1529,10 +1579,11 @@ def main() -> None:
         for label, regs, st, ld in entries:
             print(f"phase 1: ptxas {src}: {label}: {regs} registers, "
                   f"spill stores {st} B, spill loads {ld} B", flush=True)
-        want = {f"{k}<{t}>" for k in PTXAS_NAMED.get(src, ())
-                for t in ("float", "double")}
-        missing = want - {label for label, *_ in entries}
-        check(not missing, f"phase 1: no ptxas report for {sorted(missing)}")
+        missing = [f"{k}<{t}>" for k in PTXAS_NAMED.get(src, ())
+                   for t in ("float", "double")
+                   if not any(label.startswith(f"{k}<{t}")
+                              for label, *_ in entries)]
+        check(not missing, f"phase 1: no ptxas report for {missing}")
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(1)
 

@@ -14,7 +14,7 @@ from cavmd_tpu_torch.ops import cell_kernels as ck
 from cavmd_tpu_torch.ops import fused_integrator as fi
 from cavmd_tpu_torch.ops import pair_kernels as pk
 from cavmd_tpu_torch.ops import pppm_kernels as sk
-from cavmd_tpu_torch.ops.pppm import mesh_energy
+from cavmd_tpu_torch.ops.pppm import PPPMParams, mesh_energy
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +71,140 @@ def test_spread_and_interpolation_kernels_match_twins(cuda, dtype):
     (ct,) = torch.autograd.grad(mesh_energy(grid, ff.pppm), grid)
     d_k = sk.interpolate_grad(ct, *args)
     d_p = sk.interpolate_grad_plain(ct, *args)
+    torch.cuda.synchronize()
+    assert _close(d_k, d_p, TOL[dtype])
+
+
+def _spread_inputs(dtype, device, n_mol=250, scramble=False):
+    """Positions, charges and box of the reference-density scene (250
+    diatomics + photon: the N = 501 scene; molecules on a lattice in row
+    order); ``scramble`` permutes the particles, so that a block's
+    contiguous chunk is spread over the whole box."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    box_L = 46.0 if n_mol == 250 else reference_box_for(n_mol)
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
+                                seed=0, device=device),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=1)
+    snap = snap.astype(dtype)
+    pos, q = snap.position, snap.charge
+    if scramble:
+        g = torch.Generator(device="cpu")
+        g.manual_seed(5)
+        perm = torch.randperm(snap.N, generator=g).to(device)
+        pos, q = pos[perm].contiguous(), q[perm].contiguous()
+    return pos, q, snap.box_L
+
+
+def _hold_spread(pos, q, box, order, mesh, path="auto", tiled=None):
+    """Kernel 2 on ``path`` against its twin at the file's TOL; returns the
+    kernel's grid."""
+    before = _cuda.launches["pppm_spread"]
+    g_k = sk.spread_grid_cuda(pos, q, box, order, mesh, path=path,
+                              tile_runs=tiled)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pppm_spread"] == before + 1
+    g_p = sk.spread_grid_plain(pos, q, box, order, mesh)
+    assert g_k.shape == tuple(mesh) and bool(torch.isfinite(g_k).all())
+    assert _close(g_k, g_p, TOL[pos.dtype])
+    return g_k
+
+
+SPREAD_MESHES = {"16": (16, 16, 16), "32": (32, 32, 32), "64": (64, 64, 64),
+                 "128": (128, 128, 128), "20x24x32": (20, 24, 32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", ["auto", "global", "tile"])
+@pytest.mark.parametrize("mesh", sorted(SPREAD_MESHES))
+def test_spread_kernel_at_every_mesh(cuda, mesh, path, dtype):
+    """Kernel 2's global and tile paths and the wrapper's own pick against
+    the twin, order 6, on cubic meshes from 16^3 to 128^3 and a non-cubic
+    one."""
+    pos, q, box = _spread_inputs(dtype, cuda)
+    _hold_spread(pos, q, box, 6, SPREAD_MESHES[mesh], path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", ["global", "tile"])
+@pytest.mark.parametrize("order", [4, 6, 8])
+def test_spread_kernel_at_every_order(cuda, order, path, dtype):
+    pos, q, box = _spread_inputs(dtype, cuda)
+    _hold_spread(pos, q, box, order, (20, 24, 32), path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", ["global", "tile"])
+@pytest.mark.parametrize("case", ["one_charge", "no_charge", "box_faces"])
+def test_spread_kernel_edge_cases(cuda, case, path, dtype):
+    """One charged particle; every charge zero (the grid stays zero); and
+    particles exactly on the box faces (u = 0 and u = K: the columns
+    wrap)."""
+    pos, q, box = _spread_inputs(dtype, cuda)
+    q = q.clone()
+    if case == "one_charge":
+        q[1:] = 0.0
+    elif case == "no_charge":
+        q.zero_()
+    else:
+        pos = pos.clone()
+        L = box.to(dtype)
+        pos[:64, 0] = -0.5 * L[0]
+        pos[64:128, 1] = 0.5 * L[1]
+        pos[128:192, 2] = -0.5 * L[2]
+        pos[192:200] = 0.5 * L
+    g = _hold_spread(pos, q, box, 6, (32, 32, 32), path)
+    if case == "no_charge":
+        assert not bool(g.any())
+    if case == "one_charge":
+        assert int((g != 0).sum()) == 6 ** 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spread_tile_path_falls_back_per_block(cuda, dtype):
+    """In row order (the scenes' lattice) the tile path's blocks
+    accumulate their runs of particles in their tiles; with the particles
+    permuted, even a run of 32 reaches rows across the 32^3 mesh that do
+    not fit the tile, and the block adds to the global mesh itself (all
+    but a run of a few particles, such as the last block's one). Both hold
+    against the twin."""
+    counts = {}
+    for scramble in (False, True):
+        pos, q, box = _spread_inputs(dtype, cuda, n_mol=2000,
+                                     scramble=scramble)
+        tiled = torch.zeros(1, dtype=torch.int32, device=cuda)
+        _hold_spread(pos, q, box, 6, (32, 32, 32), "tile", tiled)
+        counts[scramble] = int(tiled)
+    assert counts[False] > 10 * max(counts[True], 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spread_kernel_at_n_100001(cuda, dtype):
+    """The default large-N scene (build_large_n(50_000)'s 50,000 diatomics
+    + photon, 32^3): the wrapper takes the tile path, and its blocks
+    accumulate runs of particles in their tiles."""
+    pos, q, box = _spread_inputs(dtype, cuda, n_mol=50_000)
+    assert pos.shape[0] == 100_001
+    tiled = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _hold_spread(pos, q, box, 6, (32, 32, 32), "auto", tiled)
+    assert int(tiled) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_interpolation_kernel_on_the_128_mesh(cuda, dtype):
+    """Kernel 3 against its twin on kernel 2's 128^3 grid of the N = 501
+    scene, the cotangent from the mesh energy."""
+    pos, q, box = _spread_inputs(dtype, cuda)
+    mesh = (128, 128, 128)
+    params, order = PPPMParams.create(
+        box.cpu().numpy(), mesh=mesh, order=6, kappa=0.35, dtype=dtype,
+        device=cuda)
+    g_k = _hold_spread(pos, q, box, order, mesh)
+    grid = g_k.detach().requires_grad_(True)
+    (ct,) = torch.autograd.grad(mesh_energy(grid, params), grid)
+    d_k = sk.interpolate_grad(ct, pos, q, box, order, mesh)
+    d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
     torch.cuda.synchronize()
     assert _close(d_k, d_p, TOL[dtype])
 
@@ -319,6 +453,44 @@ def test_pre_force_kernel_matches_twin_at_every_grid_size(cuda, n_mol, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("photon", ["cavity", "none", "block_edge"])
+@pytest.mark.parametrize("n_mol", PRE_FORCE_SIZES)
+def test_post_force_kernel_matches_twin_at_every_grid_size(cuda, n_mol,
+                                                           photon, dtype):
+    """K5's cooperative grid against its twin at K4's grid sizes: with the
+    photon's OU row (the last row), with no Langevin row
+    (``plan.photon = -1``), and with the OU row on the first row of the
+    grid's second block (row 0 at N = 3). Velocities bit-equal; the sums
+    within TOL (the reservoir delta against the photon's KE before its
+    step)."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    _, post = _integrator_inputs(dtype, cuda, n_mol=n_mol,
+                                 box_L=reference_box_for(n_mol))
+    plan, n = post[0], post[1].shape[0]
+    if photon == "none":
+        plan.photon = -1
+    elif photon == "block_edge":
+        plan.photon = fi.GRID_THREADS if n > fi.GRID_THREADS else 0
+    before = _cuda.launches["fused_post_force"]
+    k = fi.post_force_apply(*post)
+    p = fi.post_force_apply_plain(*post)
+    torch.cuda.synchronize()
+    assert _cuda.launches["fused_post_force"] == before + 1
+    assert torch.equal(k[0], p[0])
+    assert _close(k[1], p[1], TOL[dtype]) and _close(k[2], p[2], TOL[dtype])
+    if photon == "none":
+        assert float(k[3]) == 0.0 == float(p[3])
+    else:
+        ke_photon = float(p[2].abs() + p[3].abs())
+        assert float((k[3] - p[3]).abs()) <= TOL[dtype] * max(
+            float(p[3].abs()), ke_photon)
+        assert not torch.equal(k[0][plan.photon], post[1][plan.photon])
+    if n > fi.GRID_THREADS:
+        assert fi.grid_blocks("post_force", n, dtype) > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cell_kernel_on_a_compressed_scene(cuda, dtype):
     """60 diatomics + photon squeezed into the central cell of a 3^3 grid
     (r_cut 12): most candidates lie inside the cutoff, so the per-warp
@@ -368,16 +540,20 @@ def test_small_grid_splits_rows(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kernel", ["cell_3cells", "cell_2cells",
-                                    "pre_force"])
+                                    "pre_force", "post_force"])
 def test_two_calls_give_the_same_bits(cuda, kernel, dtype):
-    """The cell kernel and K4 sum in fixed orders (no atomics), so two
+    """The cell kernel, K4 and K5 sum in fixed orders (no atomics), so two
     calls on the same inputs are bit-equal."""
-    if kernel == "pre_force":
+    if kernel in ("pre_force", "post_force"):
         from cavmd_tpu_torch.core.system import reference_box_for
 
-        pre, _ = _integrator_inputs(dtype, cuda, n_mol=2000,
-                                    box_L=reference_box_for(2000))
-        first, second = fi.pre_force_apply(*pre), fi.pre_force_apply(*pre)
+        pre, post = _integrator_inputs(dtype, cuda, n_mol=2000,
+                                       box_L=reference_box_for(2000))
+        if kernel == "pre_force":
+            first, second = fi.pre_force_apply(*pre), fi.pre_force_apply(*pre)
+        else:
+            first = fi.post_force_apply(*post)
+            second = fi.post_force_apply(*post)
     else:
         n_mol, box_L, r_cut = CELL_GRIDS[
             "k6_3cells" if kernel == "cell_3cells" else "k8_2cells"]

@@ -146,11 +146,15 @@ def test_grid_and_forces_match_pallas_kernel_f32():
                                atol=3e-4 * scale)
 
 
-def test_pppm_matches_exact_kspace():
-    """tests/test_ewald.py's bar on the port: PPPM 32^3 order 6 against the
-    exact reciprocal sum."""
+@pytest.mark.parametrize("mesh", [(32, 32, 32), (128, 128, 128)],
+                         ids=["32", "128"])
+def test_pppm_matches_exact_kspace(mesh):
+    """tests/test_ewald.py's bar on the port: PPPM order 6 against the
+    exact reciprocal sum, on the 32^3 mesh and on 128^3 (the bar of
+    tests/test_ewald.py's 128^3 test: the port's spread holds no (N, Ky
+    Kz) factor, so nothing bounds the mesh)."""
     _, ts = scene(n_mol=20, box_L=24.0, seed=23, jitter=0.0)
-    kappa, mesh = 0.25, (32, 32, 32)
+    kappa = 0.25
     params, order = tpppm.PPPMParams.create(ts.box_L.numpy(), mesh=mesh,
                                             order=6, kappa=kappa)
     f, e = tpppm.pppm_force_and_energy(ts.position, ts.charge, ts.box_L,
