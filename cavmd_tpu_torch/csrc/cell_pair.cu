@@ -54,15 +54,12 @@
 //     partial ring is flushed at the end of the row. So the pair term runs
 //     on full warps, ~3 times a row at N = 100,001, instead of on ~18
 //     mostly idle steps;
-//   - the minimum image without a divide or a rint: k = d * (1/L) rounded
+//   - the minimum image without a divide or a rint (pair_term.cuh:
+//     min_image, norm2, shared by every pair pass): k = d * (1/L) rounded
 //     by adding and subtracting 1.5 * 2^23 (1.5 * 2^52 in f64), then
-//     d - L k in one fma. For a pair inside the cutoff |d/L - k| < r_cut/L
-//     < 1/2, so a quotient 1-2 ulp off cannot cross a half-integer, the
-//     rounding gives the twin's k (round half to even, as rint), and L k is
-//     exact for |k| <= 2: every counted pair gets the twin's dx, and r^2 is
+//     d - L k in one fma; every counted pair gets the twin's dx, and r^2 is
 //     formed with the _rn intrinsics in the twin's order, so the cutoff
-//     decides as the twin does. (This needs L > 2 r_cut per axis, which the
-//     minimum image needs anyway.) Per-row image shifts are not taken: in
+//     decides as the twin does. Per-row image shifts are not taken: in
 //     float32 they round pairs across a face differently from the twin;
 //   - a warp-shuffle sum closes each row: every particle owns one slot, so
 //     its force is written once, with no atomics and no slot gather;
@@ -113,38 +110,6 @@ constexpr int kUnroll = 4;    // candidate steps of 32 between queue checks
 constexpr int kRing = 64 * kUnroll;  // per-warp queue of in-cutoff j rows
 constexpr int kStage = 4;     // rows a thread stages at a time
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
-// 1.5 * 2^(mantissa bits): t + M - M rounds t to the nearest integer, ties
-// to even, for |t| < 2^22 (f32) / 2^51 (f64), as rint does
-__device__ __forceinline__ float round_magic(float) { return 12582912.0f; }
-__device__ __forceinline__ double round_magic(double) { return 6755399441055744.0; }
-
-// One minimum-image component of d = x_i - x_j: d - L k with k the nearest
-// integer to d / L. k comes from d * (1/L) rounded by the magic constant
-// (two adds at the full FP32 rate, where rint is a conversion at 1/8 of
-// it), L k is taken in the fma exactly (|k| <= 2), so for every pair inside
-// the cutoff the result equals the twin's d - L rint(d / L) bit for bit (see
-// the note at the top).
-template <typename T>
-__device__ __forceinline__ T min_image(T d, T L, T inv_L) {
-  const T M = round_magic(T(0));
-  const T k = sub_rn(fma_rn(d, inv_L, M), M);
-  return fma_rn(-L, k, d);
-}
-
-// r^2 as the twin forms it: (dx^2 + dy^2) + dz^2, each step rounded.
-template <typename T>
-__device__ __forceinline__ T norm2(T dx, T dy, T dz) {
-  return add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-}
 
 // Bytes of dynamic shared memory for one block: 27 * cap staged rows. A
 // count past what a block may use beside the static arrays (227 KB in all)

@@ -70,10 +70,36 @@
 // ~100-200 particles, and zeroing and flushing the copies run by run
 // cost more than the global path).
 //
-// K3, the interpolation: one thread a particle evaluates its three weight
-// and derivative rows in registers and reads its p^3 mesh-cotangent
-// values, dE/dr_d = (K_d / L_d) q sum ct M'_p(d) M_p(others); no atomics,
-// deterministic. It is bound by the p^3 gathered L2 reads a particle.
+// K3, the interpolation, dE/dr_d = (K_d / L_d) q sum ct M'_p(d) M_p(others)
+// over a particle's p^3 mesh-cotangent words. What bounds it on an H100:
+// load and shared-memory instructions and the L1 lines they touch, not
+// bytes (the 32^3 mesh is 128 KB and stays in L1 and L2; at N = 100,001,
+// p = 6, 21.6 M words are read from it, ~36 mesh rows a particle). The
+// first version, one thread a particle with the order a run-time argument,
+// kept its nine stencil rows in a 288-byte local-memory stack, gathered its
+// 216 words one after another, and ran N = 501 on 4 SMs: 0.029 ms at
+// N = 501 and at N = 4001 alike, the chain of one thread. Design:
+//   - interpolate_kernel<T, P>, one instantiation an order 2-8, so every
+//     stencil row lives in registers (no stack frame);
+//   - a warp takes up to 32 particles, fewer at small N as K2's global path
+//     (warp_group: N = 501 runs ~500 warps in 4-warp blocks); lane k
+//     evaluates particle k's three weight and three derivative rows
+//     (axis_stencil) and stages them, as (w, w') pairs, with the row
+//     offsets in the warp's shared memory, compacted over the charged
+//     particles (K2 stages its rows the same way);
+//   - the warp then walks the staged particles 32 / G at a time, G = 8
+//     lanes a particle (4 up to p = 4): lane c owns z column c and loops
+//     over the (a, b) rows, so one load instruction reads G consecutive z
+//     words of 32 / G rows through the read-only path, and a lane sums its
+//     words against (w_y, w_y') of b, then (w_x, w_x') of a, with w_z, w_z'
+//     of c last: ~2 FMAs a word, one paired shared-memory load a row
+//     weight. (A warp over one particle's (b, c) pairs, as K2 adds, took
+//     0.041 ms at N = 100,001: it reads every weight and offset a word and
+//     closes each particle with 15 shuffles);
+//   - a butterfly of shuffles in a fixed order over the G lanes closes each
+//     particle into its slot, and the lane that staged it stores its
+//     dE/dr: one coalesced run a warp. No atomics: two calls give the same
+//     bits. Particles with q = 0 are not staged and write exact zeros.
 // The launches do not synchronise; each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -81,7 +107,8 @@
 namespace {
 
 constexpr int kMaxOrder = 8;
-constexpr int kThreads = 128;        // K3: one thread a particle
+constexpr int kInterpThreads = 128;  // K3: 4 warps a block
+constexpr int kInterpWarps = kInterpThreads / 32;
 constexpr int kSpreadThreads = 256;  // K2: 8 warps a block
 constexpr int kSpreadWarps = kSpreadThreads / 32;
 constexpr int kTileMinPerSm = 64;    // K2: the tile path from N = 64 an SM
@@ -104,6 +131,22 @@ __device__ __forceinline__ int axis_base(T r, T L, int K, T* frac) {
 __device__ __forceinline__ int wrap_col(int c, int K) {
   c %= K;
   return c < 0 ? c + K : c;
+}
+
+// The z column of stencil entry c from the staged base column z0 (c < p
+// <= K, so one wrap at most).
+__device__ __forceinline__ int z_col(int z0, int c, int K) {
+  const int z = z0 - c;
+  return z < 0 ? z + K : z;
+}
+
+// Particles a warp takes at a time on K2's global path and in K3: enough
+// that ~16 warps an SM run (up to 32), so N = 501 runs ~500 warps over the
+// card and N = 100,001 32 particles a warp.
+inline int warp_group(int n, int sms) {
+  const int warps = 16 * sms;
+  const int group = (n + warps - 1) / warps;
+  return group < 1 ? 1 : (group > 32 ? 32 : group);
 }
 
 // Weights w[j] = M_p(frac + j) and derivatives dw[j] = M_p'(frac + j),
@@ -216,10 +259,8 @@ __device__ __forceinline__ void spread_warps(
       T* word[P + kRestSteps];
       bool on[P + kRestSteps];
       {
-        int z = z0 - c1;
-        if (z < 0) z += Kz;
         const T yz = w[P + b1] * w[2 * P + c1];
-        T* row = dst + c[P + b1] + z;
+        T* row = dst + c[P + b1] + z_col(z0, c1, Kz);
 #pragma unroll
         for (int a = 0; a < P; ++a) {
           on[a] = lane < kFirst;
@@ -235,10 +276,8 @@ __device__ __forceinline__ void spread_warps(
         const int b = pair / P, k = pair % P;
         on[P + r] = f < kRest * P;
         const int a_ok = on[P + r] ? a : 0, b_ok = on[P + r] ? b : 0;
-        int z = z0 - k;
-        if (z < 0) z += Kz;
         val[P + r] = w[a_ok] * (w[P + b_ok] * w[2 * P + k]);
-        word[P + r] = dst + c[a_ok] + c[P + b_ok] + z;
+        word[P + r] = dst + c[a_ok] + c[P + b_ok] + z_col(z0, k, Kz);
       }
       if (kPrivate) {
         // the p^3 words of one particle are distinct: all loads, then all
@@ -376,46 +415,162 @@ spread_kernel(const T* __restrict__ pos, const T* __restrict__ charge,
   }
 }
 
+// K3's lanes a particle: lane c < p of a particle's group owns its z
+// column c (4 lanes up to p = 4, else 8), so a warp instruction covers
+// 32 / lanes particles.
+template <int P>
+__host__ __device__ constexpr int interp_lanes() {
+  return P <= 4 ? 4 : 8;
+}
+
+// Values a K3 staging slot holds: (w, w') pairs of x, y and z, and the
+// particle's three sums; even, so that every pair is 2-value aligned.
+template <int P>
+__host__ __device__ constexpr int interp_slot() {
+  return 6 * P + 4;
+}
+
+// Shared memory of one K3 block: each warp's `group` slots of
+// interp_slot<P>() values, then group x (2p + 1) ints (the x and y row
+// offsets and the z base).
+template <typename T, int P>
+constexpr size_t interp_stage_bytes(int group) {
+  return (size_t)kInterpWarps * group *
+         (interp_slot<P>() * sizeof(T) + (2 * P + 1) * sizeof(int));
+}
+
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
+// A (w, w') pair from a staging slot in one shared-memory load.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ typename Vec2<T>::type pair_at(const T* p) {
+  return *reinterpret_cast<const typename Vec2<T>::type*>(p);
+}
+
+// K3: the warps of a block take `group` particles each. Lanes < group
+// stage their charged particles' six stencil rows, compacted, in the
+// warp's slots; then the warp walks the staged particles 32 / G at a time,
+// G lanes a particle: lane c reads, for every (a, b), the word (a, b, c)
+// of its particle (so a load instruction covers G consecutive z words of
+// 32 / G rows), and sums it against (w_y, w_y') of b, then (w_x, w_x') of
+// a, leaving w_z and w_z' of c for last. A butterfly of shuffles in a
+// fixed order over the G lanes closes each particle into its slot, and
+// the lane that staged it stores its dE/dr, one coalesced run a warp.
+// The bound of 4 blocks an SM lets the compiler keep up to 128 registers
+// (its own pick, 64 in float, ran slower at N = 100,001).
+template <typename T, int P>
+__global__ void __launch_bounds__(kInterpThreads, 4)
 interpolate_kernel(const T* __restrict__ ct, const T* __restrict__ pos,
                    const T* __restrict__ charge, const T* __restrict__ box,
-                   int n, int order, int Kx, int Ky, int Kz,
+                   int n, int Kx, int Ky, int Kz, int group,
                    T* __restrict__ dpos) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T q = charge[i];
-  if (q == T(0)) {
-    dpos[3 * i] = T(0);
-    dpos[3 * i + 1] = T(0);
-    dpos[3 * i + 2] = T(0);
-    return;
+  constexpr int G = interp_lanes<P>();
+  constexpr int kPer = 32 / G;
+  constexpr int S = interp_slot<P>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T* w_warp = reinterpret_cast<T*>(smem) + warp * group * S;
+  int* c_warp = reinterpret_cast<int*>(reinterpret_cast<T*>(smem) +
+                                       kInterpWarps * group * S) +
+                warp * group * (2 * P + 1);
+  const T Lx = box[0], Ly = box[1], Lz = box[2];
+  const int i = (blockIdx.x * kInterpWarps + warp) * group + lane;
+  const bool mine = lane < group && i < n;
+  const T q = mine ? charge[i] : T(0);
+  const bool live = q != T(0);
+  const unsigned live_mask = __ballot_sync(0xffffffffu, live);
+  const int staged = __popc(live_mask);
+  const int slot = __popc(live_mask & ((1u << lane) - 1u));
+  if (live) {  // stage this lane's particle in the next free slot
+    T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
+    T dx[kMaxOrder], dy[kMaxOrder], dz[kMaxOrder];
+    int cx[kMaxOrder], cy[kMaxOrder], cz[kMaxOrder];
+    axis_stencil<T>(pos[3 * i], Lx, Kx, P, wx, dx, cx);
+    axis_stencil<T>(pos[3 * i + 1], Ly, Ky, P, wy, dy, cy);
+    axis_stencil<T>(pos[3 * i + 2], Lz, Kz, P, wz, dz, cz);
+    T* w = w_warp + slot * S;
+    int* c = c_warp + slot * (2 * P + 1);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      w[2 * j] = wx[j];
+      w[2 * j + 1] = dx[j];
+      w[2 * P + 2 * j] = wy[j];
+      w[2 * P + 2 * j + 1] = dy[j];
+      w[4 * P + 2 * j] = wz[j];
+      w[4 * P + 2 * j + 1] = dz[j];
+      c[j] = cx[j] * Ky * Kz;
+      c[P + j] = cy[j] * Kz;
+    }
+    c[2 * P] = cz[0];
   }
-  T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
-  T dx[kMaxOrder], dy[kMaxOrder], dz[kMaxOrder];
-  int cx[kMaxOrder], cy[kMaxOrder], cz[kMaxOrder];
-  axis_stencil<T>(pos[3 * i], box[0], Kx, order, wx, dx, cx);
-  axis_stencil<T>(pos[3 * i + 1], box[1], Ky, order, wy, dy, cy);
-  axis_stencil<T>(pos[3 * i + 2], box[2], Kz, order, wz, dz, cz);
-  T gx = 0, gy = 0, gz = 0;
-  for (int a = 0; a < order; ++a) {
-    const T* plane = ct + (size_t)cx[a] * Ky * Kz;
-    for (int b = 0; b < order; ++b) {
-      const T* row = plane + (size_t)cy[b] * Kz;
-      const T sx = dx[a] * wy[b];
-      const T sy = wx[a] * dy[b];
-      const T sz = wx[a] * wy[b];
-      for (int c = 0; c < order; ++c) {
-        const T g = row[cz[c]];
-        gx += g * (sx * wz[c]);
-        gy += g * (sy * wz[c]);
-        gz += g * (sz * dz[c]);
+  __syncwarp();
+  const int k = lane / G;                // this lane's particle of the kPer
+  const int zc = lane % G < P ? lane % G : 0;  // and its z column
+  for (int s0 = 0; s0 < staged; s0 += kPer) {  // warp-uniform
+    const int s = s0 + k < staged ? s0 + k : s0;  // a staged slot to read
+    const bool on = s0 + k < staged && lane % G < P;
+    T* w = w_warp + s * S;
+    const int* c = c_warp + s * (2 * P + 1);
+    // word offsets of this lane's (b, c) from the mesh's start: one 32-bit
+    // add and one wide multiply-add an address, not 64-bit pointer sums
+    const int zw = z_col(c[2 * P], zc, Kz);
+    int yoff[P];
+    typename Vec2<T>::type wy[P];
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      yoff[b] = zw + c[P + b];
+      wy[b] = pair_at(w + 2 * P + 2 * b);
+    }
+    // X = sum_a w_x'(a) A(a), Y = sum_a w_x(a) B(a), Z = sum_a w_x(a) A(a),
+    // with A(a) = sum_b w_y(b) g(a, b) and B(a) = sum_b w_y'(b) g(a, b)
+    T X = 0, Y = 0, Z = 0;
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      const int xoff = c[a];
+      T g[P];
+#pragma unroll
+      for (int b = 0; b < P; ++b) g[b] = on ? __ldg(ct + (xoff + yoff[b])) : T(0);
+      T A = 0, B = 0;
+#pragma unroll
+      for (int b = 0; b < P; ++b) {
+        A += g[b] * wy[b].x;
+        B += g[b] * wy[b].y;
       }
+      const typename Vec2<T>::type wxa = pair_at(w + 2 * a);
+      X += wxa.y * A;
+      Y += wxa.x * B;
+      Z += wxa.x * A;
+    }
+    const typename Vec2<T>::type wzc = pair_at(w + 4 * P + 2 * zc);
+    T gx = X * wzc.x, gy = Y * wzc.x, gz = Z * wzc.y;
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      gx += __shfl_xor_sync(0xffffffffu, gx, off);
+      gy += __shfl_xor_sync(0xffffffffu, gy, off);
+      gz += __shfl_xor_sync(0xffffffffu, gz, off);
+    }
+    if (lane % G == 0 && s0 + k < staged) {
+      w[6 * P] = gx;
+      w[6 * P + 1] = gy;
+      w[6 * P + 2] = gz;
     }
   }
-  dpos[3 * i] = q * gx * (T(Kx) / box[0]);
-  dpos[3 * i + 1] = q * gy * (T(Ky) / box[1]);
-  dpos[3 * i + 2] = q * gz * (T(Kz) / box[2]);
+  __syncwarp();
+  if (mine) {  // q = 0 leaves exact zeros
+    T mx = 0, my = 0, mz = 0;
+    if (live) {
+      const T* r = w_warp + slot * S + 6 * P;
+      mx = r[0];
+      my = r[1];
+      mz = r[2];
+    }
+    dpos[3 * i] = q * mx * (T(Kx) / Lx);
+    dpos[3 * i + 1] = q * my * (T(Ky) / Ly);
+    dpos[3 * i + 2] = q * mz * (T(Kz) / Lz);
+  }
 }
 
 inline bool bad_args(int n, int order, int Kx, int Ky, int Kz) {
@@ -499,9 +654,7 @@ int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
     cap = (int)tile_cap;
     smem = (size_t)tile_cap * sizeof(T) + stage + maps;
   } else {  // ~16 warps an SM, up to 32 particles a warp
-    const int warps = 16 * card.sms;
-    group = (n + warps - 1) / warps;
-    group = group < 1 ? 1 : (group > 32 ? 32 : group);
+    group = warp_group(n, card.sms);
     chunk = group * kSpreadWarps;
     cap = 0;
     smem = stage;
@@ -544,16 +697,52 @@ int launch_spread(const void* pos, const void* charge, const void* box, int n,
   }
 }
 
+// K3's launch for order P: warp_group particles a warp, kInterpWarps warps
+// a block.
+template <typename T, int P>
+int launch_interpolate_p(const T* ct, const T* pos, const T* charge,
+                         const T* box, int n, int Kx, int Ky, int Kz, T* dpos,
+                         cudaStream_t stream) {
+  CardLimits card;
+  const int err = card_limits(&card);
+  if (err != 0) return err;
+  const int group = warp_group(n, card.sms);
+  const size_t smem = interp_stage_bytes<T, P>(group);
+  static size_t opted_in = 48 * 1024;  // per instantiation
+  if (smem > opted_in) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        interpolate_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    opted_in = smem;
+  }
+  const int per_block = group * kInterpWarps;
+  interpolate_kernel<T, P><<<(n + per_block - 1) / per_block, kInterpThreads,
+                             smem, stream>>>(ct, pos, charge, box, n, Kx, Ky,
+                                             Kz, group, dpos);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_interpolate(const void* ct, const void* pos, const void* charge,
                        const void* box, int n, int order, int Kx, int Ky,
                        int Kz, void* dpos, void* stream) {
   if (bad_args(n, order, Kx, Ky, Kz)) return (int)cudaErrorInvalidValue;
-  interpolate_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)ct, (const T*)pos, (const T*)charge, (const T*)box, n, order,
-      Kx, Ky, Kz, (T*)dpos);
-  return (int)cudaGetLastError();
+  const T* g = (const T*)ct;
+  const T* p = (const T*)pos;
+  const T* q = (const T*)charge;
+  const T* b = (const T*)box;
+  T* d = (T*)dpos;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (order) {
+    case 2: return launch_interpolate_p<T, 2>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    case 3: return launch_interpolate_p<T, 3>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    case 4: return launch_interpolate_p<T, 4>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    case 5: return launch_interpolate_p<T, 5>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    case 6: return launch_interpolate_p<T, 6>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    case 7: return launch_interpolate_p<T, 7>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    default: return launch_interpolate_p<T, 8>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+  }
 }
 
 }  // namespace

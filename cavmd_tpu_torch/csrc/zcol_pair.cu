@@ -12,8 +12,9 @@
 // min(count, W) hull blocks, run 1 then run 2, exactly as the TPU kernel:
 // a pair counts when j != i, j is not in i's exclusion row and r^2 <
 // r_cut^2; LJ from (T, T) tables and Ewald short with true erfc (the XLA
-// tile path's math, pair_term.cuh, shared with the cell kernel); rint
-// minimum image on every pair of the local coordinates.
+// tile path's math, pair_term.cuh, shared with the cell and dense kernels);
+// the minimum image on every pair of the local coordinates by pair_term.cuh's
+// min_image (the twin's rint image, bit for bit inside the cutoff).
 //
 // What bounds it on an H100: operations. At N = 100,001 (17 x 17 columns,
 // cap 512, 32 i-blocks a column, W = 8) a hull of ~5-6 blocks gives each i
@@ -150,6 +151,7 @@ zcol_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const T Lx = box[0], Ly = box[1], Lz = box[2];
+  const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
   T e_lj = 0, e_ew = 0;
   const int32_t* irow = bucket + (size_t)col * cap + ib * kIBlock;
 
@@ -171,13 +173,10 @@ zcol_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
 #pragma unroll
       for (int e = 0; e < kMaxExcl; ++e) skip |= ex[e] == idj;
       if (skip) continue;
-      T dx = xi - sx[j];
-      T dy = yi - sy[j];
-      T dz = zi - sz[j];
-      dx = dx - Lx * m_rint(dx / Lx);
-      dy = dy - Ly * m_rint(dy / Ly);
-      dz = dz - Lz * m_rint(dz / Lz);
-      const T r2 = dx * dx + dy * dy + dz * dz;
+      const T dx = min_image(sub_rn(xi, sx[j]), Lx, iLx);
+      const T dy = min_image(sub_rn(yi, sy[j]), Ly, iLy);
+      const T dz = min_image(sub_rn(zi, sz[j]), Lz, iLz);
+      const T r2 = norm2(dx, dy, dz);
       if (!(r2 < rc2)) continue;
       const T f = lj_ewald_pair(r2, ti + stype[j], qi * sq[j], s_eps, s_sig2,
                                 s_rc2, s_vsh, kappa, 1, 1, e_lj, e_ew);

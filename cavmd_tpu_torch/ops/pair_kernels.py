@@ -49,6 +49,12 @@ def dense_pair_force_plain(position, box_L, typeid, eps, sig2, rcut2, vshift,
     )
 
 
+def launch_blocks(n: int) -> int:
+    """Blocks of one kernel launch at N = ``n``: the rows of its energy
+    partials (``csrc/pair.cu`` sizes the rows a block by N)."""
+    return _cuda.load("pair", _SIGNATURES).cavmd_dense_pair_blocks(n)
+
+
 def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
                      charge, lj_active, coulomb_active, kappa: float,
                      coulomb_rc2: float):
@@ -85,9 +91,9 @@ def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
                 f"{want_dtype} tensor of shape {shape}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     lib = _cuda.load("pair", _SIGNATURES)
-    blocks = lib.cavmd_dense_pair_blocks(n)
     forces = torch.empty_like(position)
-    partial = torch.empty((blocks, 2), dtype=dtype, device=position.device)
+    partial = torch.empty((2, launch_blocks(n)), dtype=dtype,
+                          device=position.device)
     p = _cuda.ptr
     rc = getattr(lib, f"cavmd_dense_pair_{_SUFFIX[dtype]}")(
         p(position), p(box_L), p(typeid), p(eps), p(sig2), p(rcut2),
@@ -96,5 +102,5 @@ def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "dense_pair")
     _cuda.count_launch("dense_pair")
-    energies = 0.5 * torch.sum(partial, dim=0)
+    energies = torch.sum(partial, dim=1)  # the kernel halves the partials
     return forces, energies[0], energies[1]

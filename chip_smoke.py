@@ -10,8 +10,9 @@ Phases:
   0. device: the card's name and power limit (nvidia-smi);
   1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
      source, all started together; print the seconds and, from ptxas, each
-     kernel's registers and spill bytes by name (the cell kernel, K2, K4
-     and K5 must be found in float and double);
+     kernel's registers, stack frame and spill bytes by name (K1, K2, K3,
+     the cell kernel, K4 and K5 must be found in float and double, and K3
+     at order 6 with no stack frame and no spill);
   2. kernels against their plain PyTorch twins on the card, float32 and
      float64: at the N = 501 reference scene and at N = 4001 (reference
      density) in dense mode, the pair pass (K1), the 32^3 order-6 PPPM
@@ -21,9 +22,10 @@ Phases:
      (K6's counterpart) and K2-K5; on the N = 501 scene in cell mode (2^3
      cells, K8's counterpart) the cell kernel; at N = 100,001 also K2 on
      the 64^3 and 128^3 meshes — max |diff|, K4's and K5's velocities
-     bit-equal to the twins', for the cell kernel, K4 and K5 two calls on
-     the same inputs bit-equal, K4's and K5's block counts, and the blocks
-     of K2 that accumulated in their shared-memory tile; in float32
+     bit-equal to the twins', for K1, K3, the cell kernel, K4 and K5 two
+     calls on the same inputs bit-equal, K1's, K4's and K5's block counts,
+     and the blocks of K2 that accumulated in their shared-memory tile;
+     then K1's and K3's rows at N = 501 and 4001 side by side; in float32
      also the median device time of one call (``ms``, CUDA events with the
      host out of the way), the median host-bound time of one call
      (``host_call_ms``), the twin's times, and the bound from the call's
@@ -259,32 +261,37 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 
-# kernels whose registers and spills phase 1 must find by name in a fresh
-# build's ptxas report, in float and double
+# kernels whose registers, stack and spills phase 1 must find by name in a
+# fresh build's ptxas report, in float and double
 PTXAS_NAMED = {"cell_pair": ("cell_pair_kernel",),
                "fused_integrator": ("pre_force_kernel", "post_force_kernel"),
-               "pppm_spread": ("spread_kernel",)}
+               "pair": ("dense_pair_kernel",),
+               "pppm_spread": ("spread_kernel", "interpolate_kernel")}
+# kernels that must build with no stack frame and no spill (K3 keeps every
+# stencil row in registers, one instantiation an order)
+PTXAS_NO_STACK = ("interpolate_kernel<float, 6>",
+                  "interpolate_kernel<double, 6>")
 
 
 def ptxas_report(log):
-    """[(kernel, registers, spill store bytes, spill load bytes)] for each
-    entry function of an ``nvcc -Xptxas -v`` log; a kernel template reads
-    as ``name<float>`` or ``name<double>``, one with an order as
-    ``name<float, 6>``."""
-    out, entry, props, spill = [], None, None, (0, 0)
+    """[(kernel, registers, stack frame bytes, spill store bytes, spill
+    load bytes)] for each entry function of an ``nvcc -Xptxas -v`` log; a
+    kernel template reads as ``name<float>`` or ``name<double>``, one with
+    an order as ``name<float, 6>``."""
+    out, entry, props, spill = [], None, None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([\w$]+)'", line)
         if m:
-            entry, spill = m.group(1), (0, 0)
+            entry, spill = m.group(1), (0, 0, 0)
             continue
         m = re.search(r"Function properties for ([\w$]+)", line)
         if m:
             props = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and entry is not None and props == entry:
-            spill = (int(m.group(1)), int(m.group(2)))
+            spill = tuple(int(g) for g in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
@@ -563,9 +570,12 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
                      ff.kappa_value, ff.coulomb_rcut ** 2)
         f_k, elj_k, eew_k = pk.dense_pair_force(*pair_args)
         f_p, elj_p, eew_p = pk.dense_pair_force_plain(*pair_args)
+        again = pk.dense_pair_force(*pair_args)
         torch.cuda.synchronize()
         hold("dense_pair", [(f_k, f_p), (elj_k, elj_p), (eew_k, eew_p)],
              "F,E")
+        hold_bits("dense_pair", (f_k, elj_k, eew_k), again)
+        out["dense_pair"]["blocks"] = pk.launch_blocks(snap.N)
         calls["dense_pair"] = (lambda: pk.dense_pair_force(*pair_args),
                                lambda: pk.dense_pair_force_plain(*pair_args))
     else:
@@ -624,9 +634,11 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
         (ct,) = torch.autograd.grad(mesh_energy(grid, ff.pppm), grid)
         ct = ct.contiguous()
         d_k = sk.interpolate_grad(ct, pos, q, box, order, mesh)
+        d_again = sk.interpolate_grad(ct, pos, q, box, order, mesh)
         d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
         torch.cuda.synchronize()
         hold("pppm_interpolate", [(d_k, d_p)], "dE/dr")
+        hold_bits("pppm_interpolate", (d_k,), (d_again,))
 
         pre, post = integrator_inputs(torch, pt, snap, ff)
         k4 = fi.pre_force_apply(*pre)
@@ -801,6 +813,7 @@ def work_counts(torch, snap, ff, pre):
     only for the pairs / particles these inputs make it do. The dense pair
     kernel only in dense mode (its count builds (N, N) tensors)."""
     from cavmd_tpu_torch.core.box import minimum_image
+    from cavmd_tpu_torch.ops import pair_kernels as pk
 
     n, e = snap.N, snap.position.element_size()
     T = ff.lj_eps.shape[0]
@@ -813,18 +826,21 @@ def work_counts(torch, snap, ff, pre):
         lj, cw = ff.lj_active.bool(), ff.coulomb_active.bool()
         tid = snap.typeid.long()
         rc2 = ff.lj_rcut2.double()[tid[:, None], tid[None, :]]
+        in_lj = lj & (r2 < rc2)
+        in_cw = cw & (r2 < ff.coulomb_rcut ** 2)
         n_masked = int((lj | cw).sum())
-        n_lj = int((lj & (r2 < rc2)).sum())
-        n_cw = int((cw & (r2 < ff.coulomb_rcut ** 2)).sum())
-        blocks = (n + 3) // 4
+        n_in = int((in_lj | in_cw).sum())
+        n_lj, n_cw = int(in_lj.sum()), int(in_cw.sum())
+        blocks = pk.launch_blocks(n)
         # pos, box, typeid, 4 (T, T) tables, charge, two (N, N) uint8
         # masks in; forces and the per-block energy partials out. Per
-        # masked pair 26 ops (min image, r^2, force accumulation), +15
-        # inside the LJ cutoff, +18 inside the Coulomb cutoff
+        # masked pair 18 ops (displacement, min image, r^2, cutoff test);
+        # per pair inside a cutoff 6 to accumulate the force, +15 inside
+        # the LJ cutoff, +18 inside the Coulomb cutoff
         counts["dense_pair"] = (
             e * (3 * n + 3 + 4 * T * T + n) + 4 * n + 2 * n * n
             + e * (3 * n + 2 * blocks),
-            26 * n_masked + 15 * n_lj + 18 * n_cw)
+            18 * n_masked + 6 * n_in + 15 * n_lj + 18 * n_cw)
     n_q = int((snap.charge != 0).sum())
     n_mesh = ff.pppm_mesh[0] * ff.pppm_mesh[1] * ff.pppm_mesh[2]
     p = ff.pppm_order
@@ -1576,14 +1592,19 @@ def main() -> None:
           f"{fresh or 'none, found built in this checkout'})", flush=True)
     for src, log in sorted(_cuda.build_log.items()):
         entries = ptxas_report(log)
-        for label, regs, st, ld in entries:
+        for label, regs, stack, st, ld in entries:
             print(f"phase 1: ptxas {src}: {label}: {regs} registers, "
-                  f"spill stores {st} B, spill loads {ld} B", flush=True)
+                  f"stack frame {stack} B, spill stores {st} B, spill loads "
+                  f"{ld} B", flush=True)
         missing = [f"{k}<{t}>" for k in PTXAS_NAMED.get(src, ())
                    for t in ("float", "double")
                    if not any(label.startswith(f"{k}<{t}")
                               for label, *_ in entries)]
         check(not missing, f"phase 1: no ptxas report for {missing}")
+        for label, _, stack, st, ld in entries:
+            check(label not in PTXAS_NO_STACK or stack + st + ld == 0,
+                  f"phase 1: {label} has a {stack}-byte stack frame and "
+                  f"{st + ld} bytes of spills")
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(1)
 
@@ -1603,6 +1624,15 @@ def main() -> None:
             if dtype == torch.float32:
                 shapes[(n_mol, mode)] = r
         torch.cuda.empty_cache()
+    # K1 and K3 on the dense scenes side by side, K3 also at N = 100,001
+    for k in ("dense_pair", "pppm_interpolate"):
+        rows = [(shapes[(m, None)][k], n) for m, n in
+                ((250, 501), (2000, 4001), (LARGE_N_MOL, 2 * LARGE_N_MOL + 1))
+                if k in shapes[(m, None)]]
+        print(f"phase 2: {k} f32: " + "; ".join(
+            f"N={n} ms={r['ms']!r} host_call_ms={r['host_call_ms']!r} "
+            f"bound_ms={r['bound_ms']!r} ({r['bound_by']})"
+            for r, n in rows), flush=True)
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(2)
 

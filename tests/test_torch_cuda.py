@@ -58,6 +58,72 @@ def test_pair_kernel_matches_twin(cuda, dtype):
         assert _close(k, p, TOL[dtype])
 
 
+def _dense_inputs(dtype, device, n_mol, box=None, holes=False):
+    """Kernel 1's arguments on the seeded scene of ``n_mol`` diatomics +
+    photon: the reference density (the N = 501 scene in its 46-bohr box,
+    r_cut 15) from 250 molecules up, a 24-bohr box with r_cut 10 below;
+    ``box`` replaces the box (positions kept); ``holes`` drops a random
+    fifth of both masks' pairs beyond the bonded ones."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    small = n_mol < 250
+    box_L = 24.0 if small else (46.0 if n_mol == 250
+                                else reference_box_for(n_mol))
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
+                                seed=0, device="cpu"),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=1)
+    if box is not None:
+        snap = snap.replace(box_L=torch.as_tensor(box, dtype=torch.float64))
+    snap = snap.astype(dtype).to(device)
+    ff = pt.ForceField.create(snap, coupling=1e-3, pppm_mesh=(16, 16, 16),
+                              **({"r_cut": 10.0} if small else {}))
+    assert ff.pair_mode == "dense"
+    lj, cw = ff.lj_active, ff.coulomb_active
+    if holes:
+        g = torch.Generator(device="cpu")
+        g.manual_seed(9)
+        keep = (torch.rand(lj.shape, generator=g) > 0.2).to(device)
+        lj, cw = lj * keep, cw * keep
+    return (snap.position, snap.box_L, snap.typeid, ff.lj_eps, ff.lj_sig2,
+            ff.lj_rcut2, ff.lj_vshift, snap.charge, lj.contiguous(),
+            cw.contiguous(), ff.kappa_value, ff.coulomb_rcut ** 2)
+
+
+def _hold_dense(args, dtype):
+    before = _cuda.launches["dense_pair"]
+    out_k = pk.dense_pair_force(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches["dense_pair"] == before + 1
+    out_p = pk.dense_pair_force_plain(*args)
+    for k, p in zip(out_k, out_p):
+        assert bool(torch.isfinite(k).all())
+        assert _close(k, p, TOL[dtype])
+    return out_k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [3, 33, 501, 4001])
+def test_pair_kernel_at_every_size(cuda, n, dtype):
+    """Kernel 1 at N = 3 (every pair masked: exact zeros), 33, 501 (one row
+    a block) and 4001 (four rows a block, four staged chunks)."""
+    out = _hold_dense(_dense_inputs(dtype, cuda, (n - 1) // 2), dtype)
+    if n == 3:
+        assert not any(bool(t.any()) for t in out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["non_cubic", "holes"])
+def test_pair_kernel_non_cubic_box_and_mask_holes(cuda, case, dtype):
+    """A non-cubic box (each axis its own minimum image) and masks with
+    random holes beyond the bonded pairs (the kernel reads the masks, not
+    the bonds)."""
+    args = (_dense_inputs(dtype, cuda, 250, box=(46.0, 50.0, 56.0))
+            if case == "non_cubic"
+            else _dense_inputs(dtype, cuda, 250, holes=True))
+    _hold_dense(args, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_spread_and_interpolation_kernels_match_twins(cuda, dtype):
     snap, ff = _scene(dtype, cuda)
@@ -207,6 +273,98 @@ def test_interpolation_kernel_on_the_128_mesh(cuda, dtype):
     d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
     torch.cuda.synchronize()
     assert _close(d_k, d_p, TOL[dtype])
+
+
+def _hold_interpolate(pos, q, box, order, mesh, field=None):
+    """Kernel 3 against its twin at the file's TOL, the cotangent from the
+    mesh energy of the twin's grid of ``field`` (positions, charges; by
+    default ``pos``, ``q``); returns the kernel's dE/dr."""
+    dtype, device = pos.dtype, pos.device
+    params, _ = PPPMParams.create(
+        box.cpu().numpy(), mesh=mesh, order=order, kappa=0.35, dtype=dtype,
+        device=device)
+    grid = sk.spread_grid_plain(*(field or (pos, q)), box, order, mesh)
+    grid.requires_grad_(True)
+    (ct,) = torch.autograd.grad(mesh_energy(grid, params), grid)
+    ct = ct.contiguous()
+    before = _cuda.launches["pppm_interpolate"]
+    d_k = sk.interpolate_grad(ct, pos, q, box, order, mesh)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pppm_interpolate"] == before + 1
+    d_p = sk.interpolate_grad_plain(ct, pos, q, box, order, mesh)
+    assert d_k.shape == pos.shape and bool(torch.isfinite(d_k).all())
+    assert _close(d_k, d_p, TOL[dtype])
+    assert not bool(d_k[q == 0].any())  # q = 0 rows: exact zeros
+    return d_k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [2, 3, 4, 5, 6, 7, 8])
+def test_interpolation_kernel_at_every_order(cuda, order, dtype):
+    """One instantiation an order: each against the twin, N = 501 on a
+    non-cubic mesh."""
+    pos, q, box = _spread_inputs(dtype, cuda)
+    _hold_interpolate(pos, q, box, order, (20, 24, 32))
+
+
+INTERP_SIZES = {"n1": (0, False), "n31": (15, False), "n501": (250, False),
+                "n4001": (2000, False), "n100001": (50_000, False),
+                "n100001_scrambled": (50_000, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", sorted(INTERP_SIZES))
+def test_interpolation_kernel_at_every_size(cuda, size, dtype):
+    """N = 1 (one charged particle: one warp of one particle), 31, 501,
+    4001 (fewer particles a warp) and 100,001 (32 a warp) in lattice order
+    and scrambled, order 6 on the 32^3 mesh. The lone particle sits in the
+    field of the N = 501 scene: its own field's pull on it cancels to
+    ~1e-5 of the terms summed, below float32's rounding of them."""
+    n_mol, scramble = INTERP_SIZES[size]
+    field = None
+    if n_mol == 0:
+        field_pos, field_q, box = _spread_inputs(dtype, cuda)
+        field = (field_pos, field_q)
+        pos, q = field_pos[:1].contiguous(), field_q[:1].contiguous()
+        assert bool(q[0] != 0)
+    else:
+        pos, q, box = _spread_inputs(dtype, cuda, n_mol=n_mol,
+                                     scramble=scramble)
+    assert pos.shape[0] == max(1, 2 * n_mol + 1)
+    _hold_interpolate(pos, q, box, 6, (32, 32, 32), field)
+
+
+INTERP_MESHES = {"16": ((16, 16, 16), None), "32": ((32, 32, 32), None),
+                 "8x16x32": ((8, 16, 32), (22.0, 30.0, 41.0))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", sorted(INTERP_MESHES))
+def test_interpolation_kernel_at_every_mesh(cuda, mesh, dtype):
+    """Order 6 on cubic meshes and a non-cubic one in a non-cubic box (the
+    N = 501 scene's positions scaled into it)."""
+    shape, new_box = INTERP_MESHES[mesh]
+    pos, q, box = _spread_inputs(dtype, cuda)
+    if new_box is not None:
+        nb = torch.as_tensor(new_box, dtype=box.dtype, device=cuda)
+        pos, box = (pos * (nb / box).to(dtype)).contiguous(), nb
+    _hold_interpolate(pos, q, box, 6, shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_interpolation_kernel_on_the_box_faces(cuda, dtype):
+    """Particles exactly on the box faces (u = 0 and u = K: the columns
+    wrap) and a block of uncharged particles among them."""
+    pos, q, box = _spread_inputs(dtype, cuda)
+    pos, q = pos.clone(), q.clone()
+    L = box.to(dtype)
+    pos[:64, 0] = -0.5 * L[0]
+    pos[64:128, 1] = 0.5 * L[1]
+    pos[128:192, 2] = -0.5 * L[2]
+    pos[192:200] = 0.5 * L
+    q[40:80] = 0.0
+    d = _hold_interpolate(pos, q, box, 6, (32, 32, 32))
+    assert bool(d[:40].any()) and not bool(d[40:80].any())
 
 
 def test_forcefield_on_cuda_matches_cpu_f64(cuda):
@@ -540,11 +698,23 @@ def test_small_grid_splits_rows(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kernel", ["cell_3cells", "cell_2cells",
-                                    "pre_force", "post_force"])
+                                    "pre_force", "post_force", "dense_pair",
+                                    "interpolate"])
 def test_two_calls_give_the_same_bits(cuda, kernel, dtype):
-    """The cell kernel, K4 and K5 sum in fixed orders (no atomics), so two
-    calls on the same inputs are bit-equal."""
-    if kernel in ("pre_force", "post_force"):
+    """The cell kernel, K1, K3, K4 and K5 sum in fixed orders (no
+    atomics), so two calls on the same inputs are bit-equal."""
+    if kernel == "dense_pair":
+        args = _dense_inputs(dtype, cuda, 2000)
+        first = pk.dense_pair_force(*args)
+        second = pk.dense_pair_force(*args)
+    elif kernel == "interpolate":
+        pos, q, box = _spread_inputs(dtype, cuda, n_mol=2000)
+        g = torch.Generator(device="cpu")
+        g.manual_seed(4)
+        ct = torch.randn((32, 32, 32), generator=g, dtype=dtype).to(cuda)
+        first = (sk.interpolate_grad(ct, pos, q, box, 6, (32, 32, 32)),)
+        second = (sk.interpolate_grad(ct, pos, q, box, 6, (32, 32, 32)),)
+    elif kernel in ("pre_force", "post_force"):
         from cavmd_tpu_torch.core.system import reference_box_for
 
         pre, post = _integrator_inputs(dtype, cuda, n_mol=2000,

@@ -54,6 +54,30 @@ def test_plain_twin_matches_xla_fused_pair_force_f64(n_mol, box_L, r_cut):
         assert float(eew) == pytest.approx(float(eew_ref), rel=1e-10)
 
 
+@pytest.mark.parametrize("case", ["n3", "non_cubic"])
+def test_plain_twin_matches_xla_at_n3_and_in_a_non_cubic_box_f64(case):
+    """N = 3 (one molecule and the photon: every pair masked, the forces
+    exactly zero) and a non-cubic box (each axis its own minimum image)."""
+    n_mol, box = (1, None) if case == "n3" else (30, (24.0, 27.5, 31.0))
+    js, ts = scene(n_mol=n_mol, box_L=24.0)
+    if box is not None:
+        js = js.replace(box_L=jnp.asarray(box))
+        ts = ts.replace(box_L=torch.as_tensor(box, dtype=torch.float64))
+    assert ts.N == 2 * n_mol + 1
+    jff = JForceField.create(js, coupling=1e-3, r_cut=10.0,
+                             pppm_mesh=(16, 16, 16))
+    f_ref, elj_ref, eew_ref = _jax_reference(jff, js, jnp.float64)
+    f, elj, eew = pk.dense_pair_force(*_pair_args(port_forcefield(jff, js),
+                                                  ts))
+    scale = float(np.abs(np.asarray(f_ref)).max())
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=0,
+                               atol=1e-10 * scale)
+    assert float(elj) == pytest.approx(float(elj_ref), rel=1e-10)
+    assert float(eew) == pytest.approx(float(eew_ref), rel=1e-10)
+    if case == "n3":
+        assert scale == 0.0 and not bool(f.any())
+
+
 def test_plain_twin_matches_pallas_kernel_f32():
     """Against the TPU kernel itself (interpret mode), with the bounds of
     tests/test_pallas.py: its erfc is the A&S approximation (1.5e-7 abs)."""

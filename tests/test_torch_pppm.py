@@ -3,6 +3,8 @@
 pppm_force_and_energy in float64, the Pallas spread kernel and its vjp in
 interpret mode in float32, and the exact k-space Ewald sum."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,14 @@ def _jax_grid(pos, q, box, order, mesh):
     Sx, Sy, Sz = jpppm._spread_matrices(pos, box, order, mesh)
     return ((q[:, None] * Sx).T @ (Sy[:, :, None] * Sz[:, None, :]).reshape(
         pos.shape[0], -1)).reshape(mesh)
+
+
+@partial(jax.jit, static_argnums=(4, 5))
+def _jax_grid_and_vjp(pos, q, box, ct, order, mesh):
+    """The XLA grid and its vjp against the cotangent ``ct``, one compile
+    an order and mesh."""
+    grid, vjp = jax.vjp(lambda p: _jax_grid(p, q, box, order, mesh), pos)
+    return grid, vjp(ct)[0]
 
 
 def _random_system(n, box, seed):
@@ -44,23 +54,25 @@ def test_bspline_weights_match_jax():
             jpppm.bspline_int_values(order).tolist()
 
 
-@pytest.mark.parametrize("mesh,box", [((16, 16, 16), (24.0, 24.0, 24.0)),
-                                      ((8, 16, 32), (22.0, 30.0, 41.0))])
-def test_spread_and_interpolation_match_xla_f64(mesh, box):
-    order = 6
+@pytest.mark.parametrize("mesh,box,order", [
+    pytest.param((16, 16, 16), (24.0, 24.0, 24.0), 6, id="mesh0-box0"),
+    pytest.param((8, 16, 32), (22.0, 30.0, 41.0), 6, id="mesh1-box1"),
+    *[pytest.param((16, 16, 16), (24.0, 24.0, 24.0), p, id=f"order{p}")
+      for p in (2, 3, 4, 5, 7, 8)]])
+def test_spread_and_interpolation_match_xla_f64(mesh, box, order):
+    """Kernels 2 and 3 are instantiated once an order (2-8): their twins
+    are held to the XLA spread and its vjp at each."""
     pos, q = _random_system(48, box, 7)
-    box_j = jnp.asarray(box)
-    grid_j = _jax_grid(jnp.asarray(pos), jnp.asarray(q), box_j, order, mesh)
+    ct = np.random.default_rng(8).standard_normal(mesh)
+    grid_j, dref = _jax_grid_and_vjp(jnp.asarray(pos), jnp.asarray(q),
+                                     jnp.asarray(box), jnp.asarray(ct),
+                                     order, mesh)
     t = torch.as_tensor
     grid_t = sk.spread_grid(t(pos), t(q), t(np.asarray(box)), order, mesh)
     scale = float(jnp.abs(grid_j).max())
     np.testing.assert_allclose(grid_t.numpy(), np.asarray(grid_j), rtol=0,
                                atol=1e-10 * scale)
 
-    ct = np.random.default_rng(8).standard_normal(mesh)
-    dref = jax.vjp(lambda p: _jax_grid(p, jnp.asarray(q), box_j, order,
-                                       mesh), jnp.asarray(pos))[1](
-        jnp.asarray(ct))[0]
     dpos = sk.interpolate_grad(t(ct), t(pos), t(q), t(np.asarray(box)),
                                order, mesh)
     scale = float(jnp.abs(dref).max())
