@@ -1,4 +1,4 @@
-"""The z-sorted column pair pass: CUDA kernel, hull and plain twin.
+"""The z-sorted column pair pass: CUDA kernels, hull and plain twins.
 
 ``zcol_pair_force`` (``csrc/zcol_pair.cu``) replaces the TPU kernel
 ``_zcol_kernel`` of ``cavmd_tpu/ops/pallas_kernels.py`` (wrapper
@@ -23,10 +23,16 @@ visits only the j-blocks whose live z range can reach it:
   what the TPU kernel computes, with the pair math of the XLA tile path
   (``make_fused_cell_kernel``), as the cell kernel does.
 
-The wrapper runs the plain twin only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises. Launches count as ``zcol_pair``.
-Everything here is in the working dtype; the JAX package computes this
-pass in float32 whatever its dtype (``pallas_kernels.py:1405``).
+On a CUDA tensor two kernels do all of it, with no read-back: the hull
+kernel (``_launch_hull``, launches counted as ``zcol_hull``; it replaces
+the XLA hull of ``fused_zsort_cols_pallas``) computes the local z and the
+hull bit-equal to the twins, and for the pass each particle's local
+coordinates (with the twins' operations) and charge as one (N, 4) row;
+the pair kernel (launches counted as ``zcol_pair``) stages its rows from
+that table. The wrappers run the plain twins only for tensors on the CPU; for
+a CUDA tensor they launch the kernels or raise. Everything here is in the
+working dtype; the JAX package computes this pass in float32 whatever its
+dtype (``pallas_kernels.py:1405``).
 """
 
 from __future__ import annotations
@@ -51,9 +57,17 @@ J_BLOCK = 128  # slots of a j-block of the merged halo
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _V, _I, _I, _I, _I,
-         _I, _D, _D, _V, _V, _V]
-_SIGNATURES = {"cavmd_zcol_pair_f32": _ARGS, "cavmd_zcol_pair_f64": _ARGS}
+# (pos, anchor, local_anchor, box, charge, bucket, halo, n, ncols, cap, W,
+# r_cut, hull, flags, loc, stream)
+_HULL_ARGS = [_V] * 7 + [_I] * 4 + [_D] + [_V] * 4
+# (loc, box, typeid, eps, sig2, rcut2, vshift, ntypes, bucket, halo, hull,
+# exclusions, max_excl, n, ncols, cap, W, r_cut, r_cut^2, kappa, forces,
+# partials, stream)
+_PAIR_ARGS = [_V] * 7 + [_I] + [_V] * 4 + [_I] * 5 + [_D] * 3 + [_V] * 3
+_SIGNATURES = {"cavmd_zcol_hull_f32": _HULL_ARGS,
+               "cavmd_zcol_hull_f64": _HULL_ARGS,
+               "cavmd_zcol_pair_f32": _PAIR_ARGS,
+               "cavmd_zcol_pair_f64": _PAIR_ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -223,69 +237,109 @@ def zcol_pair_force_plain(position, box_L, clist: CellList,
     return forces, 0.5 * e_lj, 0.5 * e_ew, flag
 
 
-def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
-                    typeid, charge, eps, sig2, rcut2, vshift, exclusions,
-                    kappa: float, W):
-    """LJ + Ewald short over the z-sorted column list: the CUDA kernel on a
-    CUDA device, the plain twin on the CPU. ``kappa`` is a host float and
-    ``W`` the visit window. Returns (forces (N, 3), e_lj, e_ewald_short,
-    window flag (0-d bool)). The launcher rejects what the kernel does not
-    take (more than 8 types or 8 exclusions a particle, a window whose
-    staged rows outgrow a block's shared memory) with an error that
-    ``_cuda.check`` raises."""
-    if position.device.type == "cpu":
-        return zcol_pair_force_plain(position, box_L, clist, cfg, typeid,
-                                     charge, eps, sig2, rcut2, vshift,
-                                     exclusions, kappa, W)
+def _check_cuda_inputs(what, position, box_L, clist: CellList,
+                       cfg: CellListConfig, **extra):
+    """Raise unless every tensor the kernels read is a contiguous CUDA
+    tensor of the right dtype and shape; returns (dtype suffix, n, XY,
+    Kc). ``extra`` maps more argument names to (tensor, dtype, shape)."""
     if position.device.type != "cuda":
-        raise ValueError(f"zcol_pair: unsupported device {position.device}")
+        raise ValueError(f"{what}: unsupported device {position.device}")
     dtype = position.dtype
     if dtype not in _SUFFIX:
-        raise TypeError(f"zcol_pair: no kernel for {dtype}")
+        raise TypeError(f"{what}: no kernel for {dtype}")
     n = position.shape[0]
     XY, Kc = clist.bucket_idx.shape
     if XY != cfg.total_cells or Kc != cfg.cap or Kc % J_BLOCK != 0:
         raise ValueError(
-            f"zcol_pair: column list {(XY, Kc)} does not match the config "
+            f"{what}: column list {(XY, Kc)} does not match the config "
             f"{(cfg.total_cells, cfg.cap)} or its capacity is not a "
             f"multiple of {J_BLOCK}")
-    ntypes = eps.shape[0]
-    max_excl = exclusions.shape[1]
     checks = dict(position=(position, dtype, (n, 3)),
                   box_L=(box_L, dtype, (3,)),
                   anchor=(clist.anchor, dtype, (n, 3)),
                   local_anchor=(clist.local_anchor, dtype, (n, 3)),
-                  typeid=(typeid, torch.int32, (n,)),
+                  bucket_idx=(clist.bucket_idx, torch.int32, (XY, Kc)),
+                  halo_idx=(clist.halo_idx, torch.int32, (XY, 9 * Kc)))
+    checks.update(extra)
+    for arg, (t, want_dtype, shape) in checks.items():
+        if not t.is_cuda or t.dtype != want_dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: {arg} must be a contiguous CUDA {want_dtype} "
+                f"tensor of shape {shape}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}")
+    return _SUFFIX[dtype], n, XY, Kc
+
+
+def _launch_hull(position, box_L, clist: CellList, cfg: CellListConfig,
+                 charge, W):
+    """The hull kernel, the launch ``zcol_pair_force`` makes, on a CUDA
+    device. Returns ``(hull, flags, loc, W)``: the hull and the window W
+    clamped to [1, NB] as ``zcol_hull`` returns them, bit for bit, the
+    (XY,) bool flags of the columns whose count exceeds W, and ``loc``
+    (N, 4), each slotted particle's local coordinates (the bits of
+    ``zcol_local_positions``) and charge, the rows the pair kernel stages
+    (a particle without a slot is in no column and its row is never
+    written)."""
+    suffix, n, XY, Kc = _check_cuda_inputs(
+        "zcol_hull", position, box_L, clist, cfg,
+        charge=(charge, position.dtype, (position.shape[0],)))
+    W = max(1, min(int(W), 9 * Kc // J_BLOCK))
+    dev = position.device
+    hull = torch.empty((XY, Kc // I_BLOCK, 4), dtype=torch.int32, device=dev)
+    flags = torch.empty((XY,), dtype=torch.bool, device=dev)
+    loc = torch.empty((n, 4), dtype=position.dtype, device=dev)
+    lib = _cuda.load("zcol_pair", _SIGNATURES)
+    p = _cuda.ptr
+    rc = getattr(lib, f"cavmd_zcol_hull_{suffix}")(
+        p(position), p(clist.anchor), p(clist.local_anchor), p(box_L),
+        p(charge), p(clist.bucket_idx), p(clist.halo_idx), n, XY, Kc, W,
+        float(cfg.r_cut), p(hull), p(flags), p(loc), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "zcol_hull")
+    _cuda.count_launch("zcol_hull")
+    return hull, flags, loc, W
+
+
+def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
+                    typeid, charge, eps, sig2, rcut2, vshift, exclusions,
+                    kappa: float, W):
+    """LJ + Ewald short over the z-sorted column list: the hull and pair
+    kernels on a CUDA device (five device operations, no read-back), the
+    plain twin on the CPU. ``kappa`` is a host float and ``W`` the visit
+    window. Returns (forces (N, 3), e_lj, e_ewald_short, window flag (0-d
+    bool)). The launchers reject what the kernels do not take (more than 8
+    types or 8 exclusions a particle, a window whose staged rows outgrow a
+    block's shared memory) with an error that ``_cuda.check`` raises."""
+    if position.device.type == "cpu":
+        return zcol_pair_force_plain(position, box_L, clist, cfg, typeid,
+                                     charge, eps, sig2, rcut2, vshift,
+                                     exclusions, kappa, W)
+    dtype = position.dtype
+    n = position.shape[0]
+    ntypes = eps.shape[0]
+    max_excl = exclusions.shape[1]
+    tables = dict(typeid=(typeid, torch.int32, (n,)),
                   charge=(charge, dtype, (n,)),
                   eps=(eps, dtype, (ntypes, ntypes)),
                   sig2=(sig2, dtype, (ntypes, ntypes)),
                   rcut2=(rcut2, dtype, (ntypes, ntypes)),
                   vshift=(vshift, dtype, (ntypes, ntypes)),
-                  bucket_idx=(clist.bucket_idx, torch.int32, (XY, Kc)),
-                  halo_idx=(clist.halo_idx, torch.int32, (XY, 9 * Kc)),
                   exclusions=(exclusions, torch.int32, (n + 1, max_excl)))
-    for arg, (t, want_dtype, shape) in checks.items():
-        if not t.is_cuda or t.dtype != want_dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"zcol_pair: {arg} must be a contiguous CUDA {want_dtype} "
-                f"tensor of shape {shape}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device}")
-    pos_loc = zcol_local_positions(position, box_L, clist).contiguous()
-    hull, flag, W = zcol_hull(pos_loc, box_L, clist, cfg, W)
-    n_iblocks = XY * (Kc // I_BLOCK)
-    lib = _cuda.load("zcol_pair", _SIGNATURES)
+    suffix, n, XY, Kc = _check_cuda_inputs("zcol_pair", position, box_L,
+                                           clist, cfg, **tables)
     forces = torch.zeros_like(position)
-    partial = torch.empty((n_iblocks, 2), dtype=dtype,
+    hull, flags, loc, W = _launch_hull(position, box_L, clist, cfg, charge, W)
+    partial = torch.empty((XY * (Kc // I_BLOCK), 2), dtype=dtype,
                           device=position.device)
+    lib = _cuda.load("zcol_pair", _SIGNATURES)
     p = _cuda.ptr
-    rc = getattr(lib, f"cavmd_zcol_pair_{_SUFFIX[dtype]}")(
-        p(pos_loc), p(box_L), p(typeid), p(charge), p(eps), p(sig2),
-        p(rcut2), p(vshift), ntypes, p(clist.bucket_idx), p(clist.halo_idx),
-        p(hull), p(exclusions), max_excl, n, XY, Kc, W,
-        cfg.r_cut * cfg.r_cut, float(kappa), p(forces), p(partial),
+    rc = getattr(lib, f"cavmd_zcol_pair_{suffix}")(
+        p(loc), p(box_L), p(typeid), p(eps), p(sig2), p(rcut2), p(vshift),
+        ntypes, p(clist.bucket_idx), p(clist.halo_idx), p(hull), p(exclusions),
+        max_excl, n, XY, Kc, W, float(cfg.r_cut), cfg.r_cut * cfg.r_cut,
+        float(kappa), p(forces), p(partial),
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "zcol_pair")
     _cuda.count_launch("zcol_pair")
-    energies = 0.5 * torch.sum(partial, dim=0)
-    return forces, energies[0], energies[1], flag
+    energies = torch.sum(partial, dim=0)  # the kernel halved each partial
+    return forces, energies[0], energies[1], flags.any()

@@ -11,8 +11,9 @@ Phases:
   1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
      source, all started together; print the seconds and, from ptxas, each
      kernel's registers, stack frame and spill bytes by name (K1, K2, K3,
-     the cell kernel, K4 and K5 must be found in float and double, and K3
-     at order 6 with no stack frame and no spill);
+     the cell kernel, K4, K5 and K9's hull and pair kernels must be found
+     in float and double; K3 at order 6 and both zcol kernels with no
+     stack frame and no spill);
   2. kernels against their plain PyTorch twins on the card, float32 and
      float64: at the N = 501 reference scene and at N = 4001 (reference
      density) in dense mode, the pair pass (K1), the 32^3 order-6 PPPM
@@ -67,14 +68,19 @@ Phases:
      ``Simulation(shard_atoms=1)`` on phase 6's protocol: launches, ms per
      step beside phase 6's, and its universe band held to phase 6's band
      at N = 100,001;
- 10. the z-sorted column mode (``pair_mode='zcol'``): its kernel
-     (``zcol_pair``, K9's counterpart) against its plain twin on the first
-     chunk's column list of ``build_large_n(50_000, pair_mode='zcol')``
-     (N = 100,001, 17 x 17 columns of cap 512), float32 and float64, with
-     its times and bound as in phase 2, the list build's and the hull's
-     device times, the candidate count and the hull statistics;
+ 10. the z-sorted column mode (``pair_mode='zcol'``): its two kernels
+     (``zcol_hull`` and ``zcol_pair``, K9's counterpart with its hull) on
+     the first chunk's column list of ``build_large_n(50_000,
+     pair_mode='zcol')`` (N = 100,001, 17 x 17 columns of cap 512), float32
+     and float64: the hull kernel's hull and flag bit-equal to the plain
+     twins' (at the build positions, at W = 1, after a drift of 0.49
+     skin), the pair pass against its plain twin, two calls bit-equal; in
+     float32 its times and bound as in phase 2, the pair and hull
+     kernels' own times, the list build's device time, the candidates
+     before and after the kernel's z-chunk pruning and the hull
+     statistics;
      ``build_large_n(50_000, pair_mode='zcol')`` through ``Simulation.run``
-     on phase 6's protocol (the kernel launched once a step and the cell
+     on phase 6's protocol (both kernels launched once a step and the cell
      kernel never, no overflow, ms per step beside phase 6's, the universe
      band held to DOMAIN_BAND_RATIO times phase 6's); and a float64
      trajectory of 40 steps at N = 20,001 in zcol mode against the cell
@@ -254,7 +260,10 @@ KERNELS = {  # name -> (source file, the TPU kernel it replaces)
                          "cavmd_tpu/ops/fused_integrator.py:113"),
     "zcol_pair": ("cavmd_tpu_torch/csrc/zcol_pair.cu",
                   "cavmd_tpu/ops/pallas_kernels.py:1263"),
+    "zcol_hull": ("cavmd_tpu_torch/csrc/zcol_pair.cu",
+                  "cavmd_tpu/ops/pallas_kernels.py:1430"),
 }
+PROFILE_TRIES = 5  # traces profiled_device_ms takes before it fails
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -266,11 +275,15 @@ PEAK_F32_OPS_PER_S = 67e12
 PTXAS_NAMED = {"cell_pair": ("cell_pair_kernel",),
                "fused_integrator": ("pre_force_kernel", "post_force_kernel"),
                "pair": ("dense_pair_kernel",),
-               "pppm_spread": ("spread_kernel", "interpolate_kernel")}
+               "pppm_spread": ("spread_kernel", "interpolate_kernel"),
+               "zcol_pair": ("zcol_pair_kernel", "zcol_hull_kernel")}
 # kernels that must build with no stack frame and no spill (K3 keeps every
-# stencil row in registers, one instantiation an order)
+# stencil row in registers, one instantiation an order; the zcol kernels
+# keep their ring state and exclusion rows in registers)
 PTXAS_NO_STACK = ("interpolate_kernel<float, 6>",
-                  "interpolate_kernel<double, 6>")
+                  "interpolate_kernel<double, 6>",
+                  "zcol_pair_kernel<float>", "zcol_pair_kernel<double>",
+                  "zcol_hull_kernel<float>", "zcol_hull_kernel<double>")
 
 
 def ptxas_report(log):
@@ -416,7 +429,7 @@ def device_ms(torch, fn, reps=15, inner=10):
     return statistics.median(samples)
 
 
-def profiled_device_ms(torch, fn, reps=5, match=None):
+def profiled_device_ms(torch, fn, reps=5, match=None, ops=False, once=()):
     """Device time of one call as the sum of its device operations'
     durations in a ``torch.profiler`` trace of ``reps`` calls (one stream,
     so the sum is the busy time); with ``match``, only of the operations
@@ -425,7 +438,17 @@ def profiled_device_ms(torch, fn, reps=5, match=None):
     the launch queue, the host then waits on the device, and
     ``device_ms`` cannot keep the host out of the way. One call runs
     first under sync debug mode "error", so a call that synchronises with
-    the host raises here too."""
+    the host raises here too. With ``ops``, returns (ms, device
+    operations a call).
+
+    On the card's machine the profiler now and then drops a trace's device
+    operations, all or some, so only a complete trace counts, and an
+    incomplete one is taken again, up to PROFILE_TRIES traces in all.
+    With ``match`` (a kernel each call launches once) a trace is complete
+    when it holds exactly ``reps`` operations of that name; with ``once``
+    (names of kernels each call launches once), when it holds each of
+    them exactly ``reps`` times; with neither, when it holds as many
+    device operations as the trace before it, and at least ``reps``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -437,15 +460,28 @@ def profiled_device_ms(torch, fn, reps=5, match=None):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and (match is None or match in e.name)]
-    check(len(dev) >= reps, "profiled_device_ms: the trace has no device "
-          f"operations{'' if match is None else ' named ' + match}")
-    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    counts = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        every = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = [e for e in every if match is None or match in e.name]
+        counts.append(len(dev))
+        if match is None and not once:
+            complete = len(counts) > 1 and counts[-2] == len(dev) >= reps
+        else:
+            complete = (match is None or len(dev) == reps) and all(
+                sum(k in e.name for e in every) == reps for k in once)
+        if complete:
+            break
+    check(complete, f"profiled_device_ms: no complete trace of {reps} "
+          f"calls in {PROFILE_TRIES} (device operations"
+          f"{'' if match is None else ' named ' + match}: {counts}; "
+          f"launched once a call: {list(once)})")
+    ms = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    return (ms, len(dev) / reps) if ops else ms
 
 
 def bound_ms(n_bytes, n_ops):
@@ -978,10 +1014,10 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS,
     LARGE_CHUNK steps (the protocol of scripts/bench_large_n.py) at time
     step ``dt_fs``. Checks: no overflow (and no retry), finite
     observables, every kernel of the path launched at least once a step
-    (in zcol mode its pair kernel exactly once a step, the initial forces
-    included, and the cell kernel never); the universe-energy band
-    max(U) - min(U) over the window is held to ``drift_bound`` when one is
-    given, else reported."""
+    (in zcol mode its hull and pair kernels exactly once a step, the
+    initial forces included, and the cell kernel never); the
+    universe-energy band max(U) - min(U) over the window is held to
+    ``drift_bound`` when one is given, else reported."""
     import numpy as np
 
     from cavmd_tpu_torch.drivers.workloads import build_large_n
@@ -1022,12 +1058,16 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS,
                    else kernel_name(ff.cell_cfg))
     if pair_mode == "zcol":
         check(launches.get("zcol_pair", 0) == total + 1
+              and launches.get("zcol_hull", 0) == total + 1
               and launches.get("cell_pair", 0) == 0,
               f"{label}: zcol_pair launched {launches.get('zcol_pair', 0)} "
-              f"times (want {total + 1}), cell_pair "
+              f"times, zcol_hull {launches.get('zcol_hull', 0)} (want "
+              f"{total + 1} each), cell_pair "
               f"{launches.get('cell_pair', 0)}")
     kernels = [pair_kernel, "pppm_spread", "pppm_interpolate",
                "fused_pre_force", "fused_post_force"]
+    if pair_mode == "zcol":
+        kernels.append("zcol_hull")
     for kname in kernels:
         check(launches.get(kname, 0) >= total,
               f"{label}: kernel {kname} launched {launches.get(kname, 0)} "
@@ -1331,13 +1371,84 @@ def zcol_work_counts(torch, pos_loc, box_L, clist, cfg, hull, W, typeid,
                                 lj=n_lj, ewald=n_ew)
 
 
+def zcol_hull_plain(torch, zk, position, box_L, clist, cfg, charge, W):
+    """Plain version of the hull kernel's launch: the twins' hull, flag
+    and window (``zcol_local_positions``, then ``zcol_hull``) and the
+    (N, 4) table of local coordinates and charge."""
+    pos_loc = zk.zcol_local_positions(position, box_L, clist)
+    hull, flag, W = zk.zcol_hull(pos_loc, box_L, clist, cfg, W)
+    return hull, flag, W, torch.cat([pos_loc, charge[:, None]], dim=1)
+
+
+def zcol_hull_work_counts(torch, pos_loc, clist):
+    """(bytes moved, operations) of one hull-kernel call: the positions,
+    anchors, local anchors and charges, the bucket and halo tables in;
+    the hull, the per-column flags and the (N, 4) table of local
+    coordinates and charge out. Operations: the local coordinates (4 a
+    coordinate), 2 per slot for the block bounds, 12 per i-block x
+    j-block overlap test (as ``zcol_work_counts`` counts the hull)."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    n, e = pos_loc.shape[0], pos_loc.element_size()
+    XY, Kc = clist.bucket_idx.shape
+    NB = clist.halo_idx.shape[1] // zk.J_BLOCK
+    NIB = Kc // zk.I_BLOCK
+    n_bytes = (9 * e * n + e * n + 4 * 10 * XY * Kc
+               + 16 * XY * NIB + XY + 4 * e * n)
+    n_ops = 12 * n + 2 * 10 * XY * Kc + 12 * XY * NIB * NB
+    return n_bytes, n_ops
+
+
+def zcol_pruned_candidates(torch, pos_loc, box_L, clist, cfg, hull, W):
+    """An estimate, in PyTorch, of the candidates the zcol kernel
+    evaluates after its z-chunk pruning (the kernel counts nothing): for
+    each real i slot, the staged rows of the chunks (32 rows of one visited
+    block) whose periodic z distance to the row is within the chunk's
+    half-length plus r_cut plus Lz / 4096, the kernel's rule, evaluated
+    here in float64 from the same local coordinates; the kernel's own
+    working-dtype compares may keep a chunk more or less at the edge."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    n = pos_loc.shape[0]
+    XY, Kc = clist.bucket_idx.shape
+    NB = clist.halo_idx.shape[1] // zk.J_BLOCK
+    dev = pos_loc.device
+    z = torch.cat([pos_loc[:, 2].double(), pos_loc.new_zeros(1).double()])
+    t = torch.arange(W, device=dev)
+    s1, c1, s2, cnt = (h.long()[..., None] for h in hull.unbind(-1))
+    jb = torch.where(t < c1, s1 + t, s2 + (t - c1))
+    jb = torch.where(t < cnt, jb, NB)  # NB: the all-empty block
+    halo = torch.cat([clist.halo_idx.view(XY, NB, zk.J_BLOCK),
+                      clist.halo_idx.new_full((XY, 1, zk.J_BLOCK), n)], 1)
+    cols = torch.arange(XY, device=dev)[:, None, None]
+    ids = halo[cols, jb].long().view(XY, Kc // zk.I_BLOCK, 4 * W, 32)
+    real = ids < n
+    zc = z[ids]
+    zmin = torch.where(real, zc, float("inf")).amin(-1)
+    zmax = torch.where(real, zc, float("-inf")).amax(-1)
+    rows = real.sum(-1)
+    Lz = float(box_L[2])
+    reach = 0.5 * (zmax - zmin) + cfg.r_cut + Lz / 4096
+    idx_i = clist.bucket_idx.view(XY, Kc // zk.I_BLOCK, zk.I_BLOCK).long()
+    zi = z[idx_i]
+    d = zi[..., :, None] - 0.5 * (zmin + zmax)[..., None, :]
+    d = (d - Lz * torch.round(d / Lz)).abs()
+    live = (d <= reach[..., None, :]) & (rows > 0)[..., None, :] \
+        & (idx_i < n)[..., None]
+    return int((live * rows[..., None, :]).sum())
+
+
 def zcol_kernel_phase(torch, pt, dtype, timed):
-    """Phase 10: the zcol kernel against its plain twin on the column list
-    of build_large_n(50_000, pair_mode='zcol')'s scene at its start (the
-    first chunk's list), N = 100,001; in float32 also its device time,
-    host-bound time, the twin's device time, the bound, the device times
-    of the list build and of the hull alone, the candidate count and the
-    hull statistics."""
+    """Phase 10: the zcol kernels against their plain twins on the column
+    list of build_large_n(50_000, pair_mode='zcol')'s scene at its start
+    (the first chunk's list), N = 100,001: the hull kernel's hull and flag
+    bit-equal to the twins' (at the build positions, at W = 1 where the
+    flag is set, and after a drift of 0.49 skin with the list kept), the
+    pair pass within TOL of its twin, two calls bit-equal; in float32 also
+    the wrapper's device time, the pair and hull kernels' own device
+    times, the host-bound time, the twins' device times, the bounds, the
+    list build's device time, the candidate counts before and after the
+    kernel's pruning, and the hull statistics."""
     from cavmd_tpu_torch.core.system import reference_box_for
     from cavmd_tpu_torch.ops import zcol_kernels as zk
 
@@ -1349,16 +1460,48 @@ def zcol_kernel_phase(torch, pt, dtype, timed):
     pos, box = snap.position, snap.box_L
     clist = ff.build_cells(pos, box)
     check(not bool(clist.overflow), f"zcol list N={snap.N} overflowed")
+    name = str(dtype).replace("torch.", "")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(11)
+    step = torch.rand((snap.N, 3), generator=g, dtype=torch.float64) * 2 - 1
+    step = (0.49 * cfg.skin / step.abs().max() * step).to(pos)
+    drifted = pos + step
+    drifted = drifted - box * torch.round(drifted / box)
+    hull_err = 0
+    slotted = clist.bucket_idx[clist.bucket_idx < snap.N].long()
+    for label, p_, W_ in (("build", pos, ff.zcol_W), ("W=1", pos, 1),
+                          ("drift 0.49 skin", drifted, ff.zcol_W)):
+        hk, flags, loc, Wk = zk._launch_hull(p_, box, clist, cfg,
+                                             snap.charge, W_)
+        fk = flags.any()
+        ht, ft, Wt, loc_t = zcol_hull_plain(torch, zk, p_, box, clist, cfg,
+                                            snap.charge, W_)
+        same_loc = bool(torch.equal(loc[slotted], loc_t[slotted]))
+        same = bool(torch.equal(hk, ht)) and bool(fk) == bool(ft) \
+            and Wk == Wt and same_loc
+        hull_err = max(hull_err, int((hk - ht).abs().max()))
+        print(f"phase 10: N={snap.N} {name} zcol_hull ({label}): hull, "
+              f"flag and table bit-equal to the twins': {same}, flag "
+              f"{bool(fk)}, hulls differing "
+              f"{int((hk != ht).any(-1).sum())}, table rows differing "
+              f"{int((loc[slotted] != loc_t[slotted]).any(-1).sum())} of "
+              f"{slotted.numel()}", flush=True)
+        check(same, f"zcol_hull N={snap.N} {name} {label}: the hull kernel "
+              f"differs from the twins")
+        check(W_ != 1 or bool(fk), f"zcol_hull N={snap.N} {name} {label}: "
+              f"the window flag is not set")
     args = (pos, box, clist, cfg, snap.typeid, snap.charge, ff.lj_eps,
             ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift, ff.cell_exclusions,
             ff.kappa_value, ff.zcol_W)
-    name = str(dtype).replace("torch.", "")
     tol = TOL[name]
     k = zk.zcol_pair_force(*args)
+    again = zk.zcol_pair_force(*args)
     p = zk.zcol_pair_force_plain(*args)
     torch.cuda.synchronize()
     check(not bool(k[3]) and not bool(p[3]),
           f"zcol_pair N={snap.N} {name}: the window overflowed")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(k, again)),
+          f"zcol_pair N={snap.N} {name}: two calls differ")
     errs = [max_err(a, b) for a, b in zip(k[:3], p[:3])]
     for (err, scale), a in zip(errs, k[:3]):
         check(bool(torch.isfinite(a).all()),
@@ -1373,6 +1516,7 @@ def zcol_kernel_phase(torch, pt, dtype, timed):
     occ = (clist.bucket_idx < snap.N).sum(dim=1).double()
     out = dict(max_abs_err=errs[0][0], scale=errs[0][1],
                max_abs_err_other_outputs=[e for e, _ in errs[1:]],
+               bit_equal_calls=True, hull_max_abs_err=hull_err,
                grid=dict(columns=cfg.ncells[:2], cap=cfg.cap, W=W,
                          occupancy_mean=float(occ.mean()),
                          occupancy_max=int(occ.max()),
@@ -1383,29 +1527,42 @@ def zcol_kernel_phase(torch, pt, dtype, timed):
                          two_run_iblocks=int((hull[..., 2] < 9 * cfg.cap
                                               // zk.J_BLOCK).sum())))
     if timed:
-        # the wrapper, the hull and the build each issue 40-70 launches a
-        # call: one call per sample keeps them inside the launch queue
-        # behind the spin (ten would fill it, and the host would wait)
+        # the twins and the list build each issue tens of launches a call:
+        # one call per sample keeps them inside the launch queue behind the
+        # spin (ten would fill it, and the host would wait)
         one = dict(inner=1)
-        out["ms"] = device_ms(torch, lambda: zk.zcol_pair_force(*args),
-                              **one)
+        # the whole wrapper (both kernels and its three PyTorch
+        # operations), then each kernel's own time in the wrapper's trace
+        out["ms"] = device_ms(torch, lambda: zk.zcol_pair_force(*args))
         out["kernel_only_ms"] = profiled_device_ms(
             torch, lambda: zk.zcol_pair_force(*args),
             match="zcol_pair_kernel")
+        out["hull_kernel_ms"] = profiled_device_ms(
+            torch, lambda: zk.zcol_pair_force(*args),
+            match="zcol_hull_kernel")
         out["host_call_ms"] = host_call_ms(
             torch, lambda: zk.zcol_pair_force(*args))
         out["plain_ms"] = profiled_device_ms(
             torch, lambda: zk.zcol_pair_force_plain(*args))
-        out["hull_ms"] = device_ms(torch, lambda: zk.zcol_hull(
-            zk.zcol_local_positions(pos, box, clist), box, clist, cfg,
-            ff.zcol_W), **one)
+        # the wrapper's hull launch alone (one kernel), and its plain
+        # version: the twins' hull, which the parent's wrapper ran, and
+        # the table
+        out["hull_ms"] = device_ms(torch, lambda: zk._launch_hull(
+            pos, box, clist, cfg, snap.charge, ff.zcol_W))
+        out["hull_plain_ms"] = device_ms(torch, lambda: zcol_hull_plain(
+            torch, zk, pos, box, clist, cfg, snap.charge, ff.zcol_W), **one)
         out["list_build_ms"] = device_ms(
             torch, lambda: ff.build_cells(pos, box), **one)
         n_bytes, n_ops, pairs = zcol_work_counts(
             torch, pos_loc, box, clist, cfg, hull, W, snap.typeid,
             snap.charge, ff)
+        pairs["candidates_after_pruning_est"] = zcol_pruned_candidates(
+            torch, pos_loc, box, clist, cfg, hull, W)
         out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
         out.update(bytes=n_bytes, ops=n_ops, pairs=pairs)
+        h_bytes, h_ops = zcol_hull_work_counts(torch, pos_loc, clist)
+        out["hull_bound_ms"], out["hull_bound_by"] = bound_ms(h_bytes, h_ops)
+        out.update(hull_bytes=h_bytes, hull_ops=h_ops)
     print(f"phase 10: N={snap.N} {name} zcol_pair: " + ", ".join(
         f"{k}={v!r}" for k, v in out.items()), flush=True)
     return out
@@ -1730,10 +1887,15 @@ def main() -> None:
     zcol_f64 = zcol_f64_trajectory(torch, pt)
     torch.cuda.empty_cache()
     cell100k = shapes[(LARGE_N_MOL, None)]["cell_pair"]
-    print(f"phase 10: zcol_pair {zres['ms']:.4f} ms vs cell_pair "
+    print(f"phase 10: zcol_pair wrapper {zres['ms']:.4f} ms (its pair "
+          f"kernel {zres['kernel_only_ms']:.4f}, its hull kernel "
+          f"{zres['hull_kernel_ms']:.4f}; the hull launch alone "
+          f"{zres['hull_ms']:.4f}) vs cell_pair "
           f"{cell100k['ms']:.4f} ms at N={large['n']}; candidates "
-          f"{zres['pairs']['candidates']} (cell kernel "
-          f"{cell100k['pairs']['candidates']}); "
+          f"{zres['pairs']['candidates']}, about "
+          f"{zres['pairs']['candidates_after_pruning_est']} after the "
+          f"z-chunk pruning (the kernel's rule, estimated in PyTorch; cell "
+          f"kernel {cell100k['pairs']['candidates']}); "
           f"zcol step {zcol['ms_per_step']:.3f} ms vs cell "
           f"{large['ms_per_step']:.3f} ms", flush=True)
     check("jax" not in sys.modules, "the port imported jax")
@@ -1763,7 +1925,8 @@ def main() -> None:
           f"ms/step (unsharded {large['ms_per_step']:.3f}) band "
           f"{dom['universe_band_ha']:.3e} Ha | zcol: zcol_pair "
           f"{zres['ms']:.4f} ms (twin {zres['plain_ms']:.2f} ms, bound "
-          f"{zres['bound_ms']:.5f} ms, hull {zres['hull_ms']:.4f} ms, list "
+          f"{zres['bound_ms']:.5f} ms, hull {zres['hull_ms']:.4f} ms "
+          f"(twins {zres['hull_plain_ms']:.4f} ms), list "
           f"build {zres['list_build_ms']:.4f} ms), N={zcol['n']} "
           f"{zcol['ms_per_step']:.3f} ms/step band "
           f"{zcol['universe_band_ha']:.3e} Ha, f64 40 steps max|dx| "
@@ -1782,9 +1945,17 @@ def main() -> None:
     # the slab kernel at N = 100,001 (phase 9's domain run's launches)
     shapes["slab"] = {"cell_pair_slab": slab}
     where["cell_pair_slab"] = ("slab", dom["launches"])
-    # the zcol kernel at N = 100,001 (phase 10's zcol run's launches)
-    shapes["zcol"] = {"zcol_pair": zres}
-    where["zcol_pair"] = ("zcol", zcol["launches"])
+    # at N = 100,001 (phase 10's zcol run's launches): the zcol_pair row
+    # is the whole wrapper, zcol_pair_force (its hull and pair kernels and
+    # three PyTorch operations, against the whole twin and the whole
+    # pass's bound); the zcol_hull row is the wrapper's hull launch alone,
+    # so the two rows overlap by the hull kernel. The hull is an integer
+    # result, held bit-equal to the twins'
+    shapes["zcol"] = {"zcol_pair": zres, "zcol_hull": dict(
+        max_abs_err=float(zres["hull_max_abs_err"]), ms=zres["hull_ms"],
+        plain_ms=zres["hull_plain_ms"], bound_ms=zres["hull_bound_ms"],
+        bound_by=zres["hull_bound_by"])}
+    where["zcol_pair"] = where["zcol_hull"] = ("zcol", zcol["launches"])
     kernels = []
     for k, (src, rep) in KERNELS.items():
         shape, launches = where[k]

@@ -3,6 +3,7 @@ card. Marked ``cuda``; each test skips when no CUDA device is present (run
 them on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m
 cuda``)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -536,20 +537,27 @@ def test_slab_kernel_matches_twin(cuda, S, shift_x, dtype):
     assert float((out_k[2] - out_p[2]).abs()) <= tol * ew_scale
 
 
-def _zcol_scene(dtype, device):
+def _zcol_scene(dtype, device, n_mol=500):
     """500 diatomics + photon at the reference density, r_cut 12: 4 x 4
     columns of capacity 128, hulls of up to 5 of the 9 j-blocks, some of
-    them in two runs across the z seam."""
+    them in two runs across the z seam. With ``n_mol=2000``: 7 x 7 columns
+    of capacity 256 (tests/test_torch_zcol.py's drift scene)."""
     from cavmd_tpu_torch.core.system import reference_box_for
 
     snap = pt.add_cavity_particle(
-        pt.make_diatomic_system(500, box_L=reference_box_for(500),
+        pt.make_diatomic_system(n_mol, box_L=reference_box_for(n_mol),
                                 temperature_K=100.0, seed=3, device="cpu"),
         coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=4)
     snap = snap.astype(dtype).to(device)
     ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=12.0,
                               pppm_mesh=(8, 8, 8), pair_mode="zcol")
     return snap, ff
+
+
+def _zcol_args(ff, snap, clist, position, W):
+    return (position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
+            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value, W)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -568,9 +576,7 @@ def test_zcol_kernel_matches_twin(cuda, window, dtype):
     nb = 9 * ff.cell_cfg.cap // 128
     assert bool((hull[..., 2] < nb).any()), "no two-run hull"
     W = ff.zcol_W if window == "planned" else 1
-    args = (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
-            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
-            ff.cell_exclusions, ff.kappa_value, W)
+    args = _zcol_args(ff, snap, clist, snap.position, W)
     before = _cuda.launches["zcol_pair"]
     out_k = zk.zcol_pair_force(*args)
     torch.cuda.synchronize()
@@ -579,6 +585,138 @@ def test_zcol_kernel_matches_twin(cuda, window, dtype):
     assert bool(out_k[3]) == bool(out_p[3]) == (window == "one")
     for k, p in zip(out_k[:3], out_p[:3]):
         assert _close(k, p, TOL[dtype])
+
+
+def _zcol_drifted(dtype, device):
+    """tests/test_torch_zcol.py's drift scene at its largest drift: the
+    2000-molecule scene, its column list built at the start, then every
+    particle moved by up to 0.49 skin (numpy seed 0) and re-wrapped, the
+    list kept. Returns (snap, ff, clist, drifted positions)."""
+    snap, ff = _zcol_scene(dtype, device, n_mol=2000)
+    clist = ff.build_cells(snap.position, snap.box_L)
+    direction = np.random.default_rng(0).uniform(-1, 1, size=(snap.N, 3))
+    direction *= 0.49 * ff.cell_cfg.skin / np.abs(direction).max()
+    box = snap.box_L.double().cpu().numpy()
+    pos = snap.position.double().cpu().numpy() + direction
+    pos = pos - box * np.round(pos / box)
+    return snap, ff, clist, torch.as_tensor(pos, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["scene", "drift", "window_one"])
+def test_zcol_hull_kernel_equals_twins(cuda, case, dtype):
+    """The hull kernel, launched as zcol_pair_force launches it: its hull
+    and window flag bit-equal to the twins' (zcol_local_positions, then
+    zcol_hull), and its table's rows to the twins' local coordinates and
+    the charges: on the 500-molecule scene (two-run hulls across the z
+    seam), on the 2000-molecule scene after a drift of 0.49 skin with the
+    list kept, and at W = 1 (flag set)."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    if case == "drift":
+        snap, ff, clist, position = _zcol_drifted(dtype, cuda)
+    else:
+        snap, ff = _zcol_scene(dtype, cuda)
+        clist = ff.build_cells(snap.position, snap.box_L)
+        position = snap.position
+    W = 1 if case == "window_one" else ff.zcol_W
+    before = _cuda.launches["zcol_hull"]
+    hull, flags, loc, W_k = zk._launch_hull(position, snap.box_L, clist,
+                                            ff.cell_cfg, snap.charge, W)
+    torch.cuda.synchronize()
+    assert _cuda.launches["zcol_hull"] == before + 1
+    pos_loc = zk.zcol_local_positions(position, snap.box_L, clist)
+    ref, ref_flag, W_t = zk.zcol_hull(pos_loc, snap.box_L, clist,
+                                      ff.cell_cfg, W)
+    assert hull.dtype == ref.dtype and torch.equal(hull, ref) and W_k == W_t
+    assert bool(flags.any()) == bool(ref_flag) == (case == "window_one")
+    slotted = clist.bucket_idx[clist.bucket_idx < snap.N].long()
+    assert slotted.numel() == snap.N
+    assert torch.equal(loc[slotted, :3], pos_loc[slotted])
+    assert torch.equal(loc[slotted, 3], snap.charge[slotted])
+    nb = 9 * ff.cell_cfg.cap // 128
+    assert bool((ref[..., 2] < nb).any()), "no two-run hull"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_zcol_kernel_matches_twin_after_drift(cuda, dtype):
+    """The pair pass against its twin on the drifted 2000-molecule scene:
+    local coordinates that re-wrapped since the build, hulls grown by the
+    drift, and the z-chunk pruning on rows no longer exactly sorted."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    snap, ff, clist, position = _zcol_drifted(dtype, cuda)
+    args = _zcol_args(ff, snap, clist, position, ff.zcol_W)
+    out_k = zk.zcol_pair_force(*args)
+    out_p = zk.zcol_pair_force_plain(*args)
+    assert not bool(out_k[3]) and not bool(out_p[3])
+    for k, p in zip(out_k[:3], out_p[:3]):
+        assert _close(k, p, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_zcol_kernel_at_a_retry_grown_window(cuda, dtype):
+    """The 500-molecule scene re-planned twice by the overflow retry
+    (ForceField.with_cell_capacity: cap 128 -> 256 -> 512, W 7 -> 11),
+    its window widened, where it is not already, past the 48 KB of shared
+    memory a launch gets without raising the limit (17 in float32; 11 in
+    float64 is past it): the launch raises the kernel's limit, and the
+    pass holds against its twin."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    snap, ff = _zcol_scene(dtype, cuda)
+    for _ in range(2):
+        cap = ff.cell_cfg.cap
+        ff = ff.with_cell_capacity(max(cap + 4, 2 * cap))
+    assert ff.cell_cfg.cap == 512
+    row_bytes = 128 * (4 * torch.empty((), dtype=dtype).element_size() + 8)
+    W = max(ff.zcol_W, 48 * 1024 // row_bytes + 1)
+    assert W * row_bytes > 48 * 1024 and W <= 9 * 512 // 128
+    clist = ff.build_cells(snap.position, snap.box_L)
+    args = _zcol_args(ff, snap, clist, snap.position, W)
+    out_k = zk.zcol_pair_force(*args)
+    torch.cuda.synchronize()
+    out_p = zk.zcol_pair_force_plain(*args)
+    assert not bool(out_k[3]) and not bool(out_p[3])
+    for k, p in zip(out_k[:3], out_p[:3]):
+        assert _close(k, p, TOL[dtype])
+
+
+def test_zcol_wrapper_issues_few_device_operations(cuda):
+    """On a CUDA tensor zcol_pair_force issues at most 6 device operations
+    a call (zero the forces, the hull kernel, the pair kernel, the energy
+    sum, the flag) and reads nothing back (sync debug mode "error"). The
+    profiler may drop some of a trace's device operations, so only a
+    complete trace counts: one that holds each kernel of the wrapper
+    exactly once a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    snap, ff = _zcol_scene(torch.float32, cuda)
+    clist = ff.build_cells(snap.position, snap.box_L)
+    args = _zcol_args(ff, snap, clist, snap.position, ff.zcol_W)
+    zk.zcol_pair_force(*args)
+    torch.cuda.synchronize()
+    reps = 3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(reps):
+                    zk.zcol_pair_force(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        complete = all(sum(k in name for name in names) == reps
+                       for k in ("zcol_hull_kernel", "zcol_pair_kernel"))
+        if complete:
+            break
+    assert complete, f"no complete trace: {names}"
+    assert len(names) <= 6 * reps
 
 
 # K4 grids of one block (N = 3, 1023), two (1025) and the full card
@@ -699,11 +837,17 @@ def test_small_grid_splits_rows(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kernel", ["cell_3cells", "cell_2cells",
                                     "pre_force", "post_force", "dense_pair",
-                                    "interpolate"])
+                                    "interpolate", "zcol"])
 def test_two_calls_give_the_same_bits(cuda, kernel, dtype):
-    """The cell kernel, K1, K3, K4 and K5 sum in fixed orders (no
-    atomics), so two calls on the same inputs are bit-equal."""
-    if kernel == "dense_pair":
+    """The cell kernel, K1, K3, K4, K5 and the zcol kernels sum in fixed
+    orders (no atomics), so two calls on the same inputs are bit-equal."""
+    if kernel == "zcol":
+        from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+        snap, ff, clist, position = _zcol_drifted(dtype, cuda)
+        args = _zcol_args(ff, snap, clist, position, ff.zcol_W)
+        first, second = zk.zcol_pair_force(*args), zk.zcol_pair_force(*args)
+    elif kernel == "dense_pair":
         args = _dense_inputs(dtype, cuda, 2000)
         first = pk.dense_pair_force(*args)
         second = pk.dense_pair_force(*args)
