@@ -1,7 +1,9 @@
 """Orthorhombic periodic box: wrap/unwrap/minimum-image on tensors.
 
 Port of ``cavmd_tpu/core/box.py``. Only orthorhombic boxes are supported
-(the reference workflow never uses tilt factors).
+(the reference workflow never uses tilt factors). Positions and
+displacements are (..., 3): a (3,) box broadcasts over (N, 3) and over a
+replica batch (B, N, 3) alike.
 """
 
 from __future__ import annotations

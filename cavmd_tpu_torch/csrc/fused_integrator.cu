@@ -61,6 +61,22 @@
 // last-block-done counter instead of the grid sync, which needs a counter
 // reset to zero every step (a device operation more).
 //
+// Replica batches (parallel/replicas.py): one launch takes B replicas of
+// one topology, blockIdx.y the replica, gridDim.x = g blocks a replica with
+// g = max(1, resident / B) (no more than N needs), so the whole grid still
+// fits the card at once (B <= resident, hundreds of blocks: a larger batch
+// is refused and raises). v/pos/f/image, the per-replica scalars (dt, c,
+// r1, r_gamma; c_ou, sigma, the three draws), the reservoir deltas (B,),
+// K5's sums (B, 3) and the partials (B, g) are offset by the replica; mass,
+// the mask and the box are shared. Each replica's partials are summed in
+// one fixed order, so every block of a replica computes the same alpha bit
+// for bit. With g = 1 a replica's reduction stays in its block and the
+// grid needs no sync. K4's B = 1 launch is the unbatched one. K5's
+// batched launch is its own instantiation (kBatch): with the replica's
+// offsets the one-replica K5 ran 4.9% slower at N = 501 and 3.9% at
+// N = 4001 (scripts/bench_torch_spread_tail.py, parent and change in one
+// call, H100 80GB HBM3 at 700 W), at the edge of the 5% a shared kernel
+// may cost; the one-replica instantiation compiles as before.
 // The element-wise updates use the _rn intrinsics so that nvcc does not
 // contract them into fused multiply-adds: the results round exactly as
 // the plain PyTorch twin's separate operations do, and the image flags
@@ -129,7 +145,8 @@ __device__ __forceinline__ T sum_partials(const T* partial, int count,
   return block_sum<kGridWarps>(sum, scratch);
 }
 
-// The whole grid waits here; a grid of one block needs no grid sync.
+// The whole grid waits here; a grid of one block a replica needs no grid
+// sync (each replica's reduction stays in its block).
 __device__ __forceinline__ void grid_sync() {
   if (gridDim.x > 1) {
     cg::this_grid().sync();
@@ -158,6 +175,23 @@ pre_force_kernel(const T* __restrict__ vel, const T* __restrict__ pos,
                  T* __restrict__ partial) {
   __shared__ T s_red[kGridWarps];
   __shared__ T s_alpha;
+  // this block's replica
+  {
+    const size_t b = blockIdx.y, rows = 3 * (size_t)n * b;
+    vel += rows;
+    pos += rows;
+    img += rows;
+    frc += rows;
+    vel_out += rows;
+    pos_out += rows;
+    img_out += rows;
+    dt_p += b;
+    c_p += b;
+    r1_p += b;
+    rg_p += b;
+    dres += b;
+    partial += (size_t)gridDim.x * b;
+  }
   const int first = blockIdx.x * kGridThreads + threadIdx.x;
   const int stride = gridDim.x * kGridThreads;
 
@@ -213,7 +247,7 @@ pre_force_kernel(const T* __restrict__ vel, const T* __restrict__ pos,
   }
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kGridThreads)
 post_force_kernel(const T* __restrict__ vel, const T* __restrict__ frc,
                   const T* __restrict__ mass, const uint8_t* __restrict__ mol,
@@ -223,6 +257,21 @@ post_force_kernel(const T* __restrict__ vel, const T* __restrict__ frc,
                   T* __restrict__ vel_out, T* __restrict__ out,
                   T* __restrict__ partial) {
   __shared__ T s_red[kGridWarps];
+  // this block's replica (the OU inputs only with a photon row)
+  if (kBatch) {
+    const size_t b = blockIdx.y, rows = 3 * (size_t)n * b;
+    vel += rows;
+    frc += rows;
+    vel_out += rows;
+    dt_p += b;
+    if (photon >= 0) {
+      c_ou_p += b;
+      sig_p += b;
+      noise += 3 * b;
+    }
+    out += 3 * b;
+    partial += 2 * (size_t)gridDim.x * b;
+  }
   const int first = blockIdx.x * kGridThreads + threadIdx.x;
   const int stride = gridDim.x * kGridThreads;
   const T half_dt = mul_rn(T(0.5), *dt_p);
@@ -273,12 +322,13 @@ post_force_kernel(const T* __restrict__ vel, const T* __restrict__ frc,
   }
 }
 
-// Blocks of a cooperative grid of `kernel` for n particles: as many as
-// the card holds at once (`resident`, computed on the first call: one
-// device), no more than n needs (at most ceil(n / kGridThreads), the
-// partials the wrappers allocate). 0, or the error of a failed query.
+// Blocks a replica of a cooperative grid of `kernel` for nb replicas of n
+// particles: the card's resident blocks (`resident`, computed on the first
+// call: one device) shared over the replicas, at least one, no more than
+// n needs (at most ceil(n / kGridThreads), the partials the wrappers
+// allocate a replica). 0, or the error of a failed query.
 template <typename Kernel>
-int coop_grid(Kernel kernel, int n, int* resident, int* grid) {
+int coop_grid(Kernel kernel, int n, int nb, int* resident, int* grid) {
   if (*resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -291,32 +341,39 @@ int coop_grid(Kernel kernel, int n, int* resident, int* grid) {
     *resident = per_sm * sms;
   }
   const int need = (n + kGridThreads - 1) / kGridThreads;
-  *grid = need < *resident ? need : *resident;
+  const int share = *resident / nb > 1 ? *resident / nb : 1;
+  *grid = need < share ? need : share;
   return 0;
 }
 
 template <typename T>
-int pre_grid(int n, int* grid) {
+int pre_grid(int n, int nb, int* grid) {
   static int resident = 0;
-  return coop_grid(pre_force_kernel<T>, n, &resident, grid);
+  return coop_grid(pre_force_kernel<T>, n, nb, &resident, grid);
+}
+
+template <typename T, bool kBatch>
+int post_grid_k(int n, int nb, int* grid) {
+  static int resident = 0;
+  return coop_grid(post_force_kernel<T, kBatch>, n, nb, &resident, grid);
 }
 
 template <typename T>
-int post_grid(int n, int* grid) {
-  static int resident = 0;
-  return coop_grid(post_force_kernel<T>, n, &resident, grid);
+int post_grid(int n, int nb, int* grid) {
+  return nb > 1 ? post_grid_k<T, true>(n, nb, grid)
+                : post_grid_k<T, false>(n, nb, grid);
 }
 
 template <typename T>
 int launch_pre(const void* vel, const void* pos, const void* img,
                const void* frc, const void* mass, const void* mol,
                const void* box, const void* dt, const void* c, const void* r1,
-               const void* rg, double kT, double dof, int n, void* vel_out,
-               void* pos_out, void* img_out, void* dres, void* partial,
-               int n_partial, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+               const void* rg, double kT, double dof, int n, int nb,
+               void* vel_out, void* pos_out, void* img_out, void* dres,
+               void* partial, int n_partial, void* stream) {
+  if (n < 1 || nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   int grid = 0;
-  const int err = pre_grid<T>(n, &grid);
+  const int err = pre_grid<T>(n, nb, &grid);
   if (err != 0) return err;
   if (grid < 1 || grid > n_partial) return (int)cudaErrorInvalidValue;
   const T* a_vel = (const T*)vel;
@@ -340,8 +397,8 @@ int launch_pre(const void* vel, const void* pos, const void* img,
                   &a_box, &a_dt, &a_c, &a_r1, &a_rg, &a_kT, &a_dof, &n,
                   &a_vel_out, &a_pos_out, &a_img_out, &a_dres, &a_partial};
   const cudaError_t launch_err = cudaLaunchCooperativeKernel(
-      (const void*)pre_force_kernel<T>, dim3(grid), dim3(kGridThreads), args, 0,
-      (cudaStream_t)stream);
+      (const void*)pre_force_kernel<T>, dim3(grid, nb), dim3(kGridThreads),
+      args, 0, (cudaStream_t)stream);
   if (launch_err != cudaSuccess) return (int)launch_err;
   return (int)cudaGetLastError();
 }
@@ -349,11 +406,13 @@ int launch_pre(const void* vel, const void* pos, const void* img,
 template <typename T>
 int launch_post(const void* vel, const void* frc, const void* mass,
                 const void* mol, const void* dt, int photon, const void* c_ou,
-                const void* sig, const void* noise, int n, void* vel_out,
-                void* out, void* partial, int n_partial, void* stream) {
-  if (n < 1 || photon >= n) return (int)cudaErrorInvalidValue;
+                const void* sig, const void* noise, int n, int nb,
+                void* vel_out, void* out, void* partial, int n_partial,
+                void* stream) {
+  if (n < 1 || nb < 1 || nb > 65535 || photon >= n)
+    return (int)cudaErrorInvalidValue;
   int grid = 0;
-  const int err = post_grid<T>(n, &grid);
+  const int err = post_grid<T>(n, nb, &grid);
   if (err != 0) return err;
   if (grid < 1 || grid > n_partial) return (int)cudaErrorInvalidValue;
   const T* a_vel = (const T*)vel;
@@ -369,9 +428,11 @@ int launch_post(const void* vel, const void* frc, const void* mass,
   T* a_partial = (T*)partial;
   void* args[] = {&a_vel, &a_frc, &a_mass, &a_mol, &a_dt, &photon, &a_c_ou,
                   &a_sig, &a_noise, &n, &a_vel_out, &a_out, &a_partial};
+  const void* kernel = nb > 1 ? (const void*)post_force_kernel<T, true>
+                              : (const void*)post_force_kernel<T, false>;
   const cudaError_t launch_err = cudaLaunchCooperativeKernel(
-      (const void*)post_force_kernel<T>, dim3(grid), dim3(kGridThreads), args,
-      0, (cudaStream_t)stream);
+      kernel, dim3(grid, nb), dim3(kGridThreads), args, 0,
+      (cudaStream_t)stream);
   if (launch_err != cudaSuccess) return (int)launch_err;
   return (int)cudaGetLastError();
 }
@@ -384,50 +445,54 @@ int cavmd_fused_pre_force_f32(const void* vel, const void* pos, const void* img,
                               const void* frc, const void* mass, const void* mol,
                               const void* box, const void* dt, const void* c,
                               const void* r1, const void* rg, double kT, double dof,
-                              int n, void* vel_out, void* pos_out, void* img_out,
-                              void* dres, void* partial, int n_partial,
-                              void* stream) {
+                              int n, int nb, void* vel_out, void* pos_out,
+                              void* img_out, void* dres, void* partial,
+                              int n_partial, void* stream) {
   return launch_pre<float>(vel, pos, img, frc, mass, mol, box, dt, c, r1, rg, kT,
-                           dof, n, vel_out, pos_out, img_out, dres, partial,
-                           n_partial, stream);
+                           dof, n, nb, vel_out, pos_out, img_out, dres,
+                           partial, n_partial, stream);
 }
 
 int cavmd_fused_pre_force_f64(const void* vel, const void* pos, const void* img,
                               const void* frc, const void* mass, const void* mol,
                               const void* box, const void* dt, const void* c,
                               const void* r1, const void* rg, double kT, double dof,
-                              int n, void* vel_out, void* pos_out, void* img_out,
-                              void* dres, void* partial, int n_partial,
-                              void* stream) {
+                              int n, int nb, void* vel_out, void* pos_out,
+                              void* img_out, void* dres, void* partial,
+                              int n_partial, void* stream) {
   return launch_pre<double>(vel, pos, img, frc, mass, mol, box, dt, c, r1, rg, kT,
-                            dof, n, vel_out, pos_out, img_out, dres, partial,
-                            n_partial, stream);
+                            dof, n, nb, vel_out, pos_out, img_out, dres,
+                            partial, n_partial, stream);
 }
 
 int cavmd_fused_post_force_f32(const void* vel, const void* frc, const void* mass,
                                const void* mol, const void* dt, int photon,
                                const void* c_ou, const void* sig, const void* noise,
-                               int n, void* vel_out, void* out, void* partial,
-                               int n_partial, void* stream) {
+                               int n, int nb, void* vel_out, void* out,
+                               void* partial, int n_partial, void* stream) {
   return launch_post<float>(vel, frc, mass, mol, dt, photon, c_ou, sig, noise, n,
-                            vel_out, out, partial, n_partial, stream);
+                            nb, vel_out, out, partial, n_partial, stream);
 }
 
 int cavmd_fused_post_force_f64(const void* vel, const void* frc, const void* mass,
                                const void* mol, const void* dt, int photon,
                                const void* c_ou, const void* sig, const void* noise,
-                               int n, void* vel_out, void* out, void* partial,
-                               int n_partial, void* stream) {
-  return launch_post<double>(vel, frc, mass, mol, dt, photon, c_ou, sig, noise, n,
-                             vel_out, out, partial, n_partial, stream);
+                               int n, int nb, void* vel_out, void* out,
+                               void* partial, int n_partial, void* stream) {
+  return launch_post<double>(vel, frc, mass, mol, dt, photon, c_ou, sig, noise,
+                             n, nb, vel_out, out, partial, n_partial, stream);
 }
 
-// The blocks of K4's (kernel 4) or K5's (kernel 5) cooperative grid for n
-// particles in f32 (f64 if is_f64), into *blocks; returns the error code.
-int cavmd_fused_grid_blocks(int kernel, int is_f64, int n, int* blocks) {
-  if (n < 1 || (kernel != 4 && kernel != 5)) return (int)cudaErrorInvalidValue;
-  if (kernel == 4) return is_f64 ? pre_grid<double>(n, blocks) : pre_grid<float>(n, blocks);
-  return is_f64 ? post_grid<double>(n, blocks) : post_grid<float>(n, blocks);
+// The blocks a replica of K4's (kernel 4) or K5's (kernel 5) cooperative
+// grid for nb replicas of n particles in f32 (f64 if is_f64), into
+// *blocks; returns the error code.
+int cavmd_fused_grid_blocks(int kernel, int is_f64, int n, int nb,
+                            int* blocks) {
+  if (n < 1 || nb < 1 || (kernel != 4 && kernel != 5))
+    return (int)cudaErrorInvalidValue;
+  if (kernel == 4)
+    return is_f64 ? pre_grid<double>(n, nb, blocks) : pre_grid<float>(n, nb, blocks);
+  return is_f64 ? post_grid<double>(n, nb, blocks) : post_grid<float>(n, nb, blocks);
 }
 
 }  // extern "C"

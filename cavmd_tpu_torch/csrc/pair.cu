@@ -48,6 +48,24 @@
 //   - energies leave as per-block partials (block-ordered sums, halved in
 //     the kernel: exact, a power of two), a row of e_lj and a row of e_ew,
 //     summed along the rows by one deterministic torch.sum in the wrapper.
+// Replica batches (parallel/replicas.py): one launch takes B replicas of
+// the same topology, blockIdx.y the replica. Positions, forces and the
+// energy partials, (B, 2, blocks), are offset by the replica; the type
+// tables, charges and the two (N, N) masks are shared, read by every
+// replica's blocks (the masks stay in L2 at N <= 4096: 2 bytes a pair,
+// 0.5 MB at N = 501). The rows a block take the batch's B N rows into
+// account, as one larger N would: at N = 501 and B = 8, 8 rows a block
+// (63 blocks a replica), so a block stages the j side once for 8 rows
+// (one row a block, 4008 blocks, took 0.045 ms: every block re-staged all
+// 501 j rows for one row). The batched launch is its own instantiation
+// (kBatch): with the replica's offsets in the one-replica kernel, the
+// float kernel at four steps a round spilled 20 bytes (it sits at the 64
+// registers of 4 blocks an SM) and ran 2.9% slower at N = 4001
+// (chip_smoke.py phase 1 and scripts/bench_torch_pair_interp.py, H100
+// 80GB HBM3 at 700 W). The batched float kernel runs 3 blocks an SM (up
+// to 85 registers): at 4 it spilled 20-44 bytes whichever way its replica
+// was held (offset pointers, %ctaid.y read at each use, a volatile shared
+// word).
 // The launch allocates nothing and does not synchronise; it returns
 // cudaGetLastError().
 
@@ -68,27 +86,31 @@ constexpr int kMaxUnroll = 4;        // candidate steps of 32 between queue chec
 constexpr int kRing = 64 * kMaxUnroll;  // per-warp queue: (j << 2) | mask bits
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows a block: N / 256 rounded down to a power of two, from 1 to 8, so a
-// launch is ~500 blocks (N = 501: 501 blocks of one row; N = 4001: 501 of
+// Rows a block for nb replicas of n rows: nb n / 256 rounded down to a
+// power of two, from 1 to 8, so a launch is ~500 blocks (N = 501: 501
+// blocks of one row; N = 4001, or N = 501 in a batch of 8: ~500 of
 // eight), about 4 an SM.
-inline int rows_per_block(int n) {
+inline int rows_per_block(int n, int nb) {
+  const long long rows = (long long)n * nb;
   int r = 1;
-  while (r < kWarps && 2 * r * 256 <= n) r *= 2;
+  while (r < kWarps && 2LL * r * 256 <= rows) r *= 2;
   return r;
 }
 
 // Steps a round: 2 at one row a block (N < 512: a warp has ~2 steps of the
 // row, and 4 would run two empty ones), else 4.
-inline int kernel_unroll(int n) { return rows_per_block(n) == 1 ? 2 : 4; }
+inline int kernel_unroll(int rows) { return rows == 1 ? 2 : 4; }
 
-inline int blocks_for(int n) {
-  const int r = rows_per_block(n);
+// Blocks a replica.
+inline int blocks_for(int n, int nb) {
+  const int r = rows_per_block(n, nb);
   return (n + r - 1) / r;
 }
 
 // U: candidate steps of 32 a lane takes between queue checks (kernel_unroll).
-template <typename T, int U>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
+template <typename T, int U, bool kBatch>
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 4 ? (kBatch ? 3 : 4) : 2)
 dense_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
                   const int32_t* __restrict__ type_id,
                   const T* __restrict__ eps_t, const T* __restrict__ sig2_t,
@@ -108,6 +130,12 @@ dense_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   __shared__ T s_f[kWarps][3];
   __shared__ T s_red[kWarps][2];
   __shared__ T s_cut2;
+
+  if (kBatch) {  // this block's replica: its positions, forces, partials
+    pos += 3 * (size_t)n * blockIdx.y;
+    forces += 3 * (size_t)n * blockIdx.y;
+    e_partial += 2 * (size_t)gridDim.x * blockIdx.y;
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -319,16 +347,21 @@ template <typename T>
 int launch(const void* pos, const void* box, const void* type_id,
            const void* eps, const void* sig2, const void* rcut2,
            const void* vshift, int ntypes, const void* charge,
-           const void* lj_active, const void* coul_active, int n,
+           const void* lj_active, const void* coul_active, int n, int nb,
            double kappa, double coul_rc2, void* forces, void* e_partial,
            void* stream) {
-  if (ntypes < 1 || ntypes > kMaxTypes || n < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = kernel_unroll(n) == 2 ? dense_pair_kernel<T, 2> : dense_pair_kernel<T, 4>;
-  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  if (ntypes < 1 || ntypes > kMaxTypes || n < 1 || nb < 1 || nb > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int rows = rows_per_block(n, nb);
+  auto kernel = nb > 1 ? (kernel_unroll(rows) == 2 ? dense_pair_kernel<T, 2, true>
+                                                   : dense_pair_kernel<T, 4, true>)
+                       : (kernel_unroll(rows) == 2 ? dense_pair_kernel<T, 2, false>
+                                                   : dense_pair_kernel<T, 4, false>);
+  kernel<<<dim3(blocks_for(n, nb), nb), kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)pos, (const T*)box, (const int32_t*)type_id, (const T*)eps,
       (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const T*)charge, (const uint8_t*)lj_active, (const uint8_t*)coul_active,
-      n, rows_per_block(n), (T)kappa, (T)coul_rc2, (T*)forces, (T*)e_partial);
+      n, rows, (T)kappa, (T)coul_rc2, (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
 }
 
@@ -336,29 +369,30 @@ int launch(const void* pos, const void* box, const void* type_id,
 
 extern "C" {
 
-// Blocks of one launch at n rows: the energy partials' row count.
-int cavmd_dense_pair_blocks(int n) { return blocks_for(n); }
+// Blocks a replica of a launch over nb replicas of n rows: the length of
+// each of the energy partials' (nb, 2) rows.
+int cavmd_dense_pair_blocks(int n, int nb) { return blocks_for(n, nb); }
 
 int cavmd_dense_pair_f32(const void* pos, const void* box, const void* type_id,
                          const void* eps, const void* sig2, const void* rcut2,
                          const void* vshift, int ntypes, const void* charge,
                          const void* lj_active, const void* coul_active, int n,
-                         double kappa, double coul_rc2, void* forces,
+                         int nb, double kappa, double coul_rc2, void* forces,
                          void* e_partial, void* stream) {
   return launch<float>(pos, box, type_id, eps, sig2, rcut2, vshift, ntypes,
-                       charge, lj_active, coul_active, n, kappa, coul_rc2,
-                       forces, e_partial, stream);
+                       charge, lj_active, coul_active, n, nb, kappa,
+                       coul_rc2, forces, e_partial, stream);
 }
 
 int cavmd_dense_pair_f64(const void* pos, const void* box, const void* type_id,
                          const void* eps, const void* sig2, const void* rcut2,
                          const void* vshift, int ntypes, const void* charge,
                          const void* lj_active, const void* coul_active, int n,
-                         double kappa, double coul_rc2, void* forces,
+                         int nb, double kappa, double coul_rc2, void* forces,
                          void* e_partial, void* stream) {
   return launch<double>(pos, box, type_id, eps, sig2, rcut2, vshift, ntypes,
-                        charge, lj_active, coul_active, n, kappa, coul_rc2,
-                        forces, e_partial, stream);
+                        charge, lj_active, coul_active, n, nb, kappa,
+                        coul_rc2, forces, e_partial, stream);
 }
 
 }  // extern "C"

@@ -100,6 +100,18 @@
 //     particle into its slot, and the lane that staged it stores its
 //     dE/dr: one coalesced run a warp. No atomics: two calls give the same
 //     bits. Particles with q = 0 are not staged and write exact zeros.
+// Replica batches (parallel/replicas.py): both kernels take B replicas of
+// one topology in one launch, blockIdx.y the replica. Positions, the mesh
+// (B, Kx, Ky, Kz) and dE/dr are offset by the replica; the charges and box
+// are shared. The warp group is sized by B N, so a batch fills the card as
+// one larger N would (N = 501, B = 8: 2 particles a warp). K2 takes its
+// global path for any batch (N <= 4096 always does today); the tile path
+// runs B = 1 only. K2's B = 1 launch is the unbatched one. K3's batched
+// launch is its own instantiation (kBatch): with the replica's
+// offsets in the one-replica kernel it ran 21% slower at N = 100,001 and
+// 5.5% at N = 4001 (scripts/bench_torch_pair_interp.py, parent and change
+// in one call, H100 80GB HBM3 at 700 W), past the 5% a shared kernel may
+// cost; the one-replica instantiation compiles as before.
 // The launches do not synchronise; each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -317,6 +329,9 @@ spread_kernel(const T* __restrict__ pos, const T* __restrict__ charge,
   int* xinv = ymap + Ky;
   int* yinv = xinv + Kx;
 
+  // this block's replica: its positions and its mesh
+  pos += 3 * (size_t)n * blockIdx.y;
+  grid += (size_t)Kx * Ky * Kz * blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int lo = blockIdx.x * chunk;
@@ -460,7 +475,7 @@ __device__ __forceinline__ typename Vec2<T>::type pair_at(const T* p) {
 // the lane that staged it stores its dE/dr, one coalesced run a warp.
 // The bound of 4 blocks an SM lets the compiler keep up to 128 registers
 // (its own pick, 64 in float, ran slower at N = 100,001).
-template <typename T, int P>
+template <typename T, int P, bool kBatch>
 __global__ void __launch_bounds__(kInterpThreads, 4)
 interpolate_kernel(const T* __restrict__ ct, const T* __restrict__ pos,
                    const T* __restrict__ charge, const T* __restrict__ box,
@@ -470,6 +485,11 @@ interpolate_kernel(const T* __restrict__ ct, const T* __restrict__ pos,
   constexpr int kPer = 32 / G;
   constexpr int S = interp_slot<P>();
   extern __shared__ __align__(16) unsigned char smem[];
+  // this block's replica: its mesh cotangent, positions and dE/dr
+  const size_t rep = kBatch ? blockIdx.y : 0;
+  ct += (size_t)Kx * Ky * Kz * rep;
+  pos += 3 * (size_t)n * rep;
+  dpos += 3 * (size_t)n * rep;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   T* w_warp = reinterpret_cast<T*>(smem) + warp * group * S;
@@ -573,9 +593,9 @@ interpolate_kernel(const T* __restrict__ ct, const T* __restrict__ pos,
   }
 }
 
-inline bool bad_args(int n, int order, int Kx, int Ky, int Kz) {
-  return n < 1 || order < 2 || order > kMaxOrder || Kx < order || Ky < order ||
-         Kz < order;
+inline bool bad_args(int n, int nb, int order, int Kx, int Ky, int Kz) {
+  return n < 1 || nb < 1 || nb > 65535 || order < 2 || order > kMaxOrder ||
+         Kx < order || Ky < order || Kz < order;
 }
 
 // The card's SM count and shared memory an SM and a block may use, read
@@ -605,14 +625,15 @@ inline int card_limits(CardLimits* out) {
   return 0;
 }
 
-// K2's launch for order P. path: kPathAuto (the tile path from
-// kTileMinPerSm particles an SM up on meshes of up to kTileMaxRows (x, y)
-// rows, else the global path), kPathGlobal or kPathTile (tests and
-// benchmarks hold each path).
+// K2's launch for order P over nb replicas. path: kPathAuto (for one
+// replica the tile path from kTileMinPerSm particles an SM up on meshes of
+// up to kTileMaxRows (x, y) rows, else the global path), kPathGlobal or
+// kPathTile (one replica only; tests and benchmarks hold each path).
 template <typename T, int P>
 int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
-                    int Kx, int Ky, int Kz, int path, T* grid,
+                    int nb, int Kx, int Ky, int Kz, int path, T* grid,
                     int* tile_runs, cudaStream_t stream) {
+  if (nb > 1 && path == kPathTile) return (int)cudaErrorInvalidValue;
   CardLimits card;
   const int err = card_limits(&card);
   if (err != 0) return err;
@@ -640,7 +661,8 @@ int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
     if (tile_cap > all) tile_cap = all;
   }
   bool tiled = path == kPathTile ||
-               (path == kPathAuto && (long long)n >= (long long)kTileMinPerSm * card.sms &&
+               (path == kPathAuto && nb == 1 &&
+                (long long)n >= (long long)kTileMinPerSm * card.sms &&
                 Kx * Ky <= kTileMaxRows);
   if (tile_cap < (long long)kSpreadWarps * Sz) {  // not one row fits
     if (path == kPathTile) return (int)cudaErrorInvalidValue;
@@ -653,8 +675,8 @@ int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
     chunk = ((n + card.sms - 1) / card.sms + 31) / 32 * 32;
     cap = (int)tile_cap;
     smem = (size_t)tile_cap * sizeof(T) + stage + maps;
-  } else {  // ~16 warps an SM, up to 32 particles a warp
-    group = warp_group(n, card.sms);
+  } else {  // ~16 warps an SM over the batch, up to 32 particles a warp
+    group = warp_group(nb * n, card.sms);
     chunk = group * kSpreadWarps;
     cap = 0;
     smem = stage;
@@ -668,7 +690,7 @@ int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
     opted_in = smem;
   }
   const int blocks = (n + chunk - 1) / chunk;
-  spread_kernel<T, P><<<blocks, kSpreadThreads, smem, stream>>>(
+  spread_kernel<T, P><<<dim3(blocks, nb), kSpreadThreads, smem, stream>>>(
       pos, charge, box, n, Kx, Ky, Kz, group, chunk, cap, Sz, grid,
       tile_runs);
   return (int)cudaGetLastError();
@@ -676,9 +698,9 @@ int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
 
 template <typename T>
 int launch_spread(const void* pos, const void* charge, const void* box, int n,
-                  int order, int Kx, int Ky, int Kz, int path, void* grid,
-                  void* tile_runs, void* stream) {
-  if (bad_args(n, order, Kx, Ky, Kz) || path < kPathAuto || path > kPathTile)
+                  int nb, int order, int Kx, int Ky, int Kz, int path,
+                  void* grid, void* tile_runs, void* stream) {
+  if (bad_args(n, nb, order, Kx, Ky, Kz) || path < kPathAuto || path > kPathTile)
     return (int)cudaErrorInvalidValue;
   const T* p = (const T*)pos;
   const T* q = (const T*)charge;
@@ -687,47 +709,62 @@ int launch_spread(const void* pos, const void* charge, const void* box, int n,
   int* t = (int*)tile_runs;
   cudaStream_t s = (cudaStream_t)stream;
   switch (order) {
-    case 2: return launch_spread_p<T, 2>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
-    case 3: return launch_spread_p<T, 3>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
-    case 4: return launch_spread_p<T, 4>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
-    case 5: return launch_spread_p<T, 5>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
-    case 6: return launch_spread_p<T, 6>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
-    case 7: return launch_spread_p<T, 7>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
-    default: return launch_spread_p<T, 8>(p, q, b, n, Kx, Ky, Kz, path, g, t, s);
+    case 2: return launch_spread_p<T, 2>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    case 3: return launch_spread_p<T, 3>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    case 4: return launch_spread_p<T, 4>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    case 5: return launch_spread_p<T, 5>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    case 6: return launch_spread_p<T, 6>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    case 7: return launch_spread_p<T, 7>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    default: return launch_spread_p<T, 8>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
   }
 }
 
-// K3's launch for order P: warp_group particles a warp, kInterpWarps warps
-// a block.
-template <typename T, int P>
-int launch_interpolate_p(const T* ct, const T* pos, const T* charge,
-                         const T* box, int n, int Kx, int Ky, int Kz, T* dpos,
+// One K3 instantiation's launch: `blocks` blocks a replica of nb.
+template <typename T, int P, bool kBatch>
+int launch_interpolate_k(const T* ct, const T* pos, const T* charge,
+                         const T* box, int n, int nb, int Kx, int Ky, int Kz,
+                         int group, int blocks, size_t smem, T* dpos,
                          cudaStream_t stream) {
-  CardLimits card;
-  const int err = card_limits(&card);
-  if (err != 0) return err;
-  const int group = warp_group(n, card.sms);
-  const size_t smem = interp_stage_bytes<T, P>(group);
   static size_t opted_in = 48 * 1024;  // per instantiation
   if (smem > opted_in) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        interpolate_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        interpolate_kernel<T, P, kBatch>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return (int)attr;
     opted_in = smem;
   }
-  const int per_block = group * kInterpWarps;
-  interpolate_kernel<T, P><<<(n + per_block - 1) / per_block, kInterpThreads,
-                             smem, stream>>>(ct, pos, charge, box, n, Kx, Ky,
-                                             Kz, group, dpos);
+  interpolate_kernel<T, P, kBatch><<<dim3(blocks, nb), kInterpThreads, smem,
+                                     stream>>>(ct, pos, charge, box, n, Kx,
+                                               Ky, Kz, group, dpos);
   return (int)cudaGetLastError();
+}
+
+// K3's launch for order P over nb replicas: warp_group particles a warp
+// (sized by nb n), kInterpWarps warps a block.
+template <typename T, int P>
+int launch_interpolate_p(const T* ct, const T* pos, const T* charge,
+                         const T* box, int n, int nb, int Kx, int Ky, int Kz,
+                         T* dpos, cudaStream_t stream) {
+  CardLimits card;
+  const int err = card_limits(&card);
+  if (err != 0) return err;
+  const int group = warp_group(nb * n, card.sms);
+  const size_t smem = interp_stage_bytes<T, P>(group);
+  const int per_block = group * kInterpWarps;
+  const int blocks = (n + per_block - 1) / per_block;
+  return nb > 1 ? launch_interpolate_k<T, P, true>(ct, pos, charge, box, n, nb,
+                                                   Kx, Ky, Kz, group, blocks,
+                                                   smem, dpos, stream)
+                : launch_interpolate_k<T, P, false>(ct, pos, charge, box, n, nb,
+                                                    Kx, Ky, Kz, group, blocks,
+                                                    smem, dpos, stream);
 }
 
 template <typename T>
 int launch_interpolate(const void* ct, const void* pos, const void* charge,
-                       const void* box, int n, int order, int Kx, int Ky,
-                       int Kz, void* dpos, void* stream) {
-  if (bad_args(n, order, Kx, Ky, Kz)) return (int)cudaErrorInvalidValue;
+                       const void* box, int n, int nb, int order, int Kx,
+                       int Ky, int Kz, void* dpos, void* stream) {
+  if (bad_args(n, nb, order, Kx, Ky, Kz)) return (int)cudaErrorInvalidValue;
   const T* g = (const T*)ct;
   const T* p = (const T*)pos;
   const T* q = (const T*)charge;
@@ -735,13 +772,13 @@ int launch_interpolate(const void* ct, const void* pos, const void* charge,
   T* d = (T*)dpos;
   cudaStream_t s = (cudaStream_t)stream;
   switch (order) {
-    case 2: return launch_interpolate_p<T, 2>(g, p, q, b, n, Kx, Ky, Kz, d, s);
-    case 3: return launch_interpolate_p<T, 3>(g, p, q, b, n, Kx, Ky, Kz, d, s);
-    case 4: return launch_interpolate_p<T, 4>(g, p, q, b, n, Kx, Ky, Kz, d, s);
-    case 5: return launch_interpolate_p<T, 5>(g, p, q, b, n, Kx, Ky, Kz, d, s);
-    case 6: return launch_interpolate_p<T, 6>(g, p, q, b, n, Kx, Ky, Kz, d, s);
-    case 7: return launch_interpolate_p<T, 7>(g, p, q, b, n, Kx, Ky, Kz, d, s);
-    default: return launch_interpolate_p<T, 8>(g, p, q, b, n, Kx, Ky, Kz, d, s);
+    case 2: return launch_interpolate_p<T, 2>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    case 3: return launch_interpolate_p<T, 3>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    case 4: return launch_interpolate_p<T, 4>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    case 5: return launch_interpolate_p<T, 5>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    case 6: return launch_interpolate_p<T, 6>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    case 7: return launch_interpolate_p<T, 7>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    default: return launch_interpolate_p<T, 8>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
   }
 }
 
@@ -749,37 +786,39 @@ int launch_interpolate(const void* ct, const void* pos, const void* charge,
 
 extern "C" {
 
-// path: 0 = by shape, 1 = the global path, 2 = the tile path.
+// nb: replicas in the batch (1 unbatched); pos (nb, n, 3), grid and ct
+// (nb, Kx, Ky, Kz), dpos (nb, n, 3); charge and box shared.
+// path: 0 = by shape, 1 = the global path, 2 = the tile path (nb = 1).
 // tile_runs: NULL, or an int to which each run of particles a block
 // accumulated in its shared-memory tile adds 1.
 int cavmd_pppm_spread_f32(const void* pos, const void* charge, const void* box,
-                          int n, int order, int Kx, int Ky, int Kz, int path,
-                          void* grid, void* tile_runs, void* stream) {
-  return launch_spread<float>(pos, charge, box, n, order, Kx, Ky, Kz, path,
+                          int n, int nb, int order, int Kx, int Ky, int Kz,
+                          int path, void* grid, void* tile_runs, void* stream) {
+  return launch_spread<float>(pos, charge, box, n, nb, order, Kx, Ky, Kz, path,
                               grid, tile_runs, stream);
 }
 
 int cavmd_pppm_spread_f64(const void* pos, const void* charge, const void* box,
-                          int n, int order, int Kx, int Ky, int Kz, int path,
-                          void* grid, void* tile_runs, void* stream) {
-  return launch_spread<double>(pos, charge, box, n, order, Kx, Ky, Kz, path,
+                          int n, int nb, int order, int Kx, int Ky, int Kz,
+                          int path, void* grid, void* tile_runs, void* stream) {
+  return launch_spread<double>(pos, charge, box, n, nb, order, Kx, Ky, Kz, path,
                                grid, tile_runs, stream);
 }
 
 int cavmd_pppm_interpolate_f32(const void* ct, const void* pos,
                                const void* charge, const void* box, int n,
-                               int order, int Kx, int Ky, int Kz, void* dpos,
-                               void* stream) {
-  return launch_interpolate<float>(ct, pos, charge, box, n, order, Kx, Ky, Kz,
-                                   dpos, stream);
+                               int nb, int order, int Kx, int Ky, int Kz,
+                               void* dpos, void* stream) {
+  return launch_interpolate<float>(ct, pos, charge, box, n, nb, order, Kx, Ky,
+                                   Kz, dpos, stream);
 }
 
 int cavmd_pppm_interpolate_f64(const void* ct, const void* pos,
                                const void* charge, const void* box, int n,
-                               int order, int Kx, int Ky, int Kz, void* dpos,
-                               void* stream) {
-  return launch_interpolate<double>(ct, pos, charge, box, n, order, Kx, Ky, Kz,
-                                    dpos, stream);
+                               int nb, int order, int Kx, int Ky, int Kz,
+                               void* dpos, void* stream) {
+  return launch_interpolate<double>(ct, pos, charge, box, n, nb, order, Kx, Ky,
+                                    Kz, dpos, stream);
 }
 
 }  // extern "C"

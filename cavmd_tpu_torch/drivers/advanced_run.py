@@ -1,11 +1,13 @@
 """Advanced cavity-MD experiment runner on PyTorch.
 
 Port of ``cavmd_tpu/drivers/advanced_run.py`` (the rebuild of the
-reference's ``examples/05_advanced_run.py``), sequential path: the 7-phase
+reference's ``examples/05_advanced_run.py``): the sequential 7-phase
 workflow, the CLI flags, SLURM array-task replicas, the
 ``cavity_coupling_{g}`` / ``no_cavity`` directory layout and the same
 output files (energy tracker, cavity mode, F(k,t) references, dipole
-autocorrelation, GSD trajectory, console table).
+autocorrelation, GSD trajectory, console table); and with
+``--vmap-replicas`` the replica batch (``run_vmapped_replicas``), every
+replica of ``--replicas`` in one batched state on one device.
 
 Differences from the JAX driver:
 
@@ -20,14 +22,18 @@ Differences from the JAX driver:
   (the slab path needs cell lists; the JAX driver's GSPMD fallback is not
   ported). Every rank runs the simulation; rank 0 alone writes the input
   GSD, the trackers, the trajectory and the console table.
-- The paths the port does not have yet (``--vmap-replicas``,
-  ``--shard-replicas``, ``--pad-atoms``, a ``--rng-impl`` other than
-  ``auto``) exit with an error naming ``ROADMAP.md``; nothing else runs in
-  their place.
+- ``--vmap-replicas`` runs the dense force field only (N <= 4096: up to
+  2047 molecules with the photon); above that, and with ``--shard-atoms``,
+  it exits 2 naming ``ROADMAP.md``.
+- The paths the port does not have yet (``--shard-replicas``,
+  ``--pad-atoms``, a ``--rng-impl`` other than ``auto``) exit with an
+  error naming ``ROADMAP.md``; nothing else runs in their place.
 
 Usage:
     python -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
         --n-molecules 20 --runtime 0.02 --enable-energy-tracker
+    python -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
+        --vmap-replicas --replicas 1-3 --n-molecules 20 --runtime 0.01
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
         --shard-atoms 2 --n-molecules 40 --box-L 64 --runtime 0.02
@@ -289,7 +295,7 @@ class CavityMDSimulation:
 
     def _setup_forces_and_methods(self):
         from cavmd_tpu_torch.core.units import PhysicalConstants as PC
-        from cavmd_tpu_torch.integrate import ForceField, MethodSpec
+        from cavmd_tpu_torch.integrate import ForceField
 
         self.ff = ForceField.create(
             self.snapshot, coupling=self.couplstr, freq_cm1=self.freq,
@@ -298,62 +304,15 @@ class CavityMDSimulation:
             pair_mode="cell" if self.comm is not None else None,
         )
 
-        kT = PC.kT_from_kelvin(self.temperature)
-        self.kT = kT
-        methods = []
-        mt = self.molecular_thermostat.lower()
-        if mt == "bussi":
-            methods.append(MethodSpec(
-                kind="bussi", group="molecular", kT=kT,
-                tau=PC.ps_to_atomic_units(self.molecular_thermostat_tau),
-            ))
-            self.log_info("Molecular bath: Bussi (NVT)")
-        elif mt == "langevin":
-            methods.append(MethodSpec(
-                kind="langevin", group="molecular", kT=kT,
-                gamma=PC.gamma_from_tau_ps(self.molecular_thermostat_tau),
-            ))
-            self.log_info("Molecular bath: Langevin (NVT)")
-        elif mt == "brownian":
-            methods.append(MethodSpec(
-                kind="brownian", group="molecular", kT=kT,
-                gamma=PC.gamma_from_tau_ps(self.molecular_thermostat_tau),
-            ))
-            self.log_info("Molecular bath: Brownian (overdamped)")
-        elif mt == "none":
-            methods.append(MethodSpec(kind="nve", group="molecular"))
-            self.log_info("Molecular bath: none (NVE)")
-        else:
-            raise ValueError(f"Invalid molecular_thermostat: {mt}")
-
-        if self.incavity:
-            ct = self.cavity_thermostat.lower()
-            if ct == "langevin":
-                gamma = self.cavity_damping_factor * PC.gamma_from_tau_ps(
-                    self.cavity_thermostat_tau)
-                methods.append(MethodSpec(
-                    kind="langevin", group="cavity", kT=kT, gamma=gamma,
-                ))
-                self.log_info("Cavity bath: Langevin")
-            elif ct == "bussi":
-                methods.append(MethodSpec(
-                    kind="bussi", group="cavity", kT=kT,
-                    tau=PC.ps_to_atomic_units(self.cavity_thermostat_tau),
-                ))
-                self.log_info("Cavity bath: Bussi")
-            elif ct == "brownian":
-                gamma = self.cavity_damping_factor * PC.gamma_from_tau_ps(
-                    self.cavity_thermostat_tau)
-                methods.append(MethodSpec(
-                    kind="brownian", group="cavity", kT=kT, gamma=gamma,
-                ))
-                self.log_info("Cavity bath: Brownian (overdamped)")
-            elif ct == "none":
-                methods.append(MethodSpec(kind="nve", group="cavity"))
-                self.log_info("Cavity bath: none (NVE)")
-            else:
-                raise ValueError(f"Invalid cavity_thermostat: {ct}")
-        self.methods = methods
+        self.kT = PC.kT_from_kelvin(self.temperature)
+        self.methods = []
+        for m, text in bath_methods(
+                self.molecular_thermostat,
+                self.cavity_thermostat if self.incavity else None, self.kT,
+                self.molecular_thermostat_tau, self.cavity_thermostat_tau,
+                self.cavity_damping_factor):
+            self.methods.append(m)
+            self.log_info(text)
 
     def _setup_simulation(self):
         from cavmd_tpu_torch.core.units import PhysicalConstants as PC
@@ -481,6 +440,58 @@ class CavityMDSimulation:
             self.gsd_writer.close()
 
 
+def bath_methods(molecular, cavity, kT, molecular_tau_ps, cavity_tau_ps,
+                 cavity_damping=1.0):
+    """[(MethodSpec, what it is)] of the two baths: ``molecular`` (bussi,
+    langevin, brownian or none) on the molecules and ``cavity`` (the same
+    choices, None without a cavity) on the photon, with their time
+    constants in ps; the cavity's friction scaled by ``cavity_damping``."""
+    from cavmd_tpu_torch.core.units import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import MethodSpec
+
+    out = []
+    mt = molecular.lower()
+    mol_gamma = PC.gamma_from_tau_ps(molecular_tau_ps)
+    if mt == "bussi":
+        out.append((MethodSpec(kind="bussi", group="molecular", kT=kT,
+                               tau=PC.ps_to_atomic_units(molecular_tau_ps)),
+                    "Molecular bath: Bussi (NVT)"))
+    elif mt == "langevin":
+        out.append((MethodSpec(kind="langevin", group="molecular", kT=kT,
+                               gamma=mol_gamma),
+                    "Molecular bath: Langevin (NVT)"))
+    elif mt == "brownian":
+        out.append((MethodSpec(kind="brownian", group="molecular", kT=kT,
+                               gamma=mol_gamma),
+                    "Molecular bath: Brownian (overdamped)"))
+    elif mt == "none":
+        out.append((MethodSpec(kind="nve", group="molecular"),
+                    "Molecular bath: none (NVE)"))
+    else:
+        raise ValueError(f"Invalid molecular_thermostat: {mt}")
+    if cavity is None:
+        return out
+    ct = cavity.lower()
+    gamma = cavity_damping * PC.gamma_from_tau_ps(cavity_tau_ps)
+    if ct == "langevin":
+        out.append((MethodSpec(kind="langevin", group="cavity", kT=kT,
+                               gamma=gamma), "Cavity bath: Langevin"))
+    elif ct == "bussi":
+        out.append((MethodSpec(kind="bussi", group="cavity", kT=kT,
+                               tau=PC.ps_to_atomic_units(cavity_tau_ps)),
+                    "Cavity bath: Bussi"))
+    elif ct == "brownian":
+        out.append((MethodSpec(kind="brownian", group="cavity", kT=kT,
+                               gamma=gamma),
+                    "Cavity bath: Brownian (overdamped)"))
+    elif ct == "none":
+        out.append((MethodSpec(kind="nve", group="cavity"),
+                    "Cavity bath: none (NVE)"))
+    else:
+        raise ValueError(f"Invalid cavity_thermostat: {ct}")
+    return out
+
+
 # ---------------------------------------------------------------- replicas
 def get_slurm_info():
     """SLURM array-task detection (parity: 05_advanced_run.py:1326-1334)."""
@@ -518,12 +529,7 @@ def run_single_experiment(args, replica, frame):
     """One experiment in its coupling-named directory
     (parity: 05_advanced_run.py:1353-1439)."""
     incavity = not args.no_cavity
-    if incavity:
-        coupling_str = (f"{args.coupling:.0e}".replace("-", "neg")
-                        .replace("+", "pos"))
-        exp_dir = Path(f"cavity_coupling_{coupling_str}")
-    else:
-        exp_dir = Path("no_cavity")
+    exp_dir = coupling_dir(args)
     exp_dir.mkdir(exist_ok=True)
 
     error_tolerance = 0.0 if args.fixed_timestep else 1.0
@@ -568,6 +574,250 @@ def run_single_experiment(args, replica, frame):
     return sim.run() == 0
 
 
+def coupling_dir(args) -> Path:
+    """The experiment directory: ``cavity_coupling_{g}`` or ``no_cavity``."""
+    if args.no_cavity:
+        return Path("no_cavity")
+    coupling_str = (f"{args.coupling:.0e}".replace("-", "neg")
+                    .replace("+", "pos"))
+    return Path(f"cavity_coupling_{coupling_str}")
+
+
+def run_vmapped_replicas(args, replica_list) -> bool:
+    """Every replica of ``replica_list`` in one batched state on one device
+    (port of the JAX driver's ``run_vmapped_replicas``; the batched form
+    of the reference's SLURM-array replicas). Its per-replica workflow is
+    the sequential path's: one frame a replica from ``--input-gsd`` (the
+    replica number is the frame index, clamped), else one FIRE-minimised
+    scene for all; the photon injected per replica (seed + replica + 1);
+    each replica's optimal dt from its own initial forces; per replica the
+    energy, cavity-mode, F(k,t) and dipole trackers (``prod-{r}_...``) and
+    a GSD trajectory with its ``log/*`` chunks; a replica that reaches
+    ``--runtime`` writes its last frame, drops its rows past the crossing
+    and goes quiet while the batch runs the slower clocks; chunks are
+    trimmed to the slowest unfinished clock and to the next GSD frame.
+    Every step runs each kernel once for the whole batch. Dense force
+    field only: raises ``NotImplementedError`` for N > 4096.
+    Returns True when the batch ran to its end."""
+    from cavmd_tpu_torch.core.snapshot import add_cavity_particle as inject
+    from cavmd_tpu_torch.core.system import make_diatomic_system
+    from cavmd_tpu_torch.core.units import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import (
+        ForceField,
+        make_step_fn,
+        resolve_methods,
+    )
+    from cavmd_tpu_torch.integrate.adaptive import (
+        compute_optimal_dt,
+        make_adaptive_step,
+    )
+    from cavmd_tpu_torch.integrate.forcefield import (
+        BATCHED_CELL_TODO,
+        DENSE_MAX_N,
+    )
+    from cavmd_tpu_torch.io import HOOMDTrajectory, open_gsd
+    from cavmd_tpu_torch.io.gsd import gather_tracker_log
+    from cavmd_tpu_torch.observe import (
+        CavityModeTracker,
+        DipoleAutocorrelation,
+        EnergyTracker,
+        FieldAutocorrelationTracker,
+        generate_fibonacci_sphere,
+        make_extra_obs,
+    )
+    from cavmd_tpu_torch.parallel.replicas import (
+        init_replica_states,
+        run_replica_steps,
+        split_replica_obs,
+    )
+    from cavmd_tpu_torch.utils import fire_minimize
+
+    dev = setup_device(args.device)
+    precision = args.precision
+    if precision == "auto":
+        precision = "f64" if dev.type == "cpu" else "f32"
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    incavity = not args.no_cavity
+    exp_dir = coupling_dir(args)
+    exp_dir.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(exp_dir)
+    try:
+        # per-replica initial frames: the replica number is the frame index
+        # (reference 05_advanced_run.py:1571), clamped for short files
+        if os.path.exists(args.input_gsd):
+            with open_gsd(args.input_gsd) as t:
+                nf = len(t)
+                snaps = [t.read_frame(r if 0 <= r < nf else nf - 1,
+                                      dtype=dtype, device=dev)
+                         for r in replica_list]
+            print(f"Replica frames seeded from {args.input_gsd} "
+                  f"({nf} frames, N={snaps[0].N})")
+            if snaps[0].N > DENSE_MAX_N:
+                raise NotImplementedError(
+                    f"N = {snaps[0].N} in {args.input_gsd}: "
+                    f"{BATCHED_CELL_TODO}")
+        else:
+            snap0 = make_diatomic_system(
+                args.n_molecules, box_L=resolved_box(args), seed=args.seed,
+                dtype=dtype, device=dev)
+            ff0 = ForceField.create(snap0, enable_cavity=False)
+            snap0 = fire_minimize(snap0, ff0, n_steps=300)
+            snaps = [snap0] * len(replica_list)
+        if incavity:
+            snaps = [
+                inject(s, coupling=args.coupling, freq_cm1=args.frequency,
+                       temperature_K=args.temperature,
+                       finite_q=args.finite_q, seed=args.seed + r + 1)
+                if "L" not in s.types else s
+                for r, s in zip(replica_list, snaps)]
+        snap = snaps[0]
+        if snap.N > DENSE_MAX_N:
+            raise NotImplementedError(f"N = {snap.N}: {BATCHED_CELL_TODO}")
+        ff = ForceField.create(
+            snap, coupling=args.coupling, freq_cm1=args.frequency,
+            enable_cavity=incavity, pppm_mesh=(args.pppm_resolution,) * 3)
+        kT = PC.kT_from_kelvin(args.temperature)
+        methods = [m for m, _ in bath_methods(
+            args.molecular_bath, args.cavity_bath if incavity else None, kT,
+            args.molecular_tau, args.cavity_tau)]
+        methods = resolve_methods(snap, tuple(methods), ff.l_typeid)
+
+        extra = None
+        if args.enable_fkt:
+            wv = (generate_fibonacci_sphere(args.fkt_wavevectors)
+                  * args.fkt_kmag)
+            extra = make_extra_obs(dipole=True, wavevectors=wv)
+
+        # adaptive dt inside the batch (each replica carries its own dt and
+        # tolerance ramp), as in the sequential path
+        error_tolerance = 0.0 if args.fixed_timestep else 1.0
+        dt_ps_nominal = (0.0001 if error_tolerance > 0
+                         else args.timestep / 1000.0)
+        chunk = 500
+        step = make_step_fn(ff, methods, extra_obs=extra)
+        if error_tolerance > 0:
+            adaptive_period = max(1, int(args.energy_output_period_ps
+                                         / dt_ps_nominal))
+            step = make_adaptive_step(step, error_tolerance=error_tolerance,
+                                      period=min(adaptive_period, chunk))
+
+        n_rep = len(replica_list)
+        dt = PC.fs_to_atomic_units(args.timestep if args.fixed_timestep
+                                   else 0.1)
+        batched = init_replica_states(
+            snaps, ff, dt=dt, seed=args.seed, kT=kT,
+            error_tolerance=error_tolerance)
+        if error_tolerance > 0:
+            # per-replica optimal-dt bootstrap (reference Phase 3.5,
+            # 05_advanced_run.py:756-819) from each replica's forces
+            dts = compute_optimal_dt(batched.forces, batched.mass,
+                                     error_tolerance * 1e-3)
+            batched = batched.replace(dt=dts.to(dtype))
+
+        tid = snap.typeid.cpu().numpy()
+        n_dof = 3 * int(np.sum(tid != ff.l_typeid))
+        energy_period = max(1, int(args.energy_output_period_ps
+                                   / dt_ps_nominal))
+        fkt_period = max(1, int(args.fkt_output_period_ps / dt_ps_nominal))
+        trackers = []  # per replica: its tracker list
+        for r in replica_list:
+            per_rep = [EnergyTracker(
+                output_prefix=f"prod-{r}",
+                output_period_steps=energy_period, n_molecular_dof=n_dof)]
+            if incavity:
+                per_rep.append(CavityModeTracker(
+                    output_prefix=f"prod-{r}",
+                    output_period_steps=energy_period))
+            if args.enable_fkt:
+                per_rep.append(FieldAutocorrelationTracker(
+                    output_prefix=f"prod-{r}",
+                    output_period_steps=fkt_period,
+                    reference_interval_ps=args.fkt_ref_interval,
+                    max_references=args.fkt_max_refs))
+                per_rep.append(DipoleAutocorrelation(
+                    output_prefix=f"prod-{r}_dipole_autocorr",
+                    output_period_steps=fkt_period))
+            trackers.append(per_rep)
+
+        # per-replica periodic trajectories with log/* chunks a frame; a
+        # replica past --runtime writes its final frame at the crossing
+        # chunk's end and goes quiet
+        gsd_files = [HOOMDTrajectory(f"prod-{r}.gsd", "w")
+                     for r in replica_list]
+        last_gsd_ps = np.full(n_rep, -1e30)
+        finished = np.zeros(n_rep, dtype=bool)
+        to_ps = PC.TIME_PS_CONVERSION
+
+        def write_frames(state):
+            pos, img, vel = (state.position.cpu(), state.image.cpu(),
+                             state.velocity.cpu())
+            ts = state.timestep.cpu().numpy()
+            dts = state.dt.cpu().numpy()
+            el = state.time_au.cpu().numpy() * to_ps
+            for k in range(n_rep):
+                if finished[k]:
+                    continue
+                crossing = el[k] >= args.runtime and ts[k] > 0
+                if crossing or (el[k] - last_gsd_ps[k]
+                                >= args.gsd_output_period_ps):
+                    gsd_files[k].append(
+                        snaps[k].replace(position=pos[k], image=img[k],
+                                         velocity=vel[k]),
+                        step=int(ts[k]),
+                        log_data=gather_tracker_log(trackers[k], el[k],
+                                                    dts[k]))
+                    last_gsd_ps[k] = el[k]
+                if crossing:
+                    finished[k] = True
+
+        write_frames(batched)  # initial frames
+        t0 = time.time()
+        while True:
+            elapsed = batched.time_au.cpu().numpy() * to_ps
+            remaining = args.runtime - elapsed
+            if (remaining <= 0).all():
+                break
+            # trim the chunk to the slowest unfinished clock (no replica
+            # overshoots --runtime by more than ~1 step) and to the next GSD
+            # frame (frames are written at chunk ends)
+            dt_ps = batched.dt.cpu().numpy() * to_ps
+            live = remaining > 0
+            safe_dt = np.maximum(dt_ps[live], 1e-30)
+            est = int(np.ceil((remaining[live] / safe_dt).min()))
+            till_gsd = np.maximum(
+                (last_gsd_ps + args.gsd_output_period_ps - elapsed)[live], 0.0)
+            est_gsd = int(np.ceil((till_gsd / safe_dt).min()))
+            n_next = min(chunk, max(1, est), max(1, est_gsd))
+            batched, obs = run_replica_steps(step, batched, n_next)
+            for k, (per_rep, o) in enumerate(zip(
+                    trackers, split_replica_obs(obs, n_rep))):
+                if finished[k]:
+                    continue
+                # drop rows past this replica's crossing (the crossing row
+                # stays, as in the sequential path's last chunk)
+                tp = o["time_au"] * to_ps
+                n_keep = min(len(tp),
+                             int(np.searchsorted(tp, args.runtime)) + 1)
+                if n_keep < len(tp):
+                    o = {kk: vv[:n_keep] for kk, vv in o.items()}
+                for tr in per_rep:
+                    tr.consume(o)
+            write_frames(batched)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        steps = int(batched.step)
+        print(f"vmapped {n_rep} replicas x {steps} steps in {wall:.1f}s "
+              f"({n_rep * steps / max(wall, 1e-9):.0f} aggregate steps/s)")
+        write_frames(batched)  # final frames of replicas not yet closed
+        for f in gsd_files:
+            f.close()
+        return True
+    finally:
+        os.chdir(cwd)
+
+
 def unported_flags(args) -> list:
     """The flags given whose paths the port does not have yet, each with
     its message."""
@@ -576,7 +826,19 @@ def unported_flags(args) -> list:
              "for it")
     out = []
     if args.vmap_replicas:
-        out.append(f"--vmap-replicas: replica batching is {where}")
+        from cavmd_tpu_torch.integrate.forcefield import (
+            BATCHED_CELL_TODO,
+            DENSE_MAX_N,
+        )
+
+        n = 2 * args.n_molecules + (0 if args.no_cavity else 1)
+        generated = not (coupling_dir(args) / args.input_gsd).exists()
+        if generated and n > DENSE_MAX_N:
+            out.append(f"--vmap-replicas at --n-molecules "
+                       f"{args.n_molecules} (N = {n}): {BATCHED_CELL_TODO}")
+        if args.shard_atoms > 1:
+            out.append("--vmap-replicas with --shard-atoms: replica "
+                       f"batches over slabs are {where}")
     if args.shard_replicas:
         out.append(f"--shard-replicas: sharded replicas are {where}")
     if args.pad_atoms:
@@ -629,7 +891,9 @@ def build_parser():
     # a command line written for it fails loudly instead of running
     # something else
     parser.add_argument("--vmap-replicas", action="store_true",
-                        help="not ported yet (ROADMAP.md)")
+                        help="run every replica of --replicas as one batch "
+                             "on one device (dense force field, N <= "
+                             "4096)")
     parser.add_argument("--shard-replicas", type=int, default=0,
                         help="not ported yet (ROADMAP.md)")
     parser.add_argument("--shard-atoms", type=int, default=0,
@@ -715,7 +979,9 @@ def main(argv=None):
 
 
 def run_replicas(args):
-    """Run every replica of ``args``; 0 when all succeeded, else 1."""
+    """Run every replica of ``args`` (one after another, or as one batch
+    with ``--vmap-replicas``); 0 when all succeeded, else 1; 2 when the
+    batch needs a path the port does not have."""
     print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
     print("=" * 50)
 
@@ -728,6 +994,15 @@ def run_replicas(args):
         print(f"Local execution: Replicas {replica_list}")
 
     start = time.time()
+    if args.vmap_replicas:
+        try:
+            success = run_vmapped_replicas(args, replica_list)
+        except NotImplementedError as e:
+            print(f"error: --vmap-replicas: {e}", file=sys.stderr)
+            return 2
+        print(f"\nvmapped batch: {'SUCCESS' if success else 'FAILED'}")
+        print(f"Wall time: {time.time() - start:.2f} seconds")
+        return 0 if success else 1
     ok = fail = 0
     for replica in replica_list:
         frame = replica  # replica doubles as input frame (reference 1571)

@@ -22,9 +22,10 @@ from cavmd_tpu_torch.integrate.integrator import MDState
 
 
 def compute_optimal_dt(forces, mass, tolerance):
-    """dt = sqrt(tol / sum |F_i| / m_i)."""
-    fnorm = torch.sqrt(torch.sum(forces * forces, dim=1))
-    s = torch.sum(fnorm / mass)
+    """dt = sqrt(tol / sum |F_i| / m_i): 0-d for (N, 3) forces, (B,) for a
+    replica batch (B, N, 3) with (B,) or host tolerances."""
+    fnorm = torch.sqrt(torch.sum(forces * forces, dim=-1))
+    s = torch.sum(fnorm / mass, dim=-1)
     return torch.sqrt(tolerance / torch.clamp_min(
         s, torch.finfo(forces.dtype).tiny))
 
@@ -37,7 +38,9 @@ def make_adaptive_step(step_fn, *, error_tolerance: float,
     On every step whose (pre-step) counter is a multiple of ``period``,
     the controller recomputes the tolerance ramp and sets dt from the
     cached forces. Every step logs the tolerance in force as the
-    ``error_tolerance`` observable.
+    ``error_tolerance`` observable. In a replica batch each replica ramps
+    its own tolerance and dt from its own clock and forces; the period
+    runs on the batch's shared host counter.
     """
     target = float(error_tolerance)
     initial = target * float(initial_fraction)
@@ -58,4 +61,5 @@ def make_adaptive_step(step_fn, *, error_tolerance: float,
         obs["error_tolerance"] = state.error_tolerance
         return new_state, obs
 
+    astep.force_field = getattr(step_fn, "force_field", None)
     return astep

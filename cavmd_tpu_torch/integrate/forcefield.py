@@ -10,6 +10,11 @@ returns the forces and a dict of energy components with the JAX package's
 keys (in cell and zcol mode also ``cell_overflow``, a 0/1 flag, not an
 energy; in zcol mode it also carries the visit-window overflow).
 
+In dense mode ``forward`` also takes a replica batch, positions (B, N, 3)
+of one topology in one box: every term then runs once for the whole batch
+(each kernel one launch) and the energies are (B,) tensors. Batched cell
+and zcol mode are not ported (``BATCHED_CELL_TODO``).
+
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
 ``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
 spread/interpolation (``ops/pppm_kernels.py``) run in the hand-written
@@ -65,6 +70,11 @@ ENERGY_KEYS = (
     "cavity_harmonic", "cavity_coupling", "cavity_dipole_self",
 )
 DENSE_MAX_N = 4096
+BATCHED_CELL_TODO = (
+    "replica batches run the dense pair mode only (N <= 4096); batched "
+    "cell and zcol mode (the list builds, K6/K8/K9 and the overflow retry "
+    "on a replica axis) are not ported yet (ROADMAP.md, Queue 1, batched "
+    "cell and zcol mode)")
 
 
 class ForceField(nn.Module):
@@ -194,11 +204,17 @@ class ForceField(nn.Module):
     def forward(self, position, image, box_L, charge, typeid, clist=None):
         """Total forces (N, 3) and the energy components (dict of 0-d
         tensors, keys ``ENERGY_KEYS``, plus ``cell_overflow`` in cell mode).
+        In dense mode ``position`` and ``image`` may be a replica batch
+        (B, N, 3); forces are then (B, N, 3) and every energy (B,).
 
         ``clist``: in cell mode, a carried ``CellList``; None builds one
         from ``position``."""
+        if position.dim() != 2 and self.pair_mode != "dense":
+            raise NotImplementedError(
+                f"pair_mode={self.pair_mode!r} with positions of shape "
+                f"{tuple(position.shape)}: {BATCHED_CELL_TODO}")
         forces = torch.zeros_like(position)
-        zero = position.new_zeros(())
+        zero = position.new_zeros(position.shape[:-2])
         energies = {k: zero for k in ENERGY_KEYS}
 
         if self.enable_bonds and self.n_bonds > 0:

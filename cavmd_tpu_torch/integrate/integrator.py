@@ -23,6 +23,16 @@ so masks and DOF are static. ``run_steps`` runs a chunk of steps with no
 host synchronisation inside it: each step writes its observables into one
 preallocated ``(n_steps, n_cols)`` device buffer, which is copied to the
 host once at the end of the chunk.
+
+One step function also advances a replica batch (``parallel/replicas.py``):
+an ``MDState`` whose per-replica leaves carry a leading axis B (positions,
+images, velocities and forces (B, N, 3); dt, the clocks, the timestep and
+the tolerance (B,); the reservoirs (B, 2)) while mass, charge, typeid and
+the box stay shared. Every operation of the step is written over the last
+two axes, so the batch runs the same code as one replica, each kernel
+launched once for all B, and each random stream is drawn once a step for
+the whole batch. The observables then have a replica axis: (steps, B)
+columns and (steps, B, d) vectors.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from cavmd_tpu_torch.integrate.rng import (
     STREAM_BROWNIAN,
     STREAM_BUSSI,
     STREAM_LANGEVIN,
+    STREAM_THERMALIZE,
     make_generator,
 )
 from cavmd_tpu_torch.integrate.thermostats import (
@@ -48,6 +59,7 @@ from cavmd_tpu_torch.integrate.thermostats import (
     bussi_noise,
     kinetic_energy,
     langevin_ou_apply,
+    thermalize_velocities,
 )
 
 # group slots for reservoir bookkeeping (index into the (2,) accumulators)
@@ -86,7 +98,9 @@ class MDState:
     adaptive-dt period, the runner's timestep column) read it instead of
     the device counter, so they cost no host sync. In cell mode with a
     skin, ``cell_list`` is the carried ``CellList`` and ``cell_anchor`` the
-    positions it was built from (None otherwise).
+    positions it was built from (None otherwise). A replica batch carries
+    a leading axis on its per-replica leaves (the module note); its
+    replicas step together, so one host ``step`` serves them all.
     """
 
     position: torch.Tensor
@@ -117,6 +131,11 @@ class MDState:
     @property
     def device(self):
         return self.position.device
+
+    @property
+    def batch_shape(self) -> tuple:
+        """() for one replica, (B,) for a replica batch."""
+        return tuple(self.position.shape[:-2])
 
     def generator(self, stream: int, instance: int = 0) -> torch.Generator:
         """The generator of (stream, instance), created on first use from
@@ -159,6 +178,27 @@ def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
         indices = tuple(int(i) for i in members) if n <= 8 else None
         out.append(m._replace(dof=3.0 * n, indices=indices))
     return tuple(out)
+
+
+def thermal_velocities(mass, typeid, l_typeid: int, kT, seed: int, *,
+                       molecular_only: bool = True, photon_kT=None):
+    """Maxwell-Boltzmann velocities from the thermalize streams of
+    ``seed``: the molecular group (every particle unless
+    ``molecular_only``) with its drift removed, and with ``molecular_only``
+    the photon drawn apart at ``photon_kT`` (None: ``kT``)."""
+    dev, dtype = mass.device, mass.dtype
+    group = "molecular" if molecular_only else "all"
+    v = thermalize_velocities(
+        make_generator(seed, STREAM_THERMALIZE, 0, dev), mass,
+        group_mask(typeid, l_typeid, group),
+        torch.as_tensor(kT, dtype=dtype, device=dev))
+    if molecular_only and l_typeid >= 0:
+        pk = photon_kT if photon_kT is not None else kT
+        v = v + thermalize_velocities(
+            make_generator(seed, STREAM_THERMALIZE, 1, dev), mass,
+            typeid == l_typeid, torch.as_tensor(pk, dtype=dtype, device=dev),
+            remove_drift=False)
+    return v
 
 
 def carries_cell_list(ff: ForceField) -> bool:
@@ -213,19 +253,22 @@ class StreamNoise:
     package's draws) implements the same two methods."""
 
     def bussi(self, state: MDState, i: int, m: MethodSpec):
-        """(r1, r_gamma) for Bussi method ``i``."""
+        """(r1, r_gamma) for Bussi method ``i``, each of the state's batch
+        shape (one draw call for every replica)."""
         return bussi_noise(state.generator(STREAM_BUSSI, i), m.dof,
-                           state.position.dtype, state.device)
+                           state.position.dtype, state.device,
+                           state.batch_shape)
 
     def langevin(self, state: MDState, i: int, m: MethodSpec, shape):
-        """Standard-normal draws of ``shape`` for Langevin method ``i``."""
+        """Standard-normal draws of ``shape`` (the batch shape leading) for
+        Langevin method ``i``."""
         return torch.randn(shape, generator=state.generator(
             STREAM_LANGEVIN, i), dtype=state.position.dtype,
             device=state.device)
 
     def brownian(self, state: MDState, i: int, m: MethodSpec):
-        """Two (N, 3) standard-normal draws for Brownian method ``i``: the
-        position noise, then the velocity resample."""
+        """Two (..., N, 3) standard-normal draws for Brownian method ``i``:
+        the position noise, then the velocity resample."""
         gen = state.generator(STREAM_BROWNIAN, i)
         shape = state.position.shape
         return tuple(torch.randn(shape, generator=gen,
@@ -234,11 +277,13 @@ class StreamNoise:
 
 
 def _set_at(x, slot: int, value, add: bool):
+    """A copy of the (..., 2) reservoir ``x`` with its ``slot`` column
+    set to (or increased by) ``value``."""
     out = x.clone()
     if add:
-        out[slot] += value
+        out[..., slot] += value
     else:
-        out[slot] = value
+        out[..., slot] = value
     return out
 
 
@@ -249,8 +294,9 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
 
     ``obs`` is a dict of tensors with keys ``OBS_KEYS`` (0-d) plus those of
     ``extra_obs(new_state)`` (a dict of 0-d or 1-d tensors, for example
-    ``observe.make_extra_obs``). The step reads nothing back from the
-    device. ``noise`` supplies the random draws (default
+    ``observe.make_extra_obs``); for a replica batch each gains the leading
+    replica axis. The step reads nothing back from the device. ``noise``
+    supplies the random draws (default
     :class:`StreamNoise`, which advances the state's generators in place;
     every tensor of ``state`` itself is left unmodified — the new state
     holds new tensors).
@@ -298,15 +344,15 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
             return None
         if fuse_integrator is None and state.device.type != "cuda":
             return None
-        key = (state.position.shape[0], dtype)
+        key = (tuple(state.position.shape[:-1]), dtype)  # (B,) N, dtype
         if key not in plan_cache:
             from cavmd_tpu_torch.ops.fused_integrator import (
                 FusedIntegratorPlan,
             )
 
             try:
-                plan_cache[key] = FusedIntegratorPlan(ff, methods, key[0],
-                                                      dtype)
+                plan_cache[key] = FusedIntegratorPlan(ff, methods,
+                                                      key[0][-1], dtype)
             except ValueError:
                 if fuse_integrator:  # explicitly requested: surface it
                     raise
@@ -359,10 +405,10 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         obs = dict(energies)
         obs["kinetic_molecular"] = ke_mol
         obs["kinetic_cavity"] = ke_cav
-        obs["bussi_reservoir_molecular"] = bussi_res[MOLECULAR]
-        obs["bussi_reservoir_cavity"] = bussi_res[CAVITY]
-        obs["langevin_reservoir_molecular"] = langevin_res[MOLECULAR]
-        obs["langevin_reservoir_cavity"] = langevin_res[CAVITY]
+        obs["bussi_reservoir_molecular"] = bussi_res[..., MOLECULAR]
+        obs["bussi_reservoir_cavity"] = bussi_res[..., CAVITY]
+        obs["langevin_reservoir_molecular"] = langevin_res[..., MOLECULAR]
+        obs["langevin_reservoir_cavity"] = langevin_res[..., CAVITY]
         obs["dt"] = dt
         obs["time_au"] = t_new
         obs["timestep"] = new_state.timestep
@@ -381,7 +427,9 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         dt = state.dt
         mol = _mol_mask(state)
         mb = plan.bussi
-        r1, r_gamma = noise.bussi(state, plan.i_bussi, mb)
+        # the kernels take contiguous rows (an injected draw may be a view)
+        r1, r_gamma = (x.contiguous()
+                       for x in noise.bussi(state, plan.i_bussi, mb))
         c = (torch.exp(-dt / mb.tau) if mb.tau != 0.0
              else torch.zeros_like(dt))
         pos, image, v, dres_b = pre_force_apply(
@@ -399,7 +447,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         langevin_res = state.langevin_reservoir
         if plan.langevin is not None:
             ml = plan.langevin
-            xi = noise.langevin(state, plan.i_langevin, ml, (1, 3))
+            xi = noise.langevin(state, plan.i_langevin, ml,
+                                state.batch_shape + (1, 3)).contiguous()
             c_ou = torch.exp(-ml.gamma * dt)
             sig = torch.sqrt((1.0 - c_ou * c_ou) * ml.kT
                              / state.mass[plan.photon])
@@ -420,6 +469,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
 
         dev = state.device
         dt = state.dt
+        dt_v = dt[..., None, None]  # per replica, over (N, 3)
         v = state.velocity
         bussi_res = state.bussi_reservoir
         bussi_inst = state.bussi_instantaneous
@@ -438,8 +488,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
 
         # ---- velocity Verlet ----
         inv_m = 1.0 / state.mass[:, None]
-        v = v + 0.5 * dt * state.forces * inv_m
-        pos = state.position + dt * v
+        v = v + 0.5 * dt_v * state.forces * inv_m
+        pos = state.position + dt_v * v
         # Brownian groups: the overdamped move replaces the VV drift; their
         # velocities are Maxwell-resampled and skip the second kick
         brownian_mask = None
@@ -461,7 +511,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         clist, anchor = _cond_rebuild(state, pos)
         forces, energies = ff(pos, image, state.box_L, state.charge,
                               state.typeid, clist=clist)
-        kick2 = 0.5 * dt * forces * inv_m
+        kick2 = 0.5 * dt_v * forces * inv_m
         if brownian_mask is not None:
             kick2 = torch.where(brownian_mask[:, None], 0.0, kick2)
         v = v + kick2
@@ -472,7 +522,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                 mask = group_mask(state.typeid, l_typeid, m.group)
                 slot = group_slot(m.group)
                 idx = _indices(i, m, dev)
-                shape = (len(m.indices), 3) if idx is not None else v.shape
+                shape = state.batch_shape + (
+                    (len(m.indices), 3) if idx is not None else v.shape[-2:])
                 xi = noise.langevin(state, i, m, shape)
                 v, dres = langevin_ou_apply(v, state.mass, mask, m.gamma,
                                             m.kT, dt, xi, indices=idx)
@@ -486,6 +537,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                        bussi_inst, langevin_res, ke_mol, ke_cav, clist,
                        anchor)
 
+    step.force_field = ff
     return step
 
 
@@ -513,11 +565,15 @@ class ObsBuffer:
         self.row += 1
 
     def to_numpy(self) -> dict:
+        """Each observable as a NumPy array of shape (n_steps,) + its
+        per-step shape: (n_steps,) and (n_steps, d) for one replica,
+        (n_steps, B) and (n_steps, B, d) for a replica batch."""
         host = self.buf.cpu().numpy()
         out, col = {}, 0
         for k, sh in zip(self.keys, self.shapes):
             w = int(np.prod(sh))
-            out[k] = host[:, col] if sh == () else host[:, col:col + w]
+            out[k] = (host[:, col] if sh == ()
+                      else host[:, col:col + w].reshape((-1,) + sh))
             col += w
         return out
 
@@ -525,7 +581,8 @@ class ObsBuffer:
 def run_steps(step_fn, state: MDState, n_steps: int):
     """Run ``n_steps`` steps; returns (final_state, obs) where obs maps each
     observable key to a NumPy array of length ``n_steps`` (scalars) or of
-    shape ``(n_steps, d)`` (the vector columns of ``extra_obs``).
+    shape ``(n_steps, d)`` (the vector columns of ``extra_obs``); for a
+    replica batch ``(n_steps, B)`` and ``(n_steps, B, d)``.
 
     Every per-step observable goes into one ``ObsBuffer`` (one
     concatenate-and-copy per step, no host sync); the buffer crosses to
@@ -541,8 +598,10 @@ def run_steps(step_fn, state: MDState, n_steps: int):
             state, obs = step_fn(state)
             buf.add(obs)
     out = buf.to_numpy()
-    out["timestep"] = np.arange(state.step - n_steps + 1, state.step + 1,
-                                dtype=np.int64)
+    ts = np.arange(state.step - n_steps + 1, state.step + 1, dtype=np.int64)
+    batch = state.batch_shape
+    out["timestep"] = (np.broadcast_to(ts[:, None], (n_steps,) + batch).copy()
+                       if batch else ts)
     return state, out
 
 

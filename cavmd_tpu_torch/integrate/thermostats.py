@@ -15,6 +15,10 @@ offers (MTTK and Berendsen are not ported):
 The random draws are separate from the updates: ``bussi_noise`` draws from
 an explicit generator, and the update functions take the draws as tensors,
 so tests can inject the JAX package's noise.
+
+Velocities may carry a leading replica axis, (B, N, 3), with shared masses
+and masks: kinetic energies, Bussi factors and reservoir deltas are then
+(B,), and ``dt`` and the draws are per replica ((B,), (B, ..., 3)).
 """
 
 from __future__ import annotations
@@ -25,24 +29,37 @@ import torch
 
 
 def kinetic_energy(velocity, mass, mask):
-    """Group kinetic energy 1/2 sum m v^2 over ``mask``."""
+    """Group kinetic energy 1/2 sum m v^2 over ``mask``: 0-d for (N, 3)
+    velocities, (B,) for a replica batch."""
     w = torch.where(mask, mass, torch.zeros((), dtype=velocity.dtype,
                                             device=velocity.device))
-    return 0.5 * torch.sum(w[:, None] * velocity**2)
+    return 0.5 * torch.sum(w[:, None] * velocity**2, dim=(-2, -1))
 
 
-def bussi_noise(generator, dof: float, dtype, device):
-    """The two stochastic draws of one Bussi rescaling: (r1, r_gamma).
+def _per_particle(x):
+    """A per-replica scalar (0-d, or (B,) in a batch) shaped to broadcast
+    over (..., N, 3)."""
+    return x[..., None, None]
+
+
+def bussi_noise(generator, dof: float, dtype, device, batch=()):
+    """The two stochastic draws of one Bussi rescaling: (r1, r_gamma),
+    each of shape ``batch`` (0-d by default; (B,) for a replica batch,
+    drawn in one call for all replicas).
 
     r1 ~ N(0, 1); r_gamma = 2 Gamma((dof - 1)/2) for dof > 1. Above a shape
     of 30 the Wilson-Hilferty transform of one more normal draw (as the JAX
     package does); below it the exact chi-square with dof - 1 degrees of
     freedom (a sum of squared normals; dof = 3 N_group is an integer).
     """
-    draws = torch.randn(2, generator=generator, dtype=dtype, device=device)
+    batch = tuple(batch)
+    # (2, ...): each draw's rows contiguous, and one replica's draws the
+    # same stream as before
+    draws = torch.randn((2,) + batch, generator=generator, dtype=dtype,
+                        device=device)
     r1 = draws[0]
     if dof <= 1.0:
-        return r1, torch.zeros((), dtype=dtype, device=device)
+        return r1, torch.zeros(batch, dtype=dtype, device=device)
     alpha_g = (dof - 1.0) / 2.0
     if alpha_g > 30.0:
         xi = draws[1]
@@ -52,8 +69,9 @@ def bussi_noise(generator, dof: float, dtype, device):
     k = int(round(dof - 1.0))
     if k != dof - 1.0:
         raise ValueError(f"Bussi dof {dof} is not an integer")
-    z = torch.randn(k, generator=generator, dtype=dtype, device=device)
-    return r1, torch.sum(z * z)
+    z = torch.randn(batch + (k,), generator=generator, dtype=dtype,
+                    device=device)
+    return r1, torch.sum(z * z, dim=-1)
 
 
 def bussi_rescale_factor(K, dof: float, dt, tau: float, kT, r1, r_gamma):
@@ -85,7 +103,8 @@ def bussi_apply(velocity, mass, mask, dof: float, dt, tau: float, kT, r1,
     bath."""
     K = kinetic_energy(velocity, mass, mask)
     alpha = bussi_rescale_factor(K, dof, dt, tau, kT, r1, r_gamma)
-    new_v = torch.where(mask[:, None], alpha * velocity, velocity)
+    new_v = torch.where(mask[:, None], _per_particle(alpha) * velocity,
+                        velocity)
     return new_v, K * (1.0 - alpha * alpha)
 
 
@@ -94,18 +113,18 @@ def langevin_ou_apply(velocity, mass, mask, gamma, kT, dt, noise,
     """Exact OU step v' = c v + sqrt((1 - c^2) kT/m) xi, c = exp(-gamma dt).
 
     ``gamma`` and ``kT`` are host numbers or tensors. ``noise`` holds the
-    standard-normal draws: (len(indices), 3) when ``indices`` (a LongTensor
-    of the group's rows, for small groups such as the single photon) is
-    given, else (N, 3). Returns (new_velocity, reservoir_delta =
-    KE_before - KE_after).
+    standard-normal draws: (..., len(indices), 3) when ``indices`` (a
+    LongTensor of the group's rows, for small groups such as the single
+    photon) is given, else (..., N, 3). Returns (new_velocity,
+    reservoir_delta = KE_before - KE_after).
     """
-    c = torch.exp(-gamma * dt)
+    c = _per_particle(torch.exp(-gamma * dt))
     if indices is not None:
-        sigma = torch.sqrt((1.0 - c * c) * kT / mass[indices])[:, None]
+        sigma = torch.sqrt((1.0 - c * c) * kT / mass[indices][:, None])
         new_v = velocity.clone()
-        new_v[indices] = c * velocity[indices] + sigma * noise
+        new_v[..., indices, :] = c * velocity[..., indices, :] + sigma * noise
     else:
-        sigma = torch.sqrt((1.0 - c * c) * kT / mass)[:, None]
+        sigma = torch.sqrt((1.0 - c * c) * kT / mass[:, None])
         new_v = torch.where(mask[:, None], c * velocity + sigma * noise,
                             velocity)
     ke_before = kinetic_energy(velocity, mass, mask)
@@ -121,12 +140,13 @@ def brownian_apply(position, velocity, forces, mass, mask, gamma, kT, dt,
     the friction rate (1/time), so the drag coefficient is m gamma. The
     group's velocities are resampled from the Maxwell distribution
     (``noise_vel`` scaled by sqrt(kT/m)). ``noise_pos`` and ``noise_vel``
-    are (N, 3) standard-normal draws. Returns (new_position, new_velocity,
-    reservoir_delta = KE_before - KE_after).
+    are (..., N, 3) standard-normal draws. Returns (new_position,
+    new_velocity, reservoir_delta = KE_before - KE_after).
     """
-    drag = mass * gamma
-    dx = forces * (dt / drag)[:, None] + (
-        torch.sqrt(2.0 * kT * dt / drag)[:, None] * noise_pos)
+    drag = (mass * gamma)[:, None]
+    dt = _per_particle(dt)
+    dx = forces * (dt / drag) + (
+        torch.sqrt(2.0 * kT * dt / drag) * noise_pos)
     new_pos = torch.where(mask[:, None], position + dx, position)
     vmb = torch.sqrt(kT / mass)[:, None] * noise_vel
     new_v = torch.where(mask[:, None], vmb, velocity)
@@ -144,6 +164,6 @@ def thermalize_velocities(generator, mass, mask, kT, *, remove_drift=True):
     zero = torch.zeros((), dtype=mass.dtype, device=mass.device)
     if remove_drift:
         w = torch.where(mask, mass, zero)
-        vcm = torch.sum(w[:, None] * v, dim=0) / torch.sum(w)
-        v = v - vcm[None, :]
+        vcm = torch.sum(w[:, None] * v, dim=-2) / torch.sum(w)
+        v = v - vcm[..., None, :]
     return torch.where(mask[:, None], v, zero)

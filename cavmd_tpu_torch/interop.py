@@ -101,8 +101,30 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
     ``device=None`` is the CUDA device. With a cell- or zcol-mode
     ``forcefield`` that carries its list, the list is built from
     ``position``, as the
-    JAX package's ``init_state`` does (pass the initial state's leaves)."""
+    JAX package's ``init_state`` does (pass the initial state's leaves).
+
+    The stacked leaves of a JAX replica batch (``init_replica_states``,
+    positions (B, N, 3)) give the port's batched state: mass, charge,
+    typeid and box, stacked B times there, are shared here (they must
+    agree across replicas), and so is the step counter."""
     device = resolve_device(device)
+    batched = np.ndim(position) == 3
+
+    def shared(name, x, rank):
+        x = np.asarray(x)
+        if batched and x.ndim == rank + 1:
+            if not (x == x[:1]).all():
+                raise ValueError(f"state_from_numpy: {name} differs across "
+                                 "replicas; a replica batch shares it")
+            x = x[0]
+        return x
+
+    mass, charge = shared("mass", mass, 1), shared("charge", charge, 1)
+    typeid, box_L = shared("typeid", typeid, 1), shared("box_L", box_L, 1)
+    steps = np.unique(np.asarray(timestep))
+    if steps.size != 1:
+        raise ValueError(f"state_from_numpy: replicas at timesteps {steps}")
+    error_tolerance = np.broadcast_to(error_tolerance, np.shape(dt))
 
     def f(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -122,7 +144,7 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
         bussi_reservoir=f(bussi_reservoir),
         bussi_instantaneous=f(bussi_instantaneous),
         langevin_reservoir=f(langevin_reservoir),
-        error_tolerance=f(error_tolerance), step=int(np.asarray(timestep)),
+        error_tolerance=f(error_tolerance), step=int(steps[0]),
         seed=seed, cell_list=clist,
         cell_anchor=pos if clist is not None else None,
     )

@@ -3,7 +3,8 @@
 Port of ``cavmd_tpu/observe/observables.py``: total dipole moment, density
 field rho(k), Fibonacci k-shell sampling and the cavity-mode properties.
 They run inside the step; the host receives only the small per-step result
-columns, once per chunk.
+columns, once per chunk. Positions may carry a leading replica axis
+(B, N, 3): the dipole is then (B, 3) and rho(k) (B, nk).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ def compute_density_field(position, wavevectors):
     """rho(k) = sum_j exp(i k . r_j) per wavevector, from the *wrapped*
     positions. Returns (cos part, sin part), each (nk,): the real and
     imaginary parts of the JAX package's complex result."""
-    kr = position @ wavevectors.T  # (N, nk)
-    return torch.sum(torch.cos(kr), dim=0), torch.sum(torch.sin(kr), dim=0)
+    kr = position @ wavevectors.T  # (..., N, nk)
+    return torch.sum(torch.cos(kr), dim=-2), torch.sum(torch.sin(kr), dim=-2)
 
 
 def generate_fibonacci_sphere(samples: int = 100) -> np.ndarray:
@@ -59,7 +60,8 @@ def make_extra_obs(*, dipole: bool = False,
 
     The per-step entries stream to the host with the energy audit:
     - 'dipole': (3,) total dipole (for DipoleAutocorrelation);
-    - 'rho_k_re'/'rho_k_im': (nk,) density field (for F(k,t)).
+    - 'rho_k_re'/'rho_k_im': (nk,) density field (for F(k,t));
+    with a leading replica axis (B, ...) in a replica batch.
 
     The callable carries its spec as attributes (``.dipole``,
     ``.wavevectors``), as in the JAX package. The wavevectors become a

@@ -10,7 +10,9 @@ Port of ``cavmd_tpu/ops/cavity.py`` (reference
 - molecular force ``F_i = -g q_i (q_xy + (g/K) d_xy)`` with z zero, photon
   force ``F_L = -K q - g d_xy``.
 
-Everything stays on the device: one dipole reduction, no host sync.
+Everything stays on the device: one dipole reduction, no host sync. A
+replica batch, positions (B, N, 3) with shared charges and types, has a
+dipole and a photon coordinate per replica and (B,) energies.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class CavityParams(NamedTuple):
 def cavity_force(position, image, box_L, charge, typeid, l_typeid, params):
     """Cavity forces and the three energy components.
 
-    Returns (forces (N, 3), dict with 'harmonic', 'coupling',
+    Returns (forces (..., N, 3), dict with 'harmonic', 'coupling',
     'dipole_self'). With no photon in ``typeid``, forces and energies are
     zero.
     """
@@ -56,9 +58,9 @@ def cavity_force(position, image, box_L, charge, typeid, l_typeid, params):
 
     unwrapped = unwrap_positions(position, image, box_L)
     w = torch.where(photon_mask, zero, charge)
-    dipole = torch.sum(w[:, None] * unwrapped, dim=0)
+    dipole = torch.sum(w[:, None] * unwrapped, dim=-2)
     q_photon = torch.sum(
-        torch.where(photon_mask[:, None], unwrapped, zero), dim=0)
+        torch.where(photon_mask[:, None], unwrapped, zero), dim=-2)
 
     # built on the device (a host list would cost a host-to-device copy
     # every step)
@@ -69,15 +71,18 @@ def cavity_force(position, image, box_L, charge, typeid, l_typeid, params):
     K = params.K.to(dtype)
     g = params.couplstr.to(dtype)
 
-    e_harm = 0.5 * K * torch.dot(q_photon, q_photon)
-    e_coup = g * torch.dot(d_xy, q_xy)
-    e_self = 0.5 * (g * g / K) * torch.dot(d_xy, d_xy)
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1)
+
+    e_harm = 0.5 * K * dot(q_photon, q_photon)
+    e_coup = g * dot(d_xy, q_xy)
+    e_self = 0.5 * (g * g / K) * dot(d_xy, d_xy)
 
     Dq = q_xy + (g / K) * d_xy
-    f_mol = (-g * charge)[:, None] * Dq[None, :] * xy[None, :]
+    f_mol = (-g * charge)[:, None] * Dq[..., None, :] * xy
     f_photon = -K * q_photon - g * d_xy
 
-    forces = torch.where(photon_mask[:, None], f_photon[None, :], f_mol)
+    forces = torch.where(photon_mask[:, None], f_photon[..., None, :], f_mol)
     forces = torch.where(has_photon, forces, torch.zeros_like(forces))
     energies = {
         "harmonic": torch.where(has_photon, e_harm, zero),

@@ -8,7 +8,10 @@ periodic system::
 
 with the real-space part in the dense pair pass (``ops/lj.py``), the
 k-space part on the PPPM mesh (``ops/pppm.py``), ``E_self = kappa/sqrt(pi)
-sum q^2`` and ``E_excl = sum_bonds q_i q_j erf(kappa r)/r``.
+sum q^2`` and ``E_excl = sum_bonds q_i q_j erf(kappa r)/r``. The
+exclusion corrections take a leading replica axis, (B, N, 3) positions
+with shared charges and bonds, and give (B,) energies; the self energy
+depends on the charges only and is one number for every replica.
 """
 
 from __future__ import annotations
@@ -41,34 +44,36 @@ def ewald_self_energy(charge, kappa):
 
 def _excl_pair_terms(dr, qq, kappa):
     """Per-bond exclusion terms: force on endpoint i (``fmag * dr``) and the
-    energy, given min-imaged ``dr = r_i - r_j`` (Nb, 3) and ``qq`` (Nb,)."""
+    energy, given min-imaged ``dr = r_i - r_j`` (..., Nb, 3) and ``qq``
+    (Nb,)."""
     kappa = torch.as_tensor(kappa, dtype=dr.dtype, device=dr.device)
-    r2 = torch.sum(dr * dr, dim=1)
+    r2 = torch.sum(dr * dr, dim=-1)
     r = torch.sqrt(r2)
     safe_r = torch.where(r > 0, r, torch.ones_like(r))
     safe_r2 = torch.where(r2 > 0, r2, torch.ones_like(r2))
     erf_term = 1.0 - torch.special.erfc(kappa * r)
-    energy = torch.sum(qq * erf_term / safe_r)
+    energy = torch.sum(qq * erf_term / safe_r, dim=-1)
     two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
     fmag = qq * (
         erf_term / safe_r2
         - kappa * two_over_sqrt_pi * torch.exp(-(kappa * r) ** 2) / safe_r
     ) / safe_r
-    return fmag[:, None] * dr, energy
+    return fmag[..., None] * dr, energy
 
 
 def ewald_exclusion_correction(position, box_L, charge, kappa, bond_group):
     """Reciprocal-space contribution of the bonded pairs, for any bond
     table (scatter path). Returns (forces, energy) to be SUBTRACTED."""
     if bond_group.shape[0] == 0:
-        return torch.zeros_like(position), position.new_zeros(())
+        return (torch.zeros_like(position),
+                position.new_zeros(position.shape[:-2]))
     i = bond_group[:, 0].long()
     j = bond_group[:, 1].long()
-    dr = minimum_image(position[i] - position[j], box_L)
+    dr = minimum_image(position[..., i, :] - position[..., j, :], box_L)
     f_i, energy = _excl_pair_terms(dr, charge[i] * charge[j], kappa)
     forces = torch.zeros_like(position)
-    forces.index_add_(0, i, f_i)
-    forces.index_add_(0, j, -f_i)
+    forces.index_add_(-2, i, f_i)
+    forces.index_add_(-2, j, -f_i)
     return forces, energy
 
 
@@ -76,13 +81,14 @@ def ewald_exclusion_correction_strided(position, box_L, charge, kappa,
                                        n_bonds: int):
     """Exclusion correction for bond b = particles (2b, 2b+1): reshape
     views, no gathers. Returns (forces, energy) to be SUBTRACTED."""
-    pp = position[:2 * n_bonds].reshape(n_bonds, 2, 3)
+    batch = tuple(position.shape[:-2])
+    pp = position[..., :2 * n_bonds, :].reshape(batch + (n_bonds, 2, 3))
     qq_b = charge[:2 * n_bonds].reshape(n_bonds, 2).prod(dim=1)
-    dr = minimum_image(pp[:, 0] - pp[:, 1], box_L)
+    dr = minimum_image(pp[..., 0, :] - pp[..., 1, :], box_L)
     f_i, energy = _excl_pair_terms(dr, qq_b, kappa)
     forces = torch.zeros_like(position)
-    forces[:2 * n_bonds] = torch.stack([f_i, -f_i], dim=1).reshape(
-        2 * n_bonds, 3)
+    forces[..., :2 * n_bonds, :] = torch.stack([f_i, -f_i], dim=-2).reshape(
+        batch + (2 * n_bonds, 3))
     return forces, energy
 
 

@@ -24,6 +24,12 @@ it.
 Supported method pattern (as in the JAX package): exactly one ``bussi`` on
 the molecular group, plus at most one ``langevin`` on the cavity group with
 one static member index.
+
+A replica batch (``parallel/replicas.py``) gives the per-particle tensors a
+leading axis B, (B, N, 3), and the step's scalars the shape (B,) (the OU
+draws (B, 1, 3)); mass, mask and box stay shared. One launch of each kernel
+then takes the whole batch, and the reservoir deltas and kinetic energies
+come back (B,).
 """
 
 from __future__ import annotations
@@ -38,13 +44,14 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    **{f"cavmd_fused_pre_force_{s}": [_V] * 11 + [_D, _D, _I] + [_V] * 5
-       + [_I, _V]
+    **{f"cavmd_fused_pre_force_{s}": [_V] * 11 + [_D, _D, _I, _I]
+       + [_V] * 5 + [_I, _V]
        for s in ("f32", "f64")},
-    **{f"cavmd_fused_post_force_{s}": [_V] * 5 + [_I] + [_V] * 3 + [_I]
+    **{f"cavmd_fused_post_force_{s}": [_V] * 5 + [_I] + [_V] * 3 + [_I, _I]
        + [_V] * 3 + [_I, _V]
        for s in ("f32", "f64")},
-    "cavmd_fused_grid_blocks": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "cavmd_fused_grid_blocks": [_I, _I, _I, _I,
+                                ctypes.POINTER(ctypes.c_int)],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 GRID_THREADS = 512  # csrc/fused_integrator.cu kGridThreads (K4 and K5)
@@ -85,10 +92,11 @@ class FusedIntegratorPlan:
 def pre_force_apply_plain(plan, position, image, velocity, forces, mass,
                           mol_mask, box_L, dt, c, kT: float, r1, r_gamma):
     """Plain twin of K4. Returns (position', image', velocity',
-    bussi_reservoir_delta)."""
+    bussi_reservoir_delta); a replica batch, (B, N, 3) with (B,) scalars,
+    gives (B,) deltas."""
     dof = float(plan.bussi.dof)
     w = torch.where(mol_mask, mass, torch.zeros_like(mass))
-    K = 0.5 * torch.sum(w[:, None] * velocity * velocity)
+    K = 0.5 * torch.sum(w[:, None] * velocity * velocity, dim=(-2, -1))
     vfac = kT / (2.0 * K)
     term1 = vfac * (1.0 - c) * (r_gamma + r1 * r1)
     term2 = 2.0 * r1 * torch.sqrt(vfac * (1.0 - c) * c)
@@ -96,7 +104,8 @@ def pre_force_apply_plain(plan, position, image, velocity, forces, mass,
     K_bar = kT * dof / 2.0
     sign_term = r1 + torch.sqrt(c * dof * K / ((1.0 - c) * K_bar))
     alpha = torch.where(sign_term >= 0.0, alpha_mag, -alpha_mag)
-    v1 = torch.where(mol_mask[:, None], alpha * velocity, velocity)
+    a, dt = alpha[..., None, None], dt[..., None, None]  # over (N, 3)
+    v1 = torch.where(mol_mask[:, None], a * velocity, velocity)
     v1 = v1 + (0.5 * dt) * forces / mass[:, None]
     pos1 = position + dt * v1
     L = box_L.to(position.dtype)
@@ -108,27 +117,37 @@ def pre_force_apply_plain(plan, position, image, velocity, forces, mass,
 def post_force_apply_plain(plan, velocity, forces, mass, mol_mask, dt, c_ou,
                            sig_ou, noise3):
     """Plain twin of K5. Returns (velocity', ke_mol, ke_cav,
-    langevin_reservoir_delta)."""
-    v = velocity + (0.5 * dt) * forces / mass[:, None]
-    dres = torch.zeros((), dtype=v.dtype, device=v.device)
+    langevin_reservoir_delta); a replica batch, (B, N, 3) with (B,)
+    scalars and (B, 1, 3) draws, gives (B,) sums."""
+    batch = tuple(velocity.shape[:-2])
+    v = velocity + (0.5 * dt[..., None, None]) * forces / mass[:, None]
+    dres = torch.zeros(batch, dtype=v.dtype, device=v.device)
     if plan.photon >= 0:
         p = plan.photon
         m = mass[p]
-        before = 0.5 * torch.sum(m * v[p] * v[p])
-        row = c_ou * v[p] + sig_ou * noise3.reshape(3)
+        vp = v[..., p, :]
+        before = 0.5 * torch.sum(m * vp * vp, dim=-1)
+        row = (c_ou[..., None] * vp
+               + sig_ou[..., None] * noise3.reshape(batch + (3,)))
         v = v.clone()
-        v[p] = row
-        dres = before - 0.5 * torch.sum(m * row * row)
+        v[..., p, :] = row
+        dres = before - 0.5 * torch.sum(m * row * row, dim=-1)
     w = mass[:, None] * v * v
-    ke_mol = 0.5 * torch.sum(torch.where(mol_mask[:, None], w, 0.0))
-    ke_cav = 0.5 * torch.sum(torch.where(mol_mask[:, None], 0.0, w))
+    pairs = (-2, -1)
+    ke_mol = 0.5 * torch.sum(torch.where(mol_mask[:, None], w, 0.0),
+                             dim=pairs)
+    ke_cav = 0.5 * torch.sum(torch.where(mol_mask[:, None], 0.0, w),
+                             dim=pairs)
     return v, ke_mol, ke_cav, dres
 
 
-def _check(what, tensors, dtype, n):
+def _check(what, tensors, dtype, n, batch=()):
+    """Each tensor a contiguous CUDA one of its dtype (None: ``dtype``) and
+    shape: "n" stands for N, "b" for the replica axis (absent unbatched)."""
     for name, (t, want, shape) in tensors.items():
         want = dtype if want is None else want
-        shape = tuple(n if s == "n" else s for s in shape)
+        shape = sum(((n,) if s == "n" else batch if s == "b" else (s,)
+                     for s in shape), ())
         if not t.is_cuda or t.dtype != want or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
@@ -149,13 +168,22 @@ def _lib():
     return _cuda.load("fused_integrator", _SIGNATURES)
 
 
-def grid_blocks(kernel: str, n: int, dtype) -> int:
-    """Blocks of the cooperative grid of ``kernel`` ("pre_force": K4,
-    "post_force": K5) for ``n`` particles on the current CUDA device."""
+def _shape(x, what):
+    """(dtype, leading shape, N) of (N, 3) or (B, N, 3) particles."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{what}: particles must be (N, 3) or (B, N, 3), "
+                         f"got {tuple(x.shape)}")
+    return x.dtype, tuple(x.shape[:-2]), x.shape[-2]
+
+
+def grid_blocks(kernel: str, n: int, dtype, replicas: int = 1) -> int:
+    """Blocks a replica of the cooperative grid of ``kernel``
+    ("pre_force": K4, "post_force": K5) for ``replicas`` replicas of ``n``
+    particles on the current CUDA device."""
     blocks = ctypes.c_int(0)
     rc = _lib().cavmd_fused_grid_blocks(
         {"pre_force": 4, "post_force": 5}[kernel],
-        int(dtype == torch.float64), n, ctypes.byref(blocks))
+        int(dtype == torch.float64), n, replicas, ctypes.byref(blocks))
     _cuda.check(rc, f"fused_{kernel} grid")
     return blocks.value
 
@@ -164,35 +192,40 @@ def pre_force_apply(plan, position, image, velocity, forces, mass, mol_mask,
                     box_L, dt, c, kT: float, r1, r_gamma):
     """Returns (position', image', velocity', bussi_reservoir_delta): K4 on
     CUDA, the plain twin on the CPU. ``dt``, ``c``, ``r1`` and ``r_gamma``
-    are 0-d tensors on the particles' device; ``kT`` is a host number."""
+    are 0-d tensors on the particles' device ((B,) for a replica batch of
+    (B, N, 3) particles); ``kT`` is a host number."""
     if position.device.type == "cpu":
         return pre_force_apply_plain(plan, position, image, velocity, forces,
                                      mass, mol_mask, box_L, dt, c, kT, r1,
                                      r_gamma)
     sfx = _kernel_suffix(position, "pre_force_apply")
-    dtype, n = position.dtype, position.shape[0]
+    dtype, batch, n = _shape(position, "pre_force_apply")
     _check("pre_force_apply", dict(
-        position=(position, None, ("n", 3)), image=(image, torch.int32,
-                                                   ("n", 3)),
-        velocity=(velocity, None, ("n", 3)), forces=(forces, None, ("n", 3)),
+        position=(position, None, ("b", "n", 3)),
+        image=(image, torch.int32, ("b", "n", 3)),
+        velocity=(velocity, None, ("b", "n", 3)),
+        forces=(forces, None, ("b", "n", 3)),
         mass=(mass, None, ("n",)), mol_mask=(mol_mask, torch.bool, ("n",)),
-        box_L=(box_L, None, (3,)), dt=(dt, None, ()), c=(c, None, ()),
-        r1=(r1, None, ()), r_gamma=(r_gamma, None, ())), dtype, n)
+        box_L=(box_L, None, (3,)), dt=(dt, None, ("b",)),
+        c=(c, None, ("b",)), r1=(r1, None, ("b",)),
+        r_gamma=(r_gamma, None, ("b",))), dtype, n, batch)
     pos_out = torch.empty_like(position)
     img_out = torch.empty_like(image)
     vel_out = torch.empty_like(velocity)
-    dres = torch.empty((), dtype=dtype, device=position.device)
-    # one kinetic-energy partial per block of the grid, which is at most
-    # one block per GRID_THREADS particles
+    dres = torch.empty(batch, dtype=dtype, device=position.device)
+    # one kinetic-energy partial per block of a replica's grid, which is at
+    # most one block per GRID_THREADS particles
     n_partial = -(-n // GRID_THREADS)
-    partial = torch.empty(n_partial, dtype=dtype, device=position.device)
+    partial = torch.empty(batch + (n_partial,), dtype=dtype,
+                          device=position.device)
     p = _cuda.ptr
     lib = _lib()
     rc = getattr(lib, f"cavmd_fused_pre_force_{sfx}")(
         p(velocity), p(position), p(image), p(forces), p(mass), p(mol_mask),
         p(box_L), p(dt), p(c), p(r1), p(r_gamma), float(kT),
-        float(plan.bussi.dof), n, p(vel_out), p(pos_out), p(img_out),
-        p(dres), p(partial), n_partial, _cuda.stream_ptr(position.device))
+        float(plan.bussi.dof), n, batch[0] if batch else 1, p(vel_out),
+        p(pos_out), p(img_out), p(dres), p(partial), n_partial,
+        _cuda.stream_ptr(position.device))
     _cuda.check(rc, "fused_pre_force")
     _cuda.count_launch("fused_pre_force")
     return pos_out, img_out, vel_out, dres
@@ -202,35 +235,39 @@ def post_force_apply(plan, velocity, forces, mass, mol_mask, dt, c_ou, sig_ou,
                      noise3):
     """Returns (velocity', ke_mol, ke_cav, langevin_reservoir_delta): K5 on
     CUDA, the plain twin on the CPU. ``dt``, ``c_ou``, ``sig_ou`` (0-d) and
-    ``noise3`` (3 values) are tensors on the particles' device; with no
-    Langevin method (``plan.photon < 0``) the last three are unused and may
-    be None."""
+    ``noise3`` (3 values) are tensors on the particles' device (for a
+    replica batch of (B, N, 3) particles: (B,) scalars and 3 values a
+    replica); with no Langevin method (``plan.photon < 0``) the last three
+    are unused and may be None."""
     if velocity.device.type == "cpu":
         return post_force_apply_plain(plan, velocity, forces, mass, mol_mask,
                                       dt, c_ou, sig_ou, noise3)
     sfx = _kernel_suffix(velocity, "post_force_apply")
-    dtype, n = velocity.dtype, velocity.shape[0]
+    dtype, batch, n = _shape(velocity, "post_force_apply")
     tensors = dict(
-        velocity=(velocity, None, ("n", 3)), forces=(forces, None, ("n", 3)),
+        velocity=(velocity, None, ("b", "n", 3)),
+        forces=(forces, None, ("b", "n", 3)),
         mass=(mass, None, ("n",)), mol_mask=(mol_mask, torch.bool, ("n",)),
-        dt=(dt, None, ()))
+        dt=(dt, None, ("b",)))
     ou = (None, None, None)  # the kernel reads them only for a photon row
     if plan.photon >= 0:
-        noise3 = noise3.reshape(3)
-        tensors.update(c_ou=(c_ou, None, ()), sig_ou=(sig_ou, None, ()),
-                       noise3=(noise3, None, (3,)))
+        noise3 = noise3.reshape(batch + (3,))
+        tensors.update(c_ou=(c_ou, None, ("b",)),
+                       sig_ou=(sig_ou, None, ("b",)),
+                       noise3=(noise3, None, ("b", 3)))
         ou = (_cuda.ptr(c_ou), _cuda.ptr(sig_ou), _cuda.ptr(noise3))
-    _check("post_force_apply", tensors, dtype, n)
+    _check("post_force_apply", tensors, dtype, n, batch)
     vel_out = torch.empty_like(velocity)
-    out = torch.empty(3, dtype=dtype, device=velocity.device)
-    # (2 KE_mol, 2 KE_cav) per block of the grid, as for K4
+    out = torch.empty(batch + (3,), dtype=dtype, device=velocity.device)
+    # (2 KE_mol, 2 KE_cav) per block of a replica's grid, as for K4
     n_partial = -(-n // GRID_THREADS)
-    partial = torch.empty(2 * n_partial, dtype=dtype, device=velocity.device)
+    partial = torch.empty(batch + (2 * n_partial,), dtype=dtype,
+                          device=velocity.device)
     p = _cuda.ptr
     rc = getattr(_lib(), f"cavmd_fused_post_force_{sfx}")(
         p(velocity), p(forces), p(mass), p(mol_mask), p(dt), plan.photon,
-        *ou, n, p(vel_out), p(out), p(partial), n_partial,
-        _cuda.stream_ptr(velocity.device))
+        *ou, n, batch[0] if batch else 1, p(vel_out), p(out), p(partial),
+        n_partial, _cuda.stream_ptr(velocity.device))
     _cuda.check(rc, "fused_post_force")
     _cuda.count_launch("fused_post_force")
-    return vel_out, out[0], out[1], out[2]
+    return vel_out, out[..., 0], out[..., 1], out[..., 2]

@@ -123,7 +123,9 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
 
     ``lj_active`` / ``coulomb_active`` are the static (N, N) masks; the
     cutoff tests are applied here. Masked pairs contribute exactly zero.
-    Returns (forces (N, 3), e_lj, e_ewald_short).
+    ``position`` is (N, 3) or a replica batch (..., N, 3) sharing the
+    parameter matrices and masks. Returns (forces (..., N, 3), e_lj,
+    e_ewald_short), the energies of the leading shape.
     """
     dtype = position.dtype
     zero = position.new_zeros(())
@@ -133,8 +135,8 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
     dxs = []
     r2 = None
     for d in range(3):
-        x = position[:, d]
-        dx = x[:, None] - x[None, :]
+        x = position[..., d]
+        dx = x[..., :, None] - x[..., None, :]
         dx = dx - box[d] * torch.round(dx / box[d])
         dxs.append(dx)
         r2 = dx * dx if r2 is None else r2 + dx * dx
@@ -144,8 +146,9 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
     inv_r2 = sig2 / r2_lj
     s6 = inv_r2 * inv_r2 * inv_r2
     s12 = s6 * s6
+    pairs = (-2, -1)
     e_lj = 0.5 * torch.sum(
-        torch.where(lj_on, 4.0 * eps * (s12 - s6) - vshift, zero))
+        torch.where(lj_on, 4.0 * eps * (s12 - s6) - vshift, zero), dim=pairs)
     f_lj = torch.where(lj_on, 24.0 * eps * (2.0 * s12 - s6) / r2_lj, zero)
 
     # a host number stays one: no host-to-device copy
@@ -154,7 +157,7 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
     r2_ew = torch.where(ew_on, r2, one)
     r = torch.sqrt(r2_ew)
     ec = torch.special.erfc(kappa * r)
-    e_ew = 0.5 * torch.sum(torch.where(ew_on, qq * ec / r, zero))
+    e_ew = 0.5 * torch.sum(torch.where(ew_on, qq * ec / r, zero), dim=pairs)
     two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
     f_ew = torch.where(
         ew_on,
@@ -165,7 +168,7 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
 
     f_total = f_lj + f_ew
     forces = torch.stack(
-        [torch.sum(f_total * dxs[d], dim=1) for d in range(3)], dim=1)
+        [torch.sum(f_total * dxs[d], dim=-1) for d in range(3)], dim=-1)
     return forces, e_lj, e_ew
 
 

@@ -11,6 +11,10 @@ typeid and charge vectors and the two static (N, N) ``uint8`` masks
 ``lj_active`` / ``coulomb_active`` — 2 bytes per pair. The wrapper runs the
 plain twin only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
+
+Positions may carry a leading replica axis, (B, N, 3) (replica batching,
+``parallel/replicas.py``): one launch then takes every replica, with the
+type tables, charges and masks shared, and the energies come back (B,).
 """
 
 from __future__ import annotations
@@ -25,12 +29,12 @@ from cavmd_tpu_torch.ops.lj import fused_pair_terms
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_PAIR_ARGS = [_V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _D, _D, _V, _V,
-              _V]
+_PAIR_ARGS = [_V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _D, _D, _V,
+              _V, _V]
 _SIGNATURES = {
     "cavmd_dense_pair_f32": _PAIR_ARGS,
     "cavmd_dense_pair_f64": _PAIR_ARGS,
-    "cavmd_dense_pair_blocks": [_I],
+    "cavmd_dense_pair_blocks": [_I, _I],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -38,7 +42,8 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def dense_pair_force_plain(position, box_L, typeid, eps, sig2, rcut2, vshift,
                            charge, lj_active, coulomb_active, kappa: float,
                            coulomb_rc2: float):
-    """Plain twin of kernel 1. Returns (forces (N, 3), e_lj, e_ewald_short)."""
+    """Plain twin of kernel 1. Returns (forces (..., N, 3), e_lj,
+    e_ewald_short), the energies of the leading shape (0-d unbatched)."""
     tid = typeid.long()
     ti, tj = tid[:, None], tid[None, :]
     qq = charge[:, None] * charge[None, :]
@@ -49,18 +54,21 @@ def dense_pair_force_plain(position, box_L, typeid, eps, sig2, rcut2, vshift,
     )
 
 
-def launch_blocks(n: int) -> int:
-    """Blocks of one kernel launch at N = ``n``: the rows of its energy
-    partials (``csrc/pair.cu`` sizes the rows a block by N)."""
-    return _cuda.load("pair", _SIGNATURES).cavmd_dense_pair_blocks(n)
+def launch_blocks(n: int, replicas: int = 1) -> int:
+    """Blocks a replica of one kernel launch over ``replicas`` replicas of
+    N = ``n``: the length of its energy partials (``csrc/pair.cu`` sizes
+    the rows a block by the batch's rows)."""
+    return _cuda.load("pair", _SIGNATURES).cavmd_dense_pair_blocks(
+        n, replicas)
 
 
 def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
                      charge, lj_active, coulomb_active, kappa: float,
                      coulomb_rc2: float):
     """Forces and the two pair energies: kernel 1 on CUDA, the plain twin on
-    CPU. ``kappa`` and ``coulomb_rc2`` are host floats (static per force
-    field), so the launch needs no device-to-host read."""
+    CPU. ``position`` is (N, 3) or a replica batch (B, N, 3); the energies
+    take its leading shape. ``kappa`` and ``coulomb_rc2`` are host floats
+    (static per force field), so the launch needs no device-to-host read."""
     if position.device.type == "cpu":
         return dense_pair_force_plain(position, box_L, typeid, eps, sig2,
                                       rcut2, vshift, charge, lj_active,
@@ -71,9 +79,13 @@ def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
     dtype = position.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"dense_pair_force: no kernel for {dtype}")
-    n = position.shape[0]
+    if position.dim() not in (2, 3):
+        raise ValueError("dense_pair_force: position must be (N, 3) or "
+                         f"(B, N, 3), got {tuple(position.shape)}")
+    batch = tuple(position.shape[:-2])
+    n = position.shape[-2]
     ntypes = eps.shape[0]  # the launcher rejects more types than pair.cu holds
-    checks = dict(position=(position, dtype, (n, 3)),
+    checks = dict(position=(position, dtype, batch + (n, 3)),
                   box_L=(box_L, dtype, (3,)),
                   typeid=(typeid, torch.int32, (n,)),
                   eps=(eps, dtype, (ntypes, ntypes)),
@@ -92,15 +104,16 @@ def dense_pair_force(position, box_L, typeid, eps, sig2, rcut2, vshift,
                 f"{tuple(t.shape)} on {t.device}")
     lib = _cuda.load("pair", _SIGNATURES)
     forces = torch.empty_like(position)
-    partial = torch.empty((2, launch_blocks(n)), dtype=dtype,
+    nb = batch[0] if batch else 1
+    partial = torch.empty(batch + (2, launch_blocks(n, nb)), dtype=dtype,
                           device=position.device)
     p = _cuda.ptr
     rc = getattr(lib, f"cavmd_dense_pair_{_SUFFIX[dtype]}")(
         p(position), p(box_L), p(typeid), p(eps), p(sig2), p(rcut2),
         p(vshift), ntypes, p(charge), p(lj_active), p(coulomb_active), n,
-        float(kappa), float(coulomb_rc2), p(forces), p(partial),
+        nb, float(kappa), float(coulomb_rc2), p(forces), p(partial),
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "dense_pair")
     _cuda.count_launch("dense_pair")
-    energies = torch.sum(partial, dim=1)  # the kernel halves the partials
-    return forces, energies[0], energies[1]
+    energies = torch.sum(partial, dim=-1)  # the kernel halves the partials
+    return forces, energies[..., 0], energies[..., 1]

@@ -142,9 +142,10 @@ def mesh_vector(mesh, like, dtype=None):
 
 
 def bspline_stencils(position, box_L, order: int, mesh):
-    """Per-particle, per-axis stencils: weights ``w`` (N, 3, p), their
-    derivatives ``dw`` w.r.t. the grid coordinate u (N, 3, p), and the
-    wrapped grid columns ``idx`` (N, 3, p) int64.
+    """Per-particle, per-axis stencils: weights ``w`` (..., N, 3, p), their
+    derivatives ``dw`` w.r.t. the grid coordinate u (..., N, 3, p), and the
+    wrapped grid columns ``idx`` (..., N, 3, p) int64, for positions
+    (..., N, 3) (a leading replica axis carries through).
 
     u = (r / L + 1/2) K, base = floor(u), column j = (base - j) mod K with
     weight M_p(frac + j) — the JAX package's convention exactly.
@@ -163,15 +164,17 @@ def bspline_stencils(position, box_L, order: int, mesh):
 
 
 def mesh_energy(grid, params: PPPMParams):
-    """Reciprocal energy of a real (Kx, Ky, Kz) charge grid.
+    """Reciprocal energy of a real (..., Kx, Ky, Kz) charge grid: 0-d for
+    one grid, (B,) for a replica batch of grids in one box (one ``rfftn``
+    call for the batch, the port of ``pppm_reciprocal_energy_batched``).
 
-    ``rfftn`` over dims (1, 2, 0) halves the last listed dim, x, matching
+    ``rfftn`` over dims (y, z, x) halves the last listed dim, x, matching
     the half-spectrum influence.
     """
-    spec = torch.fft.rfftn(grid, dim=(1, 2, 0))
+    spec = torch.fft.rfftn(grid, dim=(-2, -1, -3))
     power = spec.real * spec.real + spec.imag * spec.imag
     pref = 1.0 / (2.0 * math.pi * params.volume)
-    return pref * torch.sum(params.influence * power)
+    return pref * torch.sum(params.influence * power, dim=(-3, -2, -1))
 
 
 def pppm_force_and_energy(position, charge, box_L, params: PPPMParams,
@@ -179,7 +182,11 @@ def pppm_force_and_energy(position, charge, box_L, params: PPPMParams,
     """Forces (exact -grad of the mesh energy) and the reciprocal energy.
 
     The spread and its backward are the kernels of ``ops/pppm_kernels.py``
-    (plain twins on the CPU); the mesh-energy gradient is autograd.
+    (plain twins on the CPU); the mesh-energy gradient is autograd. A
+    replica batch, positions (B, N, 3) in one shared box, gives forces
+    (B, N, 3) and energies (B,) from one spread, one FFT and one
+    interpolation (the port of ``pppm_force_and_energy_batched``; replicas
+    with their own boxes are refused once, at ``init_replica_states``).
     """
     from cavmd_tpu_torch.ops.pppm_kernels import spread_grid_autograd
 
@@ -187,5 +194,5 @@ def pppm_force_and_energy(position, charge, box_L, params: PPPMParams,
         pos = position.detach().requires_grad_(True)
         grid = spread_grid_autograd(pos, charge, box_L, order, tuple(mesh))
         energy = mesh_energy(grid, params)
-        (grad,) = torch.autograd.grad(energy, pos)
+        (grad,) = torch.autograd.grad(energy.sum(), pos)
     return -grad, energy.detach()

@@ -12,12 +12,18 @@ a CUDA tensor they launch the kernel or raise. :class:`SpreadGrid` joins
 them as the forward and backward of one ``torch.autograd.Function``, so
 forces are ``-grad`` of the mesh energy exactly as with the JAX package's
 ``custom_vjp``.
+
+Positions may carry a leading replica axis, (B, N, 3) (replica batching,
+``parallel/replicas.py``): the grid is then (B, Kx, Ky, Kz), one launch
+for the batch, charges and box shared. Kernel 2 takes its global path for
+a batch; a batched ``path="tile"`` raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cavmd_tpu_torch.ops import _cuda
@@ -26,11 +32,11 @@ from cavmd_tpu_torch.ops.pppm import bspline_stencils, mesh_vector
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    **{f"cavmd_pppm_spread_{s}": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V,
-                                   _V, _V]
+    **{f"cavmd_pppm_spread_{s}": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
+                                   _V, _V, _V]
        for s in ("f32", "f64")},
     **{f"cavmd_pppm_interpolate_{s}": [_V, _V, _V, _V, _I, _I, _I, _I, _I,
-                                       _V, _V]
+                                       _I, _V, _V]
        for s in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -40,39 +46,48 @@ SPREAD_PATHS = {"auto": 0, "global": 1, "tile": 2}
 
 
 def _flat_columns(idx, mesh):
-    """(N, p, p, p) flat row-major grid indices from per-axis columns."""
+    """(..., N, p, p, p) flat row-major grid indices from per-axis columns
+    (..., N, 3, p); with a leading replica axis (B, N, 3, p), replica b's
+    indices are offset by b Kx Ky Kz, into the flattened (B, Kx, Ky, Kz)
+    grid."""
     Kx, Ky, Kz = mesh
-    ix, iy, iz = idx[:, 0], idx[:, 1], idx[:, 2]
-    return ((ix[:, :, None, None] * Ky + iy[:, None, :, None]) * Kz
-            + iz[:, None, None, :])
+    ix, iy, iz = idx[..., 0, :], idx[..., 1, :], idx[..., 2, :]
+    flat = ((ix[..., :, None, None] * Ky + iy[..., None, :, None]) * Kz
+            + iz[..., None, None, :])
+    if idx.dim() == 4:
+        nb = idx.shape[0]
+        flat = flat + (torch.arange(nb, device=idx.device)
+                       * (Kx * Ky * Kz)).reshape(nb, 1, 1, 1, 1)
+    return flat
 
 
 def spread_grid_plain(position, charge, box_L, order: int, mesh):
-    """Plain twin of kernel 2: the (Kx, Ky, Kz) charge grid
+    """Plain twin of kernel 2: the (..., Kx, Ky, Kz) charge grid
     ``grid[x, y, z] = sum_i q_i Mx_i(x) My_i(y) Mz_i(z)`` by a p^3 scatter."""
     w, _, idx = bspline_stencils(position, box_L, order, mesh)
-    wx, wy, wz = w[:, 0], w[:, 1], w[:, 2]
-    vals = ((charge[:, None] * wx)[:, :, None, None]
-            * (wy[:, None, :, None] * wz[:, None, None, :]))
-    grid = position.new_zeros(mesh[0] * mesh[1] * mesh[2])
+    wx, wy, wz = w[..., 0, :], w[..., 1, :], w[..., 2, :]
+    vals = ((charge[:, None] * wx)[..., :, None, None]
+            * (wy[..., None, :, None] * wz[..., None, None, :]))
+    batch = tuple(position.shape[:-2])
+    grid = position.new_zeros(int(np.prod(batch + tuple(mesh))))
     grid.index_add_(0, _flat_columns(idx, mesh).reshape(-1), vals.reshape(-1))
-    return grid.reshape(mesh)
+    return grid.reshape(batch + tuple(mesh))
 
 
 def interpolate_grad_plain(ct, position, charge, box_L, order: int, mesh):
-    """Plain twin of kernel 3: dE/dr (N, 3) from the grid cotangent ``ct``,
-    ``dE/dr_d = (K_d / L_d) q sum ct M'(d) M(others)``."""
+    """Plain twin of kernel 3: dE/dr (..., N, 3) from the grid cotangent
+    ``ct`` (..., Kx, Ky, Kz), ``dE/dr_d = (K_d / L_d) q sum ct M'(d)
+    M(others)``."""
     w, dw, idx = bspline_stencils(position, box_L, order, mesh)
-    g = ct.reshape(-1)[_flat_columns(idx, mesh)]  # (N, p, p, p)
-    wx, wy, wz = w[:, 0], w[:, 1], w[:, 2]
-    dx, dy, dz = dw[:, 0], dw[:, 1], dw[:, 2]
-    terms = (
-        dx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :],
-        wx[:, :, None, None] * dy[:, None, :, None] * wz[:, None, None, :],
-        wx[:, :, None, None] * wy[:, None, :, None] * dz[:, None, None, :],
-    )
-    gsum = torch.stack([torch.sum(g * t, dim=(1, 2, 3)) for t in terms],
-                       dim=1)
+    g = ct.reshape(-1)[_flat_columns(idx, mesh)]  # (..., N, p, p, p)
+    wx, wy, wz = w[..., 0, :], w[..., 1, :], w[..., 2, :]
+    dx, dy, dz = dw[..., 0, :], dw[..., 1, :], dw[..., 2, :]
+    a, b, c = (..., slice(None), None, None), (..., None, slice(None), None), \
+        (..., None, None, slice(None))
+    terms = (dx[a] * wy[b] * wz[c], wx[a] * dy[b] * wz[c],
+             wx[a] * wy[b] * dz[c])
+    gsum = torch.stack([torch.sum(g * t, dim=(-3, -2, -1)) for t in terms],
+                       dim=-1)
     Ks = mesh_vector(mesh, position)
     return charge[:, None] * gsum * (Ks / box_L.to(position.dtype))
 
@@ -97,8 +112,20 @@ def _lib():
     return _cuda.load("pppm_spread", _SIGNATURES)
 
 
+def _batch(position, charge, what):
+    """(leading shape, N, replicas) of (N, 3) or (B, N, 3) positions."""
+    if position.dim() not in (2, 3) or position.shape[-1] != 3 \
+            or tuple(charge.shape) != (position.shape[-2],):
+        raise ValueError(f"{what}: positions must be (N, 3) or (B, N, 3) "
+                         f"with (N,) charges, got {tuple(position.shape)} "
+                         f"and {tuple(charge.shape)}")
+    batch = tuple(position.shape[:-2])
+    return batch, position.shape[-2], batch[0] if batch else 1
+
+
 def spread_grid(position, charge, box_L, order: int, mesh):
-    """(Kx, Ky, Kz) charge grid: kernel 2 on CUDA, the plain twin on CPU."""
+    """(..., Kx, Ky, Kz) charge grid of positions (..., N, 3): kernel 2 on
+    CUDA, the plain twin on CPU."""
     if position.device.type == "cpu":
         return spread_grid_plain(position, charge, box_L, order, mesh)
     return spread_grid_cuda(position, charge, box_L, order, mesh)
@@ -108,7 +135,8 @@ def spread_grid_cuda(position, charge, box_L, order: int, mesh,
                      path: str = "auto", tile_runs=None):
     """Kernel 2 on CUDA tensors. ``path`` picks the kernel's path: "auto"
     (by shape, as ``spread_grid`` runs it), "global" or "tile" (each held
-    on its own by the tests and ``chip_smoke.py``). ``tile_runs``, a
+    on its own by the tests and ``chip_smoke.py``; a replica batch takes
+    the global path, and "tile" raises for it). ``tile_runs``, a
     CUDA int32 tensor of one element, gets 1 added for each run of
     particles that a block accumulated in its shared-memory tile."""
     if position.device.type != "cuda":
@@ -116,13 +144,17 @@ def spread_grid_cuda(position, charge, box_L, order: int, mesh,
     sfx = _kernel_dtype(position, "spread_grid")
     _check_cuda_inputs("spread_grid", dict(position=position, charge=charge,
                                            box_L=box_L), position.dtype)
-    n = position.shape[0]
+    batch, n, nb = _batch(position, charge, "spread_grid")
+    if batch and path == "tile":
+        raise ValueError("spread_grid: the tile path takes one replica; a "
+                         "replica batch runs the global path")
     Kx, Ky, Kz = mesh
-    grid = torch.zeros(mesh, dtype=position.dtype, device=position.device)
+    grid = torch.zeros(batch + tuple(mesh), dtype=position.dtype,
+                       device=position.device)
     tiled = None if tile_runs is None else _cuda.ptr(tile_runs)
     rc = getattr(_lib(), f"cavmd_pppm_spread_{sfx}")(
-        _cuda.ptr(position), _cuda.ptr(charge), _cuda.ptr(box_L), n, order,
-        Kx, Ky, Kz, SPREAD_PATHS[path], _cuda.ptr(grid), tiled,
+        _cuda.ptr(position), _cuda.ptr(charge), _cuda.ptr(box_L), n, nb,
+        order, Kx, Ky, Kz, SPREAD_PATHS[path], _cuda.ptr(grid), tiled,
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "pppm_spread")
     _cuda.count_launch("pppm_spread")
@@ -130,8 +162,8 @@ def spread_grid_cuda(position, charge, box_L, order: int, mesh,
 
 
 def interpolate_grad(ct, position, charge, box_L, order: int, mesh):
-    """dE/dr (N, 3) from the grid cotangent: kernel 3 on CUDA, the plain
-    twin on CPU."""
+    """dE/dr (..., N, 3) from the grid cotangent (..., Kx, Ky, Kz): kernel
+    3 on CUDA, the plain twin on CPU."""
     if position.device.type == "cpu":
         return interpolate_grad_plain(ct, position, charge, box_L, order, mesh)
     if position.device.type != "cuda":
@@ -142,15 +174,15 @@ def interpolate_grad(ct, position, charge, box_L, order: int, mesh):
     _check_cuda_inputs("interpolate_grad", dict(
         ct=ct, position=position, charge=charge, box_L=box_L),
         position.dtype)
-    if tuple(ct.shape) != tuple(mesh):
+    batch, n, nb = _batch(position, charge, "interpolate_grad")
+    if tuple(ct.shape) != batch + tuple(mesh):
         raise ValueError(f"interpolate_grad: ct shape {tuple(ct.shape)} "
-                         f"is not the mesh {tuple(mesh)}")
-    n = position.shape[0]
+                         f"is not {batch + tuple(mesh)}")
     Kx, Ky, Kz = mesh
     dpos = torch.empty_like(position)
     rc = getattr(_lib(), f"cavmd_pppm_interpolate_{sfx}")(
         _cuda.ptr(ct), _cuda.ptr(position), _cuda.ptr(charge),
-        _cuda.ptr(box_L), n, order, Kx, Ky, Kz, _cuda.ptr(dpos),
+        _cuda.ptr(box_L), n, nb, order, Kx, Ky, Kz, _cuda.ptr(dpos),
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "pppm_interpolate")
     _cuda.count_launch("pppm_interpolate")

@@ -1,4 +1,8 @@
-"""Scale-out across processes: the slab domain pipeline.
+"""Scale-out: replica batches on one device, the slab domain pipeline
+across processes.
+
+``replicas`` batches a population of trajectories into one state with a
+leading replica axis (``init_replica_states``, ``run_replica_steps``).
 
 ``comm.Communicator`` carries the collectives; ``domain`` plans the slabs,
 rebuilds the residency layout and runs the slab step
@@ -12,5 +16,13 @@ from cavmd_tpu_torch.parallel.domain import (
     make_domain_runner,
     plan_domain,
 )
+from cavmd_tpu_torch.parallel.replicas import (
+    init_replica_states,
+    make_replica_step,
+    run_replica_steps,
+    split_replica_obs,
+)
 
-__all__ = ["Communicator", "DomainPlan", "make_domain_runner", "plan_domain"]
+__all__ = ["Communicator", "DomainPlan", "make_domain_runner", "plan_domain",
+           "init_replica_states", "make_replica_step", "run_replica_steps",
+           "split_replica_obs"]

@@ -1,0 +1,155 @@
+"""Replica batching: a population of trajectories as one batched state.
+
+Port of ``cavmd_tpu/parallel/replicas.py``. The reference fans replicas out
+as a SLURM array, one task a replica (``examples/submit.sh``); the JAX
+package ``vmap``s its step over a leading replica axis. Here the batch is
+written out instead: one ``MDState`` whose per-replica leaves carry a
+leading axis B (``integrate/integrator.py``), advanced by the ordinary step
+function, whose operations all run over the last two axes. Each hand
+kernel (K1-K5) then runs once a step for all B replicas, so a batch costs
+the host the launches of one replica. ``torch.func.vmap`` cannot batch the
+kernels (ctypes launches), and a Python loop over replicas would multiply
+the launches by B.
+
+The replicas share one topology (N, types, charges, masses, bonds) and one
+box, and the force field is dense (N <= ``DENSE_MAX_N``); both are checked
+here once, on the host. Each replica has its own positions, velocities,
+clock, adaptive dt and reservoirs. The step draws each random stream once
+for the whole batch (one ``torch.Generator`` a stream, shaped (B, ...)),
+so replica r's noise is not the stream of a one-replica run at seed + r;
+its initial thermal velocities are (``init_replica_states``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from cavmd_tpu_torch.core.snapshot import Snapshot
+from cavmd_tpu_torch.integrate.forcefield import BATCHED_CELL_TODO, ForceField
+from cavmd_tpu_torch.integrate.integrator import (
+    MDState,
+    init_state,
+    run_steps,
+    thermal_velocities,
+)
+
+# leaves of MDState that carry the replica axis; the others are shared
+PER_REPLICA = ("position", "image", "velocity", "forces", "dt", "time_au",
+               "time_comp", "timestep", "bussi_reservoir",
+               "bussi_instantaneous", "langevin_reservoir", "error_tolerance")
+_TOPOLOGY = ("typeid", "charge", "mass", "bond_group", "bond_typeid")
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+def _check_replicas(snaps: Sequence[Snapshot]) -> None:
+    """Raise ``ValueError`` unless every snapshot has replica 0's topology
+    (N, typeid, charge, mass, bonds) and box. The box check is the port of
+    the JAX package's same-box guard (``cavmd_tpu/ops/pppm.py:569-580``,
+    which poisons a mixed-box batch with NaN): no ported method changes
+    the box, so one check before the run holds for all of it."""
+    ref = snaps[0]
+    for r, s in enumerate(snaps[1:], 1):
+        if s.N != ref.N or not all(
+                np.array_equal(_host(getattr(s, k)), _host(getattr(ref, k)))
+                for k in _TOPOLOGY):
+            raise ValueError(
+                f"replica {r} has another topology than replica 0 (N, "
+                "types, charges, masses or bonds): a replica batch shares "
+                "one ForceField")
+        if not np.array_equal(_host(s.box_L), _host(ref.box_L)):
+            raise ValueError(
+                f"replica {r}'s box {_host(s.box_L).tolist()} differs from "
+                f"replica 0's {_host(ref.box_L).tolist()}: the replicas of a "
+                "batch share one box (one PPPM influence table)")
+
+
+def _stack(states: Sequence[MDState], seed: int) -> MDState:
+    """One batched ``MDState`` from one-replica states of one topology:
+    the per-replica leaves stacked on a new leading axis, the shared ones
+    taken from the first, the host step from the first (they must agree),
+    and fresh generators from ``seed``."""
+    steps = {s.step for s in states}
+    if len(steps) != 1:
+        raise ValueError(f"replica states at different steps {sorted(steps)}")
+    first = states[0]
+    return first.replace(
+        **{k: torch.stack([getattr(s, k) for s in states])
+           for k in PER_REPLICA},
+        seed=seed, generators={}, cell_list=None, cell_anchor=None)
+
+
+def init_replica_states(
+    snapshots: Snapshot | Sequence[Snapshot],
+    ff: ForceField,
+    *,
+    n_replicas: int | None = None,
+    dt: float,
+    seed: int = 0,
+    kT: float | None = None,
+    error_tolerance: float = 0.0,
+    device=None,
+) -> MDState:
+    """A batched ``MDState`` with a leading replica axis.
+
+    Either one snapshot replicated ``n_replicas`` times, or a sequence of
+    per-replica snapshots (for example frames of an input trajectory, the
+    reference's replica = frame convention). With ``kT``, replica r's
+    velocities are the thermalization ``Simulation.thermalize`` gives at
+    seed ``seed + r`` (molecules with their drift removed, the photon
+    drawn apart). Each replica's forces come from its own ``init_state``.
+    The batch's step streams are seeded from ``seed``. ``device``: where
+    the state lives (None: the snapshots' device). Raises ``ValueError``
+    for replicas of another topology or box, ``NotImplementedError`` for a
+    force field that is not dense.
+    """
+    if isinstance(snapshots, Snapshot):
+        if n_replicas is None:
+            raise ValueError("give n_replicas with a single snapshot")
+        snaps = [snapshots] * n_replicas
+    else:
+        snaps = list(snapshots)
+    if not snaps:
+        raise ValueError("no replicas")
+    if ff.pair_mode != "dense":
+        raise NotImplementedError(BATCHED_CELL_TODO)
+    _check_replicas(snaps)
+    dev = snaps[0].device if device is None else torch.device(device)
+    states = []
+    for r, snap in enumerate(snaps):
+        snap = snap.to(dev)
+        if kT is not None:
+            snap = snap.replace(velocity=thermal_velocities(
+                snap.mass, snap.typeid, ff.l_typeid, kT, seed + r))
+        states.append(init_state(snap, ff, dt=dt, seed=seed + r,
+                                 error_tolerance=error_tolerance))
+    return _stack(states, seed)
+
+
+def make_replica_step(step_fn):
+    """The step of a replica batch: ``step_fn`` itself, whose operations
+    run over the last two axes (the JAX package wraps its step in
+    ``jax.vmap``). Raises ``NotImplementedError`` when the step's force
+    field is not dense."""
+    ff = getattr(step_fn, "force_field", None)
+    if ff is not None and ff.pair_mode != "dense":
+        raise NotImplementedError(BATCHED_CELL_TODO)
+    return step_fn
+
+
+def run_replica_steps(step_fn, batched_state: MDState, n_steps: int):
+    """Run the batch ``n_steps`` steps; the observables gain a
+    (steps, replicas) shape."""
+    return run_steps(make_replica_step(step_fn), batched_state, n_steps)
+
+
+def split_replica_obs(obs, n_replicas: int):
+    """Per-replica observable dicts (for per-replica trackers writing
+    per-replica files): column r of every (steps, B, ...) array."""
+    return [{k: np.asarray(v)[:, r] for k, v in obs.items()}
+            for r in range(n_replicas)]

@@ -39,14 +39,12 @@ from cavmd_tpu_torch.integrate.forcefield import ForceField
 from cavmd_tpu_torch.integrate.integrator import (
     MDState,
     MethodSpec,
-    group_mask,
     init_state,
     make_step_fn,
     resolve_methods,
     run_steps,
+    thermal_velocities,
 )
-from cavmd_tpu_torch.integrate.rng import STREAM_THERMALIZE, make_generator
-from cavmd_tpu_torch.integrate.thermostats import thermalize_velocities
 
 # Default residency-rebuild cadence (steps) of the slab domain pipeline, as
 # in the JAX package; a coverage violation halves it for the retry.
@@ -219,22 +217,9 @@ class Simulation:
         removed, and the photon drawn N(0, sqrt(kT/m)) separately."""
         seed = self.seed if seed is None else seed
         st = self.state
-        dev = st.device
-        l_typeid = self.ff.l_typeid
-        kT_t = torch.as_tensor(kT, dtype=st.mass.dtype, device=dev)
-        mol_mask = group_mask(st.typeid, l_typeid,
-                              "molecular" if molecular_only else "all")
-        v = thermalize_velocities(
-            make_generator(seed, STREAM_THERMALIZE, 0, dev), st.mass,
-            mol_mask, kT_t)
-        if molecular_only and l_typeid >= 0:
-            pk = photon_kT if photon_kT is not None else kT
-            v = v + thermalize_velocities(
-                make_generator(seed, STREAM_THERMALIZE, 1, dev), st.mass,
-                st.typeid == l_typeid,
-                torch.as_tensor(pk, dtype=st.mass.dtype, device=dev),
-                remove_drift=False)
-        self.state = st.replace(velocity=v)
+        self.state = st.replace(velocity=thermal_velocities(
+            st.mass, st.typeid, self.ff.l_typeid, kT, seed,
+            molecular_only=molecular_only, photon_kT=photon_kT))
 
     def set_optimal_timestep(self, tolerance: float) -> float:
         """Bootstrap dt from the current forces; returns it (one read-back)."""

@@ -877,3 +877,250 @@ def test_two_calls_give_the_same_bits(cuda, kernel, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------- replica batches
+# K1-K5 with a leading replica axis (parallel/replicas.py): one launch for
+# B replicas of the N = 501 reference scene, each replica's positions and
+# velocities jittered apart
+REPLICA_BATCHES = (1, 3, 8)
+
+
+def _jitter(x, B, scale, seed):
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    return (x[None] + scale * torch.randn((B,) + tuple(x.shape), generator=g,
+                                          dtype=x.dtype, device=x.device)
+            ).contiguous()
+
+
+def _hold_replicas(batched, one_call, B, tol, bits=False):
+    """Each replica's outputs of the batched launch against the one-replica
+    launch on its rows: bit-equal, or within ``tol`` of the largest."""
+    for r in range(B):
+        for got, want in zip(batched, one_call(r)):
+            if bits:
+                assert torch.equal(got[r], want), r
+            else:
+                assert _close(got[r], want, tol), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", REPLICA_BATCHES)
+def test_batched_pair_kernel(cuda, B, dtype):
+    """K1 over B replicas in one launch: against its twin on the batch,
+    against the one-replica launch on each replica (within TOL: a batch
+    runs more rows a block, so a row's j slices are summed in another
+    order), two calls bit-equal."""
+    args = _dense_inputs(dtype, cuda, 250)
+    P = _jitter(args[0], B, 0.3, 1)
+    bargs = (P,) + args[1:]
+    before = _cuda.launches["dense_pair"]
+    out_k = pk.dense_pair_force(*bargs)
+    again = pk.dense_pair_force(*bargs)
+    torch.cuda.synchronize()
+    assert _cuda.launches["dense_pair"] == before + 2
+    assert out_k[0].shape == (B, 501, 3) and out_k[1].shape == (B,)
+    out_p = pk.dense_pair_force_plain(*bargs)
+    for k, p in zip(out_k, out_p):
+        assert bool(torch.isfinite(k).all()) and _close(k, p, TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    _hold_replicas(out_k, lambda r: pk.dense_pair_force(P[r], *args[1:]),
+                   B, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", REPLICA_BATCHES)
+def test_batched_spread_and_interpolation_kernels(cuda, B, dtype):
+    """K2 (its global path) and K3 over B replicas: against their twins on
+    the batch and against one-replica launches (K2 within TOL, its float
+    atomics; K3 bit-equal), K3's two calls bit-equal; a batched tile
+    request raises."""
+    pos, q, box = _spread_inputs(dtype, cuda)
+    mesh, order = (32, 32, 32), 6
+    P = _jitter(pos, B, 0.3, 2)
+    before = dict(_cuda.launches)
+    g_k = sk.spread_grid(P, q, box, order, mesh)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pppm_spread"] == before.get("pppm_spread", 0) + 1
+    assert g_k.shape == (B,) + mesh
+    assert _close(g_k, sk.spread_grid_plain(P, q, box, order, mesh),
+                  TOL[dtype])
+    _hold_replicas((g_k,), lambda r: (sk.spread_grid(P[r], q, box, order,
+                                                     mesh),), B, TOL[dtype])
+    params, _ = PPPMParams.create(box.cpu().numpy(), mesh=mesh, order=order,
+                                  kappa=0.2, dtype=dtype, device=cuda)
+    grid = g_k.detach().requires_grad_(True)
+    (ct,) = torch.autograd.grad(mesh_energy(grid, params).sum(), grid)
+    ct = ct.contiguous()
+    d_k = sk.interpolate_grad(ct, P, q, box, order, mesh)
+    d_again = sk.interpolate_grad(ct, P, q, box, order, mesh)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_again)
+    assert _close(d_k, sk.interpolate_grad_plain(ct, P, q, box, order, mesh),
+                  TOL[dtype])
+    _hold_replicas((d_k,), lambda r: (sk.interpolate_grad(
+        ct[r].contiguous(), P[r], q, box, order, mesh),), B, TOL[dtype],
+        bits=True)
+    if B > 1:
+        with pytest.raises(ValueError, match="tile"):
+            sk.spread_grid_cuda(P, q, box, order, mesh, path="tile")
+
+
+def _batched_integrator_inputs(dtype, device, B):
+    """K4/K5 inputs of ``_integrator_inputs`` for B replicas: positions
+    and velocities jittered apart, each replica its own dt and draws."""
+    pre, post = _integrator_inputs(dtype, device, n_mol=250, box_L=46.0)
+    g = torch.Generator(device=device)
+    g.manual_seed(4)
+
+    def per(x, lo=0.9, hi=1.1):
+        return x * (lo + (hi - lo) * torch.rand(B, generator=g, dtype=dtype,
+                                                device=device))
+
+    plan, pos, img, vel, frc, mass, mol, box, dt, c, kT, r1, rg = pre
+    P, V = _jitter(pos, B, 1e-4, 5), _jitter(vel, B, 1e-4, 6)
+    Fb = _jitter(frc, B, 1e-4, 7)
+    Ib = img[None].expand(B, -1, -1).contiguous()
+    dts = per(dt)
+    bpre = (plan, P, Ib, V, Fb, mass, mol, box, dts,
+            torch.exp(-dts / plan.bussi.tau), kT,
+            torch.randn(B, generator=g, dtype=dtype, device=device),
+            per(rg))
+    c_ou = torch.exp(-plan.langevin.gamma * dts)
+    sig = torch.sqrt((1.0 - c_ou * c_ou) * kT / mass[plan.photon])
+    bpost = (plan, V, Fb, mass, mol, dts, c_ou, sig,
+             torch.randn((B, 1, 3), generator=g, dtype=dtype, device=device))
+    return bpre, bpost
+
+
+def _one(args, r, batched_idx):
+    return tuple(a[r].contiguous() if i in batched_idx else a
+                 for i, a in enumerate(args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", REPLICA_BATCHES)
+def test_batched_fused_integrator_kernels(cuda, B, dtype):
+    """K4 and K5 over B replicas in one cooperative launch each: against
+    their twins on the batch (K4's image flags and K5's velocities equal,
+    the rest within TOL, the reservoir deltas against the energies they
+    come from), against the one-replica launches (bit-equal: each
+    replica's partials are summed in one fixed order), two calls
+    bit-equal."""
+    pre, post = _batched_integrator_inputs(dtype, cuda, B)
+    before = dict(_cuda.launches)
+    k4 = fi.pre_force_apply(*pre)
+    k4_again = fi.pre_force_apply(*pre)
+    k5 = fi.post_force_apply(*post)
+    k5_again = fi.post_force_apply(*post)
+    torch.cuda.synchronize()
+    for name in ("fused_pre_force", "fused_post_force"):
+        assert _cuda.launches[name] == before.get(name, 0) + 2
+    assert all(torch.equal(a, b) for a, b in zip(k4, k4_again))
+    assert all(torch.equal(a, b) for a, b in zip(k5, k5_again))
+    p4 = fi.pre_force_apply_plain(*pre)
+    p5 = fi.post_force_apply_plain(*post)
+    assert k4[3].shape == k5[1].shape == k5[3].shape == (B,)
+    assert torch.equal(k4[1], p4[1]) and torch.equal(k5[0], p5[0])
+    for a, b in ((k4[0], p4[0]), (k4[2], p4[2]), (k5[1], p5[1]),
+                 (k5[2], p5[2])):
+        assert _close(a, b, TOL[dtype])
+    vel, mass, mol = pre[3], pre[5], pre[6]
+    ke_mol = (0.5 * (mass[:, None] * vel * vel)[:, mol].sum(dim=(1, 2)))
+    ke_photon = p5[2].abs() + p5[3].abs()
+    for a, b, scale in ((k4[3], p4[3], ke_mol), (k5[3], p5[3], ke_photon)):
+        assert bool(((a - b).abs() <= TOL[dtype] * torch.maximum(
+            b.abs(), scale)).all())
+    _hold_replicas(k4, lambda r: fi.pre_force_apply(
+        *_one(pre, r, (1, 2, 3, 4, 8, 9, 11, 12))), B, 0, bits=True)
+    _hold_replicas(k5, lambda r: fi.post_force_apply(
+        *_one(post, r, (1, 2, 5, 6, 7, 8))), B, 0, bits=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_fused_integrator_launches_at_64_replicas(cuda, dtype):
+    """B = 64 replicas fit one cooperative grid each for K4 and K5 (the
+    card's resident blocks shared over the batch) and match the twins."""
+    B = 64
+    pre, post = _batched_integrator_inputs(dtype, cuda, B)
+    for kname in ("pre_force", "post_force"):
+        g = fi.grid_blocks(kname, 501, dtype, replicas=B)
+        assert g >= 1 and g * B <= fi.grid_blocks(kname, 10**8, dtype)
+    k4 = fi.pre_force_apply(*pre)
+    k5 = fi.post_force_apply(*post)
+    torch.cuda.synchronize()
+    p4 = fi.pre_force_apply_plain(*pre)
+    p5 = fi.post_force_apply_plain(*post)
+    assert torch.equal(k4[1], p4[1]) and torch.equal(k5[0], p5[0])
+    assert _close(k4[2], p4[2], TOL[dtype]) and _close(k5[1], p5[1],
+                                                       TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_step_on_cuda_matches_one_replica_steps(cuda, dtype):
+    """The batched step on the card (K1-K3, and in float32 K4/K5) against
+    one-replica steps with the same draws: each kernel launched once a
+    step for the batch."""
+    from cavmd_tpu_torch.parallel import init_replica_states
+    from cavmd_tpu_torch.parallel.replicas import PER_REPLICA
+
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(250, box_L=46.0, temperature_K=100.0,
+                                seed=0, device=cuda),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=1)
+    snap = snap.astype(dtype)
+    ff = pt.ForceField.create(snap, coupling=1e-3)
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, (
+        pt.MethodSpec("bussi", "molecular", kT=kT,
+                      tau=PC.ps_to_atomic_units(5.0)),
+        pt.MethodSpec("langevin", "cavity", kT=kT,
+                      gamma=PC.gamma_from_tau_ps(5.0))), ff.l_typeid)
+    B, steps = 3, 10
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(0.25), seed=5,
+                                kT=kT)
+    draws = {}
+
+    class Noise:
+        """Draws made once on the card, by (stream, step); a replica's run
+        takes its row."""
+
+        def __init__(self, replica=None):
+            self.replica = replica
+
+        def _get(self, key, shape, state):
+            if key not in draws:
+                g = torch.Generator(device=cuda)
+                g.manual_seed(2 * key[1] + (key[0] == "langevin"))
+                draws[key] = torch.randn((B,) + shape, generator=g,
+                                         dtype=dtype, device=cuda)
+            x = draws[key]
+            return x if self.replica is None else x[self.replica]
+
+        def bussi(self, state, i, m):
+            x = self._get(("bussi", state.step), (2,), state)
+            return x[..., 0], m.dof - 1.0 + 10.0 * x[..., 1]
+
+        def langevin(self, state, i, m, shape):
+            return self._get(("langevin", state.step), (1, 3), state)
+
+    _cuda.reset_launches()
+    final, obs = pt.run_steps(pt.make_step_fn(ff, methods, noise=Noise()),
+                              batch, steps)
+    torch.cuda.synchronize()
+    kernels = ["dense_pair", "pppm_spread", "pppm_interpolate"]
+    if dtype == torch.float32:
+        kernels += ["fused_pre_force", "fused_post_force"]
+    assert {k: _cuda.launches[k] for k in kernels} == dict.fromkeys(
+        kernels, steps)
+    tol = TOL[dtype] * 10
+    for r in range(B):
+        one = batch.replace(**{k: getattr(batch, k)[r] for k in PER_REPLICA})
+        fr, _ = pt.run_steps(pt.make_step_fn(ff, methods,
+                                             noise=Noise(replica=r)),
+                             one, steps)
+        assert torch.equal(final.image[r], fr.image)
+        assert _close(final.position[r], fr.position, tol)
+        assert _close(final.velocity[r], fr.velocity, tol)

@@ -279,6 +279,8 @@ def test_port_imports_no_jax():
         "import cavmd_tpu_torch.interop, cavmd_tpu_torch.simulation\n"
         "import cavmd_tpu_torch.ops.pair_kernels\n"
         "import cavmd_tpu_torch.ops.pppm_kernels\n"
+        "import cavmd_tpu_torch.parallel.replicas\n"
+        "import cavmd_tpu_torch.drivers.advanced_run\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cavmd_tpu'))\n"
         "assert not bad, bad\n"
