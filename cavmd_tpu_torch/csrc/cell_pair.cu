@@ -69,7 +69,17 @@
 //   - small grids: with fewer cells than ~2 blocks per SM (K8's grid: 8
 //     cells at N = 501) the wrapper splits each cell's i rows over `split`
 //     blocks (blockIdx.y), each staging the same window; the energy
-//     partials are then per (cell, row chunk).
+//     partials are then per (cell, row chunk);
+//   - a replica batch (replica batching, parallel/replicas.py): B replicas
+//     of one topology in one box, each with its own (N, 3) positions and
+//     (C, cap) buckets of local ids, run in one launch with the replica on
+//     blockIdx.z. The batched instantiation (kBatch) offsets the
+//     positions, forces, buckets and energy partials by the replica at the
+//     block's start; the neighbour table, exclusions, types, charges and
+//     LJ tables are shared. The split is reckoned from the B * C blocks of
+//     the whole launch. The one-replica launch runs the kBatch = false
+//     instantiation, whose code is the unbatched kernel's: replica offsets
+//     in a shared kernel cost K3 21% and spilled K1 (PERF.md, section 6).
 // Not taken: a half shell (Newton's third law) halves the pair terms but
 // needs atomics on the j forces, which makes float32 sums order-dependent
 // from run to run; a Verlet pair list would change CellList and its
@@ -119,7 +129,7 @@ size_t smem_bytes(int cap) {
   return (size_t)kNeighbors * cap * (4 * sizeof(T) + 2 * sizeof(int32_t));
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
                  const int32_t* __restrict__ type_id, const T* __restrict__ charge,
@@ -150,6 +160,14 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   __shared__ int s_self;                 // c's place in its neighbour row
   __shared__ uint16_t s_ring[kWarps][kRing];  // staged rows < 27 cap < 2^16
   __shared__ T s_red[kWarps][2];
+
+  if (kBatch) {  // this block's replica: its positions, forces, buckets
+    const size_t r = blockIdx.z;
+    pos += 3 * (size_t)n * r;
+    forces += 3 * (size_t)n * r;
+    bucket += (size_t)ncells * cap * r;
+    e_partial += 2 * (size_t)gridDim.x * gridDim.y * r;
+  }
 
   const int c = cell_begin + blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -357,39 +375,58 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   }
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 int launch(const void* pos, const void* box, const void* type_id,
            const void* charge, const void* eps, const void* sig2,
            const void* rcut2, const void* vshift, int ntypes,
            const void* bucket, const void* nbr, const void* excl, int max_excl,
            int n, int ncells, int cap, double rc2, double kappa, int lj_on,
-           int coul_on, int cell_begin, int cell_count, int split,
+           int coul_on, int cell_begin, int cell_count, int split, int nb,
            const void* key, void* forces, void* e_partial, void* stream) {
-  if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
-      n < 1 || ncells < 1 || cap < 1 || cell_begin < 0 || cell_count < 1 ||
-      cell_begin + cell_count > ncells || split < 1 || split > 65535 ||
-      (long long)kNeighbors * cap + 32 * kUnroll > 65535)  // 16-bit ring rows
-    return (int)cudaErrorInvalidValue;
   // set the kernel's dynamic shared memory limit when a launch needs more
   // than the last one set, not on every launch (the overflow retry grows
   // cap); the default 48 KB covers static and dynamic bytes together, so
-  // the first launch always sets it
+  // the first launch of each instantiation always sets it
   static size_t raised_to = 0;
   const size_t smem = smem_bytes<T>(cap);
   if (smem > raised_to) {
     cudaError_t err = cudaFuncSetAttribute(
-        cell_pair_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cell_pair_kernel<T, kBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
     raised_to = smem;
   }
-  const dim3 grid(cell_count, split);
-  cell_pair_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(cell_count, split, nb);
+  cell_pair_kernel<T, kBatch><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)pos, (const T*)box, (const int32_t*)type_id, (const T*)charge,
       (const T*)eps, (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)nbr, (const int32_t*)excl, max_excl,
       n, ncells, cap, (T)rc2, (T)kappa, lj_on, coul_on, cell_begin,
       (const int32_t*)key, (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
+}
+
+// nb replicas (blockIdx.z): the batched instantiation for nb > 1, the
+// one-replica kernel for nb = 1. A batch takes no pair keys (no slab grid).
+template <typename T>
+int launch_any(const void* pos, const void* box, const void* type_id,
+               const void* charge, const void* eps, const void* sig2,
+               const void* rcut2, const void* vshift, int ntypes,
+               const void* bucket, const void* nbr, const void* excl,
+               int max_excl, int n, int ncells, int cap, double rc2,
+               double kappa, int lj_on, int coul_on, int cell_begin,
+               int cell_count, int split, int nb, const void* key,
+               void* forces, void* e_partial, void* stream) {
+  if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
+      n < 1 || ncells < 1 || cap < 1 || cell_begin < 0 || cell_count < 1 ||
+      cell_begin + cell_count > ncells || split < 1 || split > 65535 ||
+      nb < 1 || nb > 65535 || (nb > 1 && key != nullptr) ||
+      (long long)kNeighbors * cap + 32 * kUnroll > 65535)  // 16-bit ring rows
+    return (int)cudaErrorInvalidValue;
+  auto go = nb > 1 ? launch<T, true> : launch<T, false>;
+  return go(pos, box, type_id, charge, eps, sig2, rcut2, vshift, ntypes, bucket,
+            nbr, excl, max_excl, n, ncells, cap, rc2, kappa, lj_on, coul_on,
+            cell_begin, cell_count, split, nb, key, forces, e_partial, stream);
 }
 
 }  // namespace
@@ -402,12 +439,12 @@ int cavmd_cell_pair_f32(const void* pos, const void* box, const void* type_id,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
-                        int cell_count, int split, const void* key, void* forces,
-                        void* e_partial, void* stream) {
-  return launch<float>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
-                       ntypes, bucket, nbr, excl, max_excl, n, ncells, cap, rc2,
-                       kappa, lj_on, coul_on, cell_begin, cell_count, split, key,
-                       forces, e_partial, stream);
+                        int cell_count, int split, int nb, const void* key,
+                        void* forces, void* e_partial, void* stream) {
+  return launch_any<float>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
+                           ntypes, bucket, nbr, excl, max_excl, n, ncells, cap,
+                           rc2, kappa, lj_on, coul_on, cell_begin, cell_count,
+                           split, nb, key, forces, e_partial, stream);
 }
 
 int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
@@ -416,12 +453,13 @@ int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
-                        int cell_count, int split, const void* key, void* forces,
-                        void* e_partial, void* stream) {
-  return launch<double>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
-                        ntypes, bucket, nbr, excl, max_excl, n, ncells, cap, rc2,
-                        kappa, lj_on, coul_on, cell_begin, cell_count, split, key,
-                        forces, e_partial, stream);
+                        int cell_count, int split, int nb, const void* key,
+                        void* forces, void* e_partial, void* stream) {
+  return launch_any<double>(pos, box, type_id, charge, eps, sig2, rcut2,
+                            vshift, ntypes, bucket, nbr, excl, max_excl, n,
+                            ncells, cap, rc2, kappa, lj_on, coul_on, cell_begin,
+                            cell_count, split, nb, key, forces, e_partial,
+                            stream);
 }
 
 }  // extern "C"

@@ -66,6 +66,16 @@
 //   - per-block (e_lj, e_ew) partials, already halved, summed in a fixed
 //     order by the wrapper. Every sum has a fixed order, so two calls on
 //     the same inputs give the same bits.
+// A replica batch (replica batching, parallel/replicas.py): B replicas of
+// one topology in one box, each with its own positions and column list of
+// local ids, run in one launch of each kernel. The lists' (B, XY, ...)
+// rows read as B * XY columns, so a block's global column indexes the
+// buckets, the halo, the hull, the flags and the energy partials as one
+// replica's column does; the batched instantiations (kBatch) offset only
+// the per-particle rows (positions, anchors, the (N, 4) table, forces) by
+// the column's replica. Types, exclusions and charges are shared, and one
+// visit window W serves the batch. The one-replica launches run the
+// kBatch = false instantiations, the unbatched kernels' code.
 // Registers: 4 blocks an SM in f32 (64 a thread), 2 in f64, no spill.
 // Shared memory is W * 128 staged rows (25 KB at W = 8 in f32, 42 KB in
 // f64), raised past 48 KB with cudaFuncSetAttribute when the overflow
@@ -173,14 +183,14 @@ size_t hull_smem_bytes(int cap) {
   return (size_t)2 * (cap / kIBlock + 9 * cap / kJBlock) * sizeof(T);
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 zcol_hull_kernel(const T* __restrict__ pos, const T* __restrict__ anchor,
                  const T* __restrict__ local_anchor, const T* __restrict__ box,
                  const T* __restrict__ charge, const int32_t* __restrict__ bucket,
-                 const int32_t* __restrict__ halo, int n, int cap, int W, T rc,
-                 int32_t* __restrict__ hull, bool* __restrict__ flags,
-                 T* __restrict__ loc) {
+                 const int32_t* __restrict__ halo, int n, int ncols, int cap,
+                 int W, T rc, int32_t* __restrict__ hull,
+                 bool* __restrict__ flags, T* __restrict__ loc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nib = cap / kIBlock;
   const int nb = 9 * cap / kJBlock;
@@ -192,7 +202,14 @@ zcol_hull_kernel(const T* __restrict__ pos, const T* __restrict__ anchor,
   T* s_jc = s_ih + nib;
   T* s_jh = s_jc + nb;
 
-  const int col = blockIdx.x;
+  const int col = blockIdx.x;  // a batch's global column r * ncols + c
+  if (kBatch) {  // the column's replica: its particles' rows
+    const size_t r = col / ncols;
+    pos += 3 * (size_t)n * r;
+    anchor += 3 * (size_t)n * r;
+    local_anchor += 3 * (size_t)n * r;
+    loc += 4 * (size_t)n * r;
+  }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const T Lx = box[0], Ly = box[1], Lz = box[2];
@@ -303,7 +320,7 @@ size_t pair_smem_bytes(int W) {
          (size_t)(3 * W + 1) * sizeof(int32_t);
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
 zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
                  const int32_t* __restrict__ type_id, const T* __restrict__ eps_t,
@@ -311,9 +328,9 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
                  const T* __restrict__ vshift_t, int ntypes,
                  const int32_t* __restrict__ bucket,
                  const int32_t* __restrict__ halo, const int32_t* __restrict__ hull,
-                 const int32_t* __restrict__ excl, int max_excl, int n, int cap,
-                 int W, T rc, T rc2, T kappa, T* __restrict__ forces,
-                 T* __restrict__ e_partial) {
+                 const int32_t* __restrict__ excl, int max_excl, int n,
+                 int ncols, int cap, int W, T rc, T rc2, T kappa,
+                 T* __restrict__ forces, T* __restrict__ e_partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = W * kJBlock;
   const int nchunk = W * kChunks;
@@ -350,6 +367,11 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
       e_partial[2 * (size_t)blockIdx.x + 1] = T(0);
     }
     return;
+  }
+  if (kBatch) {  // the column's replica: its table rows and forces
+    const size_t r = col / ncols;
+    loc += 4 * (size_t)n * r;
+    forces += 3 * (size_t)n * r;
   }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -583,47 +605,81 @@ bool geometry_ok(int n, int ncols, int cap, int W) {
          W >= 1 && W <= 9 * cap / kJBlock && W * kJBlock <= 65536;
 }
 
-template <typename T>
+// nb replicas: the batched instantiations for nb > 1 (ncols * nb global
+// columns), the one-replica kernels for nb = 1. Each instantiation keeps
+// its own raised shared-memory limit.
+template <typename T, bool kBatch>
 int launch_hull(const void* pos, const void* anchor, const void* local_anchor,
                 const void* box, const void* charge, const void* bucket,
                 const void* halo, int n, int ncols, int cap, int W, double rc,
-                void* hull, void* flags, void* loc, void* stream) {
-  if (!geometry_ok(n, ncols, cap, W))
-    return (int)cudaErrorInvalidValue;
+                int nb, void* hull, void* flags, void* loc, void* stream) {
   static size_t raised_to = 0;
   const size_t smem = hull_smem_bytes<T>(cap);
-  const cudaError_t err = raise_smem(zcol_hull_kernel<T>, smem, raised_to);
+  const cudaError_t err =
+      raise_smem(zcol_hull_kernel<T, kBatch>, smem, raised_to);
   if (err != cudaSuccess) return (int)err;
-  zcol_hull_kernel<T><<<ncols, kThreads, smem, (cudaStream_t)stream>>>(
+  zcol_hull_kernel<T, kBatch><<<ncols * nb, kThreads, smem,
+                                (cudaStream_t)stream>>>(
       (const T*)pos, (const T*)anchor, (const T*)local_anchor, (const T*)box,
-      (const T*)charge, (const int32_t*)bucket, (const int32_t*)halo, n, cap,
-      W, (T)rc, (int32_t*)hull, (bool*)flags, (T*)loc);
+      (const T*)charge, (const int32_t*)bucket, (const int32_t*)halo, n, ncols,
+      cap, W, (T)rc, (int32_t*)hull, (bool*)flags, (T*)loc);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
+int launch_hull_any(const void* pos, const void* anchor,
+                    const void* local_anchor, const void* box,
+                    const void* charge, const void* bucket, const void* halo,
+                    int n, int ncols, int cap, int W, double rc, int nb,
+                    void* hull, void* flags, void* loc, void* stream) {
+  if (!geometry_ok(n, ncols, cap, W) || nb < 1 ||
+      (long long)ncols * nb > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto go = nb > 1 ? launch_hull<T, true> : launch_hull<T, false>;
+  return go(pos, anchor, local_anchor, box, charge, bucket, halo, n, ncols,
+            cap, W, rc, nb, hull, flags, loc, stream);
+}
+
+template <typename T, bool kBatch>
 int launch_pair(const void* loc, const void* box, const void* type_id,
                 const void* eps, const void* sig2, const void* rcut2,
                 const void* vshift, int ntypes, const void* bucket,
                 const void* halo, const void* hull, const void* excl,
                 int max_excl, int n, int ncols, int cap, int W, double rc,
-                double rc2, double kappa, void* forces, void* e_partial,
+                double rc2, double kappa, int nb, void* forces, void* e_partial,
                 void* stream) {
-  if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
-      !geometry_ok(n, ncols, cap, W))
-    return (int)cudaErrorInvalidValue;
   static size_t raised_to = 0;
   const size_t smem = pair_smem_bytes<T>(W);
-  const cudaError_t err = raise_smem(zcol_pair_kernel<T>, smem, raised_to);
+  const cudaError_t err =
+      raise_smem(zcol_pair_kernel<T, kBatch>, smem, raised_to);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = ncols * (cap / kIBlock);
-  zcol_pair_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const int blocks = ncols * (cap / kIBlock) * nb;
+  zcol_pair_kernel<T, kBatch><<<blocks, kThreads, smem,
+                                (cudaStream_t)stream>>>(
       (const T*)loc, (const T*)box, (const int32_t*)type_id, (const T*)eps,
       (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)halo, (const int32_t*)hull,
-      (const int32_t*)excl, max_excl, n, cap, W, (T)rc, (T)rc2, (T)kappa,
-      (T*)forces, (T*)e_partial);
+      (const int32_t*)excl, max_excl, n, ncols, cap, W, (T)rc, (T)rc2,
+      (T)kappa, (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pair_any(const void* loc, const void* box, const void* type_id,
+                    const void* eps, const void* sig2, const void* rcut2,
+                    const void* vshift, int ntypes, const void* bucket,
+                    const void* halo, const void* hull, const void* excl,
+                    int max_excl, int n, int ncols, int cap, int W, double rc,
+                    double rc2, double kappa, int nb, void* forces,
+                    void* e_partial, void* stream) {
+  if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
+      !geometry_ok(n, ncols, cap, W) || nb < 1 ||
+      (long long)ncols * (cap / kIBlock) * nb > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto go = nb > 1 ? launch_pair<T, true> : launch_pair<T, false>;
+  return go(loc, box, type_id, eps, sig2, rcut2, vshift, ntypes, bucket, halo,
+            hull, excl, max_excl, n, ncols, cap, W, rc, rc2, kappa, nb, forces,
+            e_partial, stream);
 }
 
 }  // namespace
@@ -634,22 +690,22 @@ int cavmd_zcol_hull_f32(const void* pos, const void* anchor,
                         const void* local_anchor, const void* box,
                         const void* charge, const void* bucket,
                         const void* halo, int n, int ncols, int cap, int W,
-                        double rc, void* hull, void* flags, void* loc,
+                        double rc, int nb, void* hull, void* flags, void* loc,
                         void* stream) {
-  return launch_hull<float>(pos, anchor, local_anchor, box, charge, bucket,
-                            halo, n, ncols, cap, W, rc, hull, flags, loc,
-                            stream);
+  return launch_hull_any<float>(pos, anchor, local_anchor, box, charge, bucket,
+                                halo, n, ncols, cap, W, rc, nb, hull, flags,
+                                loc, stream);
 }
 
 int cavmd_zcol_hull_f64(const void* pos, const void* anchor,
                         const void* local_anchor, const void* box,
                         const void* charge, const void* bucket,
                         const void* halo, int n, int ncols, int cap, int W,
-                        double rc, void* hull, void* flags, void* loc,
+                        double rc, int nb, void* hull, void* flags, void* loc,
                         void* stream) {
-  return launch_hull<double>(pos, anchor, local_anchor, box, charge, bucket,
-                             halo, n, ncols, cap, W, rc, hull, flags, loc,
-                             stream);
+  return launch_hull_any<double>(pos, anchor, local_anchor, box, charge,
+                                 bucket, halo, n, ncols, cap, W, rc, nb, hull,
+                                 flags, loc, stream);
 }
 
 int cavmd_zcol_pair_f32(const void* loc, const void* box, const void* type_id,
@@ -657,12 +713,12 @@ int cavmd_zcol_pair_f32(const void* loc, const void* box, const void* type_id,
                         const void* vshift, int ntypes, const void* bucket,
                         const void* halo, const void* hull, const void* excl,
                         int max_excl, int n, int ncols, int cap, int W,
-                        double rc, double rc2, double kappa, void* forces,
-                        void* e_partial, void* stream) {
-  return launch_pair<float>(loc, box, type_id, eps, sig2, rcut2, vshift,
-                            ntypes, bucket, halo, hull, excl, max_excl, n,
-                            ncols, cap, W, rc, rc2, kappa, forces, e_partial,
-                            stream);
+                        double rc, double rc2, double kappa, int nb,
+                        void* forces, void* e_partial, void* stream) {
+  return launch_pair_any<float>(loc, box, type_id, eps, sig2, rcut2, vshift,
+                                ntypes, bucket, halo, hull, excl, max_excl, n,
+                                ncols, cap, W, rc, rc2, kappa, nb, forces,
+                                e_partial, stream);
 }
 
 int cavmd_zcol_pair_f64(const void* loc, const void* box, const void* type_id,
@@ -670,12 +726,12 @@ int cavmd_zcol_pair_f64(const void* loc, const void* box, const void* type_id,
                         const void* vshift, int ntypes, const void* bucket,
                         const void* halo, const void* hull, const void* excl,
                         int max_excl, int n, int ncols, int cap, int W,
-                        double rc, double rc2, double kappa, void* forces,
-                        void* e_partial, void* stream) {
-  return launch_pair<double>(loc, box, type_id, eps, sig2, rcut2, vshift,
-                             ntypes, bucket, halo, hull, excl, max_excl, n,
-                             ncols, cap, W, rc, rc2, kappa, forces, e_partial,
-                             stream);
+                        double rc, double rc2, double kappa, int nb,
+                        void* forces, void* e_partial, void* stream) {
+  return launch_pair_any<double>(loc, box, type_id, eps, sig2, rcut2, vshift,
+                                 ntypes, bucket, halo, hull, excl, max_excl, n,
+                                 ncols, cap, W, rc, rc2, kappa, nb, forces,
+                                 e_partial, stream);
 }
 
 }  // extern "C"

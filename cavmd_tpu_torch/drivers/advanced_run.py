@@ -22,9 +22,11 @@ Differences from the JAX driver:
   (the slab path needs cell lists; the JAX driver's GSPMD fallback is not
   ported). Every rank runs the simulation; rank 0 alone writes the input
   GSD, the trackers, the trajectory and the console table.
-- ``--vmap-replicas`` runs the dense force field only (N <= 4096: up to
-  2047 molecules with the photon); above that, and with ``--shard-atoms``,
-  it exits 2 naming ``ROADMAP.md``.
+- ``--vmap-replicas`` runs the dense force field up to N = 4096 and cell
+  mode above, each kernel once a step for the whole batch; with
+  ``--shard-atoms`` (a batch over slabs) it exits 2 naming
+  ``ROADMAP.md``. Its overflow retry recomputes the chunk's start forces,
+  which the JAX driver keeps.
 - The paths the port does not have yet (``--shard-replicas``,
   ``--pad-atoms``, a ``--rng-impl`` other than ``auto``) exit with an
   error naming ``ROADMAP.md``; nothing else runs in their place.
@@ -596,9 +598,15 @@ def run_vmapped_replicas(args, replica_list) -> bool:
     ``--runtime`` writes its last frame, drops its rows past the crossing
     and goes quiet while the batch runs the slower clocks; chunks are
     trimmed to the slowest unfinished clock and to the next GSD frame.
-    Every step runs each kernel once for the whole batch. Dense force
-    field only: raises ``NotImplementedError`` for N > 4096.
-    Returns True when the batch ran to its end."""
+    Every step runs each kernel once for the whole batch, in dense mode
+    (N <= 4096) or, above, in cell mode with a carried list a replica. A
+    chunk in which any replica's cell list overflowed is run again from
+    its start (at most 4 times), as the JAX driver does: the force field
+    re-planned with capacity max(cap + 4, 2 cap) (zcol: rounded up to 128,
+    the window 2 blocks wider), the step rebuilt, the random streams set
+    back, and the start state's lists and forces rebuilt from its
+    positions (the JAX driver keeps the overflowed start forces; ROADMAP.md
+    Queue 3). Returns True when the batch ran to its end."""
     from cavmd_tpu_torch.core.snapshot import add_cavity_particle as inject
     from cavmd_tpu_torch.core.system import make_diatomic_system
     from cavmd_tpu_torch.core.units import PhysicalConstants as PC
@@ -610,10 +618,6 @@ def run_vmapped_replicas(args, replica_list) -> bool:
     from cavmd_tpu_torch.integrate.adaptive import (
         compute_optimal_dt,
         make_adaptive_step,
-    )
-    from cavmd_tpu_torch.integrate.forcefield import (
-        BATCHED_CELL_TODO,
-        DENSE_MAX_N,
     )
     from cavmd_tpu_torch.io import HOOMDTrajectory, open_gsd
     from cavmd_tpu_torch.io.gsd import gather_tracker_log
@@ -630,6 +634,7 @@ def run_vmapped_replicas(args, replica_list) -> bool:
         run_replica_steps,
         split_replica_obs,
     )
+    from cavmd_tpu_torch.simulation import retry_state
     from cavmd_tpu_torch.utils import fire_minimize
 
     dev = setup_device(args.device)
@@ -653,10 +658,6 @@ def run_vmapped_replicas(args, replica_list) -> bool:
                          for r in replica_list]
             print(f"Replica frames seeded from {args.input_gsd} "
                   f"({nf} frames, N={snaps[0].N})")
-            if snaps[0].N > DENSE_MAX_N:
-                raise NotImplementedError(
-                    f"N = {snaps[0].N} in {args.input_gsd}: "
-                    f"{BATCHED_CELL_TODO}")
         else:
             snap0 = make_diatomic_system(
                 args.n_molecules, box_L=resolved_box(args), seed=args.seed,
@@ -672,8 +673,6 @@ def run_vmapped_replicas(args, replica_list) -> bool:
                 if "L" not in s.types else s
                 for r, s in zip(replica_list, snaps)]
         snap = snaps[0]
-        if snap.N > DENSE_MAX_N:
-            raise NotImplementedError(f"N = {snap.N}: {BATCHED_CELL_TODO}")
         ff = ForceField.create(
             snap, coupling=args.coupling, freq_cm1=args.frequency,
             enable_cavity=incavity, pppm_mesh=(args.pppm_resolution,) * 3)
@@ -695,12 +694,17 @@ def run_vmapped_replicas(args, replica_list) -> bool:
         dt_ps_nominal = (0.0001 if error_tolerance > 0
                          else args.timestep / 1000.0)
         chunk = 500
-        step = make_step_fn(ff, methods, extra_obs=extra)
-        if error_tolerance > 0:
-            adaptive_period = max(1, int(args.energy_output_period_ps
-                                         / dt_ps_nominal))
-            step = make_adaptive_step(step, error_tolerance=error_tolerance,
-                                      period=min(adaptive_period, chunk))
+
+        def build_step(ff_):
+            s_ = make_step_fn(ff_, methods, extra_obs=extra)
+            if error_tolerance > 0:
+                adaptive_period = max(1, int(args.energy_output_period_ps
+                                             / dt_ps_nominal))
+                s_ = make_adaptive_step(s_, error_tolerance=error_tolerance,
+                                        period=min(adaptive_period, chunk))
+            return s_
+
+        step = build_step(ff)
 
         n_rep = len(replica_list)
         dt = PC.fs_to_atomic_units(args.timestep if args.fixed_timestep
@@ -789,7 +793,30 @@ def run_vmapped_replicas(args, replica_list) -> bool:
                 (last_gsd_ps + args.gsd_output_period_ps - elapsed)[live], 0.0)
             est_gsd = int(np.ceil((till_gsd / safe_dt).min()))
             n_next = min(chunk, max(1, est), max(1, est_gsd))
-            batched, obs = run_replica_steps(step, batched, n_next)
+            pre_chunk = batched
+            rng_states = {k: g.get_state()
+                          for k, g in pre_chunk.generators.items()}
+            retries = 0
+            while True:
+                batched, obs = run_replica_steps(step, pre_chunk, n_next)
+                if not ("cell_overflow" in obs
+                        and obs["cell_overflow"].any()):
+                    break
+                # some replica's list overflowed and dropped pairs: re-plan
+                # the whole batch and run the chunk again from its start
+                retries += 1
+                if retries > 4:
+                    raise RuntimeError(
+                        "cell-list bucket overflow in the replica batch "
+                        "persists after 4 re-plans (the last: cap="
+                        f"{ff.cell_cfg.cap}, zcol window {ff.zcol_W})")
+                cap = ff.cell_cfg.cap
+                ff = ff.with_cell_capacity(max(cap + 4, 2 * cap))
+                logging.getLogger(__name__).warning(
+                    "cell-list overflow in replica batch: re-planned with "
+                    "cap=%d, retrying chunk", ff.cell_cfg.cap)
+                step = build_step(ff)
+                pre_chunk = retry_state(ff, pre_chunk, rng_states)
             for k, (per_rep, o) in enumerate(zip(
                     trackers, split_replica_obs(obs, n_rep))):
                 if finished[k]:
@@ -821,32 +848,26 @@ def run_vmapped_replicas(args, replica_list) -> bool:
 def unported_flags(args) -> list:
     """The flags given whose paths the port does not have yet, each with
     its message."""
-    where = ("not ported to cavmd_tpu_torch yet (see ROADMAP.md, Queue 1); "
-             "run the JAX package's driver, cavmd_tpu.drivers.advanced_run, "
-             "for it")
+    jax_cli = ("run the JAX package's driver, cavmd_tpu.drivers."
+               "advanced_run, for it")
+    gspmd = ('not ported to cavmd_tpu_torch (see ROADMAP.md, "Not queued '
+             f'this round", GSPMD pieces); {jax_cli}')
     out = []
-    if args.vmap_replicas:
-        from cavmd_tpu_torch.integrate.forcefield import (
-            BATCHED_CELL_TODO,
-            DENSE_MAX_N,
-        )
+    if args.vmap_replicas and args.shard_atoms > 1:
+        from cavmd_tpu_torch.integrate.forcefield import BATCHED_CELL_TODO
 
-        n = 2 * args.n_molecules + (0 if args.no_cavity else 1)
-        generated = not (coupling_dir(args) / args.input_gsd).exists()
-        if generated and n > DENSE_MAX_N:
-            out.append(f"--vmap-replicas at --n-molecules "
-                       f"{args.n_molecules} (N = {n}): {BATCHED_CELL_TODO}")
-        if args.shard_atoms > 1:
-            out.append("--vmap-replicas with --shard-atoms: replica "
-                       f"batches over slabs are {where}")
+        out.append(f"--vmap-replicas with --shard-atoms: {BATCHED_CELL_TODO}"
+                   f"; {jax_cli}")
     if args.shard_replicas:
-        out.append(f"--shard-replicas: sharded replicas are {where}")
+        out.append("--shard-replicas: sharded replicas are not ported to "
+                   "cavmd_tpu_torch yet (see ROADMAP.md, Queue 1, replicas "
+                   f"over ranks); {jax_cli}")
     if args.pad_atoms:
-        out.append(f"--pad-atoms: ghost padding is {where}")
+        out.append(f"--pad-atoms: ghost padding is {gspmd}")
     if args.rng_impl != "auto":
         out.append(f"--rng-impl {args.rng_impl}: the port draws from "
-                   "torch.Generator streams only; JAX PRNG backends are "
-                   f"{where}")
+                   f"torch.Generator streams only; JAX PRNG backends are "
+                   f"{gspmd}")
     return out
 
 
@@ -892,8 +913,8 @@ def build_parser():
     # something else
     parser.add_argument("--vmap-replicas", action="store_true",
                         help="run every replica of --replicas as one batch "
-                             "on one device (dense force field, N <= "
-                             "4096)")
+                             "on one device (dense force field up to "
+                             "N = 4096, cell mode above)")
     parser.add_argument("--shard-replicas", type=int, default=0,
                         help="not ported yet (ROADMAP.md)")
     parser.add_argument("--shard-atoms", type=int, default=0,
@@ -963,8 +984,9 @@ def main(argv=None):
     if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
         print(f"error: --shard-atoms {args.shard_atoms} runs one process per "
               "slab: start it with python -m torch.distributed.run "
-              f"--nproc-per-node {args.shard_atoms} (ROADMAP.md, Queue 1 "
-              "item 9)", file=sys.stderr)
+              f"--nproc-per-node {args.shard_atoms} (the JAX driver's "
+              "one-process GSPMD fallback is not ported: ROADMAP.md, \"Not "
+              "queued this round\", GSPMD pieces)", file=sys.stderr)
         return 2
     made = init_ranks(args)
     try:
@@ -980,8 +1002,7 @@ def main(argv=None):
 
 def run_replicas(args):
     """Run every replica of ``args`` (one after another, or as one batch
-    with ``--vmap-replicas``); 0 when all succeeded, else 1; 2 when the
-    batch needs a path the port does not have."""
+    with ``--vmap-replicas``); 0 when all succeeded, else 1."""
     print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
     print("=" * 50)
 
@@ -995,11 +1016,7 @@ def run_replicas(args):
 
     start = time.time()
     if args.vmap_replicas:
-        try:
-            success = run_vmapped_replicas(args, replica_list)
-        except NotImplementedError as e:
-            print(f"error: --vmap-replicas: {e}", file=sys.stderr)
-            return 2
+        success = run_vmapped_replicas(args, replica_list)
         print(f"\nvmapped batch: {'SUCCESS' if success else 'FAILED'}")
         print(f"Wall time: {time.time() - start:.2f} seconds")
         return 0 if success else 1

@@ -10,10 +10,12 @@ returns the forces and a dict of energy components with the JAX package's
 keys (in cell and zcol mode also ``cell_overflow``, a 0/1 flag, not an
 energy; in zcol mode it also carries the visit-window overflow).
 
-In dense mode ``forward`` also takes a replica batch, positions (B, N, 3)
-of one topology in one box: every term then runs once for the whole batch
-(each kernel one launch) and the energies are (B,) tensors. Batched cell
-and zcol mode are not ported (``BATCHED_CELL_TODO``).
+``forward`` also takes a replica batch, positions (B, N, 3) of one
+topology in one box, in every pair mode: every term then runs once for the
+whole batch (each kernel one launch; in cell and zcol mode over a batched
+list, ``build_cells``) and the energies are (B,) tensors, ``cell_overflow``
+one flag a replica. A batch over slabs is not ported
+(``BATCHED_CELL_TODO``).
 
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
 ``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
@@ -71,10 +73,8 @@ ENERGY_KEYS = (
 )
 DENSE_MAX_N = 4096
 BATCHED_CELL_TODO = (
-    "replica batches run the dense pair mode only (N <= 4096); batched "
-    "cell and zcol mode (the list builds, K6/K8/K9 and the overflow retry "
-    "on a replica axis) are not ported yet (ROADMAP.md, Queue 1, batched "
-    "cell and zcol mode)")
+    "a replica batch over slabs (the slab domain pipeline on a replica "
+    "axis) is not ported yet (ROADMAP.md, Queue 1, replicas over ranks)")
 
 
 class ForceField(nn.Module):
@@ -180,7 +180,9 @@ class ForceField(nn.Module):
     def build_cells(self, position, box_L):
         """Bin the particles into the cell buckets (cell mode) or the
         z-sorted columns (zcol mode); the integrator carries the list and
-        rebuilds it on displacement."""
+        rebuilds it on displacement. Positions (B, N, 3) give a replica
+        batch's list (``ops/neighbor.py``), each replica's equal to its
+        one-replica build."""
         if self.pair_mode == "zcol":
             return build_zcol_list(position, box_L, self.cell_cfg,
                                    self.zcol_neighbors)
@@ -203,16 +205,12 @@ class ForceField(nn.Module):
 
     def forward(self, position, image, box_L, charge, typeid, clist=None):
         """Total forces (N, 3) and the energy components (dict of 0-d
-        tensors, keys ``ENERGY_KEYS``, plus ``cell_overflow`` in cell mode).
-        In dense mode ``position`` and ``image`` may be a replica batch
+        tensors, keys ``ENERGY_KEYS``, plus ``cell_overflow`` in cell and
+        zcol mode). ``position`` and ``image`` may be a replica batch
         (B, N, 3); forces are then (B, N, 3) and every energy (B,).
 
-        ``clist``: in cell mode, a carried ``CellList``; None builds one
-        from ``position``."""
-        if position.dim() != 2 and self.pair_mode != "dense":
-            raise NotImplementedError(
-                f"pair_mode={self.pair_mode!r} with positions of shape "
-                f"{tuple(position.shape)}: {BATCHED_CELL_TODO}")
+        ``clist``: in cell and zcol mode, a carried ``CellList`` (batched
+        for a batch); None builds one from ``position``."""
         forces = torch.zeros_like(position)
         zero = position.new_zeros(position.shape[:-2])
         energies = {k: zero for k in ENERGY_KEYS}

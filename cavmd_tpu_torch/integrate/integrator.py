@@ -27,7 +27,8 @@ host once at the end of the chunk.
 One step function also advances a replica batch (``parallel/replicas.py``):
 an ``MDState`` whose per-replica leaves carry a leading axis B (positions,
 images, velocities and forces (B, N, 3); dt, the clocks, the timestep and
-the tolerance (B,); the reservoirs (B, 2)) while mass, charge, typeid and
+the tolerance (B,); the reservoirs (B, 2); in cell and zcol mode the
+carried list and its anchor, one a replica) while mass, charge, typeid and
 the box stay shared. Every operation of the step is written over the last
 two axes, so the batch runs the same code as one replica, each kernel
 launched once for all B, and each random stream is drawn once a step for
@@ -368,23 +369,29 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         runs and ``torch.where`` picks the new or the carried list, anchor
         included, on the device. A zcol list also swaps its anchors and
         merged halo with it: a new anchor against stale local coordinates
-        would break the window pruning."""
+        would break the window pruning. A replica batch decides per
+        replica, as ``lax.cond`` under ``jax.vmap`` does: ``need`` is (B,),
+        broadcast over each replica's list fields and anchor."""
         if state.cell_list is None:
             return None, None
         half_skin = 0.5 * ff.cell_cfg.skin
         disp = minimum_image(pos - state.cell_anchor, state.box_L)
         disp2 = torch.where(ff.pair_inert, 0.0,
                             torch.sum(disp * disp, dim=-1))
-        need = torch.max(disp2) > half_skin * half_skin
+        need = torch.amax(disp2, dim=-1) > half_skin * half_skin
         new = ff.build_cells(pos, state.box_L)
         old = state.cell_list
         fields = ["bucket_idx", "overflow", "slot_of"]
         if old.halo_idx is not None:
             fields += ["anchor", "local_anchor", "halo_idx"]
-        clist = old._replace(**{
-            k: torch.where(need, getattr(new, k), getattr(old, k))
-            for k in fields})
-        return clist, torch.where(need, pos, state.cell_anchor)
+
+        def pick(a, b):  # need over a's replica axis (a view)
+            return torch.where(need.view(need.shape + (1,) * (
+                a.dim() - need.dim())), a, b)
+
+        clist = old._replace(**{k: pick(getattr(new, k), getattr(old, k))
+                                for k in fields})
+        return clist, pick(pos, state.cell_anchor)
 
     def _finish(state, pos, image, v, forces, energies, bussi_res,
                 bussi_inst, langevin_res, ke_mol, ke_cav, clist, anchor):

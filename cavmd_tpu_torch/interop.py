@@ -106,7 +106,10 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
     The stacked leaves of a JAX replica batch (``init_replica_states``,
     positions (B, N, 3)) give the port's batched state: mass, charge,
     typeid and box, stacked B times there, are shared here (they must
-    agree across replicas), and so is the step counter."""
+    agree across replicas), and so is the step counter. With a cell- or
+    zcol-mode ``forcefield`` the batched list is built from the (B, N, 3)
+    positions, each replica's as the JAX package's ``init_state`` built
+    it, so the stacked JAX batch's carried lists have their counterpart."""
     device = resolve_device(device)
     batched = np.ndim(position) == 3
 

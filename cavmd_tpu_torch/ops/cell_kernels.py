@@ -23,6 +23,14 @@ CUDA tensor it launches the kernel or raises. Launches count as
 ``cell_pair`` or, when an axis has fewer than 3 cells (the grid of the
 TPU's ``fused_cell_pallas``), ``cell_pair_small_grid``.
 
+Positions may carry a leading replica axis, (B, N, 3) with a batched
+``CellList`` (``ops/neighbor.py``; replica batching,
+``parallel/replicas.py``): one launch then takes every replica (the
+replica on ``blockIdx.z``, its own instantiation), the neighbour table,
+exclusions, types, charges and LJ tables shared, and the energies come
+back (B,), each replica's partials summed in a fixed order. The plain twin
+runs the one-replica twin on each replica and stacks the results.
+
 ``cell_pair_force_slab`` is the counterpart of a third TPU kernel,
 ``fused_cell_cols_slab_pallas`` (the tile pass of the slab domain
 pipeline, ``parallel/domain.py``): the same kernel launched over the own
@@ -46,13 +54,14 @@ from cavmd_tpu_torch.ops.neighbor import (
     make_fused_cell_kernel,
     make_lj_cell_kernel,
     make_particle_features,
+    replica_list,
 )
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _I, _I, _D,
-         _D, _I, _I, _I, _I, _I, _V, _V, _V, _V]
+         _D, _I, _I, _I, _I, _I, _I, _V, _V, _V, _V]
 _SIGNATURES = {"cavmd_cell_pair_f32": _ARGS, "cavmd_cell_pair_f64": _ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 WARPS_PER_BLOCK = 8  # csrc/cell_pair.cu kThreads / 32
@@ -72,11 +81,13 @@ def row_split(n_cells: int, cap: int, sm_count: int) -> int:
     return max(1, min(-(-2 * sm_count // n_cells), -(-cap // WARPS_PER_BLOCK)))
 
 
-def launch_blocks(n_cells: int, cap: int, device) -> int:
-    """Blocks (energy partials) of one kernel launch over ``n_cells`` cells
-    on ``device``."""
+def launch_blocks(n_cells: int, cap: int, device, replicas: int = 1) -> int:
+    """Blocks (energy partials) a replica of one kernel launch over
+    ``n_cells`` cells of each of ``replicas`` replicas on ``device``: the
+    row split is reckoned from the whole launch's cells."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return n_cells * row_split(n_cells, cap, sms)
+    return n_cells * row_split(replicas * n_cells, cap, sms)
+
 
 
 def cell_pair_force_fused_plain(position, box_L, clist: CellList,
@@ -86,7 +97,14 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
                                 coul_on: bool = True, pair_key=None):
     """Plain twin of the cell kernel: the tile path of ``ops/neighbor.py``,
     in blocks of cells sized by ``cell_block_for`` (bounded tile memory).
-    Returns (forces (N, 3), e_lj, e_ewald_short)."""
+    Returns (forces (N, 3), e_lj, e_ewald_short); for a replica batch the
+    one-replica twin of each replica, stacked ((B, N, 3), (B,), (B,))."""
+    if position.dim() == 3:
+        outs = [cell_pair_force_fused_plain(
+            position[r], box_L, replica_list(clist, r), cfg, typeid, charge,
+            eps, sig2, rcut2, vshift, exclusions, kappa, lj_on, coul_on,
+            pair_key) for r in range(position.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     n_types = eps.shape[0]
     zero = position.new_zeros(())
     if not (lj_on or coul_on):
@@ -117,7 +135,8 @@ def cell_pair_force_fused(position, box_L, clist: CellList,
                           lj_on: bool = True, coul_on: bool = True):
     """Forces and the two pair energies over the cell list: the CUDA
     kernel on a CUDA device, the plain twin on the CPU. ``kappa`` is a host
-    float. The launcher rejects what the kernel does not take (more than 8
+    float. ``position`` (B, N, 3) with a batched list runs every replica in
+    one launch; the energies then are (B,). The launcher rejects what the kernel does not take (more than 8
     types or 8 exclusions a particle, a capacity whose staged rows outgrow
     a block's shared memory) with an error that ``_cuda.check`` raises."""
     if position.device.type == "cpu":
@@ -165,8 +184,14 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
     dtype = position.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"{name}: no kernel for {dtype}")
-    n = position.shape[0]
-    C, cap = clist.bucket_idx.shape
+    if position.dim() not in (2, 3) or (position.dim() == 3
+                                        and pair_key is not None):
+        raise ValueError(f"{name}: position must be (N, 3), or (B, N, 3) "
+                         f"with no pair keys, got {tuple(position.shape)}")
+    batch = tuple(position.shape[:-2])
+    nb = batch[0] if batch else 1
+    n = position.shape[-2]
+    C, cap = clist.bucket_idx.shape[-2:]
     ntypes = eps.shape[0]
     max_excl = exclusions.shape[1]
     if C != cfg.total_cells or cap != cfg.cap:
@@ -176,7 +201,7 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
     first, count = (int(x) for x in cells)
     if first < 0 or count < 1 or first + count > C:
         raise ValueError(f"{name}: cell range {cells} outside {C} cells")
-    checks = dict(position=(position, dtype, (n, 3)),
+    checks = dict(position=(position, dtype, batch + (n, 3)),
                   box_L=(box_L, dtype, (3,)),
                   typeid=(typeid, torch.int32, (n,)),
                   charge=(charge, dtype, (n,)),
@@ -184,7 +209,7 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
                   sig2=(sig2, dtype, (ntypes, ntypes)),
                   rcut2=(rcut2, dtype, (ntypes, ntypes)),
                   vshift=(vshift, dtype, (ntypes, ntypes)),
-                  bucket_idx=(clist.bucket_idx, torch.int32, (C, cap)),
+                  bucket_idx=(clist.bucket_idx, torch.int32, batch + (C, cap)),
                   neighbor_cells=(clist.neighbor_cells, torch.int32, (C, 27)),
                   exclusions=(exclusions, torch.int32, (n + 1, max_excl)))
     if pair_key is not None:
@@ -198,18 +223,19 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
                 f"on {t.device}")
     lib = _cuda.load("cell_pair", _SIGNATURES)
     forces = torch.zeros_like(position)
-    blocks = launch_blocks(count, cap, position.device)
-    partial = torch.empty((blocks, 2), dtype=dtype, device=position.device)
+    blocks = launch_blocks(count, cap, position.device, nb)
+    partial = torch.empty(batch + (blocks, 2), dtype=dtype,
+                          device=position.device)
     p = _cuda.ptr
     rc = getattr(lib, f"cavmd_cell_pair_{_SUFFIX[dtype]}")(
         p(position), p(box_L), p(typeid), p(charge), p(eps), p(sig2),
         p(rcut2), p(vshift), ntypes, p(clist.bucket_idx),
         p(clist.neighbor_cells), p(exclusions), max_excl, n, C, cap,
         cfg.r_cut * cfg.r_cut, float(kappa), int(bool(lj_on)),
-        int(bool(coul_on)), first, count, blocks // count,
+        int(bool(coul_on)), first, count, blocks // count, nb,
         p(pair_key) if pair_key is not None else None, p(forces),
         p(partial), _cuda.stream_ptr(position.device))
     _cuda.check(rc, name)
     _cuda.count_launch(name)
-    energies = 0.5 * torch.sum(partial, dim=0)
-    return forces, energies[0], energies[1]
+    energies = 0.5 * torch.sum(partial, dim=-2)
+    return forces, energies[..., 0], energies[..., 1]

@@ -12,7 +12,11 @@ buckets of its 27 neighbour cells:
 - the bucket build (``build_cell_list``) is a handful of tensor ops: one
   sort of packed (cell, index) keys, a running maximum for the rank within
   each cell, two scatters. It never reads back from the device; a bucket
-  overflow is a 0-d flag, never a silent drop;
+  overflow is a 0-d flag, never a silent drop. Positions (B, N, 3) of a
+  replica batch build every replica's list in the same operations (the
+  replica leads the sort key, so the sort and the running maximum run once
+  over B N), with a (B,) flag; each replica's list equals its one-replica
+  build bit for bit;
 - ``cell_pair_force`` is the plain tile path, the twin of the cell kernel
   (``ops/cell_kernels.py``): (cells, cap, 27 cap) tiles built block by
   block, so peak memory is bounded by ``cell_block``.
@@ -59,7 +63,10 @@ def plan_cells(box_L, r_cut, *, skin=1.0, n=None, density=None, cap=None):
 
 
 class CellList(NamedTuple):
-    """Bucketed particle ids (tensors on the particles' device)."""
+    """Bucketed particle ids (tensors on the particles' device). A replica
+    batch's list has a leading axis B on every field but
+    ``neighbor_cells`` (shared), and its ids and slots are each replica's
+    own (local) ones."""
 
     bucket_idx: torch.Tensor  # (C, cap) int32 particle ids, N = empty slot
     overflow: torch.Tensor  # 0-d bool: some cell held more than cap
@@ -76,6 +83,15 @@ class CellList(NamedTuple):
     # (XY, 9 cap) int32: each column's 9 xy-neighbour columns' slots merged
     # into one list by ascending quantised z, empty slots (id N) last
     halo_idx: torch.Tensor | None = None
+
+
+def replica_list(clist: CellList, r: int) -> CellList:
+    """Replica r's one-replica list from a replica batch's ``CellList``."""
+    return clist._replace(**{
+        k: getattr(clist, k)[r] for k in ("bucket_idx", "overflow", "slot_of",
+                                          "anchor", "local_anchor",
+                                          "halo_idx")
+        if getattr(clist, k) is not None})
 
 
 def neighbor_cell_table(ncells) -> np.ndarray:
@@ -128,7 +144,8 @@ def exclusion_table(n, bond_group, max_excl=None) -> np.ndarray:
     return table
 
 
-def _rank_and_bucket(order, sorted_bin, n, n_bins, cap, n_real_bins=None):
+def _rank_and_bucket(order, sorted_bin, n, n_bins, cap, n_real_bins=None,
+                     batch=None):
     """Buckets from particle ids in bin-sorted order.
 
     The rank within a bin is the distance to the bin's first element, a
@@ -139,9 +156,17 @@ def _rank_and_bucket(order, sorted_bin, n, n_bins, cap, n_real_bins=None):
     over-full bin owns no slot and maps to the dump slot ``n_bins * cap``.
     Bins from ``n_real_bins`` on are dump bins, which may hold more than
     ``cap`` without flagging an overflow (None: every bin is real).
+
+    ``batch`` B: ``order`` holds the ids ``r n + i`` of B replicas of ``n``
+    particles and ``sorted_bin`` the bins ``r n_bins + c``, sorted with the
+    replica first, so replica r fills places [r n, (r + 1) n). The running
+    maximum then runs once over all B n places, and the results gain the
+    leading axis: ``bucket_idx`` (B, n_bins, cap) of local ids ``i``,
+    ``overflow`` (B,), ``slot_of`` (B, n) of local slots ``c cap + rank``.
     """
     dev = order.device
-    iota = torch.arange(n, device=dev)
+    m = order.shape[0]
+    iota = torch.arange(m, device=dev)
     change = sorted_bin[1:] != sorted_bin[:-1]
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
     is_start = torch.cat([true1, change])
@@ -151,19 +176,27 @@ def _rank_and_bucket(order, sorted_bin, n, n_bins, cap, n_real_bins=None):
     over = rank >= cap
     if n_real_bins is not None:
         over = over & (sorted_bin < n_real_bins)
-    overflow = torch.any(over)
     flat = sorted_bin * cap + torch.clamp_max(rank, cap - 1)
-    dump = n_bins * cap
+    per = n_bins * cap
+    dump = per * (batch or 1)
     # one writer per slot: ranks below cap - 1, and the last of each bin
     target = torch.where((rank < cap - 1) | is_last, flat, dump)
-    order32 = order.to(torch.int32)
+    order32 = (order if batch is None else order % n).to(torch.int32)
     bucket = torch.full((dump + 1,), n, dtype=torch.int32, device=dev)
     bucket.scatter_(0, target, order32)
     bucket_idx = bucket[:dump]
     owns = bucket_idx[flat] == order32
-    slot_of = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
-        0, order, torch.where(owns, flat, dump).to(torch.int32))
-    return bucket_idx.view(n_bins, cap), overflow, slot_of
+    if batch is None:
+        overflow = torch.any(over)
+        slot_of = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
+            0, order, torch.where(owns, flat, dump).to(torch.int32))
+        return bucket_idx.view(n_bins, cap), overflow, slot_of
+    # a replica's places and bins are a block of each: its local slot is
+    # the global one modulo a replica's slots
+    slot_of = torch.empty(m, dtype=torch.int32, device=dev).scatter_(
+        0, order, torch.where(owns, flat % per, per).to(torch.int32))
+    return (bucket_idx.view(batch, n_bins, cap),
+            over.view(batch, n).any(dim=1), slot_of.view(batch, n))
 
 
 def build_cell_list(position, box_L, cfg: CellListConfig,
@@ -171,20 +204,32 @@ def build_cell_list(position, box_L, cfg: CellListConfig,
     """Bin particles into fixed-capacity buckets, on the particles' device
     and with no read-back. A particle's cell is ``floor(frac * ncells)``
     clipped to the grid, in the working dtype, as in the JAX package; the
-    packed (cell, index) key sort orders each bucket by particle index."""
-    n = position.shape[0]
+    packed (cell, index) key sort orders each bucket by particle index.
+    ``position`` (B, N, 3) builds a replica batch's list: one sort of
+    (r C + cell, r N + index) keys over B N (module note)."""
+    n = position.shape[-2]
     frac = position / box_L.to(position.dtype) + 0.5
     cell = None
     for d, nc in enumerate(cfg.ncells):
-        c = torch.floor(frac[:, d] * float(nc)).to(torch.int64)
+        c = torch.floor(frac[..., d] * float(nc)).to(torch.int64)
         c = torch.clamp(c, 0, nc - 1)
         cell = c if cell is None else cell * nc + c
-    bits = max(int(np.ceil(np.log2(max(n + 1, 2)))), 1)
-    iota = torch.arange(n, device=position.device)
-    packed = torch.sort(cell * (1 << bits) + iota).values
+    dev = position.device
+    batch = position.shape[0] if position.dim() == 3 else None
+    if batch is None:
+        bits = max(int(np.ceil(np.log2(max(n + 1, 2)))), 1)
+        key = cell * (1 << bits) + torch.arange(n, device=dev)
+    else:  # the replica leads the bin, and the low bits hold r N + i:
+        # (r C + cell) 2^bits + r N + i = cell 2^bits + r stride + i
+        bits = max(int(np.ceil(np.log2(max(batch * n + 1, 2)))), 1)
+        stride = (cfg.total_cells << bits) + n
+        iota = torch.arange(n, device=dev) + torch.arange(
+            0, batch * stride, stride, device=dev)[:, None]
+        key = torch.add(iota, cell, alpha=1 << bits)
+    packed = torch.sort(key.reshape(-1)).values
     order = packed & ((1 << bits) - 1)
     bucket_idx, overflow, slot_of = _rank_and_bucket(
-        order, packed >> bits, n, cfg.total_cells, cfg.cap)
+        order, packed >> bits, n, cfg.total_cells, cfg.cap, batch=batch)
     return CellList(bucket_idx=bucket_idx, overflow=overflow,
                     neighbor_cells=neighbor_cells, slot_of=slot_of)
 
@@ -233,40 +278,59 @@ def build_zcol_list(position, box_L, cfg: CellListConfig,
     slots re-sorted by quantised z with a stable row-wise sort, empty slots
     keyed past every real z so they come last. The key quantisation only
     sets how tightly blocks pack: the pair pass bounds its blocks from the
-    live positions."""
-    n = position.shape[0]
+    live positions. ``position`` (B, N, 3) builds a replica batch's list:
+    the replica leads the argsort key, the halo sort runs row-wise over
+    every replica's columns, and the fields gain the leading axis."""
+    n = position.shape[-2]
     dtype = position.dtype
     dev = position.device
     cx, cy, _ = cfg.ncells
     XY = cx * cy
     box = box_L.to(dtype)
     frac = position / box + 0.5
-    col2 = [torch.clamp(torch.floor(frac[:, d] * float(nc)).to(torch.int64),
+    col2 = [torch.clamp(torch.floor(frac[..., d] * float(nc)).to(torch.int64),
                         0, nc - 1) for d, nc in enumerate((cx, cy))]
     col = col2[0] * cy + col2[1]
-    zf = frac[:, 2]
+    zf = frac[..., 2]
     zq = torch.clamp(torch.floor((zf - torch.floor(zf)) * 16384.0)
                      .to(torch.int64), 0, 16383)
-    order = torch.argsort(col * 16384 + zq, stable=True)
-    bucket_idx, overflow, slot_of = _rank_and_bucket(order, col[order], n,
-                                                     XY, cfg.cap)
+    batch = position.shape[0] if position.dim() == 3 else None
+    if batch is None:
+        order = torch.argsort(col * 16384 + zq, stable=True)
+        bucket_idx, overflow, slot_of = _rank_and_bucket(order, col[order],
+                                                         n, XY, cfg.cap)
+    else:  # the replica leads: (r XY + col) 16384 + zq over B N
+        gcol = (col + torch.arange(0, batch * XY, XY, device=dev)[:, None]
+                ).reshape(-1)
+        order = torch.argsort(torch.add(zq.reshape(-1), gcol, alpha=16384),
+                              stable=True)
+        bucket_idx, overflow, slot_of = _rank_and_bucket(
+            order, gcol[order], n, XY, cfg.cap, batch=batch)
 
     # build-time coordinates: xy in the assigned column's centre image, z
     # in the primary image
-    colf = torch.stack(col2, dim=1).to(dtype)
+    colf = torch.stack(col2, dim=-1).to(dtype)
     ncol = torch.stack([torch.full((), float(cx), dtype=dtype, device=dev),
                         torch.full((), float(cy), dtype=dtype, device=dev)])
     center = ((colf + 0.5) / ncol - 0.5) * box[:2]
-    off_xy = position[:, :2] - center
+    off_xy = position[..., :2] - center
     loc_xy = center + off_xy - box[:2] * torch.round(off_xy / box[:2])
-    loc_z = position[:, 2:3] - box[2] * torch.round(position[:, 2:3] / box[2])
-    local_anchor = torch.cat([loc_xy, loc_z], dim=1)
+    loc_z = (position[..., 2:3]
+             - box[2] * torch.round(position[..., 2:3] / box[2]))
+    local_anchor = torch.cat([loc_xy, loc_z], dim=-1)
 
     xy_nb = neighbor_columns.long()
     sentinel = torch.full((1,), 1 << 20, dtype=torch.int64, device=dev)
-    zq_slot = torch.cat([zq, sentinel])[bucket_idx.long()]
-    cand_idx = bucket_idx[xy_nb].reshape(XY, 9 * cfg.cap)
-    cand_zq = zq_slot[xy_nb].reshape(XY, 9 * cfg.cap)
+    if batch is None:
+        zq_slot = torch.cat([zq, sentinel])[bucket_idx.long()]
+        cand_idx = bucket_idx[xy_nb].reshape(XY, 9 * cfg.cap)
+        cand_zq = zq_slot[xy_nb].reshape(XY, 9 * cfg.cap)
+    else:
+        zq_pad = torch.cat([zq, sentinel.expand(batch, 1)], dim=1)
+        zq_slot = torch.gather(zq_pad, 1, bucket_idx.view(batch, -1).long()
+                               ).view(batch, XY, cfg.cap)
+        cand_idx = bucket_idx[:, xy_nb].reshape(batch, XY, 9 * cfg.cap)
+        cand_zq = zq_slot[:, xy_nb].reshape(batch, XY, 9 * cfg.cap)
     morder = torch.argsort(cand_zq, dim=-1, stable=True)
     halo_idx = torch.take_along_dim(cand_idx, morder, dim=-1)
     return CellList(bucket_idx=bucket_idx, overflow=overflow,

@@ -33,6 +33,13 @@ that table. The wrappers run the plain twins only for tensors on the CPU; for
 a CUDA tensor they launch the kernels or raise. Everything here is in the
 working dtype; the JAX package computes this pass in float32 whatever its
 dtype (``pallas_kernels.py:1405``).
+
+Positions may carry a leading replica axis, (B, N, 3) with a batched
+column list (``ops/neighbor.py:build_zcol_list``; replica batching,
+``parallel/replicas.py``): each kernel then runs once for every replica,
+over B XY columns, with one visit window W; the energies and the window
+flag come back (B,). The plain twin runs the one-replica twin on each
+replica and stacks the results.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from cavmd_tpu_torch.ops.neighbor import (
     CellListConfig,
     make_fused_cell_kernel,
     make_particle_features,
+    replica_list,
     slot_gather_forces,
 )
 
@@ -58,12 +66,13 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 # (pos, anchor, local_anchor, box, charge, bucket, halo, n, ncols, cap, W,
-# r_cut, hull, flags, loc, stream)
-_HULL_ARGS = [_V] * 7 + [_I] * 4 + [_D] + [_V] * 4
+# r_cut, replicas, hull, flags, loc, stream)
+_HULL_ARGS = [_V] * 7 + [_I] * 4 + [_D, _I] + [_V] * 4
 # (loc, box, typeid, eps, sig2, rcut2, vshift, ntypes, bucket, halo, hull,
-# exclusions, max_excl, n, ncols, cap, W, r_cut, r_cut^2, kappa, forces,
-# partials, stream)
-_PAIR_ARGS = [_V] * 7 + [_I] + [_V] * 4 + [_I] * 5 + [_D] * 3 + [_V] * 3
+# exclusions, max_excl, n, ncols, cap, W, r_cut, r_cut^2, kappa, replicas,
+# forces, partials, stream)
+_PAIR_ARGS = ([_V] * 7 + [_I] + [_V] * 4 + [_I] * 5 + [_D] * 3 + [_I]
+              + [_V] * 3)
 _SIGNATURES = {"cavmd_zcol_hull_f32": _HULL_ARGS,
                "cavmd_zcol_hull_f64": _HULL_ARGS,
                "cavmd_zcol_pair_f32": _PAIR_ARGS,
@@ -206,7 +215,14 @@ def zcol_pair_force_plain(position, box_L, clist: CellList,
                           cfg: CellListConfig, typeid, charge, eps, sig2,
                           rcut2, vshift, exclusions, kappa: float, W):
     """Plain twin of the zcol kernel. Returns (forces (N, 3), e_lj,
-    e_ewald_short, window flag)."""
+    e_ewald_short, window flag); for a replica batch the one-replica twin
+    of each replica, stacked ((B, N, 3) and three (B,))."""
+    if position.dim() == 3:
+        outs = [zcol_pair_force_plain(
+            position[r], box_L, replica_list(clist, r), cfg, typeid, charge,
+            eps, sig2, rcut2, vshift, exclusions, kappa, W)
+            for r in range(position.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     n = position.shape[0]
     pos_loc = zcol_local_positions(position, box_L, clist)
     hull, flag, W = zcol_hull(pos_loc, box_L, clist, cfg, W)
@@ -240,26 +256,33 @@ def zcol_pair_force_plain(position, box_L, clist: CellList,
 def _check_cuda_inputs(what, position, box_L, clist: CellList,
                        cfg: CellListConfig, **extra):
     """Raise unless every tensor the kernels read is a contiguous CUDA
-    tensor of the right dtype and shape; returns (dtype suffix, n, XY,
-    Kc). ``extra`` maps more argument names to (tensor, dtype, shape)."""
+    tensor of the right dtype and shape; returns (dtype suffix, batch
+    shape, n, XY, Kc). ``extra`` maps more argument names to (tensor,
+    dtype, shape)."""
     if position.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {position.device}")
     dtype = position.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"{what}: no kernel for {dtype}")
-    n = position.shape[0]
-    XY, Kc = clist.bucket_idx.shape
+    if position.dim() not in (2, 3):
+        raise ValueError(f"{what}: position must be (N, 3) or (B, N, 3), "
+                         f"got {tuple(position.shape)}")
+    batch = tuple(position.shape[:-2])
+    n = position.shape[-2]
+    XY, Kc = clist.bucket_idx.shape[-2:]
     if XY != cfg.total_cells or Kc != cfg.cap or Kc % J_BLOCK != 0:
         raise ValueError(
             f"{what}: column list {(XY, Kc)} does not match the config "
             f"{(cfg.total_cells, cfg.cap)} or its capacity is not a "
             f"multiple of {J_BLOCK}")
-    checks = dict(position=(position, dtype, (n, 3)),
+    checks = dict(position=(position, dtype, batch + (n, 3)),
                   box_L=(box_L, dtype, (3,)),
-                  anchor=(clist.anchor, dtype, (n, 3)),
-                  local_anchor=(clist.local_anchor, dtype, (n, 3)),
-                  bucket_idx=(clist.bucket_idx, torch.int32, (XY, Kc)),
-                  halo_idx=(clist.halo_idx, torch.int32, (XY, 9 * Kc)))
+                  anchor=(clist.anchor, dtype, batch + (n, 3)),
+                  local_anchor=(clist.local_anchor, dtype, batch + (n, 3)),
+                  bucket_idx=(clist.bucket_idx, torch.int32,
+                              batch + (XY, Kc)),
+                  halo_idx=(clist.halo_idx, torch.int32,
+                            batch + (XY, 9 * Kc)))
     checks.update(extra)
     for arg, (t, want_dtype, shape) in checks.items():
         if not t.is_cuda or t.dtype != want_dtype or tuple(t.shape) != shape \
@@ -268,7 +291,7 @@ def _check_cuda_inputs(what, position, box_L, clist: CellList,
                 f"{what}: {arg} must be a contiguous CUDA {want_dtype} "
                 f"tensor of shape {shape}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
-    return _SUFFIX[dtype], n, XY, Kc
+    return _SUFFIX[dtype], batch, n, XY, Kc
 
 
 def _launch_hull(position, box_L, clist: CellList, cfg: CellListConfig,
@@ -280,21 +303,24 @@ def _launch_hull(position, box_L, clist: CellList, cfg: CellListConfig,
     (N, 4), each slotted particle's local coordinates (the bits of
     ``zcol_local_positions``) and charge, the rows the pair kernel stages
     (a particle without a slot is in no column and its row is never
-    written)."""
-    suffix, n, XY, Kc = _check_cuda_inputs(
+    written). For a replica batch each gains the leading axis B (one
+    launch over B XY columns)."""
+    suffix, batch, n, XY, Kc = _check_cuda_inputs(
         "zcol_hull", position, box_L, clist, cfg,
-        charge=(charge, position.dtype, (position.shape[0],)))
+        charge=(charge, position.dtype, (position.shape[-2],)))
     W = max(1, min(int(W), 9 * Kc // J_BLOCK))
     dev = position.device
-    hull = torch.empty((XY, Kc // I_BLOCK, 4), dtype=torch.int32, device=dev)
-    flags = torch.empty((XY,), dtype=torch.bool, device=dev)
-    loc = torch.empty((n, 4), dtype=position.dtype, device=dev)
+    hull = torch.empty(batch + (XY, Kc // I_BLOCK, 4), dtype=torch.int32,
+                       device=dev)
+    flags = torch.empty(batch + (XY,), dtype=torch.bool, device=dev)
+    loc = torch.empty(batch + (n, 4), dtype=position.dtype, device=dev)
     lib = _cuda.load("zcol_pair", _SIGNATURES)
     p = _cuda.ptr
     rc = getattr(lib, f"cavmd_zcol_hull_{suffix}")(
         p(position), p(clist.anchor), p(clist.local_anchor), p(box_L),
         p(charge), p(clist.bucket_idx), p(clist.halo_idx), n, XY, Kc, W,
-        float(cfg.r_cut), p(hull), p(flags), p(loc), _cuda.stream_ptr(dev))
+        float(cfg.r_cut), batch[0] if batch else 1, p(hull), p(flags),
+        p(loc), _cuda.stream_ptr(dev))
     _cuda.check(rc, "zcol_hull")
     _cuda.count_launch("zcol_hull")
     return hull, flags, loc, W
@@ -307,15 +333,17 @@ def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
     kernels on a CUDA device (five device operations, no read-back), the
     plain twin on the CPU. ``kappa`` is a host float and ``W`` the visit
     window. Returns (forces (N, 3), e_lj, e_ewald_short, window flag (0-d
-    bool)). The launchers reject what the kernels do not take (more than 8
-    types or 8 exclusions a particle, a window whose staged rows outgrow a
+    bool)); ``position`` (B, N, 3) with a batched list runs every replica
+    in the same launches, and the energies and the flag then are (B,).
+    The launchers reject what the kernels do not take (more than 8 types
+    or 8 exclusions a particle, a window whose staged rows outgrow a
     block's shared memory) with an error that ``_cuda.check`` raises."""
     if position.device.type == "cpu":
         return zcol_pair_force_plain(position, box_L, clist, cfg, typeid,
                                      charge, eps, sig2, rcut2, vshift,
                                      exclusions, kappa, W)
     dtype = position.dtype
-    n = position.shape[0]
+    n = position.shape[-2]
     ntypes = eps.shape[0]
     max_excl = exclusions.shape[1]
     tables = dict(typeid=(typeid, torch.int32, (n,)),
@@ -325,11 +353,11 @@ def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
                   rcut2=(rcut2, dtype, (ntypes, ntypes)),
                   vshift=(vshift, dtype, (ntypes, ntypes)),
                   exclusions=(exclusions, torch.int32, (n + 1, max_excl)))
-    suffix, n, XY, Kc = _check_cuda_inputs("zcol_pair", position, box_L,
-                                           clist, cfg, **tables)
+    suffix, batch, n, XY, Kc = _check_cuda_inputs(
+        "zcol_pair", position, box_L, clist, cfg, **tables)
     forces = torch.zeros_like(position)
     hull, flags, loc, W = _launch_hull(position, box_L, clist, cfg, charge, W)
-    partial = torch.empty((XY * (Kc // I_BLOCK), 2), dtype=dtype,
+    partial = torch.empty(batch + (XY * (Kc // I_BLOCK), 2), dtype=dtype,
                           device=position.device)
     lib = _cuda.load("zcol_pair", _SIGNATURES)
     p = _cuda.ptr
@@ -337,9 +365,9 @@ def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
         p(loc), p(box_L), p(typeid), p(eps), p(sig2), p(rcut2), p(vshift),
         ntypes, p(clist.bucket_idx), p(clist.halo_idx), p(hull), p(exclusions),
         max_excl, n, XY, Kc, W, float(cfg.r_cut), cfg.r_cut * cfg.r_cut,
-        float(kappa), p(forces), p(partial),
+        float(kappa), batch[0] if batch else 1, p(forces), p(partial),
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "zcol_pair")
     _cuda.count_launch("zcol_pair")
-    energies = torch.sum(partial, dim=0)  # the kernel halved each partial
-    return forces, energies[0], energies[1], flags.any()
+    energies = torch.sum(partial, dim=-2)  # the kernel halved each partial
+    return forces, energies[..., 0], energies[..., 1], flags.any(dim=-1)

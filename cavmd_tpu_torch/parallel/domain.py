@@ -664,7 +664,7 @@ def _validate_methods(methods):
         if m.kind in ("mttk", "berendsen"):
             raise NotImplementedError(
                 f"method kind {m.kind!r} is not ported to cavmd_tpu_torch "
-                "(see ROADMAP.md)")
+                "(see ROADMAP.md, Queue 1, MTTK and Berendsen)")
         ok = m.kind in ("bussi", "nve") or (
             m.kind == "langevin" and m.group == "cavity"
             and m.indices is not None and len(m.indices) == 1)

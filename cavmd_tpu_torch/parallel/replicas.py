@@ -6,15 +6,22 @@ package ``vmap``s its step over a leading replica axis. Here the batch is
 written out instead: one ``MDState`` whose per-replica leaves carry a
 leading axis B (``integrate/integrator.py``), advanced by the ordinary step
 function, whose operations all run over the last two axes. Each hand
-kernel (K1-K5) then runs once a step for all B replicas, so a batch costs
+kernel (K1-K5; in cell and zcol mode the cell kernel or K9 with its hull
+in place of K1) then runs once a step for all B replicas, so a batch costs
 the host the launches of one replica. ``torch.func.vmap`` cannot batch the
 kernels (ctypes launches), and a Python loop over replicas would multiply
 the launches by B.
 
 The replicas share one topology (N, types, charges, masses, bonds) and one
-box, and the force field is dense (N <= ``DENSE_MAX_N``); both are checked
-here once, on the host. Each replica has its own positions, velocities,
-clock, adaptive dt and reservoirs. The step draws each random stream once
+box, checked here once, on the host, and one force field in any pair mode.
+Each replica has its own positions, velocities, clock, adaptive dt and
+reservoirs, and in cell and zcol mode its own carried list and anchor (the
+batched ``CellList`` of ``ops/neighbor.py``), rebuilt when one of its own
+particles has moved past half the skin. An overflow in any replica sets
+that replica's ``cell_overflow``; the caller re-plans the whole batch
+(``drivers/advanced_run.py:run_vmapped_replicas``). After an overflow the
+carried lists and start forces of the chunk are not to be trusted: a
+retry rebuilds both from the chunk's start positions. The step draws each random stream once
 for the whole batch (one ``torch.Generator`` a stream, shaped (B, ...)),
 so replica r's noise is not the stream of a one-replica run at seed + r;
 its initial thermal velocities are (``init_replica_states``).
@@ -28,9 +35,10 @@ import numpy as np
 import torch
 
 from cavmd_tpu_torch.core.snapshot import Snapshot
-from cavmd_tpu_torch.integrate.forcefield import BATCHED_CELL_TODO, ForceField
+from cavmd_tpu_torch.integrate.forcefield import ForceField
 from cavmd_tpu_torch.integrate.integrator import (
     MDState,
+    carries_cell_list,
     init_state,
     run_steps,
     thermal_velocities,
@@ -69,19 +77,26 @@ def _check_replicas(snaps: Sequence[Snapshot]) -> None:
                 "batch share one box (one PPPM influence table)")
 
 
-def _stack(states: Sequence[MDState], seed: int) -> MDState:
+def _stack(states: Sequence[MDState], seed: int, ff: ForceField) -> MDState:
     """One batched ``MDState`` from one-replica states of one topology:
     the per-replica leaves stacked on a new leading axis, the shared ones
     taken from the first, the host step from the first (they must agree),
-    and fresh generators from ``seed``."""
+    fresh generators from ``seed``, and in cell and zcol mode the batched
+    list built from the stacked positions (each replica's equal to its
+    own state's)."""
     steps = {s.step for s in states}
     if len(steps) != 1:
         raise ValueError(f"replica states at different steps {sorted(steps)}")
     first = states[0]
-    return first.replace(
+    batch = first.replace(
         **{k: torch.stack([getattr(s, k) for s in states])
            for k in PER_REPLICA},
         seed=seed, generators={}, cell_list=None, cell_anchor=None)
+    if carries_cell_list(ff):
+        batch = batch.replace(
+            cell_list=ff.build_cells(batch.position, batch.box_L),
+            cell_anchor=batch.position)
+    return batch
 
 
 def init_replica_states(
@@ -104,9 +119,9 @@ def init_replica_states(
     seed ``seed + r`` (molecules with their drift removed, the photon
     drawn apart). Each replica's forces come from its own ``init_state``.
     The batch's step streams are seeded from ``seed``. ``device``: where
-    the state lives (None: the snapshots' device). Raises ``ValueError``
-    for replicas of another topology or box, ``NotImplementedError`` for a
-    force field that is not dense.
+    the state lives (None: the snapshots' device). In cell and zcol mode
+    the state carries the batched list. Raises ``ValueError`` for replicas
+    of another topology or box.
     """
     if isinstance(snapshots, Snapshot):
         if n_replicas is None:
@@ -116,8 +131,6 @@ def init_replica_states(
         snaps = list(snapshots)
     if not snaps:
         raise ValueError("no replicas")
-    if ff.pair_mode != "dense":
-        raise NotImplementedError(BATCHED_CELL_TODO)
     _check_replicas(snaps)
     dev = snaps[0].device if device is None else torch.device(device)
     states = []
@@ -128,17 +141,13 @@ def init_replica_states(
                 snap.mass, snap.typeid, ff.l_typeid, kT, seed + r))
         states.append(init_state(snap, ff, dt=dt, seed=seed + r,
                                  error_tolerance=error_tolerance))
-    return _stack(states, seed)
+    return _stack(states, seed, ff)
 
 
 def make_replica_step(step_fn):
     """The step of a replica batch: ``step_fn`` itself, whose operations
-    run over the last two axes (the JAX package wraps its step in
-    ``jax.vmap``). Raises ``NotImplementedError`` when the step's force
-    field is not dense."""
-    ff = getattr(step_fn, "force_field", None)
-    if ff is not None and ff.pair_mode != "dense":
-        raise NotImplementedError(BATCHED_CELL_TODO)
+    run over the last two axes in every pair mode (the JAX package wraps
+    its step in ``jax.vmap``)."""
     return step_fn
 
 

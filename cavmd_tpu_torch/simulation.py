@@ -50,7 +50,32 @@ from cavmd_tpu_torch.integrate.integrator import (
 # in the JAX package; a coverage violation halves it for the retry.
 DOMAIN_REBUILD_EVERY = 20
 _NOT_PORTED = ("the JAX package falls back to GSPMD atom sharding there, "
-               "which is not ported (ROADMAP.md, Queue 1 item 9)")
+               "which is not ported (ROADMAP.md, \"Not queued this round\", "
+               "GSPMD pieces)")
+
+
+def retry_state(ff: ForceField, start: MDState,
+                rng_states: dict) -> MDState:
+    """A chunk's start state for a retry under the re-planned force field
+    ``ff`` (one replica or a replica batch): the random streams go back to
+    ``rng_states`` (a stream first drawn in the failed chunk starts
+    afresh), the carried list is rebuilt from the start positions, and so
+    are the start forces (an overflowing list may have dropped pairs from
+    them; the JAX package keeps them)."""
+    gens = start.generators
+    for key in list(gens):
+        if key in rng_states:
+            gens[key].set_state(rng_states[key])
+        else:
+            del gens[key]
+    clist = anchor = None
+    if start.cell_list is not None:
+        clist = ff.build_cells(start.position, start.box_L)
+        anchor = start.position
+    with torch.no_grad():
+        forces, _ = ff(start.position, start.image, start.box_L,
+                       start.charge, start.typeid, clist=clist)
+    return start.replace(forces=forces, cell_list=clist, cell_anchor=anchor)
 
 
 class Simulation:
@@ -186,30 +211,6 @@ class Simulation:
         return (f"slab cap nb_cap={p.nb_cap}, bucket cap={p.cap}, "
                 f"rebuild_every={self._domain_rebuild_every}")
 
-    def _retry_state(self, start: MDState, rng_states: dict) -> MDState:
-        """The chunk's start state for a retry under the re-planned cell
-        list: the random streams go back to where they stood (a stream first
-        drawn in the failed chunk starts afresh), the carried list is
-        rebuilt, and so are the start forces (an overflowing list may have
-        dropped pairs from them)."""
-        gens = start.generators
-        for key in list(gens):
-            if key in rng_states:
-                gens[key].set_state(rng_states[key])
-            else:
-                del gens[key]
-        clist = anchor = None
-        if start.cell_list is not None:
-            clist = self.ff.build_cells(start.position, start.box_L)
-            anchor = start.position
-        with torch.no_grad():
-            forces, _ = self.ff(start.position, start.image, start.box_L,
-                                start.charge, start.typeid, clist=clist)
-        if self._comm is not None:
-            forces = self._comm.broadcast(forces)
-        return start.replace(forces=forces, cell_list=clist,
-                             cell_anchor=anchor)
-
     # ------------------------------------------------------------------ setup
     def thermalize(self, kT, *, molecular_only=True, photon_kT=None,
                    seed=None):
@@ -281,7 +282,10 @@ class Simulation:
                 logging.getLogger(__name__).warning(
                     "cell-list overflow: re-planned (%s), retrying the "
                     "chunk", self._plan_text())
-                self.state = self._retry_state(start, rng_states)
+                self.state = retry_state(self.ff, start, rng_states)
+                if self._comm is not None:  # replicated start forces
+                    self.state = self.state.replace(
+                        forces=self._comm.broadcast(self.state.forces))
             self.last_obs = obs
             for tracker in self.trackers:
                 tracker.consume(obs)

@@ -94,18 +94,47 @@ Phases:
      device time at 32 replicas; a float64 batch of 4 replicas, 20 steps on
      the card, against one-replica card runs with the same draws (1e-9
      bohr); the batched step through ``run_replica_steps`` at B = 1, 8 and
-     32 on phase 3's protocol (each of K1-K5 once a step, the same device
-     operations a step at every B and within REPLICA_OPS_SLACK of the
-     one-replica fused step's, each replica's universe drift under phase
-     3's bound, aggregate steps/s, device us a step and busy share from a
-     profile); and the CLI with ``--vmap-replicas --replicas 1-8`` on
-     phase 5's arguments (files and headers of every replica, GSD frames,
-     K4/K5 once a step, each replica's drift under phase 5's bound, the
-     aggregate steps/s of its own line).
+     32 (phase 3's protocol at B = 8, a prefix of it at 1 and 32; each of
+     K1-K5 once a step, the same device operations a step at every B and
+     within REPLICA_OPS_SLACK of the one-replica fused step's, each
+     replica's universe drift under phase 3's bound, aggregate steps/s,
+     device us a step and busy share from a profile); and the CLI with
+     ``--vmap-replicas --replicas 1-8`` on phase 5's arguments (files and
+     headers of every replica, GSD frames, K4/K5 once a step, each
+     replica's drift under phase 5's bound, the aggregate steps/s of its
+     own line);
+ 12. replica batches in cell and zcol mode: (a) the cell kernel at
+     N = 20,001 (10^3 cells), the small grid on the N = 501 scene in cell
+     mode (2^3 cells) and the zcol wrapper with its hull at N = 20,001,
+     each over 8 replicas in one launch, float32 and float64, against
+     their twins on the batch and against the one-replica launch on each
+     replica (forces, hull, flags and table bit-equal), two calls
+     bit-equal, in float32 their times and bound from the batch's own
+     inputs; (b) float64 batches of 4 replicas at N = 20,001, 40 steps of
+     1 fs in cell and in zcol mode across a rebuild of every replica's
+     list, against one-replica card runs with the same draws (1e-9 bohr);
+     (c) 8 replicas of ``build_large_n(50_000)`` (N = 100,001, cell mode,
+     f32, fused tail, each replica thermalized apart) on phase 6's
+     protocol: the cell kernel and K2-K5 once a step for the batch,
+     device operations a step name by name within REPLICA_OPS_SLACK of one
+     replica's, device us and busy share a step, aggregate steps/s beside
+     phase 6's one replica, each replica's band within DOMAIN_BAND_RATIO of
+     phase 6's, the list build's and K2's batched time beside one
+     replica's; then 8 replicas of the N = 501 scene in cell mode (the
+     small grid once a step) and 8 replicas of ``build_large_n(10_000,
+     pair_mode='zcol')`` on phase 6's protocol (K9 and its hull once a
+     step, each band under phase 6's N = 20,001 bound), both in chunks
+     with the CLI's batch overflow retry; each of the three runs' pair
+     call on its final state held as in (a); (d) the CLI with
+     ``--vmap-replicas --replicas 1-8 --n-molecules 10000`` (cell mode,
+     twice phase 8's runtime, each replica's drift under phase 8's bound).
+     The ``_b8`` rows take their launches from the runs at their shapes:
+     the cell kernel from (d), the small grid and K9 with its hull from
+     (c)'s 8-replica runs.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
-the summary (with the script's seconds and phases 10's and 11's), a JSON
+the summary (with the script's seconds and phases 10's to 12's), a JSON
 object of per-kernel results (the batched kernels as ``<name>_b8``), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -239,12 +268,37 @@ REPLICA_PROFILED_STEPS = 50
 REPLICA_OPS_SLACK = 4
 BATCHED_KERNELS = ("dense_pair", "pppm_spread", "pppm_interpolate",
                    "fused_pre_force", "fused_post_force")
+# the prefix of phase 3's protocol the batched step runs at the batch sizes
+# but REPLICA_B (warm-up steps, chunks, steps a chunk)
+REPLICA_SHORT_RUN = (N_WARM // 4, 2, CHUNK // 2)
+# phase 12: replica batches in cell and zcol mode. The batched kernels run
+# at REPLICA_B replicas (the cell kernel and the zcol wrapper with its
+# hull at N = 2 HELD_N_MOL + 1, the small grid at N = 501); the float64
+# batches of REPLICA_F64_B replicas take phase 10's ZCOL_F64_STEPS steps of
+# ZCOL_F64_DT_FS (every replica's list rebuilt) against one-replica runs,
+# held to TRAJ_TOL_BOHR; REPLICA_B replicas of build_large_n(LARGE_N_MOL)
+# take phase 6's protocol, each replica's band held to DOMAIN_BAND_RATIO
+# times phase 6's, their device operations a step to REPLICA_OPS_SLACK of
+# one replica's; REPLICA_B replicas of the N = 501 scene in cell mode take
+# SMALL_GRID_BATCH_STEPS steps, each drift held to DRIFT_BOUND_HA;
+# REPLICA_B replicas of build_large_n(HELD_N_MOL) in zcol mode take phase
+# 6's protocol, each band held to LARGE_BAND_BOUND_HA (phase 6 at
+# N = 20,001); the CLI
+# at HELD_N_MOL molecules with --vmap-replicas to phase 8's
+# LARGE_CLI_DRIFT_BOUND_HA.
+SMALL_GRID_BATCH_STEPS = 500
+# the batched CLI's adaptive dt starts from each replica's own optimal dt
+# and covers LARGE_CLI_RUNTIME_PS in ~124 steps (2 energy rows); twice the
+# runtime gives the drift check 4-5 rows, as phase 8's one-replica run has
+VMAP_LARGE_CLI_RUNTIME_PS = 2 * LARGE_CLI_RUNTIME_PS
+BATCHED_CELL_KERNELS = ("cell_pair", "cell_pair_small_grid", "zcol_pair",
+                        "zcol_hull")
 
 
-def large_cli_args(n_molecules):
+def large_cli_args(n_molecules, runtime_ps=LARGE_CLI_RUNTIME_PS):
     return ["--device", "GPU", "--n-molecules", str(n_molecules),
             "--enable-energy-tracker", "--enable-fkt", "--seed", "0",
-            "--runtime", str(LARGE_CLI_RUNTIME_PS),
+            "--runtime", str(runtime_ps),
             "--energy-output-period-ps",
             str(LARGE_CLI_ENERGY_PERIOD_STEPS * 1e-4)]
 
@@ -323,12 +377,13 @@ PTXAS_NAMED = {"cell_pair": ("cell_pair_kernel",),
 # stencil row in registers, one instantiation an order; the zcol kernels
 # keep their ring state and exclusion rows in registers)
 PTXAS_NO_STACK = ("interpolate_kernel<float, 6>",
-                  "interpolate_kernel<double, 6>",
-                  "zcol_pair_kernel<float>", "zcol_pair_kernel<double>",
-                  "zcol_hull_kernel<float>", "zcol_hull_kernel<double>")
+                  "interpolate_kernel<double, 6>") + tuple(
+    f"{k}<{t}{b}>" for k in ("zcol_pair_kernel", "zcol_hull_kernel")
+    for t in ("float", "double") for b in ("", ", batched"))
 # the kernels the replica batches run (phase 11: K1 at both unrolls, K2
-# and K3 at order 6, K4, K5), and the one-replica instantiations of those
-# that have a batched one of their own, must build with no spill
+# and K3 at order 6, K4, K5; phase 12: the cell kernel, and the zcol
+# kernels above), and the one-replica instantiations of those that have a
+# batched one of their own, must build with no spill
 PTXAS_NO_SPILL = tuple(
     f"{k}<{t}{u}{b}>" for t in ("float", "double")
     for k, u, bs in (("dense_pair_kernel", ", 2", ("", ", batched")),
@@ -336,7 +391,8 @@ PTXAS_NO_SPILL = tuple(
                      ("spread_kernel", ", 6", ("",)),
                      ("interpolate_kernel", ", 6", ("", ", batched")),
                      ("pre_force_kernel", "", ("",)),
-                     ("post_force_kernel", "", ("", ", batched")))
+                     ("post_force_kernel", "", ("", ", batched")),
+                     ("cell_pair_kernel", "", ("", ", batched")))
     for b in bs)
 
 
@@ -503,10 +559,13 @@ def profiled_device_ms(torch, fn, reps=5, match=None, ops=False, once=()):
     else the best usable one counts. With ``match`` or ``once`` (names of
     kernels each call launches once) a trace is complete when it holds
     each named kernel exactly ``reps`` times and usable when it misses at
-    most one of each. With neither, complete when it holds the most
-    operations any trace held and another trace held as many, usable when
-    it holds at least 1 - PROFILE_DROP_SHARE of them and another usable
-    trace was taken; the best usable trace holds the most operations."""
+    most one of each. With neither, the reference is the most operations
+    a trace held with another trace within PROFILE_DROP_SHARE below it; a
+    trace is usable when it holds at least 1 - PROFILE_DROP_SHARE of them
+    and no more (five traces of one twin once held 399, 414, 399, 399,
+    399 operations, one with records from outside the calls), complete
+    when another holds as many; the best usable trace holds the most
+    operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -534,11 +593,13 @@ def profiled_device_ms(torch, fn, reps=5, match=None, ops=False, once=()):
                       if all(reps - 1 <= c <= reps for c in t[1])]
             complete = all(c == reps for c in counts)
         else:
-            most = max(t[0] for t in traces)
-            usable = [t for t in traces if t[0] >= reps
-                      and t[0] >= (1 - PROFILE_DROP_SHARE) * most]
-            usable = usable if len(usable) >= 2 else []
-            complete = sum(t[0] == most for t in traces) >= 2
+            n_ops = [t[0] for t in traces]
+            ref = max((n for n in n_ops if sum(
+                (1 - PROFILE_DROP_SHARE) * n <= m <= n for m in n_ops) >= 2),
+                default=0)
+            usable = [t for t in traces if t[0] >= reps and
+                      (1 - PROFILE_DROP_SHARE) * ref <= t[0] <= ref]
+            complete = n_ops.count(ref) >= 2
         if complete:
             break
     check(bool(usable), f"profiled_device_ms: no usable trace of {reps} "
@@ -2087,10 +2148,17 @@ def union_us(intervals):
     return total
 
 
-def profiled_steps(torch, run, steps):
-    """(device operations a step, device records a step, device us a step
-    as the union of their intervals, summed us a step, kernel records the
-    trace dropped) of ``run(steps)`` in ``torch.profiler`` traces.
+DENSE_STEP_MARKS = ("dense_pair_kernel", "spread_kernel", "interpolate_kernel",
+                    "pre_force_kernel", "post_force_kernel")
+
+
+def profiled_steps(torch, run, steps, marks=DENSE_STEP_MARKS):
+    """The device side of ``run(steps)`` in ``torch.profiler`` traces, as a
+    dict: ``ops`` (device operations a step), ``records`` (device records
+    a step), ``us`` (device us a step, the union of their intervals),
+    ``summed`` (summed us a step), ``dropped`` (records of ``marks`` the
+    trace missed) and ``top_us`` (the largest device items, us a step by
+    name).
 
     On the card's machine the profiler drops device records, more of them
     the longer the process has run (PERF.md, open questions: up to 41 of
@@ -2101,19 +2169,18 @@ def profiled_steps(torch, run, steps):
     most records of that name in any usable trace over ``steps``, rounded
     to the nearest whole number, summed over the names. A record dropped
     moves it only if half a name's records a trace go. A trace is usable
-    when it holds each batched kernel ``steps`` or ``steps - 1`` times (a
-    trace may miss the same cooperative-launch record every try); at least
-    two usable traces are taken, up to PROFILE_TRIES in all. The times and
-    the dropped count are those of the usable trace that misses the fewest
-    batched-kernel records (each miss costs the step's device time one
-    kernel call over ``steps``, ~0.1 us at 50 steps)."""
-    from collections import Counter
+    when it holds each kernel of ``marks`` (kernels the step launches once)
+    ``steps`` or ``steps - 1`` times (a trace may miss the same
+    cooperative-launch record every try); at least two usable traces are
+    taken, up to PROFILE_TRIES in all. The times and the dropped count are
+    those of the usable trace that misses the fewest marked records (each
+    miss costs the step's device time one kernel call over ``steps``,
+    ~0.1 us at 50 steps)."""
+    from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    marks = ("dense_pair_kernel", "spread_kernel", "interpolate_kernel",
-             "pre_force_kernel", "post_force_kernel")
     seen, best, usable, per_name = [], None, 0, Counter()
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2131,25 +2198,33 @@ def profiled_steps(torch, run, steps):
                 best = (missing, dev)
         if usable >= 2 and best[0] == 0:
             break
-    check(best is not None, f"phase 11: no trace of {steps} steps with each "
-          f"of {marks} at least {steps - 1} times in {PROFILE_TRIES} "
+    check(best is not None, f"profiled_steps: no trace of {steps} steps with "
+          f"each of {marks} at least {steps - 1} times in {PROFILE_TRIES} "
           f"(device operations and counts: {seen})")
     missing, dev = best
-    ops = sum(round(c / steps) for c in per_name.values())
     iv = [(e.time_range.start, e.time_range.end) for e in dev]
-    return (ops, len(dev) / steps, union_us(iv) / steps,
-            sum(b - a for a, b in iv) / steps, missing)
+    by_name = defaultdict(float)
+    for e in dev:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / steps
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    return dict(ops=sum(round(c / steps) for c in per_name.values()),
+                records=len(dev) / steps, us=union_us(iv) / steps,
+                summed=sum(b - a for a, b in iv) / steps, dropped=missing,
+                top_us=top)
 
 
-def replica_step_path(torch, pt, B):
+def replica_step_path(torch, pt, B, warm=N_WARM, chunks=N_CHUNKS,
+                      chunk=CHUNK):
     """Phase 11c: the batched step of B thermalized replicas of the N = 501
     scene (f32, fused tail, seed 7 + r) through ``run_replica_steps`` on
-    phase 3's protocol: each batched kernel launched once a step, finite
-    observables, each replica's universe drift under DRIFT_BOUND_HA, the
-    median chunk rate (aggregate: B times it); then REPLICA_PROFILED_STEPS
-    profiled steps: device operations, device us and busy share a step.
-    ``B=None`` profiles the one-replica fused step alone (the comparison
-    for the operation count)."""
+    phase 3's protocol (``warm`` steps, then ``chunks`` chunks of
+    ``chunk`` steps; a prefix of it at the batch sizes but REPLICA_B):
+    each batched kernel launched once a step, finite observables, each
+    replica's universe drift under DRIFT_BOUND_HA, the median chunk rate
+    (aggregate: B times it); then REPLICA_PROFILED_STEPS profiled steps:
+    device operations, device us and busy share a step. ``B=None``
+    profiles the one-replica fused step alone (the comparison for the
+    operation count)."""
     import numpy as np
 
     from cavmd_tpu_torch.core import PhysicalConstants as PC
@@ -2182,12 +2257,12 @@ def replica_step_path(torch, pt, B):
             return obs
 
         run(N_WARM // 4)
-        ops, records, us, summed, dropped = profiled_steps(
-            torch, run, REPLICA_PROFILED_STEPS)
-        res = dict(replicas=None, device_ops_per_step=ops,
-                   device_records_per_step=records,
-                   device_us_per_step=us, device_us_per_step_summed=summed,
-                   profile_records_dropped=dropped)
+        prof = profiled_steps(torch, run, REPLICA_PROFILED_STEPS)
+        res = dict(replicas=None, device_ops_per_step=prof["ops"],
+                   device_records_per_step=prof["records"],
+                   device_us_per_step=prof["us"],
+                   device_us_per_step_summed=prof["summed"],
+                   profile_records_dropped=prof["dropped"])
         print("phase 11 (one-replica fused step, profile): " + ", ".join(
             f"{k}={v!r}" for k, v in res.items()), flush=True)
         return res
@@ -2201,25 +2276,25 @@ def replica_step_path(torch, pt, B):
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    run(N_WARM)
+    run(warm)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    chunks, chunk_s = [], []
-    for _ in range(N_CHUNKS):
+    outs, chunk_s = [], []
+    for _ in range(chunks):
         t0 = time.perf_counter()
-        chunks.append(run(CHUNK))
+        outs.append(run(chunk))
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
     launches = dict(_cuda.launches)
-    total = N_WARM + N_CHUNKS * CHUNK
+    total = warm + chunks * chunk
     label = f"phase 11 batched step B={B}"
     for kname in BATCHED_KERNELS:
         check(launches.get(kname, 0) == total,
               f"{label}: {kname} launched {launches.get(kname, 0)} times in "
               f"{total} steps")
-    obs = {k: np.concatenate([c[k] for c in chunks]) for k in OBS_KEYS}
+    obs = {k: np.concatenate([c[k] for c in outs]) for k in OBS_KEYS}
     for k in OBS_KEYS:
-        check(obs[k].shape == (N_CHUNKS * CHUNK, B)
+        check(obs[k].shape == (chunks * chunk, B)
               and bool(np.all(np.isfinite(obs[k]))),
               f"{label}: bad observable {k} {obs[k].shape}")
     final = state["s"]
@@ -2231,19 +2306,19 @@ def replica_step_path(torch, pt, B):
     drifts = np.abs(U - U[0]).max(axis=0)
     check(bool((drifts < DRIFT_BOUND_HA).all()),
           f"{label}: universe drifts {drifts.tolist()} >= {DRIFT_BOUND_HA}")
-    rate = statistics.median(CHUNK / t for t in chunk_s)
+    rate = statistics.median(chunk / t for t in chunk_s)
     wall_ms = 1e3 / rate
-    ops, records, us, summed, dropped = profiled_steps(
-        torch, run, REPLICA_PROFILED_STEPS)
-    res = dict(replicas=B, n=snap.N, steps=N_CHUNKS * CHUNK,
+    prof = profiled_steps(torch, run, REPLICA_PROFILED_STEPS)
+    res = dict(replicas=B, n=snap.N, steps=chunks * chunk,
                steps_per_s=rate, aggregate_steps_per_s=B * rate,
-               chunk_steps_per_s=[CHUNK / t for t in chunk_s],
+               chunk_steps_per_s=[chunk / t for t in chunk_s],
                warmup_chunk_s=warm_s, wall_ms_per_step=wall_ms,
-               device_ops_per_step=ops, device_records_per_step=records,
-               device_us_per_step=us,
-               device_us_per_step_summed=summed,
-               busy_share=us / (wall_ms * 1e3),
-               profile_records_dropped=dropped,
+               device_ops_per_step=prof["ops"],
+               device_records_per_step=prof["records"],
+               device_us_per_step=prof["us"],
+               device_us_per_step_summed=prof["summed"],
+               busy_share=prof["us"] / (wall_ms * 1e3),
+               profile_records_dropped=prof["dropped"],
                launches_per_step={k: launches.get(k, 0) / total
                                   for k in BATCHED_KERNELS},
                universe_drift_ha=drifts.tolist())
@@ -2252,13 +2327,17 @@ def replica_step_path(torch, pt, B):
     return res
 
 
-def vmap_cli_phase(torch, pt):
-    """Phase 11d: ``advanced_run`` with ``--vmap-replicas --replicas
-    1-REPLICA_B`` on phase 5's arguments in a temporary directory: exit 0,
-    each replica's files and header lines, its GSD frames read back, K4/K5
-    launched once a step for the batch (K1-K3 once a step and in the setup:
-    FIRE, the initial forces), each replica's universe drift under
-    CLI_DRIFT_BOUND_HA, the aggregate steps/s of the CLI's own line."""
+def vmap_cli_phase(torch, pt, phase, cli_args, energy_period_steps,
+                   kernels, drift_bound):
+    """Phase 11d (phase 5's arguments, ``kernels`` K1-K5) and 12d (phase
+    8's at 10,000 molecules, the cell kernel in K1's place):
+    ``advanced_run`` with ``cli_args`` and ``--vmap-replicas --replicas
+    1-REPLICA_B`` in a temporary directory: exit 0, each replica's files
+    and header lines (energy rows every ``energy_period_steps`` steps), its
+    GSD frames read back, K4/K5 launched once a step for the batch (the
+    pair kernel, K2 and K3 once a step and in the setup: FIRE, the initial
+    forces), each replica's universe drift under ``drift_bound``, the
+    aggregate steps/s of the CLI's own line."""
     import numpy as np
 
     from cavmd_tpu_torch.drivers import advanced_run
@@ -2266,12 +2345,17 @@ def vmap_cli_phase(torch, pt):
     from cavmd_tpu_torch.ops import _cuda
 
     B = REPLICA_B
-    args = CLI_ARGS + ["--vmap-replicas", "--replicas", f"1-{B}"]
+    args = cli_args + ["--vmap-replicas", "--replicas", f"1-{B}"]
     n_particles = 2 * int(args[args.index("--n-molecules") + 1]) + 1
+    period = f"# Output period: {energy_period_steps} steps"
+    energy_header = [period if k == 1 else h for k, h in enumerate(
+        CLI_HEADERS["prod-1_energy_tracker.txt"])]
+    mode_header = [period if k == 1 else h for k, h in enumerate(
+        CLI_HEADERS["prod-1_cavity_mode.txt"])]
     cwd = os.getcwd()
     work = tempfile.mkdtemp(prefix="cavmd_vmap_cli_")
     tee = _Tee(sys.stdout)
-    label = f"phase 11 CLI --vmap-replicas B={B}"
+    label = f"phase {phase} CLI --vmap-replicas B={B} N={n_particles}"
     drifts, frames = [], []
     try:
         os.chdir(work)
@@ -2290,10 +2374,8 @@ def vmap_cli_phase(torch, pt):
         out_dir = os.path.join(work, "cavity_coupling_1eneg03")
         for r in range(1, B + 1):
             headers = {
-                f"prod-{r}_energy_tracker.txt":
-                    CLI_HEADERS["prod-1_energy_tracker.txt"],
-                f"prod-{r}_cavity_mode.txt":
-                    CLI_HEADERS["prod-1_cavity_mode.txt"],
+                f"prod-{r}_energy_tracker.txt": energy_header,
+                f"prod-{r}_cavity_mode.txt": mode_header,
                 f"prod-{r}_ref0.txt": CLI_HEADERS["prod-1_ref0.txt"],
                 f"prod-{r}_dipole_autocorr_0.txt":
                     CLI_HEADERS["dipole_autocorr_0.txt"]}
@@ -2320,20 +2402,579 @@ def vmap_cli_phase(torch, pt):
                   and bool(np.isfinite(rows).all()),
                   f"{label}: replica {r}'s energy rows {rows.shape}")
             drifts.append(float(np.abs(rows[:, 18] - rows[0, 18]).max()))
-        for kname in BATCHED_KERNELS:
+        for kname in kernels:
             n = launches.get(kname, 0)
             check(n == steps if kname.startswith("fused") else n >= steps,
                   f"{label}: kernel {kname} launched {n} times in {steps} "
                   "steps")
-        check(max(drifts) < CLI_DRIFT_BOUND_HA,
-              f"{label}: universe drifts {drifts} >= {CLI_DRIFT_BOUND_HA}")
+        check(max(drifts) < drift_bound,
+              f"{label}: universe drifts {drifts} >= {drift_bound}")
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
-    res = dict(replicas=B, steps=steps, run_seconds=wall,
+    res = dict(replicas=B, n=n_particles, steps=steps, run_seconds=wall,
                aggregate_steps_per_s=agg, universe_drift_ha=drifts,
-               drift_bound_ha=CLI_DRIFT_BOUND_HA, gsd_frames=frames,
+               drift_bound_ha=drift_bound, gsd_frames=frames,
                launches=launches)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
+# --------------------------------------------------------------- phase 12
+def wrap_rows(torch, P, box_L):
+    """Positions re-wrapped into the primary box."""
+    return (P - box_L * torch.round(P / box_L)).contiguous()
+
+
+def cell_replica_inputs(torch, pt, kind, B, dtype):
+    """Phase 12a's batched pair-kernel inputs: B replicas, positions
+    jittered 0.3 bohr apart and re-wrapped, their batched list, and the
+    call's arguments. ``kind``: 'cell_pair' (N = 2 HELD_N_MOL + 1, 10^3
+    cells), 'cell_pair_small_grid' (the N = 501 scene in cell mode, 2^3
+    cells) or 'zcol_pair' (N = 2 HELD_N_MOL + 1 in zcol mode)."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+
+    dev = torch.device("cuda")
+    if kind == "cell_pair_small_grid":
+        snap = reference_scene(pt, 250, 46.0, dtype, dev)
+    else:
+        snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                               dtype, dev)
+    mode = "zcol" if kind == "zcol_pair" else "cell"
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode=mode)
+    P = wrap_rows(torch, jitter_rows(torch, snap.position, B, 0.3, 5),
+                  snap.box_L)
+    clist = ff.build_cells(P, snap.box_L)
+    check(clist.overflow.shape == (B,) and not bool(clist.overflow.any()),
+          f"phase 12 {kind}: the batched list overflowed")
+    args = (P, snap.box_L, clist, ff.cell_cfg, snap.typeid, snap.charge,
+            ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value)
+    if mode == "zcol":
+        args = args + (ff.zcol_W,)
+    return snap, ff, args
+
+
+def one_replica_args(args, r):
+    """Replica r's one-replica pair call of a batched call's arguments."""
+    from cavmd_tpu_torch.ops.neighbor import replica_list
+
+    return (args[0][r].contiguous(), args[1],
+            replica_list(args[2], r)) + args[3:]
+
+
+def cell_replica_work_counts(torch, snap, ff, args, kind, B):
+    """(bytes, operations) of one batched call of ``kind`` (and, for the
+    zcol wrapper, of its hull launch): the one-replica counts of
+    ``cell_work_counts`` / ``zcol_work_counts`` on each replica's inputs,
+    summed, with what the replicas share (box, typeid, charge, the type
+    tables, the neighbour and exclusion tables) counted once."""
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    n, e = snap.N, snap.position.element_size()
+    T = ff.lj_eps.shape[0]
+    E = ff.cell_exclusions.shape[1]
+    tot, hull_tot = [0, 0], [0, 0]
+    for r in range(B):
+        a = one_replica_args(args, r)
+        if kind == "zcol_pair":
+            pos_loc = zk.zcol_local_positions(a[0], a[1], a[2])
+            hull, _, W = zk.zcol_hull(pos_loc, a[1], a[2], a[3], a[12])
+            nb, no, _ = zcol_work_counts(torch, pos_loc, a[1], a[2], a[3],
+                                         hull, W, snap.typeid, snap.charge,
+                                         ff)
+            hb, ho = zcol_hull_work_counts(torch, pos_loc, a[2])
+            hull_tot = [hull_tot[0] + hb, hull_tot[1] + ho]
+        else:
+            C, cap = a[2].bucket_idx.shape
+            blocks = ck.launch_blocks(C, cap, snap.position.device, B)
+            nb, no, _ = cell_work_counts(torch, a[0], a[1], a[2], a[3],
+                                         snap.typeid, snap.charge, ff,
+                                         ff.cell_exclusions, blocks)
+        tot = [tot[0] + nb, tot[1] + no]
+    shared = e * (3 + n + 4 * T * T) + 4 * n + 4 * (n + 1) * E
+    if kind != "zcol_pair":
+        shared += 4 * 27 * ff.cell_cfg.total_cells
+    out = (tot[0] - (B - 1) * shared, tot[1])
+    hull = (hull_tot[0] - (B - 1) * e * n, hull_tot[1])
+    return out, hull
+
+
+def hold_batched_pair(torch, kind, args, label, tol):
+    """The batched pair call of ``kind`` ('zcol_pair', or a cell kernel's
+    name) on ``args`` against its plain twin on the whole batch (each
+    output within ``tol`` of its scale; the zcol window flags equal) and
+    against the one-replica launch on each replica's rows (forces
+    bit-equal: a row's force is one warp's sum either way; the energies
+    summed in another order where the row split or the partials' shape
+    moves them, within ``tol``); two calls bit-equal. Returns what was
+    held, as result fields."""
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    zcol = kind == "zcol_pair"
+    kern = zk.zcol_pair_force if zcol else ck.cell_pair_force_fused
+    plain = (zk.zcol_pair_force_plain if zcol
+             else ck.cell_pair_force_fused_plain)
+    k, again, p = kern(*args), kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(k, again)),
+          f"{label}: two calls differ")
+    errs = []
+    for a, b in zip(k[:3], p[:3]):
+        err, scale = max_err(a, b)
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+        check(err <= tol * max(scale, 1e-300),
+              f"{label}: max|d| {err} > {tol}*{scale}")
+        errs.append((err, scale))
+    if zcol:  # a replica's hull may outgrow the planned window
+        check(torch.equal(k[3], p[3]), f"{label}: window flags "
+              f"{k[3].tolist()} vs the twin's {p[3].tolist()}")
+    worst, energy_bits = 0.0, True
+    for r in range(args[0].shape[0]):
+        one = kern(*one_replica_args(args, r))
+        check(torch.equal(k[0][r], one[0]),
+              f"{label}: replica {r}'s forces differ from its "
+              "one-replica launch")
+        for a, b in zip(k[1:3], one[1:3]):
+            energy_bits &= bool(torch.equal(a[r], b))
+            err, scale = max_err(a[r], b)
+            check(err <= tol * scale, f"{label}: replica {r}'s energy "
+                  f"off its one-replica launch by {err}")
+            worst = max(worst, err)
+    return dict(max_abs_err=errs[0][0],
+                window_flags=k[3].tolist() if zcol else None,
+                scale=errs[0][1],
+                max_abs_err_other_outputs=[e for e, _ in errs[1:]],
+                bit_equal_calls=True,
+                forces_bit_equal_to_one_replica_launches=True,
+                energies_bit_equal_to_one_replica_launches=energy_bits,
+                max_abs_err_energy_to_one_replica_launches=worst)
+
+
+def hold_batched_hull(torch, args, label):
+    """The zcol wrapper's hull launch on the batched zcol call ``args``:
+    its hull, flags and the slotted rows of its (N, 4) table bit-equal to
+    each replica's one-replica launch and to the twins'
+    (``zcol_hull_plain``)."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    P, box, clist, cfg = args[:4]
+    charge, W = args[5], args[12]
+    hk, flags, loc, Wk = zk._launch_hull(P, box, clist, cfg, charge, W)
+    slotted = clist.bucket_idx < P.shape[-2]
+    same = True
+    for r in range(P.shape[0]):
+        a = one_replica_args(args, r)
+        h1, f1, l1, W1 = zk._launch_hull(a[0], box, a[2], cfg, charge, W)
+        ht, ft, _, lt = zcol_hull_plain(torch, zk, a[0], box, a[2], cfg,
+                                        charge, W)
+        ids = clist.bucket_idx[r][slotted[r]].long()
+        same &= (bool(torch.equal(hk[r], h1))
+                 and bool(torch.equal(flags[r], f1))
+                 and bool(torch.equal(loc[r][ids], l1[ids]))
+                 and bool(torch.equal(hk[r], ht))
+                 and bool(torch.equal(loc[r][ids], lt[ids]))
+                 and bool(flags[r].any()) == bool(ft) and Wk == W1)
+    check(same, f"{label}: the batched hull launch differs from the "
+          "one-replica launches or the twins")
+    return dict(max_abs_err=0.0, bit_equal_to_one_replica_launches=True,
+                bit_equal_to_twins=True)
+
+
+def state_pair_args(state, ff):
+    """The pair call ``ForceField.forward`` makes on a batched state's
+    positions with its carried list."""
+    args = (state.position, state.box_L, state.cell_list, ff.cell_cfg,
+            state.typeid, state.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2,
+            ff.lj_vshift, ff.cell_exclusions, ff.kappa_value)
+    return args + ((ff.zcol_W,) if ff.pair_mode == "zcol" else ())
+
+
+def cell_replica_kernel_phase(torch, pt, dtype, timed):
+    """Phase 12a: the cell kernel (10^3 cells and the 2^3 small grid) and
+    the zcol wrapper with its hull, each over REPLICA_B replicas in one
+    launch, held by ``hold_batched_pair`` and ``hold_batched_hull``. In
+    float32 also the device time, the host-bound time, the twins' time,
+    the bound from the batch's own inputs, and the one-replica launch's
+    device time."""
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    B = REPLICA_B
+    name = str(dtype).replace("torch.", "")
+    out = {}
+    for kind in ("cell_pair", "cell_pair_small_grid", "zcol_pair"):
+        snap, ff, args = cell_replica_inputs(torch, pt, kind, B, dtype)
+        label = f"phase 12 {kind} B={B} N={snap.N} {name}"
+        zcol = kind == "zcol_pair"
+        if not zcol:
+            check(ck.kernel_name(ff.cell_cfg) == kind,
+                  f"{label}: the grid {ff.cell_cfg.ncells} runs "
+                  f"{ck.kernel_name(ff.cell_cfg)}")
+        kern = zk.zcol_pair_force if zcol else ck.cell_pair_force_fused
+        plain = (zk.zcol_pair_force_plain if zcol
+                 else ck.cell_pair_force_fused_plain)
+        res = dict(replicas=B, n=snap.N, ncells=ff.cell_cfg.ncells,
+                   cap=ff.cell_cfg.cap)
+        res.update(hold_batched_pair(torch, kind, args, label, TOL[name]))
+        hull_res = None
+        if zcol:
+            hull_res = dict(replicas=B, n=snap.N)
+            hull_res.update(hold_batched_hull(torch, args, label))
+        if timed:
+            (n_bytes, n_ops), (h_bytes, h_ops) = cell_replica_work_counts(
+                torch, snap, ff, args, kind, B)
+            res["ms"] = device_ms(torch, lambda: kern(*args))
+            res["host_call_ms"] = host_call_ms(torch, lambda: kern(*args))
+            res["plain_ms"] = profiled_device_ms(torch, lambda: plain(*args))
+            one_args = one_replica_args(args, 0)
+            res["one_replica_ms"] = device_ms(torch, lambda: kern(*one_args))
+            res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, n_ops)
+            res.update(bytes=n_bytes, ops=n_ops)
+            if zcol:
+                P, box, clist, cfg = args[:4]
+                res["kernel_only_ms"] = profiled_device_ms(
+                    torch, lambda: kern(*args), match="zcol_pair_kernel")
+                hull_res["ms"] = device_ms(torch, lambda: zk._launch_hull(
+                    P, box, clist, cfg, snap.charge, ff.zcol_W))
+                hull_res["host_call_ms"] = host_call_ms(
+                    torch, lambda: zk._launch_hull(
+                        P, box, clist, cfg, snap.charge, ff.zcol_W))
+                hull_res["one_replica_ms"] = device_ms(
+                    torch, lambda: zk._launch_hull(
+                        one_args[0], box, one_args[2], cfg, snap.charge,
+                        ff.zcol_W))
+                # the twins' hull and table of every replica, one call a
+                # sample (tens of launches a replica)
+                hull_res["plain_ms"] = device_ms(torch, lambda: [
+                    zcol_hull_plain(torch, zk, *one_replica_args(
+                        args, r)[:4], snap.charge, ff.zcol_W)
+                    for r in range(B)], inner=1)
+                hull_res["bound_ms"], hull_res["bound_by"] = bound_ms(
+                    h_bytes, h_ops)
+                hull_res.update(bytes=h_bytes, ops=h_ops)
+        out[kind] = res
+        if hull_res is not None:
+            out["zcol_hull"] = hull_res
+        for key, r in ((kind, res), ("zcol_hull", hull_res)):
+            if r is not None:
+                print(f"phase 12: B={B} {name} {key}: " + ", ".join(
+                    f"{a}={v!r}" for a, v in r.items()), flush=True)
+        del snap, ff, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def cell_replica_f64_trajectory(torch, pt, mode):
+    """Phase 12b: REPLICA_F64_B thermalized float64 replicas of the
+    N = 2 HELD_N_MOL + 1 scene in ``mode`` ('cell' or 'zcol'),
+    ZCOL_F64_STEPS Bussi + Langevin steps of ZCOL_F64_DT_FS in one batch on
+    the card (every replica's carried list rebuilt inside the window),
+    against one-replica card runs of each replica with the same draws:
+    positions within TRAJ_TOL_BOHR, image flags equal, the pair kernels,
+    K2 and K3 launched once a step for the batch."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.integrate import make_step_fn, run_steps
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.ops.cell_kernels import kernel_name
+    from cavmd_tpu_torch.ops.neighbor import replica_list
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        run_replica_steps,
+    )
+    from cavmd_tpu_torch.parallel.replicas import PER_REPLICA
+
+    B, steps = REPLICA_F64_B, ZCOL_F64_STEPS
+    snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                           torch.float64, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode=mode)
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, main_methods(pt, kT), ff.l_typeid)
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(ZCOL_F64_DT_FS),
+                                seed=7, kT=kT)
+    draws = CardDraws(torch, B, torch.float64)
+    _cuda.reset_launches()
+    final, obs = run_replica_steps(make_step_fn(ff, methods, noise=draws),
+                                   batch, steps)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    label = f"phase 12 f64 {mode} batch"
+    check(not obs["cell_overflow"].any(), f"{label}: overflow")
+    rebuilt = [bool((final.cell_anchor[r] != batch.cell_anchor[r]).any())
+               for r in range(B)]
+    err, img_ok = 0.0, True
+    for r in range(B):
+        one = batch.replace(**{k: getattr(batch, k)[r] for k in PER_REPLICA},
+                            cell_list=replica_list(batch.cell_list, r),
+                            cell_anchor=batch.cell_anchor[r])
+        fr, _ = run_steps(make_step_fn(ff, methods, noise=draws.replica(r)),
+                          one, steps)
+        err = max(err, float((final.position[r] - fr.position).abs().max()))
+        img_ok &= bool(torch.equal(final.image[r], fr.image))
+    print(f"{label}: Bussi + Langevin {steps} steps of {ZCOL_F64_DT_FS} fs, "
+          f"{B} replicas at N={snap.N} in one batch vs one-replica runs, "
+          f"same draws, on the card: max|dx| = {err!r} bohr (bound "
+          f"{TRAJ_TOL_BOHR}), images equal: {img_ok}, lists rebuilt "
+          f"{rebuilt}, batch launches {launches}", flush=True)
+    check(err <= TRAJ_TOL_BOHR and img_ok,
+          f"{label}: max|dx| {err} bohr > {TRAJ_TOL_BOHR} or images differ")
+    check(all(rebuilt), f"{label}: lists rebuilt {rebuilt}")
+    kernels = (["zcol_pair", "zcol_hull"] if mode == "zcol"
+               else [kernel_name(ff.cell_cfg)])
+    for kname in kernels + ["pppm_spread", "pppm_interpolate"]:
+        check(launches.get(kname, 0) == steps,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{steps} steps")
+    return dict(max_dx_bohr=err, launches=launches)
+
+
+CELL_STEP_MARKS = ("cell_pair_kernel", "spread_kernel", "interpolate_kernel",
+                   "pre_force_kernel", "post_force_kernel")
+
+
+def cell_replica_step_path(torch, pt, band_ref, one_ms):
+    """Phase 12c: REPLICA_B replicas of ``build_large_n(LARGE_N_MOL)``'s
+    start (N = 100,001, cell mode, f32, fused tail, Bussi + Langevin,
+    LARGE_DT_FS; replica r thermalized at seed 7 + r) through
+    ``run_replica_steps`` on phase 6's protocol: the cell kernel and K2-K5
+    launched once a step, no overflow, finite observables, each replica's
+    universe band under DOMAIN_BAND_RATIO times phase 6's one-replica band
+    ``band_ref``; the batched cell kernel on the final state and its
+    carried list held by ``hold_batched_pair``; wall ms a step and
+    aggregate steps/s beside phase 6's ``one_ms``; then
+    REPLICA_PROFILED_STEPS profiled
+    steps of the batch and of one replica: device operations a step name
+    by name (within REPLICA_OPS_SLACK of one replica's), device us, busy
+    share, the largest device items; the list build's and K2's device time
+    on the batch beside one replica's."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate import (
+        make_step_fn,
+        run_steps,
+        universe_energy,
+    )
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.ops import pppm_kernels as sk
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        run_replica_steps,
+    )
+
+    B = REPLICA_B
+    sim, snap, ff = build_large_n(LARGE_N_MOL, dt_fs=LARGE_DT_FS)
+    step = make_step_fn(ff, sim.methods)
+    label = f"phase 12 batched cell step B={B} N={snap.N}"
+    state = {"one": sim.state}
+
+    def run_one(n):
+        state["one"], obs = run_steps(step, state["one"], n)
+        return obs
+
+    run_one(20)
+    one_prof = profiled_steps(torch, run_one, REPLICA_PROFILED_STEPS,
+                              CELL_STEP_MARKS)
+    state["b"] = init_replica_states(snap, ff, n_replicas=B,
+                                     dt=float(sim.state.dt), seed=7,
+                                     kT=PC.kT_from_kelvin(100.0))
+
+    def run(n):
+        state["b"], obs = run_replica_steps(step, state["b"], n)
+        return obs
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    run(LARGE_CHUNK)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    outs, chunk_s = [], []
+    for _ in range(LARGE_CHUNKS):
+        t0 = time.perf_counter()
+        outs.append(run(LARGE_CHUNK))
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    launches = dict(_cuda.launches)
+    total = LARGE_CHUNK * (LARGE_CHUNKS + 1)
+    for kname in ("cell_pair",) + BATCHED_KERNELS[1:]:
+        check(launches.get(kname, 0) == total,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{total} steps")
+    obs = {k: np.concatenate([c[k] for c in outs])
+           for k in OBS_KEYS + ("cell_overflow",)}
+    check(not obs["cell_overflow"].any(), f"{label}: overflow")
+    for k in OBS_KEYS:
+        check(obs[k].shape == (LARGE_CHUNKS * LARGE_CHUNK, B)
+              and bool(np.all(np.isfinite(obs[k]))),
+              f"{label}: bad observable {k} {obs[k].shape}")
+    check(bool(torch.isfinite(state["b"].position).all()),
+          f"{label}: non-finite positions")
+    U = universe_energy(obs)
+    bands = (U.max(axis=0) - U.min(axis=0)).tolist()
+    bound = DOMAIN_BAND_RATIO * band_ref
+    check(max(bands) < bound,
+          f"{label}: universe bands {bands} >= {bound} Ha")
+    wall_ms = statistics.median(s / LARGE_CHUNK * 1e3 for s in chunk_s)
+    prof = profiled_steps(torch, run, REPLICA_PROFILED_STEPS,
+                          CELL_STEP_MARKS)
+    check(abs(prof["ops"] - one_prof["ops"]) <= REPLICA_OPS_SLACK,
+          f"{label}: {prof['ops']} device operations a step vs one "
+          f"replica's {one_prof['ops']}")
+    b = state["b"]
+    held = hold_batched_pair(torch, "cell_pair", state_pair_args(b, ff),
+                             f"{label} (final state)", TOL["float32"])
+    pos, box = b.position, b.box_L
+    one_pos = state["one"].position
+    build_ms = device_ms(torch, lambda: ff.build_cells(pos, box), inner=1)
+    one_build_ms = device_ms(torch, lambda: ff.build_cells(one_pos, box),
+                             inner=1)
+    spread = (pos, b.charge, box, ff.pppm_order, ff.pppm_mesh)
+    k2_ms = device_ms(torch, lambda: sk.spread_grid(*spread))
+    k2_one_ms = device_ms(torch, lambda: sk.spread_grid(
+        one_pos, b.charge, box, ff.pppm_order, ff.pppm_mesh))
+    res = dict(replicas=B, n=snap.N, steps=LARGE_CHUNKS * LARGE_CHUNK,
+               wall_ms_per_step=wall_ms,
+               chunk_ms_per_step=[s / LARGE_CHUNK * 1e3 for s in chunk_s],
+               warmup_chunk_s=warm_s, aggregate_steps_per_s=B * 1e3 / wall_ms,
+               one_replica_ms_per_step=one_ms,
+               one_replica_steps_per_s=1e3 / one_ms,
+               device_ops_per_step=prof["ops"],
+               device_records_per_step=prof["records"],
+               device_us_per_step=prof["us"],
+               device_us_per_step_summed=prof["summed"],
+               busy_share=prof["us"] / (wall_ms * 1e3),
+               profile_records_dropped=prof["dropped"],
+               top_device_us_per_step=prof["top_us"],
+               one_replica_device_ops_per_step=one_prof["ops"],
+               one_replica_device_us_per_step=one_prof["us"],
+               one_replica_top_device_us_per_step=one_prof["top_us"],
+               list_build_ms=build_ms, one_replica_list_build_ms=one_build_ms,
+               k2_batch_global_ms=k2_ms, k2_one_replica_ms=k2_one_ms,
+               universe_band_ha=bands, band_bound_ha=bound,
+               launches=launches, final_state_kernel=held)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
+def replica_batch_path(torch, pt, kind):
+    """Phase 12c': REPLICA_B replicas, replica r thermalized at seed 7 + r,
+    of the path that runs ``kind``, f32, fused tail, Bussi + Langevin at
+    0.25 fs, through ``run_replica_steps`` in chunks with the CLI's batch
+    overflow retry (``drivers/advanced_run.py:run_vmapped_replicas``:
+    re-plan with ``with_cell_capacity``, rebuild the step and the chunk's
+    start, at most 4 times). 'cell_pair_small_grid': the N = 501 scene in
+    cell mode (2^3 cells), SMALL_GRID_BATCH_STEPS steps, each replica's
+    drift max |U - U[0]| under phase 3's DRIFT_BOUND_HA (the window is a
+    prefix of phase 3's protocol). 'zcol_pair':
+    ``build_large_n(HELD_N_MOL, pair_mode='zcol')``'s start (N = 20,001)
+    on phase 6's protocol, each replica's band under phase 6's N = 20,001
+    LARGE_BAND_BOUND_HA. The pair kernels (in zcol mode K9 and its hull,
+    and never the cell kernel) and K2-K5 launched once a step run (K2, K3
+    and the pair kernels also once for each retry's start forces), no
+    overflow left, finite observables; then the batched pair call on the
+    final state and its carried list held by ``hold_batched_pair`` (and
+    ``hold_batched_hull``)."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate import make_step_fn, universe_energy
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        run_replica_steps,
+    )
+    from cavmd_tpu_torch.simulation import retry_state
+
+    B = REPLICA_B
+    kT = PC.kT_from_kelvin(100.0)
+    zcol = kind == "zcol_pair"
+    if zcol:
+        sim, snap, ff = build_large_n(HELD_N_MOL, pair_mode="zcol")
+        methods = sim.methods
+        chunks = [LARGE_CHUNK] * (LARGE_CHUNKS + 1)  # the first is warm-up
+    else:
+        snap = reference_scene(pt, 250, 46.0, torch.float32,
+                               torch.device("cuda"))
+        ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                                  pair_mode="cell")
+        methods = pt.resolve_methods(snap, main_methods(pt, kT),
+                                     ff.l_typeid)
+        chunks = [0, SMALL_GRID_BATCH_STEPS]
+    label = f"phase 12 batched {kind} B={B} N={snap.N}"
+    step = make_step_fn(ff, methods)
+    state = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(0.25), seed=7,
+                                kT=kT)
+    _cuda.reset_launches()
+    ran, retries, outs = 0, [], []
+    t0 = time.perf_counter()
+    for n in chunks:
+        if not n:
+            continue
+        start = state
+        rng_states = {k: g.get_state() for k, g in start.generators.items()}
+        while True:
+            state, obs = run_replica_steps(step, start, n)
+            ran += n
+            if not obs["cell_overflow"].any():
+                break
+            check(len(retries) < 4, f"{label}: overflow after 4 re-plans")
+            cap = ff.cell_cfg.cap
+            ff = ff.with_cell_capacity(max(cap + 4, 2 * cap))
+            retries.append(dict(after_steps=ran, cap=ff.cell_cfg.cap,
+                                zcol_W=ff.zcol_W))
+            step = make_step_fn(ff, methods)
+            start = retry_state(ff, start, rng_states)
+        outs.append(obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    steps = chunks[-1] * (len(chunks) - 1)
+    kernels = ("zcol_pair", "zcol_hull") if zcol else (kind,)
+    for kname in kernels + BATCHED_KERNELS[1:]:
+        want = ran + (len(retries) if kname not in BATCHED_KERNELS[3:]
+                      else 0)
+        check(launches.get(kname, 0) == want,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{ran} steps run and {len(retries)} retries")
+    check(not zcol or launches.get("cell_pair", 0) == 0,
+          f"{label}: the cell kernel ran in zcol mode")
+    obs = {k: np.concatenate([c[k] for c in outs[-(len(chunks) - 1):]])
+           for k in OBS_KEYS}
+    for k in OBS_KEYS:
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    U = universe_energy(obs)
+    if zcol:  # the band max(U) - min(U), as phase 6 holds it
+        metric, bound = "universe_band_ha", LARGE_BAND_BOUND_HA
+        drifts = (U.max(axis=0) - U.min(axis=0)).tolist()
+    else:
+        metric, bound = "universe_drift_ha", DRIFT_BOUND_HA
+        drifts = np.abs(U - U[0]).max(axis=0).tolist()
+    check(max(drifts) < bound, f"{label}: {metric} {drifts} >= {bound}")
+    args = state_pair_args(state, ff)
+    held = hold_batched_pair(torch, kind, args, f"{label} (final state)",
+                             TOL["float32"])
+    if zcol:
+        held["hull"] = hold_batched_hull(torch, args,
+                                         f"{label} (final state)")
+    res = dict(replicas=B, n=snap.N, ncells=ff.cell_cfg.ncells,
+               cap=ff.cell_cfg.cap, zcol_W=ff.zcol_W, steps=steps,
+               steps_run=ran, retries=retries,
+               aggregate_steps_per_s=B * ran / wall,
+               **{metric: drifts}, bound_ha=bound, launches=launches,
+               final_state_kernel=held)
     print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
           flush=True)
     return res
@@ -2537,7 +3178,9 @@ def main() -> None:
             rk = r
     rep_f64 = replica_f64_trajectory(torch, pt)
     one_step = replica_step_path(torch, pt, None)
-    rsteps = {B: replica_step_path(torch, pt, B)
+    # phase 3's whole protocol at REPLICA_B, a prefix of it at the others
+    rsteps = {B: (replica_step_path(torch, pt, B) if B == REPLICA_B
+                  else replica_step_path(torch, pt, B, *REPLICA_SHORT_RUN))
               for B in REPLICA_STEP_BATCHES}
     ops = {B: r["device_ops_per_step"] for B, r in rsteps.items()}
     check(len(set(ops.values())) == 1,
@@ -2547,7 +3190,8 @@ def main() -> None:
     check(abs(ops[1] - one_step["device_ops_per_step"]) <= REPLICA_OPS_SLACK,
           f"phase 11: the batched step's {ops[1]} device operations vs the "
           f"one-replica step's {one_step['device_ops_per_step']}")
-    vcli = vmap_cli_phase(torch, pt)
+    vcli = vmap_cli_phase(torch, pt, 11, CLI_ARGS, 1000, BATCHED_KERNELS,
+                          CLI_DRIFT_BOUND_HA)
     print("phase 11: aggregate steps/s " + ", ".join(
         f"B={B} {r['aggregate_steps_per_s']:.1f} "
         f"({r['aggregate_steps_per_s'] / fused['steps_per_s']:.2f}x phase 3's "
@@ -2559,6 +3203,52 @@ def main() -> None:
         f"{vcli['aggregate_steps_per_s']} aggregate steps/s", flush=True)
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(11)
+
+    # phase 12: replica batches in cell and zcol mode, the cell kernel and
+    # K9 with its hull once a step for the whole batch
+    ck12 = {}
+    for dtype in (torch.float32, torch.float64):
+        r = cell_replica_kernel_phase(torch, pt, dtype,
+                                      timed=dtype == torch.float32)
+        if dtype == torch.float32:
+            ck12 = r
+    traj12 = {mode: cell_replica_f64_trajectory(torch, pt, mode)
+              for mode in ("cell", "zcol")}
+    torch.cuda.empty_cache()
+    big = cell_replica_step_path(torch, pt, large["universe_band_ha"],
+                                 large["ms_per_step"])
+    torch.cuda.empty_cache()
+    small12 = replica_batch_path(torch, pt, "cell_pair_small_grid")
+    zcol12 = replica_batch_path(torch, pt, "zcol_pair")
+    vcli12 = vmap_cli_phase(
+        torch, pt, 12, large_cli_args(HELD_N_MOL, VMAP_LARGE_CLI_RUNTIME_PS),
+        LARGE_CLI_ENERGY_PERIOD_STEPS, cell_kernels, LARGE_CLI_DRIFT_BOUND_HA)
+    # a _b8 row's launches come from a run at the shape its time was taken
+    check(vcli12["n"] == ck12["cell_pair"]["n"]
+          and small12["n"] == ck12["cell_pair_small_grid"]["n"]
+          and zcol12["n"] == ck12["zcol_pair"]["n"]
+          and small12["ncells"] == ck12["cell_pair_small_grid"]["ncells"]
+          and zcol12["ncells"] == ck12["zcol_pair"]["ncells"]
+          and vcli12["launches"].get("cell_pair_small_grid", 0) == 0,
+          "phase 12: a batched kernel's run and its timed shape differ")
+    print(f"phase 12: B={REPLICA_B} x N={big['n']}: "
+          f"{big['wall_ms_per_step']:.3f} ms/step wall, "
+          f"{big['aggregate_steps_per_s']:.1f} aggregate steps/s vs one "
+          f"replica's {big['one_replica_steps_per_s']:.1f} (phase 6), "
+          f"device {big['device_us_per_step']:.1f} us/step, busy "
+          f"{big['busy_share']:.3f}, device ops/step "
+          f"{big['device_ops_per_step']} vs one replica "
+          f"{big['one_replica_device_ops_per_step']}, list build "
+          f"{big['list_build_ms']:.4f} ms (one replica "
+          f"{big['one_replica_list_build_ms']:.4f}), K2 batched global "
+          f"{big['k2_batch_global_ms']:.4f} ms (one replica "
+          f"{big['k2_one_replica_ms']:.4f}); zcol B={REPLICA_B} x N="
+          f"{zcol12['n']} {zcol12['aggregate_steps_per_s']:.1f} aggregate "
+          f"steps/s; CLI B={REPLICA_B} N="
+          f"{vcli12['n']} {vcli12['aggregate_steps_per_s']} aggregate "
+          f"steps/s", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(12)
 
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
@@ -2597,9 +3287,18 @@ def main() -> None:
               for B, r in rsteps.items())
           + f" aggregate steps/s, CLI B={REPLICA_B} "
           f"{vcli['aggregate_steps_per_s']} aggregate steps/s drift "
-          f"{max(vcli['universe_drift_ha']):.3e} Ha | script "
+          f"{max(vcli['universe_drift_ha']):.3e} Ha | replicas in cell "
+          f"and zcol mode: B={REPLICA_B} " + " ".join(
+              f"{k} {ck12[k]['ms']:.4f}" for k in BATCHED_CELL_KERNELS)
+          + f" ms, f64 batches {traj12['cell']['max_dx_bohr']:.2e} / "
+          f"{traj12['zcol']['max_dx_bohr']:.2e} bohr, N={big['n']} "
+          f"{big['aggregate_steps_per_s']:.0f} aggregate steps/s (busy "
+          f"{big['busy_share']:.3f}), CLI N={vcli12['n']} "
+          f"{vcli12['aggregate_steps_per_s']} aggregate steps/s drift "
+          f"{max(vcli12['universe_drift_ha']):.3e} Ha | script "
           f"{clock.total():.1f} s, phase 10 {clock.seconds[10]:.1f} s, "
-          f"phase 11 {clock.seconds[11]:.1f} s",
+          f"phase 11 {clock.seconds[11]:.1f} s, phase 12 "
+          f"{clock.seconds[12]:.1f} s",
           flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at
@@ -2631,6 +3330,20 @@ def main() -> None:
     batched = {f"{k}_b{REPLICA_B}": k for k in BATCHED_KERNELS}
     for k in batched:
         where[k] = ("replicas", vcli["launches"])
+    # the batched cell and zcol kernels: REPLICA_B replicas at N = 20,001
+    # (the small grid at N = 501) in one launch, f32; the launches of
+    # phase 12's runs at those shapes: the CLI at 10,000 molecules (the
+    # cell kernel on phase 12a's 10^3 grid), the small-grid batch, the
+    # zcol batch (K9 and its hull)
+    shapes["replicas_cell"] = {f"{k}_b{REPLICA_B}": ck12[k]
+                               for k in BATCHED_CELL_KERNELS}
+    runs = {"cell_pair": vcli12["launches"],
+            "cell_pair_small_grid": small12["launches"],
+            "zcol_pair": zcol12["launches"],
+            "zcol_hull": zcol12["launches"]}
+    for k in BATCHED_CELL_KERNELS:
+        batched[f"{k}_b{REPLICA_B}"] = k
+        where[f"{k}_b{REPLICA_B}"] = ("replicas_cell", runs[k])
     kernels = []
     for k in list(KERNELS) + list(batched):
         src, rep = KERNELS[batched.get(k, k)]

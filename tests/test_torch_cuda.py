@@ -15,6 +15,7 @@ from cavmd_tpu_torch.ops import cell_kernels as ck
 from cavmd_tpu_torch.ops import fused_integrator as fi
 from cavmd_tpu_torch.ops import pair_kernels as pk
 from cavmd_tpu_torch.ops import pppm_kernels as sk
+from cavmd_tpu_torch.ops.neighbor import replica_list
 from cavmd_tpu_torch.ops.pppm import PPPMParams, mesh_energy
 
 pytestmark = pytest.mark.cuda
@@ -1118,6 +1119,185 @@ def test_batched_step_on_cuda_matches_one_replica_steps(cuda, dtype):
     tol = TOL[dtype] * 10
     for r in range(B):
         one = batch.replace(**{k: getattr(batch, k)[r] for k in PER_REPLICA})
+        fr, _ = pt.run_steps(pt.make_step_fn(ff, methods,
+                                             noise=Noise(replica=r)),
+                             one, steps)
+        assert torch.equal(final.image[r], fr.image)
+        assert _close(final.position[r], fr.position, tol)
+        assert _close(final.velocity[r], fr.velocity, tol)
+
+
+# ------------------------------------- replica batches in cell/zcol mode
+# The cell kernel (K6/K8) and K9 with its hull over a replica axis: one
+# launch for B replicas, each with its own positions (jittered apart) and
+# its own list of the batched build (ops/neighbor.py)
+def _batched_pair_inputs(dtype, device, B, mode, grid=None):
+    """(force field, scene, batched positions, batched list, the pair
+    call's arguments) for B replicas of a cell grid of CELL_GRIDS or of
+    the 500-molecule zcol scene."""
+    if mode == "cell":
+        n_mol, box_L, r_cut = CELL_GRIDS[grid]
+        snap = pt.add_cavity_particle(
+            pt.make_diatomic_system(n_mol, box_L=box_L, temperature_K=100.0,
+                                    seed=3, device="cpu"),
+            coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=4)
+        snap = snap.astype(dtype).to(device)
+        ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=r_cut,
+                                  pppm_mesh=(8, 8, 8), pair_mode="cell")
+    else:
+        snap, ff = _zcol_scene(dtype, device)
+    P = wrap_positions(_jitter(snap.position, B, 0.3, 7), snap.box_L)[0]
+    clist = ff.build_cells(P, snap.box_L)
+    assert clist.overflow.shape == (B,) and not bool(clist.overflow.any())
+    args = (P, snap.box_L, clist, ff.cell_cfg, snap.typeid, snap.charge,
+            ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value)
+    if mode == "zcol":
+        args = args + (ff.zcol_W,)
+    return ff, snap, P, clist, args
+
+
+def _replica_args(args, r):
+    """Replica r's one-replica call of a batched pair call's arguments."""
+    return (args[0][r].contiguous(), args[1],
+            replica_list(args[2], r)) + args[3:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", REPLICA_BATCHES)
+@pytest.mark.parametrize("grid", sorted(CELL_GRIDS))
+def test_batched_cell_kernel(cuda, grid, B, dtype):
+    """The cell kernel over B replicas in one launch (3^3 cells: K6's
+    grid; 2^3: K8's, rows split over blocks reckoned from B C): against
+    its twin on the batch, forces bit-equal to the one-replica launch on
+    each replica (a row's force is one warp's sum either way) and energies
+    within TOL (the row split moves rows between warps), two calls
+    bit-equal."""
+    _, _, P, clist, args = _batched_pair_inputs(dtype, cuda, B, "cell", grid)
+    name = ck.kernel_name(args[3])
+    before = _cuda.launches[name]
+    out_k = ck.cell_pair_force_fused(*args)
+    again = ck.cell_pair_force_fused(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == before + 2
+    assert out_k[0].shape == P.shape and out_k[1].shape == (B,)
+    out_p = ck.cell_pair_force_fused_plain(*args)
+    for k, p in zip(out_k, out_p):
+        assert bool(torch.isfinite(k).all()) and _close(k, p, TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    for r in range(B):
+        one = ck.cell_pair_force_fused(*_replica_args(args, r))
+        assert torch.equal(out_k[0][r], one[0]), r
+        for a, b in zip(out_k[1:], one[1:]):
+            assert _close(a[r], b, TOL[dtype]), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", REPLICA_BATCHES)
+def test_batched_zcol_kernels(cuda, B, dtype):
+    """K9 and its hull over B replicas of the 500-molecule scene, one
+    launch each: the hull kernel's hull, flags and (N, 4) table bit-equal
+    to the one-replica launch on each replica; the wrapper against its
+    twin on the batch, its forces bit-equal to the one-replica wrapper's
+    and its energies within TOL; two calls bit-equal, each one launch of
+    each kernel."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    ff, snap, P, clist, args = _batched_pair_inputs(dtype, cuda, B, "zcol")
+    hull, flags, loc, W = zk._launch_hull(P, snap.box_L, clist, ff.cell_cfg,
+                                          snap.charge, ff.zcol_W)
+    assert hull.shape[0] == flags.shape[0] == loc.shape[0] == B
+    slotted = clist.bucket_idx < snap.N
+    for r in range(B):
+        h1, f1, l1, W1 = zk._launch_hull(P[r].contiguous(), snap.box_L,
+                                         replica_list(clist, r),
+                                         ff.cell_cfg, snap.charge, ff.zcol_W)
+        assert torch.equal(hull[r], h1) and torch.equal(flags[r], f1)
+        ids = clist.bucket_idx[r][slotted[r]].long()
+        assert torch.equal(loc[r][ids], l1[ids]) and W == W1
+    before = dict(_cuda.launches)
+    out_k = zk.zcol_pair_force(*args)
+    again = zk.zcol_pair_force(*args)
+    torch.cuda.synchronize()
+    for name in ("zcol_hull", "zcol_pair"):
+        assert _cuda.launches[name] == before.get(name, 0) + 2
+    assert out_k[0].shape == P.shape and out_k[3].shape == (B,)
+    out_p = zk.zcol_pair_force_plain(*args)
+    for k, p in zip(out_k[:3], out_p[:3]):
+        assert bool(torch.isfinite(k).all()) and _close(k, p, TOL[dtype])
+    assert torch.equal(out_k[3], out_p[3]) and not bool(out_k[3].any())
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    for r in range(B):
+        one = zk.zcol_pair_force(*_replica_args(args, r))
+        assert torch.equal(out_k[0][r], one[0]), r
+        for a, b in zip(out_k[1:3], one[1:3]):
+            assert _close(a[r], b, TOL[dtype]), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["cell", "zcol"])
+def test_batched_cell_step_on_cuda_matches_one_replica_steps(cuda, mode,
+                                                             dtype):
+    """20 batched Bussi + Langevin steps in cell and zcol mode on the card
+    (1 fs; r_cut a tenth of a bohr under a quarter of the box, so a
+    0.1-bohr skin and the carried lists rebuilt inside the window) against
+    one-replica steps with the same draws: each pair kernel launched once
+    a step for the batch, positions within 10 TOL."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.parallel import init_replica_states
+    from cavmd_tpu_torch.parallel.replicas import PER_REPLICA
+
+    box_L = reference_box_for(500)
+    snap = pt.add_cavity_particle(
+        pt.make_diatomic_system(500, box_L=box_L, temperature_K=100.0,
+                                seed=3, device=cuda),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=4)
+    snap = snap.astype(dtype)
+    ff = pt.ForceField.create(snap, coupling=1e-3, r_cut=box_L / 4 - 0.1,
+                              pppm_mesh=(16, 16, 16), pair_mode=mode,
+                              cell_skin=0.05)
+    assert ff.cell_cfg.skin < 0.11
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, (
+        pt.MethodSpec("bussi", "molecular", kT=kT,
+                      tau=PC.ps_to_atomic_units(5.0)),
+        pt.MethodSpec("langevin", "cavity", kT=kT,
+                      gamma=PC.gamma_from_tau_ps(5.0))), ff.l_typeid)
+    B, steps = 3, 20
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(1.0), seed=5, kT=kT)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    bussi = torch.randn((steps, B, 2), generator=g, dtype=dtype, device=cuda)
+    xi = torch.randn((steps, B, 1, 3), generator=g, dtype=dtype, device=cuda)
+
+    class Noise:
+        def __init__(self, replica=None):
+            self.pick = (slice(None) if replica is None else replica)
+
+        def bussi(self, state, i, m):
+            x = bussi[state.step][self.pick]
+            return x[..., 0], m.dof - 1.0 + 10.0 * x[..., 1]
+
+        def langevin(self, state, i, m, shape):
+            return xi[state.step][self.pick]
+
+    _cuda.reset_launches()
+    final, obs = pt.run_steps(pt.make_step_fn(ff, methods, noise=Noise()),
+                              batch, steps)
+    torch.cuda.synchronize()
+    kernels = (["cell_pair"] if mode == "cell"
+               else ["zcol_hull", "zcol_pair"])
+    assert {k: _cuda.launches[k] for k in kernels} == dict.fromkeys(
+        kernels, steps)
+    assert not obs["cell_overflow"].any()
+    moved = (final.cell_anchor != batch.cell_anchor).flatten(1).any(dim=1)
+    assert bool(moved.all()), "a replica's list was never rebuilt"
+    tol = TOL[dtype] * 10
+    for r in range(B):
+        one = batch.replace(**{k: getattr(batch, k)[r] for k in PER_REPLICA},
+                            cell_list=replica_list(batch.cell_list, r),
+                            cell_anchor=batch.cell_anchor[r])
         fr, _ = pt.run_steps(pt.make_step_fn(ff, methods,
                                              noise=Noise(replica=r)),
                              one, steps)

@@ -2,7 +2,8 @@
 (float64, CPU): each batched op against ``jax.vmap`` of the JAX op, the
 batched step against JAX's ``run_replica_steps`` and against B one-replica
 runs of the port with the same draws, ``init_replica_states`` and its
-guards, ``split_replica_obs``, and the ``--vmap-replicas`` CLI.
+guards, ``split_replica_obs``, and the ``--vmap-replicas`` CLI with its
+overflow retry.
 
 The scene is the replica example's (``examples/03_replicas_vmap.py``: 50
 O2/N2 + photon in a 30-bohr box), on a 16^3 mesh with r_cut 12, with
@@ -40,6 +41,7 @@ from cavmd_tpu.parallel import run_replica_steps as j_run_replica_steps
 from cavmd_tpu_torch.drivers import advanced_run as t_cli
 from cavmd_tpu_torch.integrate import (
     OBS_KEYS,
+    ForceField,
     MethodSpec,
     init_state,
     make_step_fn,
@@ -85,6 +87,16 @@ TOL_SELF = 1e-12  # the batch against one-replica port runs
 
 def _t(x, dtype=torch.float64):
     return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite runs six workers on the machine's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -404,16 +416,18 @@ def test_init_replica_states_guards(world):
     shorter = ts.replace(position=ts.position[:-1])
     with pytest.raises(ValueError, match="topology"):
         init_replica_states([ts, shorter], tff, dt=DT)
+    # a cell-mode force field passes the guards: the batch carries its
+    # list, and the step and the forces take it
     cell_ff = tff.__class__.create(ts, pair_mode="cell", r_cut=12.0,
                                    pppm_mesh=(16, 16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_replica_states(ts, cell_ff, n_replicas=2, dt=DT)
+    batch = init_replica_states(ts, cell_ff, n_replicas=2, dt=DT)
+    assert batch.cell_list.bucket_idx.shape[0] == 2
     tm = resolve_methods(ts, _methods("port"), cell_ff.l_typeid)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_replica_step(make_step_fn(cell_ff, tm))
-    batch = init_replica_states(ts, tff, n_replicas=2, dt=DT)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cell_ff(batch.position, batch.image, ts.box_L, ts.charge, ts.typeid)
+    step = make_step_fn(cell_ff, tm)
+    assert make_replica_step(step) is step
+    f, e = cell_ff(batch.position, batch.image, ts.box_L, ts.charge,
+                   ts.typeid)
+    assert f.shape == batch.position.shape and e["lj"].shape == (2,)
 
 
 # ----------------------------------------- 5. the port's own draws, split
@@ -490,14 +504,64 @@ def test_vmap_replicas_cli(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--shard-replicas", "2"],
-    ["--vmap-replicas", "--n-molecules", "2048"],
+    ["--vmap-replicas", "--shard-atoms", "4", "--n-molecules", "10000"],
     ["--vmap-replicas", "--shard-atoms", "2"]])
 def test_vmap_cli_refusals_exit_2(tmp_path, monkeypatch, capsys, flags):
     """What the batch does not take exits 2 naming ROADMAP.md, before any
-    work: sharded replicas, a batch past the dense limit (2048 molecules
-    and the photon: N = 4097), a batch over slabs."""
+    work: sharded replicas, a batch over slabs (in cell mode, past the
+    dense limit, and at the default size)."""
     monkeypatch.chdir(tmp_path)
     assert t_cli.main(["--device", "CPU"] + flags) == 2
     err = capsys.readouterr().err
     assert flags[0] in err and "ROADMAP.md" in err
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("n_molecules", ["2048", "10000"])
+def test_vmap_replicas_past_the_dense_limit_is_not_refused(n_molecules):
+    """A batch past the dense limit (2048 molecules and the photon:
+    N = 4097; N = 20,001) runs in cell mode: ``unported_flags`` refuses
+    nothing."""
+    args = t_cli.build_parser().parse_args(
+        ["--device", "CPU", "--vmap-replicas", "--replicas", "1-8",
+         "--n-molecules", n_molecules])
+    assert t_cli.unported_flags(args) == []
+
+
+def test_vmap_replicas_cell_overflow_recovery(tmp_path, monkeypatch,
+                                              caplog):
+    """The port's counterpart of tests/test_driver.py's
+    test_vmap_replicas_cell_overflow_recovery: cell mode with cap 2 and
+    r_cut 7, 24 molecules, replicas 1-2. The batch overflows, the chunk
+    loop re-plans the capacity (2 -> 6 -> 12) and retries; the run exits 0
+    with finite frames and no overflow left in the energy rows."""
+    real_create = ForceField.create
+
+    def crippled_create(snapshot, **kw):
+        if kw.get("enable_cavity", True):
+            kw.setdefault("pair_mode", "cell")
+            kw.setdefault("cell_cap", 2)
+            kw.setdefault("r_cut", 7.0)
+        return real_create(snapshot, **kw)
+
+    monkeypatch.setattr(ForceField, "create", staticmethod(crippled_create))
+    monkeypatch.chdir(tmp_path)
+    with caplog.at_level("WARNING"):
+        rc = t_cli.main(["--device", "CPU", "--vmap-replicas", "--replicas",
+                         "1-2", "--runtime", "0.002", "--n-molecules", "24",
+                         "--energy-output-period-ps", "0.0005",
+                         "--gsd-output-period-ps", "0.001"])
+    assert rc == 0
+    caps = [int(m.split("cap=")[1].split(",")[0]) for m in caplog.messages
+            if "re-planned with cap=" in m]
+    assert caps[:2] == [6, 12]
+    out = tmp_path / "cavity_coupling_1eneg03"
+    for r in (1, 2):
+        with open_gsd(str(out / f"prod-{r}.gsd")) as t:
+            assert len(t) >= 2
+            frame = t.read_frame(len(t) - 1, device="cpu")
+            assert frame.N == 49
+            assert bool(torch.isfinite(frame.position).all())
+        rows = np.loadtxt(out / f"prod-{r}_energy_tracker.txt",
+                          comments=("#", "time"), ndmin=2)
+        assert rows.shape[0] >= 2 and np.isfinite(rows).all()
