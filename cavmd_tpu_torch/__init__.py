@@ -36,6 +36,10 @@ from cavmd_tpu_torch.integrate import (  # noqa: E402
     run_steps,
     universe_energy,
 )
+from cavmd_tpu_torch.io.checkpoint import (  # noqa: E402
+    load_checkpoint,
+    save_checkpoint,
+)
 from cavmd_tpu_torch.simulation import Simulation  # noqa: E402
 
 __all__ = [
@@ -53,4 +57,6 @@ __all__ = [
     "run_steps",
     "universe_energy",
     "Simulation",
+    "save_checkpoint",
+    "load_checkpoint",
 ]

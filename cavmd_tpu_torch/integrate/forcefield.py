@@ -42,6 +42,7 @@ from cavmd_tpu_torch.ops.bonds import (
 from cavmd_tpu_torch.ops.cavity import CavityParams, cavity_force
 from cavmd_tpu_torch.ops.ewald import (
     auto_kappa,
+    auto_kappa_error_estimate,
     ewald_exclusion_correction,
     ewald_exclusion_correction_strided,
     ewald_self_energy,
@@ -304,6 +305,7 @@ class ForceField(nn.Module):
         pppm_order: int = 6,
         kappa: float | None = None,
         ewald_accuracy: float = 1e-6,
+        kappa_mode: str = "erfc",
         pair_mode: str | None = None,
         cell_skin: float = 0.5,
         cell_cap: int | None = None,
@@ -321,7 +323,11 @@ class ForceField(nn.Module):
         is the requested minimum Verlet skin (snapped up to the free slack
         of the cell or column grid; 0 rebuilds the list every step) and
         ``cell_cap`` the bucket capacity (None plans it from the density;
-        zcol rounds it up to a multiple of 128). Zcol mode needs one cutoff
+        zcol rounds it up to a multiple of 128). The Ewald splitting
+        parameter is ``kappa`` when given; else ``kappa_mode`` picks it:
+        'erfc' (erfc(kappa r_cut) = ``ewald_accuracy``) or 'kolafa-perram'
+        (the Kolafa-Perram error estimate on the snapshot's charges and
+        box, HOOMD's alpha = 0 choice). Zcol mode needs one cutoff
         for every LJ type pair, LJ and Coulomb both on, and at least 3
         columns along x and y; its visit window is planned here.
         """
@@ -399,8 +405,17 @@ class ForceField(nn.Module):
                     n, cfg.ncells[0] * cfg.ncells[1], cfg.ncells[:2])
             pair_data["cell_cfg"] = cfg
 
-        kappa_val = kappa if kappa is not None else auto_kappa(
-            r_cut, ewald_accuracy)
+        if kappa is not None:
+            kappa_val = kappa
+        elif kappa_mode == "kolafa-perram":
+            kappa_val = auto_kappa_error_estimate(
+                host(snapshot.charge, torch.float64),
+                host(snapshot.box_L, torch.float64), r_cut)
+        elif kappa_mode == "erfc":
+            kappa_val = auto_kappa(r_cut, ewald_accuracy)
+        else:
+            raise ValueError(f"kappa_mode={kappa_mode!r}: 'erfc' or "
+                             "'kolafa-perram'")
         pppm, _ = PPPMParams.create(host(snapshot.box_L, torch.float64),
                                     mesh=pppm_mesh, order=pppm_order,
                                     kappa=kappa_val, dtype=dtype)

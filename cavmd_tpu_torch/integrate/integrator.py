@@ -1,22 +1,27 @@
 """The MD integrator: one step function and a chunked runner.
 
 Port of ``cavmd_tpu/integrate/integrator.py`` (methods nve / bussi /
-langevin / brownian). Per step, in this order:
+langevin / brownian / mttk / berendsen). Per step, in this order:
 
-1. Bussi half-step on its group (reservoir += KE (1 - alpha^2));
+1. thermostat half 1: Bussi on its group (reservoir += KE (1 - alpha^2)),
+   the MTTK factor exp(-xi dt/2), the Berendsen factor lambda from the
+   group's current temperature;
 2. velocity-Verlet kick v += dt/2 a(t), drift x += dt v (Brownian groups:
    an overdamped Euler-Maruyama move and Maxwell-resampled velocities
    instead), re-wrap;
 3. all forces (``ForceField.forward``);
 4. second kick v += dt/2 a(t + dt) (not on Brownian groups);
-5. exact-OU Langevin on its group (reservoir += KE loss);
+5. thermostat half 2: the MTTK factor again, then (xi, eta) advanced from
+   the rescaled kinetic energy; exact-OU Langevin on its group (reservoir
+   += KE loss);
 6. the energy audit: every column of the reference EnergyTracker, plus
    the optional ``extra_obs`` columns (dipole, rho(k)).
 
 For the production pattern (Bussi on the molecules, Langevin on the one
 photon) steps 1-2 and 4-6 can instead run as the two fused kernels of
 ``ops/fused_integrator.py`` (K4 before the forces, K5 after), drawing the
-same random numbers; see ``make_step_fn``.
+same random numbers; see ``make_step_fn``. MTTK and Berendsen baths run
+the unfused tail, as in the JAX package.
 
 Group membership is by particle type (molecular = not 'L', cavity = 'L'),
 so masks and DOF are static. ``run_steps`` runs a chunk of steps with no
@@ -27,12 +32,12 @@ host once at the end of the chunk.
 One step function also advances a replica batch (``parallel/replicas.py``):
 an ``MDState`` whose per-replica leaves carry a leading axis B (positions,
 images, velocities and forces (B, N, 3); dt, the clocks, the timestep and
-the tolerance (B,); the reservoirs (B, 2); in cell and zcol mode the
-carried list and its anchor, one a replica) while mass, charge, typeid and
-the box stay shared. Every operation of the step is written over the last
-two axes, so the batch runs the same code as one replica, each kernel
-launched once for all B, and each random stream is drawn once a step for
-the whole batch. The observables then have a replica axis: (steps, B)
+the tolerance (B,); the reservoirs and the MTTK (xi, eta) (B, 2); in cell
+and zcol mode the carried list and its anchor, one a replica) while mass,
+charge, typeid and the box stay shared. Every operation of the step is
+written over the last two axes, so the batch runs the same code as one
+replica, each kernel launched once for all B, and each random stream is
+drawn once a step for the whole batch. The observables then have a replica axis: (steps, B)
 columns and (steps, B, d) vectors.
 """
 
@@ -55,17 +60,22 @@ from cavmd_tpu_torch.integrate.rng import (
     make_generator,
 )
 from cavmd_tpu_torch.integrate.thermostats import (
+    MTTKState,
+    berendsen_factor,
     brownian_apply,
     bussi_apply,
     bussi_noise,
     kinetic_energy,
     langevin_ou_apply,
+    mttk_advance,
+    mttk_rescale_factor,
     thermalize_velocities,
 )
 
 # group slots for reservoir bookkeeping (index into the (2,) accumulators)
 MOLECULAR, CAVITY = 0, 1
-SUPPORTED_METHODS = ("nve", "bussi", "langevin", "brownian")
+SUPPORTED_METHODS = ("nve", "bussi", "langevin", "brownian", "mttk",
+                     "berendsen")
 
 OBS_KEYS = ENERGY_KEYS + (
     "kinetic_molecular", "kinetic_cavity",
@@ -77,8 +87,9 @@ OBS_KEYS = ENERGY_KEYS + (
 
 class MethodSpec(NamedTuple):
     """Static description of one integration method (HOOMD ``methods``
-    entry): ``kind`` in nve | bussi | langevin | brownian, ``group`` in molecular |
-    cavity | all; ``tau`` and ``gamma`` in atomic units."""
+    entry): ``kind`` in nve | bussi | langevin | brownian | mttk |
+    berendsen, ``group`` in molecular | cavity | all; ``tau`` and
+    ``gamma`` in atomic units."""
 
     kind: str
     group: str
@@ -119,6 +130,8 @@ class MDState:
     bussi_reservoir: torch.Tensor  # (2,) [molecular, cavity]
     bussi_instantaneous: torch.Tensor  # (2,) last-step delta
     langevin_reservoir: torch.Tensor  # (2,)
+    mttk_xi: torch.Tensor  # (2,) MTTK xi [molecular, cavity]
+    mttk_eta: torch.Tensor  # (2,) MTTK eta
     error_tolerance: torch.Tensor  # current adaptive tolerance (0: fixed dt)
     step: int = 0
     seed: int = 0
@@ -240,6 +253,8 @@ def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
         bussi_reservoir=z2,
         bussi_instantaneous=z2.clone(),
         langevin_reservoir=z2.clone(),
+        mttk_xi=z2.clone(),
+        mttk_eta=z2.clone(),
         error_tolerance=torch.as_tensor(error_tolerance, dtype=dtype,
                                         device=dev),
         seed=seed,
@@ -308,7 +323,9 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
     CUDA device and the methods fit its pattern, and silently off
     otherwise; ``True`` turns it on for any float32 state (a float64 state
     runs unfused, as in the JAX package) and raises ``ValueError`` if the
-    methods do not fit; ``False`` turns it off. The
+    methods do not fit (an MTTK or Berendsen bath never does: K4/K5 take
+    Bussi and Langevin only, as the JAX kernels do); ``False`` turns it
+    off. The
     JAX package keeps ``None`` off because two kernel launches cost more
     than the XLA tail on its TPU; on the GPU the eager unfused tail is
     dozens of launches.
@@ -394,8 +411,10 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         return clist, pick(pos, state.cell_anchor)
 
     def _finish(state, pos, image, v, forces, energies, bussi_res,
-                bussi_inst, langevin_res, ke_mol, ke_cav, clist, anchor):
-        """Shared step tail: Kahan time, state replace, obs dict."""
+                bussi_inst, langevin_res, ke_mol, ke_cav, clist, anchor,
+                mttk):
+        """Shared step tail: Kahan time, state replace, obs dict.
+        ``mttk``: the new MTTK (xi, eta)."""
         dt = state.dt
         y = dt - state.time_comp
         t_new = state.time_au + y
@@ -406,8 +425,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
             timestep=state.timestep + 1, step=state.step + 1,
             bussi_reservoir=bussi_res,
             bussi_instantaneous=bussi_inst,
-            langevin_reservoir=langevin_res,
-            cell_list=clist, cell_anchor=anchor,
+            langevin_reservoir=langevin_res, mttk_xi=mttk[0],
+            mttk_eta=mttk[1], cell_list=clist, cell_anchor=anchor,
         )
         obs = dict(energies)
         obs["kinetic_molecular"] = ke_mol
@@ -467,7 +486,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                 plan, v, forces, state.mass, mol, dt, None, None, None)
         return _finish(state, pos, image, v, forces, energies, bussi_res,
                        bussi_inst, langevin_res, ke_mol, ke_cav, clist,
-                       anchor)
+                       anchor, (state.mttk_xi, state.mttk_eta))
 
     def step(state: MDState):
         plan = _fused_plan(state)
@@ -481,17 +500,28 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         bussi_res = state.bussi_reservoir
         bussi_inst = state.bussi_instantaneous
         langevin_res = state.langevin_reservoir
+        xi, eta = state.mttk_xi, state.mttk_eta
 
         # ---- thermostat half 1 ----
         for i, m in enumerate(methods):
+            if m.kind not in ("bussi", "mttk", "berendsen"):
+                continue
+            mask = group_mask(state.typeid, l_typeid, m.group)
+            slot = group_slot(m.group)
             if m.kind == "bussi":
-                mask = group_mask(state.typeid, l_typeid, m.group)
-                slot = group_slot(m.group)
                 r1, r_gamma = noise.bussi(state, i, m)
                 v, dres = bussi_apply(v, state.mass, mask, m.dof, dt, m.tau,
                                       m.kT, r1, r_gamma)
                 bussi_res = _set_at(bussi_res, slot, dres, add=True)
                 bussi_inst = _set_at(bussi_inst, slot, dres, add=False)
+            elif m.kind == "mttk":
+                alpha = mttk_rescale_factor(
+                    MTTKState(xi[..., slot], eta[..., slot]), dt)
+                v = torch.where(mask[:, None], alpha[..., None, None] * v, v)
+            elif m.kind == "berendsen":
+                cur_T = 2.0 * kinetic_energy(v, state.mass, mask) / m.dof
+                lam = berendsen_factor(cur_T, m.kT, dt, m.tau)
+                v = torch.where(mask[:, None], lam[..., None, None] * v, v)
 
         # ---- velocity Verlet ----
         inv_m = 1.0 / state.mass[:, None]
@@ -523,17 +553,27 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
             kick2 = torch.where(brownian_mask[:, None], 0.0, kick2)
         v = v + kick2
 
-        # ---- Langevin O-step ----
+        # ---- thermostat half 2 (MTTK) + Langevin O-step ----
         for i, m in enumerate(methods):
-            if m.kind == "langevin":
-                mask = group_mask(state.typeid, l_typeid, m.group)
-                slot = group_slot(m.group)
+            if m.kind not in ("mttk", "langevin"):
+                continue
+            mask = group_mask(state.typeid, l_typeid, m.group)
+            slot = group_slot(m.group)
+            if m.kind == "mttk":
+                st = MTTKState(xi[..., slot], eta[..., slot])
+                alpha = mttk_rescale_factor(st, dt)
+                v = torch.where(mask[:, None], alpha[..., None, None] * v, v)
+                cur_T = 2.0 * kinetic_energy(v, state.mass, mask) / m.dof
+                st = mttk_advance(st, cur_T, m.kT, m.dof, dt, m.tau)
+                xi = _set_at(xi, slot, st.xi, add=False)
+                eta = _set_at(eta, slot, st.eta, add=False)
+            elif m.kind == "langevin":
                 idx = _indices(i, m, dev)
                 shape = state.batch_shape + (
                     (len(m.indices), 3) if idx is not None else v.shape[-2:])
-                xi = noise.langevin(state, i, m, shape)
+                draw = noise.langevin(state, i, m, shape)
                 v, dres = langevin_ou_apply(v, state.mass, mask, m.gamma,
-                                            m.kT, dt, xi, indices=idx)
+                                            m.kT, dt, draw, indices=idx)
                 langevin_res = _set_at(langevin_res, slot, dres, add=True)
 
         # ---- bookkeeping + observables ----
@@ -542,7 +582,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         ke_cav = kinetic_energy(v, state.mass, ~mol_mask)
         return _finish(state, pos, image, v, forces, energies, bussi_res,
                        bussi_inst, langevin_res, ke_mol, ke_cav, clist,
-                       anchor)
+                       anchor, (xi, eta))
 
     step.force_field = ff
     return step

@@ -18,6 +18,7 @@ from cavmd_tpu_torch.core.device import resolve_device
 # stream identifiers (same values as the JAX package)
 STREAM_BUSSI = 1
 STREAM_LANGEVIN = 2
+STREAM_MTTK = 3
 STREAM_THERMALIZE = 4
 STREAM_BROWNIAN = 5
 

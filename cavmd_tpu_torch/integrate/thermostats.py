@@ -1,7 +1,7 @@
-"""Thermostats: Bussi (with reservoir tally), exact-OU Langevin, Brownian.
+"""Thermostats: Bussi (with reservoir tally), exact-OU Langevin, Brownian,
+MTTK (Nose-Hoover) and Berendsen.
 
-Port of ``cavmd_tpu/integrate/thermostats.py`` for the methods the CLI
-offers (MTTK and Berendsen are not ported):
+Port of ``cavmd_tpu/integrate/thermostats.py``:
 
 - Bussi stochastic velocity rescaling with the Bussi 2009 Eq. A8 sign
   correction and the exact reservoir tally ``dE_res = KE (1 - alpha^2)``
@@ -10,6 +10,12 @@ offers (MTTK and Berendsen are not ported):
   step) with the exact kinetic-energy tally;
 - Brownian (overdamped Euler-Maruyama) with the exact tally of its
   velocity resample;
+- the MTTK (Nose-Hoover) internal degrees of freedom (xi, eta): the
+  velocity factor exp(-xi dt/2), their advance from the group temperature,
+  their energy and their random initial xi (reference
+  ``Thermostat.h:139-323``);
+- the Berendsen factor lambda from the group temperature
+  (``Thermostat.h:469-489``);
 - Maxwell-Boltzmann thermalization.
 
 The random draws are separate from the updates: ``bussi_noise`` draws from
@@ -18,12 +24,15 @@ so tests can inject the JAX package's noise.
 
 Velocities may carry a leading replica axis, (B, N, 3), with shared masses
 and masks: kinetic energies, Bussi factors and reservoir deltas are then
-(B,), and ``dt`` and the draws are per replica ((B,), (B, ..., 3)).
+(B,), and ``dt`` and the draws are per replica ((B,), (B, ..., 3)). The
+MTTK and Berendsen functions are elementwise, so (xi, eta), T and dt may be
+0-d or (B,) alike.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -153,6 +162,51 @@ def brownian_apply(position, velocity, forces, mass, mask, gamma, kT, dt,
     ke_before = kinetic_energy(velocity, mass, mask)
     ke_after = kinetic_energy(new_v, mass, mask)
     return new_pos, new_v, ke_before - ke_after
+
+
+class MTTKState(NamedTuple):
+    """Nose-Hoover internal degrees of freedom (xi, eta) of one group:
+    0-d, or (B,) for a replica batch."""
+
+    xi: torch.Tensor
+    eta: torch.Tensor
+
+
+def mttk_rescale_factor(state: MTTKState, dt):
+    """exp(-xi dt / 2), the velocity factor of each half step."""
+    return torch.exp(-0.5 * state.xi * dt)
+
+
+def mttk_advance(state: MTTKState, current_T, set_T, dof: float, dt, tau):
+    """(xi, eta) one step on: xi' = xi + dt/(2 tau^2) (T/T0 - 1), applied
+    twice; eta += xi' dt (``dof`` is kept for the reference signature)."""
+    incr = 0.5 * dt / (tau * tau) * (current_T / set_T - 1.0)
+    xi_prime = state.xi + incr
+    return MTTKState(xi=xi_prime + incr, eta=state.eta + xi_prime * dt)
+
+
+def mttk_energy(state: MTTKState, dof: float, set_T, tau):
+    """The thermostat's energy dof T0 (xi^2 tau^2 / 2 + eta): with the
+    system's energy, the quantity an MTTK run conserves."""
+    return dof * set_T * (state.xi ** 2 * tau ** 2 / 2.0 + state.eta)
+
+
+def mttk_thermalize(generator, dof: float, tau, dtype=torch.float64,
+                    device=None, batch=()):
+    """A random initial state: xi ~ N(0, 1/(dof tau^2)), eta = 0, of shape
+    ``batch``, drawn from ``generator`` (the MTTK stream of
+    ``integrate/rng.py``)."""
+    batch = tuple(batch)
+    sigma = math.sqrt(1.0 / (dof * tau * tau))
+    xi = sigma * torch.randn(batch, generator=generator, dtype=dtype,
+                             device=device)
+    return MTTKState(xi=xi, eta=torch.zeros(batch, dtype=dtype,
+                                            device=device))
+
+
+def berendsen_factor(current_T, set_T, dt, tau):
+    """lambda = sqrt(1 + dt/tau (T0/T - 1))."""
+    return torch.sqrt(1.0 + dt / tau * (set_T / current_T - 1.0))
 
 
 def thermalize_velocities(generator, mass, mask, kT, *, remove_drift=True):

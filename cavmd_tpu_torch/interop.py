@@ -94,10 +94,14 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
 def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
                      box_L, forces, dt, time_au, time_comp, timestep,
                      bussi_reservoir, bussi_instantaneous, langevin_reservoir,
+                     mttk_xi=None, mttk_eta=None,
                      error_tolerance=0.0, seed=0, forcefield=None,
                      dtype=torch.float64, device=None) -> MDState:
     """A port ``MDState`` from the JAX ``MDState`` leaves (the JAX RNG key
     has no counterpart; ``seed`` seeds the port's generators).
+    ``mttk_xi`` and ``mttk_eta`` are the JAX state's ``mttk.xi`` and
+    ``mttk.eta``, (2,) or (B, 2) (None: zero, as ``init_state`` starts
+    them), so a mid-run MTTK state carries across.
     ``device=None`` is the CUDA device. With a cell- or zcol-mode
     ``forcefield`` that carries its list, the list is built from
     ``position``, as the
@@ -128,6 +132,7 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
     if steps.size != 1:
         raise ValueError(f"state_from_numpy: replicas at timesteps {steps}")
     error_tolerance = np.broadcast_to(error_tolerance, np.shape(dt))
+    zero = np.zeros(np.shape(bussi_reservoir))
 
     def f(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -147,6 +152,8 @@ def state_from_numpy(*, position, image, velocity, mass, charge, typeid,
         bussi_reservoir=f(bussi_reservoir),
         bussi_instantaneous=f(bussi_instantaneous),
         langevin_reservoir=f(langevin_reservoir),
+        mttk_xi=f(zero if mttk_xi is None else mttk_xi),
+        mttk_eta=f(zero if mttk_eta is None else mttk_eta),
         error_tolerance=f(error_tolerance), step=int(steps[0]),
         seed=seed, cell_list=clist,
         cell_anchor=pos if clist is not None else None,

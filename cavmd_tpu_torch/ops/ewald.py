@@ -9,6 +9,9 @@ periodic system::
 with the real-space part in the dense pair pass (``ops/lj.py``), the
 k-space part on the PPPM mesh (``ops/pppm.py``), ``E_self = kappa/sqrt(pi)
 sum q^2`` and ``E_excl = sum_bonds q_i q_j erf(kappa r)/r``. The
+splitting parameter kappa comes from ``auto_kappa`` (erfc(kappa r_cut)
+at a set accuracy) or ``auto_kappa_error_estimate`` (the Kolafa-Perram
+estimate, HOOMD's choice). The
 exclusion corrections take a leading replica axis, (B, N, 3) positions
 with shared charges and bonds, and give (B,) energies; the self energy
 depends on the charges only and is one number for every replica.
@@ -34,6 +37,41 @@ def auto_kappa(r_cut, accuracy=1e-6):
         else:
             hi = mid
     return 0.5 * (lo + hi) / float(r_cut)
+
+
+def real_space_rms_error(kappa, charge, box_L, r_cut):
+    """Kolafa-Perram RMS real-space force error (host NumPy):
+    2 Q^2 / sqrt(N r_cut V) exp(-kappa^2 r_cut^2) with Q^2 = sum q_i^2
+    (Kolafa and Perram 1992, eq. 18), the estimate HOOMD's PPPM setup
+    solves for kappa when it is given alpha = 0."""
+    q = np.asarray(charge, np.float64)
+    n = max(len(q), 1)
+    v = float(np.prod(np.asarray(box_L, np.float64)))
+    q2 = float(np.sum(q * q))
+    return (2.0 * q2 / math.sqrt(n * float(r_cut) * v)
+            * math.exp(-(kappa * float(r_cut)) ** 2))
+
+
+def auto_kappa_error_estimate(charge, box_L, r_cut, accuracy=1e-4):
+    """kappa from the Kolafa-Perram estimate (host NumPy bisection):
+    ``real_space_rms_error(kappa) = accuracy max|q|^2 / r_cut^2``, the
+    absolute error normalised by the system's force scale; past
+    30 / r_cut (the target out of reach inside the cutoff) that bound is
+    returned. An uncharged system falls back to :func:`auto_kappa`."""
+    q = np.asarray(charge, np.float64)
+    if not np.any(q != 0.0):
+        return auto_kappa(r_cut)
+    target = accuracy * float(np.max(np.abs(q))) ** 2 / float(r_cut) ** 2
+    lo, hi = 1e-6, 30.0 / float(r_cut)
+    if real_space_rms_error(hi, q, box_L, r_cut) > target:
+        return hi
+    for _ in range(100):
+        mid = 0.5 * (lo + hi)
+        if real_space_rms_error(mid, q, box_L, r_cut) > target:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
 
 
 def ewald_self_energy(charge, kappa):

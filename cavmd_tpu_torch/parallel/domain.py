@@ -9,8 +9,9 @@ resident rows, and a step communicates only through
 
 - one halo exchange: each rank sends the positions of its first and last
   own x-layer of cell buckets to its x-neighbours (2 x H rows of 3);
-- scalar sums: the group kinetic energies of the thermostats, the
-  adaptive dt's ``sum |F|/m`` and the Langevin tally;
+- scalar sums: the group kinetic energies of the thermostats (Bussi and
+  Berendsen before the first kick, MTTK after the second), the adaptive
+  dt's ``sum |F|/m`` and the Langevin tally;
 - one sum of the force stage, in one flat buffer: the PPPM partial charge
   grid (each rank spreads its residents; the small mesh solve is then
   repeated on every rank), the energy partials, the cavity dipole and
@@ -47,8 +48,6 @@ Differences from the JAX module:
   pair that straddles the periodic x boundary inside one intact molecule
   meets through the halo copy unexcluded (an LJ + Ewald term at bond
   length); see ``ROADMAP.md`` Queue 3;
-- methods: Bussi, NVE and the single-photon cavity Langevin bath; MTTK and
-  Berendsen are not ported (``integrator.make_step_fn`` raises on them);
 - the port has no ghost padding rows, so the JAX runner's ghost rho(k)
   term has nothing to add and is not carried.
 """
@@ -68,8 +67,12 @@ from cavmd_tpu_torch.integrate.integrator import (
     group_slot,
 )
 from cavmd_tpu_torch.integrate.thermostats import (
+    MTTKState,
+    berendsen_factor,
     bussi_rescale_factor,
     kinetic_energy,
+    mttk_advance,
+    mttk_rescale_factor,
 )
 from cavmd_tpu_torch.ops.cell_kernels import (
     cell_pair_force_slab,
@@ -656,23 +659,18 @@ def tile_pass_inputs(ff, plan: DomainPlan, state):
 
 
 def _validate_methods(methods):
-    """The methods the slab step runs: Bussi and NVE baths and a
-    single-photon cavity Langevin bath. MTTK and Berendsen are not ported
-    (NotImplementedError, as ``make_step_fn`` raises); anything else the
-    JAX slab path rejects too (ValueError)."""
+    """The methods the slab step runs, those of the JAX slab path: Bussi,
+    MTTK, Berendsen and NVE baths and a single-photon cavity Langevin bath
+    (anything else raises ValueError)."""
     for m in methods:
-        if m.kind in ("mttk", "berendsen"):
-            raise NotImplementedError(
-                f"method kind {m.kind!r} is not ported to cavmd_tpu_torch "
-                "(see ROADMAP.md, Queue 1, MTTK and Berendsen)")
-        ok = m.kind in ("bussi", "nve") or (
+        ok = m.kind in ("bussi", "mttk", "berendsen", "nve") or (
             m.kind == "langevin" and m.group == "cavity"
             and m.indices is not None and len(m.indices) == 1)
         if not ok:
             raise ValueError(
                 f"domain decomposition does not support method "
-                f"kind={m.kind!r} group={m.group!r} (supported: bussi/nve "
-                "baths + single-photon cavity langevin)")
+                f"kind={m.kind!r} group={m.group!r} (supported: bussi/mttk/"
+                "berendsen/nve baths + single-photon cavity langevin)")
 
 
 def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
@@ -752,12 +750,21 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
         bussi_res = rep.bussi_reservoir
         bussi_inst = rep.bussi_instantaneous
         lang_res = rep.langevin_reservoir
+        xi, eta = rep.mttk_xi, rep.mttk_eta
 
         # ---- thermostat half 1 (group KE: local partial + one sum) ----
         for i, m in enumerate(methods):
-            if m.kind == "bussi":
-                mask = masks[m.group]
-                slot = group_slot(m.group)
+            mask = masks[m.group]
+            slot = group_slot(m.group)
+            if m.kind == "mttk":
+                alpha = mttk_rescale_factor(MTTKState(xi[slot], eta[slot]),
+                                            dt)
+                v = torch.where(mask[:, None], alpha * v, v)
+            elif m.kind == "berendsen":
+                K = comm.sum(kinetic_energy(v, loc.mass, mask))
+                lam = berendsen_factor(2.0 * K / m.dof, m.kT, dt, m.tau)
+                v = torch.where(mask[:, None], lam * v, v)
+            elif m.kind == "bussi":
                 r1, r_gamma = noise.bussi(rep, i, m)
                 K = comm.sum(kinetic_energy(v, loc.mass, mask))
                 alpha = bussi_rescale_factor(K, m.dof, dt, m.tau, m.kT, r1,
@@ -893,17 +900,27 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
 
         v = v + 0.5 * dt * forces * inv_m
 
-        # ---- cavity Langevin O-step: the (1, 3) draw of the unsharded
-        # indices path ----
+        # ---- thermostat half 2 (MTTK) + cavity Langevin O-step: the
+        # (1, 3) draw of the unsharded indices path ----
         for i, m in enumerate(methods):
-            if m.kind == "langevin":
-                mask = masks[m.group]
-                slot = group_slot(m.group)
-                xi = noise.langevin(rep, i, m, (1, 3))
+            mask = masks[m.group]
+            slot = group_slot(m.group)
+            if m.kind == "mttk":
+                st = MTTKState(xi[slot], eta[slot])
+                alpha = mttk_rescale_factor(st, dt)
+                v = torch.where(mask[:, None], alpha * v, v)
+                K = comm.sum(kinetic_energy(v, loc.mass, mask))
+                st = mttk_advance(st, 2.0 * K / m.dof, m.kT, m.dof, dt,
+                                  m.tau)
+                xi, eta = xi.clone(), eta.clone()
+                xi[slot], eta[slot] = st.xi, st.eta
+            elif m.kind == "langevin":
+                draw = noise.langevin(rep, i, m, (1, 3))
                 c_ou = torch.exp(-m.gamma * dt)
                 sigma = torch.sqrt((1.0 - c_ou * c_ou) * m.kT
                                    / loc.mass)[:, None]
-                new_v = torch.where(mask[:, None], c_ou * v + sigma * xi, v)
+                new_v = torch.where(mask[:, None], c_ou * v + sigma * draw,
+                                    v)
                 dres = comm.sum(kinetic_energy(v, loc.mass, mask)
                                 - kinetic_energy(new_v, loc.mass, mask))
                 v = new_v
@@ -923,7 +940,8 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
             dt=dt, time_au=t_new, time_comp=comp_new,
             timestep=rep.timestep + 1, step=rep.step + 1,
             bussi_reservoir=bussi_res, bussi_instantaneous=bussi_inst,
-            langevin_reservoir=lang_res, error_tolerance=err_tol)
+            langevin_reservoir=lang_res, mttk_xi=xi, mttk_eta=eta,
+            error_tolerance=err_tol)
         obs = dict(energies)
         obs["kinetic_molecular"] = ke_mol
         obs["kinetic_cavity"] = ke_cav

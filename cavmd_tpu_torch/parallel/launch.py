@@ -78,7 +78,8 @@ def run_ranks(jobs, world_size: int, timeout: float = 600.0):
             for j in range(len(per_rank[0]))]
 
 
-def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None):
+def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None,
+                bath="bussi"):
     """The tests/test_domain.py scene (550 O2/N2 diatomics + the photon in
     a 65-bohr box, float64, cell mode with r_cut 8 and PPPM 16^3, Bussi
     100 K on the molecules and Langevin on the photon, thermalised with
@@ -87,10 +88,11 @@ def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None):
     size when a process group is up, unsharded otherwise. ``cap``
     cripples the slab plan's bucket capacity (the retry must grow it);
     ``error_tolerance`` > 0 turns on the adaptive dt (period 2);
-    ``wavevectors`` adds the dipole and rho(k) observables. Returns NumPy:
-    the final position, velocity and image, every observable over the
-    run, and the slab plan's final capacity and cadence (None
-    unsharded)."""
+    ``wavevectors`` adds the dipole and rho(k) observables; ``bath``
+    'mttk' or 'berendsen' replaces the molecules' Bussi bath (tau
+    0.05 ps). Returns NumPy: the final position, velocity, image and MTTK
+    (xi, eta), every observable over the run, and the slab plan's final
+    capacity and cadence (None unsharded)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -108,8 +110,9 @@ def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None):
                               r_cut=8.0, pair_mode="cell",
                               pppm_mesh=(16, 16, 16))
     kT = PC.kT_from_kelvin(100.0)
-    methods = (pt.MethodSpec("bussi", "molecular", kT=kT,
-                             tau=PC.ps_to_atomic_units(5.0)),
+    methods = (pt.MethodSpec(bath, "molecular", kT=kT,
+                             tau=PC.ps_to_atomic_units(
+                                 5.0 if bath == "bussi" else 0.05)),
                pt.MethodSpec("langevin", "cavity", kT=kT,
                              gamma=PC.gamma_from_tau_ps(5.0)))
     extra = (None if wavevectors is None
@@ -135,7 +138,8 @@ def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None):
     st = sim.state
     return dict(
         position=st.position.numpy(), velocity=st.velocity.numpy(),
-        image=st.image.numpy(),
+        image=st.image.numpy(), mttk_xi=st.mttk_xi.numpy(),
+        mttk_eta=st.mttk_eta.numpy(),
         obs={k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]},
         cap=None if plan is None else plan.cap,
         rebuild_every=None if plan is None else sim._domain_rebuild_every)

@@ -14,9 +14,9 @@ the launches by B.
 
 The replicas share one topology (N, types, charges, masses, bonds) and one
 box, checked here once, on the host, and one force field in any pair mode.
-Each replica has its own positions, velocities, clock, adaptive dt and
-reservoirs, and in cell and zcol mode its own carried list and anchor (the
-batched ``CellList`` of ``ops/neighbor.py``), rebuilt when one of its own
+Each replica has its own positions, velocities, clock, adaptive dt,
+reservoirs and MTTK (xi, eta), and in cell and zcol mode its own carried
+list and anchor (the batched ``CellList`` of ``ops/neighbor.py``), rebuilt when one of its own
 particles has moved past half the skin. An overflow in any replica sets
 that replica's ``cell_overflow``; the caller re-plans the whole batch
 (``drivers/advanced_run.py:run_vmapped_replicas``). After an overflow the
@@ -24,7 +24,10 @@ carried lists and start forces of the chunk are not to be trusted: a
 retry rebuilds both from the chunk's start positions. The step draws each random stream once
 for the whole batch (one ``torch.Generator`` a stream, shaped (B, ...)),
 so replica r's noise is not the stream of a one-replica run at seed + r;
-its initial thermal velocities are (``init_replica_states``).
+its initial thermal velocities are (``init_replica_states``). The MTTK and
+Berendsen baths take each replica's own kinetic energy, temperature and
+factor, (B,) tensors broadcast over (B, N, 3), as ``jax.vmap`` of the JAX
+step does.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from cavmd_tpu_torch.integrate.integrator import (
 # leaves of MDState that carry the replica axis; the others are shared
 PER_REPLICA = ("position", "image", "velocity", "forces", "dt", "time_au",
                "time_comp", "timestep", "bussi_reservoir",
-               "bussi_instantaneous", "langevin_reservoir", "error_tolerance")
+               "bussi_instantaneous", "langevin_reservoir", "mttk_xi",
+               "mttk_eta", "error_tolerance")
 _TOPOLOGY = ("typeid", "charge", "mass", "bond_group", "bond_typeid")
 
 

@@ -8,7 +8,11 @@ sync inside it; between chunks the host hands the chunk's observables (one
 NumPy dict) to every tracker and writer, and keeps them in ``last_obs``.
 In cell and zcol mode a chunk whose cell list overflowed (in zcol mode also:
 whose hull outgrew the visit window) is run again from its start with a
-larger bucket capacity and window (``_grow_cell_capacity``).
+larger bucket capacity and window (``_grow_cell_capacity``): the whole
+start state comes back, reservoirs and MTTK (xi, eta) included. The methods
+are those of ``make_step_fn`` (NVE, Bussi, Langevin, Brownian, MTTK,
+Berendsen; MTTK and Berendsen run the unfused tail); ``state`` is the
+whole ``MDState``, which ``io.save_checkpoint`` writes for an exact resume.
 
 With ``shard_atoms=S`` the chunks run on the slab domain pipeline
 (``parallel/domain.py``) over S processes, this one being one rank: every

@@ -101,8 +101,8 @@ Phases:
      device us a step and busy share from a profile); and the CLI with
      ``--vmap-replicas --replicas 1-8`` on phase 5's arguments (files and
      headers of every replica, GSD frames, K4/K5 once a step, each
-     replica's drift under phase 5's bound, the aggregate steps/s of its
-     own line);
+     replica's drift under 3x the JAX batched CLI's reading, the
+     aggregate steps/s of its own line);
  12. replica batches in cell and zcol mode: (a) the cell kernel at
      N = 20,001 (10^3 cells), the small grid on the N = 501 scene in cell
      mode (2^3 cells) and the zcol wrapper with its hull at N = 20,001,
@@ -132,9 +132,36 @@ Phases:
      the cell kernel from (d), the small grid and K9 with its hull from
      (c)'s 8-replica runs.
 
+ 13. the MTTK and Berendsen baths (unfused: K4/K5 take Bussi and Langevin
+     only, as in the JAX package) and the rest of the slice: (a) MTTK
+     (100 K, tau 0.5 ps) on the molecules and Langevin on the photon
+     through ``Simulation.run`` on phase 3's scene, one warm-up chunk then
+     3 x 1000 steps: K1-K3 once a step and K4/K5 never, steps/s, device
+     operations, device us and busy share a step beside phase 11's
+     profile of the fused Bussi step, the extended energy's drift (the
+     universe plus the molecular MTTK energy) held to 3x the JAX
+     package's CPU reading (``scripts/jax_bath_reference.py``); (b)
+     Berendsen on the same scene, 2 x 1000 steps, the last chunk's mean
+     molecular T held within 3x the JAX reading's distance from 100 K;
+     (c) MTTK at N = 100,001 (``build_large_n(50_000)``'s scene, cell
+     mode), one warm-up chunk then 2 x 100 steps: no overflow, the cell
+     kernel, K2 and K3 once a step, ms a step beside phase 6's default
+     step, the device profile beside phase 12's one replica, the
+     extended-energy band reported, and a checkpoint of the final state
+     saved and loaded, timed; (d) exact resume on the card, f64: 50
+     steps, a checkpoint, a fresh template, 50 more, against 100 steps
+     in one run, in dense mode (N = 501) and cell mode (N = 4001, the
+     carried list): positions within TRAJ_TOL_BOHR, the generators equal,
+     (xi, eta) within 1e-12 relative; (e) the OCO triatomic scene at the
+     reference density (167 molecules dense, 33,333 in cell mode): K1 and
+     the cell kernel with two-partner exclusion rows against their twins
+     in f32 and f64, two calls bit-equal; (f) 4 thermalized f64 replicas
+     of N = 501, 20 MTTK + Langevin steps in one batch against
+     one-replica runs (1e-9 bohr, each replica its own xi).
+
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
-the summary (with the script's seconds and phases 10's to 12's), a JSON
+the summary (with the script's seconds and phases 10's to 13's), a JSON
 object of per-kernel results (the batched kernels as ``<name>_b8``), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -255,8 +282,14 @@ ZCOL_F64_STEPS, ZCOL_F64_DT_FS = 40, 1.0
 # step runs phase 3's protocol (one warm-up chunk, N_CHUNKS x CHUNK steps)
 # at each of REPLICA_STEP_BATCHES, each replica's universe drift held to
 # phase 3's DRIFT_BOUND_HA, then REPLICA_PROFILED_STEPS profiled steps;
-# the CLI at REPLICA_B replicas is held to phase 5's CLI_DRIFT_BOUND_HA.
+# the CLI at REPLICA_B replicas is held to VMAP_CLI_DRIFT_BOUND_HA, 3x the
+# JAX package's own batched CLI on the same arguments with --device CPU
+# (``python scripts/jax_vmap_cli_reference.py --precision f32|f64``):
+# per-replica max |U - U[0]| up to 9e-6 Ha in f64 and up to 1.8e-5 Ha in
+# f32 over the replicas' rows that stayed finite (its f32 batch blew up in
+# 4 of the 8 replicas, ROADMAP.md Queue 3); the bound is 3x the larger.
 REPLICA_B, REPLICA_WIDE_B = 8, 32
+VMAP_CLI_DRIFT_BOUND_HA = 5.4e-5
 REPLICA_F64_B, REPLICA_F64_STEPS = 4, 20
 REPLICA_STEP_BATCHES = (1, 8, 32)
 REPLICA_PROFILED_STEPS = 50
@@ -293,6 +326,31 @@ SMALL_GRID_BATCH_STEPS = 500
 VMAP_LARGE_CLI_RUNTIME_PS = 2 * LARGE_CLI_RUNTIME_PS
 BATCHED_CELL_KERNELS = ("cell_pair", "cell_pair_small_grid", "zcol_pair",
                         "zcol_hull")
+
+
+# phase 13: the baths' protocols (scripts/jax_bath_reference.py runs the
+# JAX package on them on the CPU). 13a: MTTK at BATH_TAU_PS on phase 3's
+# scene, one warm-up chunk then BATH_CHUNKS chunks of CHUNK steps; the
+# bound is 3x the larger of the JAX package's f32 and f64 readings of the
+# extended energy's drift. 13b: Berendsen, BERENDSEN_CHUNKS chunks; the
+# bound on |T - 100 K| of the last chunk's mean molecular T is 3x the JAX
+# reading's (the freshly generated lattice relaxes and heats the
+# molecules, which a 0.5 ps Berendsen bath pulls back only slowly). The
+# JAX readings: extended drift 9.374e-4 Ha (f32) and 9.281e-4 Ha (f64);
+# Berendsen last-chunk T 462.05 K (f32) and 462.13 K (f64), 362.13 K from
+# 100 K at most.
+BATH_TAU_PS = 0.5
+BATH_CHUNKS, BERENDSEN_CHUNKS = 3, 2
+MTTK_DRIFT_BOUND_HA = 2.81e-3
+BERENDSEN_T_BOUND_K = 1086.0
+BERENDSEN_JAX_T_K = 462.13
+BATH_LARGE_CHUNKS = 2  # 13c, after one warm-up chunk of LARGE_CHUNK steps
+RESUME_K = 50  # 13d: RESUME_K steps, a checkpoint, RESUME_K more
+RESUME_MTTK_REL = 1e-12
+TRI_N_MOL = (167, 33_333)  # 13e: dense (N = 501), cell mode (N = 99,999)
+TRI_LJ = {("C", "C"): dict(epsilon=2.0e-4, sigma=5.2),
+          ("O", "O"): dict(epsilon=1.6e-4, sigma=5.8),
+          ("C", "O"): dict(epsilon=1.8e-4, sigma=5.5)}
 
 
 def large_cli_args(n_molecules, runtime_ps=LARGE_CLI_RUNTIME_PS):
@@ -2980,6 +3038,401 @@ def replica_batch_path(torch, pt, kind):
     return res
 
 
+# ------------------------------------------------------------- phase 13
+def bath_methods(pt, kind):
+    """``kind`` (mttk or berendsen) at 100 K, tau BATH_TAU_PS, on the
+    molecules; exact-OU Langevin (tau 5 ps, 100 K) on the photon."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+
+    kT = PC.kT_from_kelvin(100.0)
+    return (pt.MethodSpec(kind=kind, group="molecular", kT=kT,
+                          tau=PC.ps_to_atomic_units(BATH_TAU_PS)),
+            pt.MethodSpec(kind="langevin", group="cavity", kT=kT,
+                          gamma=PC.gamma_from_tau_ps(5.0)))
+
+
+def mttk_obs(state):
+    """The molecular slot's MTTK (xi, eta) as per-step observables: the
+    extended energy needs them every step."""
+    return {"mttk_xi": state.mttk_xi[..., 0],
+            "mttk_eta": state.mttk_eta[..., 0]}
+
+
+def extended_energy(obs, method):
+    """The quantity an MTTK run conserves: the universe energy plus the
+    molecular bath's energy (``thermostats.mttk_energy``), per step."""
+    from cavmd_tpu_torch.integrate import MTTKState, mttk_energy
+    from cavmd_tpu_torch.integrate import universe_energy
+
+    return universe_energy(obs) + mttk_energy(
+        MTTKState(obs["mttk_xi"], obs["mttk_eta"]), method.dof, method.kT,
+        method.tau)
+
+
+def bath_path(torch, pt, kind, warm, chunks, fused_step):
+    """Phase 13a/13b: ``Simulation.run`` on phase 3's scene (f32, dense)
+    with the ``kind`` bath on the molecules and Langevin on the photon,
+    ``warm`` warm-up chunks then ``chunks`` chunks of CHUNK steps: K1-K3
+    once a step (and once for the initial forces), K4/K5 never, finite
+    observables. MTTK: the extended energy's drift max |E - E[0]| over the
+    measured chunks held to MTTK_DRIFT_BOUND_HA, then REPLICA_PROFILED_STEPS
+    profiled steps (device operations, device us and busy share a step,
+    beside phase 11's profile of the fused Bussi step ``fused_step``).
+    Berendsen: the mean molecular T of the last chunk held within
+    BERENDSEN_T_BOUND_K of 100 K."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+
+    snap = reference_scene(pt, 250, 46.0, torch.float32,
+                           torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+    methods = pt.resolve_methods(snap, bath_methods(pt, kind), ff.l_typeid)
+    label = f"phase 13 ({kind}, N={snap.N})"
+    _cuda.reset_launches()
+    sim = pt.Simulation(snap, ff, methods, dt=PC.fs_to_atomic_units(0.25),
+                        seed=7, chunk_size=CHUNK, extra_obs=mttk_obs)
+    sim.run(n_steps=warm * CHUNK)
+    chunk_s, outs = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        sim.run(n_steps=CHUNK)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        outs.append(sim.last_obs)
+    launches = dict(_cuda.launches)
+    total = (warm + chunks) * CHUNK
+    for kname in ("dense_pair", "pppm_spread", "pppm_interpolate"):
+        check(launches.get(kname, 0) == total + 1,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{total} steps (want {total + 1}, the initial forces too)")
+    for kname in ("fused_pre_force", "fused_post_force"):
+        check(launches.get(kname, 0) == 0,
+              f"{label}: {kname} launched: the baths run unfused")
+    obs = {k: np.concatenate([o[k] for o in outs])
+           for k in OBS_KEYS + ("mttk_xi", "mttk_eta")}
+    for k in obs:
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    check(int(obs["timestep"][-1]) == total, f"{label}: timestep "
+          f"{obs['timestep'][-1]}")
+    rate = statistics.median(CHUNK / s for s in chunk_s)
+    m = methods[0]
+    T = 2.0 * obs["kinetic_molecular"] / (m.dof * PC.KB_HARTREE_PER_K)
+    res = dict(n=snap.N, steps=chunks * CHUNK, steps_per_s=rate,
+               chunk_steps_per_s=[CHUNK / s for s in chunk_s],
+               mean_T_last_chunk_K=float(T[-CHUNK:].mean()),
+               launches=launches)
+    if kind == "mttk":
+        E = extended_energy(obs, m)
+        res["extended_drift_ha"] = float(np.abs(E - E[0]).max())
+        res["final_xi"] = float(obs["mttk_xi"][-1])
+        check(res["final_xi"] != 0.0, f"{label}: xi never moved")
+        check(res["extended_drift_ha"] < MTTK_DRIFT_BOUND_HA,
+              f"{label}: extended-energy drift {res['extended_drift_ha']} "
+              f">= {MTTK_DRIFT_BOUND_HA} Ha")
+        prof = profiled_steps(torch, lambda n: sim.run(n_steps=n),
+                              REPLICA_PROFILED_STEPS, DENSE_STEP_MARKS[:3])
+        res.update(device_ops_per_step=prof["ops"],
+                   device_us_per_step=prof["us"],
+                   busy_share=prof["us"] / (1e6 / rate),
+                   profile_records_dropped=prof["dropped"],
+                   top_device_us_per_step=prof["top_us"],
+                   fused_device_ops_per_step=fused_step["device_ops_per_step"],
+                   fused_device_us_per_step=fused_step["device_us_per_step"])
+    else:
+        dev_K = abs(res["mean_T_last_chunk_K"] - 100.0)
+        res["T_deviation_K"] = dev_K
+        check(dev_K < BERENDSEN_T_BOUND_K,
+              f"{label}: mean T of the last chunk "
+              f"{res['mean_T_last_chunk_K']} K, {dev_K} K from 100 K >= "
+              f"{BERENDSEN_T_BOUND_K} K")
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
+def bath_large_path(torch, pt, default_ms, default_prof):
+    """Phase 13c: ``build_large_n(50_000)``'s scene and force field (N =
+    100,001, cell mode, f32) through ``Simulation.run`` with MTTK on the
+    molecules and Langevin on the photon: one warm-up chunk, then
+    BATH_LARGE_CHUNKS chunks of LARGE_CHUNK steps. No overflow; the cell
+    kernel, K2 and K3 once a step (and for the initial forces), K4/K5
+    never; ms a step beside phase 6's default step (``default_ms``); the
+    extended-energy band reported; REPLICA_PROFILED_STEPS profiled steps
+    beside phase 12's one-replica profile (``default_prof``). Then one
+    checkpoint of the final state saved and loaded, timed."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.ops.cell_kernels import kernel_name
+
+    _, snap, ff = build_large_n(LARGE_N_MOL)
+    methods = pt.resolve_methods(snap, bath_methods(pt, "mttk"),
+                                 ff.l_typeid)
+    cap = ff.cell_cfg.cap
+    label = f"phase 13 (mttk, N={snap.N}, cell)"
+    _cuda.reset_launches()
+    sim = pt.Simulation(snap, ff, methods,
+                        dt=PC.fs_to_atomic_units(LARGE_DT_FS), seed=7,
+                        extra_obs=mttk_obs)
+    sim.run(n_steps=LARGE_CHUNK)
+    chunk_s, outs = [], []
+    for _ in range(BATH_LARGE_CHUNKS):
+        t0 = time.perf_counter()
+        sim.run(n_steps=LARGE_CHUNK)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        outs.append(sim.last_obs)
+    launches = dict(_cuda.launches)
+    total = LARGE_CHUNK * (BATH_LARGE_CHUNKS + 1)
+    obs = {k: np.concatenate([o[k] for o in outs])
+           for k in OBS_KEYS + ("cell_overflow", "mttk_xi", "mttk_eta")}
+    check(not obs["cell_overflow"].any() and sim.ff.cell_cfg.cap == cap,
+          f"{label}: the cell list overflowed")
+    for k in obs:
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    for kname in (kernel_name(ff.cell_cfg), "pppm_spread",
+                  "pppm_interpolate"):
+        check(launches.get(kname, 0) == total + 1,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{total} steps (want {total + 1})")
+    for kname in ("fused_pre_force", "fused_post_force"):
+        check(launches.get(kname, 0) == 0, f"{label}: {kname} launched")
+    E = extended_energy(obs, methods[0])
+    ms = statistics.median(s / LARGE_CHUNK * 1e3 for s in chunk_s)
+    prof = profiled_steps(torch, lambda n: sim.run(n_steps=n),
+                          REPLICA_PROFILED_STEPS, CELL_STEP_MARKS[:3])
+    from cavmd_tpu_torch.io import load_checkpoint, save_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, sim.state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        back = load_checkpoint(path, sim.state)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(back.position, sim.state.position)
+          and torch.equal(back.cell_list.bucket_idx,
+                          sim.state.cell_list.bucket_idx),
+          f"{label}: the checkpoint did not read back")
+    res = dict(n=snap.N, ncells=ff.cell_cfg.ncells, cap=cap,
+               steps=BATH_LARGE_CHUNKS * LARGE_CHUNK, ms_per_step=ms,
+               default_ms_per_step=default_ms,
+               extended_band_ha=float(E.max() - E.min()),
+               final_xi=float(obs["mttk_xi"][-1]),
+               device_ops_per_step=prof["ops"],
+               device_us_per_step=prof["us"],
+               busy_share=prof["us"] / (ms * 1e3),
+               profile_records_dropped=prof["dropped"],
+               default_device_ops_per_step=default_prof[0],
+               default_device_us_per_step=default_prof[1],
+               checkpoint_save_ms=save_ms, checkpoint_load_ms=load_ms,
+               checkpoint_mb=size_mb, launches=launches)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
+def resume_path(torch, pt, mode):
+    """Phase 13d: an exact resume on the card, f64, MTTK + Langevin:
+    2 RESUME_K steps in one run against RESUME_K steps, a checkpoint
+    saved and loaded into a fresh ``init_state`` template, and RESUME_K
+    more. Dense mode on the N = 501 scene, cell mode (the carried list)
+    at N = 4001: positions within TRAJ_TOL_BOHR (K2 adds with float
+    atomics, so the two runs need not agree bit for bit), the generators'
+    states equal, (xi, eta) within RESUME_MTTK_REL."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.integrate import init_state, make_step_fn, run_steps
+    from cavmd_tpu_torch.io import load_checkpoint, save_checkpoint
+
+    n_mol = 250 if mode == "dense" else 2000
+    snap = reference_scene(pt, n_mol, 46.0 if mode == "dense"
+                           else reference_box_for(n_mol), torch.float64,
+                           torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode=mode)
+    step = make_step_fn(ff, pt.resolve_methods(
+        snap, bath_methods(pt, "mttk"), ff.l_typeid))
+
+    def fresh():
+        return init_state(snap, ff, dt=PC.fs_to_atomic_units(0.25), seed=7)
+
+    whole, _ = run_steps(step, fresh(), 2 * RESUME_K)
+    half, _ = run_steps(step, fresh(), RESUME_K)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_checkpoint(path, half)
+        resumed = load_checkpoint(path, fresh())
+    final, _ = run_steps(step, resumed, RESUME_K)
+    label = f"phase 13 (resume, {mode}, N={snap.N}, f64)"
+    dx = float((final.position - whole.position).abs().max())
+    gens = (set(final.generators) == set(whole.generators) and all(
+        torch.equal(g.get_state(), whole.generators[k].get_state())
+        for k, g in final.generators.items()))
+    rel = max(float((getattr(final, k) - getattr(whole, k)).abs().max())
+              / float(getattr(whole, k).abs().max())
+              for k in ("mttk_xi", "mttk_eta"))
+    carried = (final.cell_list is not None) == (mode == "cell")
+    print(f"{label}: {RESUME_K} + {RESUME_K} steps through a checkpoint vs "
+          f"{2 * RESUME_K} in one run: max|dx| = {dx!r} bohr (bound "
+          f"{TRAJ_TOL_BOHR}), generators equal: {gens}, (xi, eta) rel "
+          f"{rel!r} (bound {RESUME_MTTK_REL}), carried list: "
+          f"{final.cell_list is not None}", flush=True)
+    check(dx <= TRAJ_TOL_BOHR and gens and rel <= RESUME_MTTK_REL
+          and carried, f"{label}: the resumed run left the uninterrupted "
+          "one")
+    return dict(n=snap.N, max_dx_bohr=dx, mttk_rel=rel)
+
+
+def triatomic_snapshot(pt, n_mol, box_L, dtype, device):
+    """The OCO triatomic liquid of tests/test_polyatomic.py:42 built with
+    NumPy: a cubic lattice of linear molecules (C=O 2.2 bohr) with random
+    orientations, strained by 0.08-bohr noise; bonds [[3m, 3m+1],
+    [3m, 3m+2]], so each carbon's exclusion row holds two partners."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core.snapshot import Snapshot
+
+    rng = np.random.default_rng(0)
+    n_side = int(np.ceil(n_mol ** (1 / 3)))
+    spacing = box_L / n_side
+    grid = np.arange(n_side) * spacing - box_L / 2 + spacing / 2
+    centers = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
+                       axis=-1).reshape(-1, 3)[:n_mol]
+    u = rng.normal(size=(n_mol, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pos = np.empty((3 * n_mol, 3))
+    pos[0::3] = centers
+    pos[1::3] = centers + 2.2 * u
+    pos[2::3] = centers - 2.2 * u
+    pos += rng.normal(scale=0.08, size=pos.shape)
+    base = 3 * np.arange(n_mol)
+    bonds = np.stack([np.repeat(base, 2),
+                      np.stack([base + 1, base + 2], 1).reshape(-1)], axis=1)
+    return Snapshot.create(
+        pos, [box_L] * 3, typeid=np.tile([0, 1, 1], n_mol),
+        charge=np.tile([0.4, -0.2, -0.2], n_mol),
+        mass=np.tile([21894.0, 29164.0, 29164.0], n_mol), types=("C", "O"),
+        bond_group=bonds, bond_typeid=np.zeros(len(bonds), np.int64),
+        bond_types=("C-O",), dtype=dtype, device=device)
+
+
+def triatomic_phase(torch, pt):
+    """Phase 13e: K1 (dense, TRI_N_MOL[0] molecules) and the cell kernel
+    (cell mode, TRI_N_MOL[1] molecules, 17^3 cells) on the triatomic
+    scene at the reference density, f32 and f64, against their twins
+    under phase 2's tolerances; two calls bit-equal."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import pair_kernels as pk
+
+    out = {}
+    for n_mol, mode in zip(TRI_N_MOL, ("dense", "cell")):
+        box = reference_box_for(3 * n_mol / 2)
+        for dtype in (torch.float32, torch.float64):
+            snap = triatomic_snapshot(pt, n_mol, box, dtype,
+                                      torch.device("cuda"))
+            ff = pt.ForceField.create(
+                snap, enable_cavity=False, lj_params=TRI_LJ,
+                bond_params={"C-O": dict(k=0.8, r0=2.2)}, pair_mode=mode)
+            name = str(dtype).replace("torch.", "")
+            label = f"phase 13 (triatomic, {mode}, N={snap.N}, {name})"
+            check(not ff.bonds_strided, f"{label}: strided bonds")
+            if mode == "dense":
+                args = (snap.position, snap.box_L, snap.typeid, ff.lj_eps,
+                        ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift, snap.charge,
+                        ff.lj_active, ff.coulomb_active, ff.kappa_value,
+                        ff.coulomb_rcut ** 2)
+                kern, plain = pk.dense_pair_force, pk.dense_pair_force_plain
+            else:
+                check(ff.cell_exclusions.shape[1] == 2,
+                      f"{label}: exclusion rows {ff.cell_exclusions.shape}")
+                clist = ff.build_cells(snap.position, snap.box_L)
+                check(not bool(clist.overflow), f"{label}: overflow")
+                args = (snap.position, snap.box_L, clist, ff.cell_cfg,
+                        snap.typeid, snap.charge, ff.lj_eps, ff.lj_sig2,
+                        ff.lj_rcut2, ff.lj_vshift, ff.cell_exclusions,
+                        ff.kappa_value)
+                kern = ck.cell_pair_force_fused
+                plain = ck.cell_pair_force_fused_plain
+            first, second = kern(*args), kern(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            errs = [max_err(a, b) for a, b in zip(first, ref)]
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            print(f"{label}: max|diff| vs twin (forces, LJ, Ewald) "
+                  f"{[e for e, _ in errs]!r} of scales "
+                  f"{[s for _, s in errs]!r} (tol {TOL[name]} of the "
+                  f"scale), two calls bit-equal: {same}", flush=True)
+            check(all(e <= TOL[name] * s for e, s in errs) and same,
+                  f"{label}: the kernel left its twin or two calls differ")
+            out[(mode, name)] = errs[0][0]
+    return out
+
+
+def bath_replica_trajectory(torch, pt):
+    """Phase 13f: REPLICA_F64_B thermalized float64 replicas of the N = 501
+    scene, REPLICA_F64_STEPS MTTK + Langevin steps in one batch on the
+    card, against one-replica card runs with the same draws: positions
+    within TRAJ_TOL_BOHR, each replica's own (xi, eta), K1-K3 once a step
+    for the batch."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import make_step_fn, run_steps
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        run_replica_steps,
+    )
+    from cavmd_tpu_torch.parallel.replicas import PER_REPLICA
+
+    B, steps = REPLICA_F64_B, REPLICA_F64_STEPS
+    snap = reference_scene(pt, 250, 46.0, torch.float64,
+                           torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+    methods = pt.resolve_methods(snap, bath_methods(pt, "mttk"), ff.l_typeid)
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(0.25), seed=7,
+                                kT=PC.kT_from_kelvin(100.0))
+    draws = CardDraws(torch, B, torch.float64)
+    _cuda.reset_launches()
+    final, _ = run_replica_steps(make_step_fn(ff, methods, noise=draws),
+                                 batch, steps)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    err, xi_rel = 0.0, 0.0
+    for r in range(B):
+        one = batch.replace(**{k: getattr(batch, k)[r] for k in PER_REPLICA})
+        fr, _ = run_steps(make_step_fn(ff, methods, noise=draws.replica(r)),
+                          one, steps)
+        err = max(err, float((final.position[r] - fr.position).abs().max()))
+        xi_rel = max(xi_rel, abs(float(final.mttk_xi[r, 0] - fr.mttk_xi[0]))
+                     / abs(float(fr.mttk_xi[0])))
+    distinct = len(set(final.mttk_xi[:, 0].tolist())) == B
+    print(f"phase 13: f64 MTTK + Langevin {steps} steps of {B} replicas at "
+          f"N={snap.N} in one batch vs one-replica runs, same draws, on the "
+          f"card: max|dx| = {err!r} bohr (bound {TRAJ_TOL_BOHR}), xi rel "
+          f"{xi_rel!r}, each replica its own xi: {distinct}, batch launches "
+          f"{launches}", flush=True)
+    check(err <= TRAJ_TOL_BOHR and xi_rel <= RESUME_MTTK_REL and distinct,
+          f"phase 13 f64 MTTK batch: max|dx| {err} bohr > {TRAJ_TOL_BOHR}, "
+          f"xi rel {xi_rel} or replicas sharing one xi")
+    for kname in BATCHED_KERNELS[:3]:
+        check(launches.get(kname, 0) == steps,
+              f"phase 13 f64 MTTK batch: {kname} launched "
+              f"{launches.get(kname, 0)} times in {steps} steps")
+    return err
+
+
 def main() -> None:
     clock = PhaseClock()
     try:
@@ -3191,7 +3644,7 @@ def main() -> None:
           f"phase 11: the batched step's {ops[1]} device operations vs the "
           f"one-replica step's {one_step['device_ops_per_step']}")
     vcli = vmap_cli_phase(torch, pt, 11, CLI_ARGS, 1000, BATCHED_KERNELS,
-                          CLI_DRIFT_BOUND_HA)
+                          VMAP_CLI_DRIFT_BOUND_HA)
     print("phase 11: aggregate steps/s " + ", ".join(
         f"B={B} {r['aggregate_steps_per_s']:.1f} "
         f"({r['aggregate_steps_per_s'] / fused['steps_per_s']:.2f}x phase 3's "
@@ -3250,6 +3703,46 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(12)
 
+    # phase 13: the MTTK and Berendsen baths (unfused, K4/K5 never), exact
+    # resume through a checkpoint, the triatomic scene, an MTTK batch
+    mttk = bath_path(torch, pt, "mttk", 1, BATH_CHUNKS, one_step)
+    beren = bath_path(torch, pt, "berendsen", 0, BERENDSEN_CHUNKS, one_step)
+    torch.cuda.empty_cache()
+    mttk_big = bath_large_path(
+        torch, pt, large["ms_per_step"],
+        (big["one_replica_device_ops_per_step"],
+         big["one_replica_device_us_per_step"]))
+    torch.cuda.empty_cache()
+    resumed = {mode: resume_path(torch, pt, mode)
+               for mode in ("dense", "cell")}
+    tri = triatomic_phase(torch, pt)
+    torch.cuda.empty_cache()
+    bath_f64 = bath_replica_trajectory(torch, pt)
+    print(f"phase 13: MTTK N=501 {mttk['steps_per_s']:.1f} steps/s "
+          f"(phase 3 fused Bussi {fused['steps_per_s']:.1f}, unfused "
+          f"{unfused['steps_per_s']:.1f}), device ops/step "
+          f"{mttk['device_ops_per_step']} vs fused "
+          f"{mttk['fused_device_ops_per_step']}, device "
+          f"{mttk['device_us_per_step']:.1f} us/step vs fused "
+          f"{mttk['fused_device_us_per_step']:.1f}, extended drift "
+          f"{mttk['extended_drift_ha']:.3e} Ha (bound "
+          f"{MTTK_DRIFT_BOUND_HA}); Berendsen last-chunk T "
+          f"{beren['mean_T_last_chunk_K']:.1f} K (bound |T - 100| < "
+          f"{BERENDSEN_T_BOUND_K} K; the JAX reading {BERENDSEN_JAX_T_K} "
+          f"K); MTTK N={mttk_big['n']} "
+          f"{mttk_big['ms_per_step']:.3f} ms/step vs default "
+          f"{mttk_big['default_ms_per_step']:.3f}, device ops/step "
+          f"{mttk_big['device_ops_per_step']} vs "
+          f"{mttk_big['default_device_ops_per_step']}, band "
+          f"{mttk_big['extended_band_ha']:.3e} Ha, checkpoint save "
+          f"{mttk_big['checkpoint_save_ms']:.1f} ms load "
+          f"{mttk_big['checkpoint_load_ms']:.1f} ms; resume max|dx| "
+          f"{resumed['dense']['max_dx_bohr']:.2e} / "
+          f"{resumed['cell']['max_dx_bohr']:.2e} bohr; MTTK batch "
+          f"{bath_f64:.2e} bohr", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(13)
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -3295,10 +3788,18 @@ def main() -> None:
           f"{big['aggregate_steps_per_s']:.0f} aggregate steps/s (busy "
           f"{big['busy_share']:.3f}), CLI N={vcli12['n']} "
           f"{vcli12['aggregate_steps_per_s']} aggregate steps/s drift "
-          f"{max(vcli12['universe_drift_ha']):.3e} Ha | script "
+          f"{max(vcli12['universe_drift_ha']):.3e} Ha | baths: MTTK "
+          f"N=501 {mttk['steps_per_s']:.1f} steps/s extended drift "
+          f"{mttk['extended_drift_ha']:.3e} Ha, Berendsen T "
+          f"{beren['mean_T_last_chunk_K']:.1f} K, MTTK N={mttk_big['n']} "
+          f"{mttk_big['ms_per_step']:.3f} ms/step, resume "
+          f"{resumed['dense']['max_dx_bohr']:.2e} / "
+          f"{resumed['cell']['max_dx_bohr']:.2e} bohr, triatomic K1 / cell "
+          f"f32 max|dF| {tri[('dense', 'float32')]:.2e} / "
+          f"{tri[('cell', 'float32')]:.2e} | script "
           f"{clock.total():.1f} s, phase 10 {clock.seconds[10]:.1f} s, "
           f"phase 11 {clock.seconds[11]:.1f} s, phase 12 "
-          f"{clock.seconds[12]:.1f} s",
+          f"{clock.seconds[12]:.1f} s, phase 13 {clock.seconds[13]:.1f} s",
           flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at

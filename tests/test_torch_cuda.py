@@ -491,6 +491,94 @@ def test_cell_kernel_matches_twin(cuda, grid, dtype):
     _hold_cell_kernel(args, dtype)
 
 
+# the OCO triatomic liquid of tests/test_polyatomic.py: bonds [[3m, 3m+1],
+# [3m, 3m+2]], so each carbon's exclusion row holds two partners
+TRI_R0 = 2.2
+TRI_LJ = {
+    ("C", "C"): dict(epsilon=2.0e-4, sigma=5.2),
+    ("O", "O"): dict(epsilon=1.6e-4, sigma=5.8),
+    ("C", "O"): dict(epsilon=1.8e-4, sigma=5.5),
+}
+TRI_BONDS = {"C-O": dict(k=0.8, r0=TRI_R0)}
+
+
+def triatomic_arrays(n_mol=27, box_L=36.0, seed=0):
+    """tests/test_polyatomic.py:make_triatomic_system as NumPy arrays for
+    ``Snapshot.create``: a cubic lattice of linear OCO molecules with
+    random orientations, strained by 0.08-bohr noise."""
+    rng = np.random.default_rng(seed)
+    n_side = int(np.ceil(n_mol ** (1 / 3)))
+    spacing = box_L / n_side
+    grid = np.arange(n_side) * spacing - box_L / 2 + spacing / 2
+    centers = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
+                       axis=-1).reshape(-1, 3)[:n_mol]
+    u = rng.normal(size=(n_mol, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pos = np.empty((3 * n_mol, 3))
+    pos[0::3] = centers
+    pos[1::3] = centers + TRI_R0 * u
+    pos[2::3] = centers - TRI_R0 * u
+    pos += rng.normal(scale=0.08, size=pos.shape)
+    base = 3 * np.arange(n_mol)
+    bond_group = np.stack([np.repeat(base, 2),
+                           np.stack([base + 1, base + 2], 1).reshape(-1)],
+                          axis=1)
+    return dict(position=pos, box_L=[box_L] * 3,
+                typeid=np.tile([0, 1, 1], n_mol),
+                charge=np.tile([0.4, -0.2, -0.2], n_mol),
+                mass=np.tile([21894.0, 29164.0, 29164.0], n_mol),
+                types=("C", "O"), bond_group=bond_group,
+                bond_typeid=np.zeros(len(bond_group), np.int64),
+                bond_types=("C-O",))
+
+
+def _triatomic(dtype, device, pair_mode, r_cut, n_mol=167, box_L=46.0):
+    """The triatomic scene at the reference density (167 molecules, 501
+    atoms in the N = 501 scene's 46-bohr box) and its force field."""
+    from cavmd_tpu_torch.core.snapshot import Snapshot
+
+    a = triatomic_arrays(n_mol, box_L)
+    snap = Snapshot.create(a.pop("position"), dtype=dtype, device=device,
+                           **a)
+    ff = pt.ForceField.create(snap, enable_cavity=False, lj_params=TRI_LJ,
+                              bond_params=TRI_BONDS, r_cut=r_cut,
+                              pppm_mesh=(16, 16, 16), pair_mode=pair_mode)
+    return snap, ff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode,r_cut", [("dense", 15.0), ("cell", 12.0),
+                                        ("cell", 15.0)])
+def test_kernels_with_degree_two_exclusion_rows(cuda, mode, r_cut, dtype):
+    """K1 (the dense mask of a shared-centre topology) and the cell kernel
+    (exclusion rows of two partners; 3^3 cells at r_cut 12, the small
+    grid at 15) on the triatomic scene against their twins; two calls
+    bit-equal."""
+    snap, ff = _triatomic(dtype, cuda, mode, r_cut)
+    assert not ff.bonds_strided
+    if mode == "dense":
+        args = (snap.position, snap.box_L, snap.typeid, ff.lj_eps,
+                ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift, snap.charge,
+                ff.lj_active, ff.coulomb_active, ff.kappa_value,
+                ff.coulomb_rcut ** 2)
+        first = _hold_dense(args, dtype)
+        second = pk.dense_pair_force(*args)
+    else:
+        assert ff.cell_exclusions.shape[1] == 2
+        assert (min(ff.cell_cfg.ncells) >= 3) == (r_cut == 12.0)
+        clist = ff.build_cells(snap.position, snap.box_L)
+        assert not bool(clist.overflow)
+        args = (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
+                snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2,
+                ff.lj_vshift, ff.cell_exclusions, ff.kappa_value)
+        _hold_cell_kernel(args, dtype)
+        first = ck.cell_pair_force_fused(*args)
+        second = ck.cell_pair_force_fused(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 def _slab_scene(dtype, device, shift_x=0.0):
     """tests/test_domain.py's scene (550 diatomics + photon, 65-bohr box,
     r_cut 8, 7^3 cells), its x coordinates shifted by ``shift_x`` and

@@ -11,6 +11,7 @@ r_cut 8, PPPM 16^3), in float64 on the CPU:
   grid (f64) and ``fused_cell_cols_slab_pallas`` in interpret mode (f32);
 - adaptive dt with the dipole and rho(k) observables matches the unsharded
   port (tests/test_domain.py:250);
+- MTTK and Berendsen baths at S = 1 match the unsharded port to 1e-10;
 - at S = 1 a bonded pair across the periodic x face stays excluded (the
   JAX S = 1 runner counts it: ROADMAP.md Queue 3).
 
@@ -58,6 +59,7 @@ KT = PC.kT_from_kelvin(100.0)
 TAU = PC.ps_to_atomic_units(5.0)
 GAMMA = PC.gamma_from_tau_ps(5.0)
 DT = PC.fs_to_atomic_units(0.5)
+BATH_TAU = PC.ps_to_atomic_units(0.05)
 STATE_KEYS = ("position", "image", "velocity", "mass", "charge", "typeid",
               "box_L", "forces", "dt", "time_au", "time_comp", "timestep",
               "bussi_reservoir", "bussi_instantaneous", "langevin_reservoir",
@@ -242,6 +244,35 @@ def test_s1_runner_matches_jax_runner(scene):
     assert not tobs["cell_overflow"].any()
 
 
+@pytest.mark.parametrize("bath", ["mttk", "berendsen"])
+def test_s1_runner_with_baths_matches_unsharded(scene, bath):
+    """MTTK or Berendsen on the molecules (tau 0.05 ps) and Langevin on the
+    photon: the S = 1 runner, 10 steps at a cadence of 5 (the group KE
+    sums of both halves on the slab path), against the unsharded step,
+    the port's own draws on both: positions, velocities, (xi, eta) and
+    every observable to 1e-10 of their scale."""
+    _, ts, _, tff, _, _, _, tstate = scene
+    tm = resolve_methods(ts, (
+        MethodSpec(kind=bath, group="molecular", kT=KT, tau=BATH_TAU),
+        MethodSpec(kind="langevin", group="cavity", kT=KT, gamma=GAMMA)),
+        tff.l_typeid)
+    ref, robs = run_steps(make_step_fn(tff, tm),
+                          tstate.replace(generators={}), 10)
+    run = td.make_domain_runner(tff, tm, td.plan_domain(ts, tff, 1),
+                                rebuild_every=5)
+    fin, obs = run(tstate.replace(generators={}), 10)
+    for name in ("position", "velocity", "mttk_xi", "mttk_eta"):
+        want = getattr(ref, name).numpy()
+        np.testing.assert_allclose(getattr(fin, name).numpy(), want, rtol=0,
+                                   atol=1e-10 * max(np.abs(want).max(),
+                                                    1e-300), err_msg=name)
+    if bath == "mttk":
+        assert float(fin.mttk_xi[0]) != 0.0
+    _obs_close(obs, {k: v for k, v in robs.items() if k != "timestep"},
+               1e-10)
+    assert not obs["cell_overflow"].any()
+
+
 def test_twin_matches_jax_xla_tile_path_f64(scene):
     """The tile pass on rank 0's extended grid at S = 2 (halo layers from
     rank 1; S = 1 runs in the whole-runner comparison above): the port's
@@ -423,7 +454,8 @@ def test_domain_retry_moves_only_the_lever_that_fired(scene):
 
 def test_unsupported_configurations_raise(scene):
     """What the JAX Simulation sends to GSPMD sharding raises here, naming
-    ROADMAP.md; MTTK and Berendsen raise as make_step_fn does."""
+    ROADMAP.md; methods the JAX slab path refuses raise ValueError, and
+    its MTTK and Berendsen baths build."""
     _, ts, _, tff, _, tm, _, _ = scene
     from cavmd_tpu_torch.integrate import ForceField
 
@@ -437,9 +469,11 @@ def test_unsupported_configurations_raise(scene):
                    extra_obs=lambda state: {})
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Simulation(ts, tff, tm, dt=DT, shard_atoms=16, comm=comm)
-    with pytest.raises(NotImplementedError, match="mttk"):
-        td.make_domain_step(tff, (MethodSpec(kind="mttk", group="all"),),
-                            td.plan_domain(ts, tff, 1), Communicator())
+    for bath in ("mttk", "berendsen"):  # the JAX slab path's baths
+        assert callable(td.make_domain_step(
+            tff, resolve_methods(ts, (MethodSpec(kind=bath, group="all",
+                                                 kT=KT, tau=TAU),), 0),
+            td.plan_domain(ts, tff, 1), Communicator()))
     with pytest.raises(ValueError, match="brownian"):
         td.make_domain_step(
             tff, resolve_methods(ts, (MethodSpec(kind="brownian",

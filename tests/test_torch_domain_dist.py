@@ -11,6 +11,7 @@ the default cadence):
   matches a run that never overflowed (:179), its cadence untouched;
 - Simulation(shard_atoms=2) routes adaptive dt and the dipole / rho(k)
   observables through the slab step (:206, :279);
+- MTTK and Berendsen baths at S = 2 match the unsharded run to 1e-10;
 - the CLI on 2 ranks (--shard-atoms 2 --device CPU) writes the files,
   headers and columns of the unsharded CLI.
 
@@ -33,6 +34,8 @@ RUNS = {
     "plain": {},
     "overflow": dict(cap=2),
     "observables": dict(error_tolerance=5e-6, wavevectors=WV),
+    "mttk": dict(bath="mttk"),
+    "berendsen": dict(bath="berendsen"),
 }
 CLI_ARGS = ["--device", "CPU", "--n-molecules", "40", "--box-L", "64",
             "--runtime", "0.003", "--enable-energy-tracker", "--enable-fkt",
@@ -89,6 +92,10 @@ def _matches(ranks, ref, tol=1e-10):
         np.testing.assert_allclose(r["velocity"], ref["velocity"], rtol=0,
                                    atol=tol * np.abs(ref["velocity"]).max())
         np.testing.assert_array_equal(r["image"], ref["image"])
+        for k in ("mttk_xi", "mttk_eta"):
+            np.testing.assert_allclose(
+                r[k], ref[k], rtol=0,
+                atol=tol * max(np.abs(ref[k]).max(), 1e-300), err_msg=k)
         for k, want in ref["obs"].items():
             np.testing.assert_allclose(
                 r["obs"][k], want, rtol=0,
@@ -102,6 +109,19 @@ def test_trajectory_matches_unsharded(two_ranks, four_ranks, unsharded, S):
     assert len(ranks) == S and ranks[0]["rebuild_every"] == 20
     assert unsharded["plain"]["cap"] is None  # the reference is unsharded
     _matches(ranks, unsharded["plain"])
+
+
+@pytest.mark.parametrize("bath", ["mttk", "berendsen"])
+def test_baths_match_unsharded(two_ranks, unsharded, bath):
+    """MTTK or Berendsen on the molecules at S = 2: the group kinetic
+    energies of both halves summed over the ranks; the trajectory and
+    (xi, eta) match the unsharded run to 1e-10."""
+    ranks = two_ranks[bath]
+    _matches(ranks, unsharded[bath])
+    if bath == "mttk":
+        assert ranks[0]["mttk_xi"][0] != 0.0
+    else:
+        assert not ranks[0]["mttk_xi"].any()
 
 
 def test_overflow_grows_the_plan_and_retries(two_ranks, unsharded):

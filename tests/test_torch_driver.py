@@ -30,6 +30,16 @@ CLI_ARGS = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite runs six workers on the machine's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_fire_minimize_matches_jax():
     """300 FIRE steps (the driver's call) on 12 molecules, float64. Both
     sides take the same branches (the FIRE power test is far from 0 at

@@ -48,6 +48,16 @@ TAU = PC.ps_to_atomic_units(5.0)
 GAMMA = PC.gamma_from_tau_ps(5.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite runs six workers on the machine's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def build(seed=0):
     """tests/test_integrate.py:build_system in both packages (N = 41, 16^3
     mesh, r_cut 10), photon with a thermal velocity."""
@@ -264,12 +274,26 @@ def test_simulation_thermalize_and_run():
 
 
 def test_unported_methods_raise():
+    """The port's counterpart of tests/test_fused_integrator.py:139: K4/K5
+    take no MTTK bath, so ``fuse_integrator=True`` on a float32 state
+    raises ValueError, while ``None`` runs the unfused tail (the same
+    steps as ``False``, bit for bit)."""
     _, ts, _, kw = build()
+    ts = ts.astype(torch.float32)
     ff = ForceField.create(ts, **kw)
-    methods = resolve_methods(ts, (MethodSpec(kind="mttk", group="all"),),
-                              ff.l_typeid)
-    with pytest.raises(NotImplementedError):
-        make_step_fn(ff, methods)
+    methods = resolve_methods(ts, (
+        MethodSpec(kind="mttk", group="molecular", kT=KT,
+                   tau=PC.ps_to_atomic_units(0.1)),
+        MethodSpec(kind="nve", group="cavity")), ff.l_typeid)
+    state = init_state(ts, ff, dt=DT, seed=7)
+    with pytest.raises(ValueError, match="fused integrator"):
+        make_step_fn(ff, methods, fuse_integrator=True)(state)
+    auto, _ = run_steps(make_step_fn(ff, methods), state, 3)
+    off, _ = run_steps(make_step_fn(ff, methods, fuse_integrator=False),
+                       state, 3)
+    assert torch.equal(auto.position, off.position)
+    assert torch.equal(auto.mttk_xi, off.mttk_xi)
+    assert float(auto.mttk_xi[0]) != 0.0
 
 
 def test_port_imports_no_jax():
@@ -280,6 +304,7 @@ def test_port_imports_no_jax():
         "import cavmd_tpu_torch.ops.pair_kernels\n"
         "import cavmd_tpu_torch.ops.pppm_kernels\n"
         "import cavmd_tpu_torch.parallel.replicas\n"
+        "import cavmd_tpu_torch.io.checkpoint\n"
         "import cavmd_tpu_torch.drivers.advanced_run\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cavmd_tpu'))\n"

@@ -41,6 +41,16 @@ TAU = PC.ps_to_atomic_units(5.0)
 GAMMA = PC.gamma_from_tau_ps(5.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite runs six workers on the machine's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _same_list(tl, jl):
     np.testing.assert_array_equal(tl.bucket_idx.numpy(),
                                   np.asarray(jl.bucket_idx))

@@ -382,6 +382,83 @@ def test_batch_matches_one_replica_runs(world, jax_traj, dtype, fuse, tol):
             _close(obs[k][:, r], obs_r[k], tol, f"{r} {k}")
 
 
+BATH_TAU = PC.ps_to_atomic_units(0.05)
+
+
+def _bath_methods(bath, mod):
+    return (mod(kind=bath, group="molecular", kT=KT, tau=BATH_TAU),
+            mod(kind="langevin", group="cavity", kT=KT, gamma=GAMMA))
+
+
+@pytest.fixture(scope="module")
+def jax_bath_traj(world):
+    """JAX's batch (``run_replica_steps``, jax.vmap of the step) with
+    MTTK or Berendsen on the molecules and Langevin on the photon, from
+    the B jittered snapshots: 10 steps, then 10 more."""
+    jff = world["jff"]
+    out = {}
+    for bath in ("mttk", "berendsen"):
+        jm = j_resolve_methods(world["js"], _bath_methods(bath, JMethodSpec),
+                               jff.l_typeid)
+        step = j_make_step_fn(jff, jm)
+        run10 = jax.jit(lambda s: j_run_replica_steps(step, s, 10))
+        jstate = j_init_replicas(world["snaps"], jff, dt=DT, seed=3)
+        mid, _ = run10(jstate)
+        final, obs = run10(mid)
+        out[bath] = (jstate, mid, final, obs)
+    return out
+
+
+def _bath_batch(jstate):
+    return _port_batch(jstate).replace(
+        mttk_xi=_t(jstate.mttk.xi), mttk_eta=_t(jstate.mttk.eta))
+
+
+@pytest.mark.parametrize("bath", ["mttk", "berendsen"])
+def test_bath_batch_matches_jax_and_one_replica_runs(world, jax_bath_traj,
+                                                     bath):
+    """A B = 3 batch with MTTK or Berendsen (each replica's own KE, T and
+    factor): 20 steps from JAX's start against B one-replica port runs
+    with the same draws to 1e-12 of scale, and against JAX's
+    ``run_replica_steps`` to 1e-9; from JAX's batch after 10 steps, (B, 2)
+    (xi, eta) carried across by ``state_from_numpy``, 10 more steps
+    against JAX's to 1e-9."""
+    jstate, jmid, jfinal, jobs = jax_bath_traj[bath]
+    tff = world["tff"]
+    tm = resolve_methods(world["ts"], _bath_methods(bath, MethodSpec),
+                         tff.l_typeid)
+    start = _bath_batch(jstate)
+    assert start.mttk_xi.shape == (B, 2)
+    final, obs = run_replica_steps(
+        make_step_fn(tff, tm, noise=ReplicaJaxNoise(jstate.key)), start, 20)
+    for k in ("position", "velocity"):
+        _close(getattr(final, k), getattr(jfinal, k), TOL_TRAJ, k)
+    _close(final.mttk_xi, jfinal.mttk.xi, TOL_TRAJ, "xi")
+    _close(final.mttk_eta, jfinal.mttk.eta, TOL_TRAJ, "eta")
+    for k in OBS_KEYS:
+        _close(obs[k][10:], jobs[k], TOL_TRAJ, k)
+    for r in range(B):
+        one = start.replace(**{k: getattr(start, k)[r] for k in PER_REPLICA})
+        fr, obs_r = run_steps(make_step_fn(
+            tff, tm, noise=ReplicaJaxNoise(jstate.key, replica=r)), one, 20)
+        for k in ("position", "velocity", "mttk_xi", "mttk_eta"):
+            _close(getattr(final, k)[r], getattr(fr, k).numpy(), TOL_SELF,
+                   f"{r} {k}")
+        for k in OBS_KEYS:
+            _close(obs[k][:, r], obs_r[k], TOL_SELF, f"{r} {k}")
+    mid = _bath_batch(jmid)
+    if bath == "mttk":
+        assert (mid.mttk_xi[:, 0] != 0).all()
+        assert len(torch.unique(final.mttk_xi[:, 0])) == B
+    fin2, obs2 = run_replica_steps(
+        make_step_fn(tff, tm, noise=ReplicaJaxNoise(jstate.key)), mid, 10)
+    for k in ("position", "velocity"):
+        _close(getattr(fin2, k), getattr(jfinal, k), TOL_TRAJ, k)
+    _close(fin2.mttk_xi, jfinal.mttk.xi, TOL_TRAJ, "xi after the carry")
+    for k in OBS_KEYS:
+        _close(obs2[k], jobs[k], TOL_TRAJ, k)
+
+
 # ------------------------------------------------ 4. init_replica_states
 def test_init_replica_states_matches_jax(world):
     jff, tff, ts = world["jff"], world["tff"], world["ts"]

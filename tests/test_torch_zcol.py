@@ -59,6 +59,16 @@ SPEC = (("bussi", "molecular", dict(kT=KT, tau=TAU)),
         ("langevin", "cavity", dict(kT=KT, gamma=GAMMA)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite runs six workers on the machine's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _scene(name, dtype=torch.float64):
     n_mol, box_L, seed = SCENES[name]
     js, ts = scene(n_mol=n_mol, box_L=box_L, seed=seed, jitter=0.0)
