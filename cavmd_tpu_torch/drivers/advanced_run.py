@@ -23,12 +23,15 @@ Differences from the JAX driver:
   ported). Every rank runs the simulation; rank 0 alone writes the input
   GSD, the trackers, the trajectory and the console table.
 - ``--vmap-replicas`` runs the dense force field up to N = 4096 and cell
-  mode above, each kernel once a step for the whole batch; with
-  ``--shard-atoms`` (a batch over slabs) it exits 2 naming
-  ``ROADMAP.md``. Its overflow retry recomputes the chunk's start forces,
-  which the JAX driver keeps.
-- The paths the port does not have yet (``--shard-replicas``,
-  ``--pad-atoms``, a ``--rng-impl`` other than ``auto``) exit with an
+  mode above, each kernel once a step for the whole batch. Its overflow
+  retry recomputes the chunk's start forces, which the JAX driver keeps.
+- ``--shard-replicas R`` (implies ``--vmap-replicas``) splits the batch
+  over R processes (``run_sharded_replicas``), each writing its own
+  replicas' files, in lockstep once a chunk; R ranks may share one card.
+  With ``--shard-atoms`` (a batch over slabs), either batch flag exits 2
+  naming ``ROADMAP.md``.
+- The paths the port does not have yet (``--pad-atoms``, a
+  ``--rng-impl`` other than ``auto``, a batch over slabs) exit with an
   error naming ``ROADMAP.md``; nothing else runs in their place.
 
 Usage:
@@ -39,6 +42,9 @@ Usage:
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
         --shard-atoms 2 --n-molecules 40 --box-L 64 --runtime 0.02
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
+        --shard-replicas 2 --replicas 1-4 --n-molecules 20 --runtime 0.01
 """
 
 from __future__ import annotations
@@ -585,7 +591,7 @@ def coupling_dir(args) -> Path:
     return Path(f"cavity_coupling_{coupling_str}")
 
 
-def run_vmapped_replicas(args, replica_list) -> bool:
+def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
     """Every replica of ``replica_list`` in one batched state on one device
     (port of the JAX driver's ``run_vmapped_replicas``; the batched form
     of the reference's SLURM-array replicas). Its per-replica workflow is
@@ -606,12 +612,31 @@ def run_vmapped_replicas(args, replica_list) -> bool:
     the window 2 blocks wider), the step rebuilt, the random streams set
     back, and the start state's lists and forces rebuilt from its
     positions (the JAX driver keeps the overflowed start forces; ROADMAP.md
-    Queue 3). Returns True when the batch ran to its end."""
+    Queue 3).
+
+    ``comm``: the replica communicator of ``--shard-replicas`` R (R
+    ranks, gloo). Rank k then holds replicas ``[k B/R, (k+1) B/R)`` of the
+    batch of B: thermalized as the one-rank batch's rows
+    (``init_replica_states(first_replica=k B/R)``), stepped with those
+    rows of the batch's noise (``StreamNoise(B, rows)``), with only their
+    files written here; on the GPU rank k takes card k % device_count.
+    Rank 0 alone minimises the generated scene (FIRE) and broadcasts it
+    once every rank has reported its setup sound. Once a chunk the ranks gather every
+    replica's clock, dt and last frame time (and whether each rank is
+    still sound), so every rank trims the chunk as the one-rank batch
+    does and they loop in lockstep until the whole batch is done; an
+    overflow retry stays on its rank (it is exact).
+
+    Returns True when the batch ran to its end on every rank; a failure
+    on any rank, in its setup or later, is reported with its traceback
+    and ends the run on every rank at the next of these gathers (the
+    ranks always meet in the same collectives)."""
     from cavmd_tpu_torch.core.snapshot import add_cavity_particle as inject
     from cavmd_tpu_torch.core.system import make_diatomic_system
     from cavmd_tpu_torch.core.units import PhysicalConstants as PC
     from cavmd_tpu_torch.integrate import (
         ForceField,
+        StreamNoise,
         make_step_fn,
         resolve_methods,
     )
@@ -637,160 +662,218 @@ def run_vmapped_replicas(args, replica_list) -> bool:
     from cavmd_tpu_torch.simulation import retry_state
     from cavmd_tpu_torch.utils import fire_minimize
 
-    dev = setup_device(args.device)
-    precision = args.precision
-    if precision == "auto":
-        precision = "f64" if dev.type == "cpu" else "f32"
-    dtype = torch.float64 if precision == "f64" else torch.float32
-    incavity = not args.no_cavity
-    exp_dir = coupling_dir(args)
-    exp_dir.mkdir(exist_ok=True)
+    n_all = len(replica_list)
+    R, rank = (comm.world_size, comm.rank) if comm is not None else (1, 0)
+    n_rep = n_all // R
+    first = rank * n_rep
+    mine = replica_list[first:first + n_rep]
+    noise = (StreamNoise(n_all, slice(first, first + n_rep))
+             if comm is not None else None)
+    to_ps = PC.TIME_PS_CONVERSION
     cwd = os.getcwd()
-    os.chdir(exp_dir)
+    gsd_files = []
+    ok = True
+    from_input = True
     try:
+        dev = setup_device(args.device)
+        if comm is not None and dev.type == "cuda":  # R ranks, any cards
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        precision = args.precision
+        if precision == "auto":
+            precision = "f64" if dev.type == "cpu" else "f32"
+        dtype = torch.float64 if precision == "f64" else torch.float32
+        incavity = not args.no_cavity
+        exp_dir = coupling_dir(args)
+        exp_dir.mkdir(exist_ok=True)
+        os.chdir(exp_dir)
         # per-replica initial frames: the replica number is the frame index
         # (reference 05_advanced_run.py:1571), clamped for short files
-        if os.path.exists(args.input_gsd):
+        from_input = os.path.exists(args.input_gsd)
+        if from_input:
             with open_gsd(args.input_gsd) as t:
                 nf = len(t)
                 snaps = [t.read_frame(r if 0 <= r < nf else nf - 1,
                                       dtype=dtype, device=dev)
-                         for r in replica_list]
+                         for r in mine]
             print(f"Replica frames seeded from {args.input_gsd} "
                   f"({nf} frames, N={snaps[0].N})")
         else:
             snap0 = make_diatomic_system(
                 args.n_molecules, box_L=resolved_box(args), seed=args.seed,
                 dtype=dtype, device=dev)
-            ff0 = ForceField.create(snap0, enable_cavity=False)
-            snap0 = fire_minimize(snap0, ff0, n_steps=300)
-            snaps = [snap0] * len(replica_list)
-        if incavity:
-            snaps = [
-                inject(s, coupling=args.coupling, freq_cm1=args.frequency,
-                       temperature_K=args.temperature,
-                       finite_q=args.finite_q, seed=args.seed + r + 1)
-                if "L" not in s.types else s
-                for r, s in zip(replica_list, snaps)]
-        snap = snaps[0]
-        ff = ForceField.create(
-            snap, coupling=args.coupling, freq_cm1=args.frequency,
-            enable_cavity=incavity, pppm_mesh=(args.pppm_resolution,) * 3)
-        kT = PC.kT_from_kelvin(args.temperature)
-        methods = [m for m, _ in bath_methods(
-            args.molecular_bath, args.cavity_bath if incavity else None, kT,
-            args.molecular_tau, args.cavity_tau)]
-        methods = resolve_methods(snap, tuple(methods), ff.l_typeid)
-
-        extra = None
-        if args.enable_fkt:
-            wv = (generate_fibonacci_sphere(args.fkt_wavevectors)
-                  * args.fkt_kmag)
-            extra = make_extra_obs(dipole=True, wavevectors=wv)
-
-        # adaptive dt inside the batch (each replica carries its own dt and
-        # tolerance ramp), as in the sequential path
-        error_tolerance = 0.0 if args.fixed_timestep else 1.0
-        dt_ps_nominal = (0.0001 if error_tolerance > 0
-                         else args.timestep / 1000.0)
-        chunk = 500
-
-        def build_step(ff_):
-            s_ = make_step_fn(ff_, methods, extra_obs=extra)
-            if error_tolerance > 0:
-                adaptive_period = max(1, int(args.energy_output_period_ps
-                                             / dt_ps_nominal))
-                s_ = make_adaptive_step(s_, error_tolerance=error_tolerance,
-                                        period=min(adaptive_period, chunk))
-            return s_
-
-        step = build_step(ff)
-
-        n_rep = len(replica_list)
-        dt = PC.fs_to_atomic_units(args.timestep if args.fixed_timestep
-                                   else 0.1)
-        batched = init_replica_states(
-            snaps, ff, dt=dt, seed=args.seed, kT=kT,
-            error_tolerance=error_tolerance)
-        if error_tolerance > 0:
-            # per-replica optimal-dt bootstrap (reference Phase 3.5,
-            # 05_advanced_run.py:756-819) from each replica's forces
-            dts = compute_optimal_dt(batched.forces, batched.mass,
-                                     error_tolerance * 1e-3)
-            batched = batched.replace(dt=dts.to(dtype))
-
-        tid = snap.typeid.cpu().numpy()
-        n_dof = 3 * int(np.sum(tid != ff.l_typeid))
-        energy_period = max(1, int(args.energy_output_period_ps
-                                   / dt_ps_nominal))
-        fkt_period = max(1, int(args.fkt_output_period_ps / dt_ps_nominal))
-        trackers = []  # per replica: its tracker list
-        for r in replica_list:
-            per_rep = [EnergyTracker(
-                output_prefix=f"prod-{r}",
-                output_period_steps=energy_period, n_molecular_dof=n_dof)]
+            if rank == 0:  # the other ranks take rank 0's minimum below
+                ff0 = ForceField.create(snap0, enable_cavity=False)
+                snap0 = fire_minimize(snap0, ff0, n_steps=300)
+            snaps = [snap0] * n_rep
+    except Exception:  # noqa: BLE001 — reported, and every rank stops
+        ok = _report_failure(rank)
+    if comm is not None:
+        # every rank sound before the scene's broadcast: a rank that failed
+        # above must not leave the others waiting in a collective
+        ok = bool(comm.stack(torch.tensor([float(ok)],
+                                          dtype=torch.float64)).min())
+        if ok and not from_input:  # rank 0's minimum on every rank
+            snaps = [snaps[0].replace(**{
+                k: comm.broadcast(getattr(snaps[0], k).cpu()).to(dev)
+                for k in ("position", "image")})] * n_rep
+    if ok:
+        try:
             if incavity:
-                per_rep.append(CavityModeTracker(
-                    output_prefix=f"prod-{r}",
-                    output_period_steps=energy_period))
+                snaps = [
+                    inject(s, coupling=args.coupling,
+                           freq_cm1=args.frequency,
+                           temperature_K=args.temperature,
+                           finite_q=args.finite_q, seed=args.seed + r + 1)
+                    if "L" not in s.types else s
+                    for r, s in zip(mine, snaps)]
+            snap = snaps[0]
+            ff = ForceField.create(
+                snap, coupling=args.coupling, freq_cm1=args.frequency,
+                enable_cavity=incavity,
+                pppm_mesh=(args.pppm_resolution,) * 3)
+            kT = PC.kT_from_kelvin(args.temperature)
+            methods = [m for m, _ in bath_methods(
+                args.molecular_bath, args.cavity_bath if incavity else None,
+                kT, args.molecular_tau, args.cavity_tau)]
+            methods = resolve_methods(snap, tuple(methods), ff.l_typeid)
+
+            extra = None
             if args.enable_fkt:
-                per_rep.append(FieldAutocorrelationTracker(
+                wv = (generate_fibonacci_sphere(args.fkt_wavevectors)
+                      * args.fkt_kmag)
+                extra = make_extra_obs(dipole=True, wavevectors=wv)
+
+            # adaptive dt inside the batch (each replica carries its own dt
+            # and tolerance ramp), as in the sequential path
+            error_tolerance = 0.0 if args.fixed_timestep else 1.0
+            dt_ps_nominal = (0.0001 if error_tolerance > 0
+                             else args.timestep / 1000.0)
+            chunk = 500
+
+            def build_step(ff_):
+                s_ = make_step_fn(ff_, methods, extra_obs=extra, noise=noise)
+                if error_tolerance > 0:
+                    adaptive_period = max(1, int(args.energy_output_period_ps
+                                                 / dt_ps_nominal))
+                    s_ = make_adaptive_step(
+                        s_, error_tolerance=error_tolerance,
+                        period=min(adaptive_period, chunk))
+                return s_
+
+            step = build_step(ff)
+
+            dt = PC.fs_to_atomic_units(args.timestep if args.fixed_timestep
+                                       else 0.1)
+            batched = init_replica_states(
+                snaps, ff, dt=dt, seed=args.seed, kT=kT,
+                error_tolerance=error_tolerance, first_replica=first)
+            if error_tolerance > 0:
+                # per-replica optimal-dt bootstrap (reference Phase 3.5,
+                # 05_advanced_run.py:756-819) from each replica's forces
+                dts = compute_optimal_dt(batched.forces, batched.mass,
+                                         error_tolerance * 1e-3)
+                batched = batched.replace(dt=dts.to(dtype))
+
+            tid = snap.typeid.cpu().numpy()
+            n_dof = 3 * int(np.sum(tid != ff.l_typeid))
+            energy_period = max(1, int(args.energy_output_period_ps
+                                       / dt_ps_nominal))
+            fkt_period = max(1, int(args.fkt_output_period_ps / dt_ps_nominal))
+            trackers = []  # per replica: its tracker list
+            for r in mine:
+                per_rep = [EnergyTracker(
                     output_prefix=f"prod-{r}",
-                    output_period_steps=fkt_period,
-                    reference_interval_ps=args.fkt_ref_interval,
-                    max_references=args.fkt_max_refs))
-                per_rep.append(DipoleAutocorrelation(
-                    output_prefix=f"prod-{r}_dipole_autocorr",
-                    output_period_steps=fkt_period))
-            trackers.append(per_rep)
+                    output_period_steps=energy_period, n_molecular_dof=n_dof)]
+                if incavity:
+                    per_rep.append(CavityModeTracker(
+                        output_prefix=f"prod-{r}",
+                        output_period_steps=energy_period))
+                if args.enable_fkt:
+                    per_rep.append(FieldAutocorrelationTracker(
+                        output_prefix=f"prod-{r}",
+                        output_period_steps=fkt_period,
+                        reference_interval_ps=args.fkt_ref_interval,
+                        max_references=args.fkt_max_refs))
+                    per_rep.append(DipoleAutocorrelation(
+                        output_prefix=f"prod-{r}_dipole_autocorr",
+                        output_period_steps=fkt_period))
+                trackers.append(per_rep)
 
-        # per-replica periodic trajectories with log/* chunks a frame; a
-        # replica past --runtime writes its final frame at the crossing
-        # chunk's end and goes quiet
-        gsd_files = [HOOMDTrajectory(f"prod-{r}.gsd", "w")
-                     for r in replica_list]
-        last_gsd_ps = np.full(n_rep, -1e30)
-        finished = np.zeros(n_rep, dtype=bool)
-        to_ps = PC.TIME_PS_CONVERSION
+            # per-replica periodic trajectories with log/* chunks a frame; a
+            # replica past --runtime writes its final frame at the crossing
+            # chunk's end and goes quiet
+            gsd_files = [HOOMDTrajectory(f"prod-{r}.gsd", "w") for r in mine]
+            last_gsd_ps = np.full(n_rep, -1e30)
+            finished = np.zeros(n_rep, dtype=bool)
 
-        def write_frames(state):
-            pos, img, vel = (state.position.cpu(), state.image.cpu(),
-                             state.velocity.cpu())
-            ts = state.timestep.cpu().numpy()
-            dts = state.dt.cpu().numpy()
-            el = state.time_au.cpu().numpy() * to_ps
-            for k in range(n_rep):
-                if finished[k]:
-                    continue
-                crossing = el[k] >= args.runtime and ts[k] > 0
-                if crossing or (el[k] - last_gsd_ps[k]
-                                >= args.gsd_output_period_ps):
-                    gsd_files[k].append(
-                        snaps[k].replace(position=pos[k], image=img[k],
-                                         velocity=vel[k]),
-                        step=int(ts[k]),
-                        log_data=gather_tracker_log(trackers[k], el[k],
-                                                    dts[k]))
-                    last_gsd_ps[k] = el[k]
-                if crossing:
-                    finished[k] = True
+            def write_frames(state):
+                pos, img, vel = (state.position.cpu(), state.image.cpu(),
+                                 state.velocity.cpu())
+                ts = state.timestep.cpu().numpy()
+                dts = state.dt.cpu().numpy()
+                el = state.time_au.cpu().numpy() * to_ps
+                for k in range(n_rep):
+                    if finished[k]:
+                        continue
+                    crossing = el[k] >= args.runtime and ts[k] > 0
+                    if crossing or (el[k] - last_gsd_ps[k]
+                                    >= args.gsd_output_period_ps):
+                        gsd_files[k].append(
+                            snaps[k].replace(position=pos[k], image=img[k],
+                                             velocity=vel[k]),
+                            step=int(ts[k]),
+                            log_data=gather_tracker_log(trackers[k], el[k],
+                                                        dts[k]))
+                        last_gsd_ps[k] = el[k]
+                    if crossing:
+                        finished[k] = True
 
-        write_frames(batched)  # initial frames
-        t0 = time.time()
-        while True:
-            elapsed = batched.time_au.cpu().numpy() * to_ps
-            remaining = args.runtime - elapsed
-            if (remaining <= 0).all():
-                break
+            write_frames(batched)  # initial frames
+        except Exception:  # noqa: BLE001 — reported, and every rank stops
+            ok = _report_failure(rank)
+
+    def batch_clocks():
+        """(all sound, every replica's time_au, dt and last frame time):
+        this rank's replicas, or with ``comm`` the whole batch's in
+        replica order, gathered once in one float64 vector (the clocks
+        come back to the state's dtype exactly)."""
+        if ok:
+            own = np.concatenate([[1.0], batched.time_au.cpu().numpy(),
+                                  batched.dt.cpu().numpy(), last_gsd_ps])
+        else:
+            own = np.zeros(1 + 3 * n_rep)
+        if comm is not None:
+            own = comm.stack(torch.from_numpy(own)).numpy()
+        rows = own.reshape(-1, 1 + 3 * n_rep)
+        if not rows[:, 0].all():
+            return False, None, None, None
+        cols = rows[:, 1:].reshape(-1, 3, n_rep).transpose(1, 0, 2)
+        cols = cols.reshape(3, -1)
+        clock_dtype = batched.time_au.cpu().numpy().dtype
+        return (True, cols[0].astype(clock_dtype),
+                cols[1].astype(clock_dtype), cols[2])
+
+    t0 = time.time()
+    while True:
+        sound, time_au, dt_au, last_all = batch_clocks()
+        if not sound:
+            ok = False
+            break
+        elapsed = time_au * to_ps
+        remaining = args.runtime - elapsed
+        if (remaining <= 0).all():
+            break
+        try:
             # trim the chunk to the slowest unfinished clock (no replica
-            # overshoots --runtime by more than ~1 step) and to the next GSD
-            # frame (frames are written at chunk ends)
-            dt_ps = batched.dt.cpu().numpy() * to_ps
+            # overshoots --runtime by more than ~1 step) and to the next
+            # GSD frame (frames are written at chunk ends)
+            dt_ps = dt_au * to_ps
             live = remaining > 0
             safe_dt = np.maximum(dt_ps[live], 1e-30)
             est = int(np.ceil((remaining[live] / safe_dt).min()))
             till_gsd = np.maximum(
-                (last_gsd_ps + args.gsd_output_period_ps - elapsed)[live], 0.0)
+                (last_all + args.gsd_output_period_ps - elapsed)[live], 0.0)
             est_gsd = int(np.ceil((till_gsd / safe_dt).min()))
             n_next = min(chunk, max(1, est), max(1, est_gsd))
             pre_chunk = batched
@@ -831,18 +914,43 @@ def run_vmapped_replicas(args, replica_list) -> bool:
                 for tr in per_rep:
                     tr.consume(o)
             write_frames(batched)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.time() - t0
-        steps = int(batched.step)
-        print(f"vmapped {n_rep} replicas x {steps} steps in {wall:.1f}s "
-              f"({n_rep * steps / max(wall, 1e-9):.0f} aggregate steps/s)")
-        write_frames(batched)  # final frames of replicas not yet closed
+        except Exception:  # noqa: BLE001 — reported at the next gather
+            ok = _report_failure(rank)
+    try:
+        if ok:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall = time.time() - t0
+            steps = int(batched.step)
+            write_frames(batched)  # final frames of replicas not yet closed
         for f in gsd_files:
             f.close()
-        return True
+    except Exception:  # noqa: BLE001
+        ok = _report_failure(rank)
     finally:
         os.chdir(cwd)
+    # one gather at the end: every rank's soundness and wall time
+    end = torch.tensor([float(ok), wall if ok else 0.0], dtype=torch.float64)
+    if comm is not None:
+        end = comm.stack(end)
+    end = end.reshape(-1, 2).numpy()
+    if not end[:, 0].all():
+        return False
+    wall = float(end[:, 1].max())
+    on = f" on {R} ranks" if R > 1 else ""
+    print(f"vmapped {n_all} replicas x {steps} steps in {wall:.1f}s "
+          f"({n_all * steps / max(wall, 1e-9):.0f} aggregate steps/s){on}")
+    return True
+
+
+def _report_failure(rank: int) -> bool:
+    """Print the current exception's traceback (with the rank) to stderr;
+    returns False (the rank is no longer sound)."""
+    import traceback
+
+    print(f"error on replica rank {rank}:\n{traceback.format_exc()}",
+          file=sys.stderr)
+    return False
 
 
 def unported_flags(args) -> list:
@@ -853,15 +961,14 @@ def unported_flags(args) -> list:
     gspmd = ('not ported to cavmd_tpu_torch (see ROADMAP.md, "Not queued '
              f'this round", GSPMD pieces); {jax_cli}')
     out = []
-    if args.vmap_replicas and args.shard_atoms > 1:
+    if args.shard_atoms > 1 and (args.vmap_replicas
+                                 or args.shard_replicas > 1):
         from cavmd_tpu_torch.integrate.forcefield import BATCHED_CELL_TODO
 
-        out.append(f"--vmap-replicas with --shard-atoms: {BATCHED_CELL_TODO}"
-                   f"; {jax_cli}")
-    if args.shard_replicas:
-        out.append("--shard-replicas: sharded replicas are not ported to "
-                   "cavmd_tpu_torch yet (see ROADMAP.md, Queue 1, replicas "
-                   f"over ranks); {jax_cli}")
+        flag = ("--shard-replicas" if args.shard_replicas > 1
+                else "--vmap-replicas")
+        out.append(f"{flag} with --shard-atoms: {BATCHED_CELL_TODO}; "
+                   f"{jax_cli}")
     if args.pad_atoms:
         out.append(f"--pad-atoms: ghost padding is {gspmd}")
     if args.rng_impl != "auto":
@@ -916,7 +1023,11 @@ def build_parser():
                              "on one device (dense force field up to "
                              "N = 4096, cell mode above)")
     parser.add_argument("--shard-replicas", type=int, default=0,
-                        help="not ported yet (ROADMAP.md)")
+                        help="split the --replicas batch over this many "
+                             "ranks (implies --vmap-replicas; one process "
+                             "each, started by python -m "
+                             "torch.distributed.run --nproc-per-node R; R "
+                             "ranks may share one card)")
     parser.add_argument("--shard-atoms", type=int, default=0,
                         help="run the slab domain pipeline on this many "
                              "ranks (one process each, started by python "
@@ -970,13 +1081,16 @@ def init_ranks(args) -> bool:
 def main(argv=None):
     """Parity: reference main() (05_advanced_run.py:1441-1632). Returns 0
     when every replica succeeded, 1 when one failed, 2 for a flag whose
-    path is not ported."""
+    path is not ported or ranks that do not fit the flags (checked before
+    any work)."""
     args = build_parser().parse_args(argv)
     unported = unported_flags(args)
     if unported:
         for msg in unported:
             print(f"error: {msg}", file=sys.stderr)
         return 2
+    if args.shard_replicas > 1:
+        return run_sharded_replicas(args)
     if args.shard_atoms <= 1:
         return run_replicas(args)
     import torch.distributed as dist
@@ -1000,23 +1114,79 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def run_replicas(args):
+def replica_list_of(args) -> list:
+    """The replicas of this run: the SLURM array task's, else
+    ``--replicas``."""
+    task_id, _ = get_slurm_info()
+    return [task_id] if task_id is not None else parse_replicas(args.replicas)
+
+
+def run_sharded_replicas(args) -> int:
+    """``--shard-replicas R``: the batch of ``--replicas`` over R ranks,
+    each running its slice through ``run_vmapped_replicas`` (the JAX
+    driver's (replica x atoms) mesh at one atom shard,
+    ``cavmd_tpu/drivers/advanced_run.py:641-666``). The ranks come from
+    ``python -m torch.distributed.run --nproc-per-node R``, an initialised
+    process group, or ``parallel/launch.py:run_ranks``; the group's
+    collectives are small host arrays over gloo, so on the GPU rank k
+    takes card k % device_count and R ranks may share one card. Checked
+    before any work: B divisible by R, and a world of R ranks (else 2).
+    Rank 0 alone prints; 1 when any rank failed."""
+    import torch.distributed as dist
+
+    from cavmd_tpu_torch.parallel import Communicator
+
+    R = args.shard_replicas
+    n_all = len(replica_list_of(args))
+    if n_all % R:
+        print(f"error: {n_all} replicas not divisible by --shard-replicas "
+              f"{R}", file=sys.stderr)
+        return 2
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        print(f"error: --shard-replicas {R} runs one process per slice of "
+              "the batch: start it with python -m torch.distributed.run "
+              f"--nproc-per-node {R}", file=sys.stderr)
+        return 2
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo")
+    try:
+        if dist.get_world_size() != R:
+            print(f"error: --shard-replicas {R} in a process group of "
+                  f"{dist.get_world_size()} ranks", file=sys.stderr)
+            return 2
+        comm = Communicator.from_process_group()
+        if comm.rank == 0:
+            return run_replicas(args, comm)
+        with open(os.devnull, "w") as quiet:  # rank 0 alone reports
+            with contextlib.redirect_stdout(quiet):
+                return run_replicas(args, comm)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def run_replicas(args, comm=None):
     """Run every replica of ``args`` (one after another, or as one batch
-    with ``--vmap-replicas``); 0 when all succeeded, else 1."""
+    with ``--vmap-replicas``; with ``comm``, the ``--shard-replicas``
+    communicator, as a batch over its ranks); 0 when all succeeded, else
+    1."""
     print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
     print("=" * 50)
 
     task_id, job_id = get_slurm_info()
+    replica_list = replica_list_of(args)
     if task_id is not None:
-        replica_list = [task_id]
         print(f"SLURM array job detected: Task {task_id} (Job {job_id})")
     else:
-        replica_list = parse_replicas(args.replicas)
         print(f"Local execution: Replicas {replica_list}")
+    if comm is not None:
+        print(f"Sharded replicas: {comm.world_size} ranks, "
+              f"{len(replica_list) // comm.world_size} replicas each")
 
     start = time.time()
-    if args.vmap_replicas:
-        success = run_vmapped_replicas(args, replica_list)
+    if args.vmap_replicas or comm is not None:
+        success = run_vmapped_replicas(args, replica_list, comm)
         print(f"\nvmapped batch: {'SUCCESS' if success else 'FAILED'}")
         print(f"Wall time: {time.time() - start:.2f} seconds")
         return 0 if success else 1

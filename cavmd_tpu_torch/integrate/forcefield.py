@@ -74,8 +74,9 @@ ENERGY_KEYS = (
 )
 DENSE_MAX_N = 4096
 BATCHED_CELL_TODO = (
-    "a replica batch over slabs (the slab domain pipeline on a replica "
-    "axis) is not ported yet (ROADMAP.md, Queue 1, replicas over ranks)")
+    "a replica batch over slabs (the slab step over a replica axis, K7 "
+    "with per-replica tables) is not ported yet (ROADMAP.md, Queue 1, a "
+    "replica batch over slabs)")
 
 
 class ForceField(nn.Module):

@@ -266,30 +266,81 @@ def init_state(snapshot: Snapshot, ff: ForceField, *, dt: float,
 class StreamNoise:
     """The default noise source: draws from the state's per-stream
     generators. A replacement (for example one that hands in another
-    package's draws) implements the same two methods."""
+    package's draws) implements the same three methods.
+
+    With ``full_batch`` and ``rows`` it gives the draws of rows ``rows``
+    (a slice) of a batch of ``full_batch`` replicas to a state that holds
+    only those rows (replicas over ranks: ``--shard-replicas`` and
+    ``make_domain_runner(n_replicas=)``): each stream is drawn at the full
+    batch's shape from the state's generators (the full batch's, seeded
+    alike) and the slice's rows are kept, so a slice steps with the noise
+    the full batch gives those replicas. A one-replica state (batch shape
+    ()) takes a one-row slice squeezed (the slab runner's replica). Cost:
+    every rank draws the whole batch. A Bussi draw is (2, B), the exact
+    chi-square below a shape of 30 (B, dof - 1), the photon's Langevin
+    (B, 1, 3): small beside a step. A molecular Langevin or Brownian bath
+    draws (B, N, 3) a stream on every rank, R times the work of the
+    slice's own draws.
+    """
+
+    def __init__(self, full_batch: int | None = None,
+                 rows: slice | None = None):
+        if (full_batch is None) != (rows is None):
+            raise ValueError("give full_batch and rows together")
+        if rows is not None:
+            start, stop, step = rows.indices(full_batch)
+            if step != 1 or stop <= start:
+                raise ValueError(f"rows {rows} is not a slice of a "
+                                 f"{full_batch}-replica batch")
+            rows = slice(start, stop)
+        self.full_batch = full_batch
+        self.rows = rows
+
+    def _batch(self, state: MDState) -> tuple:
+        """The leading shape of a draw: the state's batch shape, or the
+        full batch's."""
+        if self.rows is None:
+            return state.batch_shape
+        return (self.full_batch,)
+
+    def _keep(self, state: MDState, x):
+        """The state's rows of the draw ``x``, shaped as its batch."""
+        if self.rows is None:
+            return x
+        batch = state.batch_shape
+        want = self.rows.stop - self.rows.start
+        if (batch[0] if batch else 1) != want:
+            raise ValueError(f"a state of batch shape {batch} for the "
+                             f"{want} rows {self.rows}")
+        return x[self.rows].reshape(batch + x.shape[1:])
+
+    def _randn(self, state: MDState, gen, shape):
+        """Standard-normal draws of ``shape`` (the state's batch shape
+        leading), drawn at the leading shape of ``_batch``."""
+        shape = self._batch(state) + tuple(shape)[len(state.batch_shape):]
+        return self._keep(state, torch.randn(
+            shape, generator=gen, dtype=state.position.dtype,
+            device=state.device))
 
     def bussi(self, state: MDState, i: int, m: MethodSpec):
         """(r1, r_gamma) for Bussi method ``i``, each of the state's batch
         shape (one draw call for every replica)."""
-        return bussi_noise(state.generator(STREAM_BUSSI, i), m.dof,
-                           state.position.dtype, state.device,
-                           state.batch_shape)
+        r1, r_gamma = bussi_noise(state.generator(STREAM_BUSSI, i), m.dof,
+                                  state.position.dtype, state.device,
+                                  self._batch(state))
+        return self._keep(state, r1), self._keep(state, r_gamma)
 
     def langevin(self, state: MDState, i: int, m: MethodSpec, shape):
         """Standard-normal draws of ``shape`` (the batch shape leading) for
         Langevin method ``i``."""
-        return torch.randn(shape, generator=state.generator(
-            STREAM_LANGEVIN, i), dtype=state.position.dtype,
-            device=state.device)
+        return self._randn(state, state.generator(STREAM_LANGEVIN, i), shape)
 
     def brownian(self, state: MDState, i: int, m: MethodSpec):
         """Two (..., N, 3) standard-normal draws for Brownian method ``i``:
         the position noise, then the velocity resample."""
         gen = state.generator(STREAM_BROWNIAN, i)
-        shape = state.position.shape
-        return tuple(torch.randn(shape, generator=gen,
-                                 dtype=state.position.dtype,
-                                 device=state.device) for _ in range(2))
+        return tuple(self._randn(state, gen, state.position.shape)
+                     for _ in range(2))
 
 
 def _set_at(x, slot: int, value, add: bool):

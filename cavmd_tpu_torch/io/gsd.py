@@ -4,8 +4,11 @@ schema.
 Port of ``cavmd_tpu/io/gsd.py`` (the port's own copy; NumPy on the host):
 the same on-disk format, so files move between the two packages. Frames
 are read into port ``Snapshot``s on the requested device and written from
-snapshots on any device. The JAX package's optional native writer is not
-part of the port.
+snapshots on any device. In write mode ``HOOMDTrajectory`` writes in
+Python unless given ``prefer_native=True``: then through the C++ codec of
+``io/native.py`` (the same bytes; Python without ``g++``). The JAX package
+prefers the codec; here it is opt-in, as it wrote an N = 100,001 frame
+slower than Python on the card's host (``PERF.md``).
 
 File layout (GSD v1):
   header(256B): magic, index_location, index_allocated_entries,
@@ -271,8 +274,18 @@ class HOOMDTrajectory:
     frame-0 default inheritance for static chunks.
     """
 
-    def __init__(self, path, mode="r"):
-        self.file = GSDFile(path, mode)
+    def __init__(self, path, mode="r", prefer_native=False):
+        self.file = None
+        if mode == "w" and prefer_native:
+            # the C++ codec (same bytes), opt-in: it wrote an N = 100,001
+            # frame slower than the Python writer (PERF.md, phase 14c of
+            # chip_smoke.py); Python without g++
+            from cavmd_tpu_torch.io.native import NativeGSDWriter, load
+
+            if load() is not None:
+                self.file = NativeGSDWriter(path)
+        if self.file is None:
+            self.file = GSDFile(path, mode)
 
     def __len__(self):
         return self.file.nframes

@@ -4,9 +4,10 @@ Port of ``cavmd_tpu/observe/trackers.py`` (the port's own copy; NumPy
 only). The step computes everything on the device and the host receives
 small per-step arrays once per chunk. Output files keep the JAX package's
 names, header lines and number formats, so downstream analysis scripts
-read either package's output. The JAX ``EnergyTracker`` formats its text
-through the native library when it can; the port always uses the Python
-formatting of the JAX package's fallback, which gives the same bytes.
+read either package's output. ``EnergyTracker`` formats each chunk's rows
+through the native library (``io/native.py:format_table``) and in Python
+only where there is no ``g++``, as the JAX package does; both give the
+same bytes.
 """
 
 from __future__ import annotations
@@ -139,15 +140,20 @@ class EnergyTracker(BaseTracker):
             mol_res[idx], cav_res[idx], (mol_res + cav_res)[idx],
             universe[idx], temperature[idx],
         ])
-        lines = []
-        for row in table:
-            lines.append(
-                " ".join(
-                    str(int(v)) if j == 1 else f"{v:.6f}"
-                    for j, v in enumerate(row)
+        # the whole chunk in one pass of the native formatter
+        from cavmd_tpu_torch.io.native import format_table
+
+        text = format_table(table, decimals=6, int_col=1)
+        if text is None:
+            lines = []
+            for row in table:
+                lines.append(
+                    " ".join(
+                        str(int(v)) if j == 1 else f"{v:.6f}"
+                        for j, v in enumerate(row)
+                    )
                 )
-            )
-        text = "\n".join(lines) + "\n"
+            text = "\n".join(lines) + "\n"
         with open(self.path, "a") as f:
             f.write(text)
         # retain the last row for logger integration

@@ -14,6 +14,8 @@ three operations:
   one collective;
 - ``all_gather(t)``: the rows of every rank, rank by rank (the scatter-out
   of a chunk);
+- ``stack(t)``: every rank's tensor on a new leading axis, through CPU
+  copies (the replica axis's end-of-run gather);
 - ``broadcast(t)``: rank 0's tensor on every rank (a value computed
   alike on every rank whose bits may still differ, such as a sum of
   floating-point atomics on different cards, is made replicated so).
@@ -23,6 +25,14 @@ the sums are the identity, so S = 1 runs exactly the S > 1 program.
 Otherwise the operations go through a process group: gloo for CPU
 tensors, NCCL for CUDA tensors. A sum returns the same bits on every rank,
 so values built from sums stay replicated.
+
+:func:`grid_communicators` cuts a world of R x S ranks into R replicas of
+S slabs (the JAX package's 2-D ('replica', 'atoms') mesh): the slab
+communicator of a rank holds the S ranks of its replica, its replica
+communicator the R ranks of its slab index. The replica axis carries
+small host arrays only (clocks once a chunk, the states and observables
+at the end of a run), so it is a gloo group and takes CPU tensors, and R
+ranks can share one card; the slab axis keeps the world's backend.
 """
 
 from __future__ import annotations
@@ -119,6 +129,15 @@ class Communicator:
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.cat(parts)
 
+    def stack(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked on a new leading axis, in rank order
+        (``t[None]`` at world size 1). The exchange goes through CPU
+        copies, as the replica axis's gloo group takes them; the result
+        is on ``t``'s device."""
+        if self.world_size == 1:
+            return t[None]
+        return self.all_gather(t.detach().cpu()[None]).to(t.device)
+
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank."""
         if self.world_size == 1:
@@ -134,3 +153,40 @@ class Communicator:
             import torch.distributed as dist
 
             dist.barrier(group=self.group)
+
+
+def grid_communicators(n_replicas: int, n_slabs: int):
+    """(replica, slab) communicators of this rank in the default process
+    group cut into ``n_replicas`` x ``n_slabs`` ranks: world rank g is
+    replica g // S, slab g % S. Every rank creates every subgroup, in the
+    same order, as ``new_group`` requires. An axis of size 1 needs no
+    group (a world-size-1 communicator). Raises ``ValueError`` when the
+    world size is not R x S."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "torch.distributed is not initialised: a grid of "
+            f"{n_replicas} replicas x {n_slabs} slabs needs "
+            f"{n_replicas * n_slabs} ranks in a process group")
+    R, S = int(n_replicas), int(n_slabs)
+    world = dist.get_world_size()
+    if world != R * S:
+        raise ValueError(f"{R} replicas x {S} slabs need {R * S} ranks; "
+                         f"the process group has {world}")
+    g = dist.get_rank()
+    r, s = divmod(g, S)
+    replica = slab = None
+    if R > 1:  # the replica axis: gloo, CPU tensors
+        for j in range(S):
+            grp = dist.new_group([i * S + j for i in range(R)],
+                                 backend="gloo")
+            if j == s:
+                replica = Communicator(r, R, grp)
+    if S > 1:  # the slab axis: the world's backend
+        for i in range(R):
+            grp = dist.new_group([i * S + j for j in range(S)])
+            if i == r:
+                slab = Communicator(s, S, grp)
+    return (replica if replica is not None else Communicator(),
+            slab if slab is not None else Communicator())

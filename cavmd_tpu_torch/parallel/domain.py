@@ -85,7 +85,8 @@ from cavmd_tpu_torch.ops.neighbor import (
 )
 from cavmd_tpu_torch.ops.pppm import mesh_energy
 from cavmd_tpu_torch.ops.pppm_kernels import interpolate_grad, spread_grid
-from cavmd_tpu_torch.parallel.comm import Communicator
+from cavmd_tpu_torch.parallel.comm import Communicator, grid_communicators
+from cavmd_tpu_torch.parallel.replicas import PER_REPLICA, replica_rows
 
 
 class DomainPlan(NamedTuple):
@@ -1026,7 +1027,8 @@ def _scatter_out(state, data: DomainData, loc: LocalState, rep,
 def make_domain_runner(ff, methods, plan: DomainPlan,
                        comm: Communicator | None = None, *,
                        rebuild_every: int = 20, adaptive=None,
-                       obs_spec=None, noise=None):
+                       obs_spec=None, noise=None, n_replicas: int = 1,
+                       replica_comm: Communicator | None = None):
     """``run(state, n_steps) -> (state, obs)`` over the slabs: the
     counterpart of ``integrator.run_steps(make_step_fn(...), ...)`` with
     the same observables (NumPy columns, one host copy per call) plus
@@ -1040,11 +1042,38 @@ def make_domain_runner(ff, methods, plan: DomainPlan,
     Either way the returned state must be discarded (``Simulation.run``
     retries the chunk). ``comm`` is the world-size-1 communicator when
     None; its world size must be ``plan.S``.
+
+    ``n_replicas`` = R is the JAX runner's replicas x slabs mesh
+    (``cavmd_tpu/parallel/domain.py:1486-1540``) on R x S ranks: the state
+    is a batch of exactly R replicas (``init_replica_states``), and rank
+    (r, s) runs replica r's slab s through the one-replica runner, its
+    sums over ``comm`` (the S slabs of replica r) only, drawing replica
+    r's rows of the batch's noise (``StreamNoise(R, r:r+1)`` unless
+    ``noise`` is given). At the end of ``run`` the replicas' leaves and
+    observables are gathered over ``replica_comm`` (the R ranks of slab
+    s), and every rank returns the batched state and observables of shape
+    (steps, R, ...), the ``run_replica_steps`` convention (a batch of one
+    replica at R = 1 too). With R > 1 and neither
+    communicator given, both come from the default process group
+    (``comm.grid_communicators``). Raises ``ValueError`` when the slab
+    communicator and the plan, or the replica communicator and R, or the
+    batch and R disagree.
     """
+    if n_replicas > 1 and comm is None and replica_comm is None:
+        replica_comm, comm = grid_communicators(n_replicas, plan.S)
     comm = comm if comm is not None else Communicator()
     if comm.world_size != plan.S:
         raise ValueError(f"the communicator has {comm.world_size} ranks, "
                          f"the plan {plan.S} slabs")
+    replica_comm = (replica_comm if replica_comm is not None
+                    else Communicator())
+    if replica_comm.world_size != n_replicas:
+        raise ValueError(
+            f"the replica communicator has {replica_comm.world_size} "
+            f"ranks, the runner n_replicas={n_replicas}")
+    if n_replicas > 1 and noise is None:
+        r = replica_comm.rank
+        noise = StreamNoise(n_replicas, slice(r, r + 1))
     step = make_domain_step(ff, methods, plan, comm, adaptive=adaptive,
                             obs_spec=obs_spec, noise=noise)
 
@@ -1074,4 +1103,25 @@ def make_domain_runner(ff, methods, plan: DomainPlan,
                                     state.step + 1, dtype=np.int64)
         return state, out
 
-    return run
+    def run_replicas(batch, n_steps: int):
+        if batch.batch_shape != (n_replicas,):
+            raise ValueError(
+                f"a state of batch shape {batch.batch_shape} for a runner "
+                f"of n_replicas={n_replicas}: give a batch of exactly "
+                f"{n_replicas} replicas (init_replica_states)")
+        if n_steps < 1:
+            return batch, {}
+        final, obs = run(replica_rows(batch, replica_comm.rank), n_steps)
+        stacked = batch.replace(step=final.step, **{
+            k: replica_comm.stack(getattr(final, k)) for k in PER_REPLICA})
+        # (R, steps, ...) -> (steps, R, ...)
+        return stacked, {k: np.moveaxis(replica_comm.stack(
+            torch.from_numpy(np.ascontiguousarray(v))).numpy(), 0, 1)
+            for k, v in obs.items()}
+
+    def dispatch(state, n_steps: int):
+        if n_replicas == 1 and not state.batch_shape:
+            return run(state, n_steps)
+        return run_replicas(state, n_steps)
+
+    return dispatch

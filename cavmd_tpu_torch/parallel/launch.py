@@ -15,6 +15,12 @@ comparison. It is the CPU dry run of an S-slab program::
 
     from cavmd_tpu_torch.parallel.launch import run_ranks, slab_dryrun
     runs = run_ranks([(slab_dryrun, {})], 2)
+
+``replicas_x_slabs_dryrun`` runs a batch of R replicas through
+``make_domain_runner(n_replicas=R)`` on R x S ranks, and without a
+process group through ``run_replica_steps`` (its reference). The
+multi-process dry run (``cavmd_tpu_torch/dryrun.py``) holds it against
+its reference.
 """
 
 from __future__ import annotations
@@ -143,3 +149,90 @@ def slab_dryrun(*, cap=None, error_tolerance=0.0, wavevectors=None,
         obs={k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]},
         cap=None if plan is None else plan.cap,
         rebuild_every=None if plan is None else sim._domain_rebuild_every)
+
+
+def _dryrun_scene(n_molecules, box_L, r_cut, pppm):
+    """The seeded float64 diatomic scene of the dry runs (100 K, the
+    photon at 2000 cm^-1 and coupling 1e-3, cell mode) with Bussi 100 K
+    tau 5 ps on the molecules and Langevin tau 5 ps on the photon:
+    (snapshot, force field, resolved methods, kT)."""
+    import torch
+
+    import cavmd_tpu_torch as pt
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+
+    snap = pt.make_diatomic_system(n_molecules, box_L=box_L,
+                                   temperature_K=100.0, seed=0,
+                                   dtype=torch.float64, device="cpu")
+    snap = pt.add_cavity_particle(snap, coupling=1e-3, freq_cm1=2000.0,
+                                  temperature_K=100.0, seed=1)
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              r_cut=r_cut, pair_mode="cell",
+                              pppm_mesh=pppm)
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, (
+        pt.MethodSpec("bussi", "molecular", kT=kT,
+                      tau=PC.ps_to_atomic_units(5.0)),
+        pt.MethodSpec("langevin", "cavity", kT=kT,
+                      gamma=PC.gamma_from_tau_ps(5.0))), ff.l_typeid)
+    return snap, ff, methods, kT
+
+
+def _host_state(st):
+    return {k: getattr(st, k).detach().cpu().numpy()
+            for k in ("position", "velocity", "image", "dt")}
+
+
+# the protocol of tests/test_domain.py:333 (test_domain_replicas_x_slabs)
+XS_ADAPTIVE = dict(error_tolerance=5e-6, initial_fraction=1e-3,
+                   time_constant_ps=50.0, period=2)
+
+
+def replicas_x_slabs_dryrun(*, n_replicas: int = 2, n_steps: int = 12):
+    """The JAX test's replicas x slabs protocol on the slab dry run's
+    scene (550 diatomics + photon, 65-bohr box, r_cut 8, 16^3 PPPM,
+    float64): ``n_replicas`` replicas thermalized at seed 11 (dt 0.5 fs,
+    initial tolerance 5e-9), adaptive dt (target 5e-6, period 2) and the
+    dipole and rho(k) (8 Fibonacci wavevectors of |k| 1) observables,
+    ``n_steps`` steps rebuilt every 5. Under a process group of R x S
+    ranks it runs ``make_domain_runner(n_replicas=R)`` (S = world / R);
+    without one, ``run_replica_steps`` of the adaptive step on the batch
+    (the reference). Returns NumPy: the final batch's position, velocity,
+    image and dt, every observable (steps, R, ...), and S (0 for the
+    reference)."""
+    import torch.distributed as dist
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import make_step_fn
+    from cavmd_tpu_torch.integrate.adaptive import make_adaptive_step
+    from cavmd_tpu_torch.observe import (
+        generate_fibonacci_sphere,
+        make_extra_obs,
+    )
+    from cavmd_tpu_torch.parallel.domain import (
+        make_domain_runner,
+        plan_domain,
+    )
+    from cavmd_tpu_torch.parallel.replicas import (
+        init_replica_states,
+        run_replica_steps,
+    )
+
+    snap, ff, methods, kT = _dryrun_scene(550, 65.0, 8.0, (16, 16, 16))
+    wv = generate_fibonacci_sphere(8) * 1.0
+    batch = init_replica_states(snap, ff, n_replicas=n_replicas,
+                                dt=PC.fs_to_atomic_units(0.5), seed=11,
+                                kT=kT, error_tolerance=5e-9)
+    S = dist.get_world_size() // n_replicas if dist.is_initialized() else 0
+    if S:
+        run = make_domain_runner(ff, methods, plan_domain(snap, ff, S),
+                                 rebuild_every=5, adaptive=XS_ADAPTIVE,
+                                 obs_spec=(True, wv), n_replicas=n_replicas)
+        final, obs = run(batch, n_steps)
+    else:
+        step = make_adaptive_step(make_step_fn(
+            ff, methods, extra_obs=make_extra_obs(dipole=True,
+                                                  wavevectors=wv)),
+            **XS_ADAPTIVE)
+        final, obs = run_replica_steps(step, batch, n_steps)
+    return dict(_host_state(final), obs=obs, S=S)

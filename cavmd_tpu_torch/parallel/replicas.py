@@ -24,10 +24,17 @@ carried lists and start forces of the chunk are not to be trusted: a
 retry rebuilds both from the chunk's start positions. The step draws each random stream once
 for the whole batch (one ``torch.Generator`` a stream, shaped (B, ...)),
 so replica r's noise is not the stream of a one-replica run at seed + r;
-its initial thermal velocities are (``init_replica_states``). The MTTK and
-Berendsen baths take each replica's own kinetic energy, temperature and
-factor, (B,) tensors broadcast over (B, N, 3), as ``jax.vmap`` of the JAX
-step does.
+its initial thermal velocities are (``init_replica_states``).
+
+A slice of a batch (replicas over ranks: ``--shard-replicas``, and
+``make_domain_runner(n_replicas=)``) is rows ``[k, k + b)`` of the full
+batch: ``init_replica_states(..., first_replica=k)`` thermalizes and
+seeds them as the full batch does, and ``StreamNoise(full_batch, rows)``
+(``integrate/integrator.py``) draws the full batch's shapes from the
+batch's generators and keeps the slice's rows, so R ranks holding R
+slices step as the one-rank batch does. The MTTK and Berendsen baths
+take each replica's own kinetic energy, temperature and factor, (B,)
+tensors broadcast over (B, N, 3), as ``jax.vmap`` of the JAX step does.
 """
 
 from __future__ import annotations
@@ -113,6 +120,7 @@ def init_replica_states(
     kT: float | None = None,
     error_tolerance: float = 0.0,
     device=None,
+    first_replica: int = 0,
 ) -> MDState:
     """A batched ``MDState`` with a leading replica axis.
 
@@ -120,12 +128,15 @@ def init_replica_states(
     per-replica snapshots (for example frames of an input trajectory, the
     reference's replica = frame convention). With ``kT``, replica r's
     velocities are the thermalization ``Simulation.thermalize`` gives at
-    seed ``seed + r`` (molecules with their drift removed, the photon
-    drawn apart). Each replica's forces come from its own ``init_state``.
-    The batch's step streams are seeded from ``seed``. ``device``: where
-    the state lives (None: the snapshots' device). In cell and zcol mode
-    the state carries the batched list. Raises ``ValueError`` for replicas
-    of another topology or box.
+    seed ``seed + first_replica + r`` (molecules with their drift removed,
+    the photon drawn apart). Each replica's forces come from its own
+    ``init_state``. The batch's step streams are seeded from ``seed``.
+    ``first_replica`` makes the batch rows ``[first_replica,
+    first_replica + B)`` of a larger batch built from ``seed``, bit for
+    bit (a rank's slice; step it with ``StreamNoise(full_batch, rows)``).
+    ``device``: where the state lives (None: the snapshots' device). In
+    cell and zcol mode the state carries the batched list. Raises
+    ``ValueError`` for replicas of another topology or box.
     """
     if isinstance(snapshots, Snapshot):
         if n_replicas is None:
@@ -138,7 +149,7 @@ def init_replica_states(
     _check_replicas(snaps)
     dev = snaps[0].device if device is None else torch.device(device)
     states = []
-    for r, snap in enumerate(snaps):
+    for r, snap in enumerate(snaps, first_replica):
         snap = snap.to(dev)
         if kT is not None:
             snap = snap.replace(velocity=thermal_velocities(
@@ -146,6 +157,16 @@ def init_replica_states(
         states.append(init_state(snap, ff, dt=dt, seed=seed + r,
                                  error_tolerance=error_tolerance))
     return _stack(states, seed, ff)
+
+
+def replica_rows(state: MDState, rows) -> MDState:
+    """Rows ``rows`` of a batched state: a slice, or an int for one
+    replica squeezed to a one-replica state. The per-replica leaves are
+    indexed; generators, seed and host step are the batch's. A carried
+    cell list is dropped: the slab runner, which takes such rows, builds
+    its own lists."""
+    return state.replace(**{k: getattr(state, k)[rows] for k in PER_REPLICA},
+                         cell_list=None, cell_anchor=None)
 
 
 def make_replica_step(step_fn):

@@ -158,10 +158,23 @@ Phases:
      in f32 and f64, two calls bit-equal; (f) 4 thermalized f64 replicas
      of N = 501, 20 MTTK + Langevin steps in one batch against
      one-replica runs (1e-9 bohr, each replica its own xi).
+ 14. replicas over ranks and the native host I/O library: one
+     ``run_ranks`` spawn of SHARD_R gloo ranks sharing the card runs (a)
+     phase 11d's CLI with ``--shard-replicas 2`` (each rank's K1-K5 about
+     once a step, K4/K5 exactly, every replica's files and drift as in
+     11d, the aggregate steps/s beside 11d's one rank) and a float64 run
+     against the one-rank batch (the unrounded log/ values of every GSD
+     frame to 1e-9 relative), and (b) ``make_domain_runner(n_replicas=2)``
+     at one slab on phase 9's float64 scene (each replica within 1e-9
+     bohr of ``run_replica_steps`` on the card; ``cell_pair_slab``, K2 and
+     K3 once a step on each rank); (c) the native library loads, the N =
+     501 CLI's energy file is the same with and without it,
+     ``EnergyTracker.consume``'s host ms per 500-step chunk and a GSD
+     frame's at N = 100,001 both ways.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
-the summary (with the script's seconds and phases 10's to 13's), a JSON
+the summary (with the script's seconds and phases 10's to 14's), a JSON
 object of per-kernel results (the batched kernels as ``<name>_b8``), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -181,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 # stated tolerances (see PERF.md):
 # f32: reordered f32 sums over ~N pair terms / p^3 stencil terms / the
@@ -351,6 +365,27 @@ TRI_N_MOL = (167, 33_333)  # 13e: dense (N = 501), cell mode (N = 99,999)
 TRI_LJ = {("C", "C"): dict(epsilon=2.0e-4, sigma=5.2),
           ("O", "O"): dict(epsilon=1.6e-4, sigma=5.8),
           ("C", "O"): dict(epsilon=1.8e-4, sigma=5.5)}
+# phase 14: replicas over ranks and the native host I/O library. 14a
+# runs phase 11d's CLI (CLI_ARGS, --vmap-replicas --replicas 1-REPLICA_B,
+# float32) on SHARD_R ranks that share the card, each replica's drift held
+# to VMAP_CLI_DRIFT_BOUND_HA, and a float64 run of SHARD_F64_ARGS on
+# SHARD_R ranks against the one-rank batch: the unrounded log/ values of
+# every GSD frame to SHARD_F64_RTOL relative (K2's float64 atomics add
+# the grid in another order on every run, ~1e-16 a step, and ~300 steps
+# of MD amplify that to ~1e-13). 14b runs phase 9's float64 scene as
+# SHARD_R replicas through make_domain_runner(n_replicas=SHARD_R) at one
+# slab for DOMAIN_F64_STEPS steps, held to TRAJ_TOL_BOHR against
+# run_replica_steps on the card. 14c: the N = 501 CLI for
+# NATIVE_CLI_RUNTIME_PS with an energy row every step, its tracker
+# twinned by one that formats in Python; NATIVE_REPS 500-row chunks a way;
+# NATIVE_GSD_FRAMES frames at N = 100,001 a way.
+SHARD_R = 2
+SHARD_F64_ARGS = ["--precision", "f64", "--runtime", "0.005",
+                  "--energy-output-period-ps", "0.0005",
+                  "--gsd-output-period-ps", "0.0005"]
+SHARD_F64_RTOL = 1e-9
+NATIVE_CLI_RUNTIME_PS = 0.02
+NATIVE_CHUNK, NATIVE_REPS, NATIVE_GSD_FRAMES = 500, 7, 5
 
 
 def large_cli_args(n_molecules, runtime_ps=LARGE_CLI_RUNTIME_PS):
@@ -2385,6 +2420,66 @@ def replica_step_path(torch, pt, B, warm=N_WARM, chunks=N_CHUNKS,
     return res
 
 
+def vmapped_line(label, text):
+    """(replicas, steps, seconds, aggregate steps/s) of the batched CLI's
+    'vmapped ...' line in ``text``."""
+    m = re.search(r"vmapped (\d+) replicas x (\d+) steps in ([0-9.]+)s "
+                  r"\((\d+) aggregate steps/s\)", text)
+    check(m is not None, f"{label}: no 'vmapped ... steps' line")
+    return (int(m.group(1)), int(m.group(2)), float(m.group(3)),
+            int(m.group(4)))
+
+
+def replica_files(torch, label, out_dir, replicas, n_particles,
+                  energy_period_steps):
+    """Each replica's files of a batched CLI run in ``out_dir``: the
+    header lines (energy rows every ``energy_period_steps`` steps), the
+    last GSD frame (``n_particles``, finite), at least 3 finite energy
+    rows of 20 columns. Returns each replica's universe drift
+    max |U - U0| and GSD frame count."""
+    import numpy as np
+
+    from cavmd_tpu_torch.io import open_gsd
+
+    period = f"# Output period: {energy_period_steps} steps"
+    energy_header = [period if k == 1 else h for k, h in enumerate(
+        CLI_HEADERS["prod-1_energy_tracker.txt"])]
+    mode_header = [period if k == 1 else h for k, h in enumerate(
+        CLI_HEADERS["prod-1_cavity_mode.txt"])]
+    drifts, frames = [], []
+    for r in replicas:
+        headers = {
+            f"prod-{r}_energy_tracker.txt": energy_header,
+            f"prod-{r}_cavity_mode.txt": mode_header,
+            f"prod-{r}_ref0.txt": CLI_HEADERS["prod-1_ref0.txt"],
+            f"prod-{r}_dipole_autocorr_0.txt":
+                CLI_HEADERS["dipole_autocorr_0.txt"]}
+        for fname, header in headers.items():
+            path = os.path.join(out_dir, fname)
+            check(os.path.isfile(path), f"{label}: {fname} missing")
+            with open(path) as f:
+                lines = f.read().splitlines()
+            for k, want in enumerate(header):
+                got = lines[k] if k < len(lines) else "<missing>"
+                ok = (got.startswith("# Reference 0 at t=")
+                      if want is None else got == want)
+                check(ok, f"{label}: {fname} header line {k}: {got!r}")
+        with open_gsd(os.path.join(out_dir, f"prod-{r}.gsd")) as t:
+            frame = t.read_frame(len(t) - 1, device="cuda")
+            check(frame.N == n_particles and bool(
+                torch.isfinite(frame.position).all()),
+                f"{label}: replica {r}'s GSD frame has N={frame.N}")
+            frames.append(len(t))
+        rows = np.loadtxt(os.path.join(out_dir,
+                                       f"prod-{r}_energy_tracker.txt"),
+                          comments=("#", "time"), ndmin=2)
+        check(rows.shape[0] >= 3 and rows.shape[1] == 20
+              and bool(np.isfinite(rows).all()),
+              f"{label}: replica {r}'s energy rows {rows.shape}")
+        drifts.append(float(np.abs(rows[:, 18] - rows[0, 18]).max()))
+    return drifts, frames
+
+
 def vmap_cli_phase(torch, pt, phase, cli_args, energy_period_steps,
                    kernels, drift_bound):
     """Phase 11d (phase 5's arguments, ``kernels`` K1-K5) and 12d (phase
@@ -2396,25 +2491,16 @@ def vmap_cli_phase(torch, pt, phase, cli_args, energy_period_steps,
     pair kernel, K2 and K3 once a step and in the setup: FIRE, the initial
     forces), each replica's universe drift under ``drift_bound``, the
     aggregate steps/s of the CLI's own line."""
-    import numpy as np
-
     from cavmd_tpu_torch.drivers import advanced_run
-    from cavmd_tpu_torch.io import open_gsd
     from cavmd_tpu_torch.ops import _cuda
 
     B = REPLICA_B
     args = cli_args + ["--vmap-replicas", "--replicas", f"1-{B}"]
     n_particles = 2 * int(args[args.index("--n-molecules") + 1]) + 1
-    period = f"# Output period: {energy_period_steps} steps"
-    energy_header = [period if k == 1 else h for k, h in enumerate(
-        CLI_HEADERS["prod-1_energy_tracker.txt"])]
-    mode_header = [period if k == 1 else h for k, h in enumerate(
-        CLI_HEADERS["prod-1_cavity_mode.txt"])]
     cwd = os.getcwd()
     work = tempfile.mkdtemp(prefix="cavmd_vmap_cli_")
     tee = _Tee(sys.stdout)
     label = f"phase {phase} CLI --vmap-replicas B={B} N={n_particles}"
-    drifts, frames = [], []
     try:
         os.chdir(work)
         _cuda.reset_launches()
@@ -2423,43 +2509,11 @@ def vmap_cli_phase(torch, pt, phase, cli_args, energy_period_steps,
         torch.cuda.synchronize()
         launches = dict(_cuda.launches)
         check(rc == 0, f"{label}: exited with {rc}")
-        m = re.search(r"vmapped (\d+) replicas x (\d+) steps in ([0-9.]+)s "
-                      r"\((\d+) aggregate steps/s\)", tee.buf.getvalue())
-        check(m is not None, f"{label}: no 'vmapped ... steps' line")
-        n_rep, steps, wall, agg = (int(m.group(1)), int(m.group(2)),
-                                   float(m.group(3)), int(m.group(4)))
+        n_rep, steps, wall, agg = vmapped_line(label, tee.buf.getvalue())
         check(n_rep == B, f"{label}: {n_rep} replicas")
-        out_dir = os.path.join(work, "cavity_coupling_1eneg03")
-        for r in range(1, B + 1):
-            headers = {
-                f"prod-{r}_energy_tracker.txt": energy_header,
-                f"prod-{r}_cavity_mode.txt": mode_header,
-                f"prod-{r}_ref0.txt": CLI_HEADERS["prod-1_ref0.txt"],
-                f"prod-{r}_dipole_autocorr_0.txt":
-                    CLI_HEADERS["dipole_autocorr_0.txt"]}
-            for fname, header in headers.items():
-                path = os.path.join(out_dir, fname)
-                check(os.path.isfile(path), f"{label}: {fname} missing")
-                with open(path) as f:
-                    lines = f.read().splitlines()
-                for k, want in enumerate(header):
-                    got = lines[k] if k < len(lines) else "<missing>"
-                    ok = (got.startswith("# Reference 0 at t=")
-                          if want is None else got == want)
-                    check(ok, f"{label}: {fname} header line {k}: {got!r}")
-            with open_gsd(os.path.join(out_dir, f"prod-{r}.gsd")) as t:
-                frame = t.read_frame(len(t) - 1, device="cuda")
-                check(frame.N == n_particles and bool(
-                    torch.isfinite(frame.position).all()),
-                    f"{label}: replica {r}'s GSD frame has N={frame.N}")
-                frames.append(len(t))
-            rows = np.loadtxt(os.path.join(out_dir,
-                                           f"prod-{r}_energy_tracker.txt"),
-                              comments=("#", "time"), ndmin=2)
-            check(rows.shape[0] >= 3 and rows.shape[1] == 20
-                  and bool(np.isfinite(rows).all()),
-                  f"{label}: replica {r}'s energy rows {rows.shape}")
-            drifts.append(float(np.abs(rows[:, 18] - rows[0, 18]).max()))
+        drifts, frames = replica_files(
+            torch, label, os.path.join(work, "cavity_coupling_1eneg03"),
+            range(1, B + 1), n_particles, energy_period_steps)
         for kname in kernels:
             n = launches.get(kname, 0)
             check(n == steps if kname.startswith("fused") else n >= steps,
@@ -3433,6 +3487,376 @@ def bath_replica_trajectory(torch, pt):
     return err
 
 
+# --------------------------------------------------------------- phase 14
+def rank_cli_job(args, workdir):
+    """A ``run_ranks`` job: ``advanced_run.main(args)`` on this rank, in
+    ``workdir``, its stdout kept. Returns the exit code, the text, this
+    rank's kernel launches and the CUDA device it ran on."""
+    import torch
+
+    from cavmd_tpu_torch.drivers import advanced_run
+    from cavmd_tpu_torch.ops import _cuda
+
+    os.chdir(workdir)
+    buf = io.StringIO()
+    _cuda.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = advanced_run.main(args)
+    torch.cuda.synchronize()
+    return dict(rc=rc, out=buf.getvalue(), launches=dict(_cuda.launches),
+                device=torch.cuda.current_device(),
+                cuda=torch.cuda.is_initialized())
+
+
+def shard_batch(torch, pt):
+    """14b's batch: SHARD_R replicas of phase 9's float64 scene (N =
+    20,001, cell mode, Bussi + Langevin), thermalized at seed 7 + r, on
+    the card: (ff, methods, plan at one slab, batch)."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.parallel import init_replica_states, plan_domain
+
+    snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                           torch.float64, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell")
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, main_methods(pt, kT), ff.l_typeid)
+    batch = init_replica_states(snap, ff, n_replicas=SHARD_R,
+                                dt=PC.fs_to_atomic_units(LARGE_DT_FS),
+                                seed=7, kT=kT)
+    return ff, methods, plan_domain(snap, ff, 1), batch
+
+
+def rank_domain_job():
+    """A ``run_ranks`` job (14b): ``make_domain_runner(n_replicas=R)`` at
+    one slab on R ranks, DOMAIN_F64_STEPS steps rebuilt every 20. Returns
+    the stacked final batch, the overflow flag, this rank's launches and
+    its CUDA device."""
+    import torch
+
+    import cavmd_tpu_torch as pt
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import make_domain_runner
+    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY
+
+    ff, methods, plan, batch = shard_batch(torch, pt)
+    run = make_domain_runner(ff, methods, plan, n_replicas=SHARD_R,
+                             rebuild_every=DOMAIN_REBUILD_EVERY)
+    _cuda.reset_launches()
+    fin, obs = run(batch, DOMAIN_F64_STEPS)
+    torch.cuda.synchronize()
+    return dict(position=fin.position.cpu().numpy(),
+                image=fin.image.cpu().numpy(),
+                overflow=bool(obs["cell_overflow"].any()),
+                launches=dict(_cuda.launches),
+                device=torch.cuda.current_device(),
+                on_card=fin.position.is_cuda)
+
+
+def gsd_logs(path):
+    """{(frame, name): values} of every ``log/`` chunk of a GSD file."""
+    from cavmd_tpu_torch.io.gsd import GSDFile
+
+    f = GSDFile(path)
+    try:
+        return {(k, n): f.read_chunk(k, n) for k in range(f.nframes)
+                for n in f._names if n.startswith("log/")
+                and f.chunk_exists(k, n)}
+    finally:
+        f.close()
+
+
+def shard_f64_match(label, got_dir, want_dir, replicas):
+    """14a's float64 check: each replica's energy rows of the R-rank run
+    against the one-rank batch's, and the unrounded ``log/`` chunks of
+    every GSD frame, each quantity to SHARD_F64_RTOL of its largest
+    magnitude over the frames (a reservoir total of ~1e-7 Ha is a
+    difference of terms a thousand times larger). Returns the largest
+    such relative difference and the row count."""
+    import numpy as np
+
+    worst, n_rows = 0.0, 0
+    for r in replicas:
+        name = f"prod-{r}_energy_tracker.txt"
+        rows = [np.loadtxt(os.path.join(d, name), comments=("#", "time"),
+                           ndmin=2) for d in (got_dir, want_dir)]
+        check(rows[0].shape == rows[1].shape and rows[1].shape[0] >= 5,
+              f"{label}: {name} rows {rows[0].shape} vs {rows[1].shape}")
+        # the rows carry 6 decimals: a value within SHARD_F64_RTOL may
+        # still print one unit apart in the last place
+        check(np.allclose(rows[0], rows[1], rtol=SHARD_F64_RTOL,
+                          atol=1.0000001e-6),
+              f"{label}: {name} differs from the one-rank batch's")
+        n_rows += rows[1].shape[0]
+        logs = [gsd_logs(os.path.join(d, f"prod-{r}.gsd"))
+                for d in (got_dir, want_dir)]
+        check(sorted(logs[0]) == sorted(logs[1]) and len(logs[1]) > 10,
+              f"{label}: replica {r}'s GSD log chunks differ")
+        for key in sorted({n for _, n in logs[1]}):
+            got, want = (np.concatenate([np.ravel(lg[k]) for k in sorted(lg)
+                                         if k[1] == key]) for lg in logs)
+            scale = max(float(np.abs(want).max()), 1e-300)
+            rel = float(np.abs(got - want).max()) / scale
+            check(rel <= SHARD_F64_RTOL,
+                  f"{label}: replica {r} {key}: relative {rel} > "
+                  f"{SHARD_F64_RTOL}")
+            worst = max(worst, rel)
+    return worst, n_rows
+
+
+def shard_replicas_phase(torch, pt, one_rank_cli):
+    """Phase 14a and 14b: one ``run_ranks`` spawn of SHARD_R ranks on the
+    one card (gloo, file rendezvous) runs 14a's ``--shard-replicas`` CLI
+    in float32 and in float64 and 14b's replicas x slabs runner; this
+    process runs their one-rank references. ``one_rank_cli`` is phase
+    11d's result (the same arguments in one process)."""
+    import numpy as np
+
+    from cavmd_tpu_torch.drivers import advanced_run
+    from cavmd_tpu_torch.integrate import make_step_fn
+    from cavmd_tpu_torch.parallel import run_replica_steps
+    from cavmd_tpu_torch.parallel.launch import run_ranks
+
+    B = REPLICA_B
+    f32_args = CLI_ARGS + ["--vmap-replicas", "--replicas", f"1-{B}",
+                           "--shard-replicas", str(SHARD_R)]
+    f64_args = CLI_ARGS + SHARD_F64_ARGS + ["--replicas", f"1-{B}"]
+    work = tempfile.mkdtemp(prefix="cavmd_shard_")
+    dirs = {k: os.path.join(work, k) for k in ("f32", "f64", "f64_one")}
+    for d in dirs.values():
+        os.mkdir(d)
+    cwd = os.getcwd()
+    label = f"phase 14a CLI --shard-replicas {SHARD_R} B={B} N=501"
+    try:
+        t0 = time.perf_counter()
+        f32, f64, dom = run_ranks([
+            (rank_cli_job, (f32_args, dirs["f32"])),
+            (rank_cli_job, (f64_args + ["--shard-replicas", str(SHARD_R)],
+                            dirs["f64"])),
+            (rank_domain_job, ())], SHARD_R, timeout=600)
+        spawn_s = time.perf_counter() - t0
+        # --- 14a, float32: phase 11d's checks on the R ranks' files
+        for k, r in enumerate(f32):
+            check(r["rc"] == 0 and r["cuda"],
+                  f"{label}: rank {k} exited {r['rc']}: {r['out'][-2000:]}")
+        n_rep, steps, wall, agg = vmapped_line(label, f32[0]["out"])
+        check(n_rep == B and f"on {SHARD_R} ranks" in f32[0]["out"],
+              f"{label}: {n_rep} replicas")
+        out_dir = os.path.join(dirs["f32"], "cavity_coupling_1eneg03")
+        drifts, frames = replica_files(torch, label, out_dir,
+                                       range(1, B + 1), 501, 1000)
+        check(max(drifts) < VMAP_CLI_DRIFT_BOUND_HA,
+              f"{label}: universe drifts {drifts} >= "
+              f"{VMAP_CLI_DRIFT_BOUND_HA}")
+        for k, r in enumerate(f32):
+            for kname in BATCHED_KERNELS:
+                n = r["launches"].get(kname, 0)
+                check(n == steps if kname.startswith("fused")
+                      else n >= steps,
+                      f"{label}: rank {k} launched {kname} {n} times in "
+                      f"{steps} steps")
+        devices = sorted({r["device"] for r in f32 + f64 + dom})
+        print(f"{label}: exit 0 on {SHARD_R} ranks on cuda device(s) "
+              f"{devices} of {torch.cuda.device_count()}; {steps} steps in "
+              f"{wall!r} s, {agg} aggregate steps/s (one rank, phase 11d: "
+              f"{one_rank_cli['aggregate_steps_per_s']}, "
+              f"{one_rank_cli['steps']} steps in "
+              f"{one_rank_cli['run_seconds']!r} s); universe drifts "
+              f"{drifts} (bound {VMAP_CLI_DRIFT_BOUND_HA}); GSD frames "
+              f"{frames}; launches per rank "
+              f"{[r['launches'] for r in f32]}", flush=True)
+        # --- 14a, float64: the R ranks against the one-rank batch
+        label64 = f"phase 14a CLI f64 --shard-replicas {SHARD_R} B={B}"
+        for k, r in enumerate(f64):
+            check(r["rc"] == 0, f"{label64}: rank {k} exited {r['rc']}: "
+                  f"{r['out'][-2000:]}")
+        os.chdir(dirs["f64_one"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = advanced_run.main(f64_args + ["--vmap-replicas"])
+        check(rc == 0, f"{label64}: the one-rank batch exited {rc}")
+        os.chdir(cwd)
+        rel, n_rows = shard_f64_match(
+            label64, *(os.path.join(dirs[k], "cavity_coupling_1eneg03")
+                       for k in ("f64", "f64_one")), range(1, B + 1))
+        print(f"{label64}: {n_rows} energy rows of {B} replicas and every "
+              f"GSD frame's log/ chunks against the one-rank batch: "
+              f"largest relative difference of the unrounded values "
+              f"{rel!r} (tolerance {SHARD_F64_RTOL}: K2's atomics sum the "
+              "grid in another order on every run)", flush=True)
+        # --- 14b: the replicas x slabs runner against run_replica_steps
+        label_b = (f"phase 14b make_domain_runner(n_replicas={SHARD_R}) "
+                   "at 1 slab")
+        ff, methods, _, batch = shard_batch(torch, pt)
+        ref, _ = run_replica_steps(make_step_fn(ff, methods), batch,
+                                   DOMAIN_F64_STEPS)
+        want = ref.position.cpu().numpy()
+        errs = []
+        for k, r in enumerate(dom):
+            check(r["on_card"] and not r["overflow"],
+                  f"{label_b}: rank {k} on the card {r['on_card']}, "
+                  f"overflow {r['overflow']}")
+            errs.append(float(np.abs(r["position"] - want).max()))
+            check(np.array_equal(r["image"], ref.image.cpu().numpy()),
+                  f"{label_b}: rank {k}'s image flags differ")
+            for kname in ("cell_pair_slab", "pppm_spread",
+                          "pppm_interpolate"):
+                n = r["launches"].get(kname, 0)
+                check(n >= DOMAIN_F64_STEPS,
+                      f"{label_b}: rank {k} launched {kname} {n} < "
+                      f"{DOMAIN_F64_STEPS} times")
+        check(max(errs) <= TRAJ_TOL_BOHR,
+              f"{label_b}: max|dx| {errs} bohr > {TRAJ_TOL_BOHR}")
+        check(not np.allclose(want[0], want[1]),
+              f"{label_b}: the replicas did not decorrelate")
+        print(f"{label_b}: N={want.shape[1]} f64, {DOMAIN_F64_STEPS} steps "
+              f"on {SHARD_R} ranks, each replica vs run_replica_steps on "
+              f"the card: max|dx| {errs} bohr (bound {TRAJ_TOL_BOHR}); "
+              f"launches per rank {[r['launches'] for r in dom]}; the "
+              f"spawn with 14a took {spawn_s:.1f} s", flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(aggregate_steps_per_s=agg, steps=steps, run_seconds=wall,
+                drifts=drifts, f64_rel=rel, domain_dx=max(errs),
+                spawn_seconds=spawn_s)
+
+
+def native_io_phase(torch, pt):
+    """Phase 14c: the native host I/O library loads; the N = 501 CLI's
+    energy file with every EnergyTracker twinned by one that formats in
+    Python (the same bytes), with each consume's host ms both ways; a
+    500-row chunk with every row written and one at the CLI's period of
+    1000 steps, both ways; a GSD frame at N = 100,001, both ways."""
+    import numpy as np
+
+    import cavmd_tpu_torch.observe as observe
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.drivers import advanced_run
+    from cavmd_tpu_torch.io import HOOMDTrajectory, native
+
+    label = "phase 14c native I/O"
+    check(native.load() is not None,
+          f"{label}: the native library did not load")
+    real_load = native.load
+
+    @contextlib.contextmanager
+    def python_only():
+        native.load = lambda: None
+        try:
+            yield
+        finally:
+            native.load = real_load
+
+    Real = observe.EnergyTracker
+    ms = {"native": [], "python": []}
+
+    class Twinned(Real):
+        """The CLI's tracker, fed to a twin that formats in Python."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with python_only():
+                self.twin = Real(**dict(
+                    kw, output_prefix=kw["output_prefix"] + "_python"))
+
+        def consume(self, obs):
+            t0 = time.perf_counter()
+            super().consume(obs)
+            t1 = time.perf_counter()
+            with python_only():
+                self.twin.consume(obs)
+            t2 = time.perf_counter()
+            ms["native"].append(1e3 * (t1 - t0))
+            ms["python"].append(1e3 * (t2 - t1))
+
+    work = tempfile.mkdtemp(prefix="cavmd_native_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        observe.EnergyTracker = Twinned
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = advanced_run.main(CLI_ARGS + [
+                    "--runtime", str(NATIVE_CLI_RUNTIME_PS),
+                    "--energy-output-period-ps", "0.0001"])
+        finally:
+            observe.EnergyTracker = Real
+        check(rc == 0, f"{label}: the CLI exited {rc}")
+        out = os.path.join(work, "cavity_coupling_1eneg03")
+        a, b = (Path(out, f).read_bytes() for f in (
+            "prod-1_energy_tracker.txt", "prod-1_python_energy_tracker.txt"))
+        n_rows = sum(1 for line in a.splitlines() if line[:1].isdigit())
+        check(a == b, f"{label}: the energy file with the library "
+              f"({len(a)} B) differs from the Python one ({len(b)} B)")
+        check(n_rows > NATIVE_CHUNK, f"{label}: {n_rows} energy rows")
+        cli_ms = {k: statistics.median(v) for k, v in ms.items()}
+
+        # a 500-row chunk of the run's own columns, both ways
+        rng = np.random.default_rng(0)
+        obs = {k: rng.normal(size=NATIVE_CHUNK) for k in (
+            "harmonic", "lj", "ewald_short", "ewald_long", "cavity_harmonic",
+            "cavity_coupling", "cavity_dipole_self", "kinetic_molecular",
+            "kinetic_cavity", "bussi_reservoir_molecular",
+            "bussi_reservoir_cavity", "langevin_reservoir_molecular",
+            "langevin_reservoir_cavity")}
+        obs["time_au"] = np.arange(NATIVE_CHUNK) * 0.65
+        chunk_ms = {}
+        for period in (1, 1000):
+            for way in ("native", "python"):
+                times = []
+                for k in range(NATIVE_REPS):
+                    o = dict(obs, timestep=np.arange(
+                        k * NATIVE_CHUNK + 1, (k + 1) * NATIVE_CHUNK + 1))
+                    ctx = (python_only() if way == "python"
+                           else contextlib.nullcontext())
+                    with ctx:
+                        if k == 0:
+                            tr = Real(output_prefix=f"c{period}{way}",
+                                      output_period_steps=period,
+                                      n_molecular_dof=1500)
+                        t0 = time.perf_counter()
+                        tr.consume(o)
+                        times.append(1e3 * (time.perf_counter() - t0))
+                chunk_ms[(period, way)] = statistics.median(times)
+
+        # a GSD frame at N = 100,001 (f32 frame, log chunks), both ways
+        snap = reference_scene(pt, LARGE_N_MOL,
+                               reference_box_for(LARGE_N_MOL),
+                               torch.float32, torch.device("cuda"))
+        log = {f"EnergyTracker/x{k}": float(k) for k in range(20)}
+        gsd_ms = {}
+        for way, prefer in (("native", True), ("python", False)):
+            times = []
+            with HOOMDTrajectory(f"{way}.gsd", "w",
+                                 prefer_native=prefer) as t:
+                check(isinstance(t.file, native.NativeGSDWriter) == prefer,
+                      f"{label}: the {way} GSD writer is "
+                      f"{type(t.file).__name__}")
+                for k in range(NATIVE_GSD_FRAMES):
+                    t0 = time.perf_counter()
+                    t.append(snap, step=k, log_data=log)
+                    times.append(1e3 * (time.perf_counter() - t0))
+            gsd_ms[way] = statistics.median(times)
+        check(Path("native.gsd").read_bytes()
+              == Path("python.gsd").read_bytes(),
+              f"{label}: the two GSD files differ")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    res = dict(library=str(native.library_path().name),
+               cli_rows=n_rows, cli_consume_ms=cli_ms,
+               cli_chunks=len(ms["native"]),
+               chunk500_all_rows_ms={w: chunk_ms[(1, w)]
+                                     for w in ("native", "python")},
+               chunk500_period1000_ms={w: chunk_ms[(1000, w)]
+                                       for w in ("native", "python")},
+               gsd_frame_n100001_ms=gsd_ms)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
 def main() -> None:
     clock = PhaseClock()
     try:
@@ -3743,6 +4167,24 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(13)
 
+    # phase 14: replicas over ranks (--shard-replicas, the replicas x
+    # slabs runner) on ranks that share the card, and the native host I/O
+    torch.cuda.empty_cache()
+    shard = shard_replicas_phase(torch, pt, vcli)
+    nat = native_io_phase(torch, pt)
+    print(f"phase 14: --shard-replicas {SHARD_R} B={REPLICA_B} "
+          f"{shard['aggregate_steps_per_s']} aggregate steps/s vs one rank's "
+          f"{vcli['aggregate_steps_per_s']} (phase 11d), f64 max relative "
+          f"{shard['f64_rel']:.2e}; replicas x slabs max|dx| "
+          f"{shard['domain_dx']:.2e} bohr; EnergyTracker.consume per "
+          f"500-step chunk in the CLI (a row a step) "
+          f"{nat['cli_consume_ms']['native']:.3f} ms native vs "
+          f"{nat['cli_consume_ms']['python']:.3f} ms Python; GSD frame at "
+          f"N=100,001 {nat['gsd_frame_n100001_ms']['native']:.2f} ms vs "
+          f"{nat['gsd_frame_n100001_ms']['python']:.2f} ms", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(14)
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -3796,11 +4238,17 @@ def main() -> None:
           f"{resumed['dense']['max_dx_bohr']:.2e} / "
           f"{resumed['cell']['max_dx_bohr']:.2e} bohr, triatomic K1 / cell "
           f"f32 max|dF| {tri[('dense', 'float32')]:.2e} / "
-          f"{tri[('cell', 'float32')]:.2e} | script "
+          f"{tri[('cell', 'float32')]:.2e} | replicas over ranks: "
+          f"--shard-replicas {SHARD_R} {shard['aggregate_steps_per_s']} "
+          f"aggregate steps/s drift {max(shard['drifts']):.3e} Ha, f64 "
+          f"{shard['f64_rel']:.2e} relative, {SHARD_R} x 1 runner "
+          f"{shard['domain_dx']:.2e} bohr; native I/O consume "
+          f"{nat['cli_consume_ms']['native']:.3f} / "
+          f"{nat['cli_consume_ms']['python']:.3f} ms | script "
           f"{clock.total():.1f} s, phase 10 {clock.seconds[10]:.1f} s, "
           f"phase 11 {clock.seconds[11]:.1f} s, phase 12 "
-          f"{clock.seconds[12]:.1f} s, phase 13 {clock.seconds[13]:.1f} s",
-          flush=True)
+          f"{clock.seconds[12]:.1f} s, phase 13 {clock.seconds[13]:.1f} s, "
+          f"phase 14 {clock.seconds[14]:.1f} s", flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at
     # N = 100,001 (phase 6's launches), the small-grid entry at N = 501 in

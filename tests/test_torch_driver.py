@@ -132,8 +132,8 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, fixed):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--vmap-replicas", "--shard-atoms", "2"], ["--shard-replicas", "2"],
-    ["--shard-atoms", "2"],
+    ["--vmap-replicas", "--shard-atoms", "2"],
+    ["--shard-replicas", "2", "--shard-atoms", "2"], ["--shard-atoms", "2"],
     ["--pad-atoms", "4"], ["--rng-impl", "threefry"]])
 def test_unported_flags_exit_nonzero(tmp_path, monkeypatch, capsys, flag):
     monkeypatch.chdir(tmp_path)

@@ -580,13 +580,13 @@ def test_vmap_replicas_cli(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard-replicas", "2"],
+    ["--shard-replicas", "2", "--shard-atoms", "2"],
     ["--vmap-replicas", "--shard-atoms", "4", "--n-molecules", "10000"],
     ["--vmap-replicas", "--shard-atoms", "2"]])
 def test_vmap_cli_refusals_exit_2(tmp_path, monkeypatch, capsys, flags):
     """What the batch does not take exits 2 naming ROADMAP.md, before any
-    work: sharded replicas, a batch over slabs (in cell mode, past the
-    dense limit, and at the default size)."""
+    work: a batch over slabs, sharded over ranks or not (in cell mode, past
+    the dense limit, and at the default size)."""
     monkeypatch.chdir(tmp_path)
     assert t_cli.main(["--device", "CPU"] + flags) == 2
     err = capsys.readouterr().err
