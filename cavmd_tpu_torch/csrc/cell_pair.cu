@@ -75,11 +75,15 @@
 //     (C, cap) buckets of local ids, run in one launch with the replica on
 //     blockIdx.z. The batched instantiation (kBatch) offsets the
 //     positions, forces, buckets and energy partials by the replica at the
-//     block's start; the neighbour table, exclusions, types, charges and
-//     LJ tables are shared. The split is reckoned from the B * C blocks of
-//     the whole launch. The one-replica launch runs the kBatch = false
-//     instantiation, whose code is the unbatched kernel's: replica offsets
-//     in a shared kernel cost K3 21% and spilled K1 (PERF.md, section 6).
+//     block's start, and the types, charges, pair keys and exclusion rows
+//     by `tab_stride` and `excl_stride`: 0 for the unsharded batch, whose
+//     tables are shared, and a table's length for a batch over slabs,
+//     where each replica's slab holds other atoms (parallel/domain.py).
+//     The neighbour and LJ tables are shared. The split is reckoned from
+//     the B * C blocks of the whole launch. The one-replica launch runs the
+//     kBatch = false instantiation, whose code is the unbatched kernel's:
+//     replica offsets in a shared kernel cost K3 21% and spilled K1
+//     (PERF.md, section 6).
 // Not taken: a half shell (Newton's third law) halves the pair terms but
 // needs atomics on the j forces, which makes float32 sums order-dependent
 // from run to run; a Verlet pair list would change CellList and its
@@ -138,9 +142,9 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
                  int ntypes, const int32_t* __restrict__ bucket,
                  const int32_t* __restrict__ nbr, const int32_t* __restrict__ excl,
                  int max_excl, int n, int ncells, int cap, T rc2, T kappa,
-                 int lj_on, int coul_on, int cell_begin,
-                 const int32_t* __restrict__ key, T* __restrict__ forces,
-                 T* __restrict__ e_partial) {
+                 int lj_on, int coul_on, int cell_begin, int tab_stride,
+                 int excl_stride, const int32_t* __restrict__ key,
+                 T* __restrict__ forces, T* __restrict__ e_partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = kNeighbors * cap;
   T* sx = reinterpret_cast<T*>(smem_raw);
@@ -167,6 +171,11 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
     forces += 3 * (size_t)n * r;
     bucket += (size_t)ncells * cap * r;
     e_partial += 2 * (size_t)gridDim.x * gridDim.y * r;
+    // and its tables (strides 0: shared by the batch)
+    type_id += (size_t)tab_stride * r;
+    charge += (size_t)tab_stride * r;
+    excl += (size_t)excl_stride * r;
+    if (key != nullptr) key += (size_t)tab_stride * r;
   }
 
   const int c = cell_begin + blockIdx.x;
@@ -382,7 +391,8 @@ int launch(const void* pos, const void* box, const void* type_id,
            const void* bucket, const void* nbr, const void* excl, int max_excl,
            int n, int ncells, int cap, double rc2, double kappa, int lj_on,
            int coul_on, int cell_begin, int cell_count, int split, int nb,
-           const void* key, void* forces, void* e_partial, void* stream) {
+           int tab_stride, int excl_stride, const void* key, void* forces,
+           void* e_partial, void* stream) {
   // set the kernel's dynamic shared memory limit when a launch needs more
   // than the last one set, not on every launch (the overflow retry grows
   // cap); the default 48 KB covers static and dynamic bytes together, so
@@ -402,12 +412,15 @@ int launch(const void* pos, const void* box, const void* type_id,
       (const T*)eps, (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)nbr, (const int32_t*)excl, max_excl,
       n, ncells, cap, (T)rc2, (T)kappa, lj_on, coul_on, cell_begin,
-      (const int32_t*)key, (T*)forces, (T*)e_partial);
+      tab_stride, excl_stride, (const int32_t*)key, (T*)forces,
+      (T*)e_partial);
   return (int)cudaGetLastError();
 }
 
 // nb replicas (blockIdx.z): the batched instantiation for nb > 1, the
-// one-replica kernel for nb = 1. A batch takes no pair keys (no slab grid).
+// one-replica kernel for nb = 1 (which reads replica 0's tables). The
+// tables of replica r start tab_stride (types, charges, pair keys) and
+// excl_stride (exclusion rows) elements after replica r - 1's.
 template <typename T>
 int launch_any(const void* pos, const void* box, const void* type_id,
                const void* charge, const void* eps, const void* sig2,
@@ -415,18 +428,20 @@ int launch_any(const void* pos, const void* box, const void* type_id,
                const void* bucket, const void* nbr, const void* excl,
                int max_excl, int n, int ncells, int cap, double rc2,
                double kappa, int lj_on, int coul_on, int cell_begin,
-               int cell_count, int split, int nb, const void* key,
-               void* forces, void* e_partial, void* stream) {
+               int cell_count, int split, int nb, int tab_stride,
+               int excl_stride, const void* key, void* forces,
+               void* e_partial, void* stream) {
   if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
       n < 1 || ncells < 1 || cap < 1 || cell_begin < 0 || cell_count < 1 ||
       cell_begin + cell_count > ncells || split < 1 || split > 65535 ||
-      nb < 1 || nb > 65535 || (nb > 1 && key != nullptr) ||
+      nb < 1 || nb > 65535 || tab_stride < 0 || excl_stride < 0 ||
       (long long)kNeighbors * cap + 32 * kUnroll > 65535)  // 16-bit ring rows
     return (int)cudaErrorInvalidValue;
   auto go = nb > 1 ? launch<T, true> : launch<T, false>;
   return go(pos, box, type_id, charge, eps, sig2, rcut2, vshift, ntypes, bucket,
             nbr, excl, max_excl, n, ncells, cap, rc2, kappa, lj_on, coul_on,
-            cell_begin, cell_count, split, nb, key, forces, e_partial, stream);
+            cell_begin, cell_count, split, nb, tab_stride, excl_stride, key,
+            forces, e_partial, stream);
 }
 
 }  // namespace
@@ -439,12 +454,14 @@ int cavmd_cell_pair_f32(const void* pos, const void* box, const void* type_id,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
-                        int cell_count, int split, int nb, const void* key,
-                        void* forces, void* e_partial, void* stream) {
+                        int cell_count, int split, int nb, int tab_stride,
+                        int excl_stride, const void* key, void* forces,
+                        void* e_partial, void* stream) {
   return launch_any<float>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
                            ntypes, bucket, nbr, excl, max_excl, n, ncells, cap,
                            rc2, kappa, lj_on, coul_on, cell_begin, cell_count,
-                           split, nb, key, forces, e_partial, stream);
+                           split, nb, tab_stride, excl_stride, key, forces,
+                           e_partial, stream);
 }
 
 int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
@@ -453,13 +470,14 @@ int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
                         const void* bucket, const void* nbr, const void* excl,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
-                        int cell_count, int split, int nb, const void* key,
-                        void* forces, void* e_partial, void* stream) {
+                        int cell_count, int split, int nb, int tab_stride,
+                        int excl_stride, const void* key, void* forces,
+                        void* e_partial, void* stream) {
   return launch_any<double>(pos, box, type_id, charge, eps, sig2, rcut2,
                             vshift, ntypes, bucket, nbr, excl, max_excl, n,
                             ncells, cap, rc2, kappa, lj_on, coul_on, cell_begin,
-                            cell_count, split, nb, key, forces, e_partial,
-                            stream);
+                            cell_count, split, nb, tab_stride, excl_stride, key,
+                            forces, e_partial, stream);
 }
 
 }  // extern "C"

@@ -102,8 +102,10 @@
 //     bits. Particles with q = 0 are not staged and write exact zeros.
 // Replica batches (parallel/replicas.py): both kernels take B replicas of
 // one topology in one launch, blockIdx.y the replica. Positions, the mesh
-// (B, Kx, Ky, Kz) and dE/dr are offset by the replica; the charges and box
-// are shared. The warp group is sized by B N, so a batch fills the card as
+// (B, Kx, Ky, Kz) and dE/dr are offset by the replica; the box is shared,
+// and the charges are shared (q_stride 0) or each replica's own row
+// (q_stride N: a batch over slabs, parallel/domain.py, where each
+// replica's slab holds other atoms). The warp group is sized by B N, so a batch fills the card as
 // one larger N would (N = 501, B = 8: 2 particles a warp). K2 takes its
 // global path for any batch (N <= 4096 always does today); the tile path
 // runs B = 1 only. K2's B = 1 launch is the unbatched one. K3's batched
@@ -316,8 +318,8 @@ __device__ __forceinline__ void spread_warps(
 template <typename T, int P>
 __global__ void __launch_bounds__(kSpreadThreads, 2)
 spread_kernel(const T* __restrict__ pos, const T* __restrict__ charge,
-              const T* __restrict__ box, int n, int Kx, int Ky, int Kz,
-              int group, int chunk, int tile_cap, int Sz,
+              const T* __restrict__ box, int n, int q_stride, int Kx, int Ky,
+              int Kz, int group, int chunk, int tile_cap, int Sz,
               T* __restrict__ grid, int* __restrict__ tile_runs) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_nx, s_ny;
@@ -329,8 +331,9 @@ spread_kernel(const T* __restrict__ pos, const T* __restrict__ charge,
   int* xinv = ymap + Ky;
   int* yinv = xinv + Kx;
 
-  // this block's replica: its positions and its mesh
+  // this block's replica: its positions, charges and mesh
   pos += 3 * (size_t)n * blockIdx.y;
+  charge += (size_t)q_stride * blockIdx.y;
   grid += (size_t)Kx * Ky * Kz * blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -479,16 +482,17 @@ template <typename T, int P, bool kBatch>
 __global__ void __launch_bounds__(kInterpThreads, 4)
 interpolate_kernel(const T* __restrict__ ct, const T* __restrict__ pos,
                    const T* __restrict__ charge, const T* __restrict__ box,
-                   int n, int Kx, int Ky, int Kz, int group,
+                   int n, int q_stride, int Kx, int Ky, int Kz, int group,
                    T* __restrict__ dpos) {
   constexpr int G = interp_lanes<P>();
   constexpr int kPer = 32 / G;
   constexpr int S = interp_slot<P>();
   extern __shared__ __align__(16) unsigned char smem[];
-  // this block's replica: its mesh cotangent, positions and dE/dr
+  // this block's replica: its mesh cotangent, positions, charges and dE/dr
   const size_t rep = kBatch ? blockIdx.y : 0;
   ct += (size_t)Kx * Ky * Kz * rep;
   pos += 3 * (size_t)n * rep;
+  charge += (size_t)q_stride * rep;
   dpos += 3 * (size_t)n * rep;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -593,9 +597,11 @@ interpolate_kernel(const T* __restrict__ ct, const T* __restrict__ pos,
   }
 }
 
-inline bool bad_args(int n, int nb, int order, int Kx, int Ky, int Kz) {
-  return n < 1 || nb < 1 || nb > 65535 || order < 2 || order > kMaxOrder ||
-         Kx < order || Ky < order || Kz < order;
+inline bool bad_args(int n, int nb, int q_stride, int order, int Kx, int Ky,
+                     int Kz) {
+  return n < 1 || nb < 1 || nb > 65535 || (q_stride != 0 && q_stride != n) ||
+         order < 2 || order > kMaxOrder || Kx < order || Ky < order ||
+         Kz < order;
 }
 
 // The card's SM count and shared memory an SM and a block may use, read
@@ -631,8 +637,8 @@ inline int card_limits(CardLimits* out) {
 // kPathTile (one replica only; tests and benchmarks hold each path).
 template <typename T, int P>
 int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
-                    int nb, int Kx, int Ky, int Kz, int path, T* grid,
-                    int* tile_runs, cudaStream_t stream) {
+                    int nb, int q_stride, int Kx, int Ky, int Kz, int path,
+                    T* grid, int* tile_runs, cudaStream_t stream) {
   if (nb > 1 && path == kPathTile) return (int)cudaErrorInvalidValue;
   CardLimits card;
   const int err = card_limits(&card);
@@ -691,16 +697,17 @@ int launch_spread_p(const T* pos, const T* charge, const T* box, int n,
   }
   const int blocks = (n + chunk - 1) / chunk;
   spread_kernel<T, P><<<dim3(blocks, nb), kSpreadThreads, smem, stream>>>(
-      pos, charge, box, n, Kx, Ky, Kz, group, chunk, cap, Sz, grid,
-      tile_runs);
+      pos, charge, box, n, q_stride, Kx, Ky, Kz, group, chunk, cap, Sz,
+      grid, tile_runs);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_spread(const void* pos, const void* charge, const void* box, int n,
-                  int nb, int order, int Kx, int Ky, int Kz, int path,
-                  void* grid, void* tile_runs, void* stream) {
-  if (bad_args(n, nb, order, Kx, Ky, Kz) || path < kPathAuto || path > kPathTile)
+                  int nb, int q_stride, int order, int Kx, int Ky, int Kz,
+                  int path, void* grid, void* tile_runs, void* stream) {
+  if (bad_args(n, nb, q_stride, order, Kx, Ky, Kz) || path < kPathAuto ||
+      path > kPathTile)
     return (int)cudaErrorInvalidValue;
   const T* p = (const T*)pos;
   const T* q = (const T*)charge;
@@ -709,22 +716,22 @@ int launch_spread(const void* pos, const void* charge, const void* box, int n,
   int* t = (int*)tile_runs;
   cudaStream_t s = (cudaStream_t)stream;
   switch (order) {
-    case 2: return launch_spread_p<T, 2>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
-    case 3: return launch_spread_p<T, 3>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
-    case 4: return launch_spread_p<T, 4>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
-    case 5: return launch_spread_p<T, 5>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
-    case 6: return launch_spread_p<T, 6>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
-    case 7: return launch_spread_p<T, 7>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
-    default: return launch_spread_p<T, 8>(p, q, b, n, nb, Kx, Ky, Kz, path, g, t, s);
+    case 2: return launch_spread_p<T, 2>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
+    case 3: return launch_spread_p<T, 3>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
+    case 4: return launch_spread_p<T, 4>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
+    case 5: return launch_spread_p<T, 5>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
+    case 6: return launch_spread_p<T, 6>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
+    case 7: return launch_spread_p<T, 7>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
+    default: return launch_spread_p<T, 8>(p, q, b, n, nb, q_stride, Kx, Ky, Kz, path, g, t, s);
   }
 }
 
 // One K3 instantiation's launch: `blocks` blocks a replica of nb.
 template <typename T, int P, bool kBatch>
 int launch_interpolate_k(const T* ct, const T* pos, const T* charge,
-                         const T* box, int n, int nb, int Kx, int Ky, int Kz,
-                         int group, int blocks, size_t smem, T* dpos,
-                         cudaStream_t stream) {
+                         const T* box, int n, int nb, int q_stride, int Kx,
+                         int Ky, int Kz, int group, int blocks, size_t smem,
+                         T* dpos, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;  // per instantiation
   if (smem > opted_in) {
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -734,8 +741,9 @@ int launch_interpolate_k(const T* ct, const T* pos, const T* charge,
     opted_in = smem;
   }
   interpolate_kernel<T, P, kBatch><<<dim3(blocks, nb), kInterpThreads, smem,
-                                     stream>>>(ct, pos, charge, box, n, Kx,
-                                               Ky, Kz, group, dpos);
+                                     stream>>>(ct, pos, charge, box, n,
+                                               q_stride, Kx, Ky, Kz, group,
+                                               dpos);
   return (int)cudaGetLastError();
 }
 
@@ -743,8 +751,8 @@ int launch_interpolate_k(const T* ct, const T* pos, const T* charge,
 // (sized by nb n), kInterpWarps warps a block.
 template <typename T, int P>
 int launch_interpolate_p(const T* ct, const T* pos, const T* charge,
-                         const T* box, int n, int nb, int Kx, int Ky, int Kz,
-                         T* dpos, cudaStream_t stream) {
+                         const T* box, int n, int nb, int q_stride, int Kx,
+                         int Ky, int Kz, T* dpos, cudaStream_t stream) {
   CardLimits card;
   const int err = card_limits(&card);
   if (err != 0) return err;
@@ -753,18 +761,19 @@ int launch_interpolate_p(const T* ct, const T* pos, const T* charge,
   const int per_block = group * kInterpWarps;
   const int blocks = (n + per_block - 1) / per_block;
   return nb > 1 ? launch_interpolate_k<T, P, true>(ct, pos, charge, box, n, nb,
-                                                   Kx, Ky, Kz, group, blocks,
-                                                   smem, dpos, stream)
+                                                   q_stride, Kx, Ky, Kz, group,
+                                                   blocks, smem, dpos, stream)
                 : launch_interpolate_k<T, P, false>(ct, pos, charge, box, n, nb,
-                                                    Kx, Ky, Kz, group, blocks,
-                                                    smem, dpos, stream);
+                                                    q_stride, Kx, Ky, Kz, group,
+                                                    blocks, smem, dpos, stream);
 }
 
 template <typename T>
 int launch_interpolate(const void* ct, const void* pos, const void* charge,
-                       const void* box, int n, int nb, int order, int Kx,
-                       int Ky, int Kz, void* dpos, void* stream) {
-  if (bad_args(n, nb, order, Kx, Ky, Kz)) return (int)cudaErrorInvalidValue;
+                       const void* box, int n, int nb, int q_stride, int order,
+                       int Kx, int Ky, int Kz, void* dpos, void* stream) {
+  if (bad_args(n, nb, q_stride, order, Kx, Ky, Kz))
+    return (int)cudaErrorInvalidValue;
   const T* g = (const T*)ct;
   const T* p = (const T*)pos;
   const T* q = (const T*)charge;
@@ -772,13 +781,13 @@ int launch_interpolate(const void* ct, const void* pos, const void* charge,
   T* d = (T*)dpos;
   cudaStream_t s = (cudaStream_t)stream;
   switch (order) {
-    case 2: return launch_interpolate_p<T, 2>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
-    case 3: return launch_interpolate_p<T, 3>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
-    case 4: return launch_interpolate_p<T, 4>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
-    case 5: return launch_interpolate_p<T, 5>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
-    case 6: return launch_interpolate_p<T, 6>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
-    case 7: return launch_interpolate_p<T, 7>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
-    default: return launch_interpolate_p<T, 8>(g, p, q, b, n, nb, Kx, Ky, Kz, d, s);
+    case 2: return launch_interpolate_p<T, 2>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
+    case 3: return launch_interpolate_p<T, 3>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
+    case 4: return launch_interpolate_p<T, 4>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
+    case 5: return launch_interpolate_p<T, 5>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
+    case 6: return launch_interpolate_p<T, 6>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
+    case 7: return launch_interpolate_p<T, 7>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
+    default: return launch_interpolate_p<T, 8>(g, p, q, b, n, nb, q_stride, Kx, Ky, Kz, d, s);
   }
 }
 
@@ -787,38 +796,41 @@ int launch_interpolate(const void* ct, const void* pos, const void* charge,
 extern "C" {
 
 // nb: replicas in the batch (1 unbatched); pos (nb, n, 3), grid and ct
-// (nb, Kx, Ky, Kz), dpos (nb, n, 3); charge and box shared.
+// (nb, Kx, Ky, Kz), dpos (nb, n, 3); box shared. q_stride: 0 when one (n,)
+// charge row is shared, n for (nb, n) charges, a row a replica.
 // path: 0 = by shape, 1 = the global path, 2 = the tile path (nb = 1).
 // tile_runs: NULL, or an int to which each run of particles a block
 // accumulated in its shared-memory tile adds 1.
 int cavmd_pppm_spread_f32(const void* pos, const void* charge, const void* box,
-                          int n, int nb, int order, int Kx, int Ky, int Kz,
-                          int path, void* grid, void* tile_runs, void* stream) {
-  return launch_spread<float>(pos, charge, box, n, nb, order, Kx, Ky, Kz, path,
-                              grid, tile_runs, stream);
+                          int n, int nb, int q_stride, int order, int Kx,
+                          int Ky, int Kz, int path, void* grid,
+                          void* tile_runs, void* stream) {
+  return launch_spread<float>(pos, charge, box, n, nb, q_stride, order, Kx, Ky,
+                          Kz, path, grid, tile_runs, stream);
 }
 
 int cavmd_pppm_spread_f64(const void* pos, const void* charge, const void* box,
-                          int n, int nb, int order, int Kx, int Ky, int Kz,
-                          int path, void* grid, void* tile_runs, void* stream) {
-  return launch_spread<double>(pos, charge, box, n, nb, order, Kx, Ky, Kz, path,
-                               grid, tile_runs, stream);
+                          int n, int nb, int q_stride, int order, int Kx,
+                          int Ky, int Kz, int path, void* grid,
+                          void* tile_runs, void* stream) {
+  return launch_spread<double>(pos, charge, box, n, nb, q_stride, order, Kx, Ky,
+                          Kz, path, grid, tile_runs, stream);
 }
 
 int cavmd_pppm_interpolate_f32(const void* ct, const void* pos,
                                const void* charge, const void* box, int n,
-                               int nb, int order, int Kx, int Ky, int Kz,
-                               void* dpos, void* stream) {
-  return launch_interpolate<float>(ct, pos, charge, box, n, nb, order, Kx, Ky,
-                                   Kz, dpos, stream);
+                               int nb, int q_stride, int order, int Kx, int Ky,
+                               int Kz, void* dpos, void* stream) {
+  return launch_interpolate<float>(ct, pos, charge, box, n, nb, q_stride, order,
+                               Kx, Ky, Kz, dpos, stream);
 }
 
 int cavmd_pppm_interpolate_f64(const void* ct, const void* pos,
                                const void* charge, const void* box, int n,
-                               int nb, int order, int Kx, int Ky, int Kz,
-                               void* dpos, void* stream) {
-  return launch_interpolate<double>(ct, pos, charge, box, n, nb, order, Kx, Ky,
-                                    Kz, dpos, stream);
+                               int nb, int q_stride, int order, int Kx, int Ky,
+                               int Kz, void* dpos, void* stream) {
+  return launch_interpolate<double>(ct, pos, charge, box, n, nb, q_stride, order,
+                               Kx, Ky, Kz, dpos, stream);
 }
 
 }  // extern "C"

@@ -28,11 +28,16 @@ Differences from the JAX driver:
 - ``--shard-replicas R`` (implies ``--vmap-replicas``) splits the batch
   over R processes (``run_sharded_replicas``), each writing its own
   replicas' files, in lockstep once a chunk; R ranks may share one card.
-  With ``--shard-atoms`` (a batch over slabs), either batch flag exits 2
-  naming ``ROADMAP.md``.
-- The paths the port does not have yet (``--pad-atoms``, a
-  ``--rng-impl`` other than ``auto``, a batch over slabs) exit with an
-  error naming ``ROADMAP.md``; nothing else runs in their place.
+- ``--vmap-replicas --shard-atoms S`` runs the batch over slabs on S
+  processes, each holding slab s of every replica (the slab pipeline with
+  a replica axis, cell mode); ``--shard-replicas R --shard-atoms S`` on
+  R x S processes, rank (r, s) holding slab s of the r-th slice of the
+  batch, rank (r, 0) writing that slice's files. The JAX driver runs
+  both in one process over a GSPMD mesh, which is not ported: they need
+  their ranks (``python -m torch.distributed.run``).
+- The paths the port does not have (``--pad-atoms``, a ``--rng-impl``
+  other than ``auto``) exit with an error naming ``ROADMAP.md``; nothing
+  else runs in their place.
 
 Usage:
     python -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
@@ -45,6 +50,10 @@ Usage:
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
         --shard-replicas 2 --replicas 1-4 --n-molecules 20 --runtime 0.01
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
+        --shard-replicas 2 --shard-atoms 2 --replicas 1-4 \\
+        --n-molecules 40 --box-L 64 --runtime 0.003
 """
 
 from __future__ import annotations
@@ -591,7 +600,8 @@ def coupling_dir(args) -> Path:
     return Path(f"cavity_coupling_{coupling_str}")
 
 
-def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
+def run_vmapped_replicas(args, replica_list, comm=None,
+                         slab_comm=None) -> bool:
     """Every replica of ``replica_list`` in one batched state on one device
     (port of the JAX driver's ``run_vmapped_replicas``; the batched form
     of the reference's SLURM-array replicas). Its per-replica workflow is
@@ -619,13 +629,25 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
     batch of B: thermalized as the one-rank batch's rows
     (``init_replica_states(first_replica=k B/R)``), stepped with those
     rows of the batch's noise (``StreamNoise(B, rows)``), with only their
-    files written here; on the GPU rank k takes card k % device_count.
-    Rank 0 alone minimises the generated scene (FIRE) and broadcasts it
-    once every rank has reported its setup sound. Once a chunk the ranks gather every
-    replica's clock, dt and last frame time (and whether each rank is
-    still sound), so every rank trims the chunk as the one-rank batch
-    does and they loop in lockstep until the whole batch is done; an
-    overflow retry stays on its rank (it is exact).
+    files written here; on the GPU a rank takes card (world rank) %
+    device_count. Rank 0 alone minimises the generated scene (FIRE) and
+    broadcasts it once every rank has reported its setup sound. Once a
+    chunk the ranks gather every replica's clock, dt and last frame time
+    (and whether each rank is still sound), so every rank trims the
+    chunk as the one-rank batch does and they loop in lockstep until the
+    whole batch is done; an overflow retry stays on its rank (it is
+    exact).
+
+    ``slab_comm``: the slab communicator of ``--shard-atoms`` S (a batch
+    over slabs). The force field is then in cell mode and the batch runs
+    on the slab pipeline (``parallel/domain.py:make_domain_runner``): each
+    of the S ranks holds slab s of this rank's replicas and every kernel
+    runs once a step for them. The S ranks of a replica row compute alike
+    and slab 0 alone writes the files. The start forces are made
+    replicated over the slabs, and an overflow retry re-plans as
+    ``Simulation`` does on the slab path (a capacity overflow grows the
+    plan, a coverage violation halves the rebuild cadence) on every slab
+    rank alike.
 
     Returns True when the batch ran to its end on every rank; a failure
     on any rank, in its setup or later, is reported with its traceback
@@ -654,16 +676,22 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
         generate_fibonacci_sphere,
         make_extra_obs,
     )
+    from cavmd_tpu_torch.parallel.domain import (
+        make_domain_runner,
+        plan_domain,
+    )
     from cavmd_tpu_torch.parallel.replicas import (
         init_replica_states,
         run_replica_steps,
         split_replica_obs,
     )
-    from cavmd_tpu_torch.simulation import retry_state
+    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY, retry_state
     from cavmd_tpu_torch.utils import fire_minimize
 
     n_all = len(replica_list)
     R, rank = (comm.world_size, comm.rank) if comm is not None else (1, 0)
+    slabs = slab_comm is not None
+    writes = not slabs or slab_comm.rank == 0
     n_rep = n_all // R
     first = rank * n_rep
     mine = replica_list[first:first + n_rep]
@@ -676,8 +704,11 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
     from_input = True
     try:
         dev = setup_device(args.device)
-        if comm is not None and dev.type == "cuda":  # R ranks, any cards
-            dev = torch.device("cuda", rank % torch.cuda.device_count())
+        if (comm is not None or slabs) and dev.type == "cuda":
+            import torch.distributed as dist
+
+            dev = torch.device("cuda",
+                               dist.get_rank() % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         precision = args.precision
         if precision == "auto":
@@ -702,21 +733,24 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
             snap0 = make_diatomic_system(
                 args.n_molecules, box_L=resolved_box(args), seed=args.seed,
                 dtype=dtype, device=dev)
-            if rank == 0:  # the other ranks take rank 0's minimum below
+            if rank == 0 and writes:  # the others take rank 0's minimum
                 ff0 = ForceField.create(snap0, enable_cavity=False)
                 snap0 = fire_minimize(snap0, ff0, n_steps=300)
             snaps = [snap0] * n_rep
     except Exception:  # noqa: BLE001 — reported, and every rank stops
         ok = _report_failure(rank)
-    if comm is not None:
-        # every rank sound before the scene's broadcast: a rank that failed
-        # above must not leave the others waiting in a collective
-        ok = bool(comm.stack(torch.tensor([float(ok)],
-                                          dtype=torch.float64)).min())
-        if ok and not from_input:  # rank 0's minimum on every rank
-            snaps = [snaps[0].replace(**{
-                k: comm.broadcast(getattr(snaps[0], k).cpu()).to(dev)
-                for k in ("position", "image")})] * n_rep
+    # every rank sound before the scene's broadcast: a rank that failed
+    # above must not leave the others waiting in a collective
+    ok = bool(_gather_rows([float(ok)], comm, slab_comm)[:, 0].all())
+    if ok and not from_input:  # rank 0's minimum on every rank: over the
+        # replica axis from rank (0, s), then over the slabs from (r, 0)
+        for k in ("position", "image"):
+            t = getattr(snaps[0], k)
+            if comm is not None:
+                t = comm.broadcast(t.cpu()).to(dev)
+            if slabs:
+                t = slab_comm.broadcast(t)
+            snaps = [snaps[0].replace(**{k: t})] * n_rep
     if ok:
         try:
             if incavity:
@@ -728,10 +762,13 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
                     if "L" not in s.types else s
                     for r, s in zip(mine, snaps)]
             snap = snaps[0]
+            # the slab path needs cell lists; the batch alone picks its
+            # mode by N
             ff = ForceField.create(
                 snap, coupling=args.coupling, freq_cm1=args.frequency,
                 enable_cavity=incavity,
-                pppm_mesh=(args.pppm_resolution,) * 3)
+                pppm_mesh=(args.pppm_resolution,) * 3,
+                **({"pair_mode": "cell"} if slabs else {}))
             kT = PC.kT_from_kelvin(args.temperature)
             methods = [m for m, _ in bath_methods(
                 args.molecular_bath, args.cavity_bath if incavity else None,
@@ -750,24 +787,52 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
             dt_ps_nominal = (0.0001 if error_tolerance > 0
                              else args.timestep / 1000.0)
             chunk = 500
+            adaptive_period = min(max(1, int(args.energy_output_period_ps
+                                             / dt_ps_nominal)), chunk)
+            if slabs:
+                plan = plan_domain(snap, ff, slab_comm.world_size)
+                cadence = DOMAIN_REBUILD_EVERY
 
-            def build_step(ff_):
-                s_ = make_step_fn(ff_, methods, extra_obs=extra, noise=noise)
+            def build_runner():
+                """The chunk runner ``(state, n) -> (state, obs)`` of the
+                current force field (or slab plan and cadence)."""
+                if slabs:
+                    return make_domain_runner(
+                        ff, methods, plan, slab_comm, rebuild_every=cadence,
+                        adaptive=(dict(error_tolerance=error_tolerance,
+                                       period=adaptive_period)
+                                  if error_tolerance > 0 else None),
+                        obs_spec=(None if extra is None else
+                                  (bool(extra.dipole), extra.wavevectors)),
+                        noise=noise)
+                s_ = make_step_fn(ff, methods, extra_obs=extra, noise=noise)
                 if error_tolerance > 0:
-                    adaptive_period = max(1, int(args.energy_output_period_ps
-                                                 / dt_ps_nominal))
                     s_ = make_adaptive_step(
                         s_, error_tolerance=error_tolerance,
-                        period=min(adaptive_period, chunk))
-                return s_
+                        period=adaptive_period)
+                return lambda state, n: run_replica_steps(s_, state, n)
 
-            step = build_step(ff)
+            def layout():
+                """The capacities an overflow retry re-plans, as text."""
+                return (f"slab bucket cap={plan.cap}, nb_cap={plan.nb_cap}, "
+                        f"rebuild_every={cadence}" if slabs else
+                        f"cap={ff.cell_cfg.cap}, zcol window {ff.zcol_W}")
+
+            run_chunk = build_runner()
+
+            def replicated(state):
+                """The slab ranks' start state: no carried list, and slab
+                0's forces (a card's atomics may round another way)."""
+                if not slabs:
+                    return state
+                return state.replace(forces=slab_comm.broadcast(state.forces),
+                                     cell_list=None, cell_anchor=None)
 
             dt = PC.fs_to_atomic_units(args.timestep if args.fixed_timestep
                                        else 0.1)
-            batched = init_replica_states(
+            batched = replicated(init_replica_states(
                 snaps, ff, dt=dt, seed=args.seed, kT=kT,
-                error_tolerance=error_tolerance, first_replica=first)
+                error_tolerance=error_tolerance, first_replica=first))
             if error_tolerance > 0:
                 # per-replica optimal-dt bootstrap (reference Phase 3.5,
                 # 05_advanced_run.py:756-819) from each replica's forces
@@ -780,8 +845,11 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
             energy_period = max(1, int(args.energy_output_period_ps
                                        / dt_ps_nominal))
             fkt_period = max(1, int(args.fkt_output_period_ps / dt_ps_nominal))
-            trackers = []  # per replica: its tracker list
+            trackers = []  # per replica: its tracker list (none off slab 0)
             for r in mine:
+                if not writes:
+                    trackers.append([])
+                    continue
                 per_rep = [EnergyTracker(
                     output_prefix=f"prod-{r}",
                     output_period_steps=energy_period, n_molecular_dof=n_dof)]
@@ -803,7 +871,9 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
             # per-replica periodic trajectories with log/* chunks a frame; a
             # replica past --runtime writes its final frame at the crossing
             # chunk's end and goes quiet
-            gsd_files = [HOOMDTrajectory(f"prod-{r}.gsd", "w") for r in mine]
+            if writes:
+                gsd_files = [HOOMDTrajectory(f"prod-{r}.gsd", "w")
+                             for r in mine]
             last_gsd_ps = np.full(n_rep, -1e30)
             finished = np.zeros(n_rep, dtype=bool)
 
@@ -819,12 +889,14 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
                     crossing = el[k] >= args.runtime and ts[k] > 0
                     if crossing or (el[k] - last_gsd_ps[k]
                                     >= args.gsd_output_period_ps):
-                        gsd_files[k].append(
-                            snaps[k].replace(position=pos[k], image=img[k],
-                                             velocity=vel[k]),
-                            step=int(ts[k]),
-                            log_data=gather_tracker_log(trackers[k], el[k],
-                                                        dts[k]))
+                        if writes:
+                            gsd_files[k].append(
+                                snaps[k].replace(position=pos[k],
+                                                 image=img[k],
+                                                 velocity=vel[k]),
+                                step=int(ts[k]),
+                                log_data=gather_tracker_log(
+                                    trackers[k], el[k], dts[k]))
                         last_gsd_ps[k] = el[k]
                     if crossing:
                         finished[k] = True
@@ -843,9 +915,7 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
                                   batched.dt.cpu().numpy(), last_gsd_ps])
         else:
             own = np.zeros(1 + 3 * n_rep)
-        if comm is not None:
-            own = comm.stack(torch.from_numpy(own)).numpy()
-        rows = own.reshape(-1, 1 + 3 * n_rep)
+        rows = _gather_rows(own, comm, slab_comm)
         if not rows[:, 0].all():
             return False, None, None, None
         cols = rows[:, 1:].reshape(-1, 3, n_rep).transpose(1, 0, 2)
@@ -881,7 +951,7 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
                           for k, g in pre_chunk.generators.items()}
             retries = 0
             while True:
-                batched, obs = run_replica_steps(step, pre_chunk, n_next)
+                batched, obs = run_chunk(pre_chunk, n_next)
                 if not ("cell_overflow" in obs
                         and obs["cell_overflow"].any()):
                     break
@@ -891,15 +961,20 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
                 if retries > 4:
                     raise RuntimeError(
                         "cell-list bucket overflow in the replica batch "
-                        "persists after 4 re-plans (the last: cap="
-                        f"{ff.cell_cfg.cap}, zcol window {ff.zcol_W})")
-                cap = ff.cell_cfg.cap
-                ff = ff.with_cell_capacity(max(cap + 4, 2 * cap))
+                        f"persists after 4 re-plans (the last: {layout()})")
+                if not slabs:
+                    cap = ff.cell_cfg.cap
+                    ff = ff.with_cell_capacity(max(cap + 4, 2 * cap))
+                elif obs["domain_capacity_overflow"].any():
+                    plan = plan.grow_cap()
+                else:  # the coverage invariant fired
+                    cadence = max(1, cadence // 2)
                 logging.getLogger(__name__).warning(
                     "cell-list overflow in replica batch: re-planned with "
-                    "cap=%d, retrying chunk", ff.cell_cfg.cap)
-                step = build_step(ff)
-                pre_chunk = retry_state(ff, pre_chunk, rng_states)
+                    "%s, retrying chunk", layout())
+                run_chunk = build_runner()
+                pre_chunk = replicated(retry_state(ff, pre_chunk,
+                                                   rng_states))
             for k, (per_rep, o) in enumerate(zip(
                     trackers, split_replica_obs(obs, n_rep))):
                 if finished[k]:
@@ -930,17 +1005,29 @@ def run_vmapped_replicas(args, replica_list, comm=None) -> bool:
     finally:
         os.chdir(cwd)
     # one gather at the end: every rank's soundness and wall time
-    end = torch.tensor([float(ok), wall if ok else 0.0], dtype=torch.float64)
-    if comm is not None:
-        end = comm.stack(end)
-    end = end.reshape(-1, 2).numpy()
+    end = _gather_rows([float(ok), wall if ok else 0.0], comm, slab_comm)
     if not end[:, 0].all():
         return False
     wall = float(end[:, 1].max())
-    on = f" on {R} ranks" if R > 1 else ""
+    S = slab_comm.world_size if slabs else 1
+    on = f" on {R * S} ranks" if R * S > 1 else ""
     print(f"vmapped {n_all} replicas x {steps} steps in {wall:.1f}s "
           f"({n_all * steps / max(wall, 1e-9):.0f} aggregate steps/s){on}")
     return True
+
+
+def _gather_rows(own, comm, slab_comm) -> np.ndarray:
+    """Every replica rank's float64 vector ``own`` as the rows of a NumPy
+    array (one row without ``comm``). Slot 0 is the rank's health (1.0
+    when sound); with ``slab_comm`` it is summed over the slab ranks of
+    this replica row first and reads 1.0 only when each of them is sound
+    (the other slots are alike on those ranks). Every rank calls it at
+    the same points, so the ranks always meet in the same collectives."""
+    own = torch.as_tensor(np.asarray(own, dtype=np.float64))
+    if slab_comm is not None:
+        healthy = slab_comm.sum(own[:1]) == slab_comm.world_size
+        own = torch.cat([healthy.to(own.dtype), own[1:]])
+    return (comm.stack(own) if comm is not None else own[None]).numpy()
 
 
 def _report_failure(rank: int) -> bool:
@@ -961,14 +1048,6 @@ def unported_flags(args) -> list:
     gspmd = ('not ported to cavmd_tpu_torch (see ROADMAP.md, "Not queued '
              f'this round", GSPMD pieces); {jax_cli}')
     out = []
-    if args.shard_atoms > 1 and (args.vmap_replicas
-                                 or args.shard_replicas > 1):
-        from cavmd_tpu_torch.integrate.forcefield import BATCHED_CELL_TODO
-
-        flag = ("--shard-replicas" if args.shard_replicas > 1
-                else "--vmap-replicas")
-        out.append(f"{flag} with --shard-atoms: {BATCHED_CELL_TODO}; "
-                   f"{jax_cli}")
     if args.pad_atoms:
         out.append(f"--pad-atoms: ghost padding is {gspmd}")
     if args.rng_impl != "auto":
@@ -1015,9 +1094,10 @@ def build_parser():
                         help="GPU (default) = the CUDA device, an error "
                              "when there is none; CPU = the CPU")
     parser.add_argument("--truncate-gsd", action="store_true")
-    # flags of the JAX driver whose paths are not ported yet: kept so that
-    # a command line written for it fails loudly instead of running
-    # something else
+    # the batch and its scale-out over ranks; then --rng-impl and
+    # --pad-atoms, flags of the JAX driver whose paths are not ported:
+    # kept so that a command line written for it fails loudly instead of
+    # running something else
     parser.add_argument("--vmap-replicas", action="store_true",
                         help="run every replica of --replicas as one batch "
                              "on one device (dense force field up to "
@@ -1032,7 +1112,9 @@ def build_parser():
                         help="run the slab domain pipeline on this many "
                              "ranks (one process each, started by python "
                              "-m torch.distributed.run --nproc-per-node "
-                             "S); cell mode")
+                             "S); cell mode. With --vmap-replicas, the "
+                             "batch over S slabs; with --shard-replicas R, "
+                             "over R x S ranks")
     parser.add_argument("--rng-impl", choices=("auto", "threefry", "rbg"),
                         default="auto",
                         help="only auto (torch.Generator streams) is "
@@ -1089,7 +1171,8 @@ def main(argv=None):
         for msg in unported:
             print(f"error: {msg}", file=sys.stderr)
         return 2
-    if args.shard_replicas > 1:
+    if args.shard_replicas > 1 or (args.vmap_replicas
+                                   and args.shard_atoms > 1):
         return run_sharded_replicas(args)
     if args.shard_atoms <= 1:
         return run_replicas(args)
@@ -1122,55 +1205,74 @@ def replica_list_of(args) -> list:
 
 
 def run_sharded_replicas(args) -> int:
-    """``--shard-replicas R``: the batch of ``--replicas`` over R ranks,
-    each running its slice through ``run_vmapped_replicas`` (the JAX
-    driver's (replica x atoms) mesh at one atom shard,
-    ``cavmd_tpu/drivers/advanced_run.py:641-666``). The ranks come from
-    ``python -m torch.distributed.run --nproc-per-node R``, an initialised
-    process group, or ``parallel/launch.py:run_ranks``; the group's
-    collectives are small host arrays over gloo, so on the GPU rank k
-    takes card k % device_count and R ranks may share one card. Checked
-    before any work: B divisible by R, and a world of R ranks (else 2).
-    Rank 0 alone prints; 1 when any rank failed."""
+    """The batch of ``--replicas`` over ranks: ``--shard-replicas R``
+    cuts it into R slices, ``--shard-atoms S`` (with ``--vmap-replicas``
+    or ``--shard-replicas``) each slice's atoms into S slabs, on R x S
+    ranks (the JAX driver's (replica x atoms) mesh,
+    ``cavmd_tpu/drivers/advanced_run.py:641-666``); every rank runs its
+    part through ``run_vmapped_replicas``. The ranks come from ``python
+    -m torch.distributed.run --nproc-per-node R*S``, an initialised
+    process group, or ``parallel/launch.py:run_ranks``; the group made
+    here is gloo, or NCCL with the card ``LOCAL_RANK`` for slabs on the
+    GPU. The replica axis carries small host arrays over gloo, so R ranks
+    may share one card; S slabs on the GPU need S cards (NCCL). Checked
+    before any work: B divisible by R, and a world of R x S ranks (else
+    2). Rank 0 alone prints; 1 when any rank failed."""
     import torch.distributed as dist
 
-    from cavmd_tpu_torch.parallel import Communicator
+    from cavmd_tpu_torch.parallel import grid_communicators
 
-    R = args.shard_replicas
+    R = max(args.shard_replicas, 1)
+    S = max(args.shard_atoms, 1)
+    flags = " with ".join(
+        ([f"--shard-replicas {R}"] if R > 1 else ["--vmap-replicas"])
+        + ([f"--shard-atoms {S}"] if S > 1 else []))
     n_all = len(replica_list_of(args))
     if n_all % R:
         print(f"error: {n_all} replicas not divisible by --shard-replicas "
               f"{R}", file=sys.stderr)
         return 2
     if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
-        print(f"error: --shard-replicas {R} runs one process per slice of "
-              "the batch: start it with python -m torch.distributed.run "
-              f"--nproc-per-node {R}", file=sys.stderr)
+        what = ("process per slab and slice of the batch" if S > 1
+                else "process per slice of the batch")
+        gspmd = (" (the JAX driver's one-process GSPMD mesh is not ported: "
+                 "ROADMAP.md, \"Not queued this round\", GSPMD pieces)"
+                 if S > 1 else "")
+        print(f"error: {flags} runs one {what}: start it with python -m "
+              f"torch.distributed.run --nproc-per-node {R * S}{gspmd}",
+              file=sys.stderr)
         return 2
     made = not dist.is_initialized()
     if made:
-        dist.init_process_group("gloo")
+        backend = ("nccl" if S > 1 and args.device.upper() == "GPU"
+                   else "gloo")
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
     try:
-        if dist.get_world_size() != R:
-            print(f"error: --shard-replicas {R} in a process group of "
-                  f"{dist.get_world_size()} ranks", file=sys.stderr)
+        if dist.get_world_size() != R * S:
+            print(f"error: {flags} needs {R * S} ranks; the process group "
+                  f"has {dist.get_world_size()}", file=sys.stderr)
             return 2
-        comm = Communicator.from_process_group()
-        if comm.rank == 0:
-            return run_replicas(args, comm)
+        replica_comm, slab_comm = grid_communicators(R, S)
+        comms = (replica_comm if R > 1 else None,
+                 slab_comm if S > 1 else None)
+        if dist.get_rank() == 0:
+            return run_replicas(args, *comms)
         with open(os.devnull, "w") as quiet:  # rank 0 alone reports
             with contextlib.redirect_stdout(quiet):
-                return run_replicas(args, comm)
+                return run_replicas(args, *comms)
     finally:
         if made:
             dist.destroy_process_group()
 
 
-def run_replicas(args, comm=None):
+def run_replicas(args, comm=None, slab_comm=None):
     """Run every replica of ``args`` (one after another, or as one batch
     with ``--vmap-replicas``; with ``comm``, the ``--shard-replicas``
-    communicator, as a batch over its ranks); 0 when all succeeded, else
-    1."""
+    communicator, as a batch over its ranks; with ``slab_comm``, the
+    ``--shard-atoms`` communicator, as a batch over slabs); 0 when all
+    succeeded, else 1."""
     print("Advanced Cavity MD Experiment Runner (cavmd_tpu_torch)")
     print("=" * 50)
 
@@ -1183,10 +1285,13 @@ def run_replicas(args, comm=None):
     if comm is not None:
         print(f"Sharded replicas: {comm.world_size} ranks, "
               f"{len(replica_list) // comm.world_size} replicas each")
+    if slab_comm is not None:
+        print(f"Replica batch over slabs: {slab_comm.world_size} slabs a "
+              "replica (the slab domain pipeline, cell mode)")
 
     start = time.time()
     if args.vmap_replicas or comm is not None:
-        success = run_vmapped_replicas(args, replica_list, comm)
+        success = run_vmapped_replicas(args, replica_list, comm, slab_comm)
         print(f"\nvmapped batch: {'SUCCESS' if success else 'FAILED'}")
         print(f"Wall time: {time.time() - start:.2f} seconds")
         return 0 if success else 1

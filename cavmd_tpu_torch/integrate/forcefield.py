@@ -14,8 +14,9 @@ energy; in zcol mode it also carries the visit-window overflow).
 topology in one box, in every pair mode: every term then runs once for the
 whole batch (each kernel one launch; in cell and zcol mode over a batched
 list, ``build_cells``) and the energies are (B,) tensors, ``cell_overflow``
-one flag a replica. A batch over slabs is not ported
-(``BATCHED_CELL_TODO``).
+one flag a replica. A batch over slabs runs on the slab pipeline instead
+(``parallel/domain.py:make_domain_runner``), whose step calls the pair and
+PPPM kernels itself.
 
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
 ``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
@@ -73,10 +74,6 @@ ENERGY_KEYS = (
     "cavity_harmonic", "cavity_coupling", "cavity_dipole_self",
 )
 DENSE_MAX_N = 4096
-BATCHED_CELL_TODO = (
-    "a replica batch over slabs (the slab step over a replica axis, K7 "
-    "with per-replica tables) is not ported yet (ROADMAP.md, Queue 1, a "
-    "replica batch over slabs)")
 
 
 class ForceField(nn.Module):

@@ -39,10 +39,11 @@ import torch
 
 def kinetic_energy(velocity, mass, mask):
     """Group kinetic energy 1/2 sum m v^2 over ``mask``: 0-d for (N, 3)
-    velocities, (B,) for a replica batch."""
+    velocities, (B,) for a replica batch, whose masses and mask are shared
+    (N,) or a replica's own (B, N) (a batch over slabs)."""
     w = torch.where(mask, mass, torch.zeros((), dtype=velocity.dtype,
                                             device=velocity.device))
-    return 0.5 * torch.sum(w[:, None] * velocity**2, dim=(-2, -1))
+    return 0.5 * torch.sum(w[..., None] * velocity**2, dim=(-2, -1))
 
 
 def _per_particle(x):

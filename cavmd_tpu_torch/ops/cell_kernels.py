@@ -35,7 +35,10 @@ runs the one-replica twin on each replica and stacks the results.
 ``fused_cell_cols_slab_pallas`` (the tile pass of the slab domain
 pipeline, ``parallel/domain.py``): the same kernel launched over the own
 cells of a slab's extended grid, with pair keys. Its launches count as
-``cell_pair_slab``.
+``cell_pair_slab``. A batch over slabs gives each replica its own slab
+tables: typeid, charge and pair keys (B, N), exclusions (B, N + 1, E);
+the kernel then steps them by replica as it steps the positions. Either
+form of the tables (shared or a replica's own) goes to either wrapper.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _I, _I, _D,
-         _D, _I, _I, _I, _I, _I, _I, _V, _V, _V, _V]
+         _D, _I, _I, _I, _I, _I, _I, _I, _I, _V, _V, _V, _V]
 _SIGNATURES = {"cavmd_cell_pair_f32": _ARGS, "cavmd_cell_pair_f64": _ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 WARPS_PER_BLOCK = 8  # csrc/cell_pair.cu kThreads / 32
@@ -98,12 +101,17 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
     """Plain twin of the cell kernel: the tile path of ``ops/neighbor.py``,
     in blocks of cells sized by ``cell_block_for`` (bounded tile memory).
     Returns (forces (N, 3), e_lj, e_ewald_short); for a replica batch the
-    one-replica twin of each replica, stacked ((B, N, 3), (B,), (B,))."""
+    one-replica twin of each replica, stacked ((B, N, 3), (B,), (B,)), on
+    its own rows of the tables that carry the replica axis."""
     if position.dim() == 3:
+        def rows(t, r, dim):  # replica r's table, or the shared one
+            return t[r] if t is not None and t.dim() == dim else t
+
         outs = [cell_pair_force_fused_plain(
-            position[r], box_L, replica_list(clist, r), cfg, typeid, charge,
-            eps, sig2, rcut2, vshift, exclusions, kappa, lj_on, coul_on,
-            pair_key) for r in range(position.shape[0])]
+            position[r], box_L, replica_list(clist, r), cfg,
+            rows(typeid, r, 2), rows(charge, r, 2), eps, sig2, rcut2,
+            vshift, rows(exclusions, r, 3), kappa, lj_on, coul_on,
+            rows(pair_key, r, 2)) for r in range(position.shape[0])]
         return tuple(torch.stack(x) for x in zip(*outs))
     n_types = eps.shape[0]
     zero = position.new_zeros(())
@@ -162,8 +170,12 @@ def cell_pair_force_slab(position, box_L, clist: CellList,
     ids. ``cells = (first, count)`` is the own-cell range the kernel
     launches blocks for (halo cells have no pairs); ``pair_key`` (Mtot,)
     int32 is the id the self and exclusion tests compare. Returns (forces
-    (Mtot, 3), e_lj, e_ewald_short); a halo row's force is zero. The plain
-    twin on the CPU, the kernel (counted ``cell_pair_slab``) on CUDA."""
+    (Mtot, 3), e_lj, e_ewald_short); a halo row's force is zero. A batch
+    over slabs, positions (B, Mtot, 3) with a batched ``clist`` and each
+    replica's own tables ((B, Mtot) typeid, charge and keys, (B, Mtot + 1,
+    B) exclusions), runs in one launch and returns ((B, Mtot, 3), (B,),
+    (B,)). The plain twin on the CPU, the kernel (counted
+    ``cell_pair_slab``) on CUDA."""
     if position.device.type == "cpu":
         return cell_pair_force_fused_plain(
             position, box_L, clist, cfg, typeid, charge, eps, sig2, rcut2,
@@ -184,16 +196,18 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
     dtype = position.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"{name}: no kernel for {dtype}")
-    if position.dim() not in (2, 3) or (position.dim() == 3
-                                        and pair_key is not None):
-        raise ValueError(f"{name}: position must be (N, 3), or (B, N, 3) "
-                         f"with no pair keys, got {tuple(position.shape)}")
+    if position.dim() not in (2, 3):
+        raise ValueError(f"{name}: position must be (N, 3) or (B, N, 3), "
+                         f"got {tuple(position.shape)}")
     batch = tuple(position.shape[:-2])
     nb = batch[0] if batch else 1
     n = position.shape[-2]
     C, cap = clist.bucket_idx.shape[-2:]
     ntypes = eps.shape[0]
-    max_excl = exclusions.shape[1]
+    max_excl = exclusions.shape[-1]
+    # a batch over slabs: each replica's own types, charges, keys and
+    # exclusion rows, which the kernel steps by replica
+    own = batch if batch and typeid.dim() == 2 else ()
     if C != cfg.total_cells or cap != cfg.cap:
         raise ValueError(
             f"{name}: cell list {(C, cap)} does not match the config "
@@ -203,17 +217,18 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
         raise ValueError(f"{name}: cell range {cells} outside {C} cells")
     checks = dict(position=(position, dtype, batch + (n, 3)),
                   box_L=(box_L, dtype, (3,)),
-                  typeid=(typeid, torch.int32, (n,)),
-                  charge=(charge, dtype, (n,)),
+                  typeid=(typeid, torch.int32, own + (n,)),
+                  charge=(charge, dtype, own + (n,)),
                   eps=(eps, dtype, (ntypes, ntypes)),
                   sig2=(sig2, dtype, (ntypes, ntypes)),
                   rcut2=(rcut2, dtype, (ntypes, ntypes)),
                   vshift=(vshift, dtype, (ntypes, ntypes)),
                   bucket_idx=(clist.bucket_idx, torch.int32, batch + (C, cap)),
                   neighbor_cells=(clist.neighbor_cells, torch.int32, (C, 27)),
-                  exclusions=(exclusions, torch.int32, (n + 1, max_excl)))
+                  exclusions=(exclusions, torch.int32,
+                              own + (n + 1, max_excl)))
     if pair_key is not None:
-        checks["pair_key"] = (pair_key, torch.int32, (n,))
+        checks["pair_key"] = (pair_key, torch.int32, own + (n,))
     for arg, (t, want_dtype, shape) in checks.items():
         if not t.is_cuda or t.dtype != want_dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -233,6 +248,7 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
         p(clist.neighbor_cells), p(exclusions), max_excl, n, C, cap,
         cfg.r_cut * cfg.r_cut, float(kappa), int(bool(lj_on)),
         int(bool(coul_on)), first, count, blocks // count, nb,
+        n if own else 0, (n + 1) * max_excl if own else 0,
         p(pair_key) if pair_key is not None else None, p(forces),
         p(partial), _cuda.stream_ptr(position.device))
     _cuda.check(rc, name)

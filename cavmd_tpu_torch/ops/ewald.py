@@ -14,7 +14,9 @@ at a set accuracy) or ``auto_kappa_error_estimate`` (the Kolafa-Perram
 estimate, HOOMD's choice). The
 exclusion corrections take a leading replica axis, (B, N, 3) positions
 with shared charges and bonds, and give (B,) energies; the self energy
-depends on the charges only and is one number for every replica.
+depends on the charges only and is one number for every replica (a
+replica's own (B, N) charges, as a batch over slabs holds them, give one
+a replica).
 """
 
 from __future__ import annotations
@@ -75,9 +77,10 @@ def auto_kappa_error_estimate(charge, box_L, r_cut, accuracy=1e-4):
 
 
 def ewald_self_energy(charge, kappa):
-    """Self-interaction correction kappa/sqrt(pi) * sum q_i^2 (subtracted)."""
+    """Self-interaction correction kappa/sqrt(pi) * sum q_i^2 (subtracted):
+    0-d for (N,) charges, (B,) for a row a replica."""
     kappa = torch.as_tensor(kappa, dtype=charge.dtype, device=charge.device)
-    return kappa / math.sqrt(math.pi) * torch.sum(charge * charge)
+    return kappa / math.sqrt(math.pi) * torch.sum(charge * charge, dim=-1)
 
 
 def _excl_pair_terms(dr, qq, kappa):

@@ -15,8 +15,10 @@ forces are ``-grad`` of the mesh energy exactly as with the JAX package's
 
 Positions may carry a leading replica axis, (B, N, 3) (replica batching,
 ``parallel/replicas.py``): the grid is then (B, Kx, Ky, Kz), one launch
-for the batch, charges and box shared. Kernel 2 takes its global path for
-a batch; a batched ``path="tile"`` raises.
+for the batch, the box shared and the charges either shared, (N,), or a
+row a replica, (B, N) (a batch over slabs, ``parallel/domain.py``, where
+each replica's slab holds other atoms). Kernel 2 takes its global path
+for a batch; a batched ``path="tile"`` raises.
 """
 
 from __future__ import annotations
@@ -33,10 +35,10 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     **{f"cavmd_pppm_spread_{s}": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _I,
-                                   _V, _V, _V]
+                                   _I, _V, _V, _V]
        for s in ("f32", "f64")},
     **{f"cavmd_pppm_interpolate_{s}": [_V, _V, _V, _V, _I, _I, _I, _I, _I,
-                                       _I, _V, _V]
+                                       _I, _I, _V, _V]
        for s in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -66,7 +68,7 @@ def spread_grid_plain(position, charge, box_L, order: int, mesh):
     ``grid[x, y, z] = sum_i q_i Mx_i(x) My_i(y) Mz_i(z)`` by a p^3 scatter."""
     w, _, idx = bspline_stencils(position, box_L, order, mesh)
     wx, wy, wz = w[..., 0, :], w[..., 1, :], w[..., 2, :]
-    vals = ((charge[:, None] * wx)[..., :, None, None]
+    vals = ((charge[..., None] * wx)[..., :, None, None]
             * (wy[..., None, :, None] * wz[..., None, None, :]))
     batch = tuple(position.shape[:-2])
     grid = position.new_zeros(int(np.prod(batch + tuple(mesh))))
@@ -89,7 +91,7 @@ def interpolate_grad_plain(ct, position, charge, box_L, order: int, mesh):
     gsum = torch.stack([torch.sum(g * t, dim=(-3, -2, -1)) for t in terms],
                        dim=-1)
     Ks = mesh_vector(mesh, position)
-    return charge[:, None] * gsum * (Ks / box_L.to(position.dtype))
+    return charge[..., None] * gsum * (Ks / box_L.to(position.dtype))
 
 
 def _check_cuda_inputs(what, tensors, dtype):
@@ -113,19 +115,23 @@ def _lib():
 
 
 def _batch(position, charge, what):
-    """(leading shape, N, replicas) of (N, 3) or (B, N, 3) positions."""
-    if position.dim() not in (2, 3) or position.shape[-1] != 3 \
-            or tuple(charge.shape) != (position.shape[-2],):
-        raise ValueError(f"{what}: positions must be (N, 3) or (B, N, 3) "
-                         f"with (N,) charges, got {tuple(position.shape)} "
-                         f"and {tuple(charge.shape)}")
+    """(leading shape, N, replicas, charge stride) of (N, 3) or (B, N, 3)
+    positions with (N,) charges (stride 0) or, for a batch, (B, N) charges
+    (stride N)."""
     batch = tuple(position.shape[:-2])
-    return batch, position.shape[-2], batch[0] if batch else 1
+    n = position.shape[-2] if position.dim() in (2, 3) else -1
+    if n < 0 or position.shape[-1] != 3 \
+            or tuple(charge.shape) not in ((n,), batch + (n,)):
+        raise ValueError(f"{what}: positions must be (N, 3) or (B, N, 3) "
+                         f"with (N,) or (B, N) charges, got "
+                         f"{tuple(position.shape)} and {tuple(charge.shape)}")
+    return batch, n, batch[0] if batch else 1, n if charge.dim() == 2 else 0
 
 
 def spread_grid(position, charge, box_L, order: int, mesh):
-    """(..., Kx, Ky, Kz) charge grid of positions (..., N, 3): kernel 2 on
-    CUDA, the plain twin on CPU."""
+    """(..., Kx, Ky, Kz) charge grid of positions (..., N, 3) with (N,)
+    charges, or for a batch (B, N), a row a replica: kernel 2 on CUDA, the
+    plain twin on CPU."""
     if position.device.type == "cpu":
         return spread_grid_plain(position, charge, box_L, order, mesh)
     return spread_grid_cuda(position, charge, box_L, order, mesh)
@@ -144,7 +150,7 @@ def spread_grid_cuda(position, charge, box_L, order: int, mesh,
     sfx = _kernel_dtype(position, "spread_grid")
     _check_cuda_inputs("spread_grid", dict(position=position, charge=charge,
                                            box_L=box_L), position.dtype)
-    batch, n, nb = _batch(position, charge, "spread_grid")
+    batch, n, nb, q_stride = _batch(position, charge, "spread_grid")
     if batch and path == "tile":
         raise ValueError("spread_grid: the tile path takes one replica; a "
                          "replica batch runs the global path")
@@ -154,16 +160,17 @@ def spread_grid_cuda(position, charge, box_L, order: int, mesh,
     tiled = None if tile_runs is None else _cuda.ptr(tile_runs)
     rc = getattr(_lib(), f"cavmd_pppm_spread_{sfx}")(
         _cuda.ptr(position), _cuda.ptr(charge), _cuda.ptr(box_L), n, nb,
-        order, Kx, Ky, Kz, SPREAD_PATHS[path], _cuda.ptr(grid), tiled,
-        _cuda.stream_ptr(position.device))
+        q_stride, order, Kx, Ky, Kz, SPREAD_PATHS[path], _cuda.ptr(grid),
+        tiled, _cuda.stream_ptr(position.device))
     _cuda.check(rc, "pppm_spread")
     _cuda.count_launch("pppm_spread")
     return grid
 
 
 def interpolate_grad(ct, position, charge, box_L, order: int, mesh):
-    """dE/dr (..., N, 3) from the grid cotangent (..., Kx, Ky, Kz): kernel
-    3 on CUDA, the plain twin on CPU."""
+    """dE/dr (..., N, 3) from the grid cotangent (..., Kx, Ky, Kz), the
+    charges (N,) or (B, N) as for ``spread_grid``: kernel 3 on CUDA, the
+    plain twin on CPU."""
     if position.device.type == "cpu":
         return interpolate_grad_plain(ct, position, charge, box_L, order, mesh)
     if position.device.type != "cuda":
@@ -174,7 +181,7 @@ def interpolate_grad(ct, position, charge, box_L, order: int, mesh):
     _check_cuda_inputs("interpolate_grad", dict(
         ct=ct, position=position, charge=charge, box_L=box_L),
         position.dtype)
-    batch, n, nb = _batch(position, charge, "interpolate_grad")
+    batch, n, nb, q_stride = _batch(position, charge, "interpolate_grad")
     if tuple(ct.shape) != batch + tuple(mesh):
         raise ValueError(f"interpolate_grad: ct shape {tuple(ct.shape)} "
                          f"is not {batch + tuple(mesh)}")
@@ -182,7 +189,8 @@ def interpolate_grad(ct, position, charge, box_L, order: int, mesh):
     dpos = torch.empty_like(position)
     rc = getattr(_lib(), f"cavmd_pppm_interpolate_{sfx}")(
         _cuda.ptr(ct), _cuda.ptr(position), _cuda.ptr(charge),
-        _cuda.ptr(box_L), n, nb, order, Kx, Ky, Kz, _cuda.ptr(dpos),
+        _cuda.ptr(box_L), n, nb, q_stride, order, Kx, Ky, Kz,
+        _cuda.ptr(dpos),
         _cuda.stream_ptr(position.device))
     _cuda.check(rc, "pppm_interpolate")
     _cuda.count_launch("pppm_interpolate")

@@ -9,7 +9,9 @@ stepped with ``integrate.StreamNoise(full_batch, rows)``.
 ``comm.Communicator`` carries the collectives (``grid_communicators``
 cuts R x S ranks into replicas and slabs); ``domain`` plans the slabs,
 rebuilds the residency layout and runs the slab step
-(``make_domain_runner``, with ``n_replicas=R`` over R x S ranks).
+(``make_domain_runner``: one replica, or a batch over slabs with each
+kernel once a step for the batch; with ``n_replicas=R`` over R x S
+ranks).
 ``launch.run_ranks`` runs a function on local processes over gloo (the
 CPU dry runs).
 """

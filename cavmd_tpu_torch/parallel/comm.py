@@ -74,14 +74,18 @@ class Communicator:
                 else dist.get_global_rank(self.group, r))
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The all-reduce sum of ``t`` over the ranks (``t`` unchanged)."""
+        """The all-reduce sum of ``t`` over the ranks (``t`` unchanged). A
+        CPU tensor on an NCCL group goes through the current card and
+        comes back to the CPU."""
         if self.world_size == 1:
             return t
         import torch.distributed as dist
 
         out = t.reshape(-1).clone()
+        if out.device.type == "cpu" and dist.get_backend(self.group) == "nccl":
+            out = out.to(torch.device("cuda", torch.cuda.current_device()))
         dist.all_reduce(out, group=self.group)
-        return out.reshape(t.shape)
+        return out.to(t.device).reshape(t.shape)
 
     def sum_many(self, tensors):
         """The sums of ``tensors`` (one dtype), in one all-reduce of one

@@ -33,6 +33,19 @@ The global ``MDState`` is replicated on every rank between chunks: a chunk
 starts with each rank taking its slab's rows (scatter-in) and ends with an
 all-gather of every rank's rows (scatter-out).
 
+A replica batch over slabs: the state may be a batch of B replicas
+(``parallel/replicas.py``), and then every table and every tensor of the
+step carries a leading replica axis. The rebuild runs once for the batch
+(each replica's sort keys offset by its (replica, slab) groups), each
+replica's slab holds its own atoms, and the tile pass (K7's counterpart)
+and the PPPM kernels run once a step for the batch on each replica's own
+tables (types, charges, exclusions, pair keys; a charge row a replica).
+The collectives carry the batch: one halo exchange of (B, 2H, 3) rows, one
+sum of the force stage, one sum of the (B,) kinetic energies where one
+replica sums one. A one-replica state runs as a batch of one. Over R x S
+ranks (``make_domain_runner(n_replicas=R)``) rank (r, s) runs slab s of
+the r-th slice of the batch.
+
 Differences from the JAX module:
 
 - the tile pass is the cell kernel of ``ops/cell_kernels.py`` launched
@@ -64,6 +77,7 @@ from cavmd_tpu_torch.core.units import PhysicalConstants
 from cavmd_tpu_torch.integrate.integrator import (
     ObsBuffer,
     StreamNoise,
+    _set_at,
     group_slot,
 )
 from cavmd_tpu_torch.integrate.thermostats import (
@@ -82,6 +96,7 @@ from cavmd_tpu_torch.ops.neighbor import (
     CellList,
     CellListConfig,
     _rank_and_bucket,
+    replica_list,
 )
 from cavmd_tpu_torch.ops.pppm import mesh_energy
 from cavmd_tpu_torch.ops.pppm_kernels import interpolate_grad, spread_grid
@@ -321,7 +336,9 @@ def _ext_neighbor_table(plan: DomainPlan) -> np.ndarray:
 class DomainData(NamedTuple):
     """The layout of one chunk (rebuilt every ``rebuild_every`` steps),
     every slab's tables, with the JAX ``DomainData`` fields plus
-    ``pair_key``. Integer tables are int32."""
+    ``pair_key``. Integer tables are int32. ``_rebuild`` gives each field
+    (but the two flags) a leading replica axis B; ``_rebuild_one`` is one
+    replica's, the shapes below."""
 
     perm: torch.Tensor  # (S*Mrow,) particle row per slot (n0 = filler)
     inv_slot: torch.Tensor  # (n0,) slot of each particle row
@@ -374,68 +391,100 @@ def _place(order, sorted_k, rank, is_last, n_groups, cap, fill):
     return out.scatter_(0, target, order)[:dump]
 
 
-def _rebuild_one(position, plan: DomainPlan, box_L, bond_k_per, bond_r0_per,
-                 pair_inert, charge) -> DomainData:
-    """The layout of every slab from the global positions: the same
-    tables as the JAX ``_rebuild_one``, on the positions' device, with no
-    read-back."""
+def plan_tables(plan: DomainPlan, device) -> dict:
+    """The plan's topology tables on ``device`` (int64): the bond ids of
+    each molecule, each atom's bond partners and bond ids, the in-molecule
+    exclusion offsets. Made once a runner, so that a rebuild copies
+    nothing from the host."""
+    return {k: torch.as_tensor(getattr(plan, k), device=device).long()
+            for k in ("mol_bonds", "abond_partner", "abond_bond",
+                      "excl_offs")}
+
+
+def _rebuild(position, plan: DomainPlan, box_L, bond_k_per, bond_r0_per,
+             pair_inert, charge, tables=None) -> DomainData:
+    """The layout of every slab of each replica of ``position`` (B, N, 3),
+    in one pass on the positions' device with no read-back: each replica's
+    tables are the JAX ``_rebuild_one``'s of its positions. The B
+    replicas' S slabs are B S groups g = b S + s: the sort keys of a
+    replica's molecules, singles and bins are offset by its groups (as
+    ``ops/neighbor.py:build_cell_list`` offsets a batch's bins), so every
+    sort and running maximum runs once over the batch, and a stable sort
+    keeps each replica's order within a group. A capacity overflow in any
+    replica sets the batch's flag. Fields gain the leading B. ``tables``:
+    ``plan_tables`` on the positions' device (None: made here)."""
+    nrep = position.shape[0]
     S, (cx, cy, cz) = plan.S, plan.ncells
     cxl, cap, nb_cap, Mrow = plan.cxl, plan.cap, plan.nb_cap, plan.Mrow
     ns_cap, apm, nbm, B = plan.ns_cap, plan.apm, plan.nbm, plan.B
     n0, n_mol, n_atoms = plan.n0, plan.n_mol, plan.n_atoms
     C_ext, H, Mtot = plan.C_ext, plan.H, plan.Mtot
+    G = nrep * S  # (replica, slab) groups
     nb_tot = n_mol * nbm
     dev, dtype = position.device, position.dtype
     box = box_L.to(dtype)
     i64 = dict(dtype=torch.int64, device=dev)
+    tables = tables if tables is not None else plan_tables(plan, dev)
 
     def i32(t):
         return t.to(torch.int32)
 
+    def ring(x, shift):
+        """``x`` (G, ...) rolled by ``shift`` over each replica's slabs."""
+        return torch.roll(x.reshape((nrep, S) + x.shape[1:]), shift,
+                          dims=1).reshape(x.shape)
+
     # ---- per-atom global cells (true cells) ----
     frac = position / box + 0.5
     cell3 = torch.stack([
-        torch.clamp(torch.floor(frac[:, d] * float(nc)).to(torch.int64),
+        torch.clamp(torch.floor(frac[..., d] * float(nc)).to(torch.int64),
                     0, nc - 1)
-        for d, nc in enumerate((cx, cy, cz))], dim=1)
-    slab_at = cell3[:n_atoms, 0] // cxl
+        for d, nc in enumerate((cx, cy, cz))], dim=-1)
+    slab_at = cell3[:, :n_atoms, 0] // cxl
+    g0 = torch.arange(0, G, S, **i64)[:, None]  # each replica's first group
 
     # ---- intact molecules take an apm-row slot; the atoms of a
     # straddling molecule become singles ----
-    mslab = slab_at.reshape(n_mol, apm)
-    mol_slab = mslab[:, 0]
-    intact = torch.all(mslab == mol_slab[:, None], dim=1)
-    key_m = torch.where(intact, mol_slab, S)
+    mslab = slab_at.reshape(nrep, n_mol, apm)
+    mol_slab = mslab[..., 0]
+    intact = torch.all(mslab == mol_slab[..., None], dim=-1)
+    key_m = torch.where(intact, g0 + mol_slab, G).reshape(-1)
     order_m, sorted_m, rank_m, last_m = _rank_in_group(key_m)
-    over_m = torch.any((rank_m >= nb_cap) & (sorted_m < S))
-    mol_perm = _place(order_m, sorted_m, rank_m, last_m, S, nb_cap, n_mol)
+    over_m = torch.any((rank_m >= nb_cap) & (sorted_m < G))
+    mol_perm = _place(order_m % n_mol, sorted_m, rank_m, last_m, G, nb_cap,
+                      n_mol)
 
-    single = torch.repeat_interleave(~intact, apm)
-    key_a = torch.where(single, slab_at, S)
+    single = torch.repeat_interleave(~intact, apm, dim=-1)
+    key_a = torch.where(single, g0 + slab_at, G).reshape(-1)
     order_a, sorted_a, rank_a, last_a = _rank_in_group(key_a)
-    over_s = torch.any((rank_a >= ns_cap) & (sorted_a < S))
-    sing_perm = _place(order_a, sorted_a, rank_a, last_a, S, ns_cap, n0)
+    over_s = torch.any((rank_a >= ns_cap) & (sorted_a < G))
+    sing_perm = _place(order_a % n_atoms, sorted_a, rank_a, last_a, G,
+                       ns_cap, n0)
     slab_overflow = over_m | over_s
 
-    # ---- slot -> particle row ----
-    d = torch.arange(S * Mrow, **i64)
-    s_of = d // Mrow
+    # ---- slot -> particle row (the replica's row) ----
+    d = torch.arange(G * Mrow, **i64)
+    g_of = d // Mrow
+    s_of = g_of % S
+    b_of = g_of // S
     r_of = d % Mrow
     in_mol = r_of < apm * nb_cap
-    mslot = s_of * nb_cap + torch.clamp_max(r_of, apm * nb_cap - 1) // apm
+    mslot = g_of * nb_cap + torch.clamp_max(r_of, apm * nb_cap - 1) // apm
     mp = mol_perm[mslot]
     matom = torch.where(mp < n_mol, apm * mp + r_of % apm, n0)
     in_sing = (~in_mol) & (r_of < apm * nb_cap + ns_cap)
-    satom = sing_perm[s_of * ns_cap
+    satom = sing_perm[g_of * ns_cap
                       + torch.clamp(r_of - apm * nb_cap, 0, ns_cap - 1)]
     perm = torch.where(in_mol, matom, torch.where(in_sing, satom, n0))
-    if plan.photon_row >= 0:
-        perm[S * Mrow - 1] = plan.photon_row
-    # inverse map; filler slots write the dump entry n0
-    inv_slot = torch.zeros(n0 + 1, **i64).scatter_(0, perm, d)[:n0]
+    if plan.photon_row >= 0:  # the last slot of each replica's last slab
+        perm = torch.where(d % (S * Mrow) == S * Mrow - 1, plan.photon_row,
+                           perm)
+    # inverse map, a replica's slots; filler slots write the dump entry n0
+    inv_slot = torch.zeros(nrep * (n0 + 1), **i64).scatter_(
+        0, b_of * (n0 + 1) + perm, d % (S * Mrow)).view(nrep, n0 + 1)[:, :n0]
 
     # ---- buckets over each slab's extended grid ----
-    cell3_d = cell3[torch.clamp_max(perm, n0 - 1)]
+    cell3_d = cell3[b_of, torch.clamp_max(perm, n0 - 1)]
     x_cl = torch.minimum(torch.maximum(cell3_d[:, 0], s_of * cxl),
                          (s_of + 1) * cxl - 1)
     ex = x_cl - s_of * cxl + 1  # own layers at ext x 1..cxl
@@ -444,46 +493,44 @@ def _rebuild_one(position, plan: DomainPlan, box_L, bond_k_per, bond_r0_per,
                                               device=dev)])[
         torch.clamp_max(perm, n0)]
     binned = (perm < n0) & ~inert
-    bin_id = torch.where(binned, s_of * C_ext + c_ext, S * C_ext)
+    bin_id = torch.where(binned, g_of * C_ext + c_ext, G * C_ext)
     sort_order = torch.argsort(bin_id, stable=True)
     bucket_d, bucket_overflow, slot_of_d = _rank_and_bucket(
-        sort_order, bin_id[sort_order], S * Mrow, S * C_ext + 1, cap,
-        n_real_bins=S * C_ext)
+        sort_order, bin_id[sort_order], G * Mrow, G * C_ext + 1, cap,
+        n_real_bins=G * C_ext)
     bucket_d = bucket_d[:-1].long()  # drop the dump bin
-    bshard = (torch.arange(S * C_ext, **i64) // C_ext)[:, None]
-    blocal = torch.where(bucket_d < S * Mrow, bucket_d - bshard * Mrow, Mtot)
-    buckets = blocal.reshape(S, C_ext, cap)
+    bshard = (torch.arange(G * C_ext, **i64) // C_ext)[:, None]
+    blocal = torch.where(bucket_d < G * Mrow, bucket_d - bshard * Mrow, Mtot)
+    buckets = blocal.reshape(G, C_ext, cap)
     slot_of_d = slot_of_d.long()
-    slot_of = torch.where(slot_of_d < S * C_ext * cap,
-                          slot_of_d - s_of * C_ext * cap,
-                          C_ext * cap).reshape(S, Mrow)
+    slot_of = torch.where(slot_of_d < G * C_ext * cap,
+                          slot_of_d - g_of * C_ext * cap,
+                          C_ext * cap).reshape(G, Mrow)
 
     # ---- halo wiring: the left halo is the left neighbour's last own
     # layer, the right halo the right neighbour's first; a halo slot holds
     # its table id where the sender's slot is occupied, Mtot where not ----
     layer = cy * cz
     own = buckets[:, layer:(cxl + 1) * layer]
-    send_first = own[:, :layer].reshape(S, H).clone()
-    send_last = own[:, -layer:].reshape(S, H).clone()
+    send_first = own[:, :layer].reshape(G, H).clone()
+    send_last = own[:, -layer:].reshape(G, H).clone()
     hid = torch.arange(H, **i64).reshape(layer, cap)
-    left_ids = torch.where(torch.roll(own[:, -layer:] < Mtot, 1, dims=0),
-                           Mrow + hid, Mtot)
-    right_ids = torch.where(torch.roll(own[:, :layer] < Mtot, -1, dims=0),
+    left_ids = torch.where(ring(own[:, -layer:] < Mtot, 1), Mrow + hid, Mtot)
+    right_ids = torch.where(ring(own[:, :layer] < Mtot, -1),
                             Mrow + H + hid, Mtot)
     buckets = buckets.clone()
     buckets[:, :layer] = left_ids
     buckets[:, -layer:] = right_ids
 
     # ---- the halo rows' particles ----
-    own_dom = bucket_d.reshape(S, C_ext, cap)[:, layer:(cxl + 1) * layer]
+    own_dom = bucket_d.reshape(G, C_ext, cap)[:, layer:(cxl + 1) * layer]
 
     def orig(slots):
-        return torch.where(slots < S * Mrow,
-                           perm[torch.clamp_max(slots, S * Mrow - 1)], n0)
+        return torch.where(slots < G * Mrow,
+                           perm[torch.clamp_max(slots, G * Mrow - 1)], n0)
 
-    left_src = torch.roll(orig(own_dom[:, -layer:]), 1, dims=0).reshape(S, H)
-    right_src = torch.roll(orig(own_dom[:, :layer]), -1,
-                           dims=0).reshape(S, H)
+    left_src = ring(orig(own_dom[:, -layer:]), 1).reshape(G, H)
+    right_src = ring(orig(own_dom[:, :layer]), -1).reshape(G, H)
     halo_src = torch.stack([left_src, right_src], dim=1)
 
     # ---- assigned cell centres (the per-step coverage invariant) ----
@@ -492,40 +539,39 @@ def _rebuild_one(position, plan: DomainPlan, box_L, bond_k_per, bond_r0_per,
     centers = ((g3 + 0.5) / ncells_f - 0.5) * box
 
     # ---- particle row -> local id on a slab: residents by slot
-    # arithmetic, halo copies through a (S, n0 + 2) table whose column
+    # arithmetic, halo copies through a (G, n0 + 2) table whose column
     # n0 + 1 takes the writes of empty halo slots ----
-    h2l = torch.full((S, n0 + 2), Mtot, **i64)
-    s_idx = torch.arange(S, **i64)[:, None, None].expand(S, 2, H)
+    h2l = torch.full((G, n0 + 2), Mtot, **i64)
+    g_idx = torch.arange(G, **i64)[:, None, None].expand(G, 2, H)
     hsrc_w = torch.where(halo_src < n0, halo_src, n0 + 1)
-    h2l[s_idx, hsrc_w] = (Mrow + torch.arange(2 * H, **i64)).reshape(
-        1, 2, H).expand(S, 2, H)
+    h2l[g_idx, hsrc_w] = (Mrow + torch.arange(2 * H, **i64)).reshape(
+        1, 2, H).expand(G, 2, H)
 
-    def resolve_local(shard, g):
-        loc_res = inv_slot[torch.clamp_max(g, n0 - 1)] - shard * Mrow
+    def resolve_local(g, row):
+        loc_res = inv_slot[g // S, torch.clamp_max(row, n0 - 1)] \
+            - (g % S) * Mrow
         is_res = (loc_res >= 0) & (loc_res < Mrow)
         out = torch.where(is_res, loc_res,
-                          h2l[shard, torch.where(g < n0, g, n0 + 1)])
-        return torch.where(g < n0, out, Mtot)
+                          h2l[g, torch.where(row < n0, row, n0 + 1)])
+        return torch.where(row < n0, out, Mtot)
 
     # ---- intact-slot bond parameters ----
     mvalid = mol_perm < n_mol
-    mb = torch.as_tensor(plan.mol_bonds, device=dev).long()[
-        torch.clamp_max(mol_perm, n_mol - 1)]
+    mb = tables["mol_bonds"][torch.clamp_max(mol_perm, n_mol - 1)]
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
     bond_k = torch.where(mvalid[:, None], bond_k_per[mb],
-                         zero).reshape(S, nb_cap, nbm)
+                         zero).reshape(nrep, S, nb_cap, nbm)
     bond_r0 = torch.where(mvalid[:, None], bond_r0_per[mb],
-                          one).reshape(S, nb_cap, nbm)
+                          one).reshape(nrep, S, nb_cap, nbm)
 
     # ---- straddler singles: partners resident or in the halo ----
-    ab_p = torch.as_tensor(plan.abond_partner, device=dev).long()
-    ab_b = torch.as_tensor(plan.abond_bond, device=dev).long()
+    ab_p, ab_b = tables["abond_partner"], tables["abond_bond"]
     sa = torch.clamp_max(sing_perm, n_atoms - 1)
     pgl = torch.where((sing_perm < n0)[:, None], ab_p[sa], n0)
     bid = torch.clamp_max(ab_b[sa], nb_tot)
-    s_of_s = torch.arange(S * ns_cap, **i64)[:, None] // ns_cap
-    sing_partner = resolve_local(s_of_s, pgl)
+    g_of_s = torch.arange(G * ns_cap, **i64)[:, None] // ns_cap
+    sing_partner = resolve_local(g_of_s, pgl)
     k_ext = torch.cat([bond_k_per, zero[None]])
     r0_ext = torch.cat([bond_r0_per, one[None]])
     sing_k = torch.where(pgl < n0, k_ext[bid], zero)
@@ -539,74 +585,95 @@ def _rebuild_one(position, plan: DomainPlan, box_L, bond_k_per, bond_r0_per,
     # bond partners, tail rows none ----
     r_mol = torch.arange(apm * nb_cap, **i64)
     base = (r_mol - r_mol % apm)[:, None]
-    off_r = torch.as_tensor(plan.excl_offs, device=dev).long()[r_mol % apm]
-    mol_ok = ((perm.reshape(S, Mrow)[:, :apm * nb_cap, None] < n0)
+    off_r = tables["excl_offs"][r_mol % apm]
+    mol_ok = ((perm.reshape(G, Mrow)[:, :apm * nb_cap, None] < n0)
               & (off_r >= 0)[None])
     excl_mol = torch.where(mol_ok, (base + off_r)[None], Mtot)
     excl = torch.cat([
         excl_mol,
-        sing_partner.reshape(S, ns_cap, B),
-        torch.full((S, Mrow - apm * nb_cap - ns_cap, B), Mtot, **i64),
-    ], dim=1).reshape(S * Mrow, B)
+        sing_partner.reshape(G, ns_cap, B),
+        torch.full((G, Mrow - apm * nb_cap - ns_cap, B), Mtot, **i64),
+    ], dim=1)
 
     # ---- pair keys: a halo copy of a particle resident on the same slab
     # (S = 1) compares as that resident ----
-    s_col = torch.arange(S, **i64)[:, None]
-    hflat = halo_src.reshape(S, 2 * H)
-    h_res = inv_slot[torch.clamp_max(hflat, n0 - 1)] - s_col * Mrow
-    own_ids = (Mrow + torch.arange(2 * H, **i64))[None].expand(S, 2 * H)
+    g_col = torch.arange(G, **i64)[:, None]
+    hflat = halo_src.reshape(G, 2 * H)
+    h_res = inv_slot[g_col // S, torch.clamp_max(hflat, n0 - 1)] \
+        - (g_col % S) * Mrow
+    own_ids = (Mrow + torch.arange(2 * H, **i64))[None].expand(G, 2 * H)
     h_key = torch.where((hflat < n0) & (h_res >= 0) & (h_res < Mrow),
                         h_res, own_ids)
-    pair_key = torch.cat([torch.arange(Mrow, **i64)[None].expand(S, Mrow),
+    pair_key = torch.cat([torch.arange(Mrow, **i64)[None].expand(G, Mrow),
                           h_key], dim=1)
 
+    def per_rep(t):  # (G * ..., ...) -> (B, S, ...)
+        return t.reshape((nrep, S) + t.shape[1:])
+
+    def per_rep_rows(t):  # (G * Mrow, ...) -> (B, S * Mrow, ...)
+        return t.reshape((nrep, S * Mrow) + t.shape[1:])
+
     return DomainData(
-        perm=i32(perm), inv_slot=i32(inv_slot), buckets=i32(buckets),
-        slot_of=i32(slot_of), centers=centers, binned=binned,
-        valid=perm < n0, bond_k=bond_k, bond_r0=bond_r0,
-        sing_partner=i32(sing_partner.reshape(S, ns_cap, B)),
-        sing_k=sing_k.reshape(S, ns_cap, B),
-        sing_r0=sing_r0.reshape(S, ns_cap, B),
-        sing_qq=sing_qq.reshape(S, ns_cap, B),
-        excl=i32(excl), send_first=i32(send_first),
-        send_last=i32(send_last), halo_src=i32(halo_src),
-        pair_key=i32(pair_key), slab_overflow=slab_overflow,
+        perm=i32(perm).view(nrep, S * Mrow), inv_slot=i32(inv_slot),
+        buckets=i32(per_rep(buckets)), slot_of=i32(per_rep(slot_of)),
+        centers=per_rep_rows(centers), binned=per_rep_rows(binned),
+        valid=per_rep_rows(perm < n0), bond_k=bond_k, bond_r0=bond_r0,
+        sing_partner=i32(sing_partner.reshape(nrep, S, ns_cap, B)),
+        sing_k=sing_k.reshape(nrep, S, ns_cap, B),
+        sing_r0=sing_r0.reshape(nrep, S, ns_cap, B),
+        sing_qq=sing_qq.reshape(nrep, S, ns_cap, B),
+        excl=i32(excl).reshape(nrep, S * Mrow, B),
+        send_first=i32(per_rep(send_first)),
+        send_last=i32(per_rep(send_last)), halo_src=i32(per_rep(halo_src)),
+        pair_key=i32(per_rep(pair_key)), slab_overflow=slab_overflow,
         bucket_overflow=bucket_overflow,
     )
 
 
-class LocalState(NamedTuple):
-    """One slab's resident rows (Mrow each)."""
+def _rebuild_one(position, plan: DomainPlan, box_L, bond_k_per, bond_r0_per,
+                 pair_inert, charge) -> DomainData:
+    """The layout of every slab from one replica's global positions
+    (N, 3): the same tables as the JAX ``_rebuild_one``."""
+    data = _rebuild(position[None], plan, box_L, bond_k_per, bond_r0_per,
+                    pair_inert, charge)
+    return data._replace(**{k: getattr(data, k)[0]
+                            for k in DomainData._fields
+                            if not k.endswith("overflow")})
 
-    position: torch.Tensor  # (Mrow, 3)
-    image: torch.Tensor  # (Mrow, 3) int32
-    velocity: torch.Tensor  # (Mrow, 3)
-    forces: torch.Tensor  # (Mrow, 3) cached F(t)
-    mass: torch.Tensor  # (Mrow,)
-    charge: torch.Tensor  # (Mrow,)
-    typeid: torch.Tensor  # (Mrow,) int32
+
+class LocalState(NamedTuple):
+    """A slab's resident rows (Mrow each) of each of the rank's b
+    replicas."""
+
+    position: torch.Tensor  # (b, Mrow, 3)
+    image: torch.Tensor  # (b, Mrow, 3) int32
+    velocity: torch.Tensor  # (b, Mrow, 3)
+    forces: torch.Tensor  # (b, Mrow, 3) cached F(t)
+    mass: torch.Tensor  # (b, Mrow)
+    charge: torch.Tensor  # (b, Mrow)
+    typeid: torch.Tensor  # (b, Mrow) int32
 
 
 class ShardData(NamedTuple):
-    """One slab's tables for a chunk."""
+    """A slab's tables for a chunk, for each of the rank's b replicas."""
 
-    buckets: torch.Tensor  # (C_ext, cap) local ids
-    slot: torch.Tensor  # (Mtot,) flat ext slot per local id
-    centers: torch.Tensor  # (Mrow, 3)
-    binned: torch.Tensor  # (Mrow,)
-    valid: torch.Tensor  # (Mrow,)
-    bond_k: torch.Tensor  # (nb_cap, nbm)
-    bond_r0: torch.Tensor  # (nb_cap, nbm)
-    sing_partner: torch.Tensor  # (ns_cap, B) local ids
-    sing_k: torch.Tensor  # (ns_cap, B)
-    sing_r0: torch.Tensor  # (ns_cap, B)
-    sing_qq: torch.Tensor  # (ns_cap, B)
-    excl: torch.Tensor  # (Mtot + 1, B) local pair-exclusion ids
-    send_first: torch.Tensor  # (H,)
-    send_last: torch.Tensor  # (H,)
-    typeid: torch.Tensor  # (Mtot,) residents + halo copies
-    charge: torch.Tensor  # (Mtot,)
-    pair_key: torch.Tensor  # (Mtot,)
+    buckets: torch.Tensor  # (b, C_ext, cap) local ids
+    slot: torch.Tensor  # (b, Mtot) flat ext slot per local id
+    centers: torch.Tensor  # (b, Mrow, 3)
+    binned: torch.Tensor  # (b, Mrow)
+    valid: torch.Tensor  # (b, Mrow)
+    bond_k: torch.Tensor  # (b, nb_cap, nbm)
+    bond_r0: torch.Tensor  # (b, nb_cap, nbm)
+    sing_partner: torch.Tensor  # (b, ns_cap, B) local ids
+    sing_k: torch.Tensor  # (b, ns_cap, B)
+    sing_r0: torch.Tensor  # (b, ns_cap, B)
+    sing_qq: torch.Tensor  # (b, ns_cap, B)
+    excl: torch.Tensor  # (b, Mtot + 1, B) local pair-exclusion ids
+    send_first: torch.Tensor  # (b, H)
+    send_last: torch.Tensor  # (b, H)
+    typeid: torch.Tensor  # (b, Mtot) residents + halo copies
+    charge: torch.Tensor  # (b, Mtot)
+    pair_key: torch.Tensor  # (b, Mtot)
 
 
 def slab_grid(plan: DomainPlan, device):
@@ -621,23 +688,36 @@ def slab_grid(plan: DomainPlan, device):
     return cfg, ext_nb, (plan.ncells[1] * plan.ncells[2], plan.C_own)
 
 
+def _rows(x, ids):
+    """Rows ``ids`` (b, k) of each replica's ``x`` (b, M, 3)."""
+    return torch.gather(x, 1, ids.long()[..., None].expand(-1, -1, 3))
+
+
 def _position_table(pos, dat: ShardData, comm: Communicator):
-    """(Mtot, 3): the residents, then the left and right halo rows from the
-    x-neighbours (one exchange of 2 x (H, 3) rows)."""
-    Mrow = pos.shape[0]
+    """(b, Mtot, 3): the residents, then the left and right halo rows from
+    the x-neighbours (one exchange of 2 x (b, H, 3) rows for the rank's
+    replicas)."""
+    Mrow = pos.shape[1]
     left, right = comm.halo(
-        pos[torch.clamp_max(dat.send_last.long(), Mrow - 1)],
-        pos[torch.clamp_max(dat.send_first.long(), Mrow - 1)])
-    return torch.cat([pos, left, right])
+        _rows(pos, torch.clamp_max(dat.send_last, Mrow - 1)),
+        _rows(pos, torch.clamp_max(dat.send_first, Mrow - 1)))
+    return torch.cat([pos, left, right], dim=1)
 
 
 def _tile_args(pos_tab, box_L, dat: ShardData, cfg, ext_nb, ff):
     clist = CellList(bucket_idx=dat.buckets,
-                     overflow=torch.zeros((), dtype=torch.bool,
+                     overflow=torch.zeros(dat.buckets.shape[:1],
+                                          dtype=torch.bool,
                                           device=pos_tab.device),
                      neighbor_cells=ext_nb, slot_of=dat.slot)
     return (pos_tab, box_L, clist, cfg, dat.typeid, dat.charge, ff.lj_eps,
             ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift, dat.excl, ff.kappa_value)
+
+
+def _as_batch(state):
+    """A one-replica state as a batch of one (the slab step's form)."""
+    return state.replace(**{k: getattr(state, k)[None] for k in PER_REPLICA},
+                         cell_list=None, cell_anchor=None)
 
 
 def tile_pass_inputs(ff, plan: DomainPlan, state):
@@ -646,17 +726,26 @@ def tile_pass_inputs(ff, plan: DomainPlan, state):
     out, with the halo rows read from the global state (what the exchange
     delivers at a chunk's start): ``(args, cells, pair_key)`` with
     ``args`` the twelve leading arguments of ``cell_pair_force_slab`` and
-    of ``cell_pair_force_fused_plain``. For holding the kernel against its
-    twin and timing it; needs no process group."""
-    data = _rebuild_one(state.position, plan, state.box_L, ff.bond_k_per,
-                        ff.bond_r0_per, ff.pair_inert, state.charge)
-    loc, dat = _scatter_in(state, data, plan, 0)
+    of ``cell_pair_force_fused_plain``. A batched state gives the batch
+    over slabs' call (every replica's slab 0 and its own tables), a
+    one-replica state the one-replica call. For holding the kernel against
+    its twin and timing it; needs no process group."""
+    batch = state if state.batch_shape else _as_batch(state)
+    data = _rebuild(batch.position, plan, batch.box_L, ff.bond_k_per,
+                    ff.bond_r0_per, ff.pair_inert, batch.charge)
+    loc, dat = _scatter_in(batch, data, plan, 0)
     cfg, ext_nb, own_cells = slab_grid(plan, state.position.device)
-    halo = data.halo_src[0].reshape(-1).long()
-    pos_tab = torch.cat([loc.position, torch.cat([
-        state.position, state.position.new_zeros((1, 3))])[halo]])
-    return (_tile_args(pos_tab, state.box_L, dat, cfg, ext_nb, ff),
-            own_cells, dat.pair_key)
+    halo = data.halo_src[:, 0].reshape(data.halo_src.shape[0], -1)
+    glob = torch.cat([batch.position,
+                      batch.position.new_zeros(batch.position.shape[:1]
+                                               + (1, 3))], dim=1)
+    pos_tab = torch.cat([loc.position, _rows(glob, halo)], dim=1)
+    args = _tile_args(pos_tab, state.box_L, dat, cfg, ext_nb, ff)
+    if state.batch_shape:
+        return args, own_cells, dat.pair_key
+    one = (args[0][0], args[1], replica_list(args[2], 0), args[3],
+           args[4][0], args[5][0]) + args[6:10] + (args[10][0], args[11])
+    return one, own_cells, dat.pair_key[0]
 
 
 def _validate_methods(methods):
@@ -676,20 +765,29 @@ def _validate_methods(methods):
 
 def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
                      adaptive=None, obs_spec=None, noise=None):
-    """Build one slab's step ``step(loc, rep, dat) -> (loc, rep, obs)``.
+    """Build one slab's step ``step(loc, rep, dat) -> (loc, rep, obs)``
+    for the rank's b replicas.
 
-    The physics of ``integrator.make_step_fn`` on the resident rows, with
-    the cross-slab sums of ``comm``. ``rep`` is the replicated ``MDState``
-    of the chunk: its scalars (dt, time, counters, reservoirs, tolerance)
-    advance every step and its generators draw the noise; its per-particle
-    fields are not read. ``noise`` is the draw source of ``make_step_fn``
-    (default ``StreamNoise``): the same streams, in the same order and
-    shapes, so every rank draws the same numbers.
+    The physics of ``integrator.make_step_fn`` on the resident rows of
+    each replica, with the cross-slab sums of ``comm``: every tensor has a
+    leading replica axis b, each kernel runs once a step for the b
+    replicas (the tile pass and K2/K3 on each replica's own tables), and
+    each collective carries all b replicas (one halo exchange, one sum of
+    the force stage, one sum of the (b,) kinetic energies where the
+    one-replica step sums one). ``rep`` is the replicated batched
+    ``MDState`` of the chunk: its per-replica scalars (dt, time, counters,
+    reservoirs, tolerance) advance every step and its generators draw the
+    noise; its per-particle fields are not read. ``noise`` is the draw
+    source of ``make_step_fn`` (default ``StreamNoise``): the same
+    streams, in the same order and shapes as ``run_replica_steps`` of the
+    batch, so every rank draws the same numbers.
 
     ``adaptive``: dict(error_tolerance, initial_fraction, time_constant_ps,
-    period) runs the adaptive-dt controller at the step start (one scalar
-    sum). ``obs_spec``: ``(dipole, wavevectors or None)``, the structured
-    form of ``observe.make_extra_obs``, folded into the force-stage sum.
+    period) runs the adaptive-dt controller at the step start (one sum of
+    the (b,) ``sum |F|/m``), each replica from its own clock and forces,
+    on the batch's shared step counter. ``obs_spec``: ``(dipole,
+    wavevectors or None)``, the structured form of
+    ``observe.make_extra_obs``, folded into the force-stage sum.
     """
     _validate_methods(methods)
     noise = noise if noise is not None else StreamNoise()
@@ -727,15 +825,19 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
             consts[dtype] = c
         return consts[dtype]
 
+    def per_row(x):  # a (b,) per-replica value over (b, M, 3)
+        return x[:, None, None]
+
     def step(loc: LocalState, rep, dat: ShardData):
         dtype = loc.position.dtype
+        nrep = loc.position.shape[0]
         c = const(dtype)
         box = rep.box_L
         dt = rep.dt
         err_tol = rep.error_tolerance
         if adaptive is not None and rep.step % adp_period == 0:
-            fnorm = torch.sqrt(torch.sum(loc.forces * loc.forces, dim=1))
-            s_f = comm.sum(torch.sum(fnorm / loc.mass))
+            fnorm = torch.sqrt(torch.sum(loc.forces * loc.forces, dim=-1))
+            s_f = comm.sum(torch.sum(fnorm / loc.mass, dim=-1))
             t_ps = rep.time_au * to_ps
             tol = adp_target - (adp_target - adp_initial) * torch.exp(
                 -t_ps * adp_inv_tau)
@@ -753,104 +855,107 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
         lang_res = rep.langevin_reservoir
         xi, eta = rep.mttk_xi, rep.mttk_eta
 
-        # ---- thermostat half 1 (group KE: local partial + one sum) ----
+        # ---- thermostat half 1 (group KE: local partials + one sum) ----
         for i, m in enumerate(methods):
-            mask = masks[m.group]
+            mask = masks[m.group][..., None]
             slot = group_slot(m.group)
             if m.kind == "mttk":
-                alpha = mttk_rescale_factor(MTTKState(xi[slot], eta[slot]),
-                                            dt)
-                v = torch.where(mask[:, None], alpha * v, v)
+                alpha = mttk_rescale_factor(
+                    MTTKState(xi[:, slot], eta[:, slot]), dt)
+                v = torch.where(mask, per_row(alpha) * v, v)
             elif m.kind == "berendsen":
-                K = comm.sum(kinetic_energy(v, loc.mass, mask))
+                K = comm.sum(kinetic_energy(v, loc.mass, mask[..., 0]))
                 lam = berendsen_factor(2.0 * K / m.dof, m.kT, dt, m.tau)
-                v = torch.where(mask[:, None], lam * v, v)
+                v = torch.where(mask, per_row(lam) * v, v)
             elif m.kind == "bussi":
                 r1, r_gamma = noise.bussi(rep, i, m)
-                K = comm.sum(kinetic_energy(v, loc.mass, mask))
+                K = comm.sum(kinetic_energy(v, loc.mass, mask[..., 0]))
                 alpha = bussi_rescale_factor(K, m.dof, dt, m.tau, m.kT, r1,
                                              r_gamma)
-                v = torch.where(mask[:, None], alpha * v, v)
+                v = torch.where(mask, per_row(alpha) * v, v)
                 dres = K * (1.0 - alpha * alpha)
-                bussi_res = bussi_res.clone()
-                bussi_res[slot] += dres
-                bussi_inst = bussi_inst.clone()
-                bussi_inst[slot] = dres
+                bussi_res = _set_at(bussi_res, slot, dres, add=True)
+                bussi_inst = _set_at(bussi_inst, slot, dres, add=False)
 
         # ---- velocity Verlet ----
-        inv_m = 1.0 / loc.mass[:, None]
-        v = v + 0.5 * dt * loc.forces * inv_m
-        pos, img = rewrap(loc.position + dt * v, loc.image, box)
+        inv_m = 1.0 / loc.mass[..., None]
+        v = v + 0.5 * per_row(dt) * loc.forces * inv_m
+        pos, img = rewrap(loc.position + per_row(dt) * v, loc.image, box)
 
         # ---- coverage invariant: every binned atom within (w - r_cut)/2
         # of its assigned cell box ----
         dctr = minimum_image(pos - dat.centers, box)
-        bad = torch.any((torch.abs(dctr) > c["lim"][None, :])
-                        & dat.binned[:, None])
+        bad = torch.any((torch.abs(dctr) > c["lim"])
+                        & dat.binned[..., None], dim=(-2, -1))
 
         # ---- halo exchange, then the pair tile pass over the own cells
-        # of the extended grid ----
+        # of every replica's extended grid (one launch) ----
         pos_tab = _position_table(pos, dat, comm)
         f_tab, e_lj, e_ew = cell_pair_force_slab(*_tile_args(
             pos_tab, box, dat, cfg, ext_nb, ff), own_cells, dat.pair_key)
-        forces = f_tab[:Mrow]
+        forces = f_tab[:, :Mrow]
 
         # ---- bonds + Ewald exclusion corrections of intact slots
         # (static in-slot offsets; filler slots carry k = q = 0) ----
-        pmol = pos[:nmr].reshape(nb_cap, apm, 3)
-        qmol = loc.charge[:nmr].reshape(nb_cap, apm)
+        pmol = pos[:, :nmr].reshape(nrep, nb_cap, apm, 3)
+        qmol = loc.charge[:, :nmr].reshape(nrep, nb_cap, apm)
         f_mol = torch.zeros_like(pmol)
         fc_mol = torch.zeros_like(pmol)
-        e_bond = pos.new_zeros(())
-        e_corr = pos.new_zeros(())
+        e_bond = pos.new_zeros(nrep)
+        e_corr = pos.new_zeros(nrep)
         for b, (o0, o1) in enumerate(plan.bond_offs):
-            drb = minimum_image(pmol[:, o1] - pmol[:, o0], box)
-            r = torch.sqrt(torch.sum(drb * drb, dim=1))
-            kb, rb = dat.bond_k[:, b], dat.bond_r0[:, b]
+            drb = minimum_image(pmol[:, :, o1] - pmol[:, :, o0], box)
+            r = torch.sqrt(torch.sum(drb * drb, dim=-1))
+            kb, rb = dat.bond_k[..., b], dat.bond_r0[..., b]
             safe_r = torch.where(r > 0, r, torch.ones_like(r))
-            fj = (-kb * (r - rb) / safe_r)[:, None] * drb
-            f_mol[:, o1] += fj
-            f_mol[:, o0] -= fj
-            e_bond = e_bond + torch.sum(0.5 * kb * (r - rb) ** 2)
-            fi, ec = _excl_pair_terms(-drb, qmol[:, o0] * qmol[:, o1],
+            fj = (-kb * (r - rb) / safe_r)[..., None] * drb
+            f_mol[:, :, o1] += fj
+            f_mol[:, :, o0] -= fj
+            e_bond = e_bond + torch.sum(0.5 * kb * (r - rb) ** 2, dim=-1)
+            fi, ec = _excl_pair_terms(-drb, qmol[:, :, o0] * qmol[:, :, o1],
                                       kappa)
-            fc_mol[:, o0] += fi
-            fc_mol[:, o1] -= fi
+            fc_mol[:, :, o0] += fi
+            fc_mol[:, :, o1] -= fi
             e_corr = e_corr + ec
 
         # straddler singles: each endpoint computes its own bond from the
         # position table (both endpoints do, so energies carry 1/2)
-        psing = pos[nmr:nmr + ns_cap]
+        psing = pos[:, nmr:nmr + ns_cap]
         pid = dat.sing_partner.long()
+        nB = pid.shape[-1]
         alive = pid < Mtot
-        ppart = pos_tab[torch.clamp_max(pid, Mtot - 1)]
-        drs = minimum_image(ppart - psing[:, None, :], box)
+        ppart = _rows(pos_tab, torch.clamp_max(pid, Mtot - 1).reshape(
+            nrep, ns_cap * nB)).reshape(nrep, ns_cap, nB, 3)
+        drs = minimum_image(ppart - psing[:, :, None, :], box)
         rs = torch.sqrt(torch.sum(drs * drs, dim=-1))
         ks = torch.where(alive, dat.sing_k, 0.0)
         safe_rs = torch.where(rs > 0, rs, torch.ones_like(rs))
         fjs = (-ks * (rs - dat.sing_r0) / safe_rs)[..., None] * drs
-        f_sing = -torch.sum(fjs, dim=1)
-        e_bond = e_bond + 0.5 * torch.sum(0.5 * ks * (rs - dat.sing_r0) ** 2)
+        f_sing = -torch.sum(fjs, dim=-2)
+        e_bond = e_bond + 0.5 * torch.sum(
+            0.5 * ks * (rs - dat.sing_r0) ** 2, dim=(-2, -1))
         qqs = torch.where(alive, dat.sing_qq, 0.0)
-        nB = pid.shape[1]
-        fis, ecs = _excl_pair_terms((-drs).reshape(ns_cap * nB, 3),
-                                    qqs.reshape(-1), kappa)
-        fc_sing = torch.sum(fis.reshape(ns_cap, nB, 3), dim=1)
+        fis, ecs = _excl_pair_terms((-drs).reshape(nrep, ns_cap * nB, 3),
+                                    qqs.reshape(nrep, -1), kappa)
+        fc_sing = torch.sum(fis.reshape(nrep, ns_cap, nB, 3), dim=-2)
         e_corr = e_corr + 0.5 * ecs
 
-        tail_z = pos.new_zeros((Mrow - nmr - ns_cap, 3))
-        forces = forces + torch.cat([f_mol.reshape(nmr, 3), f_sing, tail_z])
-        f_corr = torch.cat([fc_mol.reshape(nmr, 3), fc_sing, tail_z])
+        tail_z = pos.new_zeros((nrep, Mrow - nmr - ns_cap, 3))
+        forces = forces + torch.cat([f_mol.reshape(nrep, nmr, 3), f_sing,
+                                     tail_z], dim=1)
+        f_corr = torch.cat([fc_mol.reshape(nrep, nmr, 3), fc_sing, tail_z],
+                           dim=1)
         e_self = ewald_self_energy(loc.charge, kappa)
 
-        # ---- PPPM partial grid (K2 on the resident rows) ----
+        # ---- PPPM partial grids (K2 on every replica's resident rows,
+        # each with its own charges, in one launch) ----
         grid_loc = spread_grid(pos, loc.charge, box, order, mesh)
 
         # ---- cavity partial sums (the photon is not in the dipole) ----
         unw = unwrap_positions(pos, img, box)
         wq = torch.where(cav_mask, 0.0, loc.charge)
-        dip = torch.sum(wq[:, None] * unw, dim=0)
-        qph = torch.sum(torch.where(cav_mask[:, None], unw, 0.0), dim=0)
+        dip = torch.sum(wq[..., None] * unw, dim=-2)
+        qph = torch.sum(torch.where(cav_mask[..., None], unw, 0.0), dim=-2)
 
         # rho(k) over valid rows, wrapped positions (fillers sit at the
         # origin, where cos = 1, and are masked out)
@@ -858,25 +963,26 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
                  e_self, dip, qph, bad.to(dtype)]
         if wv_np is not None:
             kr = pos @ c["wv"].T
-            wvalid = dat.valid.to(dtype)
-            parts += [wvalid @ torch.cos(kr), wvalid @ torch.sin(kr)]
+            wvalid = dat.valid.to(dtype)[:, None, :]
+            parts += [(wvalid @ torch.cos(kr))[:, 0],
+                      (wvalid @ torch.sin(kr))[:, 0]]
 
         # ---- one sum of the force stage ----
         (grid_tot, e_lj, e_ew, e_bond, e_corr, e_self, dip, qph, violf,
          *rho) = comm.sum_many(parts)
 
-        # PPPM finish: the mesh solve on the summed grid, then K3 with its
-        # cotangent on the resident rows (a gradient through the sum would
-        # count the mesh force S times)
+        # PPPM finish: the mesh solve on the summed grids, then K3 with
+        # their cotangents on the resident rows (a gradient through the
+        # sum would count the mesh force S times)
         with torch.enable_grad():
             g = grid_tot.detach().requires_grad_(True)
             e_rec = mesh_energy(g, ff.pppm)
-            (ct,) = torch.autograd.grad(e_rec, g)
+            (ct,) = torch.autograd.grad(e_rec.sum(), g)
         e_rec = e_rec.detach()
         forces = forces - interpolate_grad(ct, pos, loc.charge, box, order,
                                            mesh) - f_corr
 
-        zero = pos.new_zeros(())
+        zero = pos.new_zeros(nrep)
         energies = {
             "harmonic": e_bond, "lj": e_lj, "ewald_short": e_ew,
             "ewald_long": e_rec - e_self - e_corr,
@@ -889,44 +995,45 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
             q_xy, d_xy = qph * xy, dip * xy
             Kc = ff.cavity.K.to(dtype)
             gc = ff.cavity.couplstr.to(dtype)
-            energies["cavity_harmonic"] = 0.5 * Kc * torch.dot(qph, qph)
-            energies["cavity_coupling"] = gc * torch.dot(d_xy, q_xy)
+            energies["cavity_harmonic"] = 0.5 * Kc * torch.sum(qph * qph,
+                                                               dim=-1)
+            energies["cavity_coupling"] = gc * torch.sum(d_xy * q_xy, dim=-1)
             energies["cavity_dipole_self"] = (0.5 * (gc * gc / Kc)
-                                              * torch.dot(d_xy, d_xy))
+                                              * torch.sum(d_xy * d_xy,
+                                                          dim=-1))
             Dq = q_xy + (gc / Kc) * d_xy
-            f_cav = (-gc * loc.charge)[:, None] * Dq[None, :] * xy[None, :]
+            f_cav = (-gc * loc.charge)[..., None] * Dq[:, None, :] * xy
             f_ph = -Kc * qph - gc * d_xy
-            forces = forces + torch.where(cav_mask[:, None], f_ph[None, :],
-                                          f_cav)
+            forces = forces + torch.where(cav_mask[..., None],
+                                          f_ph[:, None, :], f_cav)
 
-        v = v + 0.5 * dt * forces * inv_m
+        v = v + 0.5 * per_row(dt) * forces * inv_m
 
         # ---- thermostat half 2 (MTTK) + cavity Langevin O-step: the
-        # (1, 3) draw of the unsharded indices path ----
+        # (b, 1, 3) draw of the unsharded indices path ----
         for i, m in enumerate(methods):
             mask = masks[m.group]
             slot = group_slot(m.group)
             if m.kind == "mttk":
-                st = MTTKState(xi[slot], eta[slot])
+                st = MTTKState(xi[:, slot], eta[:, slot])
                 alpha = mttk_rescale_factor(st, dt)
-                v = torch.where(mask[:, None], alpha * v, v)
+                v = torch.where(mask[..., None], per_row(alpha) * v, v)
                 K = comm.sum(kinetic_energy(v, loc.mass, mask))
                 st = mttk_advance(st, 2.0 * K / m.dof, m.kT, m.dof, dt,
                                   m.tau)
-                xi, eta = xi.clone(), eta.clone()
-                xi[slot], eta[slot] = st.xi, st.eta
+                xi = _set_at(xi, slot, st.xi, add=False)
+                eta = _set_at(eta, slot, st.eta, add=False)
             elif m.kind == "langevin":
-                draw = noise.langevin(rep, i, m, (1, 3))
-                c_ou = torch.exp(-m.gamma * dt)
+                draw = noise.langevin(rep, i, m, rep.batch_shape + (1, 3))
+                c_ou = torch.exp(-m.gamma * dt)[:, None]
                 sigma = torch.sqrt((1.0 - c_ou * c_ou) * m.kT
-                                   / loc.mass)[:, None]
-                new_v = torch.where(mask[:, None], c_ou * v + sigma * draw,
-                                    v)
+                                   / loc.mass)[..., None]
+                new_v = torch.where(mask[..., None],
+                                    c_ou[..., None] * v + sigma * draw, v)
                 dres = comm.sum(kinetic_energy(v, loc.mass, mask)
                                 - kinetic_energy(new_v, loc.mass, mask))
                 v = new_v
-                lang_res = lang_res.clone()
-                lang_res[slot] += dres
+                lang_res = _set_at(lang_res, slot, dres, add=True)
 
         # ---- bookkeeping + observables ----
         ke_mol, ke_cav = comm.sum(torch.stack([
@@ -946,10 +1053,10 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
         obs = dict(energies)
         obs["kinetic_molecular"] = ke_mol
         obs["kinetic_cavity"] = ke_cav
-        obs["bussi_reservoir_molecular"] = bussi_res[0]
-        obs["bussi_reservoir_cavity"] = bussi_res[1]
-        obs["langevin_reservoir_molecular"] = lang_res[0]
-        obs["langevin_reservoir_cavity"] = lang_res[1]
+        obs["bussi_reservoir_molecular"] = bussi_res[:, 0]
+        obs["bussi_reservoir_cavity"] = bussi_res[:, 1]
+        obs["langevin_reservoir_molecular"] = lang_res[:, 0]
+        obs["langevin_reservoir_cavity"] = lang_res[:, 1]
         obs["dt"] = dt
         obs["time_au"] = t_new
         if adaptive is not None:
@@ -964,58 +1071,65 @@ def make_domain_step(ff, methods, plan: DomainPlan, comm: Communicator, *,
 
 
 def _scatter_in(state, data: DomainData, plan: DomainPlan, rank: int):
-    """This rank's resident rows and tables. Filler slots read a template
-    row: origin, zero velocity and charge, unit mass, typeid -1 (inert
-    everywhere)."""
+    """This rank's resident rows and tables of each replica of the batched
+    ``state`` (``data`` from ``_rebuild`` of its positions). Filler slots
+    read a template row: origin, zero velocity and charge, unit mass,
+    typeid -1 (inert everywhere)."""
     Mrow, H, Mtot, B = plan.Mrow, plan.H, plan.Mtot, plan.B
-    perm = data.perm[rank * Mrow:(rank + 1) * Mrow].long()
+    nrep = state.batch_shape[0]
+    rows = slice(rank * Mrow, (rank + 1) * Mrow)
+    perm = data.perm[:, rows].long()
 
-    def gather(a, fill):
-        return torch.cat([a, a.new_full((1,) + a.shape[1:], fill)])[perm]
+    def gather(a, fill):  # a replica's (N, 3) rows, or a shared (N,) row
+        if a.dim() == 1:
+            return torch.cat([a, a.new_full((1,), fill)])[perm]
+        return _rows(torch.cat([a, a.new_full((nrep, 1, 3), fill)], dim=1),
+                     perm)
 
     loc = LocalState(
         position=gather(state.position, 0), image=gather(state.image, 0),
         velocity=gather(state.velocity, 0), forces=gather(state.forces, 0),
         mass=gather(state.mass, 1), charge=gather(state.charge, 0),
         typeid=gather(state.typeid, -1))
-    halo = data.halo_src[rank].reshape(2 * H).long()
+    halo = data.halo_src[:, rank].reshape(nrep, 2 * H).long()
 
     def with_halo(res, a, fill):
-        return torch.cat([res, torch.cat([a, a.new_full((1,), fill)])[halo]])
+        return torch.cat([res, torch.cat([a, a.new_full((1,), fill)])[halo]],
+                         dim=1)
 
-    slot = torch.cat([data.slot_of[rank], data.slot_of.new_full(
-        (2 * H,), plan.C_ext * plan.cap)])
-    excl = torch.cat([data.excl[rank * Mrow:(rank + 1) * Mrow],
-                      data.excl.new_full((2 * H + 1, B), Mtot)])
-    rows = slice(rank * Mrow, (rank + 1) * Mrow)
+    slot = torch.cat([data.slot_of[:, rank], data.slot_of.new_full(
+        (nrep, 2 * H), plan.C_ext * plan.cap)], dim=1)
+    excl = torch.cat([data.excl[:, rows],
+                      data.excl.new_full((nrep, 2 * H + 1, B), Mtot)], dim=1)
     dat = ShardData(
-        buckets=data.buckets[rank], slot=slot, centers=data.centers[rows],
-        binned=data.binned[rows], valid=data.valid[rows],
-        bond_k=data.bond_k[rank], bond_r0=data.bond_r0[rank],
-        sing_partner=data.sing_partner[rank], sing_k=data.sing_k[rank],
-        sing_r0=data.sing_r0[rank], sing_qq=data.sing_qq[rank], excl=excl,
-        send_first=data.send_first[rank], send_last=data.send_last[rank],
+        buckets=data.buckets[:, rank].contiguous(), slot=slot,
+        centers=data.centers[:, rows], binned=data.binned[:, rows],
+        valid=data.valid[:, rows], bond_k=data.bond_k[:, rank],
+        bond_r0=data.bond_r0[:, rank],
+        sing_partner=data.sing_partner[:, rank],
+        sing_k=data.sing_k[:, rank], sing_r0=data.sing_r0[:, rank],
+        sing_qq=data.sing_qq[:, rank], excl=excl,
+        send_first=data.send_first[:, rank],
+        send_last=data.send_last[:, rank],
         typeid=with_halo(loc.typeid, state.typeid, -1),
         charge=with_halo(loc.charge, state.charge, 0),
-        pair_key=data.pair_key[rank])
+        pair_key=data.pair_key[:, rank].contiguous())
     return loc, dat
 
 
 def _scatter_out(state, data: DomainData, loc: LocalState, rep,
                  plan: DomainPlan, comm: Communicator):
-    """Every rank's rows gathered back into the global MDState, with the
-    replicated scalars of ``rep``. Every atom row and the photon hold a
-    slot when no overflow is flagged (an overflowed chunk is discarded by
-    the caller), so which rows come back is static."""
-    present = torch.zeros(plan.n0, dtype=torch.bool, device=state.device)
-    present[:plan.n_atoms] = True
-    if plan.photon_row >= 0:
-        present[plan.photon_row] = True
-    idx = torch.clamp_max(data.inv_slot.long(), plan.S * plan.Mrow - 1)
+    """Every rank's rows gathered back into the global batched MDState,
+    with the replicated scalars of ``rep``. Every atom row and the photon
+    hold a slot when no overflow is flagged (an overflowed chunk is
+    discarded by the caller), so which rows come back is static."""
+    rows = torch.arange(plan.n0, device=state.device)
+    present = (rows < plan.n_atoms) | (rows == plan.photon_row)
+    idx = torch.clamp_max(data.inv_slot, plan.S * plan.Mrow - 1)
 
-    def back(glob, rows):
-        flat = comm.all_gather(rows)
-        return torch.where(present[:, None], flat[idx], glob)
+    def back(glob, rows):  # every rank's (b, Mrow, 3) rows, rank by rank
+        flat = comm.all_gather(rows.transpose(0, 1)).transpose(0, 1)
+        return torch.where(present[:, None], _rows(flat, idx), glob)
 
     return rep.replace(
         position=back(state.position, loc.position),
@@ -1037,24 +1151,27 @@ def make_domain_runner(ff, methods, plan: DomainPlan,
     Every ``rebuild_every`` steps the layout is rebuilt from the global
     state (every rank alike), each rank takes its rows, runs the chunk's
     steps, and the rows are gathered back. A rebuild that overflowed a
-    capacity sets ``domain_capacity_overflow`` and ``cell_overflow`` for
-    the chunk's steps; the coverage invariant sets ``cell_overflow`` alone.
-    Either way the returned state must be discarded (``Simulation.run``
-    retries the chunk). ``comm`` is the world-size-1 communicator when
-    None; its world size must be ``plan.S``.
+    capacity (in any replica of a batch) sets ``domain_capacity_overflow``
+    and ``cell_overflow`` for the chunk's steps; the coverage invariant
+    sets ``cell_overflow`` alone. Either way the returned state must be
+    discarded (``Simulation.run`` retries the chunk). ``comm`` is the
+    world-size-1 communicator when None; its world size must be
+    ``plan.S``.
 
-    ``n_replicas`` = R is the JAX runner's replicas x slabs mesh
-    (``cavmd_tpu/parallel/domain.py:1486-1540``) on R x S ranks: the state
-    is a batch of exactly R replicas (``init_replica_states``), and rank
-    (r, s) runs replica r's slab s through the one-replica runner, its
-    sums over ``comm`` (the S slabs of replica r) only, drawing replica
-    r's rows of the batch's noise (``StreamNoise(R, r:r+1)`` unless
-    ``noise`` is given). At the end of ``run`` the replicas' leaves and
-    observables are gathered over ``replica_comm`` (the R ranks of slab
-    s), and every rank returns the batched state and observables of shape
-    (steps, R, ...), the ``run_replica_steps`` convention (a batch of one
-    replica at R = 1 too). With R > 1 and neither
-    communicator given, both come from the default process group
+    ``state`` is one replica, or a batch of B replicas
+    (``init_replica_states``; a batch over slabs): the rank's replicas
+    then run as one batched slab step, each kernel once a step for all of
+    them, and the observables come back (steps, B, ...), the
+    ``run_replica_steps`` convention. ``n_replicas`` = R is the JAX
+    runner's replicas x slabs mesh (``cavmd_tpu/parallel/domain.py:
+    1486-1540``) on R x S ranks: B must be a multiple of R, and rank
+    (r, s) runs slab s of replicas ``[r B/R, (r+1) B/R)``, its sums over
+    ``comm`` (the S slabs of those replicas) only, drawing their rows of
+    the batch's noise (``StreamNoise(B, rows)`` unless ``noise`` is
+    given). At the end of ``run`` the replicas' leaves and observables
+    are gathered over ``replica_comm`` (the R ranks of slab s), and every
+    rank returns the whole batch. With R > 1 and neither communicator
+    given, both come from the default process group
     (``comm.grid_communicators``). Raises ``ValueError`` when the slab
     communicator and the plan, or the replica communicator and R, or the
     batch and R disagree.
@@ -1071,57 +1188,86 @@ def make_domain_runner(ff, methods, plan: DomainPlan,
         raise ValueError(
             f"the replica communicator has {replica_comm.world_size} "
             f"ranks, the runner n_replicas={n_replicas}")
-    if n_replicas > 1 and noise is None:
-        r = replica_comm.rank
-        noise = StreamNoise(n_replicas, slice(r, r + 1))
-    step = make_domain_step(ff, methods, plan, comm, adaptive=adaptive,
-                            obs_spec=obs_spec, noise=noise)
+    steps, tables = {}, {}
 
-    def run(state, n_steps: int):
-        if n_steps < 1:
-            return state, {}
+    def step_for(full, lo, hi):
+        """The slab step of rows [lo, hi) of a batch of ``full``."""
+        if (full, lo, hi) not in steps:
+            src = noise
+            if src is None and (lo, hi) != (0, full):
+                src = StreamNoise(full, slice(lo, hi))
+            steps[full, lo, hi] = make_domain_step(
+                ff, methods, plan, comm, adaptive=adaptive,
+                obs_spec=obs_spec, noise=src)
+        return steps[full, lo, hi]
+
+    def run_batch(batch, n_steps: int, step):
+        """``n_steps`` of this rank's replicas (a batch)."""
+        nrep = batch.batch_shape[0]
+        dev = batch.device
+        if dev not in tables:
+            tables[dev] = plan_tables(plan, dev)
         buf = ObsBuffer(n_steps)
         with torch.no_grad():
             for start in range(0, n_steps, rebuild_every):
                 k = min(rebuild_every, n_steps - start)
-                data = _rebuild_one(state.position, plan, state.box_L,
-                                    ff.bond_k_per, ff.bond_r0_per,
-                                    ff.pair_inert, state.charge)
-                loc, dat = _scatter_in(state, data, plan, comm.rank)
+                data = _rebuild(batch.position, plan, batch.box_L,
+                                ff.bond_k_per, ff.bond_r0_per,
+                                ff.pair_inert, batch.charge, tables[dev])
+                loc, dat = _scatter_in(batch, data, plan, comm.rank)
                 ovf = (data.slab_overflow | data.bucket_overflow).to(
-                    state.position.dtype)
-                rep = state
+                    batch.position.dtype).expand(nrep)
+                rep = batch
                 for _ in range(k):
                     loc, rep, obs = step(loc, rep, dat)
                     obs["domain_capacity_overflow"] = ovf
                     buf.add(obs)
-                state = _scatter_out(state, data, loc, rep, plan, comm)
+                batch = _scatter_out(batch, data, loc, rep, plan, comm)
         out = buf.to_numpy()
         out["cell_overflow"] = np.maximum(out["cell_overflow"],
                                           out["domain_capacity_overflow"])
-        out["timestep"] = np.arange(state.step - n_steps + 1,
-                                    state.step + 1, dtype=np.int64)
-        return state, out
+        ts = np.arange(batch.step - n_steps + 1, batch.step + 1,
+                       dtype=np.int64)
+        out["timestep"] = np.broadcast_to(ts[:, None],
+                                          (n_steps, nrep)).copy()
+        return batch, out
 
-    def run_replicas(batch, n_steps: int):
-        if batch.batch_shape != (n_replicas,):
+    def run(state, n_steps: int):
+        if not state.batch_shape:  # one replica: a batch of one, squeezed
+            if n_replicas != 1:
+                raise ValueError(
+                    f"a one-replica state for a runner of n_replicas="
+                    f"{n_replicas}: give a batch of a multiple of "
+                    f"{n_replicas} replicas (init_replica_states)")
+            if n_steps < 1:
+                return state, {}
+            final, obs = run_batch(_as_batch(state), n_steps,
+                                   step_for(1, 0, 1))
+            return final.replace(**{k: getattr(final, k)[0]
+                                    for k in PER_REPLICA}), {
+                k: v[:, 0] for k, v in obs.items()}
+        B = state.batch_shape[0]
+        R = n_replicas
+        if B % R:
             raise ValueError(
-                f"a state of batch shape {batch.batch_shape} for a runner "
-                f"of n_replicas={n_replicas}: give a batch of exactly "
-                f"{n_replicas} replicas (init_replica_states)")
+                f"a state of batch shape {state.batch_shape} for a runner "
+                f"of n_replicas={R}: give a batch of a multiple of {R} "
+                "replicas (init_replica_states)")
         if n_steps < 1:
-            return batch, {}
-        final, obs = run(replica_rows(batch, replica_comm.rank), n_steps)
-        stacked = batch.replace(step=final.step, **{
-            k: replica_comm.stack(getattr(final, k)) for k in PER_REPLICA})
-        # (R, steps, ...) -> (steps, R, ...)
+            return state, {}
+        b = B // R
+        lo = replica_comm.rank * b
+        final, obs = run_batch(replica_rows(state, slice(lo, lo + b)),
+                               n_steps, step_for(B, lo, lo + b))
+        if R == 1:
+            return final, obs
+        stacked = state.replace(
+            step=final.step, cell_list=None, cell_anchor=None, **{
+                k: replica_comm.stack(getattr(final, k)).flatten(0, 1)
+                for k in PER_REPLICA})
+        # (R, steps, b, ...) -> (steps, B, ...)
         return stacked, {k: np.moveaxis(replica_comm.stack(
-            torch.from_numpy(np.ascontiguousarray(v))).numpy(), 0, 1)
-            for k, v in obs.items()}
+            torch.from_numpy(np.ascontiguousarray(v))).numpy(), 0, 1).reshape(
+                (n_steps, B) + v.shape[2:]) for k, v in obs.items()}
 
-    def dispatch(state, n_steps: int):
-        if n_replicas == 1 and not state.batch_shape:
-            return run(state, n_steps)
-        return run_replicas(state, n_steps)
-
-    return dispatch
+    return run

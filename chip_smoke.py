@@ -35,9 +35,10 @@ Phases:
   3. ``Simulation.run`` on the reference scene (250 O2/N2 + photon, f32,
      dense ForceField, Bussi 100 K tau 5 ps on the molecules, Langevin
      tau 5 ps on the photon, dt 0.25 fs), twice: with the fused tail (the
-     default on the card) and without it (``fuse_integrator=False``);
-     each one warm-up chunk, then 5 x 1000 steps: launch counts,
-     finiteness, universe-energy drift, steps/s (median of the chunks);
+     default on the card; one warm-up chunk, then 5 x 1000 steps) and
+     without it (``fuse_integrator=False``; SHORT_RUN, a prefix of that,
+     with its own drift bound): launch counts, finiteness, universe-energy
+     drift, steps/s (median of the chunks);
   4. a float64 NVE trajectory of 20 steps on the card (kernels) against the
      same steps on the CPU (plain twins), N = 501 dense;
   5. the ``advanced_run`` CLI in this process (``main([...])``, default
@@ -94,10 +95,10 @@ Phases:
      device time at 32 replicas; a float64 batch of 4 replicas, 20 steps on
      the card, against one-replica card runs with the same draws (1e-9
      bohr); the batched step through ``run_replica_steps`` at B = 1, 8 and
-     32 (phase 3's protocol at B = 8, a prefix of it at 1 and 32; each of
+     32 (a prefix of phase 3's protocol, SHORT_RUN, at each; each of
      K1-K5 once a step, the same device operations a step at every B and
      within REPLICA_OPS_SLACK of the one-replica fused step's, each
-     replica's universe drift under phase 3's bound, aggregate steps/s,
+     replica's universe drift under the prefix's bound, aggregate steps/s,
      device us a step and busy share from a profile); and the CLI with
      ``--vmap-replicas --replicas 1-8`` on phase 5's arguments (files and
      headers of every replica, GSD frames, K4/K5 once a step, each
@@ -136,11 +137,12 @@ Phases:
      only, as in the JAX package) and the rest of the slice: (a) MTTK
      (100 K, tau 0.5 ps) on the molecules and Langevin on the photon
      through ``Simulation.run`` on phase 3's scene, one warm-up chunk then
-     3 x 1000 steps: K1-K3 once a step and K4/K5 never, steps/s, device
+     1000 steps: K1-K3 once a step and K4/K5 never, steps/s, device
      operations, device us and busy share a step beside phase 11's
      profile of the fused Bussi step, the extended energy's drift (the
      universe plus the molecular MTTK energy) held to 3x the JAX
-     package's CPU reading (``scripts/jax_bath_reference.py``); (b)
+     package's CPU reading over the same chunk
+     (``scripts/jax_bath_reference.py``); (b)
      Berendsen on the same scene, 2 x 1000 steps, the last chunk's mean
      molecular T held within 3x the JAX reading's distance from 100 K;
      (c) MTTK at N = 100,001 (``build_large_n(50_000)``'s scene, cell
@@ -171,13 +173,36 @@ Phases:
      501 CLI's energy file is the same with and without it,
      ``EnergyTracker.consume``'s host ms per 500-step chunk and a GSD
      frame's at N = 100,001 both ways.
+ 15. a replica batch over slabs (``parallel/domain.py`` with a replica
+     axis): (a) the slab kernel over REPLICA_B replicas at N = 20,001 on
+     one slab, each replica with its own slab tables (types, charges,
+     exclusions, pair keys), in one launch, float32 and float64: against
+     its twin on the batch and the one-replica launch on each replica's
+     own call (forces bit-equal), two calls bit-equal; K2 and K3 with a
+     charge row a replica against their twins and the one-replica
+     launches; in float32 the batched launch's time beside one replica's
+     and REPLICA_B one-replica launches', and K2's and K3's times beside
+     their launches with one shared charge row; (b) a float64 batch of
+     REPLICA_F64_B replicas at N = 20,001 through the batched slab runner,
+     40 steps, against ``run_replica_steps`` on the card (1e-9 bohr; the
+     slab kernel, K2 and K3 once a step for the batch); (c) REPLICA_B
+     replicas of ``build_large_n(50_000)`` (N = 100,001, f32) through the
+     batched slab runner on phase 6's protocol: the slab kernel, K2 and K3
+     once a step for the batch, no overflow, each replica's band within
+     phase 9's bound, aggregate steps/s beside phase 9's one replica and
+     phase 12c's unsharded batch, and the slab step's device operations
+     name by name at B = 1 and B = REPLICA_B (within REPLICA_OPS_SLACK),
+     its device us, the rebuild's counted apart, and the busy share; on
+     the run's final state the slab kernel against its twin and K2 and K3
+     with a charge row a replica against theirs, with the kernel's time,
+     its twin's and its bound from those inputs. The
+     ``cell_pair_slab_b8`` row takes all its numbers from (c).
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
-the summary (with the script's seconds and phases 10's to 14's), a JSON
-object of per-kernel results (the batched kernels as ``<name>_b8``), the
-card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+the summary (with the script's seconds and every phase's), a JSON object
+of per-kernel results (the batched kernels as ``<name>_b8``), the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -293,9 +318,9 @@ ZCOL_F64_STEPS, ZCOL_F64_DT_FS = 40, 1.0
 # the kernels are also timed at REPLICA_WIDE_B. The float64 batch of
 # REPLICA_F64_B replicas runs REPLICA_F64_STEPS steps against as many
 # one-replica runs with the same draws, held to TRAJ_TOL_BOHR. The batched
-# step runs phase 3's protocol (one warm-up chunk, N_CHUNKS x CHUNK steps)
-# at each of REPLICA_STEP_BATCHES, each replica's universe drift held to
-# phase 3's DRIFT_BOUND_HA, then REPLICA_PROFILED_STEPS profiled steps;
+# step runs SHORT_RUN, a prefix of phase 3's protocol, at each of
+# REPLICA_STEP_BATCHES, each replica's universe drift held to
+# REPLICA_SHORT_DRIFT_BOUND_HA, then REPLICA_PROFILED_STEPS profiled steps;
 # the CLI at REPLICA_B replicas is held to VMAP_CLI_DRIFT_BOUND_HA, 3x the
 # JAX package's own batched CLI on the same arguments with --device CPU
 # (``python scripts/jax_vmap_cli_reference.py --precision f32|f64``):
@@ -315,9 +340,19 @@ REPLICA_PROFILED_STEPS = 50
 REPLICA_OPS_SLACK = 4
 BATCHED_KERNELS = ("dense_pair", "pppm_spread", "pppm_interpolate",
                    "fused_pre_force", "fused_post_force")
-# the prefix of phase 3's protocol the batched step runs at the batch sizes
-# but REPLICA_B (warm-up steps, chunks, steps a chunk)
-REPLICA_SHORT_RUN = (N_WARM // 4, 2, CHUNK // 2)
+# the prefix of phase 3's protocol (warm-up steps, chunks, steps a chunk)
+# that phase 3's unfused run and phase 11's batched steps run. Each bound
+# is 3x the larger of the JAX package's f32 and f64 readings on the CPU
+# over the same prefix (``python scripts/jax_bath_reference.py --protocol
+# short``), max |U - U[0]| of the universe energy: for phase 3's state
+# 8.743e-4 Ha (f32) and 8.778e-4 Ha (f64); for each replica of the
+# thermalized batch of 32 (seed 7 + r; phase 11's batches are its first
+# rows) up to 9.576e-4 Ha in f64 and 9.726e-4 Ha in f32 over the 23
+# replicas that stayed finite (its f32 batch blew up in 9, ROADMAP.md
+# Queue 3).
+SHORT_RUN = (N_WARM // 4, 2, CHUNK // 2)
+SHORT_DRIFT_BOUND_HA = 2.63e-3
+REPLICA_SHORT_DRIFT_BOUND_HA = 2.91e-3
 # phase 12: replica batches in cell and zcol mode. The batched kernels run
 # at REPLICA_B replicas (the cell kernel and the zcol wrapper with its
 # hull at N = 2 HELD_N_MOL + 1, the small grid at N = 501); the float64
@@ -346,16 +381,18 @@ BATCHED_CELL_KERNELS = ("cell_pair", "cell_pair_small_grid", "zcol_pair",
 # JAX package on them on the CPU). 13a: MTTK at BATH_TAU_PS on phase 3's
 # scene, one warm-up chunk then BATH_CHUNKS chunks of CHUNK steps; the
 # bound is 3x the larger of the JAX package's f32 and f64 readings of the
-# extended energy's drift. 13b: Berendsen, BERENDSEN_CHUNKS chunks; the
+# extended energy's drift over that one chunk. 13b: Berendsen,
+# BERENDSEN_CHUNKS chunks; the
 # bound on |T - 100 K| of the last chunk's mean molecular T is 3x the JAX
 # reading's (the freshly generated lattice relaxes and heats the
 # molecules, which a 0.5 ps Berendsen bath pulls back only slowly). The
-# JAX readings: extended drift 9.374e-4 Ha (f32) and 9.281e-4 Ha (f64);
+# JAX readings: extended drift over the first chunk 9.044e-4 Ha (f32) and
+# 9.027e-4 Ha (f64) (over three chunks 9.374e-4 and 9.281e-4);
 # Berendsen last-chunk T 462.05 K (f32) and 462.13 K (f64), 362.13 K from
 # 100 K at most.
 BATH_TAU_PS = 0.5
-BATH_CHUNKS, BERENDSEN_CHUNKS = 3, 2
-MTTK_DRIFT_BOUND_HA = 2.81e-3
+BATH_CHUNKS, BERENDSEN_CHUNKS = 1, 2
+MTTK_DRIFT_BOUND_HA = 2.71e-3
 BERENDSEN_T_BOUND_K = 1086.0
 BERENDSEN_JAX_T_K = 462.13
 BATH_LARGE_CHUNKS = 2  # 13c, after one warm-up chunk of LARGE_CHUNK steps
@@ -1125,9 +1162,12 @@ def work_counts(torch, snap, ff, pre, pair_blocks=None):
     }
 
 
-def main_path(torch, pt, fuse):
-    """Simulation.run on the reference scene; ``fuse`` is passed as
-    ``fuse_integrator`` (None = the default: fused on the card)."""
+def main_path(torch, pt, fuse, warm=N_WARM, chunks=N_CHUNKS, chunk=CHUNK,
+              bound=DRIFT_BOUND_HA):
+    """Simulation.run on the reference scene, ``warm`` steps then
+    ``chunks`` chunks of ``chunk`` steps, the universe drift held to
+    ``bound``; ``fuse`` is passed as ``fuse_integrator`` (None = the
+    default: fused on the card)."""
     import numpy as np
 
     from cavmd_tpu_torch.core import PhysicalConstants as PC
@@ -1145,24 +1185,24 @@ def main_path(torch, pt, fuse):
     _cuda.reset_launches()
     sim = pt.Simulation(snap, ff, main_methods(pt, kT),
                         dt=PC.fs_to_atomic_units(0.25), seed=7,
-                        chunk_size=CHUNK, fuse_integrator=fuse)
+                        chunk_size=chunk, fuse_integrator=fuse)
     t0 = time.perf_counter()
-    sim.run(n_steps=N_WARM)
+    sim.run(n_steps=warm)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    chunks, chunk_s = [], []
-    for _ in range(N_CHUNKS):
+    outs, chunk_s = [], []
+    for _ in range(chunks):
         t0 = time.perf_counter()
-        sim.run(n_steps=CHUNK)
+        sim.run(n_steps=chunk)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
-        chunks.append(sim.last_obs)
+        outs.append(sim.last_obs)
     launches = dict(_cuda.launches)
-    n_steps = N_CHUNKS * CHUNK
-    total = N_WARM + n_steps
+    n_steps = chunks * chunk
+    total = warm + n_steps
 
-    obs = {k: np.concatenate([c[k] for c in chunks]) for k in OBS_KEYS}
+    obs = {k: np.concatenate([c[k] for c in outs]) for k in OBS_KEYS}
     for k in OBS_KEYS:
         check(np.all(np.isfinite(obs[k])), f"{label} path: non-finite {k}")
     for name in ("position", "velocity", "forces"):
@@ -1183,10 +1223,10 @@ def main_path(torch, pt, fuse):
               f"{launches.get(kname, 0)} < {total} times")
     U = universe_energy(obs)
     drift = float(np.abs(U - U[0]).max())
-    check(drift < DRIFT_BOUND_HA,
-          f"{label} path: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
+    check(drift < bound,
+          f"{label} path: universe drift {drift} >= {bound} Ha")
     T_mol = 2.0 * obs["kinetic_molecular"] / (3.0 * (snap.N - 1) * kT) * 100.0
-    chunk_rates = [CHUNK / s for s in chunk_s]
+    chunk_rates = [chunk / s for s in chunk_s]
     res = dict(steps=n_steps, seconds=sum(chunk_s),
                steps_per_s=statistics.median(chunk_rates),
                chunk_steps_per_s=chunk_rates, warmup_chunk_s=warm_s,
@@ -2307,13 +2347,13 @@ def profiled_steps(torch, run, steps, marks=DENSE_STEP_MARKS):
 
 
 def replica_step_path(torch, pt, B, warm=N_WARM, chunks=N_CHUNKS,
-                      chunk=CHUNK):
+                      chunk=CHUNK, bound=DRIFT_BOUND_HA):
     """Phase 11c: the batched step of B thermalized replicas of the N = 501
     scene (f32, fused tail, seed 7 + r) through ``run_replica_steps`` on
     phase 3's protocol (``warm`` steps, then ``chunks`` chunks of
     ``chunk`` steps; a prefix of it at the batch sizes but REPLICA_B):
     each batched kernel launched once a step, finite observables, each
-    replica's universe drift under DRIFT_BOUND_HA, the median chunk rate
+    replica's universe drift under ``bound``, the median chunk rate
     (aggregate: B times it); then REPLICA_PROFILED_STEPS profiled steps:
     device operations, device us and busy share a step. ``B=None``
     profiles the one-replica fused step alone (the comparison for the
@@ -2397,8 +2437,8 @@ def replica_step_path(torch, pt, B, warm=N_WARM, chunks=N_CHUNKS,
               and bool(torch.isfinite(t).all()), f"{label}: bad {name}")
     U = universe_energy(obs)
     drifts = np.abs(U - U[0]).max(axis=0)
-    check(bool((drifts < DRIFT_BOUND_HA).all()),
-          f"{label}: universe drifts {drifts.tolist()} >= {DRIFT_BOUND_HA}")
+    check(bool((drifts < bound).all()),
+          f"{label}: universe drifts {drifts.tolist()} >= {bound}")
     rate = statistics.median(chunk / t for t in chunk_s)
     wall_ms = 1e3 / rate
     prof = profiled_steps(torch, run, REPLICA_PROFILED_STEPS)
@@ -3857,6 +3897,464 @@ def native_io_phase(torch, pt):
     return res
 
 
+def slab_batch_inputs(torch, pt, dtype, B=REPLICA_B):
+    """Phase 15a's inputs: B replicas of the N = 2 HELD_N_MOL + 1 scene
+    (cell mode, one slab), positions jittered 0.3 bohr apart and
+    re-wrapped: (force field, plan, batch)."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.parallel import domain as dm
+    from cavmd_tpu_torch.parallel import init_replica_states
+
+    snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                           dtype, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell")
+    plan = dm.plan_domain(snap, ff, 1)
+    batch = init_replica_states(snap, ff, n_replicas=B, dt=1.0)
+    batch = batch.replace(position=wrap_rows(torch, jitter_rows(
+        torch, snap.position, B, 0.3, 5), snap.box_L), cell_list=None,
+        cell_anchor=None)
+    return ff, plan, batch
+
+
+def hold_slab_batch(torch, ff, plan, batch, label, tol, timed):
+    """The slab kernel (``cell_pair_slab``) over the batch's slab 0, each
+    replica with its own slab tables (types, charges, exclusions, pair
+    keys), in one launch, against its plain twin (within ``tol`` of the
+    largest value), two calls bit-equal; K2 and K3 on the position tables
+    (residents and halo copies) with their charge row a replica, against
+    their twins. With ``timed`` also the kernel's device and host-bound
+    ms, the twin's ms and the bound from these inputs
+    (``cell_work_counts`` of each replica, the shared inputs counted
+    once). Returns
+    (results, (the call's args, cells and pair keys, the kernel's
+    outputs, K2's grid, K3's grid input and output))."""
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import pppm_kernels as sk
+    from cavmd_tpu_torch.ops.neighbor import replica_list
+    from cavmd_tpu_torch.parallel import domain as dm
+
+    t_in = time.perf_counter()
+    args, cells, key = dm.tile_pass_inputs(ff, plan, batch)
+    B = args[0].shape[0]
+    kern = ck.cell_pair_force_slab
+    k, again = kern(*args, cells, key), kern(*args, cells, key)
+    p = ck.cell_pair_force_fused_plain(*args, pair_key=key)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(k, again)),
+          f"{label}: two calls differ")
+    errs = []
+    for a, b in zip(k, p):
+        err, scale = max_err(a, b)
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+        check(err <= tol * max(scale, 1e-300),
+              f"{label}: max|d| {err} > {tol}*{scale}")
+        errs.append((err, scale))
+    del p
+    res = dict(replicas=B, n=batch.position.shape[1], rows=plan.Mtot,
+               ncells=args[3].ncells, cap=plan.cap,
+               max_abs_err=errs[0][0], scale=errs[0][1],
+               max_abs_err_other_outputs=[e for e, _ in errs[1:]],
+               bit_equal_calls=True)
+    pos, q = args[0], args[5]
+    box, order, mesh = batch.box_L, ff.pppm_order, tuple(ff.pppm_mesh)
+    check(not bool(torch.equal(q[0], q[1])),
+          f"{label}: the replicas' charge rows agree")
+    grid = sk.spread_grid(pos, q, box, order, mesh)
+    ct = torch.sin(torch.arange(grid.numel(), device=grid.device,
+                                dtype=grid.dtype)).reshape(grid.shape)
+    grad = sk.interpolate_grad(ct, pos, q, box, order, mesh)
+    k23 = {}
+    for kname, got, want in (
+            ("pppm_spread", grid,
+             sk.spread_grid_plain(pos, q, box, order, mesh)),
+            ("pppm_interpolate", grad,
+             sk.interpolate_grad_plain(ct, pos, q, box, order, mesh))):
+        err, scale = max_err(got, want)
+        check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+              f"{label} {kname}: max|d| {err} > {tol}*{scale} vs its twin")
+        k23[kname] = dict(max_abs_err=err, scale=scale)
+    if timed:
+        t0 = time.perf_counter()
+        blocks = ck.launch_blocks(cells[1], plan.cap, pos.device, B)
+        n_bytes = n_ops = 0
+        for r in range(B):
+            nb, no, _ = cell_work_counts(
+                torch, pos[r], box, replica_list(args[2], r), args[3],
+                args[4][r], q[r], ff, args[10][r], blocks, pair_key=key[r])
+            n_bytes, n_ops = n_bytes + nb, n_ops + no
+        # shared by the replicas: the box, the four type tables and the
+        # extended neighbour table
+        e, T = pos.element_size(), ff.lj_eps.shape[0]
+        n_bytes -= (B - 1) * (e * (3 + 4 * T * T)
+                              + 4 * 27 * args[2].neighbor_cells.shape[0])
+        t1 = time.perf_counter()
+        res["ms"] = device_ms(torch, lambda: kern(*args, cells, key))
+        res["host_call_ms"] = host_call_ms(torch,
+                                           lambda: kern(*args, cells, key))
+        t2 = time.perf_counter()
+        # one twin call a trace: the twin issues thousands of operations a
+        # replica, and the profiler's records cost host time by the count
+        res["plain_ms"] = profiled_device_ms(
+            torch, lambda: ck.cell_pair_force_fused_plain(*args,
+                                                          pair_key=key),
+            reps=1)
+        res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, n_ops)
+        res.update(bytes=n_bytes, ops=n_ops, seconds=dict(
+            held=t0 - t_in, counts=t1 - t0, kernel_times=t2 - t1,
+            twin_time=time.perf_counter() - t2))
+    res["per_replica_charges"] = k23
+    return res, (args, cells, key, k, grid, ct, grad)
+
+
+def slab_batch_kernel_phase(torch, pt, dtype, timed):
+    """Phase 15a: ``hold_slab_batch`` on REPLICA_B replicas at
+    N = 2 HELD_N_MOL + 1 on one slab, and each replica against the
+    one-replica launch on its own call (its tables equal the batch's
+    rows; forces bit-equal, energies within TOL; K2 within TOL, K3
+    bit-equal). In float32 also the device time of one replica's launch
+    and of REPLICA_B one-replica launches beside the batched launch's,
+    and K2's and K3's times with per-replica charges beside the same
+    launches with one shared charge row (the twin's time and the bound
+    are phase 15c's, at the main path's shapes)."""
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import pppm_kernels as sk
+    from cavmd_tpu_torch.parallel import domain as dm
+    from cavmd_tpu_torch.parallel.replicas import replica_rows
+
+    B = REPLICA_B
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]
+    ff, plan, batch = slab_batch_inputs(torch, pt, dtype)
+    label = f"phase 15a cell_pair_slab B={B} N={batch.position.shape[1]} " \
+        f"{name}"
+    res, (args, cells, key, k, grid, ct, grad) = hold_slab_batch(
+        torch, ff, plan, batch, label, tol, timed=False)
+    kern = ck.cell_pair_force_slab
+    ones, worst = [], 0.0
+    for r in range(B):
+        a1, c1, k1 = dm.tile_pass_inputs(ff, plan, replica_rows(batch, r))
+        check(c1 == cells and bool(torch.equal(k1, key[r])) and all(
+            bool(torch.equal(args[i][r], a1[i])) for i in (0, 4, 5, 10)),
+            f"{label}: replica {r}'s tables differ from its own call's")
+        one = kern(*a1, c1, k1)
+        check(bool(torch.equal(k[0][r], one[0])),
+              f"{label}: replica {r}'s forces differ from its one-replica "
+              "launch")
+        for a, b in zip(k[1:], one[1:]):
+            err, scale = max_err(a[r], b)
+            check(err <= tol * scale, f"{label}: replica {r}'s energy off "
+                  f"its one-replica launch by {err}")
+            worst = max(worst, err)
+        ones.append((a1, c1, k1))
+    res.update(forces_bit_equal_to_one_replica_launches=True,
+               max_abs_err_energy_to_one_replica_launches=worst)
+    # K2 and K3 a replica at a time (at one slab every replica's residents
+    # hold the molecules in one order; the halo copies differ)
+    pos, q = args[0], args[5]
+    box, order, mesh = batch.box_L, ff.pppm_order, tuple(ff.pppm_mesh)
+    k23 = res["per_replica_charges"]
+    for kname, got, one in (
+            ("pppm_spread", grid,
+             lambda r: sk.spread_grid(pos[r], q[r], box, order, mesh)),
+            ("pppm_interpolate", grad,
+             lambda r: sk.interpolate_grad(ct[r].contiguous(), pos[r], q[r],
+                                           box, order, mesh))):
+        one_err = max(max_err(got[r], one(r))[0] for r in range(B))
+        if kname == "pppm_interpolate":  # no atomics: the same bits
+            check(one_err == 0.0, f"{label} {kname}: a replica differs "
+                  f"from its one-replica launch by {one_err}")
+        check(one_err <= tol * k23[kname]["scale"], f"{label} {kname}: a "
+              f"replica off its one-replica launch by {one_err}")
+        k23[kname]["max_abs_err_to_one_replica_launches"] = one_err
+    if timed:
+        res["ms"] = device_ms(torch, lambda: kern(*args, cells, key))
+        res["one_replica_ms"] = device_ms(
+            torch, lambda: kern(*ones[0][0], cells, ones[0][2]))
+        res[f"{B}_one_replica_launches_ms"] = device_ms(
+            torch, lambda: [kern(*a1, c1, k1) for a1, c1, k1 in ones])
+        shared_q = q[0].contiguous()
+        k23["pppm_spread"].update(
+            ms=device_ms(torch, lambda: sk.spread_grid(pos, q, box, order,
+                                                       mesh)),
+            shared_charge_ms=device_ms(torch, lambda: sk.spread_grid(
+                pos, shared_q, box, order, mesh)))
+        k23["pppm_interpolate"].update(
+            ms=device_ms(torch, lambda: sk.interpolate_grad(
+                ct, pos, q, box, order, mesh)),
+            shared_charge_ms=device_ms(torch, lambda: sk.interpolate_grad(
+                ct, pos, shared_q, box, order, mesh)))
+    print(f"{label}: " + ", ".join(f"{a}={v!r}" for a, v in res.items()),
+          flush=True)
+    return res
+
+
+def slab_batch_f64_trajectory(torch, pt):
+    """Phase 15b: REPLICA_F64_B thermalized float64 replicas of the
+    N = 2 HELD_N_MOL + 1 scene through the batched slab runner at one slab
+    (rebuilt every DOMAIN_REBUILD_EVERY steps), DOMAIN_F64_STEPS Bussi +
+    Langevin steps of LARGE_DT_FS, against ``run_replica_steps`` of the
+    batch in cell mode on the card, each drawing the batch's streams from
+    generators seeded alike: every replica within TRAJ_TOL_BOHR, image
+    flags equal, no overflow, the slab kernel, K2 and K3 launched once a
+    step for the whole batch."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.integrate import make_step_fn
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        make_domain_runner,
+        plan_domain,
+        run_replica_steps,
+    )
+    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY
+
+    B, steps = REPLICA_F64_B, DOMAIN_F64_STEPS
+    snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                           torch.float64, torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="cell")
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, main_methods(pt, kT), ff.l_typeid)
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(LARGE_DT_FS),
+                                seed=7, kT=kT)
+    ref, _ = run_replica_steps(make_step_fn(ff, methods),
+                               batch.replace(generators={}), steps)
+    run = make_domain_runner(ff, methods, plan_domain(snap, ff, 1),
+                             rebuild_every=DOMAIN_REBUILD_EVERY)
+    _cuda.reset_launches()
+    fin, obs = run(batch.replace(generators={}), steps)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    label = f"phase 15b f64 batch over slabs B={B}"
+    errs = (fin.position - ref.position).abs().amax(dim=(1, 2)).tolist()
+    img_ok = bool(torch.equal(fin.image, ref.image))
+    print(f"{label}: Bussi + Langevin {steps} steps at N={snap.N}, the "
+          f"batched slab runner (1 slab, rebuilt every "
+          f"{DOMAIN_REBUILD_EVERY}) vs run_replica_steps on the card: "
+          f"max|dx| per replica {errs} bohr (bound {TRAJ_TOL_BOHR}), images "
+          f"equal: {img_ok}, launches {launches}", flush=True)
+    check(not obs["cell_overflow"].any(), f"{label}: overflow")
+    check(max(errs) <= TRAJ_TOL_BOHR and img_ok,
+          f"{label}: max|dx| {errs} bohr > {TRAJ_TOL_BOHR} or images differ")
+    check(not bool(torch.equal(ref.position[0], ref.position[1])),
+          f"{label}: the replicas did not decorrelate")
+    for kname in ("cell_pair_slab", "pppm_spread", "pppm_interpolate"):
+        check(launches.get(kname, 0) == steps,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{steps} steps")
+    return dict(max_dx_bohr=max(errs), per_replica=errs, launches=launches)
+
+
+SLAB_STEP_MARKS = ("cell_pair_kernel", "spread_kernel", "interpolate_kernel")
+
+
+def slab_step_profile(torch, ff, methods, plan, batch):
+    """The device side of the slab step alone, ``profiled_steps`` of
+    REPLICA_PROFILED_STEPS steps on one layout (the step of the runner,
+    without its rebuilds), and of one rebuild with its scatter in and out
+    (``profiled_device_ms``: ms and device operations)."""
+    from cavmd_tpu_torch.integrate.integrator import ObsBuffer
+    from cavmd_tpu_torch.parallel import domain as dm
+    from cavmd_tpu_torch.parallel.comm import Communicator
+
+    comm = Communicator()
+    step = dm.make_domain_step(ff, methods, plan, comm)
+    tables = dm.plan_tables(plan, batch.device)
+
+    def rebuild():
+        data = dm._rebuild(batch.position, plan, batch.box_L, ff.bond_k_per,
+                           ff.bond_r0_per, ff.pair_inert, batch.charge,
+                           tables)
+        loc, dat = dm._scatter_in(batch, data, plan, 0)
+        return data, loc, dat, dm._scatter_out(batch, data, loc, batch,
+                                               plan, comm)
+
+    data, loc, dat, _ = rebuild()
+    state = {"loc": loc, "rep": batch}
+
+    def run(n):
+        buf = ObsBuffer(n)
+        with torch.no_grad():
+            for _ in range(n):
+                state["loc"], state["rep"], obs = step(state["loc"],
+                                                       state["rep"], dat)
+                buf.add(obs)
+        return buf.to_numpy()
+
+    run(5)
+    prof = profiled_steps(torch, run, REPLICA_PROFILED_STEPS,
+                          SLAB_STEP_MARKS)
+    with torch.no_grad():
+        rb_ms, rb_ops = profiled_device_ms(torch, rebuild, ops=True)
+    return prof, rb_ms, rb_ops
+
+
+def slab_batch_step_path(torch, pt, band_ref, dom, big):
+    """Phase 15c: REPLICA_B replicas of ``build_large_n(LARGE_N_MOL)``'s
+    start (N = 100,001, f32, Bussi + Langevin, LARGE_DT_FS; replica r
+    thermalized at seed 7 + r) through the batched slab runner at one slab
+    (rebuilt every DOMAIN_REBUILD_EVERY steps) on phase 6's protocol, with
+    the CLI's retry (a chunk whose coverage invariant fired in any replica
+    runs again at half the cadence; a capacity overflow grows the plan):
+    the slab kernel, K2 and K3 launched once a step for the batch (and a
+    retry's start forces once), no overflow left, finite observables,
+    each replica's universe band under DOMAIN_BAND_RATIO times phase 6's
+    band ``band_ref`` (phase 9's
+    bound); wall ms a step and aggregate steps/s beside phase 9's one
+    replica on the slab path (``dom``: eight such runs in turn give its
+    rate) and phase 12c's unsharded batch (``big``); then the slab step's
+    device side at B = 1 and B = REPLICA_B (``slab_step_profile``: device
+    operations a step name by name, equal within REPLICA_OPS_SLACK; device
+    us; the rebuild's ms and operations counted apart and amortised over
+    its cadence), device us a step with the rebuild amortised and the busy
+    share; then ``hold_slab_batch`` on the final state (timed: the
+    kernel row's numbers at the main path's shapes)."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate import universe_energy
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        make_domain_runner,
+        plan_domain,
+    )
+    from cavmd_tpu_torch.parallel.domain import _as_batch
+    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY, retry_state
+
+    B = REPLICA_B
+    sim, snap, ff = build_large_n(LARGE_N_MOL, dt_fs=LARGE_DT_FS)
+    methods = sim.methods
+    plan = plan_domain(snap, ff, 1)
+    label = f"phase 15c batch over slabs B={B} N={snap.N}"
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=float(sim.state.dt), seed=7,
+                                kT=PC.kT_from_kelvin(100.0)).replace(
+                                    cell_list=None, cell_anchor=None)
+    state = dict(b=batch, plan=plan, cadence=DOMAIN_REBUILD_EVERY,
+                 steps_run=0, retries=[])
+    state["run"] = make_domain_runner(ff, methods, plan,
+                                      rebuild_every=state["cadence"])
+
+    def run(n):
+        """``n`` steps with the retry of the CLI's batch over slabs (and
+        of ``Simulation`` on the slab path): a chunk that flags an
+        overflow runs again from its start, the plan grown after a
+        capacity overflow, the cadence halved after the coverage
+        invariant fired."""
+        start = state["b"]
+        rng = {k: g.get_state() for k, g in start.generators.items()}
+        while True:
+            state["b"], obs = state["run"](start, n)
+            state["steps_run"] += n
+            if not obs["cell_overflow"].any():
+                return obs
+            grow = bool(obs["domain_capacity_overflow"].any())
+            state["retries"].append("plan" if grow else "cadence")
+            check(len(state["retries"]) <= 4,
+                  f"{label}: overflow persists after {state['retries']}")
+            if grow:
+                state["plan"] = state["plan"].grow_cap()
+            else:
+                state["cadence"] = max(1, state["cadence"] // 2)
+            state["run"] = make_domain_runner(
+                ff, methods, state["plan"], rebuild_every=state["cadence"])
+            start = retry_state(ff, start, rng)
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    run(LARGE_CHUNK)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    outs, chunk_s = [], []
+    for _ in range(LARGE_CHUNKS):
+        t0 = time.perf_counter()
+        outs.append(run(LARGE_CHUNK))
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    launches = dict(_cuda.launches)
+    total, retries = state["steps_run"], len(state["retries"])
+    # once a step for the batch; a retry's start forces (the unsharded
+    # force field, ``retry_state``) add one launch of the cell kernel, K2
+    # and K3
+    for kname, n in (("cell_pair_slab", total), ("pppm_spread",
+                                                 total + retries),
+                     ("pppm_interpolate", total + retries),
+                     ("cell_pair", retries)):
+        check(launches.get(kname, 0) == n,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times in "
+              f"{total} steps and {retries} retries")
+    check(not any(k.startswith("fused") for k in launches),
+          f"{label}: the fused tail ran: {launches}")
+    obs = {k: np.concatenate([c[k] for c in outs])
+           for k in OBS_KEYS + ("cell_overflow",)}
+    check(not obs["cell_overflow"].any(), f"{label}: overflow")
+    for k in OBS_KEYS:
+        check(obs[k].shape == (LARGE_CHUNKS * LARGE_CHUNK, B)
+              and bool(np.all(np.isfinite(obs[k]))),
+              f"{label}: bad observable {k} {obs[k].shape}")
+    check(bool(torch.isfinite(state["b"].position).all()),
+          f"{label}: non-finite positions")
+    U = universe_energy(obs)
+    bands = (U.max(axis=0) - U.min(axis=0)).tolist()
+    bound = DOMAIN_BAND_RATIO * band_ref
+    check(max(bands) < bound,
+          f"{label}: universe bands {bands} >= {bound} Ha")
+    wall_ms = statistics.median(s / LARGE_CHUNK * 1e3 for s in chunk_s)
+    final = state["b"]
+    plan, cadence = state["plan"], state["cadence"]
+    kern, _ = hold_slab_batch(torch, ff, plan, final, f"{label} kernels",
+                              TOL["float32"], timed=True)
+    print(f"{label} kernels at the final state: " + ", ".join(
+        f"{k}={v!r}" for k, v in kern.items()), flush=True)
+    torch.cuda.empty_cache()
+    prof8, rb8_ms, rb8_ops = slab_step_profile(torch, ff, methods, plan,
+                                               final)
+    one = _as_batch(sim.state)
+    prof1, rb1_ms, rb1_ops = slab_step_profile(torch, ff, methods, plan, one)
+    check(abs(prof8["ops"] - prof1["ops"]) <= REPLICA_OPS_SLACK,
+          f"{label}: the slab step's {prof8['ops']} device operations at "
+          f"B={B} vs {prof1['ops']} at B=1")
+    dev_us = prof8["us"] + rb8_ms * 1e3 / cadence
+    res = dict(replicas=B, n=snap.N, steps=LARGE_CHUNKS * LARGE_CHUNK,
+               steps_run=total, retries=state["retries"],
+               rebuild_every=cadence, cap=plan.cap, wall_ms_per_step=wall_ms,
+               chunk_ms_per_step=[s / LARGE_CHUNK * 1e3 for s in chunk_s],
+               warmup_chunk_s=warm_s, aggregate_steps_per_s=B * 1e3 / wall_ms,
+               one_replica_slab_ms_per_step=dom["ms_per_step"],
+               one_replica_slab_runs_in_turn_aggregate_steps_per_s=(
+                   1e3 / dom["ms_per_step"]),
+               unsharded_batch_wall_ms_per_step=big["wall_ms_per_step"],
+               unsharded_batch_aggregate_steps_per_s=big[
+                   "aggregate_steps_per_s"],
+               unsharded_batch_device_us_per_step=big["device_us_per_step"],
+               unsharded_batch_busy_share=big["busy_share"],
+               step_device_ops=prof8["ops"],
+               step_device_ops_one_replica=prof1["ops"],
+               step_device_records=prof8["records"],
+               step_device_us=prof8["us"],
+               step_device_us_one_replica=prof1["us"],
+               rebuild_ms=rb8_ms, rebuild_device_ops=rb8_ops,
+               rebuild_ms_one_replica=rb1_ms,
+               rebuild_device_ops_one_replica=rb1_ops,
+               device_us_per_step=dev_us,
+               busy_share=dev_us / (wall_ms * 1e3),
+               profile_records_dropped=prof8["dropped"],
+               top_device_us_per_step=prof8["top_us"],
+               one_replica_top_device_us_per_step=prof1["top_us"],
+               universe_band_ha=bands, band_bound_ha=bound,
+               launches=launches)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    res["kernel"] = kern
+    return res
+
+
 def main() -> None:
     clock = PhaseClock()
     try:
@@ -3939,7 +4437,8 @@ def main() -> None:
 
     # phase 3: Simulation.run at N = 501, fused (default) and unfused
     fused = main_path(torch, pt, None)
-    unfused = main_path(torch, pt, False)
+    unfused = main_path(torch, pt, False, *SHORT_RUN,
+                        bound=SHORT_DRIFT_BOUND_HA)
     clock.lap(3)
 
     # phase 4: a float64 trajectory against the CPU, dense mode
@@ -4055,9 +4554,8 @@ def main() -> None:
             rk = r
     rep_f64 = replica_f64_trajectory(torch, pt)
     one_step = replica_step_path(torch, pt, None)
-    # phase 3's whole protocol at REPLICA_B, a prefix of it at the others
-    rsteps = {B: (replica_step_path(torch, pt, B) if B == REPLICA_B
-                  else replica_step_path(torch, pt, B, *REPLICA_SHORT_RUN))
+    rsteps = {B: replica_step_path(torch, pt, B, *SHORT_RUN,
+                                   bound=REPLICA_SHORT_DRIFT_BOUND_HA)
               for B in REPLICA_STEP_BATCHES}
     ops = {B: r["device_ops_per_step"] for B, r in rsteps.items()}
     check(len(set(ops.values())) == 1,
@@ -4185,10 +4683,53 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(14)
 
+    # phase 15: a replica batch over slabs, the slab kernel, K2 and K3 once
+    # a step for the whole batch with each replica's own tables
+    sk15 = {}
+    for dtype in (torch.float32, torch.float64):
+        r = slab_batch_kernel_phase(torch, pt, dtype,
+                                    timed=dtype == torch.float32)
+        if dtype == torch.float32:
+            sk15 = r
+        torch.cuda.empty_cache()
+    traj15 = slab_batch_f64_trajectory(torch, pt)
+    torch.cuda.empty_cache()
+    slabs15 = slab_batch_step_path(torch, pt, large["universe_band_ha"], dom,
+                                   big)
+    torch.cuda.empty_cache()
+    k23 = sk15["per_replica_charges"]
+    k15 = slabs15["kernel"]
+    print(f"phase 15: B={REPLICA_B} x N={slabs15['n']} on one slab "
+          f"(rebuilt every {slabs15['rebuild_every']} steps after the "
+          f"retries {slabs15['retries']}): "
+          f"{slabs15['wall_ms_per_step']:.3f} ms/step wall, "
+          f"{slabs15['aggregate_steps_per_s']:.1f} aggregate steps/s (one "
+          f"replica's slab runs in turn {1e3 / dom['ms_per_step']:.1f}; "
+          f"the unsharded batch {big['aggregate_steps_per_s']:.1f}), "
+          f"device {slabs15['device_us_per_step']:.1f} us/step with the "
+          f"rebuild amortised, busy {slabs15['busy_share']:.3f} (unsharded "
+          f"batch {big['busy_share']:.3f}), step device ops "
+          f"{slabs15['step_device_ops']} vs B=1 "
+          f"{slabs15['step_device_ops_one_replica']}; cell_pair_slab on "
+          f"the final state {k15['ms']:.4f} ms (twin {k15['plain_ms']:.2f} "
+          f"ms, bound {k15['bound_ms']:.5f} ms, max|dF| "
+          f"{k15['max_abs_err']:.2e}); cell_pair_slab B="
+          f"{REPLICA_B} x N={sk15['n']} {sk15['ms']:.4f} ms vs "
+          f"{REPLICA_B} one-replica launches "
+          f"{sk15[f'{REPLICA_B}_one_replica_launches_ms']:.4f} ms; K2 / K3 "
+          f"per-replica charges {k23['pppm_spread']['ms']:.4f} / "
+          f"{k23['pppm_interpolate']['ms']:.4f} ms vs shared "
+          f"{k23['pppm_spread']['shared_charge_ms']:.4f} / "
+          f"{k23['pppm_interpolate']['shared_charge_ms']:.4f} ms; f64 "
+          f"batch max|dx| {traj15['max_dx_bohr']:.2e} bohr", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(15)
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
-          f"{CHUNK}-step chunks), drift {fused['universe_drift_ha']:.3e} / "
+          f"{CHUNK}-step chunks, and {SHORT_RUN[1]} of {SHORT_RUN[2]}), "
+          f"drift {fused['universe_drift_ha']:.3e} / "
           f"{unfused['universe_drift_ha']:.3e} Ha; CLI {cli['steps']} steps "
           f"{cli['steps_per_s']:.1f} steps/s {cli['ns_per_day']:.4f} ns/day, "
           f"drift {cli['universe_drift_ha']:.3e} Ha | large N: "
@@ -4244,11 +4785,15 @@ def main() -> None:
           f"{shard['f64_rel']:.2e} relative, {SHARD_R} x 1 runner "
           f"{shard['domain_dx']:.2e} bohr; native I/O consume "
           f"{nat['cli_consume_ms']['native']:.3f} / "
-          f"{nat['cli_consume_ms']['python']:.3f} ms | script "
-          f"{clock.total():.1f} s, phase 10 {clock.seconds[10]:.1f} s, "
-          f"phase 11 {clock.seconds[11]:.1f} s, phase 12 "
-          f"{clock.seconds[12]:.1f} s, phase 13 {clock.seconds[13]:.1f} s, "
-          f"phase 14 {clock.seconds[14]:.1f} s", flush=True)
+          f"{nat['cli_consume_ms']['python']:.3f} ms | batch over slabs: "
+          f"cell_pair_slab B={REPLICA_B} x N={k15['n']} "
+          f"{k15['ms']:.4f} ms, f64 "
+          f"{traj15['max_dx_bohr']:.2e} bohr, N={slabs15['n']} "
+          f"{slabs15['aggregate_steps_per_s']:.0f} aggregate steps/s (busy "
+          f"{slabs15['busy_share']:.3f}) | script {clock.total():.1f} s, "
+          + ", ".join(f"phase {p} {t:.1f} s"
+                      for p, t in sorted(clock.seconds.items())),
+          flush=True)
     # each kernel's numbers at the shapes of the path it serves: K1 at
     # N = 501 (phase 5's launches), the cell kernel and K2-K5 at
     # N = 100,001 (phase 6's launches), the small-grid entry at N = 501 in
@@ -4293,6 +4838,12 @@ def main() -> None:
     for k in BATCHED_CELL_KERNELS:
         batched[f"{k}_b{REPLICA_B}"] = k
         where[f"{k}_b{REPLICA_B}"] = ("replicas_cell", runs[k])
+    # the batch over slabs: REPLICA_B replicas at N = 100,001 on one slab
+    # in one launch, held and timed on 15c's final state, launched by 15c's
+    # run
+    shapes["slabs"] = {f"cell_pair_slab_b{REPLICA_B}": slabs15["kernel"]}
+    batched[f"cell_pair_slab_b{REPLICA_B}"] = "cell_pair_slab"
+    where[f"cell_pair_slab_b{REPLICA_B}"] = ("slabs", slabs15["launches"])
     kernels = []
     for k in list(KERNELS) + list(batched):
         src, rep = KERNELS[batched.get(k, k)]

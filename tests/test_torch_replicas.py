@@ -580,17 +580,22 @@ def test_vmap_replicas_cli(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard-replicas", "2", "--shard-atoms", "2"],
+    ["--shard-replicas", "2", "--shard-atoms", "2", "--replicas", "1-2"],
     ["--vmap-replicas", "--shard-atoms", "4", "--n-molecules", "10000"],
     ["--vmap-replicas", "--shard-atoms", "2"]])
 def test_vmap_cli_refusals_exit_2(tmp_path, monkeypatch, capsys, flags):
-    """What the batch does not take exits 2 naming ROADMAP.md, before any
-    work: a batch over slabs, sharded over ranks or not (in cell mode, past
-    the dense limit, and at the default size)."""
+    """A batch over slabs, sharded over ranks or not (in cell mode, past
+    the dense limit, and at the default size), runs one process a slab:
+    without a process group of the right size it exits 2 before any work,
+    naming torch.distributed.run and ROADMAP.md (the JAX driver's
+    one-process GSPMD mesh is not ported). It runs on ranks in
+    tests/test_torch_batched_slabs.py."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert t_cli.main(["--device", "CPU"] + flags) == 2
     err = capsys.readouterr().err
     assert flags[0] in err and "ROADMAP.md" in err
+    assert "torch.distributed.run" in err
     assert os.listdir(tmp_path) == []
 
 

@@ -548,8 +548,9 @@ def cell_scene():
 def test_grid_and_plan_mismatches_raise(cell_scene):
     """As the JAX runner raises for its mesh: a slab communicator of
     another size than the plan's S, a replica communicator of another
-    size than n_replicas, a batch of another size than n_replicas, and
-    R > 1 with no communicator outside a process group."""
+    size than n_replicas, a batch that R ranks cannot split evenly
+    (checked before any collective), and R > 1 with no communicator
+    outside a process group."""
     snap, ff, methods, kT = cell_scene
     plan1, plan2 = plan_domain(snap, ff, 1), plan_domain(snap, ff, 2)
     with pytest.raises(ValueError, match="the plan 2 slabs"):
@@ -561,8 +562,9 @@ def test_grid_and_plan_mismatches_raise(cell_scene):
     with pytest.raises(RuntimeError, match="not initialised"):
         make_domain_runner(ff, methods, plan1, n_replicas=2)
     batch = init_replica_states(snap, ff, n_replicas=3, dt=DT, seed=1)
-    run = make_domain_runner(ff, methods, plan1)
-    with pytest.raises(ValueError, match="exactly 1 replicas"):
+    run = make_domain_runner(ff, methods, plan1, Communicator(),
+                             n_replicas=2, replica_comm=Communicator(0, 2))
+    with pytest.raises(ValueError, match="a multiple of 2 replicas"):
         run(batch, 2)
 
 
