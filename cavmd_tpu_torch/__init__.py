@@ -19,11 +19,15 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from cavmd_tpu_torch.version import __version__  # noqa: E402
 from cavmd_tpu_torch.core import (  # noqa: E402
+    Box,
     PhysicalConstants,
     Snapshot,
     add_cavity_particle,
     make_diatomic_system,
+    unwrap_positions,
+    wrap_positions,
 )
 from cavmd_tpu_torch.integrate import (  # noqa: E402
     ForceField,
@@ -43,8 +47,12 @@ from cavmd_tpu_torch.io.checkpoint import (  # noqa: E402
 from cavmd_tpu_torch.simulation import Simulation  # noqa: E402
 
 __all__ = [
+    "__version__",
     "PhysicalConstants",
+    "Box",
     "Snapshot",
+    "unwrap_positions",
+    "wrap_positions",
     "add_cavity_particle",
     "make_diatomic_system",
     "ForceField",

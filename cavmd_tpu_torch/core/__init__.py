@@ -1,5 +1,6 @@
 from cavmd_tpu_torch.core.units import PhysicalConstants
 from cavmd_tpu_torch.core.box import (
+    Box,
     unwrap_positions,
     wrap_positions,
     rewrap,
@@ -10,6 +11,7 @@ from cavmd_tpu_torch.core.system import make_diatomic_system, reference_box_for
 
 __all__ = [
     "PhysicalConstants",
+    "Box",
     "unwrap_positions",
     "wrap_positions",
     "rewrap",

@@ -1,4 +1,5 @@
-"""Orthorhombic periodic box: wrap/unwrap/minimum-image on tensors.
+"""Orthorhombic periodic box: the ``Box`` container and
+wrap/unwrap/minimum-image on tensors.
 
 Port of ``cavmd_tpu/core/box.py``. Only orthorhombic boxes are supported
 (the reference workflow never uses tilt factors). Positions and
@@ -8,7 +9,33 @@ replica batch (B, N, 3) alike.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from cavmd_tpu_torch.core.device import resolve_device
+
+
+class Box(NamedTuple):
+    """Orthorhombic periodic box with edge lengths ``L = (Lx, Ly, Lz)``, a
+    (3,) tensor."""
+
+    L: torch.Tensor
+
+    @property
+    def volume(self):
+        return torch.prod(self.L)
+
+    @staticmethod
+    def cubic(L, dtype=torch.float64, device=None):
+        """A cube of edge ``L`` on ``device`` (None: the CUDA device)."""
+        return Box.from_lengths(L, L, L, dtype=dtype, device=device)
+
+    @staticmethod
+    def from_lengths(Lx, Ly, Lz, dtype=torch.float64, device=None):
+        """Edges ``(Lx, Ly, Lz)`` on ``device`` (None: the CUDA device)."""
+        return Box(torch.tensor([Lx, Ly, Lz], dtype=dtype,
+                                device=resolve_device(device)))
 
 
 def unwrap_positions(positions, images, box_L):

@@ -1,7 +1,8 @@
 """Observable library: on-device observable functions.
 
 Port of ``cavmd_tpu/observe/observables.py``: total dipole moment, density
-field rho(k), Fibonacci k-shell sampling and the cavity-mode properties.
+field rho(k) and its autocorrelation, Fibonacci k-shell sampling and the
+cavity-mode properties.
 They run inside the step; the host receives only the small per-step result
 columns, once per chunk. Positions may carry a leading replica axis
 (B, N, 3): the dipole is then (B, 3) and rho(k) (B, nk).
@@ -39,6 +40,13 @@ def generate_fibonacci_sphere(samples: int = 100) -> np.ndarray:
     theta = phi * i
     return np.stack([np.cos(theta) * radius, y, np.sin(theta) * radius],
                     axis=1)
+
+
+def field_autocorrelation(field0, field_t):
+    """mean(Re(F0 conj(Ft))) over the k-shell, for complex tensors (or
+    NumPy arrays) ``field0`` and ``field_t`` (analysis.py:359-364)."""
+    f0, ft = torch.as_tensor(field0), torch.as_tensor(field_t)
+    return torch.mean(torch.real(f0 * torch.conj(ft)))
 
 
 def cavity_mode_properties(ke_cavity, cavity_harmonic_energy):

@@ -44,6 +44,17 @@ class CavityParams(NamedTuple):
         return CavityParams(t(omegac), t(couplstr), t(phmass))
 
 
+def molecular_dipole(position, image, box_L, charge, photon_mask):
+    """Global molecular dipole ``d = sum_i q_i r_i^unwrapped`` with the
+    photon excluded: (3,), or (B, 3) for a replica batch (positions and
+    images (B, N, 3), ``box_L`` (3,) or (B, 3), charges and the mask (N,)
+    or (B, N))."""
+    L = box_L[..., None, :] if box_L.dim() > 1 else box_L
+    unwrapped = unwrap_positions(position, image, L)
+    w = torch.where(photon_mask, position.new_zeros(()), charge)
+    return torch.sum(w[..., None] * unwrapped, dim=-2)
+
+
 def cavity_force(position, image, box_L, charge, typeid, l_typeid, params):
     """Cavity forces and the three energy components.
 
@@ -90,3 +101,11 @@ def cavity_force(position, image, box_L, charge, typeid, l_typeid, params):
         "dipole_self": torch.where(has_photon, e_self, zero),
     }
     return forces, energies
+
+
+def cavity_total_energy(energies):
+    """Total cavity energy = harmonic + coupling + dipole self-energy (the
+    reference wrapper's ``.energy`` override, ``src/cavitymd/forces.py:
+    209-212``, which sums the components instead of per-particle PE)."""
+    return (energies["harmonic"] + energies["coupling"]
+            + energies["dipole_self"])

@@ -6,8 +6,9 @@ periodic system::
 
     E = E_real + E_kspace - E_self - E_excluded
 
-with the real-space part in the dense pair pass (``ops/lj.py``), the
-k-space part on the PPPM mesh (``ops/pppm.py``), ``E_self = kappa/sqrt(pi)
+with the real-space part in the dense pair pass (``ops/lj.py``; on its
+own, ``ewald_real_space`` and ``ewald_real_space_pair``), the k-space
+part on the PPPM mesh (``ops/pppm.py``), ``E_self = kappa/sqrt(pi)
 sum q^2`` and ``E_excl = sum_bonds q_i q_j erf(kappa r)/r``. The
 splitting parameter kappa comes from ``auto_kappa`` (erfc(kappa r_cut)
 at a set accuracy) or ``auto_kappa_error_estimate`` (the Kolafa-Perram
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from cavmd_tpu_torch.core.box import minimum_image
+from cavmd_tpu_torch.ops.lj import fused_pair_terms
 
 
 def auto_kappa(r_cut, accuracy=1e-6):
@@ -74,6 +76,33 @@ def auto_kappa_error_estimate(charge, box_L, r_cut, accuracy=1e-4):
         else:
             hi = mid
     return 0.5 * (lo + hi)
+
+
+def ewald_real_space(position, box_L, charge, kappa, r_cut,
+                     exclusion_mask=None):
+    """Real-space (short-range) Ewald pair force and energy over all pairs
+    within ``r_cut``, with the true ``erfc``; pairs of zero charge product
+    and those of ``exclusion_mask`` (N, N) bool (tensor or NumPy; True
+    where excluded) are skipped. Returns (forces (N, 3), energy)."""
+    qq = charge[:, None] * charge[None, :]
+    active = ~torch.eye(charge.shape[0], dtype=torch.bool,
+                        device=charge.device) & (qq != 0)
+    if exclusion_mask is not None:
+        active = active & ~torch.as_tensor(exclusion_mask,
+                                           device=charge.device)
+    return ewald_real_space_pair(position, box_L, qq, active, kappa, r_cut)
+
+
+def ewald_real_space_pair(position, box_L, qq, active_static, kappa, r_cut):
+    """Real-space Ewald from precomputed (N, N) charge products and static
+    active mask: the Coulomb half of ``ops/lj.py:fused_pair_terms`` (the
+    LJ half off). Returns (forces (..., N, 3), energy)."""
+    zero = position.new_zeros(())
+    off = torch.zeros((), dtype=torch.bool, device=position.device)
+    forces, _, energy = fused_pair_terms(
+        position, box_L, zero, zero, zero, zero, off, qq, active_static,
+        kappa, r_cut * r_cut)
+    return forces, energy
 
 
 def ewald_self_energy(charge, kappa):
@@ -169,3 +198,41 @@ def ewald_kspace_exact(position, charge, box_L, kappa, nmax=12):
     site = sin_kr * rho_re[None, :] - cos_kr * rho_im[None, :]
     forces = charge[:, None] * ((coef[None, :] * site) @ kvecs)
     return forces, energy
+
+
+def coulomb_direct_reference(position, box_L, charge, bond_group=None,
+                             nmax_real=2):
+    """Brute-force Coulomb energy over periodic images (slow; tests only):
+    1/r summed over the real-space images out to ``nmax_real`` boxes, the
+    bonded pairs of ``bond_group`` skipped in the home box. It shares no
+    maths with the Ewald split, and converges poorly in general but well
+    enough for small, well-separated test scenes. Takes tensors or NumPy;
+    returns a Python float."""
+    def host(x):
+        return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor)
+                          else x)
+
+    pos, q, L = host(position), host(charge), host(box_L)
+    n = len(q)
+    excluded = set()
+    if bond_group is not None:
+        for a, b in host(bond_group):
+            excluded.add((int(a), int(b)))
+            excluded.add((int(b), int(a)))
+    e = 0.0
+    shifts = [
+        np.array([ix, iy, iz]) * L
+        for ix in range(-nmax_real, nmax_real + 1)
+        for iy in range(-nmax_real, nmax_real + 1)
+        for iz in range(-nmax_real, nmax_real + 1)
+    ]
+    for i in range(n):
+        for j in range(n):
+            for s in shifts:
+                if i == j and not s.any():
+                    continue
+                if (i, j) in excluded and not s.any():
+                    continue
+                r = np.linalg.norm(pos[i] - pos[j] + s)
+                e += 0.5 * q[i] * q[j] / r
+    return e

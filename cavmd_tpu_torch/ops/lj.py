@@ -7,7 +7,10 @@ disables them.
 
 The plain functions here are the reference semantics of the dense pair
 kernel (``ops/pair_kernels.py``): ``fused_pair_terms`` is the shared pair
-math, evaluated on (N, N) parameter matrices.
+math, evaluated on (N, N) parameter matrices. ``lj_dense`` (type tables)
+and ``lj_dense_pair`` (``LJPairMatrices``) are its LJ half alone, and
+``ops/ewald.py``'s real-space functions its Coulomb half; like the JAX
+package's, they run outside any kernel.
 """
 
 from __future__ import annotations
@@ -170,6 +173,39 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
     forces = torch.stack(
         [torch.sum(f_total * dxs[d], dim=-1) for d in range(3)], dim=-1)
     return forces, e_lj, e_ew
+
+
+def lj_dense(position, box_L, typeid, eps_table, sigma_table, rcut_table,
+             exclusion_mask=None):
+    """All-pairs shifted LJ forces and energy from (T, T) type tables;
+    ``exclusion_mask`` (N, N) bool (tensor or NumPy) is True where a pair
+    is excluded. Returns (forces (N, 3), energy)."""
+    tid = typeid.long()
+    eps = eps_table[tid[:, None], tid[None, :]]
+    sig = sigma_table[tid[:, None], tid[None, :]]
+    rc = rcut_table[tid[:, None], tid[None, :]]
+    active = ~torch.eye(len(tid), dtype=torch.bool, device=eps.device)
+    active = active & (eps != 0)
+    if exclusion_mask is not None:
+        active = active & ~torch.as_tensor(exclusion_mask, device=eps.device)
+    src6 = (sig / torch.where(rc > 0, rc, torch.ones_like(rc))) ** 6
+    vshift = 4.0 * eps * (src6 * src6 - src6)
+    return _lj_terms(position, box_L, eps, sig * sig, rc * rc, vshift, active)
+
+
+def lj_dense_pair(position, box_L, pair: LJPairMatrices):
+    """All-pairs shifted LJ with precomputed pair matrices. Returns
+    (forces (..., N, 3), energy)."""
+    return _lj_terms(position, box_L, *pair.virtual(), pair.active)
+
+
+def _lj_terms(position, box_L, eps, sig2, rcut2, vshift, active):
+    """The LJ half of ``fused_pair_terms`` (the Coulomb half off):
+    (forces, energy)."""
+    off = torch.zeros((), dtype=torch.bool, device=position.device)
+    forces, e_lj, _ = fused_pair_terms(position, box_L, eps, sig2, rcut2,
+                                       vshift, active, 0.0, off, 0.0, 0.0)
+    return forces, e_lj
 
 
 def fused_pair_force(position, box_L, pair: LJPairMatrices, qq,

@@ -196,3 +196,28 @@ def pppm_force_and_energy(position, charge, box_L, params: PPPMParams,
         energy = mesh_energy(grid, params)
         (grad,) = torch.autograd.grad(energy.sum(), pos)
     return -grad, energy.detach()
+
+
+def pppm_reciprocal_energy(position, charge, box_L, params: PPPMParams,
+                           order: int, mesh):
+    """The reciprocal-space mesh energy alone: 0-d, or (B,) for a replica
+    batch (B, N, 3). The grid comes from kernel 2 on the card (the plain
+    twin on the CPU), so it is differentiable in ``position``: autograd
+    runs kernel 3 backwards, as in :func:`pppm_force_and_energy`."""
+    from cavmd_tpu_torch.ops.pppm_kernels import spread_grid_autograd
+
+    return mesh_energy(
+        spread_grid_autograd(position, charge, box_L, order, tuple(mesh)),
+        params)
+
+
+def make_pppm_force_energy(order: int, mesh):
+    """``fe(position, charge, box_L, params) -> (forces, energy)``:
+    :func:`pppm_force_and_energy` at one order and mesh. A replica batch
+    needs no rule of its own (the JAX package's ``custom_vmap``): ``fe``
+    takes (B, N, 3) positions as they are."""
+    def fe(position, charge, box_L, params):
+        return pppm_force_and_energy(position, charge, box_L, params, order,
+                                     mesh)
+
+    return fe

@@ -197,6 +197,21 @@ Phases:
      with a charge row a replica against theirs, with the kernel's time,
      its twin's and its bound from those inputs. The
      ``cell_pair_slab_b8`` row takes all its numbers from (c).
+ 16. the examples (``examples/0*_torch.py``) through their ``main`` on
+     the card at cut depths (EXAMPLE_DEPTHS): 01 and 02 (float64, dense,
+     the unfused tail: K4/K5 never), 03 (8 replicas, K1-K5 once a step
+     for the batch), 04 (2 replicas x 1 slab on two gloo ranks sharing the
+     card: the slab kernel, K2 and K3 once a step on each rank), 05 (the
+     driver), 06 (the reference anchor at 1 ps: K1-K5 once a step, its
+     universe drift and mean molecular T held to 3x the JAX package's
+     reading of the same protocol), 07 (the polariton spectrum at 100
+     periods, no pair kernel: its peaks within one bin of JAX's float64
+     reading, the splitting beside the analytic one), 08 (the IR
+     spectrum, its files in a temporary directory); every example's
+     figures printed, and the launches of short runs of 03 and 06 and of
+     04's run counted from complete profiler traces; and
+     ``pppm_reciprocal_energy`` (kernel 2 once a call) against its plain
+     twin, one scene and a batch, float32 and float64.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
@@ -423,6 +438,45 @@ SHARD_F64_ARGS = ["--precision", "f64", "--runtime", "0.005",
 SHARD_F64_RTOL = 1e-9
 NATIVE_CLI_RUNTIME_PS = 0.02
 NATIVE_CHUNK, NATIVE_REPS, NATIVE_GSD_FRAMES = 500, 7, 5
+# phase 16: the port's examples (examples/0*_torch.py) through their main
+# on the card, each at a depth cut to keep the phase near a minute and a
+# half (EXAMPLE_DEPTHS, keyword arguments of each main; 06's full 50 ps and
+# 07's 800 periods run apart, PERF.md). The JAX readings of
+# scripts/jax_examples_reference.py --protocol chip (CPU, 2026-10-18):
+# 06 at 1 ps on the reference scene in float32, over the example's seeds
+# and two variants, universe drift up to 1.0020e-4 Ha and mean molecular T
+# within 2.66 K of 100 K (each held at 3x); 07 at 100 periods in float64
+# (deterministic NVE): peaks 1508.38 and 1601.69 cm^-1 at g = 1e-3 and
+# 1555.04 at g = 0, bin 15.55 cm^-1 (each peak held within one bin). The
+# traced runs (EXAMPLE_TRACED) are short ones of 03 and 06 whose profiler
+# traces hold each kernel's device records to its wrapper's count (04's
+# run is traced whole, on each rank): traced whole, 03's and 06's runs
+# at these depths take far longer than the two short runs (PERF.md §6).
+EXAMPLE_TRACED = {"03": dict(n_steps=50, fire_steps=10),
+                  "06": dict(runtime_ps=0.0125, fire_steps=10, chunk=50)}
+EXAMPLE_DEPTHS = {
+    "01": dict(n_steps=500),
+    "02": dict(n_steps=500, t_window=250),
+    "03": dict(n_steps=300, fire_steps=200),
+    "04": dict(n_steps=100),
+    "06": dict(runtime_ps=1.0, fire_steps=300),
+    "07": dict(n_periods=100),
+    "08": dict(n_chunks=2, chunk=500, reference_every=500),
+}
+EXAMPLE_05_ARGS = ["--n-molecules", "250", "--runtime", "0.01", "--seed",
+                   "0", "--enable-energy-tracker"]
+EX06_DRIFT_BOUND_HA = 3 * 1.0020e-4
+EX06_T_BOUND_K = 3 * 2.66
+EX07_JAX_PEAKS_CM1 = {"peaks_g0": [1555.0355457530832],
+                      "peaks": [1508.3844793804908, 1601.6866121256758]}
+# kernel symbol in a trace -> the wrapper counts its records must equal
+TRACE_SYMBOLS = {"dense_pair_kernel": ("dense_pair",),
+                 "spread_kernel": ("pppm_spread",),
+                 "interpolate_kernel": ("pppm_interpolate",),
+                 "pre_force_kernel": ("fused_pre_force",),
+                 "post_force_kernel": ("fused_post_force",),
+                 "cell_pair_kernel": ("cell_pair", "cell_pair_small_grid",
+                                      "cell_pair_slab")}
 
 
 def large_cli_args(n_molecules, runtime_ps=LARGE_CLI_RUNTIME_PS):
@@ -696,9 +750,6 @@ def profiled_device_ms(torch, fn, reps=5, match=None, ops=False, once=()):
     399 operations, one with records from outside the calls), complete
     when another holds as many; the best usable trace holds the most
     operations."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -707,34 +758,33 @@ def profiled_device_ms(torch, fn, reps=5, match=None, ops=False, once=()):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    named = ((match,) if match is not None else ()) + tuple(once)
-    traces = []  # (operations, counts of the named kernels, records)
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        every = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    marks = ((match,) if match is not None else ()) + tuple(once)
+    taken = []  # (operations, counts of the marked kernels, records)
+    for _, every in traces(torch, calls):
         dev = [e for e in every if match is None or match in e.name]
-        counts = [sum(k in e.name for e in every) for k in named]
-        traces.append((len(every), counts, dev))
-        if named:
-            usable = [t for t in traces
+        counts = [named(every, k) for k in marks]
+        taken.append((len(every), counts, dev))
+        if marks:
+            usable = [t for t in taken
                       if all(reps - 1 <= c <= reps for c in t[1])]
             complete = all(c == reps for c in counts)
         else:
-            n_ops = [t[0] for t in traces]
+            n_ops = [t[0] for t in taken]
             ref = max((n for n in n_ops if sum(
                 (1 - PROFILE_DROP_SHARE) * n <= m <= n for m in n_ops) >= 2),
                 default=0)
-            usable = [t for t in traces if t[0] >= reps and
+            usable = [t for t in taken if t[0] >= reps and
                       (1 - PROFILE_DROP_SHARE) * ref <= t[0] <= ref]
             complete = n_ops.count(ref) >= 2
         if complete:
             break
     check(bool(usable), f"profiled_device_ms: no usable trace of {reps} "
           f"calls in {PROFILE_TRIES} (device operations and counts of "
-          f"{list(named)}: {[t[:2] for t in traces]})")
+          f"{list(marks)}: {[t[:2] for t in taken]})")
     n, counts, dev = max(usable, key=lambda t: (sum(t[1]), t[0]))
     ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     ms /= len(dev) if match is not None else reps
@@ -2281,6 +2331,27 @@ def union_us(intervals):
     return total
 
 
+def traces(torch, fn):
+    """``fn()`` under ``torch.profiler``, up to PROFILE_TRIES times: yields
+    (its result, the trace's device records) for each try; the caller
+    stops when a trace is complete enough (the profiler on the card's
+    machine drops device records, PERF.md §7)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        yield out, [e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+
+
+def named(dev, mark):
+    """Records of ``dev`` whose kernel name holds ``mark``."""
+    return sum(mark in e.name for e in dev)
+
+
 DENSE_STEP_MARKS = ("dense_pair_kernel", "spread_kernel", "interpolate_kernel",
                     "pre_force_kernel", "post_force_kernel")
 
@@ -2311,16 +2382,9 @@ def profiled_steps(torch, run, steps, marks=DENSE_STEP_MARKS):
     ~0.1 us at 50 steps)."""
     from collections import Counter, defaultdict
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     seen, best, usable, per_name = [], None, 0, Counter()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(steps)
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        counts = [sum(m in e.name for e in dev) for m in marks]
+    for _, dev in traces(torch, lambda: run(steps)):
+        counts = [named(dev, m) for m in marks]
         seen.append((len(dev), counts))
         missing = sum(steps - c for c in counts)
         if all(steps - 1 <= c <= steps for c in counts):
@@ -4355,6 +4419,272 @@ def slab_batch_step_path(torch, pt, band_ref, dom, big):
     return res
 
 
+# --------------------------------------------------------------- phase 16
+def load_example(stem):
+    """``examples/<stem>.py`` of this checkout as a module (the names
+    start with a digit, so it is loaded by path)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{stem}.py"
+    check(path.is_file(), f"phase 16: {path} missing")
+    spec = importlib.util.spec_from_file_location(f"example_{stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def traced_launches(torch, fn, agree=None):
+    """``fn()`` under ``torch.profiler``, taken again (``traces``) until
+    the trace is complete: the device records of each kernel of
+    TRACE_SYMBOLS equal the launches its wrappers counted in the same run.
+    ``agree(complete)`` makes the decision one for every rank of a group
+    (each rank retries, or returns, with the others). Returns (fn's
+    result, the launches counted by name)."""
+    from cavmd_tpu_torch.ops import _cuda
+
+    def counted():
+        _cuda.reset_launches()
+        return fn(), dict(_cuda.launches)
+
+    seen = []
+    for (out, launches), dev in traces(torch, counted):
+        traced = {sym: named(dev, sym) for sym in TRACE_SYMBOLS}
+        want = {sym: sum(launches.get(w, 0) for w in ws)
+                for sym, ws in TRACE_SYMBOLS.items()}
+        seen.append(traced)
+        complete = traced == want
+        if (agree(complete) if agree is not None else complete):
+            return out, launches
+    fail(f"phase 16: no complete trace in {PROFILE_TRIES} (device records "
+         f"{seen} against the wrappers' counts {want})")
+
+
+def every_rank(complete: bool) -> bool:
+    """Whether ``complete`` holds on every rank of the default group."""
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(complete)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def example_rank_job(stem, kwargs):
+    """A ``run_ranks`` job: an example's ``main(**kwargs)`` on this rank,
+    on the card, its launches counted from a complete trace; the ranks
+    retry together (``every_rank``), so no rank reruns ``main``, and its
+    collectives, alone. Returns (the figures, the launches, the CUDA
+    device, the seconds)."""
+    import torch
+
+    ex = load_example(stem)
+    t0 = time.perf_counter()
+    out, launches = traced_launches(torch, lambda: ex.main(**kwargs),
+                                    agree=every_rank)
+    return (out, launches, torch.cuda.current_device(),
+            time.perf_counter() - t0)
+
+
+def pppm_energy_phase(torch, pt, dtype):
+    """``pppm_reciprocal_energy`` on the card (its spread kernel 2, once a
+    call) against its plain twin's grid through the same mesh energy, on
+    the N = 501 scene and on REPLICA_B jittered copies of it."""
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.ops.pppm import (
+        PPPMParams,
+        mesh_energy,
+        pppm_reciprocal_energy,
+    )
+    from cavmd_tpu_torch.ops.pppm_kernels import spread_grid_plain
+
+    dev = torch.device("cuda")
+    snap = reference_scene(pt, 250, 46.0, dtype, dev)
+    params, order = PPPMParams.create(snap.box_L.cpu().numpy(),
+                                      mesh=(32, 32, 32), order=6, kappa=0.27,
+                                      dtype=dtype, device=dev)
+    batch = jitter_rows(torch, snap.position, REPLICA_B, 0.05, 3)
+    errs = {}
+    for label, pos in (("one", snap.position), (f"b{REPLICA_B}", batch)):
+        _cuda.reset_launches()
+        e = pppm_reciprocal_energy(pos, snap.charge, snap.box_L, params,
+                                   order, (32, 32, 32))
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+        check(launches == {"pppm_spread": 1},
+              f"phase 16 pppm_reciprocal_energy {label}: launches "
+              f"{launches}, not kernel 2 once")
+        plain = mesh_energy(spread_grid_plain(pos, snap.charge, snap.box_L,
+                                              order, (32, 32, 32)), params)
+        err, scale = max_err(e, plain)
+        tol = TOL[str(dtype).split(".")[-1]]
+        check(err <= tol * scale,
+              f"phase 16 pppm_reciprocal_energy {label} {dtype}: "
+              f"|dE| {err:.3e} > {tol} x {scale:.3e}")
+        errs[label] = err / scale
+    return errs
+
+
+def examples_phase(torch):
+    """Phase 16: examples 01-08 through their ``main`` on the card at
+    EXAMPLE_DEPTHS, launches counted (03 and 06 also from complete
+    traces of their EXAMPLE_TRACED runs, 04 from a complete trace of its
+    run on each rank), figures printed and held:
+    every figure finite; K4/K5 never in the float64 examples (01, 02,
+    07, 08) and no pair kernel in 07; K1-K5 once a step for 03's batch
+    and 06; the slab kernel, K2 and K3 once a step on each of 04's two
+    ranks (2 replicas x 1 slab sharing the card); 06's drift and mean T
+    and 07's peaks against the JAX readings."""
+    import numpy as np
+
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel.launch import run_ranks
+
+    fig = {}
+
+    def run(stem, **kwargs):
+        ex = load_example(stem)
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = ex.main(**kwargs)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = dict(_cuda.launches)
+        return out
+
+    def figures(name, out):
+        shown = {k: v for k, v in out.items() if k not in (
+            "energy", "qx", "qx_g0", "workdir")}
+        print(f"phase 16 example {name}: {shown}", flush=True)
+        fig[name] = shown
+
+    def launched(out, kernel):
+        return out["launches"].get(kernel, 0)
+
+    def once_a_step(name, launches, steps, setup, kernels):
+        for k in kernels:
+            n = launches.get(k, 0)
+            want = steps + (0 if k.startswith("fused") else setup)
+            check(n == want, f"phase 16 example {name}: {k} launched {n} "
+                  f"times, not {want} ({steps} steps + {setup} set-up "
+                  f"force calls)")
+
+    unfused = ("fused_pre_force", "fused_post_force")
+    # 04's two ranks start first and run while this process runs 01, 02
+    # and 07 (their spawn and imports are most of their time)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    ranks04 = pool.submit(run_ranks, [(example_rank_job, (
+        "04_slab_replicas_torch", EXAMPLE_DEPTHS["04"]))], 2, timeout=600)
+    t04 = time.perf_counter()
+    pool.shutdown(wait=False)
+
+    # 01 and 02: float64, dense, the unfused tail
+    for name, stem in (("01", "01_basic_nve_torch"),
+                       ("02", "02_two_bath_universe_energy_torch")):
+        out = run(stem, **EXAMPLE_DEPTHS[name])
+        check(all(launched(out, k) == 0 for k in unfused)
+              and launched(out, "dense_pair") > EXAMPLE_DEPTHS[
+                  name]["n_steps"],
+              f"phase 16 example {name}: launches {out['launches']}")
+        check(np.isfinite(out["drift_ha"]),
+              f"phase 16 example {name}: drift {out['drift_ha']}")
+        figures(name, out)
+
+    # 07: the polariton spectrum, float64 NVE, no pair kernel
+    out = run("07_polariton_rabi_splitting_torch", **EXAMPLE_DEPTHS["07"])
+    check(not any(out["launches"].get(k, 0) for k in BATCHED_KERNELS),
+          f"phase 16 example 07: launches {out['launches']}")
+    for key, want in EX07_JAX_PEAKS_CM1.items():
+        got = out[key]
+        check(len(got) == len(want) and all(
+            abs(g - w) <= out["bin_cm1"] for g, w in zip(got, want)),
+              f"phase 16 example 07: {key} {got} against JAX's {want} "
+              f"(bin {out['bin_cm1']:.2f})")
+    figures("07", out)
+    print(f"phase 16 example 07: splitting {out['splitting_cm1']:.2f} "
+          f"cm^-1 (analytic g q_c / (sqrt(mu) omega) "
+          f"{out['analytic_cm1']:.1f})", flush=True)
+
+    # 03: the replica batch, K1-K5 once a step for all replicas
+    ex03 = load_example("03_replicas_torch")
+    kw = EXAMPLE_TRACED["03"]
+    _, traced = traced_launches(torch, lambda: ex03.main(**kw))
+    n_rep = 8
+    once_a_step("03 (traced)", traced, kw["n_steps"],
+                kw["fire_steps"] + n_rep, BATCHED_KERNELS)
+    kw = EXAMPLE_DEPTHS["03"]
+    out = run("03_replicas_torch", **kw)
+    once_a_step("03", out["launches"], kw["n_steps"],
+                kw["fire_steps"] + n_rep, BATCHED_KERNELS)
+    check(all(np.isfinite(out["drift_ha"] + out["mean_T_K"])),
+          f"phase 16 example 03: {out}")
+    figures("03", out)
+
+    # 04: 2 replicas x 1 slab on two gloo ranks sharing the card, each
+    # rank's run traced whole: the slab kernel, K2 and K3 once a step
+    ((a, la, _, sa), (b, lb, _, sb)), = ranks04.result()
+    steps = EXAMPLE_DEPTHS["04"]["n_steps"]
+    check(a == b and (a["replicas"], a["slabs"]) == (2, 1),
+          f"phase 16 example 04: ranks differ or grid {a}")
+    for k, lk in enumerate((la, lb)):
+        check(lk.get("cell_pair_slab", 0) == steps,
+              f"phase 16 example 04: rank {k} cell_pair_slab "
+              f"{lk.get('cell_pair_slab', 0)} in {steps} steps")
+        once_a_step(f"04 rank {k}", lk, steps, 2,
+                    ("pppm_spread", "pppm_interpolate"))
+    out = dict(a, seconds=time.perf_counter() - t04, rank_seconds=[sa, sb],
+               launches=la)
+    check(all(np.isfinite(out["drift_ha"] + out["mean_T_K"])),
+          f"phase 16 example 04: {out}")
+    figures("04", out)
+
+    # 05: the driver
+    work = tempfile.mkdtemp(prefix="cavmd_ex05_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        out = run("05_advanced_run_torch", argv=EXAMPLE_05_ARGS)
+        check(out["rc"] == 0 and os.path.isfile(os.path.join(
+            work, "cavity_coupling_1eneg03", "prod-1_energy_tracker.txt")),
+              f"phase 16 example 05: {out}")
+        check(all(launched(out, k) > 0 for k in BATCHED_KERNELS),
+              f"phase 16 example 05: launches {out['launches']}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    figures("05", out)
+
+    # 06: the reference anchor, cut; K1-K5 once a step
+    ex06 = load_example("06_reference_anchor_validation_torch")
+    kw = EXAMPLE_TRACED["06"]
+    traced_out, traced = traced_launches(torch, lambda: ex06.main(**kw))
+    once_a_step("06 (traced)", traced, traced_out["steps"],
+                kw["fire_steps"] + 1, BATCHED_KERNELS)
+    kw = EXAMPLE_DEPTHS["06"]
+    out = run("06_reference_anchor_validation_torch", **kw)
+    once_a_step("06", out["launches"], out["steps"], kw["fire_steps"] + 1,
+                BATCHED_KERNELS)
+    check(out["drift_ha"] < EX06_DRIFT_BOUND_HA,
+          f"phase 16 example 06: drift {out['drift_ha']} >= "
+          f"{EX06_DRIFT_BOUND_HA} Ha")
+    check(abs(out["mean_T_K"] - 100.0) <= EX06_T_BOUND_K,
+          f"phase 16 example 06: mean T {out['mean_T_K']} K")
+    figures("06", out)
+
+    # 08: the IR spectrum, float64, files in a temporary directory
+    work = tempfile.mkdtemp(prefix="cavmd_ex08_")
+    try:
+        out = run("08_ir_spectrum_torch", workdir=work,
+                  **EXAMPLE_DEPTHS["08"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(all(launched(out, k) == 0 for k in unfused)
+          and launched(out, "dense_pair") > 0
+          and out["n_segments"] >= 2,
+          f"phase 16 example 08: {out}")
+    figures("08", out)
+    return fig
+
+
 def main() -> None:
     clock = PhaseClock()
     try:
@@ -4725,6 +5055,18 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(15)
 
+    # phase 16: the examples on the card, and pppm_reciprocal_energy
+    # (kernel 2) against its plain twin
+    e16 = {str(dtype).split(".")[-1]: pppm_energy_phase(torch, pt, dtype)
+           for dtype in (torch.float32, torch.float64)}
+    print(f"phase 16: pppm_reciprocal_energy on the card vs its plain twin, "
+          f"|dE|/|E| {e16}", flush=True)
+    ex16 = examples_phase(torch)
+    print("phase 16: examples " + ", ".join(
+        f"{k} {v['seconds']:.1f} s" for k, v in ex16.items()), flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(16)
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -4790,7 +5132,12 @@ def main() -> None:
           f"{k15['ms']:.4f} ms, f64 "
           f"{traj15['max_dx_bohr']:.2e} bohr, N={slabs15['n']} "
           f"{slabs15['aggregate_steps_per_s']:.0f} aggregate steps/s (busy "
-          f"{slabs15['busy_share']:.3f}) | script {clock.total():.1f} s, "
+          f"{slabs15['busy_share']:.3f}) | examples: 06 "
+          f"{ex16['06']['steps']} steps drift {ex16['06']['drift_ha']:.3e} "
+          f"Ha, mean T {ex16['06']['mean_T_K']:.1f} K, "
+          f"{ex16['06']['steps_per_s']:.1f} steps/s; 07 splitting "
+          f"{ex16['07']['splitting_cm1']:.2f} cm^-1 | script "
+          f"{clock.total():.1f} s, "
           + ", ".join(f"phase {p} {t:.1f} s"
                       for p, t in sorted(clock.seconds.items())),
           flush=True)
