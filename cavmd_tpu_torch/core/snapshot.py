@@ -14,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from cavmd_tpu_torch.core.box import Box, unwrap_positions
 from cavmd_tpu_torch.core.device import resolve_device
 
 
@@ -51,6 +52,19 @@ class Snapshot:
     @property
     def device(self) -> torch.device:
         return self.position.device
+
+    @property
+    def box(self) -> Box:
+        return Box(self.box_L)
+
+    def type_index(self, name: str) -> int:
+        """Integer typeid for a named particle type (HOOMD
+        ``getTypeByName``)."""
+        return self.types.index(name)
+
+    def unwrapped_positions(self):
+        """``position + image * box_L``, (N, 3)."""
+        return unwrap_positions(self.position, self.image, self.box_L)
 
     def replace(self, **kwargs) -> "Snapshot":
         return dataclasses.replace(self, **kwargs)

@@ -18,6 +18,17 @@ one flag a replica. A batch over slabs runs on the slab pipeline instead
 (``parallel/domain.py:make_domain_runner``), whose step calls the pair and
 PPPM kernels itself.
 
+User custom forces (``custom_forces``, the ``hoomd.md.force.Custom``
+counterpart) are callables ``(position, image, box_L, charge, typeid) ->
+(forces (N, 3), energy 0-d)`` on tensors, added after the PPPM block and
+before the cavity, as the JAX package adds them; energy i goes under
+``custom_<i>``. A replica batch calls each one through ``torch.func.vmap``
+with one replica's (N, 3) position and image and the shared box, charges
+and types, as ``jax.vmap`` calls the JAX step's. The steps run under
+``torch.no_grad()``, so a callable that derives its forces from an energy
+takes them with ``torch.func.grad``. The callables are held in a plain
+tuple: their own tensors do not move with ``ForceField.to``.
+
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
 ``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
 spread/interpolation (``ops/pppm_kernels.py``) run in the hand-written
@@ -104,7 +115,8 @@ class ForceField(nn.Module):
                  pair_mode=None, cell_cfg=None, cell_exclusions=None,
                  cell_neighbors=None, pair_inert=None, zcol_W=None,
                  enable_cavity=True, enable_coulomb=True, enable_lj=True,
-                 enable_bonds=True, dtype=torch.float64, device=None):
+                 enable_bonds=True, custom_forces=(), dtype=torch.float64,
+                 device=None):
         super().__init__()
 
         def buf(name, x, dt=dtype):
@@ -167,6 +179,7 @@ class ForceField(nn.Module):
         self.enable_coulomb = bool(enable_coulomb)
         self.enable_lj = bool(enable_lj)
         self.enable_bonds = bool(enable_bonds)
+        self.custom_forces = tuple(custom_forces)
 
     @property
     def pppm(self) -> PPPMParams:
@@ -175,6 +188,11 @@ class ForceField(nn.Module):
     @property
     def cavity(self) -> CavityParams:
         return CavityParams(self.omegac, self.couplstr, self.phmass)
+
+    @property
+    def n_types(self) -> int:
+        """The number of particle types (the LJ tables are (T, T))."""
+        return int(self.lj_eps.shape[0])
 
     def build_cells(self, position, box_L):
         """Bin the particles into the cell buckets (cell mode) or the
@@ -193,8 +211,9 @@ class ForceField(nn.Module):
         with buffers of its own. In zcol mode the capacity is rounded up to
         a multiple of 128 and the visit window grows by 2 blocks, as the
         JAX package's retry grows it: a hull wider than the window is not
-        fixed by more slots alone."""
-        ff = copy.deepcopy(self)
+        fixed by more slots alone. The custom-force callables are the same
+        objects, not copies."""
+        ff = copy.deepcopy(self, {id(self.custom_forces): self.custom_forces})
         cap = int(cap)
         if self.pair_mode == "zcol":
             cap = -(-cap // 128) * 128
@@ -202,11 +221,28 @@ class ForceField(nn.Module):
         ff.cell_cfg = self.cell_cfg._replace(cap=cap)
         return ff
 
+    def _custom(self, i, fn, position, image, box_L, charge, typeid):
+        """Custom force ``i``: one call, or for a replica batch one
+        ``torch.func.vmap`` call over the replica axis of position and
+        image (box, charges and types shared)."""
+        if position.dim() == 2:
+            return fn(position, image, box_L, charge, typeid)
+        try:
+            return torch.func.vmap(fn, in_dims=(0, 0, None, None, None))(
+                position, image, box_L, charge, typeid)
+        except RuntimeError as e:
+            name = getattr(fn, "__qualname__", None) or repr(fn)
+            raise ValueError(
+                f"custom force {i} ({name}) cannot be batched over the "
+                f"replica axis with torch.func.vmap (no in-place writes, "
+                f".item() or data-dependent Python branches): {e}") from e
+
     def forward(self, position, image, box_L, charge, typeid, clist=None):
         """Total forces (N, 3) and the energy components (dict of 0-d
         tensors, keys ``ENERGY_KEYS``, plus ``cell_overflow`` in cell and
-        zcol mode). ``position`` and ``image`` may be a replica batch
-        (B, N, 3); forces are then (B, N, 3) and every energy (B,).
+        zcol mode and ``custom_<i>`` for each custom force). ``position``
+        and ``image`` may be a replica batch (B, N, 3); forces are then
+        (B, N, 3) and every energy (B,).
 
         ``clist``: in cell and zcol mode, a carried ``CellList`` (batched
         for a batch); None builds one from ``position``."""
@@ -275,6 +311,11 @@ class ForceField(nn.Module):
             forces = forces + f_rec - f_corr
             energies["ewald_long"] = e_rec - e_self - e_corr
 
+        for i, fn in enumerate(self.custom_forces):
+            f, e = self._custom(i, fn, position, image, box_L, charge, typeid)
+            forces = forces + f
+            energies[f"custom_{i}"] = e
+
         if self.enable_cavity:
             f, e = cavity_force(position, image, box_L, charge, typeid,
                                 self.l_typeid, self.cavity)
@@ -307,6 +348,7 @@ class ForceField(nn.Module):
         pair_mode: str | None = None,
         cell_skin: float = 0.5,
         cell_cap: int | None = None,
+        custom_forces: tuple = (),
         dtype=None,
         device=None,
     ) -> "ForceField":
@@ -317,11 +359,13 @@ class ForceField(nn.Module):
 
         ``pair_mode``: 'dense' (all pairs, two (N, N) masks), 'cell' (cell
         lists) or 'zcol' (z-sorted xy columns, opt-in); None picks dense
-        for N <= 4096 and cell above, as the JAX package does. ``cell_skin``
-        is the requested minimum Verlet skin (snapped up to the free slack
-        of the cell or column grid; 0 rebuilds the list every step) and
-        ``cell_cap`` the bucket capacity (None plans it from the density;
-        zcol rounds it up to a multiple of 128). The Ewald splitting
+        for N <= 4096 and cell above, as the JAX package does.
+        ``custom_forces``: user force callables (the module note).
+        ``cell_skin`` is the requested minimum Verlet skin (snapped up to
+        the free slack of the cell or column grid; 0 rebuilds the list
+        every step) and ``cell_cap`` the bucket capacity (None plans it
+        from the density; zcol rounds it up to a multiple of 128). The
+        Ewald splitting
         parameter is ``kappa`` when given; else ``kappa_mode`` picks it:
         'erfc' (erfc(kappa r_cut) = ``ewald_accuracy``) or 'kolafa-perram'
         (the Kolafa-Perram error estimate on the snapshot's charges and
@@ -431,5 +475,5 @@ class ForceField(nn.Module):
             coulomb_rcut=r_cut, pppm_order=pppm_order, pppm_mesh=pppm_mesh,
             enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
             enable_lj=enable_lj, enable_bonds=enable_bonds,
-            dtype=dtype, device=device,
+            custom_forces=custom_forces, dtype=dtype, device=device,
         )

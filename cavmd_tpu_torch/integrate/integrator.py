@@ -704,11 +704,16 @@ def run_steps(step_fn, state: MDState, n_steps: int):
 
 
 def potential_energy(energies):
-    """Total PE = molecular + cavity components (the ``cell_overflow``
-    flag of cell mode is not an energy and is left out)."""
-    return (energies["harmonic"] + energies["lj"] + energies["ewald_short"]
-            + energies["ewald_long"] + energies["cavity_harmonic"]
-            + energies["cavity_coupling"] + energies["cavity_dipole_self"])
+    """Total PE = molecular + cavity components + every ``custom_<i>``
+    energy of the custom forces (the ``cell_overflow`` flag of cell mode
+    is not an energy and is left out)."""
+    total = (energies["harmonic"] + energies["lj"] + energies["ewald_short"]
+             + energies["ewald_long"] + energies["cavity_harmonic"]
+             + energies["cavity_coupling"] + energies["cavity_dipole_self"])
+    for key in energies:
+        if key.startswith("custom_"):
+            total = total + energies[key]
+    return total
 
 
 def universe_energy(obs):

@@ -38,8 +38,8 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
                           cell_exclusions=None, cell_neighbors=None,
                           pair_inert=None, zcol_W=None, enable_cavity=True,
                           enable_coulomb=True, enable_lj=True,
-                          enable_bonds=True, dtype=torch.float64,
-                          device=None) -> ForceField:
+                          enable_bonds=True, custom_forces=(),
+                          dtype=torch.float64, device=None) -> ForceField:
     """A port ``ForceField`` from the JAX ForceField's leaves.
 
     Dense mode: ``rows_*``/``oh``/``active`` are ``ff.lj_pair``'s fields
@@ -52,7 +52,10 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
     ``influence``/``volume`` come from ``ff.pppm``; ``omegac``/
     ``couplstr``/``phmass`` from ``ff.cavity``; ``bond_k``/``bond_r0`` are
     the per-type bond tables and ``bond_group``/``bond_typeid`` the
-    snapshot's bond table. ``device=None`` is the CUDA device.
+    snapshot's bond table. ``custom_forces`` are the port-side callables
+    (torch functions of the JAX ForceField's ``custom_forces``; a JAX
+    callable cannot be carried across). ``device=None`` is the CUDA
+    device.
     """
     device = resolve_device(device)
     if cell_cfg is None:
@@ -87,7 +90,7 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
         pppm_order=pppm_order, pppm_mesh=pppm_mesh,
         enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
         enable_lj=enable_lj, enable_bonds=enable_bonds,
-        dtype=dtype, device=device,
+        custom_forces=custom_forces, dtype=dtype, device=device,
     )
 
 

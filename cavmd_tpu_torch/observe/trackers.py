@@ -52,7 +52,12 @@ class BaseTracker:
 class EnergyTracker(BaseTracker):
     """The energy audit — writes ``{prefix}_energy_tracker.txt`` with the
     reference's exact column set (analysis.py:626-677, 997-1043), including
-    the conserved universe energy = system + reservoirs."""
+    the conserved universe energy = system + reservoirs. The energies of
+    custom forces (``custom_<i>``) count in ``total_potential_energy`` and
+    so in the system and universe columns, as ``universe_energy`` counts
+    them; the JAX tracker leaves them out, so with a custom force its
+    universe column is not the conserved quantity. Without custom forces
+    the file is the JAX tracker's, byte for byte."""
 
     COLUMNS = (
         "time(ps) timestep harmonic_energy lj_energy ewald_short_energy "
@@ -109,6 +114,11 @@ class EnergyTracker(BaseTracker):
             e["harmonic"] + e["lj"] + e["ewald_short"] + e["ewald_long"]
             + cavity_total
         )
+        # the custom forces' energies count, as in universe_energy (the
+        # JAX tracker leaves them out of both columns)
+        for k in e:
+            if k.startswith("custom_"):
+                total_pot = total_pot + e[k]
         mol_res = e["bussi_reservoir_molecular"] + e["langevin_reservoir_molecular"]
         cav_res = e["bussi_reservoir_cavity"] + e["langevin_reservoir_cavity"]
         system_total = total_pot + total_kin

@@ -237,27 +237,30 @@ def _analyze_topology(snapshot):
             abond_bond, B, excl_offs)
 
 
-SKIN = 0.5  # cell width r_cut + SKIN; (width - r_cut)/2 is the drift margin
-NB_MARGIN = 1.1  # intact-molecule slots per slab: mean * NB_MARGIN + 6 sigma
-
-
-def plan_domain(snapshot, ff, S: int) -> DomainPlan:
+def plan_domain(snapshot, ff, S: int, *, skin: float = 0.5,
+                cap: int | None = None, nb_margin: float = 1.1) -> DomainPlan:
     """Plan ``S`` slabs for a snapshot and a cell-mode ForceField, as the
-    JAX ``plan_domain`` does with its defaults (same fields, same
-    rejections): the cell width is ``r_cut + SKIN`` on every axis, at
-    least 3 cells per axis and at least one x-layer per slab. Raises
-    ValueError for what the slab path does not take."""
+    JAX ``plan_domain`` does (same keywords and defaults, same fields, same
+    rejections): the cell width is ``r_cut + skin`` on every axis, at
+    least 3 cells per axis and at least one x-layer per slab; the drift
+    margin the step's coverage invariant allows is the realized
+    ``(width - r_cut) / 2`` after the integer cell snap. ``cap`` overrides
+    the planned bucket capacity; ``nb_margin`` scales the intact-molecule
+    slots a slab holds (mean * nb_margin + 6 sigma). Raises ValueError for
+    what the slab path does not take, custom forces among them."""
     if ff.pair_mode != "cell":
         raise ValueError("domain decomposition needs pair_mode='cell'")
     if uniform_rcut(ff) is None or not (ff.enable_lj and ff.enable_coulomb):
         raise ValueError("domain decomposition needs the uniform-cutoff "
                          "fused LJ+Ewald cell kernel")
+    if ff.custom_forces:
+        raise ValueError("custom forces not supported in the domain path")
     (apm, nbm, bond_offs, n_mol, mol_bonds, abond_partner, abond_bond,
      B, excl_offs) = _analyze_topology(snapshot)
     n_atoms = apm * n_mol
     box_L = _host(snapshot.box_L).astype(float)
     r_cut = float(ff.coulomb_rcut)
-    w = r_cut + SKIN
+    w = r_cut + skin
     cy = int(box_L[1] // w)
     cz = int(box_L[2] // w)
     cxl = int(box_L[0] // w) // S
@@ -289,7 +292,7 @@ def plan_domain(snapshot, ff, S: int) -> DomainPlan:
     # never more than all molecules; an overflow is flagged at rebuild
     # and recovered by grow_cap + retry
     mean_mol = n_mol / S
-    nb_cap = int(np.ceil(mean_mol * NB_MARGIN + 6.0 * np.sqrt(mean_mol) + 8))
+    nb_cap = int(np.ceil(mean_mol * nb_margin + 6.0 * np.sqrt(mean_mol) + 8))
     nb_cap = max(1, min(nb_cap, n_mol))
     mean_strad = apm * n_mol * max(r_mol, 1.0) / box_L[0]
     ns_cap = int(np.ceil(mean_strad * 1.5 + 6.0 * np.sqrt(mean_strad) + 16))
@@ -298,9 +301,10 @@ def plan_domain(snapshot, ff, S: int) -> DomainPlan:
     # last slab (pair-inert, so its slab does not matter)
     tail = 8
     Mrow = apm * nb_cap + ns_cap + tail
-    vol_cell = float(np.prod(box_L)) / (cx * cy * cz)
-    rho = n_atoms / float(np.prod(box_L))
-    cap = int(np.ceil(rho * vol_cell * 1.8)) + 8
+    if cap is None:
+        vol_cell = float(np.prod(box_L)) / (cx * cy * cz)
+        rho = n_atoms / float(np.prod(box_L))
+        cap = int(np.ceil(rho * vol_cell * 1.8)) + 8
     return DomainPlan(
         S=S, ncells=(cx, cy, cz), cxl=cxl,
         widths=tuple(float(b / c) for b, c in zip(box_L, (cx, cy, cz))),

@@ -19,10 +19,10 @@ With ``shard_atoms=S`` the chunks run on the slab domain pipeline
 rank builds the same Simulation, the state is replicated between chunks,
 and trackers and writers see the same observables on every rank. The JAX
 package falls back to GSPMD atom sharding for what the slab path does not
-take (dense mode, an opaque ``extra_obs``); GSPMD is not ported, so here
-those raise. ``shard_atoms=1`` runs the slab pipeline in this process
-alone, with no process group (the JAX facade treats 1 as unsharded): the
-single-device cost of the slab layout.
+take (dense mode, an opaque ``extra_obs``, custom forces); GSPMD is not
+ported, so here those raise. ``shard_atoms=1`` runs the slab pipeline in
+this process alone, with no process group (the JAX facade treats 1 as
+unsharded): the single-device cost of the slab layout.
 """
 
 from __future__ import annotations
@@ -142,6 +142,10 @@ class Simulation:
             raise NotImplementedError(
                 f"shard_atoms={shard_atoms} needs pair_mode='cell' (got "
                 f"{ff.pair_mode!r}); {_NOT_PORTED}")
+        if ff.custom_forces:
+            raise NotImplementedError(
+                f"shard_atoms={shard_atoms}: the slab path takes no custom "
+                f"forces; {_NOT_PORTED}")
         if extra_obs is not None and not (hasattr(extra_obs, "dipole")
                                           and hasattr(extra_obs,
                                                       "wavevectors")):
@@ -235,7 +239,8 @@ class Simulation:
 
     # -------------------------------------------------------------------- run
     def run(self, *, n_steps: int | None = None,
-            runtime_ps: float | None = None) -> int:
+            runtime_ps: float | None = None,
+            profile_dir: str | None = None) -> int:
         """Run ``n_steps`` steps, or until the simulated time reaches
         ``runtime_ps``, in chunks of at most ``chunk_size``; returns the
         number of steps run.
@@ -245,9 +250,29 @@ class Simulation:
         within about one step of ``runtime_ps``; with adaptive dt the
         estimate is refreshed every chunk and a short follow-up chunk
         cleans up any residual.
+
+        ``profile_dir``: run under ``torch.profiler`` (host operations, and
+        on a CUDA state the device's too) and write the trace into that
+        directory (``tensorboard_trace_handler``; view it with TensorBoard
+        or Perfetto). The trajectory is the same as without it. The trace
+        is for viewing: a profiler may drop device records, so do not
+        count launches from it.
         """
         if n_steps is None and runtime_ps is None:
             raise ValueError("give n_steps or runtime_ps")
+        if profile_dir is not None:
+            from torch.profiler import (
+                ProfilerActivity,
+                profile,
+                tensorboard_trace_handler,
+            )
+
+            activities = [ProfilerActivity.CPU]
+            if self.state.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities, on_trace_ready=(
+                    tensorboard_trace_handler(str(profile_dir)))):
+                return self.run(n_steps=n_steps, runtime_ps=runtime_ps)
         to_ps = PhysicalConstants.TIME_PS_CONVERSION
         done = 0
         while True:

@@ -212,6 +212,22 @@ Phases:
      04's run counted from complete profiler traces; and
      ``pppm_reciprocal_energy`` (kernel 2 once a call) against its plain
      twin, one scene and a batch, float32 and float64.
+ 17. user custom forces (``ForceField.create(custom_forces=...)``) with a
+     harmonic trap on the unwrapped molecular positions (TRAP_K): (a)
+     phase 3's scene, f32, dense, the fused tail, through
+     ``Simulation.run`` on SHORT_RUN: ``custom_0`` among the observables,
+     K1-K5 once a step by the wrappers' counts and in the traces of
+     REPLICA_PROFILED_STEPS profiled steps, the step's device operations
+     and us beside phase 11's profile of the same step without the trap,
+     the universe drift (the trap's energy included) held to 3x the JAX
+     package's CPU reading of the same protocol and callable
+     (``scripts/jax_custom_force_reference.py``), steps/s; (b) a float64
+     batch of REPLICA_F64_B replicas with the trap (called through
+     ``torch.func.vmap``), REPLICA_F64_STEPS steps on the card, against
+     one-replica card runs with the same draws (1e-9 bohr); (c)
+     ``build_large_n(10_000)``'s scene in cell mode with the trap for one
+     chunk: no overflow, the cell kernel once a step, finite energies; (d)
+     ``Simulation.run(profile_dir=)`` writes a trace that names K1.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
@@ -477,6 +493,25 @@ TRACE_SYMBOLS = {"dense_pair_kernel": ("dense_pair",),
                  "post_force_kernel": ("fused_post_force",),
                  "cell_pair_kernel": ("cell_pair", "cell_pair_small_grid",
                                       "cell_pair_slab")}
+# phase 17: user custom forces. The callable (``trap_force``) is a harmonic
+# trap of stiffness TRAP_K on the unwrapped positions of the molecules (the
+# photon left out), U = 1/2 k sum |r + image L|^2. (a) phase 3's scene
+# (f32, dense, the fused tail) with the trap through Simulation.run on
+# SHORT_RUN; the universe drift, the trap's energy included, is held to 3x
+# the larger of the JAX package's f32 and f64 readings on the CPU of the
+# same protocol and callable (``python
+# scripts/jax_custom_force_reference.py``, 2026-10-18): max |U - U[0]|
+# 8.7305e-4 Ha (f32) and 8.7832e-4 Ha (f64), the trap's energy spanning
+# 2.18e-2 Ha of its 1.208 Ha over the window. (b)
+# REPLICA_F64_B f64 replicas, REPLICA_F64_STEPS steps with the trap in one
+# batch (the trap through torch.func.vmap) against one-replica card runs
+# with the same draws, to TRAJ_TOL_BOHR. (c) build_large_n(HELD_N_MOL)'s
+# scene in cell mode with the trap, one chunk of LARGE_CHUNK steps. (d)
+# Simulation.run(profile_dir=) on phase 3's scene for PROFILE_DIR_STEPS
+# steps writes a trace that names K1.
+TRAP_K = 1e-5
+CUSTOM_DRIFT_BOUND_HA = 2.63e-3
+PROFILE_DIR_STEPS = 20
 
 
 def large_cli_args(n_molecules, runtime_ps=LARGE_CLI_RUNTIME_PS):
@@ -4685,6 +4720,250 @@ def examples_phase(torch):
     return fig
 
 
+def trap_force(torch, l_typeid):
+    """Phase 17's custom force: (position, image, box_L, charge, typeid)
+    -> (forces, energy), a harmonic trap of stiffness TRAP_K on the
+    unwrapped positions of every particle but the photon (type
+    ``l_typeid``)."""
+
+    def trap(position, image, box_L, charge, typeid):
+        w = torch.where(typeid != l_typeid, TRAP_K, 0.0).to(
+            position.dtype)[:, None]
+        r = position + image * box_L
+        return -w * r, 0.5 * torch.sum(w * r * r)
+
+    return trap
+
+
+def custom_force_path(torch, pt, fused_step):
+    """Phase 17a: phase 3's scene (f32, dense, the fused tail) with the
+    trap through ``Simulation.run`` on SHORT_RUN: ``custom_0`` among the
+    observables, K1-K3 once a step and for the initial forces, K4/K5 once
+    a step, finite observables, the universe drift (the trap's energy
+    included) held to CUSTOM_DRIFT_BOUND_HA, steps/s; then
+    REPLICA_PROFILED_STEPS profiled steps through ``traces`` (each of
+    K1-K5 once a step in the trace): device operations and us a step
+    beside phase 11's profile of the same step without the trap
+    (``fused_step``)."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import universe_energy
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+
+    warm, chunks, chunk = SHORT_RUN
+    snap = reference_scene(pt, 250, 46.0, torch.float32,
+                           torch.device("cuda"))
+    l_typeid = snap.type_index("L")
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              custom_forces=(trap_force(torch, l_typeid),))
+    kT = PC.kT_from_kelvin(100.0)
+    label = f"phase 17 (custom force, N={snap.N})"
+    _cuda.reset_launches()
+    sim = pt.Simulation(snap, ff, main_methods(pt, kT),
+                        dt=PC.fs_to_atomic_units(0.25), seed=7,
+                        chunk_size=chunk)
+    sim.run(n_steps=warm)
+    outs, chunk_s = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        sim.run(n_steps=chunk)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        outs.append(sim.last_obs)
+    launches = dict(_cuda.launches)
+    total = warm + chunks * chunk
+    keys = OBS_KEYS + ("custom_0",)
+    check(all("custom_0" in o for o in outs),
+          f"{label}: no custom_0 observable")
+    obs = {k: np.concatenate([o[k] for o in outs]) for k in keys}
+    for k in keys:
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    check(bool(np.all(obs["custom_0"] > 0)), f"{label}: custom_0 <= 0")
+    check(int(obs["timestep"][-1]) == total,
+          f"{label}: timestep {obs['timestep'][-1]}")
+    for kname, want in (("dense_pair", total + 1), ("pppm_spread", total + 1),
+                        ("pppm_interpolate", total + 1),
+                        ("fused_pre_force", total),
+                        ("fused_post_force", total)):
+        check(launches.get(kname, 0) == want,
+              f"{label}: {kname} launched {launches.get(kname, 0)} times "
+              f"(want {want})")
+    U = universe_energy(obs)
+    drift = float(np.abs(U - U[0]).max())
+    check(drift < CUSTOM_DRIFT_BOUND_HA,
+          f"{label}: universe drift {drift} >= {CUSTOM_DRIFT_BOUND_HA} Ha")
+    rate = statistics.median(chunk / s for s in chunk_s)
+    prof = profiled_steps(torch, lambda n: sim.run(n_steps=n),
+                          REPLICA_PROFILED_STEPS)
+    res = dict(n=snap.N, steps=chunks * chunk, steps_per_s=rate,
+               chunk_steps_per_s=[chunk / s for s in chunk_s],
+               universe_drift_ha=drift, drift_bound_ha=CUSTOM_DRIFT_BOUND_HA,
+               custom_0_first_ha=float(obs["custom_0"][0]),
+               custom_0_range_ha=float(np.ptp(obs["custom_0"])),
+               device_ops_per_step=prof["ops"],
+               device_us_per_step=prof["us"],
+               busy_share=prof["us"] / (1e6 / rate),
+               profile_records_dropped=prof["dropped"],
+               top_device_us_per_step=prof["top_us"],
+               no_trap_device_ops_per_step=fused_step["device_ops_per_step"],
+               no_trap_device_us_per_step=fused_step["device_us_per_step"],
+               launches=launches)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
+def custom_batch_trajectory(torch, pt):
+    """Phase 17b: REPLICA_F64_B thermalized float64 replicas of the
+    N = 501 scene with the trap, REPLICA_F64_STEPS Bussi + Langevin steps
+    on the card in one batch (the trap called once a step through
+    ``torch.func.vmap``), against one-replica card runs with the same
+    draws: positions within TRAJ_TOL_BOHR, images and each replica's
+    ``custom_0`` equal to 1e-12 relative, K1-K3 once a step."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.integrate import make_step_fn, run_steps
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        run_replica_steps,
+    )
+    from cavmd_tpu_torch.parallel.replicas import PER_REPLICA
+
+    B, steps = REPLICA_F64_B, REPLICA_F64_STEPS
+    snap = reference_scene(pt, 250, 46.0, torch.float64,
+                           torch.device("cuda"))
+    ff = pt.ForceField.create(
+        snap, coupling=1e-3, freq_cm1=2000.0,
+        custom_forces=(trap_force(torch, snap.type_index("L")),))
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, main_methods(pt, kT), ff.l_typeid)
+    batch = init_replica_states(snap, ff, n_replicas=B,
+                                dt=PC.fs_to_atomic_units(0.25), seed=7,
+                                kT=kT)
+    draws = CardDraws(torch, B, torch.float64)
+    _cuda.reset_launches()
+    final, obs = run_replica_steps(make_step_fn(ff, methods, noise=draws),
+                                   batch, steps)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    err, img_ok, e_rel = 0.0, True, 0.0
+    for r in range(B):
+        one = batch.replace(**{k: getattr(batch, k)[r] for k in PER_REPLICA})
+        fr, obs_r = run_steps(make_step_fn(ff, methods,
+                                           noise=draws.replica(r)),
+                              one, steps)
+        err = max(err, float((final.position[r] - fr.position).abs().max()))
+        img_ok &= bool(torch.equal(final.image[r], fr.image))
+        e_rel = max(e_rel, float(np.abs(obs["custom_0"][:, r]
+                                        - obs_r["custom_0"]).max()
+                                 / np.abs(obs_r["custom_0"]).max()))
+    print(f"phase 17: f64 Bussi + Langevin with the trap, {steps} steps of "
+          f"{B} replicas at N={snap.N} in one batch vs one-replica runs, "
+          f"same draws, on the card: max|dx| = {err!r} bohr (bound "
+          f"{TRAJ_TOL_BOHR}), custom_0 max relative {e_rel!r}, images "
+          f"equal: {img_ok}, batch launches {launches}", flush=True)
+    check(err <= TRAJ_TOL_BOHR and img_ok and e_rel <= 1e-12,
+          f"phase 17 f64 batch: max|dx| {err} bohr > {TRAJ_TOL_BOHR}, "
+          f"custom_0 relative {e_rel} > 1e-12 or images differ")
+    for kname in BATCHED_KERNELS[:3]:
+        check(launches.get(kname, 0) == steps,
+              f"phase 17 f64 batch: {kname} launched "
+              f"{launches.get(kname, 0)} times in {steps} steps")
+    return err
+
+
+def custom_large_path(torch, pt):
+    """Phase 17c: ``build_large_n(HELD_N_MOL)``'s scene (N = 20,001, cell
+    mode, f32, the fused tail) with the trap, one chunk of LARGE_CHUNK
+    steps through ``Simulation.run``: no overflow, the cell kernel once a
+    step and for the initial forces, K4/K5 once a step, finite
+    energies."""
+    import numpy as np
+
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.drivers.workloads import build_large_n
+    from cavmd_tpu_torch.integrate.integrator import OBS_KEYS
+    from cavmd_tpu_torch.ops import _cuda
+    from cavmd_tpu_torch.ops.cell_kernels import kernel_name
+
+    base, snap, _ = build_large_n(HELD_N_MOL, dt_fs=LARGE_DT_FS)
+    ff = pt.ForceField.create(
+        snap, coupling=1e-3, freq_cm1=2000.0, dtype=torch.float32,
+        pair_mode="cell",
+        custom_forces=(trap_force(torch, snap.type_index("L")),))
+    cap = ff.cell_cfg.cap
+    label = f"phase 17 (custom force, N={snap.N} cell mode)"
+    _cuda.reset_launches()
+    sim = pt.Simulation(snap, ff, base.methods,
+                        dt=PC.fs_to_atomic_units(LARGE_DT_FS), seed=7)
+    t0 = time.perf_counter()
+    sim.run(n_steps=LARGE_CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    obs = sim.last_obs
+    check(not obs["cell_overflow"].any() and sim.ff.cell_cfg.cap == cap,
+          f"{label}: the cell list overflowed")
+    for k in OBS_KEYS + ("custom_0",):
+        check(bool(np.all(np.isfinite(obs[k]))), f"{label}: non-finite {k}")
+    kname = kernel_name(ff.cell_cfg)
+    for name, want in ((kname, LARGE_CHUNK + 1),
+                       ("fused_pre_force", LARGE_CHUNK),
+                       ("fused_post_force", LARGE_CHUNK)):
+        check(launches.get(name, 0) == want,
+              f"{label}: {name} launched {launches.get(name, 0)} times "
+              f"(want {want})")
+    res = dict(n=snap.N, ncells=ff.cell_cfg.ncells, cap=cap,
+               steps=LARGE_CHUNK, ms_per_step=seconds / LARGE_CHUNK * 1e3,
+               custom_0_first_ha=float(obs["custom_0"][0]),
+               custom_0_last_ha=float(obs["custom_0"][-1]),
+               launches=launches)
+    print(f"{label}: " + ", ".join(f"{k}={v!r}" for k, v in res.items()),
+          flush=True)
+    return res
+
+
+def profile_dir_path(torch, pt):
+    """Phase 17d: ``Simulation.run(profile_dir=)`` on phase 3's scene for
+    PROFILE_DIR_STEPS steps writes one ``torch.profiler`` trace file into
+    the directory, and the trace names K1 (``dense_pair_kernel``); the
+    profiler on the card's machine may drop device records, so up to
+    PROFILE_TRIES runs."""
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+
+    snap = reference_scene(pt, 250, 46.0, torch.float32,
+                           torch.device("cuda"))
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+    kT = PC.kT_from_kelvin(100.0)
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        with tempfile.TemporaryDirectory() as tmp:
+            sim = pt.Simulation(snap, ff, main_methods(pt, kT),
+                                dt=PC.fs_to_atomic_units(0.25), seed=7)
+            t0 = time.perf_counter()
+            sim.run(n_steps=PROFILE_DIR_STEPS, profile_dir=tmp)
+            seconds = time.perf_counter() - t0
+            files = list(Path(tmp).glob("*.pt.trace.json"))
+            check(len(files) == 1, f"phase 17 profile_dir: trace files "
+                  f"{[f.name for f in files]}")
+            text = files[0].read_text()
+            k1 = text.count("dense_pair_kernel")
+            seen.append(k1)
+            if k1:
+                res = dict(steps=PROFILE_DIR_STEPS, seconds=seconds,
+                           trace_bytes=len(text), dense_pair_mentions=k1,
+                           tries=len(seen))
+                print("phase 17 (profile_dir): " + ", ".join(
+                    f"{k}={v!r}" for k, v in res.items()), flush=True)
+                return res
+    fail(f"phase 17 profile_dir: no trace named dense_pair_kernel in "
+         f"{PROFILE_TRIES} runs (mentions {seen})")
+
+
 def main() -> None:
     clock = PhaseClock()
     try:
@@ -5067,6 +5346,27 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(16)
 
+    # phase 17: user custom forces on the fused step, in a batch and in
+    # cell mode; Simulation.run(profile_dir=)
+    cf = custom_force_path(torch, pt, one_step)
+    cf_f64 = custom_batch_trajectory(torch, pt)
+    torch.cuda.empty_cache()
+    cf_large = custom_large_path(torch, pt)
+    torch.cuda.empty_cache()
+    cf_prof = profile_dir_path(torch, pt)
+    print(f"phase 17: trap N=501 {cf['steps_per_s']:.1f} steps/s (phase 3 "
+          f"fused {fused['steps_per_s']:.1f}), drift "
+          f"{cf['universe_drift_ha']:.3e} Ha (bound "
+          f"{CUSTOM_DRIFT_BOUND_HA:.3e}), device ops/step "
+          f"{cf['device_ops_per_step']} vs {cf['no_trap_device_ops_per_step']}"
+          f" without the trap, device {cf['device_us_per_step']:.1f} us/step "
+          f"vs {cf['no_trap_device_us_per_step']:.1f}; f64 batch "
+          f"{cf_f64:.2e} bohr; N={cf_large['n']} cell mode "
+          f"{cf_large['ms_per_step']:.3f} ms/step; profile_dir trace "
+          f"{cf_prof['trace_bytes']} bytes", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(17)
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -5136,7 +5436,10 @@ def main() -> None:
           f"{ex16['06']['steps']} steps drift {ex16['06']['drift_ha']:.3e} "
           f"Ha, mean T {ex16['06']['mean_T_K']:.1f} K, "
           f"{ex16['06']['steps_per_s']:.1f} steps/s; 07 splitting "
-          f"{ex16['07']['splitting_cm1']:.2f} cm^-1 | script "
+          f"{ex16['07']['splitting_cm1']:.2f} cm^-1 | custom force: N=501 "
+          f"{cf['steps_per_s']:.1f} steps/s drift "
+          f"{cf['universe_drift_ha']:.3e} Ha, f64 batch {cf_f64:.2e} bohr, "
+          f"N={cf_large['n']} {cf_large['ms_per_step']:.3f} ms/step | script "
           f"{clock.total():.1f} s, "
           + ", ".join(f"phase {p} {t:.1f} s"
                       for p, t in sorted(clock.seconds.items())),

@@ -6,12 +6,27 @@ imports, which are its exports) must be bound in the module of the same
 path in ``cavmd_tpu_torch/``, or have a row in ``NOT_PORTED``. A row
 either names the port function that covers the name ("covered by
 <port module>:<function>"), or quotes the item of ROADMAP.md's "Not
-queued this round" that excludes it ('ROADMAP: "<quote>"'). Both
-packages are parsed with ``ast``; nothing of either is imported, so a
+queued this round" that excludes it ('ROADMAP: "<quote>"').
+
+Below the names, their signatures: every parameter of a public function
+that both modules define, and every member of a public class that both
+define (its methods and their parameters, its fields and class
+attributes), must be in the port's counterpart, or have a row in
+``SIGNATURE_GAPS``, keyed ``<module>:<function>(<parameter>)``,
+``<module>:<Class>.<member>`` or ``<module>:<Class>.<method>(<parameter>)``.
+A port class's members also count the attributes its methods set on
+``self`` and the buffers it registers by name. A row's reason is one of
+those above, where "covered by" may also name a class member
+(``<Class>.<member>``) and add a note after a colon, or "renamed to
+<name>": a parameter (member) of the same port function (class) that the
+JAX one does not have.
+
+Both packages are parsed with ``ast``; nothing of either is imported, so a
 finished port is told from an unfinished one in well under a second.
 """
 
 import ast
+import functools
 import re
 from pathlib import Path
 
@@ -82,8 +97,111 @@ NOT_PORTED = {
     "enable_persistent_cache": 'ROADMAP: "`utils/jitcache.py`"',
 }
 
-COVERED = re.compile(r"covered by (\S+\.py):(\w+)$")
+# keyword and member differences, with their reasons
+_KNOB = ('ROADMAP: "the Pallas and `shard_map` knobs of the domain runner '
+         'and the fused integrator"')
+_K7 = 'ROADMAP: "K7\'s `prewrap`, `s1` and `jsplit`"'
+_RNG = ('ROADMAP: "`rng_impl=` on `init_state`, `Simulation` and '
+        '`CavityMDSimulation`"')
+_PACKS = ('ROADMAP: "the Pallas packs and the XLA tile pass\'s feature '
+          'tables"')
+SIGNATURE_GAPS = {
+    # GSPMD and its ghost padding, the JAX PRNG backends
+    "core/snapshot.py:Snapshot.strip_tail": 'ROADMAP: "`Snapshot.strip_tail`"',
+    "simulation.py:Simulation.get_snapshot(strip_ghosts)":
+        'ROADMAP: "`Simulation.get_snapshot(strip_ghosts=)`"',
+    "integrate/integrator.py:group_mask(ghost_typeid)":
+        'ROADMAP: "`group_mask(ghost_typeid=)`"',
+    "integrate/forcefield.py:ForceField.ghost_typeid":
+        'ROADMAP: "`group_mask(ghost_typeid=)`"',
+    "drivers/advanced_run.py:CavityMDSimulation.__init__(pad_atoms)":
+        'ROADMAP: "`--pad-atoms`, the GSPMD single-device comparator"',
+    "drivers/advanced_run.py:CavityMDSimulation.__init__(rng_impl)": _RNG,
+    "integrate/integrator.py:init_state(rng_impl)": _RNG,
+    "simulation.py:Simulation.__init__(rng_impl)": _RNG,
+    # lax.scan, Pallas and shard_map settings
+    "integrate/integrator.py:run_steps(unroll)":
+        'ROADMAP: "`run_steps(unroll=)` (a `lax.scan` setting)"',
+    "ops/fused_integrator.py:pre_force_apply(interpret)": _KNOB,
+    "ops/fused_integrator.py:post_force_apply(interpret)": _KNOB,
+    "integrate/forcefield.py:ForceField.cell_block": _KNOB,
+    **{f"parallel/domain.py:{fn}({k})": _KNOB
+       for fn in ("make_domain_step", "make_domain_runner")
+       for k in ("use_pallas", "interpret", "cell_block")},
+    "parallel/domain.py:make_domain_step(axis)": _KNOB,
+    "parallel/domain.py:make_domain_runner(mesh)": _KNOB,
+    **{f"parallel/domain.py:{fn}({k})": _K7
+       for fn in ("make_domain_step", "make_domain_runner")
+       for k in ("prewrap", "s1", "jsplit")},
+    "parallel/domain.py:ShardData.halo_ctr": _K7,
+    "ops/neighbor.py:make_fused_cell_kernel(uniform_rcut)":
+        'ROADMAP: "the Pallas-only `uniform_rcut` of '
+        '`make_fused_cell_kernel`"',
+    # tables only the Pallas kernels, the XLA tile pass or the DFT matmuls
+    # read
+    "integrate/forcefield.py:ForceField.pallas_pack": _PACKS,
+    "integrate/forcefield.py:ForceField.cell_pallas_pack": _PACKS,
+    "integrate/forcefield.py:ForceField.cell_features": _PACKS,
+    "parallel/domain.py:ShardData.feat": _PACKS,
+    "parallel/domain.py:ShardData.pack_rows": _PACKS,
+    "ops/lj.py:LJPairMatrices.dense_numpy": _PACKS,
+    "ops/pppm.py:PPPMParams.dft_stack": 'ROADMAP: "DFT-by-matmul"',
+    "integrate/forcefield.py:ForceField.bond_gi":
+        'ROADMAP: "the incidence bond/exclusion matmuls"',
+    "integrate/forcefield.py:ForceField.bond_gj":
+        'ROADMAP: "the incidence bond/exclusion matmuls"',
+    # the port's own tables: the kernels' (T, T) tables and (N, N) masks
+    "integrate/forcefield.py:ForceField.lj_pair":
+        "covered by integrate/forcefield.py:ForceField.lj_eps: the dense "
+        "kernel reads the (T, T) tables",
+    "integrate/forcefield.py:ForceField.lj_sigma": "renamed to lj_sig2",
+    "integrate/forcefield.py:ForceField.lj_rcut": "renamed to lj_rcut2",
+    "integrate/forcefield.py:ForceField.excl_mask":
+        "covered by integrate/forcefield.py:ForceField.lj_active: the "
+        "dense masks hold the bonded exclusions",
+    "integrate/forcefield.py:ForceField.uniform_rcut":
+        "covered by parallel/domain.py:uniform_rcut",
+    "integrate/forcefield.py:ForceField.compute": "renamed to forward",
+    "ops/neighbor.py:make_lj_cell_kernel(sigma_table)":
+        "renamed to sig2_table",
+    "ops/neighbor.py:make_lj_cell_kernel(rcut_table)":
+        "renamed to rcut2_table",
+    "ops/neighbor.py:make_fused_cell_kernel(sigma_table)":
+        "renamed to sig2_table",
+    "ops/neighbor.py:make_fused_cell_kernel(rcut_table)":
+        "renamed to rcut2_table",
+    # the port's device-side list signatures
+    "ops/neighbor.py:build_zcol_list(neighbor_cells)":
+        "renamed to neighbor_columns",
+    "ops/neighbor.py:slot_gather_forces(clist)": "renamed to slot_of",
+    "ops/neighbor.py:slot_gather_forces(n)": "renamed to slot_of",
+    # JAX PRNG keys: the port takes generators, or the draws themselves
+    "integrate/thermostats.py:bussi_noise(key)": "renamed to generator",
+    "integrate/thermostats.py:mttk_thermalize(key)": "renamed to generator",
+    "integrate/thermostats.py:thermalize_velocities(key)":
+        "renamed to generator",
+    "integrate/thermostats.py:bussi_rescale_factor(key)": "renamed to r1",
+    "integrate/thermostats.py:bussi_apply(key)": "renamed to r1",
+    "integrate/thermostats.py:langevin_ou_apply(key)": "renamed to noise",
+    "integrate/thermostats.py:brownian_apply(key)": "renamed to noise_pos",
+    "integrate/integrator.py:MDState.key": "renamed to generators",
+    # MDState's other leaves
+    "integrate/integrator.py:MDState.bond_group":
+        "covered by integrate/forcefield.py:ForceField.bond_group: the "
+        "force field keeps the bond table",
+    "integrate/integrator.py:MDState.bond_typeid":
+        "covered by integrate/forcefield.py:ForceField.bond_typeid: the "
+        "force field keeps the bond table",
+    "integrate/integrator.py:MDState.bussi_reservoir_rot":
+        "covered by observe/thermo.py:BussiReservoirView."
+        "reservoir_energy_rotational: point particles have no rotational "
+        "DOF, so it is 0",
+    "integrate/integrator.py:MDState.mttk": "renamed to mttk_xi",
+}
+
+COVERED = re.compile(r"covered by (\S+\.py):(\w+)(?:\.(\w+))?(?:: .+)?$")
 QUOTED = re.compile(r'ROADMAP: "(.+)"$')
+RENAMED = re.compile(r"renamed to (\w+)$")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -159,10 +277,151 @@ def test_each_not_ported_row_is_needed_and_holds(name):
     covered, quoted = COVERED.match(reason), QUOTED.match(reason)
     assert covered or quoted, f"{name}: malformed reason {reason!r}"
     if covered:
-        module, fn = covered.groups()
+        module, fn, member = covered.groups()
+        assert member is None, f"{name}: a NOT_PORTED row names a function"
         assert fn in public_names(PORT_PKG / module, exports=False), (
             f"{name}: cavmd_tpu_torch/{module} defines no {fn}")
     else:
         assert " ".join(quoted.group(1).split()) in not_queued_text(), (
             f"{name}: ROADMAP.md's \"Not queued this round\" does not say "
             f"{quoted.group(1)!r}")
+
+
+# ------------------------------------------------------------ signatures
+def _params(fn) -> set:
+    a = fn.args
+    return {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs} - {
+        "self", "cls"}
+
+
+def _members(cls, *, port: bool) -> dict:
+    """A class's public members (and ``__init__``): each method's
+    parameters, None for a field or class attribute. ``port`` adds the
+    attributes its methods set on ``self`` and the names it registers as
+    buffers (a string that opens a call's arguments or a (name, value)
+    pair)."""
+    out = {}
+    for node in cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _params(node)
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out[node.target.id] = None
+        elif isinstance(node, ast.Assign):
+            out.update((t.id, None) for t in node.targets
+                       if isinstance(t, ast.Name))
+    if port:
+        for node in ast.walk(cls):
+            first = None
+            if (isinstance(node, ast.Attribute)
+                    and isinstance(node.ctx, ast.Store)
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id == "self"):
+                out.setdefault(node.attr, None)
+            elif isinstance(node, ast.Call) and node.args:
+                first = node.args[0]
+            elif isinstance(node, ast.Tuple) and len(node.elts) == 2:
+                first = node.elts[0]
+            if isinstance(first, ast.Constant) and isinstance(first.value,
+                                                              str):
+                out.setdefault(first.value, None)
+    return {k: v for k, v in out.items()
+            if not k.startswith("_") or k == "__init__"}
+
+
+@functools.lru_cache(maxsize=None)
+def definitions(path: Path) -> dict:
+    """A module's public top-level functions and classes by name."""
+    if not path.exists():
+        return {}
+    return {n.name: n for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef)) and not n.name.startswith("_")}
+
+
+def signature_gaps(rel: Path) -> list:
+    """The parameters and members of ``rel``'s functions and classes that
+    the port's counterparts lack, as ``SIGNATURE_GAPS`` keys."""
+    jdefs, pdefs = definitions(JAX_PKG / rel), definitions(PORT_PKG / rel)
+    gaps = []
+    for name, jn in jdefs.items():
+        pn = pdefs.get(name)
+        if pn is None or isinstance(pn, ast.ClassDef) != isinstance(
+                jn, ast.ClassDef):
+            continue  # the name check's business
+        if not isinstance(jn, ast.ClassDef):
+            gaps += [f"{rel}:{name}({x})" for x in sorted(_params(jn)
+                                                           - _params(pn))]
+            continue
+        pm = _members(pn, port=True)
+        for member, ps in _members(jn, port=False).items():
+            if member not in pm:
+                gaps.append(f"{rel}:{name}.{member}")
+            elif ps and pm[member] is not None:
+                gaps += [f"{rel}:{name}.{member}({x})"
+                         for x in sorted(ps - pm[member])]
+    return gaps
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES, ids=str)
+def test_every_keyword_and_member_is_ported_or_excused(rel):
+    missing = [g for g in signature_gaps(rel) if g not in SIGNATURE_GAPS]
+    assert not missing, (
+        f"{missing}: no counterpart in cavmd_tpu_torch/{rel} and no "
+        "SIGNATURE_GAPS row")
+
+
+_GAP = re.compile(r"(\S+\.py):(\w+)(?:\.(\w+))?(?:\((\w+)\))?$")
+
+
+def _port_scope(module: str, name: str, member):
+    """(parameters or members of the port's ``name`` in ``module``, and
+    the same of the JAX one): of the function, or of the class, or of the
+    class's method ``member``."""
+    out = []
+    for pkg, port in ((PORT_PKG, True), (JAX_PKG, False)):
+        node = definitions(pkg / module).get(name)
+        if node is None:
+            out.append(set())
+        elif not isinstance(node, ast.ClassDef):
+            out.append(_params(node))
+        else:
+            members = _members(node, port=port)
+            out.append(set(members) if member is None
+                       else members.get(member) or set())
+    return out
+
+
+@pytest.mark.parametrize("gap", sorted(SIGNATURE_GAPS))
+def test_each_signature_row_is_needed_and_holds(gap):
+    """A row names a gap the port still has, and its reason holds: the
+    covering port function or member exists, the quote stands in
+    ROADMAP.md's "Not queued this round", or the new name is the port's
+    and not the JAX package's."""
+    module, name, member, param = _GAP.match(gap).groups()
+    assert gap in signature_gaps(Path(module)), (
+        f"{gap} is ported (or not a JAX name): drop its SIGNATURE_GAPS row")
+    reason = SIGNATURE_GAPS[gap]
+    covered, quoted = COVERED.match(reason), QUOTED.match(reason)
+    renamed = RENAMED.match(reason)
+    assert covered or quoted or renamed, f"{gap}: malformed {reason!r}"
+    if covered:
+        cmod, cname, cmember = covered.groups()
+        defs = definitions(PORT_PKG / cmod)
+        assert cname in defs or cname in public_names(
+            PORT_PKG / cmod, exports=False), (
+            f"{gap}: cavmd_tpu_torch/{cmod} defines no {cname}")
+        if cmember is not None:
+            assert cmember in _members(defs[cname], port=True), (
+                f"{gap}: cavmd_tpu_torch/{cmod}:{cname} has no {cmember}")
+    elif quoted:
+        assert " ".join(quoted.group(1).split()) in not_queued_text(), (
+            f"{gap}: ROADMAP.md's \"Not queued this round\" does not say "
+            f"{quoted.group(1)!r}")
+    else:
+        new = renamed.group(1)
+        port_side, jax_side = _port_scope(
+            module, name, member if param is not None else None)
+        assert new in port_side and new not in jax_side, (
+            f"{gap}: {new} is not a port-only name of the same "
+            f"{'function' if param else 'class'}")
