@@ -69,6 +69,19 @@ class Snapshot:
     def replace(self, **kwargs) -> "Snapshot":
         return dataclasses.replace(self, **kwargs)
 
+    def strip_tail(self, n_real: int) -> "Snapshot":
+        """The first ``n_real`` particles, without the trailing ghost rows
+        that ``parallel.pad_snapshot_to`` appends after every real row (so
+        bond indices stay valid), and without the ``'__ghost__'`` type."""
+        if n_real >= self.N:
+            return self
+        return self.replace(
+            position=self.position[:n_real], image=self.image[:n_real],
+            velocity=self.velocity[:n_real], mass=self.mass[:n_real],
+            charge=self.charge[:n_real], diameter=self.diameter[:n_real],
+            typeid=self.typeid[:n_real],
+            types=tuple(t for t in self.types if t != "__ghost__"))
+
     def _map(self, float_fn, int_fn) -> "Snapshot":
         fields = {}
         for f in dataclasses.fields(self):

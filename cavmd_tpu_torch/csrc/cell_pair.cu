@@ -107,6 +107,14 @@
 //     key[id] instead of id. At one slab the halo layers are copies of the
 //     slab's own edge layers, and a bonded partner met through its copy
 //     must still be excluded; key maps the copy to its resident id.
+//
+// A row range (atom sharding by rows, parallel/shard.py): row0 and row_end
+// keep the i rows whose particle id is in [row0, row_end); a warp runs no
+// candidate step for any other row of its cell, so S ranks each pay ~1/S
+// of the candidates (every block still stages its 27 cells). The skipped
+// rows' forces are written zero, and the energy partials are the range's
+// share. The full launch is the range [0, n); the slab pipeline always
+// launches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,7 +151,8 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
                  const int32_t* __restrict__ nbr, const int32_t* __restrict__ excl,
                  int max_excl, int n, int ncells, int cap, T rc2, T kappa,
                  int lj_on, int coul_on, int cell_begin, int tab_stride,
-                 int excl_stride, const int32_t* __restrict__ key,
+                 int excl_stride, int row0, int row_end,
+                 const int32_t* __restrict__ key,
                  T* __restrict__ forces, T* __restrict__ e_partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = kNeighbors * cap;
@@ -287,6 +296,9 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
     // row and the force
     const int ri = s_off[self] + i;
     const int idi = bucket[(size_t)c * cap + i];
+    // a row outside [row0, row_end) takes no candidate step: its force is
+    // written zero (a `continue` here made ptxas spill the double kernel)
+    const int m_own = idi >= row0 && idi < row_end ? m : 0;
     const int kid = sid[ri];
     const T xi = sx[ri], yi = sy[ri], zi = sz[ri], qi = sq[ri];
     const int ti = stype[ri] * ntypes;
@@ -299,8 +311,8 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
     // cutoff first: push the staged rows inside the cutoff into the ring;
     // take 32 whenever it holds 32, and the rest at the row's end
     int head = 0, queued = 0;  // warp-uniform ring state
-    for (int j0 = 0; j0 < m || queued > 0;) {
-      if (j0 < m && queued < kRing - 32 * kUnroll) {
+    for (int j0 = 0; j0 < m_own || queued > 0;) {
+      if (j0 < m_own && queued < kRing - 32 * kUnroll) {
         // kUnroll steps of 32 candidates: first every step's cutoff test,
         // branch-free (a lane past the staged rows reads the last one and
         // is never near), so the compiler interleaves the steps; then the
@@ -327,7 +339,7 @@ cell_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
         }
         j0 += 32 * kUnroll;
       }
-      if (queued >= 32 || (queued > 0 && j0 >= m)) {
+      if (queued >= 32 || (queued > 0 && j0 >= m_own)) {
         __syncwarp();
         if (lane < queued) {
           // self and exclusion tests, then the pair term into this lane's
@@ -391,8 +403,8 @@ int launch(const void* pos, const void* box, const void* type_id,
            const void* bucket, const void* nbr, const void* excl, int max_excl,
            int n, int ncells, int cap, double rc2, double kappa, int lj_on,
            int coul_on, int cell_begin, int cell_count, int split, int nb,
-           int tab_stride, int excl_stride, const void* key, void* forces,
-           void* e_partial, void* stream) {
+           int tab_stride, int excl_stride, int row0, int row_end,
+           const void* key, void* forces, void* e_partial, void* stream) {
   // set the kernel's dynamic shared memory limit when a launch needs more
   // than the last one set, not on every launch (the overflow retry grows
   // cap); the default 48 KB covers static and dynamic bytes together, so
@@ -412,8 +424,8 @@ int launch(const void* pos, const void* box, const void* type_id,
       (const T*)eps, (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)nbr, (const int32_t*)excl, max_excl,
       n, ncells, cap, (T)rc2, (T)kappa, lj_on, coul_on, cell_begin,
-      tab_stride, excl_stride, (const int32_t*)key, (T*)forces,
-      (T*)e_partial);
+      tab_stride, excl_stride, row0, row_end, (const int32_t*)key,
+      (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
 }
 
@@ -429,19 +441,20 @@ int launch_any(const void* pos, const void* box, const void* type_id,
                int max_excl, int n, int ncells, int cap, double rc2,
                double kappa, int lj_on, int coul_on, int cell_begin,
                int cell_count, int split, int nb, int tab_stride,
-               int excl_stride, const void* key, void* forces,
-               void* e_partial, void* stream) {
+               int excl_stride, int row0, int row_end, const void* key,
+               void* forces, void* e_partial, void* stream) {
   if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
       n < 1 || ncells < 1 || cap < 1 || cell_begin < 0 || cell_count < 1 ||
       cell_begin + cell_count > ncells || split < 1 || split > 65535 ||
       nb < 1 || nb > 65535 || tab_stride < 0 || excl_stride < 0 ||
+      row0 < 0 || row_end <= row0 || row_end > n ||
       (long long)kNeighbors * cap + 32 * kUnroll > 65535)  // 16-bit ring rows
     return (int)cudaErrorInvalidValue;
   auto go = nb > 1 ? launch<T, true> : launch<T, false>;
   return go(pos, box, type_id, charge, eps, sig2, rcut2, vshift, ntypes, bucket,
             nbr, excl, max_excl, n, ncells, cap, rc2, kappa, lj_on, coul_on,
-            cell_begin, cell_count, split, nb, tab_stride, excl_stride, key,
-            forces, e_partial, stream);
+            cell_begin, cell_count, split, nb, tab_stride, excl_stride, row0,
+            row_end, key, forces, e_partial, stream);
 }
 
 }  // namespace
@@ -455,13 +468,14 @@ int cavmd_cell_pair_f32(const void* pos, const void* box, const void* type_id,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
                         int cell_count, int split, int nb, int tab_stride,
-                        int excl_stride, const void* key, void* forces,
-                        void* e_partial, void* stream) {
+                        int excl_stride, int row0, int row_end,
+                        const void* key, void* forces, void* e_partial,
+                        void* stream) {
   return launch_any<float>(pos, box, type_id, charge, eps, sig2, rcut2, vshift,
                            ntypes, bucket, nbr, excl, max_excl, n, ncells, cap,
                            rc2, kappa, lj_on, coul_on, cell_begin, cell_count,
-                           split, nb, tab_stride, excl_stride, key, forces,
-                           e_partial, stream);
+                           split, nb, tab_stride, excl_stride, row0,
+                           row_end, key, forces, e_partial, stream);
 }
 
 int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
@@ -471,13 +485,14 @@ int cavmd_cell_pair_f64(const void* pos, const void* box, const void* type_id,
                         int max_excl, int n, int ncells, int cap, double rc2,
                         double kappa, int lj_on, int coul_on, int cell_begin,
                         int cell_count, int split, int nb, int tab_stride,
-                        int excl_stride, const void* key, void* forces,
-                        void* e_partial, void* stream) {
+                        int excl_stride, int row0, int row_end,
+                        const void* key, void* forces, void* e_partial,
+                        void* stream) {
   return launch_any<double>(pos, box, type_id, charge, eps, sig2, rcut2,
                             vshift, ntypes, bucket, nbr, excl, max_excl, n,
                             ncells, cap, rc2, kappa, lj_on, coul_on, cell_begin,
-                            cell_count, split, nb, tab_stride, excl_stride, key,
-                            forces, e_partial, stream);
+                            cell_count, split, nb, tab_stride, excl_stride,
+                            row0, row_end, key, forces, e_partial, stream);
 }
 
 }  // extern "C"

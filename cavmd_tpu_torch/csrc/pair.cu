@@ -66,6 +66,15 @@
 // to 85 registers): at 4 it spilled 20-44 bytes whichever way its replica
 // was held (offset pointers, %ctaid.y read at each use, a volatile shared
 // word).
+// A row range (atom sharding by rows, parallel/shard.py): a launch may take
+// rows [row0, row0 + nrows) of the N i rows only, against all N j rows.
+// The blocks are sized and counted from nrows as from N, a row reads its
+// own row of the two (N, N) masks, and the forces come out (..., nrows,
+// 3), the rank's rows; the energy partials are this range's share of the
+// halved sums, so the shares of S ranges add to the full launch's energy.
+// The full launch is the range (0, N). A range's rows equal the full
+// launch's bit for bit when both put as many rows in a block (N = 501 and
+// its halves: one); otherwise a row's j slices are added in another order.
 // The launch allocates nothing and does not synchronise; it returns
 // cudaGetLastError().
 
@@ -117,9 +126,9 @@ dense_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
                   const T* __restrict__ rcut2_t, const T* __restrict__ vshift_t,
                   int ntypes, const T* __restrict__ charge,
                   const uint8_t* __restrict__ lj_active,
-                  const uint8_t* __restrict__ coul_active, int n, int rows,
-                  T kappa, T coul_rc2, T* __restrict__ forces,
-                  T* __restrict__ e_partial) {
+                  const uint8_t* __restrict__ coul_active, int n, int row0,
+                  int nrows, int rows, T kappa, T coul_rc2,
+                  T* __restrict__ forces, T* __restrict__ e_partial) {
   __shared__ T s_j[4][kChunk];  // staged x, y, z, q
   __shared__ uint8_t stype[kChunk];
   __shared__ T s_eps[kMaxTypes * kMaxTypes];
@@ -133,7 +142,7 @@ dense_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
 
   if (kBatch) {  // this block's replica: its positions, forces, partials
     pos += 3 * (size_t)n * blockIdx.y;
-    forces += 3 * (size_t)n * blockIdx.y;
+    forces += 3 * (size_t)nrows * blockIdx.y;
     e_partial += 2 * (size_t)gridDim.x * blockIdx.y;
   }
 
@@ -163,8 +172,9 @@ dense_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   // this warp's row and j slice (warp-uniform)
   const int slices = kWarps / rows;
   const int slice = warp % slices;
-  const int i = blockIdx.x * rows + warp / slices;
-  const bool row_ok = i < n;
+  const int i_own = blockIdx.x * rows + warp / slices;  // in the range
+  const bool row_ok = i_own < nrows;
+  const int i = row0 + i_own;
   const T Lx = box[0], Ly = box[1], Lz = box[2];
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
   T xi = 0, yi = 0, zi = 0, qi = 0;
@@ -322,8 +332,8 @@ dense_pair_kernel(const T* __restrict__ pos, const T* __restrict__ box,
   // one thread a row adds its slices in order; thread 0 the energies
   if (threadIdx.x < rows) {
     const int r = threadIdx.x;
-    const int ir = blockIdx.x * rows + r;
-    if (ir < n) {
+    const int ir = blockIdx.x * rows + r;  // the range's own row
+    if (ir < nrows) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         T v = 0;
@@ -347,21 +357,23 @@ template <typename T>
 int launch(const void* pos, const void* box, const void* type_id,
            const void* eps, const void* sig2, const void* rcut2,
            const void* vshift, int ntypes, const void* charge,
-           const void* lj_active, const void* coul_active, int n, int nb,
-           double kappa, double coul_rc2, void* forces, void* e_partial,
-           void* stream) {
-  if (ntypes < 1 || ntypes > kMaxTypes || n < 1 || nb < 1 || nb > 65535)
+           const void* lj_active, const void* coul_active, int n, int row0,
+           int nrows, int nb, double kappa, double coul_rc2, void* forces,
+           void* e_partial, void* stream) {
+  if (ntypes < 1 || ntypes > kMaxTypes || n < 1 || nb < 1 || nb > 65535 ||
+      row0 < 0 || nrows < 1 || row0 + nrows > n)
     return (int)cudaErrorInvalidValue;
-  const int rows = rows_per_block(n, nb);
+  const int rows = rows_per_block(nrows, nb);
   auto kernel = nb > 1 ? (kernel_unroll(rows) == 2 ? dense_pair_kernel<T, 2, true>
                                                    : dense_pair_kernel<T, 4, true>)
                        : (kernel_unroll(rows) == 2 ? dense_pair_kernel<T, 2, false>
                                                    : dense_pair_kernel<T, 4, false>);
-  kernel<<<dim3(blocks_for(n, nb), nb), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<dim3(blocks_for(nrows, nb), nb), kThreads, 0,
+           (cudaStream_t)stream>>>(
       (const T*)pos, (const T*)box, (const int32_t*)type_id, (const T*)eps,
       (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const T*)charge, (const uint8_t*)lj_active, (const uint8_t*)coul_active,
-      n, rows, (T)kappa, (T)coul_rc2, (T*)forces, (T*)e_partial);
+      n, row0, nrows, rows, (T)kappa, (T)coul_rc2, (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
 }
 
@@ -369,30 +381,35 @@ int launch(const void* pos, const void* box, const void* type_id,
 
 extern "C" {
 
-// Blocks a replica of a launch over nb replicas of n rows: the length of
-// each of the energy partials' (nb, 2) rows.
-int cavmd_dense_pair_blocks(int n, int nb) { return blocks_for(n, nb); }
+// Blocks a replica of a launch over nb replicas of nrows i rows (N, or a
+// row range's length): the length of each of the energy partials' (nb, 2)
+// rows.
+int cavmd_dense_pair_blocks(int nrows, int nb) {
+  return blocks_for(nrows, nb);
+}
 
 int cavmd_dense_pair_f32(const void* pos, const void* box, const void* type_id,
                          const void* eps, const void* sig2, const void* rcut2,
                          const void* vshift, int ntypes, const void* charge,
                          const void* lj_active, const void* coul_active, int n,
-                         int nb, double kappa, double coul_rc2, void* forces,
-                         void* e_partial, void* stream) {
+                         int row0, int nrows, int nb, double kappa,
+                         double coul_rc2, void* forces, void* e_partial,
+                         void* stream) {
   return launch<float>(pos, box, type_id, eps, sig2, rcut2, vshift, ntypes,
-                       charge, lj_active, coul_active, n, nb, kappa,
-                       coul_rc2, forces, e_partial, stream);
+                       charge, lj_active, coul_active, n, row0, nrows, nb,
+                       kappa, coul_rc2, forces, e_partial, stream);
 }
 
 int cavmd_dense_pair_f64(const void* pos, const void* box, const void* type_id,
                          const void* eps, const void* sig2, const void* rcut2,
                          const void* vshift, int ntypes, const void* charge,
                          const void* lj_active, const void* coul_active, int n,
-                         int nb, double kappa, double coul_rc2, void* forces,
-                         void* e_partial, void* stream) {
+                         int row0, int nrows, int nb, double kappa,
+                         double coul_rc2, void* forces, void* e_partial,
+                         void* stream) {
   return launch<double>(pos, box, type_id, eps, sig2, rcut2, vshift, ntypes,
-                        charge, lj_active, coul_active, n, nb, kappa,
-                        coul_rc2, forces, e_partial, stream);
+                        charge, lj_active, coul_active, n, row0, nrows, nb,
+                        kappa, coul_rc2, forces, e_partial, stream);
 }
 
 }  // extern "C"

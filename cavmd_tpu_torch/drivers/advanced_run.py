@@ -14,14 +14,23 @@ Differences from the JAX driver:
 - ``--device`` is ``GPU`` (the default: the CUDA device, an error when
   there is none) or ``CPU``; ``--precision auto`` is f32 on the GPU and
   f64 on the CPU.
-- ``--shard-atoms S`` (S > 1) runs the slab domain pipeline
-  (``parallel/domain.py``) on S processes started by
+- ``--shard-atoms S`` (S > 1) runs on S processes started by
   ``python -m torch.distributed.run --nproc-per-node S`` (gloo with
   ``--device CPU``, NCCL with one card per rank), or in an already
-  initialised process group. The force field is in cell mode whatever N
-  (the slab path needs cell lists; the JAX driver's GSPMD fallback is not
-  ported). Every rank runs the simulation; rank 0 alone writes the input
-  GSD, the trackers, the trajectory and the console table.
+  initialised process group. The force field is in cell mode whatever N,
+  and the run takes the slab domain pipeline (``parallel/domain.py``)
+  where its plan takes it. Where it does not (a method the slab step
+  refuses, a box too narrow for S slabs), the run takes atom sharding by
+  rows (``parallel/shard.py``, the JAX driver's GSPMD fallback) with the
+  JAX driver's force field (dense up to N = 4096) and N ghost-padded to a
+  multiple of S, as the JAX driver pads it. Every rank runs the
+  simulation; rank 0 alone writes the input GSD, the trackers, the
+  trajectory and the console table.
+- ``--pad-atoms K`` pads N to a multiple of K with inert ghost rows and
+  runs unsharded (the JAX driver's single-device comparator of a sharded
+  run): the trackers count the real molecules and the GSD frames hold the
+  real rows. The ghosts take no thermalisation draw, so in float64 the
+  padded run follows the unpadded one.
 - ``--vmap-replicas`` runs the dense force field up to N = 4096 and cell
   mode above, each kernel once a step for the whole batch. Its overflow
   retry recomputes the chunk's start forces, which the JAX driver keeps.
@@ -32,12 +41,12 @@ Differences from the JAX driver:
   processes, each holding slab s of every replica (the slab pipeline with
   a replica axis, cell mode); ``--shard-replicas R --shard-atoms S`` on
   R x S processes, rank (r, s) holding slab s of the r-th slice of the
-  batch, rank (r, 0) writing that slice's files. The JAX driver runs
-  both in one process over a GSPMD mesh, which is not ported: they need
-  their ranks (``python -m torch.distributed.run``).
-- The paths the port does not have (``--pad-atoms``, a ``--rng-impl``
-  other than ``auto``) exit with an error naming ``ROADMAP.md``; nothing
-  else runs in their place.
+  batch, rank (r, 0) writing that slice's files; where the slab plan
+  refuses the batch, it runs split by rows instead, padded as above. The
+  JAX driver runs both in one process over a GSPMD mesh; here the shards
+  are processes (``python -m torch.distributed.run``).
+- A ``--rng-impl`` other than ``auto`` (JAX PRNG backends) exits with an
+  error naming ``ROADMAP.md``; nothing else runs in its place.
 
 Usage:
     python -m cavmd_tpu_torch.drivers.advanced_run --device CPU \\
@@ -101,7 +110,7 @@ class CavityMDSimulation:
         gsd_output_period_ps=50.0, console_output_period_ps=1.0,
         truncate_gsd=False, seed=None, n_molecules=250, box_L=46.0,
         chunk_size=500, precision="auto", pppm_resolution=32,
-        shard_atoms=0,
+        shard_atoms=0, pad_atoms=0,
     ):
         self.job_dir = job_dir
         self.replica = replica
@@ -143,6 +152,7 @@ class CavityMDSimulation:
         self.precision = precision
         self.pppm_resolution = pppm_resolution
         self.shard_atoms = shard_atoms
+        self.pad_atoms = pad_atoms
         self.comm = None
         if shard_atoms > 1:
             from cavmd_tpu_torch.parallel import Communicator
@@ -308,18 +318,35 @@ class CavityMDSimulation:
                 raise ValueError(
                     f"Expected exactly 1 cavity particle but found {n_cav}"
                 )
-        self.snapshot = snap
+        # --pad-atoms pads without sharding: the single-device comparator
+        # of a sharded run (--shard-atoms pads in phase 2, where the run
+        # takes the row path)
+        self.snapshot = self._padded(snap, self.pad_atoms)
+
+    def _padded(self, snap, multiple):
+        """``snap`` ghost-padded to a multiple of ``multiple`` (> 1)."""
+        if multiple <= 1:
+            return snap
+        from cavmd_tpu_torch.parallel import pad_snapshot_to
+
+        snap, pad = pad_snapshot_to(snap, multiple)
+        if pad:
+            self.log_info(f"Padded {pad} ghost particles (N={snap.N}) for "
+                          f"{multiple}-way atom sharding")
+        return snap
 
     def _setup_forces_and_methods(self):
         from cavmd_tpu_torch.core.units import PhysicalConstants as PC
-        from cavmd_tpu_torch.integrate import ForceField
+        from cavmd_tpu_torch.integrate import ForceField, resolve_methods
+        from cavmd_tpu_torch.simulation import slab_refusal
 
-        self.ff = ForceField.create(
-            self.snapshot, coupling=self.couplstr, freq_cm1=self.freq,
-            enable_cavity=self.incavity,
-            pppm_mesh=(self.pppm_resolution,) * 3,
-            pair_mode="cell" if self.comm is not None else None,
-        )
+        def create(snap, pair_mode):
+            """The force field; ``pair_mode`` None: picked by N."""
+            return ForceField.create(
+                snap, coupling=self.couplstr, freq_cm1=self.freq,
+                enable_cavity=self.incavity,
+                pppm_mesh=(self.pppm_resolution,) * 3,
+                **({} if pair_mode is None else {"pair_mode": pair_mode}))
 
         self.kT = PC.kT_from_kelvin(self.temperature)
         self.methods = []
@@ -330,6 +357,21 @@ class CavityMDSimulation:
                 self.cavity_damping_factor):
             self.methods.append(m)
             self.log_info(text)
+        if self.comm is None:
+            self.ff = create(self.snapshot, None)
+            return
+        # the slab path where its plan takes the run (cell mode); else the
+        # row path, on the JAX driver's force field and padding
+        self.ff = create(self.snapshot, "cell")
+        reason, _ = slab_refusal(
+            self.snapshot, self.ff, resolve_methods(
+                self.snapshot, tuple(self.methods), self.ff.l_typeid),
+            self.shard_atoms)
+        if reason is not None:
+            self.log_info(f"Slab path refused ({reason}): atom sharding "
+                          f"by rows over {self.shard_atoms} ranks")
+            self.snapshot = self._padded(self.snapshot, self.shard_atoms)
+            self.ff = create(self.snapshot, None)
 
     def _setup_simulation(self):
         from cavmd_tpu_torch.core.units import PhysicalConstants as PC
@@ -360,7 +402,7 @@ class CavityMDSimulation:
             shard_atoms=self.shard_atoms,
             comm=self.comm,
         )
-        if self.comm is not None:
+        if self.sim._domain_plan is not None and self.comm is not None:
             self.log_info(f"Slab domain pipeline: {self.shard_atoms} ranks, "
                           f"grid {self.sim._domain_plan.ncells}")
         self.sim.thermalize(self.kT)
@@ -407,8 +449,7 @@ class CavityMDSimulation:
         fkt_period = max(1, int(self.fkt_output_period_ps / dt_ps_nominal))
 
         if self.enable_energy_tracking:
-            tid = self.snapshot.typeid.cpu().numpy()
-            n_dof = 3 * int(np.sum(tid != self.ff.l_typeid))
+            n_dof = molecular_dof(self.snapshot, self.ff)
             self.sim.trackers.append(EnergyTracker(
                 output_prefix=prefix,
                 output_period_steps=energy_period,
@@ -455,6 +496,15 @@ class CavityMDSimulation:
     def _cleanup(self):
         if hasattr(self, "gsd_writer"):
             self.gsd_writer.close()
+
+
+def molecular_dof(snap, ff) -> int:
+    """3 x the real molecular rows: neither the photon nor ghost rows."""
+    tid = snap.typeid.cpu().numpy()
+    real_mol = tid != ff.l_typeid
+    if ff.ghost_typeid >= 0:
+        real_mol &= tid != ff.ghost_typeid
+    return 3 * int(np.sum(real_mol))
 
 
 def bath_methods(molecular, cavity, kT, molecular_tau_ps, cavity_tau_ps,
@@ -587,6 +637,7 @@ def run_single_experiment(args, replica, frame):
         precision=args.precision,
         pppm_resolution=args.pppm_resolution,
         shard_atoms=args.shard_atoms if args.shard_atoms > 1 else 0,
+        pad_atoms=args.pad_atoms,
     )
     return sim.run() == 0
 
@@ -676,16 +727,18 @@ def run_vmapped_replicas(args, replica_list, comm=None,
         generate_fibonacci_sphere,
         make_extra_obs,
     )
-    from cavmd_tpu_torch.parallel.domain import (
-        make_domain_runner,
-        plan_domain,
-    )
+    from cavmd_tpu_torch.parallel import pad_snapshot_to
+    from cavmd_tpu_torch.parallel.domain import make_domain_runner
     from cavmd_tpu_torch.parallel.replicas import (
         init_replica_states,
         run_replica_steps,
         split_replica_obs,
     )
-    from cavmd_tpu_torch.simulation import DOMAIN_REBUILD_EVERY, retry_state
+    from cavmd_tpu_torch.simulation import (
+        DOMAIN_REBUILD_EVERY,
+        retry_state,
+        slab_refusal,
+    )
     from cavmd_tpu_torch.utils import fire_minimize
 
     n_all = len(replica_list)
@@ -761,19 +814,43 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                            finite_q=args.finite_q, seed=args.seed + r + 1)
                     if "L" not in s.types else s
                     for r, s in zip(mine, snaps)]
+            # --pad-atoms pads without sharding (the single-device
+            # comparator of a sharded run)
+            if args.pad_atoms > 1:
+                snaps = [pad_snapshot_to(s, args.pad_atoms)[0]
+                         for s in snaps]
             snap = snaps[0]
-            # the slab path needs cell lists; the batch alone picks its
-            # mode by N
-            ff = ForceField.create(
-                snap, coupling=args.coupling, freq_cm1=args.frequency,
-                enable_cavity=incavity,
-                pppm_mesh=(args.pppm_resolution,) * 3,
-                **({"pair_mode": "cell"} if slabs else {}))
+
+            def create(snap, pair_mode):
+                """The force field; ``pair_mode`` None: picked by N."""
+                return ForceField.create(
+                    snap, coupling=args.coupling, freq_cm1=args.frequency,
+                    enable_cavity=incavity,
+                    pppm_mesh=(args.pppm_resolution,) * 3,
+                    **({} if pair_mode is None else {"pair_mode": pair_mode}))
+
             kT = PC.kT_from_kelvin(args.temperature)
-            methods = [m for m, _ in bath_methods(
+            specs = tuple(m for m, _ in bath_methods(
                 args.molecular_bath, args.cavity_bath if incavity else None,
-                kT, args.molecular_tau, args.cavity_tau)]
-            methods = resolve_methods(snap, tuple(methods), ff.l_typeid)
+                kT, args.molecular_tau, args.cavity_tau))
+            # the slab path needs cell lists; the batch alone (and the row
+            # path, where the slab plan refuses the batch: ghost-padded to
+            # a multiple of S) picks its mode by N
+            ff = create(snap, "cell" if slabs else None)
+            methods = resolve_methods(snap, specs, ff.l_typeid)
+            plan = None
+            if slabs:
+                refusal, plan = slab_refusal(snap, ff, methods,
+                                             slab_comm.world_size)
+                if refusal is not None:
+                    print(f"Slab path refused ({refusal}): the batch split "
+                          f"by rows over {slab_comm.world_size} ranks")
+                    snaps = [pad_snapshot_to(s, slab_comm.world_size)[0]
+                             for s in snaps]
+                    snap = snaps[0]
+                    ff = create(snap, None).bind_rows(slab_comm)
+                    methods = resolve_methods(snap, specs, ff.l_typeid)
+            on_slabs = plan is not None
 
             extra = None
             if args.enable_fkt:
@@ -789,14 +866,12 @@ def run_vmapped_replicas(args, replica_list, comm=None,
             chunk = 500
             adaptive_period = min(max(1, int(args.energy_output_period_ps
                                              / dt_ps_nominal)), chunk)
-            if slabs:
-                plan = plan_domain(snap, ff, slab_comm.world_size)
-                cadence = DOMAIN_REBUILD_EVERY
+            cadence = DOMAIN_REBUILD_EVERY
 
             def build_runner():
                 """The chunk runner ``(state, n) -> (state, obs)`` of the
                 current force field (or slab plan and cadence)."""
-                if slabs:
+                if on_slabs:
                     return make_domain_runner(
                         ff, methods, plan, slab_comm, rebuild_every=cadence,
                         adaptive=(dict(error_tolerance=error_tolerance,
@@ -815,18 +890,22 @@ def run_vmapped_replicas(args, replica_list, comm=None,
             def layout():
                 """The capacities an overflow retry re-plans, as text."""
                 return (f"slab bucket cap={plan.cap}, nb_cap={plan.nb_cap}, "
-                        f"rebuild_every={cadence}" if slabs else
+                        f"rebuild_every={cadence}" if on_slabs else
                         f"cap={ff.cell_cfg.cap}, zcol window {ff.zcol_W}")
 
             run_chunk = build_runner()
 
             def replicated(state):
                 """The slab ranks' start state: no carried list, and slab
-                0's forces (a card's atomics may round another way)."""
+                0's forces (a card's atomics may round another way); on the
+                row path the carried list stays."""
                 if not slabs:
                     return state
-                return state.replace(forces=slab_comm.broadcast(state.forces),
-                                     cell_list=None, cell_anchor=None)
+                state = state.replace(
+                    forces=slab_comm.broadcast(state.forces))
+                if not on_slabs:
+                    return state
+                return state.replace(cell_list=None, cell_anchor=None)
 
             dt = PC.fs_to_atomic_units(args.timestep if args.fixed_timestep
                                        else 0.1)
@@ -840,8 +919,10 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                                          error_tolerance * 1e-3)
                 batched = batched.replace(dt=dts.to(dtype))
 
-            tid = snap.typeid.cpu().numpy()
-            n_dof = 3 * int(np.sum(tid != ff.l_typeid))
+            n_dof = molecular_dof(snap, ff)
+            n_real = (snap.N if ff.ghost_typeid < 0 else
+                      int(np.sum(snap.typeid.cpu().numpy()
+                                 != ff.ghost_typeid)))
             energy_period = max(1, int(args.energy_output_period_ps
                                        / dt_ps_nominal))
             fkt_period = max(1, int(args.fkt_output_period_ps / dt_ps_nominal))
@@ -889,11 +970,11 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                     crossing = el[k] >= args.runtime and ts[k] > 0
                     if crossing or (el[k] - last_gsd_ps[k]
                                     >= args.gsd_output_period_ps):
-                        if writes:
+                        if writes:  # without the ghost rows
                             gsd_files[k].append(
-                                snaps[k].replace(position=pos[k],
-                                                 image=img[k],
-                                                 velocity=vel[k]),
+                                snaps[k].replace(
+                                    position=pos[k], image=img[k],
+                                    velocity=vel[k]).strip_tail(n_real),
                                 step=int(ts[k]),
                                 log_data=gather_tracker_log(
                                     trackers[k], el[k], dts[k]))
@@ -962,7 +1043,7 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                     raise RuntimeError(
                         "cell-list bucket overflow in the replica batch "
                         f"persists after 4 re-plans (the last: {layout()})")
-                if not slabs:
+                if not on_slabs:
                     cap = ff.cell_cfg.cap
                     ff = ff.with_cell_capacity(max(cap + 4, 2 * cap))
                 elif obs["domain_capacity_overflow"].any():
@@ -1041,20 +1122,22 @@ def _report_failure(rank: int) -> bool:
 
 
 def unported_flags(args) -> list:
-    """The flags given whose paths the port does not have yet, each with
-    its message."""
-    jax_cli = ("run the JAX package's driver, cavmd_tpu.drivers."
-               "advanced_run, for it")
-    gspmd = ('not ported to cavmd_tpu_torch (see ROADMAP.md, "Not queued '
-             f'this round", GSPMD pieces); {jax_cli}')
+    """The flags given whose paths the port does not have, each with its
+    message."""
     out = []
-    if args.pad_atoms:
-        out.append(f"--pad-atoms: ghost padding is {gspmd}")
     if args.rng_impl != "auto":
         out.append(f"--rng-impl {args.rng_impl}: the port draws from "
-                   f"torch.Generator streams only; JAX PRNG backends are "
-                   f"{gspmd}")
+                   "torch.Generator streams only; JAX PRNG backends are "
+                   'not ported to cavmd_tpu_torch (see ROADMAP.md, "Not '
+                   'queued this round"); run the JAX package\'s driver, '
+                   "cavmd_tpu.drivers.advanced_run, for it")
     return out
+
+
+# the JAX driver runs its shards in one process over a GSPMD mesh; the
+# port's shards are processes
+ONE_PROCESS = ('the JAX driver\'s one-process GSPMD mesh: ROADMAP.md, "Not '
+               'queued this round"')
 
 
 def build_parser():
@@ -1094,10 +1177,9 @@ def build_parser():
                         help="GPU (default) = the CUDA device, an error "
                              "when there is none; CPU = the CPU")
     parser.add_argument("--truncate-gsd", action="store_true")
-    # the batch and its scale-out over ranks; then --rng-impl and
-    # --pad-atoms, flags of the JAX driver whose paths are not ported:
-    # kept so that a command line written for it fails loudly instead of
-    # running something else
+    # the batch and its scale-out over ranks; --rng-impl is a flag of the
+    # JAX driver whose path is not ported: kept so that a command line
+    # written for it fails loudly instead of running something else
     parser.add_argument("--vmap-replicas", action="store_true",
                         help="run every replica of --replicas as one batch "
                              "on one device (dense force field up to "
@@ -1109,18 +1191,22 @@ def build_parser():
                              "torch.distributed.run --nproc-per-node R; R "
                              "ranks may share one card)")
     parser.add_argument("--shard-atoms", type=int, default=0,
-                        help="run the slab domain pipeline on this many "
-                             "ranks (one process each, started by python "
-                             "-m torch.distributed.run --nproc-per-node "
-                             "S); cell mode. With --vmap-replicas, the "
-                             "batch over S slabs; with --shard-replicas R, "
-                             "over R x S ranks")
+                        help="shard the atoms over this many ranks (one "
+                             "process each, started by python -m "
+                             "torch.distributed.run --nproc-per-node S): "
+                             "the slab domain pipeline (cell mode) where "
+                             "its plan takes the run, else split by rows "
+                             "with N ghost-padded to a multiple of S. With "
+                             "--vmap-replicas, the batch over S shards; "
+                             "with --shard-replicas R, over R x S ranks")
     parser.add_argument("--rng-impl", choices=("auto", "threefry", "rbg"),
                         default="auto",
                         help="only auto (torch.Generator streams) is "
                              "ported (ROADMAP.md)")
     parser.add_argument("--pad-atoms", type=int, default=0,
-                        help="not ported yet (ROADMAP.md)")
+                        help="ghost-pad N to a multiple without sharding "
+                             "(the single-device comparator of "
+                             "--shard-atoms runs)")
     parser.add_argument("--input-gsd", type=str, default="../init-0.gsd")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--n-molecules", type=int, default=250,
@@ -1180,10 +1266,9 @@ def main(argv=None):
 
     if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
         print(f"error: --shard-atoms {args.shard_atoms} runs one process per "
-              "slab: start it with python -m torch.distributed.run "
-              f"--nproc-per-node {args.shard_atoms} (the JAX driver's "
-              "one-process GSPMD fallback is not ported: ROADMAP.md, \"Not "
-              "queued this round\", GSPMD pieces)", file=sys.stderr)
+              "shard: start it with python -m torch.distributed.run "
+              f"--nproc-per-node {args.shard_atoms} (not {ONE_PROCESS})",
+              file=sys.stderr)
         return 2
     made = init_ranks(args)
     try:
@@ -1235,9 +1320,7 @@ def run_sharded_replicas(args) -> int:
     if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
         what = ("process per slab and slice of the batch" if S > 1
                 else "process per slice of the batch")
-        gspmd = (" (the JAX driver's one-process GSPMD mesh is not ported: "
-                 "ROADMAP.md, \"Not queued this round\", GSPMD pieces)"
-                 if S > 1 else "")
+        gspmd = f" (not {ONE_PROCESS})" if S > 1 else ""
         print(f"error: {flags} runs one {what}: start it with python -m "
               f"torch.distributed.run --nproc-per-node {R * S}{gspmd}",
               file=sys.stderr)
@@ -1287,7 +1370,8 @@ def run_replicas(args, comm=None, slab_comm=None):
               f"{len(replica_list) // comm.world_size} replicas each")
     if slab_comm is not None:
         print(f"Replica batch over slabs: {slab_comm.world_size} slabs a "
-              "replica (the slab domain pipeline, cell mode)")
+              "replica (the slab domain pipeline where its plan takes the "
+              "batch, else split by rows)")
 
     start = time.time()
     if args.vmap_replicas or comm is not None:

@@ -8,7 +8,7 @@ dryrun_multichip(4)"
 The ranks are local processes (``parallel/launch.py:run_ranks``, file
 rendezvous, no network port). The n ranks are cut into R = 2 replicas of
 S = n / 2 slabs when n is even (R = 1, S = n otherwise), as the JAX dry
-run cuts its mesh. Two cases:
+run cuts its mesh. Three cases:
 
 1. replicas over ranks, the CLI's ``--shard-replicas n``: a batch of n
    replicas of the reference scene (250 diatomics in a 46-bohr box, the
@@ -20,10 +20,13 @@ run cuts its mesh. Two cases:
 2. replicas x slabs (``make_domain_runner(n_replicas=R)``): R replicas
    of the 550-diatomic scene in a 65-bohr box over R x S ranks, adaptive
    dt and the dipole / rho(k) observables inside the slab step, 12 steps
-   rebuilt every 5, against ``run_replica_steps`` on the batch.
-
-The JAX dry run's GSPMD cases have no counterpart (GSPMD is not ported),
-and slabs need cell lists.
+   rebuilt every 5, against ``run_replica_steps`` on the batch;
+3. atom sharding by rows (``make_sharded_runner(batched=True)`` on
+   ``make_mesh(R, S)``), the counterpart of the JAX dry run's GSPMD case:
+   R replicas of the reference scene ghost-padded to a multiple of S, in
+   dense mode, float64, 20 steps of 0.25 fs, rank (r, s) holding replica
+   r and splitting atom rows s N/S .. over the S ranks, against
+   ``run_replica_steps`` on the unsharded batch.
 """
 
 from __future__ import annotations
@@ -57,6 +60,21 @@ def _hold(label, got, ref):
         np.testing.assert_allclose(got["obs"][key], want, rtol=OBS_TOL,
                                    atol=1e-12, err_msg=f"[{label}] {key}")
     assert not got["obs"]["cell_overflow"].any(), f"[{label}] overflow"
+
+
+def _hold_rows(label, got, ref):
+    """Raise unless a rank's replica rows ``got["rows"]`` of the row-split
+    batch match those rows of the unsharded batch ``ref``."""
+    lo, hi = got["rows"]
+    for key in ("position", "velocity", "dt"):
+        np.testing.assert_allclose(got[key], ref[key][lo:hi], rtol=TOL,
+                                   atol=TOL, err_msg=f"[{label}] {key}")
+    np.testing.assert_array_equal(got["image"], ref["image"][lo:hi],
+                                  err_msg=f"[{label}] image")
+    for key, want in ref["obs"].items():
+        np.testing.assert_allclose(got["obs"][key], want[:, lo:hi],
+                                   rtol=OBS_TOL, atol=1e-12,
+                                   err_msg=f"[{label}] {key}")
 
 
 def text_rows(path):
@@ -142,6 +160,7 @@ def dryrun_multichip(n_devices: int) -> dict:
     from cavmd_tpu_torch.io import HOOMDTrajectory
     from cavmd_tpu_torch.parallel.launch import (
         replicas_x_slabs_dryrun,
+        rows_dryrun,
         run_ranks,
     )
 
@@ -161,16 +180,20 @@ def dryrun_multichip(n_devices: int) -> dict:
         batch = CLI_ARGS + ["--input-gsd", start, "--replicas",
                             f"0-{n - 1}"]
         xs_ref = replicas_x_slabs_dryrun(n_replicas=R)
+        rows_ref = rows_dryrun(n_replicas=R, n_shards=S)
         rc_one = cli_in(one, batch + ["--vmap-replicas"])
-        cli_rcs, xs_ranks = run_ranks(
+        cli_rcs, xs_ranks, rows_ranks = run_ranks(
             [(cli_in, (ranks, batch + ["--shard-replicas", str(n)])),
-             (replicas_x_slabs_dryrun, dict(n_replicas=R))], n)
+             (replicas_x_slabs_dryrun, dict(n_replicas=R)),
+             (rows_dryrun, dict(n_replicas=R, n_shards=S))], n)
         assert rc_one == 0 and cli_rcs == [0] * n, (rc_one, cli_rcs)
         files = hold_run_files(os.path.join(ranks, CLI_DIR),
                                os.path.join(one, CLI_DIR), TOL)
     assert sum(f.endswith(".gsd") for f in files) == n, files
     for k, got in enumerate(xs_ranks):
         _hold(f"replicas x slabs rank {k}", got, xs_ref)
+    for k, got in enumerate(rows_ranks):
+        _hold_rows(f"rows rank {k}", got, rows_ref)
     print(f"dryrun_multichip [replicas over ranks] OK: --shard-replicas "
           f"{n}, {n} replicas of N=501 one a rank over {n} gloo ranks, "
           f"{len(files)} files of 20 steps match the one-process batch's "
@@ -179,5 +202,9 @@ def dryrun_multichip(n_devices: int) -> dict:
           f"{xs_ref['position'].shape[1]}, adaptive dt + dipole/rho(k) "
           "inside the slab step, 12 steps (3 rebuild chunks) match "
           "run_replica_steps to 1e-10")
+    print(f"dryrun_multichip [rows {R}x{S}] OK: N={rows_ref['N']} "
+          "(ghost-padded), dense, 20 row-sharded steps match "
+          "run_replica_steps to 1e-10")
     return dict(R=R, S=S, cli_rcs=cli_rcs, cli_files=files,
-                replicas_x_slabs=(xs_ref, xs_ranks))
+                replicas_x_slabs=(xs_ref, xs_ranks),
+                rows=(rows_ref, rows_ranks))

@@ -62,4 +62,14 @@ def make_adaptive_step(step_fn, *, error_tolerance: float,
         return new_state, obs
 
     astep.force_field = getattr(step_fn, "force_field", None)
+    astep.noise = getattr(step_fn, "noise", None)
+    if hasattr(step_fn, "rebind"):
+        def rebind(**kw):
+            """This adaptive step around ``step_fn.rebind(**kw)``."""
+            return make_adaptive_step(
+                step_fn.rebind(**kw), error_tolerance=error_tolerance,
+                initial_fraction=initial_fraction,
+                time_constant_ps=time_constant_ps, period=period)
+
+        astep.rebind = rebind
     return astep

@@ -29,6 +29,21 @@ and types, as ``jax.vmap`` calls the JAX step's. The steps run under
 takes them with ``torch.func.grad``. The callables are held in a plain
 tuple: their own tensors do not move with ``ForceField.to``.
 
+Ghost rows (``parallel.pad_snapshot_to``: type ``'__ghost__'``, zero
+charge, mass 1e30, appended after every real row) are pair-inert: their
+type has no LJ pair and they carry no charge, so every term gives them
+zero force. ``ghost_typeid`` is their type (-1 without ghosts); the step's
+groups and DOF leave them out.
+
+Atom sharding by rows (``bind_rows(comm)``, ``parallel/shard.py``): a
+bound copy computes the pair pass and the PPPM spread and interpolation
+on its rank's row block ``[r N/S, (r + 1) N/S)`` only, sums the partial
+PPPM meshes over the S ranks before the FFT and all-gathers the rows'
+forces with the pair-energy shares in the same message; every other term
+(bonds, the exclusion correction, the self energy, custom forces, the
+cavity) runs replicated on every rank and counts its energy once. Zcol
+mode has no row range (ROADMAP.md).
+
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
 ``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
 spread/interpolation (``ops/pppm_kernels.py``) run in the hand-written
@@ -77,7 +92,11 @@ from cavmd_tpu_torch.ops.neighbor import (
     xy_neighbor_table,
 )
 from cavmd_tpu_torch.ops.pair_kernels import dense_pair_force
-from cavmd_tpu_torch.ops.pppm import PPPMParams, pppm_force_and_energy
+from cavmd_tpu_torch.ops.pppm import (
+    PPPMParams,
+    pppm_force_and_energy,
+    pppm_force_and_energy_rows,
+)
 from cavmd_tpu_torch.ops.zcol_kernels import plan_zcol_window, zcol_pair_force
 
 ENERGY_KEYS = (
@@ -85,6 +104,26 @@ ENERGY_KEYS = (
     "cavity_harmonic", "cavity_coupling", "cavity_dipole_self",
 )
 DENSE_MAX_N = 4096
+
+
+def gather_rows(comm, forces, row_f, e_lj, e_ew):
+    """The second collective of a row split: every rank's row forces
+    ``row_f`` (..., N/S, 3) and its pair-energy shares, packed in one
+    message and all-gathered; returns ``forces`` plus the rows in rank
+    order (..., N, 3) and the two energies summed over the ranks in rank
+    order (the same bits on every rank)."""
+    batch = tuple(row_f.shape[:-2])
+    n_f = row_f.numel()
+    msg = torch.cat([row_f.reshape(-1), e_lj.reshape(-1).to(row_f.dtype),
+                     e_ew.reshape(-1).to(row_f.dtype)])
+    parts = comm.all_gather(msg[None])  # (S, n_f + 2 B)
+    rows = parts[:, :n_f].reshape((comm.world_size,) + tuple(row_f.shape))
+    rows = torch.movedim(rows, 0, -3).reshape(forces.shape)
+    shares = parts[:, n_f:].reshape((comm.world_size, 2) + batch)
+    e = shares[0]
+    for k in range(1, comm.world_size):  # in rank order
+        e = e + shares[k]
+    return forces + rows, e[0], e[1]
 
 
 class ForceField(nn.Module):
@@ -115,8 +154,8 @@ class ForceField(nn.Module):
                  pair_mode=None, cell_cfg=None, cell_exclusions=None,
                  cell_neighbors=None, pair_inert=None, zcol_W=None,
                  enable_cavity=True, enable_coulomb=True, enable_lj=True,
-                 enable_bonds=True, custom_forces=(), dtype=torch.float64,
-                 device=None):
+                 enable_bonds=True, custom_forces=(), ghost_typeid=-1,
+                 dtype=torch.float64, device=None):
         super().__init__()
 
         def buf(name, x, dt=dtype):
@@ -180,6 +219,8 @@ class ForceField(nn.Module):
         self.enable_lj = bool(enable_lj)
         self.enable_bonds = bool(enable_bonds)
         self.custom_forces = tuple(custom_forces)
+        self.ghost_typeid = int(ghost_typeid)
+        self.row_comm = None  # bind_rows: the atom group of a row split
 
     @property
     def pppm(self) -> PPPMParams:
@@ -213,12 +254,29 @@ class ForceField(nn.Module):
         JAX package's retry grows it: a hull wider than the window is not
         fixed by more slots alone. The custom-force callables are the same
         objects, not copies."""
-        ff = copy.deepcopy(self, {id(self.custom_forces): self.custom_forces})
+        ff = copy.deepcopy(self, {id(self.custom_forces): self.custom_forces,
+                                  id(self.row_comm): self.row_comm})
         cap = int(cap)
         if self.pair_mode == "zcol":
             cap = -(-cap // 128) * 128
             ff.zcol_W = self.zcol_W + 2
         ff.cell_cfg = self.cell_cfg._replace(cap=cap)
+        return ff
+
+    def bind_rows(self, comm) -> "ForceField":
+        """A copy of this force field, its buffers shared, whose
+        ``forward`` splits the costly terms by rows over ``comm``'s ranks
+        (the module note); ``comm=None`` gives the unsplit force field
+        back. Raises ``NotImplementedError`` in zcol mode."""
+        if comm is not None and self.pair_mode == "zcol":
+            raise NotImplementedError(
+                "atom sharding by rows takes the dense and cell pair modes; "
+                "zcol's row range (K9) is queued in ROADMAP.md")
+        if comm is self.row_comm:
+            return self
+        ff = copy.copy(self)
+        ff.__dict__["_buffers"] = dict(self._buffers)
+        ff.row_comm = comm
         return ff
 
     def _custom(self, i, fn, position, image, box_L, charge, typeid):
@@ -249,6 +307,19 @@ class ForceField(nn.Module):
         forces = torch.zeros_like(position)
         zero = position.new_zeros(position.shape[:-2])
         energies = {k: zero for k in ENERGY_KEYS}
+        comm = self.row_comm
+        rows = own = None  # a row split: this rank's (row0, n) and slice
+        if comm is not None:
+            n = position.shape[-2]
+            if n % comm.world_size:
+                raise ValueError(
+                    f"N={n} not divisible by {comm.world_size} row shards; "
+                    "pad the snapshot first "
+                    "(cavmd_tpu_torch.parallel.pad_snapshot_to)")
+            n_rows = n // comm.world_size
+            rows = (comm.rank * n_rows, n_rows)
+            own = slice(rows[0], rows[0] + n_rows)
+            row_f = position.new_zeros(position.shape[:-2] + (n_rows, 3))
 
         if self.enable_bonds and self.n_bonds > 0:
             if self.bonds_strided:
@@ -283,8 +354,14 @@ class ForceField(nn.Module):
             else:
                 f, e_lj, e_ew = cell_pair_force_fused(
                     position, box_L, clist, self.cell_cfg, *tables,
-                    lj_on=self.enable_lj, coul_on=self.enable_coulomb)
-            forces = forces + f
+                    lj_on=self.enable_lj, coul_on=self.enable_coulomb,
+                    rows=rows)
+                if own is not None:  # zero outside the rank's rows
+                    f = f[..., own, :]
+            if own is None:
+                forces = forces + f
+            else:
+                row_f = row_f + f
             energies["lj"] = e_lj
             energies["ewald_short"] = e_ew
         elif self.enable_lj or self.enable_coulomb:
@@ -292,15 +369,25 @@ class ForceField(nn.Module):
                 position, box_L, typeid, self.lj_eps, self.lj_sig2,
                 self.lj_rcut2, self.lj_vshift, charge, self.lj_active,
                 self.coulomb_active, self.kappa_value,
-                self.coulomb_rcut * self.coulomb_rcut)
-            forces = forces + f
+                self.coulomb_rcut * self.coulomb_rcut, rows=rows)
+            if own is None:
+                forces = forces + f
+            else:
+                row_f = row_f + f
             energies["lj"] = e_lj
             energies["ewald_short"] = e_ew
 
         if self.enable_coulomb:
-            f_rec, e_rec = pppm_force_and_energy(
-                position, charge, box_L, self.pppm, self.pppm_order,
-                self.pppm_mesh)
+            if own is None:
+                f_rec, e_rec = pppm_force_and_energy(
+                    position, charge, box_L, self.pppm, self.pppm_order,
+                    self.pppm_mesh)
+            else:
+                f_own, e_rec = pppm_force_and_energy_rows(
+                    position, charge, box_L, self.pppm, self.pppm_order,
+                    self.pppm_mesh, own, comm.sum)
+                row_f = row_f + f_own
+                f_rec = 0.0
             if self.bonds_strided:
                 f_corr, e_corr = ewald_exclusion_correction_strided(
                     position, box_L, charge, self.kappa, self.n_bonds)
@@ -310,6 +397,10 @@ class ForceField(nn.Module):
             e_self = ewald_self_energy(charge, self.kappa)
             forces = forces + f_rec - f_corr
             energies["ewald_long"] = e_rec - e_self - e_corr
+
+        if comm is not None:
+            forces, energies["lj"], energies["ewald_short"] = gather_rows(
+                comm, forces, row_f, energies["lj"], energies["ewald_short"])
 
         for i, fn in enumerate(self.custom_forces):
             f, e = self._custom(i, fn, position, image, box_L, charge, typeid)
@@ -475,5 +566,8 @@ class ForceField(nn.Module):
             coulomb_rcut=r_cut, pppm_order=pppm_order, pppm_mesh=pppm_mesh,
             enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
             enable_lj=enable_lj, enable_bonds=enable_bonds,
-            custom_forces=custom_forces, dtype=dtype, device=device,
+            custom_forces=custom_forces,
+            ghost_typeid=(types.index("__ghost__") if "__ghost__" in types
+                          else -1),
+            dtype=dtype, device=device,
         )

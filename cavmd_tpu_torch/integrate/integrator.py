@@ -161,14 +161,20 @@ class MDState:
         return self.generators[key]
 
 
-def group_mask(typeid, l_typeid: int, group: str):
+def group_mask(typeid, l_typeid: int, group: str, ghost_typeid: int = -1):
+    """The rows of a typed group; ghost rows (``ghost_typeid``, the
+    padding of ``parallel.pad_snapshot_to``) belong to no group: counted
+    into a thermostat group they would inflate its DOF and skew its
+    target temperature."""
     if group == "molecular":
-        return typeid != l_typeid
-    if group == "cavity":
+        mask = typeid != l_typeid
+    elif group == "cavity":
         return typeid == l_typeid
-    if group == "all":
-        return torch.ones_like(typeid, dtype=torch.bool)
-    raise ValueError(f"unknown group '{group}'")
+    elif group == "all":
+        mask = torch.ones_like(typeid, dtype=torch.bool)
+    else:
+        raise ValueError(f"unknown group '{group}'")
+    return mask & (typeid != ghost_typeid) if ghost_typeid >= 0 else mask
 
 
 def group_slot(group: str) -> int:
@@ -178,28 +184,45 @@ def group_slot(group: str) -> int:
 def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
                     l_typeid: int) -> Tuple[MethodSpec, ...]:
     """Fill in static group DOF counts (3 N_group) and, for groups of at
-    most 8 particles, the member indices."""
+    most 8 particles, the member indices. Ghost rows (type
+    ``'__ghost__'``) join no group."""
     typeid = snapshot.typeid.cpu().numpy()
+    ghost = ghost_typeid_of(snapshot.types)
+    real = typeid != ghost if ghost >= 0 else np.ones(len(typeid), bool)
     out = []
     for m in methods:
         if m.group == "molecular":
-            members = np.where(typeid != l_typeid)[0]
+            members = np.where((typeid != l_typeid) & real)[0]
         elif m.group == "cavity":
             members = np.where(typeid == l_typeid)[0]
         else:
-            members = np.arange(len(typeid))
+            members = np.where(real)[0]
         n = len(members)
         indices = tuple(int(i) for i in members) if n <= 8 else None
         out.append(m._replace(dof=3.0 * n, indices=indices))
     return tuple(out)
 
 
+def ghost_typeid_of(types) -> int:
+    """The type id of ghost rows in ``types`` (-1: none)."""
+    return types.index("__ghost__") if "__ghost__" in types else -1
+
+
 def thermal_velocities(mass, typeid, l_typeid: int, kT, seed: int, *,
-                       molecular_only: bool = True, photon_kT=None):
+                       molecular_only: bool = True, photon_kT=None,
+                       ghost_typeid: int = -1):
     """Maxwell-Boltzmann velocities from the thermalize streams of
     ``seed``: the molecular group (every particle unless
     ``molecular_only``) with its drift removed, and with ``molecular_only``
-    the photon drawn apart at ``photon_kT`` (None: ``kT``)."""
+    the photon drawn apart at ``photon_kT`` (None: ``kT``). Ghost rows
+    (``ghost_typeid``, a tail after every real row) stay at rest and take
+    no draw: the real rows get the velocities of the unpadded scene."""
+    if ghost_typeid >= 0:
+        n_real = int(torch.sum(typeid != ghost_typeid))
+        v = thermal_velocities(mass[:n_real], typeid[:n_real], l_typeid, kT,
+                               seed, molecular_only=molecular_only,
+                               photon_kT=photon_kT)
+        return torch.cat([v, v.new_zeros((mass.shape[0] - n_real, 3))])
     dev, dtype = mass.device, mass.dtype
     group = "molecular" if molecular_only else "all"
     v = thermalize_velocities(
@@ -386,8 +409,10 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
             raise NotImplementedError(
                 f"method kind {m.kind!r}: cavmd_tpu_torch ports "
                 f"{SUPPORTED_METHODS}")
+    noise_given = noise
     noise = noise if noise is not None else StreamNoise()
     l_typeid = ff.l_typeid
+    ghost = ff.ghost_typeid
     index_cache = {}
     plan_cache = {}
     mask_cache = {}
@@ -404,7 +429,8 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
     def _mol_mask(state):
         key = state.device
         if key not in mask_cache:
-            mask_cache[key] = group_mask(state.typeid, l_typeid, "molecular")
+            mask_cache[key] = group_mask(state.typeid, l_typeid, "molecular",
+                                         ghost)
         return mask_cache[key]
 
     def _fused_plan(state):
@@ -557,7 +583,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         for i, m in enumerate(methods):
             if m.kind not in ("bussi", "mttk", "berendsen"):
                 continue
-            mask = group_mask(state.typeid, l_typeid, m.group)
+            mask = group_mask(state.typeid, l_typeid, m.group, ghost)
             slot = group_slot(m.group)
             if m.kind == "bussi":
                 r1, r_gamma = noise.bussi(state, i, m)
@@ -583,7 +609,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         brownian_mask = None
         for i, m in enumerate(methods):
             if m.kind == "brownian":
-                mask = group_mask(state.typeid, l_typeid, m.group)
+                mask = group_mask(state.typeid, l_typeid, m.group, ghost)
                 slot = group_slot(m.group)
                 xi_pos, xi_vel = noise.brownian(state, i, m)
                 bpos, bv, dres = brownian_apply(
@@ -608,7 +634,7 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
         for i, m in enumerate(methods):
             if m.kind not in ("mttk", "langevin"):
                 continue
-            mask = group_mask(state.typeid, l_typeid, m.group)
+            mask = group_mask(state.typeid, l_typeid, m.group, ghost)
             slot = group_slot(m.group)
             if m.kind == "mttk":
                 st = MTTKState(xi[..., slot], eta[..., slot])
@@ -628,14 +654,22 @@ def make_step_fn(ff: ForceField, methods: Tuple[MethodSpec, ...],
                 langevin_res = _set_at(langevin_res, slot, dres, add=True)
 
         # ---- bookkeeping + observables ----
-        mol_mask = group_mask(state.typeid, l_typeid, "molecular")
+        mol_mask = group_mask(state.typeid, l_typeid, "molecular", ghost)
         ke_mol = kinetic_energy(v, state.mass, mol_mask)
         ke_cav = kinetic_energy(v, state.mass, ~mol_mask)
         return _finish(state, pos, image, v, forces, energies, bussi_res,
                        bussi_inst, langevin_res, ke_mol, ke_cav, clist,
                        anchor, (xi, eta))
 
+    def rebind(ff=ff, noise=noise_given):
+        """This step for another force field (a row-split one,
+        ``parallel/shard.py``) or another noise source."""
+        return make_step_fn(ff, methods, extra_obs=extra_obs,
+                            fuse_integrator=fuse_integrator, noise=noise)
+
     step.force_field = ff
+    step.noise = noise
+    step.rebind = rebind
     return step
 
 

@@ -39,7 +39,8 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
                           pair_inert=None, zcol_W=None, enable_cavity=True,
                           enable_coulomb=True, enable_lj=True,
                           enable_bonds=True, custom_forces=(),
-                          dtype=torch.float64, device=None) -> ForceField:
+                          ghost_typeid=-1, dtype=torch.float64,
+                          device=None) -> ForceField:
     """A port ``ForceField`` from the JAX ForceField's leaves.
 
     Dense mode: ``rows_*``/``oh``/``active`` are ``ff.lj_pair``'s fields
@@ -54,7 +55,8 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
     the per-type bond tables and ``bond_group``/``bond_typeid`` the
     snapshot's bond table. ``custom_forces`` are the port-side callables
     (torch functions of the JAX ForceField's ``custom_forces``; a JAX
-    callable cannot be carried across). ``device=None`` is the CUDA
+    callable cannot be carried across). ``ghost_typeid`` is
+    ``ff.ghost_typeid`` (ghost padding). ``device=None`` is the CUDA
     device.
     """
     device = resolve_device(device)
@@ -90,7 +92,8 @@ def forcefield_from_numpy(*, kappa, influence, volume, omegac, couplstr,
         pppm_order=pppm_order, pppm_mesh=pppm_mesh,
         enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
         enable_lj=enable_lj, enable_bonds=enable_bonds,
-        custom_forces=custom_forces, dtype=dtype, device=device,
+        custom_forces=custom_forces, ghost_typeid=ghost_typeid,
+        dtype=dtype, device=device,
     )
 
 

@@ -26,13 +26,16 @@ class ThermodynamicQuantities:
         self.group = group
 
     def _mask(self):
+        """The group's rows; ghost rows (sharding padding) are in none."""
         typeid = _np(self.sim.state.typeid)
         l_typeid = self.sim.ff.l_typeid
+        ghost = self.sim.ff.ghost_typeid
+        real = typeid != ghost if ghost >= 0 else np.ones_like(typeid, bool)
         if self.group == "molecular":
-            return typeid != l_typeid
+            return (typeid != l_typeid) & real
         if self.group == "cavity":
             return typeid == l_typeid
-        return np.ones_like(typeid, bool)
+        return real
 
     @property
     def num_particles(self) -> int:

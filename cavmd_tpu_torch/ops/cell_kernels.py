@@ -31,6 +31,13 @@ exclusions, types, charges and LJ tables shared, and the energies come
 back (B,), each replica's partials summed in a fixed order. The plain twin
 runs the one-replica twin on each replica and stacks the results.
 
+``rows=(row0, n_rows)`` (atom sharding by rows, ``parallel/shard.py``):
+the kernel and its twin keep the i rows whose particle id is in ``[row0,
+row0 + n_rows)``; the forces stay (N, 3), zero on the other rows, and the
+energies are the range's share, so the S ranges of a partition add up to
+the full launch. A launch with a row range counts under its kernel's name
+with ``_rows`` appended (``cell_pair_rows``, ``cell_pair_small_grid_rows``).
+
 ``cell_pair_force_slab`` is the counterpart of a third TPU kernel,
 ``fused_cell_cols_slab_pallas`` (the tile pass of the slab domain
 pipeline, ``parallel/domain.py``): the same kernel launched over the own
@@ -64,7 +71,7 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _ARGS = [_V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _I, _I, _I, _I, _D,
-         _D, _I, _I, _I, _I, _I, _I, _I, _I, _V, _V, _V, _V]
+         _D, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _V, _V, _V, _V]
 _SIGNATURES = {"cavmd_cell_pair_f32": _ARGS, "cavmd_cell_pair_f64": _ARGS}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 WARPS_PER_BLOCK = 8  # csrc/cell_pair.cu kThreads / 32
@@ -97,12 +104,14 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
                                 cfg: CellListConfig, typeid, charge, eps,
                                 sig2, rcut2, vshift, exclusions,
                                 kappa: float, lj_on: bool = True,
-                                coul_on: bool = True, pair_key=None):
+                                coul_on: bool = True, pair_key=None,
+                                row_range=None):
     """Plain twin of the cell kernel: the tile path of ``ops/neighbor.py``,
     in blocks of cells sized by ``cell_block_for`` (bounded tile memory).
     Returns (forces (N, 3), e_lj, e_ewald_short); for a replica batch the
     one-replica twin of each replica, stacked ((B, N, 3), (B,), (B,)), on
-    its own rows of the tables that carry the replica axis."""
+    its own rows of the tables that carry the replica axis. ``row_range``:
+    the row range ``rows`` of the module note."""
     if position.dim() == 3:
         def rows(t, r, dim):  # replica r's table, or the shared one
             return t[r] if t is not None and t.dim() == dim else t
@@ -111,7 +120,8 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
             position[r], box_L, replica_list(clist, r), cfg,
             rows(typeid, r, 2), rows(charge, r, 2), eps, sig2, rcut2,
             vshift, rows(exclusions, r, 3), kappa, lj_on, coul_on,
-            rows(pair_key, r, 2)) for r in range(position.shape[0])]
+            rows(pair_key, r, 2), row_range)
+            for r in range(position.shape[0])]
         return tuple(torch.stack(x) for x in zip(*outs))
     n_types = eps.shape[0]
     zero = position.new_zeros(())
@@ -121,7 +131,7 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
     args = (position, box_L, clist, cfg)
     kw = dict(features=features, exclusions=exclusions,
               cell_block=cell_block_for(cfg, position.element_size()),
-              pair_key=pair_key)
+              pair_key=pair_key, rows=row_range)
     if lj_on and coul_on:
         kern = make_fused_cell_kernel(eps, sig2, rcut2, vshift, kappa,
                                       n_types)
@@ -140,20 +150,22 @@ def cell_pair_force_fused_plain(position, box_L, clist: CellList,
 def cell_pair_force_fused(position, box_L, clist: CellList,
                           cfg: CellListConfig, typeid, charge, eps, sig2,
                           rcut2, vshift, exclusions, kappa: float,
-                          lj_on: bool = True, coul_on: bool = True):
+                          lj_on: bool = True, coul_on: bool = True,
+                          rows=None):
     """Forces and the two pair energies over the cell list: the CUDA
     kernel on a CUDA device, the plain twin on the CPU. ``kappa`` is a host
     float. ``position`` (B, N, 3) with a batched list runs every replica in
     one launch; the energies then are (B,). The launcher rejects what the kernel does not take (more than 8
     types or 8 exclusions a particle, a capacity whose staged rows outgrow
-    a block's shared memory) with an error that ``_cuda.check`` raises."""
+    a block's shared memory) with an error that ``_cuda.check`` raises.
+    ``rows=(row0, n_rows)``: the row range of the module note."""
     if position.device.type == "cpu":
         return cell_pair_force_fused_plain(
             position, box_L, clist, cfg, typeid, charge, eps, sig2, rcut2,
-            vshift, exclusions, kappa, lj_on, coul_on)
+            vshift, exclusions, kappa, lj_on, coul_on, row_range=rows)
     return _launch(kernel_name(cfg), position, box_L, clist, cfg, typeid,
                    charge, eps, sig2, rcut2, vshift, exclusions, kappa,
-                   lj_on, coul_on, (0, cfg.total_cells), None)
+                   lj_on, coul_on, (0, cfg.total_cells), None, rows)
 
 
 def cell_pair_force_slab(position, box_L, clist: CellList,
@@ -187,9 +199,10 @@ def cell_pair_force_slab(position, box_L, clist: CellList,
 
 def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
             rcut2, vshift, exclusions, kappa, lj_on, coul_on, cells,
-            pair_key):
+            pair_key, rows=None):
     """Check the inputs, launch the kernel over ``cells = (first, count)``
-    and count the launch as ``name``."""
+    (and the i rows ``rows = (row0, n_rows)``, None: all) and count the
+    launch as ``name``."""
     if position.device.type != "cuda":
         raise ValueError(
             f"{name}: unsupported device {position.device}")
@@ -215,6 +228,9 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
     first, count = (int(x) for x in cells)
     if first < 0 or count < 1 or first + count > C:
         raise ValueError(f"{name}: cell range {cells} outside {C} cells")
+    row0, n_rows = (0, n) if rows is None else (int(r) for r in rows)
+    if row0 < 0 or n_rows < 1 or row0 + n_rows > n:
+        raise ValueError(f"{name}: rows {rows} outside {n} rows")
     checks = dict(position=(position, dtype, batch + (n, 3)),
                   box_L=(box_L, dtype, (3,)),
                   typeid=(typeid, torch.int32, own + (n,)),
@@ -248,10 +264,11 @@ def _launch(name, position, box_L, clist, cfg, typeid, charge, eps, sig2,
         p(clist.neighbor_cells), p(exclusions), max_excl, n, C, cap,
         cfg.r_cut * cfg.r_cut, float(kappa), int(bool(lj_on)),
         int(bool(coul_on)), first, count, blocks // count, nb,
-        n if own else 0, (n + 1) * max_excl if own else 0,
-        p(pair_key) if pair_key is not None else None, p(forces),
+        n if own else 0, (n + 1) * max_excl if own else 0, row0,
+        row0 + n_rows, p(pair_key) if pair_key is not None else None,
+        p(forces),
         p(partial), _cuda.stream_ptr(position.device))
     _cuda.check(rc, name)
-    _cuda.count_launch(name)
+    _cuda.count_launch(name if rows is None else f"{name}_rows")
     energies = 0.5 * torch.sum(partial, dim=-2)
     return forces, energies[..., 0], energies[..., 1]

@@ -121,14 +121,16 @@ def bond_exclusion_mask(n, bond_group):
 
 
 def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
-                     qq, coulomb_active, kappa, coulomb_rc2):
+                     qq, coulomb_active, kappa, coulomb_rc2, rows=None):
     """Dense LJ + erfc-Coulomb pair pass on (N, N) parameter matrices.
 
     ``lj_active`` / ``coulomb_active`` are the static (N, N) masks; the
     cutoff tests are applied here. Masked pairs contribute exactly zero.
     ``position`` is (N, 3) or a replica batch (..., N, 3) sharing the
     parameter matrices and masks. Returns (forces (..., N, 3), e_lj,
-    e_ewald_short), the energies of the leading shape.
+    e_ewald_short), the energies of the leading shape. ``rows`` (a slice
+    of the i rows): the matrices and masks are (M, N), those rows', and
+    so are the forces (..., M, 3); the energies are the rows' share.
     """
     dtype = position.dtype
     zero = position.new_zeros(())
@@ -137,9 +139,10 @@ def fused_pair_terms(position, box_L, eps, sig2, rcut2, vshift, lj_active,
 
     dxs = []
     r2 = None
+    own = slice(None) if rows is None else rows
     for d in range(3):
         x = position[..., d]
-        dx = x[..., :, None] - x[..., None, :]
+        dx = x[..., own, None] - x[..., None, :]
         dx = dx - box[d] * torch.round(dx / box[d])
         dxs.append(dx)
         r2 = dx * dx if r2 is None else r2 + dx * dx

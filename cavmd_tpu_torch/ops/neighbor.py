@@ -393,7 +393,7 @@ def cell_tiles(position, box_L, clist: CellList, cell_block=None):
 
 def cell_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
                     pair_kernel, features, exclusions=None, cell_block=None,
-                    pair_key=None):
+                    pair_key=None, rows=None):
     """A pair interaction over the cell tiles (the plain tile path).
 
     ``pair_kernel(r2_safe, active, feat_i, feat_j) -> (e, f_over_r)`` with
@@ -403,9 +403,11 @@ def cell_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
     excluded, and r^2 < r_cut^2. ``pair_key`` (N,), when given, is the id
     the self and exclusion tests compare instead of the row id (the slab
     grid maps a halo copy to its resident row). Forces go to the slot
-    owners (an overflow-dropped particle gets zero). Returns (forces
-    (N, 3), energy) or (forces, tuple of energies), each energy half the
-    tile sum.
+    owners (an overflow-dropped particle gets zero). ``rows=(row0,
+    n_rows)`` keeps the pairs whose i row id is in ``[row0, row0 +
+    n_rows)`` (atom sharding by rows): the other rows' forces are zero and
+    the energies are the range's share. Returns (forces (N, 3), energy) or
+    (forces, tuple of energies), each energy half the tile sum.
     """
     n = position.shape[0]
     C, cap = clist.bucket_idx.shape
@@ -424,7 +426,10 @@ def cell_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
         b = idx_i.shape[0]
         key_i, key_j = ((idx_i, id_j) if key_x is None
                         else (key_x[idx_i], key_x[id_j]))
-        active = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
+        own_i = idx_i < n
+        if rows is not None:
+            own_i = own_i & (idx_i >= rows[0]) & (idx_i < rows[0] + rows[1])
+        active = (own_i[:, :, None] & (id_j < n)[:, None, :]
                   & (key_i[:, :, None] != key_j[:, None, :]) & (r2 < rc2))
         if exclusions is not None:
             excl_i = exclusions[idx_i].long()  # (B, cap, E)

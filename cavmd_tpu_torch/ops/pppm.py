@@ -198,6 +198,31 @@ def pppm_force_and_energy(position, charge, box_L, params: PPPMParams,
     return -grad, energy.detach()
 
 
+def pppm_force_and_energy_rows(position, charge, box_L, params: PPPMParams,
+                               order: int, mesh, rows: slice, grid_sum):
+    """The row split of :func:`pppm_force_and_energy` (atom sharding by
+    rows, ``parallel/shard.py``): the particles ``rows`` (a slice of the N
+    rows) are spread into a partial mesh (kernel 2), ``grid_sum`` adds the
+    ranks' partial meshes (a collective: every rank gets the whole
+    mesh), the mesh energy and its gradient with respect to that mesh
+    (the mesh potential) follow by autograd, and the backward of this
+    rank's own spread with the potential as ``grad_outputs`` (kernel 3)
+    gives the rows' forces. Returns (forces of the rows (..., M, 3), the
+    reciprocal energy, alike on every rank). Kernel 2 takes a row slice as
+    it takes any N: its tile path is right for particles in any order."""
+    from cavmd_tpu_torch.ops.pppm_kernels import spread_grid_autograd
+
+    q = charge[..., rows]
+    with torch.enable_grad():
+        pos = position[..., rows, :].detach().contiguous().requires_grad_(True)
+        partial = spread_grid_autograd(pos, q, box_L, order, tuple(mesh))
+        grid = grid_sum(partial.detach()).requires_grad_(True)
+        energy = mesh_energy(grid, params)
+        (potential,) = torch.autograd.grad(energy.sum(), grid)
+        (grad,) = torch.autograd.grad(partial, pos, grad_outputs=potential)
+    return -grad, energy.detach()
+
+
 def pppm_reciprocal_energy(position, charge, box_L, params: PPPMParams,
                            order: int, mesh):
     """The reciprocal-space mesh energy alone: 0-d, or (B,) for a replica

@@ -13,12 +13,19 @@ three operations:
   tensors into one flat buffer in a fixed order, so the force stage costs
   one collective;
 - ``all_gather(t)``: the rows of every rank, rank by rank (the scatter-out
-  of a chunk);
+  of a chunk; a row split's forces);
 - ``stack(t)``: every rank's tensor on a new leading axis, through CPU
   copies (the replica axis's end-of-run gather);
 - ``broadcast(t)``: rank 0's tensor on every rank (a value computed
   alike on every rank whose bits may still differ, such as a sum of
   floating-point atomics on different cards, is made replicated so).
+
+The atom group of a row split (``parallel/shard.py``) uses two of them a
+step, ``sum`` (the partial PPPM meshes) and ``all_gather`` (the rows'
+forces). Over NCCL they take CUDA tensors, one card a rank. Over gloo a
+CUDA tensor goes through a host copy and comes back to its card, so S
+ranks can share one card (as the replica axis lets R ranks share one);
+the compute stays on the card.
 
 At world size 1 the halo is a local copy (the JAX self-``ppermute``) and
 the sums are the identity, so S = 1 runs exactly the S > 1 program.
@@ -73,17 +80,28 @@ class Communicator:
         return (r if self.group is None
                 else dist.get_global_rank(self.group, r))
 
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the device the group's backend takes: a CPU tensor on
+        an NCCL group goes to the current card, a CUDA tensor on a gloo
+        group to the host."""
+        import torch.distributed as dist
+
+        nccl = dist.get_backend(self.group) == "nccl"
+        if t.device.type == "cpu" and nccl:
+            return t.to(torch.device("cuda", torch.cuda.current_device()))
+        if t.device.type == "cuda" and not nccl:
+            return t.cpu()
+        return t
+
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The all-reduce sum of ``t`` over the ranks (``t`` unchanged). A
-        CPU tensor on an NCCL group goes through the current card and
-        comes back to the CPU."""
+        """The all-reduce sum of ``t`` over the ranks (``t`` unchanged),
+        back on ``t``'s device (through a copy where the backend takes
+        another device, ``_staged``)."""
         if self.world_size == 1:
             return t
         import torch.distributed as dist
 
-        out = t.reshape(-1).clone()
-        if out.device.type == "cpu" and dist.get_backend(self.group) == "nccl":
-            out = out.to(torch.device("cuda", torch.cuda.current_device()))
+        out = self._staged(t.reshape(-1)).clone()
         dist.all_reduce(out, group=self.group)
         return out.to(t.device).reshape(t.shape)
 
@@ -124,14 +142,16 @@ class Communicator:
         return left, right
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along dim 0, in rank order."""
+        """Every rank's ``t`` concatenated along dim 0, in rank order, on
+        ``t``'s device (staged as for ``sum``)."""
         if self.world_size == 1:
             return t
         import torch.distributed as dist
 
-        parts = [torch.empty_like(t) for _ in range(self.world_size)]
-        dist.all_gather(parts, t.contiguous(), group=self.group)
-        return torch.cat(parts)
+        src = self._staged(t.contiguous())
+        parts = [torch.empty_like(src) for _ in range(self.world_size)]
+        dist.all_gather(parts, src, group=self.group)
+        return torch.cat(parts).to(t.device)
 
     def stack(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked on a new leading axis, in rank order
@@ -143,14 +163,14 @@ class Communicator:
         return self.all_gather(t.detach().cpu()[None]).to(t.device)
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``t`` on every rank."""
+        """Rank 0's ``t`` on every rank (staged as for ``sum``)."""
         if self.world_size == 1:
             return t
         import torch.distributed as dist
 
-        out = t.contiguous().clone()
+        out = self._staged(t.contiguous()).clone()
         dist.broadcast(out, self._global(0), group=self.group)
-        return out
+        return out.to(t.device)
 
     def barrier(self) -> None:
         if self.world_size > 1:

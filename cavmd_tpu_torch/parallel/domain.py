@@ -61,8 +61,10 @@ Differences from the JAX module:
   pair that straddles the periodic x boundary inside one intact molecule
   meets through the halo copy unexcluded (an LJ + Ewald term at bond
   length); see ``ROADMAP.md`` Queue 3;
-- the port has no ghost padding rows, so the JAX runner's ghost rho(k)
-  term has nothing to add and is not carried.
+- the slab plan takes no ghost padding rows (``parallel.pad_snapshot_to``):
+  a padded scene is refused here and runs on atom sharding by rows
+  (``parallel/shard.py``), which takes them; so the JAX runner's ghost
+  rho(k) term has nothing to add and is not carried.
 """
 
 from __future__ import annotations

@@ -20,7 +20,10 @@ comparison. It is the CPU dry run of an S-slab program::
 ``make_domain_runner(n_replicas=R)`` on R x S ranks, and without a
 process group through ``run_replica_steps`` (its reference). The
 multi-process dry run (``cavmd_tpu_torch/dryrun.py``) holds it against
-its reference.
+its reference. ``rows_dryrun`` does the same for atom sharding by rows
+(``parallel/shard.py``): R replicas of the ghost-padded reference scene
+in dense mode through ``make_sharded_runner`` on an R x S mesh, and
+without a process group through ``run_replica_steps``.
 """
 
 from __future__ import annotations
@@ -236,3 +239,60 @@ def replicas_x_slabs_dryrun(*, n_replicas: int = 2, n_steps: int = 12):
             **XS_ADAPTIVE)
         final, obs = run_replica_steps(step, batch, n_steps)
     return dict(_host_state(final), obs=obs, S=S)
+
+
+def rows_dryrun(*, n_replicas: int = 2, n_shards: int = 2,
+                n_steps: int = 20):
+    """The JAX dry run's GSPMD case on the reference scene: 250 O2/N2
+    diatomics in a 46-bohr box (seed 0) + the photon, ghost-padded to a
+    multiple of ``n_shards``, the default force field (dense, r_cut 15,
+    PPPM 32^3 order 6), float64, Bussi 100 K on the molecules and Langevin
+    on the photon, ``n_replicas`` replicas thermalized at seed 0, dt 0.25
+    fs, ``n_steps`` steps. Under a process group of R x S ranks the batch
+    runs through ``make_sharded_runner(..., batched=True)`` on
+    ``make_mesh(R, S)`` (rank (r, s): replica rows r B/R .. (r+1) B/R,
+    atom rows s N/S ..); without one, ``run_replica_steps`` on the whole
+    batch (the reference). Returns NumPy: the rank's (or the whole
+    batch's) final position, velocity, image and dt, every observable,
+    and its replica rows as (first, stop)."""
+    import torch
+    import torch.distributed as dist
+
+    import cavmd_tpu_torch as pt
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.parallel import (
+        init_replica_states,
+        make_mesh,
+        make_sharded_runner,
+        pad_snapshot_to,
+        run_replica_steps,
+        shard_state,
+    )
+
+    snap = pt.make_diatomic_system(250, box_L=46.0, temperature_K=100.0,
+                                   seed=0, dtype=torch.float64, device="cpu")
+    snap = pt.add_cavity_particle(snap, coupling=1e-3, freq_cm1=2000.0,
+                                  temperature_K=100.0, seed=1)
+    snap, _ = pad_snapshot_to(snap, n_shards)
+    ff = pt.ForceField.create(snap, coupling=1e-3)
+    kT = PC.kT_from_kelvin(100.0)
+    methods = pt.resolve_methods(snap, (
+        pt.MethodSpec("bussi", "molecular", kT=kT,
+                      tau=PC.ps_to_atomic_units(5.0)),
+        pt.MethodSpec("langevin", "cavity", kT=kT,
+                      gamma=PC.gamma_from_tau_ps(5.0))), ff.l_typeid)
+    batch = init_replica_states(snap, ff, n_replicas=n_replicas,
+                                dt=PC.fs_to_atomic_units(0.25), seed=0,
+                                kT=kT)
+    step = pt.make_step_fn(ff, methods)
+    rows = (0, n_replicas)
+    if dist.is_initialized():
+        mesh = make_mesh(n_replicas, n_shards)
+        run = make_sharded_runner(step, mesh, batch, batched=True)
+        r = mesh.replica.rank
+        rows = (r * n_replicas // mesh.shape[0],
+                (r + 1) * n_replicas // mesh.shape[0])
+        final, obs = run(shard_state(batch, mesh, batched=True), n_steps)
+    else:
+        final, obs = run_replica_steps(step, batch, n_steps)
+    return dict(_host_state(final), obs=obs, rows=rows, N=snap.N)

@@ -153,7 +153,8 @@ def init_replica_states(
         snap = snap.to(dev)
         if kT is not None:
             snap = snap.replace(velocity=thermal_velocities(
-                snap.mass, snap.typeid, ff.l_typeid, kT, seed + r))
+                snap.mass, snap.typeid, ff.l_typeid, kT, seed + r,
+                ghost_typeid=ff.ghost_typeid))
         states.append(init_state(snap, ff, dt=dt, seed=seed + r,
                                  error_tolerance=error_tolerance))
     return _stack(states, seed, ff)

@@ -14,15 +14,19 @@ are those of ``make_step_fn`` (NVE, Bussi, Langevin, Brownian, MTTK,
 Berendsen; MTTK and Berendsen run the unfused tail); ``state`` is the
 whole ``MDState``, which ``io.save_checkpoint`` writes for an exact resume.
 
-With ``shard_atoms=S`` the chunks run on the slab domain pipeline
-(``parallel/domain.py``) over S processes, this one being one rank: every
-rank builds the same Simulation, the state is replicated between chunks,
-and trackers and writers see the same observables on every rank. The JAX
-package falls back to GSPMD atom sharding for what the slab path does not
-take (dense mode, an opaque ``extra_obs``, custom forces); GSPMD is not
-ported, so here those raise. ``shard_atoms=1`` runs the slab pipeline in
-this process alone, with no process group (the JAX facade treats 1 as
-unsharded): the single-device cost of the slab layout.
+With ``shard_atoms=S`` the chunks run over S processes, this one being
+one rank: every rank builds the same Simulation, the state is replicated
+between chunks, and trackers and writers see the same observables on
+every rank. The route is the JAX facade's: the slab domain pipeline
+(``parallel/domain.py``) where its plan takes the run; otherwise, with a
+logged warning, atom sharding by rows (``parallel/shard.py``, the
+counterpart of the JAX package's GSPMD fallback: dense mode, custom
+forces, an opaque ``extra_obs``, the methods the slab step refuses, a box
+too narrow for S slabs), which needs N divisible by S
+(``parallel.pad_snapshot_to``). ``shard_atoms=1`` runs the slab pipeline
+in this process alone, with no process group, where it takes the run (the
+single-device cost of the slab layout), and unsharded otherwise, as the
+JAX facade treats 1.
 """
 
 from __future__ import annotations
@@ -53,9 +57,6 @@ from cavmd_tpu_torch.integrate.integrator import (
 # Default residency-rebuild cadence (steps) of the slab domain pipeline, as
 # in the JAX package; a coverage violation halves it for the retry.
 DOMAIN_REBUILD_EVERY = 20
-_NOT_PORTED = ("the JAX package falls back to GSPMD atom sharding there, "
-               "which is not ported (ROADMAP.md, \"Not queued this round\", "
-               "GSPMD pieces)")
 
 
 def retry_state(ff: ForceField, start: MDState,
@@ -80,6 +81,33 @@ def retry_state(ff: ForceField, start: MDState,
         forces, _ = ff(start.position, start.image, start.box_L,
                        start.charge, start.typeid, clist=clist)
     return start.replace(forces=forces, cell_list=clist, cell_anchor=anchor)
+
+
+def slab_refusal(snapshot, ff: ForceField, methods, shard_atoms: int,
+                 extra_obs=None):
+    """(None, the slab plan) when the slab domain pipeline takes the run
+    over ``shard_atoms`` slabs, else (why not, None), in the JAX facade's
+    order of checks: the pair mode, an opaque ``extra_obs``, the methods
+    (resolved), then the plan (custom forces, the molecules, the
+    cutoffs, the box)."""
+    from cavmd_tpu_torch.parallel.domain import (
+        _validate_methods,
+        plan_domain,
+    )
+
+    if ff.pair_mode != "cell":
+        return (f"domain decomposition needs pair_mode='cell' (got "
+                f"{ff.pair_mode!r})"), None
+    if extra_obs is not None and not (hasattr(extra_obs, "dipole")
+                                      and hasattr(extra_obs, "wavevectors")):
+        return ("extra_obs is an opaque state-based callable (build it "
+                "with observe.make_extra_obs to keep the domain "
+                "pipeline)"), None
+    try:
+        _validate_methods(methods)
+        return None, plan_domain(snapshot, ff, shard_atoms)
+    except ValueError as e:
+        return f"domain decomposition unavailable ({e})", None
 
 
 class Simulation:
@@ -107,9 +135,9 @@ class Simulation:
         self._domain_rebuild_every = DOMAIN_REBUILD_EVERY
         self._comm = None
         if shard_atoms >= 1:
-            self._plan_domain(snapshot, forcefield, shard_atoms, extra_obs,
-                              comm)
-        self.state: MDState = init_state(snapshot, forcefield, dt=dt,
+            self._route_shards(snapshot, forcefield, shard_atoms, extra_obs,
+                               comm)
+        self.state: MDState = init_state(snapshot, self.ff, dt=dt,
                                          seed=seed,
                                          error_tolerance=error_tolerance)
         if self._domain_plan is not None:
@@ -128,45 +156,37 @@ class Simulation:
         self._build_step()
         self.last_obs = None
 
-    def _plan_domain(self, snapshot, ff, shard_atoms, extra_obs, comm):
-        """Plan the slabs and take the communicator (at one slab the local
-        one, else the default process group, unless one is given); raise
-        for what the slab path does not take."""
+    def _route_shards(self, snapshot, ff, shard_atoms, extra_obs, comm):
+        """Take the slab path where its plan takes the run; else, at S > 1,
+        bind the force field to rows over the atom group (at S = 1 run
+        unsharded). The communicator: ``comm``, else at one slab the local
+        one and otherwise the default process group."""
         from cavmd_tpu_torch.parallel.comm import Communicator
-        from cavmd_tpu_torch.parallel.domain import (
-            _validate_methods,
-            plan_domain,
-        )
 
-        if ff.pair_mode != "cell":
-            raise NotImplementedError(
-                f"shard_atoms={shard_atoms} needs pair_mode='cell' (got "
-                f"{ff.pair_mode!r}); {_NOT_PORTED}")
-        if ff.custom_forces:
-            raise NotImplementedError(
-                f"shard_atoms={shard_atoms}: the slab path takes no custom "
-                f"forces; {_NOT_PORTED}")
-        if extra_obs is not None and not (hasattr(extra_obs, "dipole")
-                                          and hasattr(extra_obs,
-                                                      "wavevectors")):
-            raise NotImplementedError(
-                f"shard_atoms={shard_atoms}: extra_obs is an opaque "
-                "state-based callable (build it with "
-                f"observe.make_extra_obs for the slab path); {_NOT_PORTED}")
-        _validate_methods(self.methods)
-        try:
-            self._domain_plan = plan_domain(snapshot, ff, shard_atoms)
-        except ValueError as e:
-            raise ValueError(f"shard_atoms={shard_atoms}: {e}; "
-                             f"{_NOT_PORTED}") from e
+        log = logging.getLogger(__name__)
+        reason, self._domain_plan = slab_refusal(
+            snapshot, ff, self.methods, shard_atoms, extra_obs)
+        if reason is not None and shard_atoms == 1:
+            log.warning("shard_atoms=1: %s; running unsharded", reason)
+            return
+        if reason is not None:
+            log.warning("shard_atoms=%d: %s; falling back to atom sharding "
+                        "by rows (parallel/shard.py)", shard_atoms, reason)
+            if snapshot.N % shard_atoms:
+                raise ValueError(
+                    f"N={snapshot.N} not divisible by shard_atoms="
+                    f"{shard_atoms}; pad the snapshot first "
+                    "(cavmd_tpu_torch.parallel.pad_snapshot_to)")
         if comm is None:
             comm = (Communicator() if shard_atoms == 1
                     else Communicator.from_process_group())
-        self._comm = comm
-        if self._comm.world_size != shard_atoms:
+        if comm.world_size != shard_atoms:
             raise ValueError(
                 f"shard_atoms={shard_atoms} but the process group has "
-                f"{self._comm.world_size} ranks")
+                f"{comm.world_size} ranks")
+        self._comm = comm
+        if reason is not None:
+            self.ff = ff.bind_rows(comm)
 
     def _build_step(self):
         """(Re)build the chunk runner from the current ForceField (or
@@ -228,7 +248,8 @@ class Simulation:
         st = self.state
         self.state = st.replace(velocity=thermal_velocities(
             st.mass, st.typeid, self.ff.l_typeid, kT, seed,
-            molecular_only=molecular_only, photon_kT=photon_kT))
+            molecular_only=molecular_only, photon_kT=photon_kT,
+            ghost_typeid=self.ff.ghost_typeid))
 
     def set_optimal_timestep(self, tolerance: float) -> float:
         """Bootstrap dt from the current forces; returns it (one read-back)."""
@@ -312,7 +333,7 @@ class Simulation:
                     "cell-list overflow: re-planned (%s), retrying the "
                     "chunk", self._plan_text())
                 self.state = retry_state(self.ff, start, rng_states)
-                if self._comm is not None:  # replicated start forces
+                if self._domain_plan is not None:  # replicated start forces
                     self.state = self.state.replace(
                         forces=self._comm.broadcast(self.state.forces))
             self.last_obs = obs
@@ -336,8 +357,15 @@ class Simulation:
         return (float(self.state.time_au)
                 * PhysicalConstants.TIME_PS_CONVERSION)
 
-    def get_snapshot(self) -> Snapshot:
-        """The current state as a Snapshot (GSD-compatible)."""
+    def get_snapshot(self, *, strip_ghosts: bool = True) -> Snapshot:
+        """The current state as a Snapshot (GSD-compatible). Ghost rows
+        (sharding padding, a tail after every real row) are left out
+        unless ``strip_ghosts`` is False, so trajectory files hold the
+        physical particles only."""
         s = self.state
-        return self.snapshot.replace(position=s.position, image=s.image,
+        snap = self.snapshot.replace(position=s.position, image=s.image,
                                      velocity=s.velocity)
+        gid = self.ff.ghost_typeid
+        if strip_ghosts and gid >= 0:
+            snap = snap.strip_tail(int(torch.sum(snap.typeid != gid)))
+        return snap

@@ -228,6 +228,26 @@ Phases:
      ``build_large_n(10_000)``'s scene in cell mode with the trap for one
      chunk: no overflow, the cell kernel once a step, finite energies; (d)
      ``Simulation.run(profile_dir=)`` writes a trace that names K1.
+ 18. atom sharding by rows (``parallel/shard.py``, for what the slab path
+     does not take): (a) K1 with a row range (``dense_pair_rows``) on
+     ROWS_S row blocks of the N = 501 scene and of REPLICA_B replicas of
+     it in one launch, float32 and float64, against its twin on the same
+     rows and the full launch's rows, the blocks' energy shares summed
+     against the full launch's; (b) the cell kernel's row range
+     (``cell_pair_rows``) at N = 2 HELD_N_MOL + 1 and on the small grid:
+     each block against its twin, the blocks' forces summed equal to the
+     full launch's bit for bit; in float32 the first block's time, its
+     twin's and its bound; (c) ``Simulation(shard_atoms=2)`` on ROWS_S
+     gloo ranks sharing the card (host-staged collectives) on the
+     reference scene ghost-padded to 502, dense: float64 over
+     ROWS_F64_STEPS steps within TRAJ_TOL_BOHR of the one-rank run,
+     float32 on SHORT_RUN with its universe drift held to phase 3's
+     DRIFT_BOUND_HA, each rank's K1 row range, K2 and K3 once a step and
+     K4/K5 once a step in float32; (d) N = 2 HELD_N_MOL + 1 in cell mode
+     (an opaque ``extra_obs``: the row path) for ROWS_CELL_STEPS steps,
+     the cell kernel's row range once a step on each rank. The
+     ``dense_pair_rows`` and ``cell_pair_rows`` rows take their launches
+     from (c)'s float32 run and (d).
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
@@ -1095,11 +1115,13 @@ def kernel_phase(torch, pt, n_molecules, box_L, dtype, timed,
 
 
 def pair_counts(torch, tiles, n, exclusions, typeid, charge, ff, rc2,
-                pair_key=None):
+                pair_key=None, rows=None):
     """Pair counts over a pair pass's candidate tiles ``(rows, idx_i,
     id_j, dxs, r2)``: (inside the cutoff with both slots real, counted
     (not self, not excluded), in the LJ range, charged). ``pair_key``
-    (N,), when given, is the id the self and exclusion tests compare."""
+    (N,), when given, is the id the self and exclusion tests compare;
+    ``rows`` = (row0, n_rows), when given, keeps the i rows of that
+    range."""
     tid = torch.cat([typeid.long(), typeid.new_zeros(1).long()])
     q = torch.cat([charge, charge.new_zeros(1)])
     key = torch.arange(n + 1, device=charge.device)
@@ -1110,7 +1132,10 @@ def pair_counts(torch, tiles, n, exclusions, typeid, charge, ff, rc2,
         ki, kj = key[idx_i], key[id_j]
         excl = exclusions[idx_i].long()
         hit = (excl[:, :, None, :] == kj[:, None, :, None]).any(-1)
-        near = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
+        real_i = idx_i < n
+        if rows is not None:
+            real_i = real_i & (idx_i >= rows[0]) & (idx_i < sum(rows))
+        near = (real_i[:, :, None] & (id_j < n)[:, None, :]
                 & (r2 < rc2))
         inside = near & (ki[:, :, None] != kj[:, None, :]) & ~hit
         ti, tj = tid[idx_i][:, :, None], tid[id_j][:, None, :]
@@ -1124,7 +1149,7 @@ def pair_counts(torch, tiles, n, exclusions, typeid, charge, ff, rc2,
 
 
 def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
-                     exclusions, n_blocks, pair_key=None):
+                     exclusions, n_blocks, pair_key=None, rows=None):
     """(bytes moved, operations, pair counts) of one cell-kernel call on
     this run's inputs, counted cell by cell from the plain twin's tiles
     (block by block; no (N, N) tensor). Bytes: positions, box, typeid,
@@ -1142,7 +1167,10 @@ def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
     divide, a rint, a multiply and a subtraction); per pair inside the
     cutoff the self test and the exclusion compares (1 + E); per counted
     pair 6 to accumulate the force, 17 more in the LJ range, 20 more (sqrt,
-    erfc and exp each counted as one) for a charged pair."""
+    erfc and exp each counted as one) for a charged pair. ``rows`` =
+    (row0, n_rows): a launch with that row range, which needs the work of
+    its own i rows only (the cells that hold one stage their window) and
+    writes their forces."""
     from cavmd_tpu_torch.ops.neighbor import cell_block_for, cell_tiles
 
     n, e = position.shape[0], position.element_size()
@@ -1152,16 +1180,22 @@ def cell_work_counts(torch, position, box_L, clist, cfg, typeid, charge, ff,
     occ = (clist.bucket_idx < n).sum(dim=1)
     occ_x = torch.cat([occ, occ.new_zeros(1)])
     window = occ_x[clist.neighbor_cells.long()].sum(dim=1)
-    n_cand = int((occ * window).sum())
-    n_staged = int(window[occ > 0].sum())
+    own, n_out = occ, n
+    if rows is not None:
+        b = clist.bucket_idx
+        own = ((b >= rows[0]) & (b < sum(rows)) & (b < n)).sum(dim=1)
+        n_out = rows[1]
+    n_cand = int((own * window).sum())
+    n_staged = int(window[own > 0].sum())
     small_axes = sum(1 for k in cfg.ncells if k < 3)
     n_near, n_in, n_lj, n_ew = pair_counts(
         torch, cell_tiles(position, box_L, clist, cell_block_for(cfg, e)),
-        n, exclusions, typeid, charge, ff, cfg.r_cut * cfg.r_cut, pair_key)
+        n, exclusions, typeid, charge, ff, cfg.r_cut * cfg.r_cut, pair_key,
+        rows)
     n_bytes = (e * (3 * n + 3 + n + 4 * T * T) + 4 * n
                + 4 * (C * cap + 27 * C + (n + 1) * E)
                + (4 * n if pair_key is not None else 0)
-               + e * (3 * n + 2 * n_blocks))
+               + e * (3 * n_out + 2 * n_blocks))
     n_ops = (3 * n_staged + (9 + 4 * small_axes) * n_cand
              + (1 + E) * n_near + 6 * n_in + 17 * n_lj + 20 * n_ew)
     return n_bytes, n_ops, dict(candidates=n_cand, staged_rows=n_staged,
@@ -4964,6 +4998,335 @@ def profile_dir_path(torch, pt):
          f"{PROFILE_TRIES} runs (mentions {seen})")
 
 
+# phase 18: atom sharding by rows (parallel/shard.py). The kernels' row
+# ranges cut the rows into ROWS_S blocks; 18c runs ROWS_S ranks sharing the
+# card over gloo (host-staged collectives): ROWS_F64_STEPS float64 steps
+# held to TRAJ_TOL_BOHR against the one-rank run, SHORT_RUN in float32 held
+# to phase 3's DRIFT_BOUND_HA; 18d ROWS_CELL_STEPS steps in cell mode
+ROWS_S = 2
+ROWS_F64_STEPS = 100
+ROWS_CELL_STEPS = 20
+# the kernels line's row-range rows -> the kernel each one is a range of
+ROWS_KERNELS = {"dense_pair_rows": "dense_pair",
+                "cell_pair_rows": "cell_pair"}
+
+
+def row_ranges(n, S):
+    """The S contiguous row blocks of n rows, [s n / S, (s + 1) n / S), as
+    (row0, n_rows)."""
+    return [(s * n // S, (s + 1) * n // S - s * n // S) for s in range(S)]
+
+
+def dense_rows_work(torch, snap, ff, rows, blocks):
+    """(bytes, operations) of one K1 launch over the i rows ``rows`` =
+    (row0, n_rows) against all N j rows, counted as ``work_counts`` counts
+    the full launch: the positions, box, types, charges and tables in, the
+    range's two mask rows (n_rows x N bytes each) in; the range's forces
+    and ``blocks`` energy partials out; the operations of the range's
+    masked pairs and of those inside a cutoff."""
+    from cavmd_tpu_torch.core.box import minimum_image
+
+    row0, n_rows = rows
+    own = slice(row0, row0 + n_rows)
+    n, e = snap.N, snap.position.element_size()
+    T = ff.lj_eps.shape[0]
+    pos = snap.position.double()
+    dr = minimum_image(pos[own, None, :] - pos[None, :, :],
+                       snap.box_L.double())
+    r2 = (dr * dr).sum(-1)
+    lj, cw = ff.lj_active[own].bool(), ff.coulomb_active[own].bool()
+    tid = snap.typeid.long()
+    rc2 = ff.lj_rcut2.double()[tid[own, None], tid[None, :]]
+    in_lj = lj & (r2 < rc2)
+    in_cw = cw & (r2 < ff.coulomb_rcut ** 2)
+    n_masked = int((lj | cw).sum())
+    n_in = int((in_lj | in_cw).sum())
+    return (e * (3 * n + 3 + 4 * T * T + n) + 4 * n + 2 * n_rows * n
+            + e * (3 * n_rows + 2 * blocks),
+            18 * n_masked + 6 * n_in + 15 * int(in_lj.sum())
+            + 18 * int(in_cw.sum()))
+
+
+def rows_kernel_phase(torch, pt, dtype, timed):
+    """Phase 18a and 18b: the kernels with a row range, on ROWS_S row
+    blocks, against their plain twins (the same rows) and against the full
+    launch. (a) K1 on the N = 501 scene and on REPLICA_B replicas of it
+    (phase 11's jitter) in one launch: each block's forces within TOL of
+    the twin's and of the full launch's rows (and whether they are its
+    bits), its energy shares within TOL of the twin's, the shares summed
+    within TOL of the full launch's energies. (b) the cell kernel at
+    N = 2 HELD_N_MOL + 1 (10^3 cells) and on the N = 501 scene in cell
+    mode (the small grid, 2^3 cells): each block against its twin, and the
+    blocks' forces summed equal to the full launch's bit for bit (a row is
+    computed once, by the same warp, in the same order), their energy
+    shares summed within TOL. In float32 the first block's launch is
+    timed (``ms``), with its twin (``plain_ms``) and its bound from its
+    own rows' work."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.ops import cell_kernels as ck
+    from cavmd_tpu_torch.ops import pair_kernels as pk
+
+    dev = torch.device("cuda")
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]
+    out = {}
+
+    def close(label, a, b, scale=None):
+        err, ref = max_err(a, b)
+        ref = ref if scale is None else scale
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+        check(err <= tol * max(ref, 1e-300),
+              f"{label}: max|diff| {err} > {tol}*{ref}")
+        return err
+
+    # 18a: K1
+    snap = reference_scene(pt, 250, 46.0, dtype, dev)
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0)
+    args = (snap.position, snap.box_L, snap.typeid, ff.lj_eps, ff.lj_sig2,
+            ff.lj_rcut2, ff.lj_vshift, snap.charge, ff.lj_active,
+            ff.coulomb_active, ff.kappa_value, ff.coulomb_rcut ** 2)
+    bargs = (jitter_rows(torch, snap.position, REPLICA_B, 0.3, 1),) + args[1:]
+    k1 = {}
+    for label, a in (("one replica", args), (f"B={REPLICA_B}", bargs)):
+        full = pk.dense_pair_force(*a)
+        shares = [0.0, 0.0]
+        errs, same_bits = [], True
+        for r0, m in row_ranges(snap.N, ROWS_S):
+            tag = f"phase 18a dense_pair rows [{r0}, {r0 + m}) {label} {name}"
+            k = pk.dense_pair_force(*a, rows=(r0, m))
+            p = pk.dense_pair_force_plain(*a, rows=(r0, m))
+            torch.cuda.synchronize()
+            check(tuple(k[0].shape) == tuple(p[0].shape)
+                  and k[0].shape[-2] == m, f"{tag}: forces {k[0].shape}")
+            errs.append(max(close(f"{tag} vs twin F", k[0], p[0]),
+                            close(f"{tag} vs twin E_lj", k[1], p[1]),
+                            close(f"{tag} vs twin E_ew", k[2], p[2])))
+            rows_full = full[0][..., r0:r0 + m, :]
+            close(f"{tag} vs the full launch's rows", k[0], rows_full,
+                  scale=float(full[0].double().abs().max()))
+            same_bits &= torch.equal(k[0], rows_full)
+            shares = [shares[0] + k[1], shares[1] + k[2]]
+        for i, what in ((0, "E_lj"), (1, "E_ew")):
+            close(f"phase 18a dense_pair {label} {name}: the row blocks' "
+                  f"{what} summed vs the full launch", shares[i],
+                  full[i + 1], scale=float(full[i + 1].double().abs().max()))
+        k1[label] = dict(max_abs_err=max(errs), rows_bit_equal=same_bits)
+    out["dense_pair_rows"] = dict(max_abs_err=k1["one replica"][
+        "max_abs_err"], batched=k1[f"B={REPLICA_B}"], n=snap.N,
+        rows=row_ranges(snap.N, ROWS_S),
+        rows_bit_equal=k1["one replica"]["rows_bit_equal"])
+    first = row_ranges(snap.N, ROWS_S)[0]
+    calls = {"dense_pair_rows": (
+        lambda: pk.dense_pair_force(*args, rows=first),
+        lambda: pk.dense_pair_force_plain(*args, rows=first))}
+    counts = {"dense_pair_rows": dense_rows_work(
+        torch, snap, ff, first, pk.launch_blocks(first[1]))}
+
+    # 18b: the cell kernel (K6's counterpart) and the small grid (K8's)
+    for key, n_mol, box in (
+            ("cell_pair_rows", HELD_N_MOL, reference_box_for(HELD_N_MOL)),
+            ("cell_pair_small_grid_rows", 250, 46.0)):
+        csnap = reference_scene(pt, n_mol, box, dtype, dev)
+        cff = pt.ForceField.create(csnap, coupling=1e-3, freq_cm1=2000.0,
+                                   pair_mode="cell")
+        clist = cff.build_cells(csnap.position, csnap.box_L)
+        check(not bool(clist.overflow), f"phase 18b {key}: overflow")
+        cargs = (csnap.position, csnap.box_L, clist, cff.cell_cfg,
+                 csnap.typeid, csnap.charge, cff.lj_eps, cff.lj_sig2,
+                 cff.lj_rcut2, cff.lj_vshift, cff.cell_exclusions,
+                 cff.kappa_value)
+        check(f"{ck.kernel_name(cff.cell_cfg)}_rows" == key,
+              f"phase 18b {key}: grid {cff.cell_cfg.ncells}")
+        full = ck.cell_pair_force_fused(*cargs)
+        summed, shares, errs = torch.zeros_like(full[0]), [0.0, 0.0], []
+        for r0, m in row_ranges(csnap.N, ROWS_S):
+            tag = f"phase 18b {key} rows [{r0}, {r0 + m}) {name}"
+            k = ck.cell_pair_force_fused(*cargs, rows=(r0, m))
+            p = ck.cell_pair_force_fused_plain(*cargs, row_range=(r0, m))
+            torch.cuda.synchronize()
+            errs.append(max(close(f"{tag} vs twin F", k[0], p[0]),
+                            close(f"{tag} vs twin E_lj", k[1], p[1]),
+                            close(f"{tag} vs twin E_ew", k[2], p[2])))
+            outside = torch.ones(csnap.N, dtype=torch.bool, device=dev)
+            outside[r0:r0 + m] = False
+            check(bool((k[0][outside] == 0).all()),
+                  f"{tag}: forces outside the range")
+            summed = summed + k[0]
+            shares = [shares[0] + k[1], shares[1] + k[2]]
+            del p
+        check(torch.equal(summed, full[0]),
+              f"phase 18b {key} {name}: the row blocks' forces summed "
+              "differ from the full launch's")
+        for i, what in ((0, "E_lj"), (1, "E_ew")):
+            close(f"phase 18b {key} {name}: the row blocks' {what} summed "
+                  "vs the full launch", shares[i], full[i + 1],
+                  scale=float(full[i + 1].double().abs().max()))
+        out[key] = dict(max_abs_err=max(errs), n=csnap.N,
+                        ncells=cff.cell_cfg.ncells, blocks_sum_bit_equal=True,
+                        rows=row_ranges(csnap.N, ROWS_S))
+        if key == "cell_pair_rows":
+            cfirst = row_ranges(csnap.N, ROWS_S)[0]
+            calls[key] = (
+                lambda a=cargs, r=cfirst: ck.cell_pair_force_fused(*a,
+                                                                   rows=r),
+                lambda a=cargs, r=cfirst: ck.cell_pair_force_fused_plain(
+                    *a, row_range=r))
+            counts[key] = cell_work_counts(
+                torch, *cargs[:4], csnap.typeid, csnap.charge, cff,
+                cff.cell_exclusions, ck.launch_blocks(
+                    cff.cell_cfg.total_cells, cff.cell_cfg.cap, dev),
+                rows=cfirst)
+        torch.cuda.empty_cache()
+    if timed:
+        for key, (kern, plain) in calls.items():
+            out[key]["ms"] = device_ms(torch, kern)
+            out[key]["plain_ms"] = profiled_device_ms(torch, plain)
+            n_bytes, n_ops, *extra = counts[key]
+            out[key]["bound_ms"], out[key]["bound_by"] = bound_ms(n_bytes,
+                                                                  n_ops)
+            out[key]["bytes"], out[key]["ops"] = n_bytes, n_ops
+            if extra:
+                out[key]["pairs"] = extra[0]
+    for key, r in out.items():
+        print(f"phase 18: {key} {name}: " + ", ".join(
+            f"{k}={v!r}" for k, v in r.items()), flush=True)
+    return out
+
+
+def rows_scene(torch, pt, dtype, mode):
+    """18c's scene (the reference scene, dense) or 18d's (2 HELD_N_MOL + 1
+    particles, cell mode), on the card, ghost-padded to a multiple of
+    ROWS_S: (snapshot, force field)."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.parallel import pad_snapshot_to
+
+    dev = torch.device("cuda")
+    if mode == "dense":
+        snap = reference_scene(pt, 250, 46.0, dtype, dev)
+    else:
+        snap = reference_scene(pt, HELD_N_MOL, reference_box_for(HELD_N_MOL),
+                               dtype, dev)
+    snap, _ = pad_snapshot_to(snap, ROWS_S)
+    return snap, pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                                      pair_mode=mode)
+
+
+def rows_run_job(dtype_name, mode, warm, chunks, chunk):
+    """A ``run_ranks`` job (18c, 18d), or without a process group its
+    one-rank reference: ``rows_scene(mode)`` through
+    ``Simulation(shard_atoms=S)``, S the world size (0 without a group),
+    Bussi + Langevin at dt 0.25 fs, seed 7, thermalized, ``warm`` steps
+    then ``chunks`` chunks of ``chunk``. In cell mode ``extra_obs`` is an
+    opaque callable, which the slab path refuses, so the run takes the row
+    path. Returns NumPy: the final positions, every observable of the
+    chunks, this rank's launches, the chunks' seconds, the route."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import cavmd_tpu_torch as pt
+    from cavmd_tpu_torch.core import PhysicalConstants as PC
+    from cavmd_tpu_torch.ops import _cuda
+
+    S = dist.get_world_size() if dist.is_initialized() else 0
+    dtype = getattr(torch, dtype_name)
+    snap, ff = rows_scene(torch, pt, dtype, mode)
+    kT = PC.kT_from_kelvin(100.0)
+    _cuda.reset_launches()
+    sim = pt.Simulation(snap, ff, main_methods(pt, kT),
+                        dt=PC.fs_to_atomic_units(LARGE_DT_FS), seed=7,
+                        chunk_size=chunk, shard_atoms=S,
+                        extra_obs=(lambda state: {}) if mode == "cell"
+                        else None)
+    sim.thermalize(kT)
+    if warm:
+        sim.run(n_steps=warm)
+    outs, chunk_s = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        sim.run(n_steps=chunk)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        outs.append(sim.last_obs)
+    return dict(position=sim.state.position.cpu().numpy(),
+                obs={k: np.concatenate([o[k] for o in outs])
+                     for k in outs[0]},
+                launches=dict(_cuda.launches), chunk_s=chunk_s, n=snap.N,
+                rows=sim.ff.row_comm is not None
+                and sim._domain_plan is None,
+                on_card=sim.state.position.is_cuda)
+
+
+def rows_path_phase(torch, pt):
+    """Phase 18c and 18d: one ``run_ranks`` spawn of ROWS_S gloo ranks
+    sharing the card (host-staged collectives) runs (c) the padded
+    reference scene (N = 502, dense) through ``Simulation(shard_atoms=2)``
+    in float64 for ROWS_F64_STEPS steps, held to TRAJ_TOL_BOHR against
+    the one-rank run in this process, and in float32 on SHORT_RUN, its
+    universe drift held to DRIFT_BOUND_HA: on each rank K1 (its row
+    range, ``dense_pair_rows``), K2 and K3 once a step and for the
+    initial forces, the full K1 never, K4/K5 once a step in float32 and
+    never in float64; (d) 2 HELD_N_MOL + 1 particles (padded to 20,002)
+    in cell mode with an opaque ``extra_obs``, ROWS_CELL_STEPS float32
+    steps: the cell kernel's row range once a step on each rank and no
+    overflow. The ranks' states agree bit for bit."""
+    import numpy as np
+
+    from cavmd_tpu_torch.integrate import universe_energy
+    from cavmd_tpu_torch.parallel.launch import run_ranks
+
+    warm, chunks, chunk = SHORT_RUN
+    t0 = time.perf_counter()
+    f64, f32, cell = run_ranks([
+        (rows_run_job, ("float64", "dense", 0, 1, ROWS_F64_STEPS)),
+        (rows_run_job, ("float32", "dense", warm, chunks, chunk)),
+        (rows_run_job, ("float32", "cell", 0, 1, ROWS_CELL_STEPS))],
+        ROWS_S, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    ref = rows_run_job("float64", "dense", 0, 1, ROWS_F64_STEPS)
+    res = dict(spawn_s=spawn_s)
+    for label, runs, steps, pair, fused in (
+            ("18c f64", f64, ROWS_F64_STEPS, "dense_pair", False),
+            ("18c f32", f32, warm + chunks * chunk, "dense_pair", True),
+            ("18d cell f32", cell, ROWS_CELL_STEPS, "cell_pair", True)):
+        for k, r in enumerate(runs):
+            tag = f"phase {label} rank {k} N={r['n']}"
+            check(r["rows"] and r["on_card"], f"{tag}: not on the row path "
+                  "on the card")
+            want = {f"{pair}_rows": steps + 1, pair: 0,
+                    "pppm_spread": steps + 1, "pppm_interpolate": steps + 1,
+                    "fused_pre_force": steps if fused else 0,
+                    "fused_post_force": steps if fused else 0}
+            for kname, n in want.items():
+                got = r["launches"].get(kname, 0)
+                check(got == n, f"{tag}: {kname} launched {got} times "
+                      f"(want {n})")
+            for key, v in r["obs"].items():
+                check(bool(np.all(np.isfinite(v))), f"{tag}: non-finite "
+                      f"{key}")
+            check(np.array_equal(r["position"], runs[0]["position"]),
+                  f"{tag}: the ranks' states differ")
+        res[label] = dict(launches=runs[0]["launches"], n=runs[0]["n"],
+                          steps=steps)
+    dx = float(np.abs(f64[0]["position"] - ref["position"]).max())
+    check(not ref["rows"] and dx <= TRAJ_TOL_BOHR,
+          f"phase 18c f64: max|dx| {dx} vs the one-rank run > "
+          f"{TRAJ_TOL_BOHR}")
+    U = universe_energy(f32[0]["obs"])
+    drift = float(np.abs(U - U[0]).max())
+    check(drift < DRIFT_BOUND_HA,
+          f"phase 18c f32: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
+    check(not cell[0]["obs"]["cell_overflow"].any(), "phase 18d: overflow")
+    res.update(f64_max_dx_bohr=dx, f32_universe_drift_ha=drift,
+               f32_steps_per_s=statistics.median(
+                   chunk / s for s in f32[0]["chunk_s"]),
+               cell_ms_per_step=1e3 * cell[0]["chunk_s"][0]
+               / ROWS_CELL_STEPS)
+    print("phase 18: rows path " + ", ".join(
+        f"{k}={v!r}" for k, v in res.items()), flush=True)
+    return res
+
+
 def main() -> None:
     clock = PhaseClock()
     try:
@@ -5367,6 +5730,29 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(17)
 
+    # phase 18: atom sharding by rows: K1 and the cell kernel with a row
+    # range, and Simulation(shard_atoms=2) on two ranks sharing the card
+    rk18 = {}
+    for dtype in (torch.float32, torch.float64):
+        r = rows_kernel_phase(torch, pt, dtype, timed=dtype == torch.float32)
+        if dtype == torch.float32:
+            rk18 = r
+        torch.cuda.empty_cache()
+    rows18 = rows_path_phase(torch, pt)
+    print(f"phase 18: dense_pair_rows N={rk18['dense_pair_rows']['n']} "
+          f"{rk18['dense_pair_rows']['ms']:.4f} ms (full launch "
+          f"{shapes[(250, None)]['dense_pair']['ms']:.4f} ms), "
+          f"cell_pair_rows N={rk18['cell_pair_rows']['n']} "
+          f"{rk18['cell_pair_rows']['ms']:.4f} ms; 2 ranks on one card: "
+          f"f64 max|dx| {rows18['f64_max_dx_bohr']:.2e} bohr, f32 "
+          f"{rows18['f32_steps_per_s']:.1f} steps/s (phase 3 fused "
+          f"{fused['steps_per_s']:.1f}), drift "
+          f"{rows18['f32_universe_drift_ha']:.3e} Ha, cell N="
+          f"{rows18['18d cell f32']['n']} "
+          f"{rows18['cell_ms_per_step']:.3f} ms/step", flush=True)
+    check("jax" not in sys.modules, "the port imported jax")
+    clock.lap(18)
+
     print(f"summary: {kind} | {card} | N=501 f32 Bussi+Langevin "
           f"Simulation.run {fused['steps_per_s']:.1f} steps/s fused, "
           f"{unfused['steps_per_s']:.1f} unfused (medians of {N_CHUNKS} "
@@ -5439,7 +5825,12 @@ def main() -> None:
           f"{ex16['07']['splitting_cm1']:.2f} cm^-1 | custom force: N=501 "
           f"{cf['steps_per_s']:.1f} steps/s drift "
           f"{cf['universe_drift_ha']:.3e} Ha, f64 batch {cf_f64:.2e} bohr, "
-          f"N={cf_large['n']} {cf_large['ms_per_step']:.3f} ms/step | script "
+          f"N={cf_large['n']} {cf_large['ms_per_step']:.3f} ms/step | rows: "
+          f"dense_pair_rows {rk18['dense_pair_rows']['ms']:.4f} ms, "
+          f"cell_pair_rows {rk18['cell_pair_rows']['ms']:.4f} ms, 2 ranks "
+          f"f64 {rows18['f64_max_dx_bohr']:.2e} bohr, f32 "
+          f"{rows18['f32_steps_per_s']:.1f} steps/s drift "
+          f"{rows18['f32_universe_drift_ha']:.3e} Ha | script "
           f"{clock.total():.1f} s, "
           + ", ".join(f"phase {p} {t:.1f} s"
                       for p, t in sorted(clock.seconds.items())),
@@ -5494,6 +5885,14 @@ def main() -> None:
     shapes["slabs"] = {f"cell_pair_slab_b{REPLICA_B}": slabs15["kernel"]}
     batched[f"cell_pair_slab_b{REPLICA_B}"] = "cell_pair_slab"
     where[f"cell_pair_slab_b{REPLICA_B}"] = ("slabs", slabs15["launches"])
+    # the row-range rows: timed on phase 18a/18b's first block in float32,
+    # launched by 18c's float32 run (K1) and 18d's (the cell kernel)
+    shapes["rows"] = rk18
+    for k, base in ROWS_KERNELS.items():
+        batched[k] = base
+        where[k] = ("rows", {base: rows18[
+            "18c f32" if base == "dense_pair" else "18d cell f32"][
+            "launches"].get(k, 0)})
     kernels = []
     for k in list(KERNELS) + list(batched):
         src, rep = KERNELS[batched.get(k, k)]

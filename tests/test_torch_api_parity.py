@@ -85,15 +85,7 @@ NOT_PORTED = {
     # the slab path's shard_map plumbing: the port's slabs are processes
     "AXIS": "covered by parallel/comm.py:Communicator",
     "RepState": "covered by parallel/domain.py:make_domain_step",
-    # GSPMD
-    "make_mesh": 'ROADMAP: "GSPMD pieces:** `parallel/shard.py`, '
-                 '`parallel/mesh.py`"',
-    "state_shardings": 'ROADMAP: "`parallel/mesh.py` `state_shardings`"',
-    "pad_snapshot_to":
-        'ROADMAP: "`--pad-atoms`, the GSPMD single-device comparator"',
-    "make_sharded_runner": 'ROADMAP: "GSPMD pieces:** `parallel/shard.py`"',
-    "make_sharded_step": 'ROADMAP: "GSPMD pieces:** `parallel/shard.py`"',
-    "shard_state": 'ROADMAP: "GSPMD pieces:** `parallel/shard.py`"',
+    # XLA's compile cache
     "enable_persistent_cache": 'ROADMAP: "`utils/jitcache.py`"',
 }
 
@@ -106,16 +98,7 @@ _RNG = ('ROADMAP: "`rng_impl=` on `init_state`, `Simulation` and '
 _PACKS = ('ROADMAP: "the Pallas packs and the XLA tile pass\'s feature '
           'tables"')
 SIGNATURE_GAPS = {
-    # GSPMD and its ghost padding, the JAX PRNG backends
-    "core/snapshot.py:Snapshot.strip_tail": 'ROADMAP: "`Snapshot.strip_tail`"',
-    "simulation.py:Simulation.get_snapshot(strip_ghosts)":
-        'ROADMAP: "`Simulation.get_snapshot(strip_ghosts=)`"',
-    "integrate/integrator.py:group_mask(ghost_typeid)":
-        'ROADMAP: "`group_mask(ghost_typeid=)`"',
-    "integrate/forcefield.py:ForceField.ghost_typeid":
-        'ROADMAP: "`group_mask(ghost_typeid=)`"',
-    "drivers/advanced_run.py:CavityMDSimulation.__init__(pad_atoms)":
-        'ROADMAP: "`--pad-atoms`, the GSPMD single-device comparator"',
+    # the JAX PRNG backends
     "drivers/advanced_run.py:CavityMDSimulation.__init__(rng_impl)": _RNG,
     "integrate/integrator.py:init_state(rng_impl)": _RNG,
     "simulation.py:Simulation.__init__(rng_impl)": _RNG,

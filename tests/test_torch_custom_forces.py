@@ -536,10 +536,15 @@ def test_overflow_retry_keeps_the_callables(world):
 
 def test_slab_path_refuses_custom_forces():
     """``plan_domain`` raises ValueError, as the JAX plan does
-    (``cavmd_tpu/parallel/domain.py:285``); ``Simulation(shard_atoms>=1)``
-    raises NotImplementedError: the JAX facade falls back to GSPMD there,
-    which is not ported."""
+    (``cavmd_tpu/parallel/domain.py:285``). ``Simulation(shard_atoms=1)``
+    then runs unsharded, as the JAX facade treats 1, bit for bit the
+    unsharded run; ``shard_atoms=2`` falls back to atom sharding by rows
+    (the JAX facade's GSPMD fallback) and, on two thread ranks, matches
+    the unsharded run to 1e-10 (60 diatomics + photon in a 24-bohr box,
+    ghost-padded to 122 rows), custom energy included."""
     from cavmd_tpu_torch.core import add_cavity_particle as t_add
+    from cavmd_tpu_torch.parallel import pad_snapshot_to
+    from thread_ranks import run_threads
 
     snap = t_add(t_make(550, box_L=65.0, temperature_K=100.0, seed=0,
                         device="cpu"),
@@ -553,10 +558,33 @@ def test_slab_path_refuses_custom_forces():
         td.plan_domain(snap, ff, 1)
     tm = resolve_methods(snap, (MethodSpec(kind="nve", group="all"),),
                          ff.l_typeid)
-    for shards in (1, 2):
-        with pytest.raises(NotImplementedError,
-                           match="custom forces.*GSPMD atom sharding"):
-            Simulation(snap, ff, tm, dt=DT, shard_atoms=shards)
+    runs = []
+    for shards in (0, 1):
+        sim = Simulation(snap, ff, tm, dt=DT, shard_atoms=shards)
+        assert sim._domain_plan is None and sim.ff.row_comm is None
+        sim.run(n_steps=1)
+        runs.append(sim.state.position)
+    assert torch.equal(runs[0], runs[1])
+
+    small, _ = pad_snapshot_to(t_add(
+        t_make(60, box_L=24.0, temperature_K=100.0, seed=5, device="cpu"),
+        coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0, seed=6), 2)
+    sff = ForceField.create(small, custom_forces=(t_trap,), **kw)
+    ref = Simulation(small, sff, tm, dt=DT)
+    ref.run(n_steps=2)
+
+    def rank(comm):
+        sim = Simulation(small, sff, tm, dt=DT, shard_atoms=2, comm=comm)
+        assert sim.ff.row_comm is comm and sim._domain_plan is None
+        sim.run(n_steps=2)
+        return sim.state.position, sim.last_obs["custom_0"]
+
+    for pos, e_custom in run_threads(2, rank):
+        np.testing.assert_allclose(pos.numpy(), ref.state.position.numpy(),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(e_custom, ref.last_obs["custom_0"],
+                                   rtol=1e-10)
+    assert not torch.equal(ref.state.position, small.position)
 
 
 # ---------------------------------------------------------- the tracker

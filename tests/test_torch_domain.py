@@ -452,23 +452,60 @@ def test_domain_retry_moves_only_the_lever_that_fired(scene):
     assert sim._domain_plan == grown and sim._domain_rebuild_every == 10
 
 
-def test_unsupported_configurations_raise(scene):
-    """What the JAX Simulation sends to GSPMD sharding raises here, naming
-    ROADMAP.md; methods the JAX slab path refuses raise ValueError, and
-    its MTTK and Berendsen baths build."""
-    _, ts, _, tff, _, tm, _, _ = scene
-    from cavmd_tpu_torch.integrate import ForceField
+def _row_runs(snap, ff, methods, S, n_steps, extra_obs=None):
+    """``Simulation(shard_atoms=S)`` on S thread ranks (the route the
+    JAX facade takes to GSPMD: here atom sharding by rows) and the
+    unsharded run, ``n_steps`` steps each from seed 3: (per-rank final
+    positions, routes, the unsharded final positions)."""
+    from thread_ranks import run_threads
 
-    comm = Communicator(0, 2)
-    dense = ForceField.create(ts, coupling=1e-3, r_cut=8.0,
-                              pppm_mesh=(16, 16, 16), pair_mode="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Simulation(ts, dense, tm, dt=DT, shard_atoms=2, comm=comm)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Simulation(ts, tff, tm, dt=DT, shard_atoms=2, comm=comm,
-                   extra_obs=lambda state: {})
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        Simulation(ts, tff, tm, dt=DT, shard_atoms=16, comm=comm)
+    def run(comm):
+        sim = Simulation(snap, ff, methods, dt=DT, seed=3, shard_atoms=S,
+                         comm=comm, extra_obs=extra_obs)
+        sim.run(n_steps=n_steps)
+        return (sim.state.position,
+                (sim._domain_plan is None, sim.ff.row_comm is comm))
+
+    ranks = run_threads(S, run)
+    ref = Simulation(snap, ff, methods, dt=DT, seed=3, extra_obs=extra_obs)
+    ref.run(n_steps=n_steps)
+    return ranks, ref.state.position
+
+
+def test_unsupported_configurations_raise(scene):
+    """What the JAX Simulation sends to GSPMD sharding runs on atom
+    sharding by rows here, and matches the unsharded run to 1e-10: dense
+    mode, an opaque ``extra_obs``, and a box too narrow for the slabs (60
+    diatomics in a 24-bohr box: 2 cells an axis at r_cut 8). As in the JAX
+    facade, a row split of an N that S does not divide raises ValueError
+    (pad the snapshot first). Methods the JAX slab path refuses raise
+    ValueError in the slab step, and its MTTK and Berendsen baths
+    build."""
+    from cavmd_tpu_torch.integrate import ForceField
+    from cavmd_tpu_torch.parallel import pad_snapshot_to
+
+    _, ts, _, tff, _, tm, _, _ = scene
+    narrow = t_add(t_make(60, box_L=24.0, temperature_K=100.0, seed=5,
+                          device="cpu"),
+                   coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
+                   seed=6)
+    kw = dict(coupling=1e-3, r_cut=8.0, pppm_mesh=(16, 16, 16))
+    for snap, S, mode, extra in ((ts, 2, "dense", None),
+                                 (ts, 2, "cell", lambda state: {}),
+                                 (narrow, 2, "cell", None)):
+        with pytest.raises(ValueError, match="pad the snapshot first"):
+            Simulation(snap, ForceField.create(snap, pair_mode=mode, **kw),
+                       tm, dt=DT, shard_atoms=S, comm=Communicator(0, S),
+                       extra_obs=extra)
+        padded, _ = pad_snapshot_to(snap, S)
+        ff = ForceField.create(padded, pair_mode=mode, **kw)
+        methods = resolve_methods(padded, tm, ff.l_typeid)
+        ranks, ref = _row_runs(padded, ff, methods, S, 2, extra)
+        for pos, route in ranks:
+            assert route == (True, True), (S, mode)
+            np.testing.assert_allclose(pos.numpy(), ref.numpy(), rtol=0,
+                                       atol=1e-10)
+        assert not torch.equal(ref, padded.position)
     for bath in ("mttk", "berendsen"):  # the JAX slab path's baths
         assert callable(td.make_domain_step(
             tff, resolve_methods(ts, (MethodSpec(kind=bath, group="all",

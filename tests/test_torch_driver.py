@@ -131,14 +131,68 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, fixed):
         assert t[-1].N == 41 and len(t) >= 2
 
 
-# --pad-atoms and --rng-impl have no port; the slabs (alone or with a
-# replica batch) run on ranks, and without a process group of the right
-# size here they exit 2 too, naming the JAX driver's one-process GSPMD
-# mesh, which is not ported
+def test_pad_atoms_matches_jax_cli(tmp_path, monkeypatch):
+    """``--pad-atoms 8`` (41 -> 48 rows, unsharded) in the form of
+    ``test_cli_matches_jax_cli``: the same file set, header lines and
+    column counts as the JAX CLI's ``--pad-atoms 8`` run (the thermostat
+    streams differ by design, so values are not compared across the
+    CLIs); its GSD frames hold the 41 real rows and no ghost type; and in
+    float64 with a fixed 0.5 fs step its trajectory equals the port's
+    unpadded run from the same input scene (the ghosts are inert and take
+    no draw): the energy, cavity-mode and dipole rows and the frames to
+    1e-10. The F(k,t) rows are not held: rho(k) sums every row, ghosts
+    too, in both packages."""
+    monkeypatch.setenv("CAVMD_JIT_CACHE", "0")
+    short = ["--fixed-timestep", "--runtime", "0.01", "--pad-atoms", "8"]
+    t_out, t_files = _run(t_cli.main, str(tmp_path / "torch"), short)
+    # every other run starts from this run's minimised scene
+    start = ["--input-gsd", str(tmp_path / "torch" / "init-0.gsd")]
+    j_out, j_files = _run(j_cli.main, str(tmp_path / "jax"), short + start)
+    assert t_files == j_files
+    for f in t_files:
+        if f.endswith(".txt"):
+            th, tr = _split(os.path.join(t_out, f))
+            jh, jr = _split(os.path.join(j_out, f))
+            assert th == jh, f
+            assert {len(r) for r in tr} == {len(r) for r in jr}, f
+    from cavmd_tpu_torch.io import open_gsd
+
+    with open_gsd(os.path.join(t_out, "prod-1.gsd")) as t:
+        assert len(t) >= 2
+        for k in range(len(t)):
+            frame = t.read_frame(k, device="cpu")
+            assert frame.N == 41 and "__ghost__" not in frame.types
+
+    fixed = ["--fixed-timestep", "--timestep", "0.5", "--precision", "f64",
+             "--runtime", "0.005"] + start
+    outs = [_run(t_cli.main, str(tmp_path / side), fixed + extra)
+            for side, extra in (("f64", []),
+                                ("f64_pad", ["--pad-atoms", "8"]))]
+    assert outs[0][1] == outs[1][1]
+    for f in outs[0][1]:
+        a, b = (os.path.join(out, f) for out, _ in outs)
+        if f.endswith(".txt") and "_ref" not in f:
+            (ah, ar), (bh, br) = _split(a), _split(b)
+            assert ah == bh and len(ar) == len(br) >= 2, f
+            np.testing.assert_allclose(br, ar, rtol=1e-10, atol=1e-10,
+                                       err_msg=f)
+        elif f.endswith(".gsd"):
+            with open_gsd(a) as ga, open_gsd(b) as gb:
+                assert len(ga) == len(gb) >= 2
+                for k in range(len(ga)):
+                    np.testing.assert_allclose(
+                        gb.read_frame(k, device="cpu").position.numpy(),
+                        ga.read_frame(k, device="cpu").position.numpy(),
+                        rtol=0, atol=1e-10)
+
+
+# --rng-impl has no port; the slabs (alone or with a replica batch) run on
+# ranks, and without a process group of the right size here they exit 2,
+# naming the JAX driver's one-process GSPMD mesh, which is not taken
 @pytest.mark.parametrize("flag", [
     ["--vmap-replicas", "--shard-atoms", "2"],
     ["--shard-replicas", "2", "--shard-atoms", "2", "--replicas", "1-2"],
-    ["--shard-atoms", "2"], ["--pad-atoms", "4"], ["--rng-impl", "threefry"]])
+    ["--shard-atoms", "2"], ["--rng-impl", "threefry"]])
 def test_unported_flags_exit_nonzero(tmp_path, monkeypatch, capsys, flag):
     monkeypatch.chdir(tmp_path)
     assert t_cli.main(["--device", "CPU"] + flag) == 2

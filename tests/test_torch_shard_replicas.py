@@ -496,8 +496,8 @@ def test_replicas_x_slabs_match_jax(jax_xs):
 
 @pytest.fixture(scope="module")
 def four_ranks():
-    """dryrun_multichip(4): both cases on 4 gloo ranks (R = 2, S = 2),
-    held there to 1e-10; returns the references and every rank's
+    """dryrun_multichip(4): its three cases on 4 gloo ranks (R = 2,
+    S = 2), held there to 1e-10; returns the references and every rank's
     results."""
     return dryrun_multichip(4)
 
@@ -538,6 +538,26 @@ def test_dry_run_shards_the_cli_batch_over_four_ranks(four_ranks):
         assert {f"prod-{r}.gsd", f"prod-{r}_energy_tracker.txt",
                 f"prod-{r}_cavity_mode.txt", f"prod-{r}_ref0.txt",
                 f"prod-{r}_dipole_autocorr_0.txt"} <= set(files)
+
+
+def test_dry_run_rows_match_the_unsharded_batch(four_ranks):
+    """The dry run's third case, atom sharding by rows on the 2 x 2 mesh
+    (``rows_dryrun``, the JAX dry run's GSPMD case): the reference scene
+    ghost-padded to 502 rows, dense; rank (r, s) holds replica r (held
+    there to 1e-10 of ``run_replica_steps``); the two atom shards of a
+    replica agree bit for bit, and the replicas decorrelate."""
+    ref, ranks = four_ranks["rows"]
+    assert ref["N"] == 502 and ref["rows"] == (0, 2)
+    assert [got["rows"] for got in ranks] == [(0, 1), (0, 1), (1, 2),
+                                              (1, 2)]
+    for r in (0, 2):
+        assert np.array_equal(ranks[r]["position"],
+                              ranks[r + 1]["position"])
+        np.testing.assert_allclose(ranks[r]["position"],
+                                   ref["position"][r // 2:r // 2 + 1],
+                                   rtol=1e-10, atol=1e-10)
+    assert not np.allclose(ref["position"][0], ref["position"][1])
+    assert ref["obs"]["lj"].shape == (20, 2)
 
 
 @pytest.fixture(scope="module")
