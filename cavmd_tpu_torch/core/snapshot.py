@@ -17,6 +17,22 @@ import torch
 from cavmd_tpu_torch.core.box import Box, unwrap_positions
 from cavmd_tpu_torch.core.device import resolve_device
 
+# the type of the inert rows that ``parallel.pad_snapshot_to`` appends
+GHOST_TYPE = "__ghost__"
+
+
+def ghost_typeid_of(types) -> int:
+    """The type id of the ghost rows in ``types`` (-1: none)."""
+    return types.index(GHOST_TYPE) if GHOST_TYPE in types else -1
+
+
+def real_rows(typeid, ghost_typeid: int) -> int:
+    """The number of rows of ``typeid`` (a tensor or an array) that are
+    not ghosts; the ghosts are a tail after every real row."""
+    if ghost_typeid < 0:
+        return len(typeid)
+    return int((typeid != ghost_typeid).sum())
+
 
 def _tensor(x, dtype, device=None):
     if isinstance(x, torch.Tensor):
@@ -72,7 +88,7 @@ class Snapshot:
     def strip_tail(self, n_real: int) -> "Snapshot":
         """The first ``n_real`` particles, without the trailing ghost rows
         that ``parallel.pad_snapshot_to`` appends after every real row (so
-        bond indices stay valid), and without the ``'__ghost__'`` type."""
+        bond indices stay valid), and without the ghost type."""
         if n_real >= self.N:
             return self
         return self.replace(
@@ -80,7 +96,7 @@ class Snapshot:
             velocity=self.velocity[:n_real], mass=self.mass[:n_real],
             charge=self.charge[:n_real], diameter=self.diameter[:n_real],
             typeid=self.typeid[:n_real],
-            types=tuple(t for t in self.types if t != "__ghost__"))
+            types=tuple(t for t in self.types if t != GHOST_TYPE))
 
     def _map(self, float_fn, int_fn) -> "Snapshot":
         fields = {}

@@ -23,7 +23,8 @@ Differences from the JAX driver:
   refuses, a box too narrow for S slabs), the run takes atom sharding by
   rows (``parallel/shard.py``, the JAX driver's GSPMD fallback) with the
   JAX driver's force field (dense up to N = 4096) and N ghost-padded to a
-  multiple of S, as the JAX driver pads it. Every rank runs the
+  multiple of S (and of ``--pad-atoms`` K: the scene is padded once, so
+  its ghosts are one type). Every rank runs the
   simulation; rank 0 alone writes the input GSD, the trackers, the
   trajectory and the console table.
 - ``--pad-atoms K`` pads N to a multiple of K with inert ghost rows and
@@ -70,6 +71,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import logging
+import math
 import os
 import sys
 import time
@@ -318,22 +320,8 @@ class CavityMDSimulation:
                 raise ValueError(
                     f"Expected exactly 1 cavity particle but found {n_cav}"
                 )
-        # --pad-atoms pads without sharding: the single-device comparator
-        # of a sharded run (--shard-atoms pads in phase 2, where the run
-        # takes the row path)
-        self.snapshot = self._padded(snap, self.pad_atoms)
-
-    def _padded(self, snap, multiple):
-        """``snap`` ghost-padded to a multiple of ``multiple`` (> 1)."""
-        if multiple <= 1:
-            return snap
-        from cavmd_tpu_torch.parallel import pad_snapshot_to
-
-        snap, pad = pad_snapshot_to(snap, multiple)
-        if pad:
-            self.log_info(f"Padded {pad} ghost particles (N={snap.N}) for "
-                          f"{multiple}-way atom sharding")
-        return snap
+        # ghost-padded in phase 2, once, where the route is known
+        self.snapshot = snap
 
     def _setup_forces_and_methods(self):
         from cavmd_tpu_torch.core.units import PhysicalConstants as PC
@@ -357,21 +345,33 @@ class CavityMDSimulation:
                 self.cavity_damping_factor):
             self.methods.append(m)
             self.log_info(text)
-        if self.comm is None:
-            self.ff = create(self.snapshot, None)
-            return
-        # the slab path where its plan takes the run (cell mode); else the
-        # row path, on the JAX driver's force field and padding
-        self.ff = create(self.snapshot, "cell")
-        reason, _ = slab_refusal(
-            self.snapshot, self.ff, resolve_methods(
-                self.snapshot, tuple(self.methods), self.ff.l_typeid),
-            self.shard_atoms)
-        if reason is not None:
-            self.log_info(f"Slab path refused ({reason}): atom sharding "
-                          f"by rows over {self.shard_atoms} ranks")
-            self.snapshot = self._padded(self.snapshot, self.shard_atoms)
-            self.ff = create(self.snapshot, None)
+        # --pad-atoms K pads without sharding (the single-device comparator
+        # of a sharded run). Under ranks: the slab path where its plan
+        # takes the run (cell mode; it takes ghost rows), else the row
+        # path on the JAX driver's force field, with N a multiple of S as
+        # well. The scene is padded once, so its ghosts are one type.
+        multiple, pair_mode = max(1, self.pad_atoms), None
+        if self.comm is not None:
+            self.ff = create(self.snapshot, "cell")
+            reason, _ = slab_refusal(
+                self.snapshot, self.ff, resolve_methods(
+                    self.snapshot, tuple(self.methods), self.ff.l_typeid),
+                self.shard_atoms)
+            if reason is None:
+                pair_mode = "cell"
+            else:
+                self.log_info(f"Slab path refused ({reason}): atom "
+                              f"sharding by rows over {self.shard_atoms} "
+                              "ranks")
+                multiple = math.lcm(multiple, self.shard_atoms)
+        if self.snapshot.N % multiple:
+            from cavmd_tpu_torch.parallel import pad_snapshot_to
+
+            self.snapshot, pad = pad_snapshot_to(self.snapshot, multiple)
+            self.log_info(f"Padded {pad} ghost particles (N="
+                          f"{self.snapshot.N}) for {multiple}-way atom "
+                          "sharding")
+        self.ff = create(self.snapshot, pair_mode)
 
     def _setup_simulation(self):
         from cavmd_tpu_torch.core.units import PhysicalConstants as PC
@@ -500,11 +500,10 @@ class CavityMDSimulation:
 
 def molecular_dof(snap, ff) -> int:
     """3 x the real molecular rows: neither the photon nor ghost rows."""
-    tid = snap.typeid.cpu().numpy()
-    real_mol = tid != ff.l_typeid
-    if ff.ghost_typeid >= 0:
-        real_mol &= tid != ff.ghost_typeid
-    return 3 * int(np.sum(real_mol))
+    from cavmd_tpu_torch.integrate.integrator import group_mask
+
+    return 3 * int(group_mask(snap.typeid, ff.l_typeid, "molecular",
+                              ff.ghost_typeid).sum())
 
 
 def bath_methods(molecular, cavity, kT, molecular_tau_ps, cavity_tau_ps,
@@ -705,6 +704,7 @@ def run_vmapped_replicas(args, replica_list, comm=None,
     and ends the run on every rank at the next of these gathers (the
     ranks always meet in the same collectives)."""
     from cavmd_tpu_torch.core.snapshot import add_cavity_particle as inject
+    from cavmd_tpu_torch.core.snapshot import real_rows
     from cavmd_tpu_torch.core.system import make_diatomic_system
     from cavmd_tpu_torch.core.units import PhysicalConstants as PC
     from cavmd_tpu_torch.integrate import (
@@ -815,10 +815,11 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                     if "L" not in s.types else s
                     for r, s in zip(mine, snaps)]
             # --pad-atoms pads without sharding (the single-device
-            # comparator of a sharded run)
-            if args.pad_atoms > 1:
-                snaps = [pad_snapshot_to(s, args.pad_atoms)[0]
-                         for s in snaps]
+            # comparator of a sharded run); the row path pads the unpadded
+            # scene again, once, to a multiple of S as well
+            base = snaps
+            snaps = [pad_snapshot_to(s, max(1, args.pad_atoms))[0]
+                     for s in base]
             snap = snaps[0]
 
             def create(snap, pair_mode):
@@ -845,8 +846,9 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                 if refusal is not None:
                     print(f"Slab path refused ({refusal}): the batch split "
                           f"by rows over {slab_comm.world_size} ranks")
-                    snaps = [pad_snapshot_to(s, slab_comm.world_size)[0]
-                             for s in snaps]
+                    multiple = math.lcm(max(1, args.pad_atoms),
+                                        slab_comm.world_size)
+                    snaps = [pad_snapshot_to(s, multiple)[0] for s in base]
                     snap = snaps[0]
                     ff = create(snap, None).bind_rows(slab_comm)
                     methods = resolve_methods(snap, specs, ff.l_typeid)
@@ -920,9 +922,7 @@ def run_vmapped_replicas(args, replica_list, comm=None,
                 batched = batched.replace(dt=dts.to(dtype))
 
             n_dof = molecular_dof(snap, ff)
-            n_real = (snap.N if ff.ghost_typeid < 0 else
-                      int(np.sum(snap.typeid.cpu().numpy()
-                                 != ff.ghost_typeid)))
+            n_real = real_rows(snap.typeid, ff.ghost_typeid)
             energy_period = max(1, int(args.energy_output_period_ps
                                        / dt_ps_nominal))
             fkt_period = max(1, int(args.fkt_output_period_ps / dt_ps_nominal))

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cavmd_tpu_torch.core.snapshot import Snapshot
+from cavmd_tpu_torch.core.snapshot import Snapshot, ghost_typeid_of
 from cavmd_tpu_torch.ops.bonds import (
     bonds_are_consecutive,
     harmonic_bond_force,
@@ -567,7 +567,6 @@ class ForceField(nn.Module):
             enable_cavity=enable_cavity, enable_coulomb=enable_coulomb,
             enable_lj=enable_lj, enable_bonds=enable_bonds,
             custom_forces=custom_forces,
-            ghost_typeid=(types.index("__ghost__") if "__ghost__" in types
-                          else -1),
+            ghost_typeid=ghost_typeid_of(types),
             dtype=dtype, device=device,
         )

@@ -50,7 +50,11 @@ import numpy as np
 import torch
 
 from cavmd_tpu_torch.core.box import minimum_image, rewrap
-from cavmd_tpu_torch.core.snapshot import Snapshot
+from cavmd_tpu_torch.core.snapshot import (
+    Snapshot,
+    ghost_typeid_of,
+    real_rows,
+)
 from cavmd_tpu_torch.integrate.forcefield import ENERGY_KEYS, ForceField
 from cavmd_tpu_torch.integrate.rng import (
     STREAM_BROWNIAN,
@@ -184,8 +188,7 @@ def group_slot(group: str) -> int:
 def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
                     l_typeid: int) -> Tuple[MethodSpec, ...]:
     """Fill in static group DOF counts (3 N_group) and, for groups of at
-    most 8 particles, the member indices. Ghost rows (type
-    ``'__ghost__'``) join no group."""
+    most 8 particles, the member indices. Ghost rows join no group."""
     typeid = snapshot.typeid.cpu().numpy()
     ghost = ghost_typeid_of(snapshot.types)
     real = typeid != ghost if ghost >= 0 else np.ones(len(typeid), bool)
@@ -203,11 +206,6 @@ def resolve_methods(snapshot: Snapshot, methods: Tuple[MethodSpec, ...],
     return tuple(out)
 
 
-def ghost_typeid_of(types) -> int:
-    """The type id of ghost rows in ``types`` (-1: none)."""
-    return types.index("__ghost__") if "__ghost__" in types else -1
-
-
 def thermal_velocities(mass, typeid, l_typeid: int, kT, seed: int, *,
                        molecular_only: bool = True, photon_kT=None,
                        ghost_typeid: int = -1):
@@ -218,7 +216,7 @@ def thermal_velocities(mass, typeid, l_typeid: int, kT, seed: int, *,
     (``ghost_typeid``, a tail after every real row) stay at rest and take
     no draw: the real rows get the velocities of the unpadded scene."""
     if ghost_typeid >= 0:
-        n_real = int(torch.sum(typeid != ghost_typeid))
+        n_real = real_rows(typeid, ghost_typeid)
         v = thermal_velocities(mass[:n_real], typeid[:n_real], l_typeid, kT,
                                seed, molecular_only=molecular_only,
                                photon_kT=photon_kT)

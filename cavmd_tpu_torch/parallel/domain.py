@@ -60,11 +60,7 @@ Differences from the JAX module:
   layers). At S = 1 the JAX module compares raw local ids, so a bonded
   pair that straddles the periodic x boundary inside one intact molecule
   meets through the halo copy unexcluded (an LJ + Ewald term at bond
-  length); see ``ROADMAP.md`` Queue 3;
-- the slab plan takes no ghost padding rows (``parallel.pad_snapshot_to``):
-  a padded scene is refused here and runs on atom sharding by rows
-  (``parallel/shard.py``), which takes them; so the JAX runner's ghost
-  rho(k) term has nothing to add and is not carried.
+  length); see ``ROADMAP.md`` Queue 3.
 """
 
 from __future__ import annotations
@@ -282,9 +278,12 @@ def plan_domain(snapshot, ff, S: int, *, skin: float = 0.5,
     typeid = _host(snapshot.typeid)
     n0 = snapshot.N
     l_typeid = ff.l_typeid
-    if not np.all(typeid[n_atoms:] == l_typeid):
+    # every row past the molecules must be pair-inert: the photon, or the
+    # ghosts of pad_snapshot_to, which hold no slot and keep their state
+    tail_rows = typeid[n_atoms:]
+    if not np.all((tail_rows == l_typeid) | (tail_rows == ff.ghost_typeid)):
         raise ValueError("non-bonded rows past the molecules must be "
-                         "pair-inert (photon) for the domain path")
+                         "pair-inert (photon/ghost) for the domain path")
     photon_rows = np.where(typeid == l_typeid)[0]
     if len(photon_rows) > 1:
         raise ValueError("domain path supports at most one photon")
@@ -1195,6 +1194,8 @@ def make_domain_runner(ff, methods, plan: DomainPlan,
             f"the replica communicator has {replica_comm.world_size} "
             f"ranks, the runner n_replicas={n_replicas}")
     steps, tables = {}, {}
+    wv = (np.asarray(obs_spec[1]) if obs_spec is not None
+          and obs_spec[1] is not None else None)
 
     def step_for(full, lo, hi):
         """The slab step of rows [lo, hi) of a batch of ``full``."""
@@ -1232,6 +1233,15 @@ def make_domain_runner(ff, methods, plan: DomainPlan,
         out = buf.to_numpy()
         out["cell_overflow"] = np.maximum(out["cell_overflow"],
                                           out["domain_capacity_overflow"])
+        if wv is not None and ff.ghost_typeid >= 0:
+            # rho(k) of the ghost rows, which hold no slot: they are
+            # pinned, so one term serves the call's steps
+            ghost = (batch.typeid == ff.ghost_typeid)[..., None]
+            kr = batch.position @ torch.as_tensor(
+                wv, dtype=batch.position.dtype, device=dev).T
+            for k, f in (("rho_k_re", torch.cos), ("rho_k_im", torch.sin)):
+                out[k] = out[k] + torch.where(ghost, f(kr), 0.0).sum(
+                    -2).cpu().numpy()
         ts = np.arange(batch.step - n_steps + 1, batch.step + 1,
                        dtype=np.int64)
         out["timestep"] = np.broadcast_to(ts[:, None],

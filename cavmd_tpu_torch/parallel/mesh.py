@@ -21,9 +21,9 @@ from typing import NamedTuple
 
 import torch
 
+from cavmd_tpu_torch.core.snapshot import GHOST_TYPE
 from cavmd_tpu_torch.parallel.comm import Communicator, grid_communicators
 
-GHOST_TYPE = "__ghost__"
 GHOST_MASS = 1e30
 
 
@@ -112,11 +112,18 @@ def pad_snapshot_to(snapshot, multiple: int):
     bond indices stay valid. They are spread along the box diagonal, not
     put far away: under periodic boundaries nothing is out of range, and
     no two may coincide (an r = 0 pair would poison a masked pair kernel
-    with 0 * inf)."""
+    with 0 * inf). A snapshot that holds ghosts already, and would need
+    more, raises ``ValueError``."""
     n = snapshot.N
     pad = (-n) % multiple
     if pad == 0:
         return snapshot, 0
+    if GHOST_TYPE in snapshot.types:
+        # a second block of ghosts would be a type of its own, taken for
+        # real rows (and could sit on the first block's ghosts)
+        raise ValueError("the snapshot is ghost-padded already: pad the "
+                         "unpadded one once, to a multiple of every count "
+                         "that needs it")
     dtype = snapshot.position.dtype
     dev = snapshot.device
     frac = (torch.arange(pad, dtype=dtype, device=dev)[:, None] + 0.5) / pad

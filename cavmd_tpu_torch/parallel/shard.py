@@ -42,7 +42,6 @@ from __future__ import annotations
 from cavmd_tpu_torch.integrate.integrator import (
     MDState,
     StreamNoise,
-    carries_cell_list,
     run_steps,
 )
 from cavmd_tpu_torch.parallel.mesh import Mesh
@@ -97,22 +96,14 @@ def make_sharded_runner(step_fn, mesh: Mesh, state_template: MDState, *,
     return runner
 
 
-def shard_state(state: MDState, mesh: Mesh, *, batched: bool = False,
-                forcefield=None) -> MDState:
+def shard_state(state: MDState, mesh: Mesh, *,
+                batched: bool = False) -> MDState:
     """This rank's state on the mesh: the whole state (replicated over the
     atom group; the start forces are made rank 0's, as the slab path makes
-    them), and with ``batched`` its replica rows of the batch. A slice of
-    a batch in cell or zcol mode gets its carried list rebuilt from its
-    positions by ``forcefield`` (the slice's lists are rows of the
-    batch's; without ``forcefield`` the step builds one each call)."""
-    B, rows = _replica_rows(mesh, state, batched)
+    them), and with ``batched`` its replica rows of the batch."""
+    _, rows = _replica_rows(mesh, state, batched)
     if rows is not None and mesh.replica.world_size > 1:
         from cavmd_tpu_torch.parallel.replicas import replica_rows
 
         state = replica_rows(state, rows)
-        if forcefield is not None and carries_cell_list(forcefield):
-            state = state.replace(
-                cell_list=forcefield.build_cells(state.position,
-                                                 state.box_L),
-                cell_anchor=state.position)
     return state.replace(forces=mesh.atoms.broadcast(state.forces))

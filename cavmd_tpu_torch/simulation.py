@@ -37,7 +37,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from cavmd_tpu_torch.core.snapshot import Snapshot
+from cavmd_tpu_torch.core.snapshot import Snapshot, real_rows
 from cavmd_tpu_torch.core.units import PhysicalConstants
 from cavmd_tpu_torch.integrate.adaptive import (
     compute_optimal_dt,
@@ -367,5 +367,5 @@ class Simulation:
                                      velocity=s.velocity)
         gid = self.ff.ghost_typeid
         if strip_ghosts and gid >= 0:
-            snap = snap.strip_tail(int(torch.sum(snap.typeid != gid)))
+            snap = snap.strip_tail(real_rows(snap.typeid, gid))
         return snap

@@ -395,6 +395,50 @@ def test_simulation_on_one_slab_matches_unsharded(scene):
                                   ref.last_obs["timestep"])
 
 
+def test_padded_scene_keeps_the_slab_path(scene):
+    """Ghost rows past the molecules are pair-inert, as the photon is: the
+    slab plan takes a ghost-padded scene as the JAX plan does (1101 ->
+    1104 rows; every field equal at S = 1 and 2), and
+    Simulation(shard_atoms=1) on it runs the slab pipeline and follows the
+    unsharded padded run with the dipole and rho(k) observables (the
+    ghosts hold no slot; their rho(k) is added once a call): 12 steps in
+    chunks of 6, positions to 1e-10, every observable to 1e-9; the ghost
+    rows stay where they were."""
+    from cavmd_tpu.parallel import pad_snapshot_to as j_pad
+    from cavmd_tpu_torch.integrate import ForceField
+    from cavmd_tpu_torch.parallel import pad_snapshot_to
+
+    js, ts, _, _, _, tm = scene[:6]
+    jp, _ = j_pad(js, 8)
+    tp, pad = pad_snapshot_to(ts, 8)
+    assert pad == 3
+    kw = dict(coupling=1e-3, freq_cm1=2000.0, r_cut=8.0, pair_mode="cell",
+              pppm_mesh=(16, 16, 16))
+    jff = JForceField.create(jp, dtype=jnp.float64, **kw)
+    tff = ForceField.create(tp, **kw)
+    for S in (1, 2):
+        _same_plan(td.plan_domain(tp, tff, S), jd.plan_domain(jp, jff, S))
+    methods = resolve_methods(tp, tm, tff.l_typeid)
+    extra = make_extra_obs(dipole=True,
+                           wavevectors=generate_fibonacci_sphere(8) * 1.2)
+    sims = []
+    for shard in (0, 1):
+        sim = Simulation(tp, tff, methods, dt=DT, seed=3, chunk_size=6,
+                         shard_atoms=shard, extra_obs=extra)
+        sim.thermalize(KT)
+        sim.run(n_steps=12)
+        sims.append(sim)
+    ref, dom = sims
+    assert ref._domain_plan is None and dom._domain_plan.n0 == tp.N
+    np.testing.assert_allclose(dom.state.position.numpy(),
+                               ref.state.position.numpy(), rtol=0,
+                               atol=1e-10 * 65.0)
+    assert "rho_k_re" in dom.last_obs
+    _obs_close(dom.last_obs, {k: v for k, v in ref.last_obs.items()
+                              if k != "timestep"}, 1e-9)
+    assert torch.equal(dom.state.position[ts.N:], tp.position[ts.N:])
+
+
 def test_s1_excludes_bonded_pairs_across_the_x_face():
     """At S = 1 the halo layers are copies of the slab's own edge layers.
     With 62 molecules across the periodic x face, the port's S = 1 runner

@@ -13,7 +13,10 @@ the default cadence):
   observables through the slab step (:206, :279);
 - MTTK and Berendsen baths at S = 2 match the unsharded run to 1e-10;
 - the CLI on 2 ranks (--shard-atoms 2 --device CPU) writes the files,
-  headers and columns of the unsharded CLI.
+  headers and columns of the unsharded CLI;
+- the CLI on 2 ranks with --pad-atoms 5 and molecular Langevin (the row
+  path) pads once, to 90 rows, and writes the one-process --pad-atoms 10
+  run's files.
 
 This module imports no JAX: the spawned ranks run functions of the port
 (the slab dry run and the CLI's main).
@@ -40,6 +43,9 @@ RUNS = {
 CLI_ARGS = ["--device", "CPU", "--n-molecules", "40", "--box-L", "64",
             "--runtime", "0.003", "--enable-energy-tracker", "--enable-fkt",
             "--seed", "0", "--energy-output-period-ps", "0.0005"]
+# molecular Langevin: the slab plan refuses it, so the run splits rows
+ROW_ARGS = CLI_ARGS + ["--molecular-bath", "langevin", "--fixed-timestep",
+                       "--timestep", "0.5"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,6 +58,19 @@ def one_thread():
     torch.set_num_threads(before)
 
 
+def _cli_in(directory, argv):
+    """``advanced_run.main(argv)`` in ``directory`` (a ``run_ranks`` job,
+    the last of its spawn): (exit code, what it printed)."""
+    import contextlib
+    import io
+
+    os.chdir(directory)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = advanced_run.main(argv)
+    return rc, out.getvalue()
+
+
 @pytest.fixture(scope="module")
 def unsharded():
     return {name: slab_dryrun(**kw) for name, kw in RUNS.items()}
@@ -62,17 +81,21 @@ def two_ranks(tmp_path_factory):
     """Every 2-rank job in one spawn: the three dry runs and the CLI (run
     in a fresh directory)."""
     cli_dir = tmp_path_factory.mktemp("cli_2_ranks")
+    rows_dir = tmp_path_factory.mktemp("cli_rows_2_ranks")
     cwd = os.getcwd()
     os.chdir(cli_dir)
     try:
         out = run_ranks([(slab_dryrun, kw) for kw in RUNS.values()]
                         + [(advanced_run.main, (CLI_ARGS
-                                                + ["--shard-atoms", "2"],))],
+                                                + ["--shard-atoms", "2"],)),
+                           (_cli_in, (str(rows_dir), ROW_ARGS + [
+                               "--pad-atoms", "5", "--shard-atoms", "2"]))],
                         2)
     finally:
         os.chdir(cwd)
     results = dict(zip(RUNS, out[:len(RUNS)]))
-    results["cli"] = (cli_dir, out[-1])
+    results["cli"] = (cli_dir, out[-2])
+    results["cli_rows"] = (rows_dir, out[-1])
     return results
 
 
@@ -186,3 +209,43 @@ def test_cli_on_two_ranks_writes_the_unsharded_files(two_ranks, tmp_path,
     assert len(uni) == len(ref) >= 5
     assert np.abs(uni - uni[0]).max() < 1e-4
     assert abs(uni[0] - ref[0]) < 1e-5
+
+
+def test_cli_row_path_pads_once(two_ranks, tmp_path, monkeypatch):
+    """``--pad-atoms 5 --shard-atoms 2`` on 2 ranks with molecular
+    Langevin (the slab plan refuses it): the row path pads the 81-row
+    scene once, to a multiple of both (90 rows, one ghost type), and
+    writes the files of the one-process ``--pad-atoms 10`` run in float64
+    with a fixed step: every table to 1e-10, GSD frames of the 81 real
+    rows at the same positions."""
+    from cavmd_tpu_torch.io import open_gsd
+
+    rows_dir, ranks = two_ranks["cli_rows"]
+    assert [rc for rc, _ in ranks] == [0, 0]
+    log = ranks[0][1]
+    assert "Slab path refused" in log
+    assert log.count("Padded ") == 1
+    assert "Padded 9 ghost particles (N=90)" in log
+    monkeypatch.chdir(tmp_path)
+    assert advanced_run.main(ROW_ARGS + ["--pad-atoms", "10"]) == 0
+    got, want = _tree(rows_dir), _tree(tmp_path)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        if name.endswith(".txt"):
+            a = np.loadtxt(got[name], comments=("#", "time"), ndmin=2)
+            b = np.loadtxt(want[name], comments=("#", "time"), ndmin=2)
+            assert a.shape == b.shape, name
+            if name.endswith("energy_tracker.txt"):
+                assert len(b) >= 5
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10,
+                                       err_msg=name)
+        elif name.endswith("prod-1.gsd"):
+            with open_gsd(got[name]) as ga, open_gsd(want[name]) as gb:
+                assert len(ga) == len(gb) >= 2
+                for k in range(len(ga)):
+                    fa = ga.read_frame(k, device="cpu")
+                    assert fa.N == 81 and "__ghost__" not in fa.types
+                    np.testing.assert_allclose(
+                        fa.position.numpy(),
+                        gb.read_frame(k, device="cpu").position.numpy(),
+                        rtol=0, atol=1e-10)

@@ -131,8 +131,8 @@ def _rows_job(kind, start, table):
     mesh = make_mesh(R, S)
     step = make_step_fn(ff, methods, noise=TableDraws(table, rows))
     run = make_sharded_runner(step, mesh, state, batched=batched)
-    final, obs = run(shard_state(state, mesh, batched=batched,
-                                 forcefield=ff), STEPS[kind])
+    final, obs = run(shard_state(state, mesh, batched=batched),
+                     STEPS[kind])
     return dict(position=final.position.numpy(),
                 rows=None if rows is None else (rows.start, rows.stop),
                 cavity_coupling=obs["cavity_coupling"])
@@ -434,6 +434,16 @@ def test_pad_snapshot_to_matches_jax(multiple):
               "diameter", "typeid"):
         np.testing.assert_array_equal(getattr(ts, k).numpy(),
                                       np.asarray(getattr(js, k)), k)
+
+
+def test_pad_snapshot_to_refuses_a_padded_snapshot(jax_ghost_scene):
+    """A snapshot that holds ghosts and needs more raises (a second block
+    would be a ghost type of its own, taken for real rows); one that
+    needs none comes back as it is."""
+    ts = jax_ghost_scene[1]  # 24 rows, 3 of them ghosts
+    assert pad_snapshot_to(ts, 8) == (ts, 0)
+    with pytest.raises(ValueError, match="ghost-padded already"):
+        pad_snapshot_to(ts, 16)
 
 
 def test_ghost_padding_inert(jax_ghost_scene):
