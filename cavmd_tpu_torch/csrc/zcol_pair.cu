@@ -76,6 +76,15 @@
 // the column's replica. Types, exclusions and charges are shared, and one
 // visit window W serves the batch. The one-replica launches run the
 // kBatch = false instantiations, the unbatched kernels' code.
+// A row range (atom sharding by rows, parallel/shard.py): row0 and row_end
+// keep the i rows whose particle id is in [row0, row_end) (within each
+// replica of a batch). A block whose i-block holds no such id returns
+// before it stages its visited blocks, and within a block a warp runs no
+// candidate step and writes no force for any other row: that row's force
+// stays the caller's zero, and the energy partials are the range's share.
+// An owned row is summed exactly as in the full launch, so the S ranges of
+// a partition give the full launch's forces bit for bit. The full launch
+// is the range [0, n).
 // Registers: 4 blocks an SM in f32 (64 a thread), 2 in f64, no spill.
 // Shared memory is W * 128 staged rows (25 KB at W = 8 in f32, 42 KB in
 // f64), raised past 48 KB with cudaFuncSetAttribute when the overflow
@@ -329,8 +338,9 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
                  const int32_t* __restrict__ bucket,
                  const int32_t* __restrict__ halo, const int32_t* __restrict__ hull,
                  const int32_t* __restrict__ excl, int max_excl, int n,
-                 int ncols, int cap, int W, T rc, T rc2, T kappa,
-                 T* __restrict__ forces, T* __restrict__ e_partial) {
+                 int ncols, int cap, int W, T rc, T rc2, T kappa, int row0,
+                 int row_end, T* __restrict__ forces,
+                 T* __restrict__ e_partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = W * kJBlock;
   const int nchunk = W * kChunks;
@@ -361,7 +371,14 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
   const int4 h = reinterpret_cast<const int4*>(hull)[blockIdx.x];
   const int s1 = h.x, c1 = h.y, s2 = h.z;
   const int nv = min(h.w, W);
-  if (c1 <= 0) {  // block-uniform: no real slot, or nothing in reach
+  const int32_t* irow = bucket + (size_t)col * cap + ib * kIBlock;
+  bool owns = true;  // the i-block holds a row of the range (block-uniform)
+  if (c1 > 0 && (row0 > 0 || row_end < n)) {
+    const int id = threadIdx.x < kIBlock ? irow[threadIdx.x] : -1;
+    owns = __syncthreads_or(id >= row0 && id < row_end) != 0;
+  }
+  // block-uniform: no real slot, nothing in reach, or no row of the range
+  if (c1 <= 0 || !owns) {
     if (threadIdx.x == 0) {
       e_partial[2 * (size_t)blockIdx.x] = T(0);
       e_partial[2 * (size_t)blockIdx.x + 1] = T(0);
@@ -477,11 +494,13 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
   const unsigned below = (1u << lane) - 1u;
   uint16_t* ring = s_ring[warp];
   T e_lj = 0, e_ew = 0;
-  const int32_t* irow = bucket + (size_t)col * cap + ib * kIBlock;
 
   for (int i = warp; i < kIBlock; i += kWarps) {  // warp-uniform
     const int idi = irow[i];
     if (idi >= n) break;  // a column's real slots are a prefix
+    // a row outside [row0, row_end) takes no candidate step and writes no
+    // force: its loop below is empty
+    const int nit = idi >= row0 && idi < row_end ? nitems : 0;
     T xi, yi, zi, qi;
     load_row(loc, idi, xi, yi, zi, qi);
     const int ti = type_id[idi] * ntypes;
@@ -497,7 +516,7 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
     // 32 chunks
     unsigned live = 0;
     for (int k0 = -32;;) {
-      if (queued >= 32 || (queued > 0 && live == 0 && k0 + 32 >= nitems)) {
+      if (queued >= 32 || (queued > 0 && live == 0 && k0 + 32 >= nit)) {
         // take 32 queued rows (or the last few): self and exclusion tests,
         // then the pair term into this lane's accumulators (the
         // displacement as in the cutoff test, bit for bit)
@@ -529,11 +548,11 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
       if (live == 0) {
         // the next 32 chunks within reach of row i in z, a lane a chunk
         k0 += 32;
-        if (k0 >= nitems) break;
+        if (k0 >= nit) break;
         const int k = k0 + lane;
         live = __ballot_sync(
-            kFull, k < nitems && m_abs(min_image(sub_rn(zi, s_cc[k]), Lz, iLz)) <=
-                                    s_reach[k]);
+            kFull, k < nit && m_abs(min_image(sub_rn(zi, s_cc[k]), Lz, iLz)) <=
+                                 s_reach[k]);
         continue;
       }
       // kUnroll live chunks: first every chunk's cutoff test, branch-free
@@ -574,7 +593,7 @@ zcol_pair_kernel(const T* __restrict__ loc, const T* __restrict__ box,
     fx = warp_sum(fx);
     fy = warp_sum(fy);
     fz = warp_sum(fz);
-    if (lane == 0) {
+    if (lane == 0 && nit > 0) {
       forces[3 * (size_t)idi] = fx;
       forces[3 * (size_t)idi + 1] = fy;
       forces[3 * (size_t)idi + 2] = fz;
@@ -646,8 +665,8 @@ int launch_pair(const void* loc, const void* box, const void* type_id,
                 const void* vshift, int ntypes, const void* bucket,
                 const void* halo, const void* hull, const void* excl,
                 int max_excl, int n, int ncols, int cap, int W, double rc,
-                double rc2, double kappa, int nb, void* forces, void* e_partial,
-                void* stream) {
+                double rc2, double kappa, int row0, int row_end, int nb,
+                void* forces, void* e_partial, void* stream) {
   static size_t raised_to = 0;
   const size_t smem = pair_smem_bytes<T>(W);
   const cudaError_t err =
@@ -660,7 +679,7 @@ int launch_pair(const void* loc, const void* box, const void* type_id,
       (const T*)sig2, (const T*)rcut2, (const T*)vshift, ntypes,
       (const int32_t*)bucket, (const int32_t*)halo, (const int32_t*)hull,
       (const int32_t*)excl, max_excl, n, ncols, cap, W, (T)rc, (T)rc2,
-      (T)kappa, (T*)forces, (T*)e_partial);
+      (T)kappa, row0, row_end, (T*)forces, (T*)e_partial);
   return (int)cudaGetLastError();
 }
 
@@ -670,16 +689,17 @@ int launch_pair_any(const void* loc, const void* box, const void* type_id,
                     const void* vshift, int ntypes, const void* bucket,
                     const void* halo, const void* hull, const void* excl,
                     int max_excl, int n, int ncols, int cap, int W, double rc,
-                    double rc2, double kappa, int nb, void* forces,
-                    void* e_partial, void* stream) {
+                    double rc2, double kappa, int row0, int row_end, int nb,
+                    void* forces, void* e_partial, void* stream) {
   if (ntypes < 1 || ntypes > kMaxTypes || max_excl < 1 || max_excl > kMaxExcl ||
-      !geometry_ok(n, ncols, cap, W) || nb < 1 ||
+      !geometry_ok(n, ncols, cap, W) || nb < 1 || row0 < 0 ||
+      row_end <= row0 || row_end > n ||
       (long long)ncols * (cap / kIBlock) * nb > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   auto go = nb > 1 ? launch_pair<T, true> : launch_pair<T, false>;
   return go(loc, box, type_id, eps, sig2, rcut2, vshift, ntypes, bucket, halo,
-            hull, excl, max_excl, n, ncols, cap, W, rc, rc2, kappa, nb, forces,
-            e_partial, stream);
+            hull, excl, max_excl, n, ncols, cap, W, rc, rc2, kappa, row0,
+            row_end, nb, forces, e_partial, stream);
 }
 
 }  // namespace
@@ -713,12 +733,13 @@ int cavmd_zcol_pair_f32(const void* loc, const void* box, const void* type_id,
                         const void* vshift, int ntypes, const void* bucket,
                         const void* halo, const void* hull, const void* excl,
                         int max_excl, int n, int ncols, int cap, int W,
-                        double rc, double rc2, double kappa, int nb,
-                        void* forces, void* e_partial, void* stream) {
+                        double rc, double rc2, double kappa, int row0,
+                        int row_end, int nb, void* forces, void* e_partial,
+                        void* stream) {
   return launch_pair_any<float>(loc, box, type_id, eps, sig2, rcut2, vshift,
                                 ntypes, bucket, halo, hull, excl, max_excl, n,
-                                ncols, cap, W, rc, rc2, kappa, nb, forces,
-                                e_partial, stream);
+                                ncols, cap, W, rc, rc2, kappa, row0, row_end,
+                                nb, forces, e_partial, stream);
 }
 
 int cavmd_zcol_pair_f64(const void* loc, const void* box, const void* type_id,
@@ -726,12 +747,13 @@ int cavmd_zcol_pair_f64(const void* loc, const void* box, const void* type_id,
                         const void* vshift, int ntypes, const void* bucket,
                         const void* halo, const void* hull, const void* excl,
                         int max_excl, int n, int ncols, int cap, int W,
-                        double rc, double rc2, double kappa, int nb,
-                        void* forces, void* e_partial, void* stream) {
+                        double rc, double rc2, double kappa, int row0,
+                        int row_end, int nb, void* forces, void* e_partial,
+                        void* stream) {
   return launch_pair_any<double>(loc, box, type_id, eps, sig2, rcut2, vshift,
                                  ntypes, bucket, halo, hull, excl, max_excl, n,
-                                 ncols, cap, W, rc, rc2, kappa, nb, forces,
-                                 e_partial, stream);
+                                 ncols, cap, W, rc, rc2, kappa, row0, row_end,
+                                 nb, forces, e_partial, stream);
 }
 
 }  // extern "C"

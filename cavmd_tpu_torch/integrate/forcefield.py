@@ -41,8 +41,10 @@ on its rank's row block ``[r N/S, (r + 1) N/S)`` only, sums the partial
 PPPM meshes over the S ranks before the FFT and all-gathers the rows'
 forces with the pair-energy shares in the same message; every other term
 (bonds, the exclusion correction, the self energy, custom forces, the
-cavity) runs replicated on every rank and counts its energy once. Zcol
-mode has no row range (ROADMAP.md).
+cavity) runs replicated on every rank and counts its energy once. In cell
+and zcol mode the list (in zcol mode also the hull and its window flag) is
+built replicated, so every rank reads the same overflow flag and the
+overflow retry grows the plan on all ranks alike.
 
 On CUDA tensors the pair pass (dense: ``ops/pair_kernels.py``; cell:
 ``ops/cell_kernels.py``; zcol: ``ops/zcol_kernels.py``) and the PPPM
@@ -267,11 +269,7 @@ class ForceField(nn.Module):
         """A copy of this force field, its buffers shared, whose
         ``forward`` splits the costly terms by rows over ``comm``'s ranks
         (the module note); ``comm=None`` gives the unsplit force field
-        back. Raises ``NotImplementedError`` in zcol mode."""
-        if comm is not None and self.pair_mode == "zcol":
-            raise NotImplementedError(
-                "atom sharding by rows takes the dense and cell pair modes; "
-                "zcol's row range (K9) is queued in ROADMAP.md")
+        back."""
         if comm is self.row_comm:
             return self
         ff = copy.copy(self)
@@ -346,7 +344,7 @@ class ForceField(nn.Module):
             if self.pair_mode == "zcol":
                 f, e_lj, e_ew, win = zcol_pair_force(
                     position, box_L, clist, self.cell_cfg, *tables,
-                    self.zcol_W)
+                    self.zcol_W, rows=rows)
                 # a hull wider than the visit window drops pair blocks:
                 # the same failure, the same channel
                 energies["cell_overflow"] = torch.maximum(
@@ -356,12 +354,10 @@ class ForceField(nn.Module):
                     position, box_L, clist, self.cell_cfg, *tables,
                     lj_on=self.enable_lj, coul_on=self.enable_coulomb,
                     rows=rows)
-                if own is not None:  # zero outside the rank's rows
-                    f = f[..., own, :]
             if own is None:
                 forces = forces + f
-            else:
-                row_f = row_f + f
+            else:  # the rank's rows; the pass gives zeros elsewhere
+                row_f = row_f + f[..., own, :]
             energies["lj"] = e_lj
             energies["ewald_short"] = e_ew
         elif self.enable_lj or self.enable_coulomb:

@@ -40,6 +40,14 @@ column list (``ops/neighbor.py:build_zcol_list``; replica batching,
 over B XY columns, with one visit window W; the energies and the window
 flag come back (B,). The plain twin runs the one-replica twin on each
 replica and stacks the results.
+
+``rows=(row0, n_rows)`` (atom sharding by rows, ``parallel/shard.py``):
+the pair kernel and its twin keep the i rows whose particle id is in
+``[row0, row0 + n_rows)`` (within each replica); the forces stay (N, 3),
+zero on the other rows, and the energies are the range's share, so the S
+ranges of a partition add up to the full pass. The hull and the window
+flag are the full pass's: the hull kernel runs as without a range. A pair
+launch with a row range counts as ``zcol_pair_rows``.
 """
 
 from __future__ import annotations
@@ -69,9 +77,9 @@ _D = ctypes.c_double
 # r_cut, replicas, hull, flags, loc, stream)
 _HULL_ARGS = [_V] * 7 + [_I] * 4 + [_D, _I] + [_V] * 4
 # (loc, box, typeid, eps, sig2, rcut2, vshift, ntypes, bucket, halo, hull,
-# exclusions, max_excl, n, ncols, cap, W, r_cut, r_cut^2, kappa, replicas,
-# forces, partials, stream)
-_PAIR_ARGS = ([_V] * 7 + [_I] + [_V] * 4 + [_I] * 5 + [_D] * 3 + [_I]
+# exclusions, max_excl, n, ncols, cap, W, r_cut, r_cut^2, kappa, row0,
+# row_end, replicas, forces, partials, stream)
+_PAIR_ARGS = ([_V] * 7 + [_I] + [_V] * 4 + [_I] * 5 + [_D] * 3 + [_I] * 3
               + [_V] * 3)
 _SIGNATURES = {"cavmd_zcol_hull_f32": _HULL_ARGS,
                "cavmd_zcol_hull_f64": _HULL_ARGS,
@@ -213,17 +221,21 @@ def rows_per_block(W, itemsize):
 
 def zcol_pair_force_plain(position, box_L, clist: CellList,
                           cfg: CellListConfig, typeid, charge, eps, sig2,
-                          rcut2, vshift, exclusions, kappa: float, W):
+                          rcut2, vshift, exclusions, kappa: float, W,
+                          rows=None):
     """Plain twin of the zcol kernel. Returns (forces (N, 3), e_lj,
     e_ewald_short, window flag); for a replica batch the one-replica twin
-    of each replica, stacked ((B, N, 3) and three (B,))."""
+    of each replica, stacked ((B, N, 3) and three (B,)). ``rows``: the row
+    range of the module note; the i rows outside it drop out of every
+    tile."""
     if position.dim() == 3:
         outs = [zcol_pair_force_plain(
             position[r], box_L, replica_list(clist, r), cfg, typeid, charge,
-            eps, sig2, rcut2, vshift, exclusions, kappa, W)
+            eps, sig2, rcut2, vshift, exclusions, kappa, W, rows)
             for r in range(position.shape[0])]
         return tuple(torch.stack(x) for x in zip(*outs))
     n = position.shape[0]
+    row0, row_end = (0, n) if rows is None else (rows[0], rows[0] + rows[1])
     pos_loc = zcol_local_positions(position, box_L, clist)
     hull, flag, W = zcol_hull(pos_loc, box_L, clist, cfg, W)
     n_types = eps.shape[0]
@@ -233,10 +245,11 @@ def zcol_pair_force_plain(position, box_L, clist: CellList,
     XY, Kc = clist.bucket_idx.shape
     f_rows = position.new_zeros((XY * Kc // I_BLOCK, I_BLOCK, 3))
     e_lj = e_ew = position.new_zeros(())
-    for rows, idx_i, id_j, dxs, r2 in zcol_tiles(
+    for tile, idx_i, id_j, dxs, r2 in zcol_tiles(
             pos_loc, box_L, clist, hull, W,
             rows_per_block(W, position.element_size())):
-        active = ((idx_i < n)[:, :, None] & (id_j < n)[:, None, :]
+        own_i = (idx_i >= row0) & (idx_i < row_end)  # real rows of the range
+        active = (own_i[:, :, None] & (id_j < n)[:, None, :]
                   & (idx_i[:, :, None] != id_j[:, None, :]) & (r2 < rc2))
         excl_i = exclusions[idx_i].long()
         active = active & ~(excl_i[:, :, None, :]
@@ -247,7 +260,7 @@ def zcol_pair_force_plain(position, box_L, clist: CellList,
         e_lj = e_lj + torch.sum(torch.where(active, el, 0.0))
         e_ew = e_ew + torch.sum(torch.where(active, ee, 0.0))
         s = torch.where(active, f_over_r, 0.0)
-        f_rows[rows] = torch.stack([torch.sum(s * dd, dim=2) for dd in dxs],
+        f_rows[tile] = torch.stack([torch.sum(s * dd, dim=2) for dd in dxs],
                                    dim=-1)
     forces = slot_gather_forces(f_rows.view(XY, Kc, 3), clist.slot_of)
     return forces, 0.5 * e_lj, 0.5 * e_ew, flag
@@ -328,7 +341,7 @@ def _launch_hull(position, box_L, clist: CellList, cfg: CellListConfig,
 
 def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
                     typeid, charge, eps, sig2, rcut2, vshift, exclusions,
-                    kappa: float, W):
+                    kappa: float, W, rows=None):
     """LJ + Ewald short over the z-sorted column list: the hull and pair
     kernels on a CUDA device (five device operations, no read-back), the
     plain twin on the CPU. ``kappa`` is a host float and ``W`` the visit
@@ -337,13 +350,17 @@ def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
     in the same launches, and the energies and the flag then are (B,).
     The launchers reject what the kernels do not take (more than 8 types
     or 8 exclusions a particle, a window whose staged rows outgrow a
-    block's shared memory) with an error that ``_cuda.check`` raises."""
+    block's shared memory) with an error that ``_cuda.check`` raises.
+    ``rows=(row0, n_rows)``: the row range of the module note."""
+    n = position.shape[-2]
+    row0, n_rows = (0, n) if rows is None else (int(r) for r in rows)
+    if row0 < 0 or n_rows < 1 or row0 + n_rows > n:
+        raise ValueError(f"zcol_pair: rows {rows} outside {n} rows")
     if position.device.type == "cpu":
         return zcol_pair_force_plain(position, box_L, clist, cfg, typeid,
                                      charge, eps, sig2, rcut2, vshift,
-                                     exclusions, kappa, W)
+                                     exclusions, kappa, W, rows)
     dtype = position.dtype
-    n = position.shape[-2]
     ntypes = eps.shape[0]
     max_excl = exclusions.shape[1]
     tables = dict(typeid=(typeid, torch.int32, (n,)),
@@ -365,9 +382,10 @@ def zcol_pair_force(position, box_L, clist: CellList, cfg: CellListConfig,
         p(loc), p(box_L), p(typeid), p(eps), p(sig2), p(rcut2), p(vshift),
         ntypes, p(clist.bucket_idx), p(clist.halo_idx), p(hull), p(exclusions),
         max_excl, n, XY, Kc, W, float(cfg.r_cut), cfg.r_cut * cfg.r_cut,
-        float(kappa), batch[0] if batch else 1, p(forces), p(partial),
-        _cuda.stream_ptr(position.device))
-    _cuda.check(rc, "zcol_pair")
-    _cuda.count_launch("zcol_pair")
+        float(kappa), row0, row0 + n_rows, batch[0] if batch else 1,
+        p(forces), p(partial), _cuda.stream_ptr(position.device))
+    name = "zcol_pair" if rows is None else "zcol_pair_rows"
+    _cuda.check(rc, name)
+    _cuda.count_launch(name)
     energies = torch.sum(partial, dim=-2)  # the kernel halved each partial
     return forces, energies[..., 0], energies[..., 1], flags.any(dim=-1)

@@ -9,9 +9,10 @@ replicated on the S ranks of the atom group:
 
 - each rank owns the contiguous row block ``[s N/S, (s + 1) N/S)`` (N must
   be divisible by S: ``pad_snapshot_to``) and computes, on its rows only,
-  the pair pass (K1 in dense mode; K6/K8, the cell kernel, in cell mode,
-  over a cell list built replicated), the PPPM spread (K2) into a partial
-  mesh and the interpolation (K3) from the mesh potential;
+  the pair pass (K1 in dense mode; K6/K8, the cell kernel, in cell mode;
+  K9, the zcol pair kernel, in zcol mode, over a column list and hull
+  built replicated), the PPPM spread (K2) into a partial mesh and the
+  interpolation (K3) from the mesh potential;
 - two collectives a step: the sum of the partial meshes before the FFT,
   and the all-gather of the rows' forces with the pair-energy shares in
   the same message (``integrate/forcefield.py:ForceField.bind_rows``);
@@ -23,8 +24,7 @@ replicated on the S ranks of the atom group:
   rank, a sharded run draws the unsharded run's noise draw for draw.
 
 The state stays replicated: the collectives give every rank the same bits,
-so the ranks' states stay equal. Zcol mode has no row range yet (K9's is
-queued in ROADMAP.md) and raises ``NotImplementedError``.
+so the ranks' states stay equal.
 
 ``make_sharded_step`` and ``make_sharded_runner`` take the JAX package's
 arguments: a step of ``make_step_fn`` (or ``make_adaptive_step`` of one),

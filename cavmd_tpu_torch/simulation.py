@@ -20,9 +20,9 @@ between chunks, and trackers and writers see the same observables on
 every rank. The route is the JAX facade's: the slab domain pipeline
 (``parallel/domain.py``) where its plan takes the run; otherwise, with a
 logged warning, atom sharding by rows (``parallel/shard.py``, the
-counterpart of the JAX package's GSPMD fallback: dense mode, custom
-forces, an opaque ``extra_obs``, the methods the slab step refuses, a box
-too narrow for S slabs), which needs N divisible by S
+counterpart of the JAX package's GSPMD fallback: dense and zcol mode,
+custom forces, an opaque ``extra_obs``, the methods the slab step
+refuses, a box too narrow for S slabs), which needs N divisible by S
 (``parallel.pad_snapshot_to``). ``shard_atoms=1`` runs the slab pipeline
 in this process alone, with no process group, where it takes the run (the
 single-device cost of the slab layout), and unsharded otherwise, as the

@@ -9,7 +9,8 @@ including when no CUDA device is present or the package is not next to it.
 Phases:
   0. device: the card's name and power limit (nvidia-smi);
   1. build: compile every kernel source with nvcc (sm_90a), one nvcc per
-     source, all started together; print the seconds and, from ptxas, each
+     source, all started together before phase 0 (which runs while they
+     compile); print the seconds from their start and, from ptxas, each
      kernel's registers, stack frame and spill bytes by name (K1, K2, K3,
      the cell kernel, K4, K5 and K9's hull and pair kernels must be found
      in float and double; K3 at order 6 and both zcol kernels with no
@@ -52,7 +53,8 @@ Phases:
      reported, and held to shrink as dt^2 against a second run at half
      the time step): no overflow, finite observables, the cell kernel and
      K2-K5 launched every step, ms per step; then the N = 501 scene in
-     cell mode (the small grid) through ``Simulation.run``;
+     cell mode (the small grid) through ``Simulation.run`` on SHORT_RUN
+     (its drift held to that prefix's bound);
   7. a float64 NVE trajectory of 20 steps in cell mode (N = 4001, 5^3
      cells) on the card against the CPU;
   8. the CLI at 10,000 molecules (N = 20,001, drift held) and at 50,000
@@ -136,14 +138,14 @@ Phases:
  13. the MTTK and Berendsen baths (unfused: K4/K5 take Bussi and Langevin
      only, as in the JAX package) and the rest of the slice: (a) MTTK
      (100 K, tau 0.5 ps) on the molecules and Langevin on the photon
-     through ``Simulation.run`` on phase 3's scene, one warm-up chunk then
-     1000 steps: K1-K3 once a step and K4/K5 never, steps/s, device
+     through ``Simulation.run`` on phase 3's scene, 1000 steps from the
+     start: K1-K3 once a step and K4/K5 never, steps/s, device
      operations, device us and busy share a step beside phase 11's
      profile of the fused Bussi step, the extended energy's drift (the
      universe plus the molecular MTTK energy) held to 3x the JAX
      package's CPU reading over the same chunk
      (``scripts/jax_bath_reference.py``); (b)
-     Berendsen on the same scene, 2 x 1000 steps, the last chunk's mean
+     Berendsen on the same scene, 1000 steps, the chunk's mean
      molecular T held within 3x the JAX reading's distance from 100 K;
      (c) MTTK at N = 100,001 (``build_large_n(50_000)``'s scene, cell
      mode), one warm-up chunk then 2 x 100 steps: no overflow, the cell
@@ -202,7 +204,7 @@ Phases:
      the unfused tail: K4/K5 never), 03 (8 replicas, K1-K5 once a step
      for the batch), 04 (2 replicas x 1 slab on two gloo ranks sharing the
      card: the slab kernel, K2 and K3 once a step on each rank), 05 (the
-     driver), 06 (the reference anchor at 1 ps: K1-K5 once a step, its
+     driver), 06 (the reference anchor at 0.5 ps: K1-K5 once a step, its
      universe drift and mean molecular T held to 3x the JAX package's
      reading of the same protocol), 07 (the polariton spectrum at 100
      periods, no pair kernel: its peaks within one bin of JAX's float64
@@ -245,9 +247,21 @@ Phases:
      DRIFT_BOUND_HA, each rank's K1 row range, K2 and K3 once a step and
      K4/K5 once a step in float32; (d) N = 2 HELD_N_MOL + 1 in cell mode
      (an opaque ``extra_obs``: the row path) for ROWS_CELL_STEPS steps,
-     the cell kernel's row range once a step on each rank. The
-     ``dense_pair_rows`` and ``cell_pair_rows`` rows take their launches
-     from (c)'s float32 run and (d).
+     the cell kernel's row range once a step on each rank; (e) K9 with a
+     row range (``zcol_pair_rows``) on ROWS_S row blocks at N = 100,001
+     (17 x 17 columns, W = 8) and on REPLICA_B replicas of N = 20,001 in
+     one launch, float32 and float64: each block against its twin with
+     the same range, the blocks' forces summed equal to the full launch's
+     bit for bit and their energy shares to its energies; in float32 the
+     first block's time beside the full launch's, its twin's and its
+     bound; and inside (c)'s spawn, (d)'s scene in zcol mode through
+     ``Simulation(shard_atoms=2)``: ROWS_CELL_STEPS float32 steps with
+     ``zcol_pair_rows``, ``zcol_hull``, K2 and K3 once a step on each
+     rank, no overflow and no window flag, ms a step; and a float64 run
+     within TRAJ_TOL_BOHR of the one-rank zcol run after
+     ROWS_ZCOL_F64_STEPS steps. The ``dense_pair_rows``,
+     ``cell_pair_rows`` and ``zcol_pair_rows`` rows take their launches
+     from (c)'s float32 run, (d) and (e)'s float32 run.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase ends with a line of the seconds it took. The last four lines are
@@ -271,6 +285,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 # stated tolerances (see PERF.md):
 # f32: reordered f32 sums over ~N pair terms / p^3 stencil terms / the
@@ -293,15 +308,18 @@ TRAJ_TOL_BOHR = 1e-9  # phase 4, f64 positions after 20 steps
 # 1.7e-1 Ha, a Bussi step without its reservoir tally 3.1e-1 Ha.
 DRIFT_BOUND_HA = 3.8e-3
 N_WARM, N_CHUNKS, CHUNK = 1000, 5, 1000
-# phase 5: the CLI's default adaptive dt covers CLI_RUNTIME_PS in ~4900
+# phase 5: the CLI's default adaptive dt covers CLI_RUNTIME_PS in ~3650
 # steps at N = 501 (energy rows every 1000 steps). The drift bound is 3x
 # the JAX CLI's own reading on the same arguments with --device CPU
-# --precision f32: max |U - U[0]| of the universe_total_energy column is
-# 4.0e-6 Ha at seed 0 and 2.0e-6, 1.2e-5, 3.0e-6, 7.0e-6 Ha at seeds 1-4
-# (the printed energies are rounded to 1e-6 Ha); the bound is 3x the
-# largest. The port's CLI on the CPU gives 3.0e-6 Ha at seed 0; a copy of
-# the port whose Bussi step drops its reservoir tally gives 4.3e-3 Ha.
-CLI_RUNTIME_PS = 0.08
+# --precision f32 (``python scripts/jax_cli_reference.py``): max |U - U[0]|
+# of the universe_total_energy column over its 3 rows is 4.0e-6 Ha at seed
+# 0 and 2.0e-6, 1.2e-5, 0 (one row), 1.0e-6 Ha at seeds 1-4 (the printed
+# energies are rounded to 1e-6 Ha); the bound is 3x the largest. At the
+# runtime before, 0.08 ps (~4900 steps), the readings were 4.0e-6 Ha and
+# 2.0e-6, 1.2e-5, 3.0e-6, 7.0e-6 Ha, the same bound. The port's CLI on the
+# CPU gave 3.0e-6 Ha at seed 0 there; a copy of the port whose Bussi step
+# drops its reservoir tally gave 4.3e-3 Ha.
+CLI_RUNTIME_PS = 0.06
 CLI_DRIFT_BOUND_HA = 3.6e-5
 CLI_ARGS = ["--device", "GPU", "--n-molecules", "250",
             "--enable-energy-tracker", "--enable-fkt", "--seed", "0",
@@ -327,7 +345,6 @@ LARGE_N_MOL, HELD_N_MOL = 50_000, 10_000
 LARGE_CHUNK, LARGE_CHUNKS = 100, 5
 LARGE_BAND_BOUND_HA = 5.9e-2
 LARGE_DT_FS, LARGE_DT2_RATIO = 0.25, 2.5
-SMALL_GRID_CHUNKS = 2  # phase 6, N = 501 in cell mode, after N_WARM
 # phase 8: the CLI at 10,000 molecules (held) and 50,000, with
 # its default adaptive dt, for LARGE_CLI_RUNTIME_PS with energy rows every
 # LARGE_CLI_ENERGY_PERIOD_STEPS steps. The bound is 3x the JAX CLI's own
@@ -374,15 +391,21 @@ ZCOL_F64_STEPS, ZCOL_F64_DT_FS = 40, 1.0
 # REPLICA_SHORT_DRIFT_BOUND_HA, then REPLICA_PROFILED_STEPS profiled steps;
 # the CLI at REPLICA_B replicas is held to VMAP_CLI_DRIFT_BOUND_HA, 3x the
 # JAX package's own batched CLI on the same arguments with --device CPU
-# (``python scripts/jax_vmap_cli_reference.py --precision f32|f64``):
-# per-replica max |U - U[0]| up to 9e-6 Ha in f64 and up to 1.8e-5 Ha in
-# f32 over the replicas' rows that stayed finite (its f32 batch blew up in
-# 4 of the 8 replicas, ROADMAP.md Queue 3); the bound is 3x the larger.
+# (``python scripts/jax_vmap_cli_reference.py --precision f32|f64``, at
+# phase 5's CLI_RUNTIME_PS): per-replica max |U - U[0]| up to 9e-6 Ha in
+# f64 and up to 1.7e-5 Ha in f32 over the replicas' rows that stayed
+# finite (its f32 batch blew up in 3 of the 8 replicas, ROADMAP.md Queue
+# 3); the bound is 3x the larger. At 0.08 ps, the runtime before, the
+# readings were 9e-6 and 1.8e-5 Ha (bound 5.4e-5).
 REPLICA_B, REPLICA_WIDE_B = 8, 32
-VMAP_CLI_DRIFT_BOUND_HA = 5.4e-5
+VMAP_CLI_DRIFT_BOUND_HA = 5.1e-5
 REPLICA_F64_B, REPLICA_F64_STEPS = 4, 20
 REPLICA_STEP_BATCHES = (1, 8, 32)
-REPLICA_PROFILED_STEPS = 50
+# the steps of each profiled window (every profile of a step in phases
+# 11-13, 15 and 17): a trace's device operations a step are counted name
+# by name, so 20 steps give the same whole numbers as 50 at 2.5x less
+# tracing
+REPLICA_PROFILED_STEPS = 20
 # the device operations of a batched step may differ from the unbatched
 # fused step's by the draws' reshapes and a few views that became copies;
 # across batch sizes the step is the same program and must issue the same
@@ -430,22 +453,24 @@ BATCHED_CELL_KERNELS = ("cell_pair", "cell_pair_small_grid", "zcol_pair",
 
 # phase 13: the baths' protocols (scripts/jax_bath_reference.py runs the
 # JAX package on them on the CPU). 13a: MTTK at BATH_TAU_PS on phase 3's
-# scene, one warm-up chunk then BATH_CHUNKS chunks of CHUNK steps; the
-# bound is 3x the larger of the JAX package's f32 and f64 readings of the
-# extended energy's drift over that one chunk. 13b: Berendsen,
+# scene, BATH_CHUNKS chunks of CHUNK steps from the start; the bound is 3x
+# the larger of the JAX package's f32 and f64 readings of the extended
+# energy's drift over that one chunk. 13b: Berendsen,
 # BERENDSEN_CHUNKS chunks; the
 # bound on |T - 100 K| of the last chunk's mean molecular T is 3x the JAX
 # reading's (the freshly generated lattice relaxes and heats the
 # molecules, which a 0.5 ps Berendsen bath pulls back only slowly). The
-# JAX readings: extended drift over the first chunk 9.044e-4 Ha (f32) and
-# 9.027e-4 Ha (f64) (over three chunks 9.374e-4 and 9.281e-4);
-# Berendsen last-chunk T 462.05 K (f32) and 462.13 K (f64), 362.13 K from
-# 100 K at most.
+# JAX readings (``python scripts/jax_bath_reference.py --protocol baths``,
+# CPU): MTTK's extended drift over the first chunk from step 0 2.0505e-3
+# Ha (f32) and 2.0486e-3 Ha (f64); Berendsen's first-chunk T 588.64 K
+# (f32) and 588.77 K (f64), 488.77 K from 100 K at most. Before the
+# windows were cut (a warm-up chunk for MTTK, two chunks of Berendsen) the
+# readings were 9.044e-4 / 9.027e-4 Ha and 462.05 / 462.13 K.
 BATH_TAU_PS = 0.5
-BATH_CHUNKS, BERENDSEN_CHUNKS = 1, 2
-MTTK_DRIFT_BOUND_HA = 2.71e-3
-BERENDSEN_T_BOUND_K = 1086.0
-BERENDSEN_JAX_T_K = 462.13
+BATH_CHUNKS, BERENDSEN_CHUNKS = 1, 1
+MTTK_DRIFT_BOUND_HA = 6.15e-3
+BERENDSEN_T_BOUND_K = 1466.0
+BERENDSEN_JAX_T_K = 588.77
 BATH_LARGE_CHUNKS = 2  # 13c, after one warm-up chunk of LARGE_CHUNK steps
 RESUME_K = 50  # 13d: RESUME_K steps, a checkpoint, RESUME_K more
 RESUME_MTTK_REL = 1e-12
@@ -479,9 +504,10 @@ NATIVE_CHUNK, NATIVE_REPS, NATIVE_GSD_FRAMES = 500, 7, 5
 # half (EXAMPLE_DEPTHS, keyword arguments of each main; 06's full 50 ps and
 # 07's 800 periods run apart, PERF.md). The JAX readings of
 # scripts/jax_examples_reference.py --protocol chip (CPU, 2026-10-18):
-# 06 at 1 ps on the reference scene in float32, over the example's seeds
-# and two variants, universe drift up to 1.0020e-4 Ha and mean molecular T
-# within 2.66 K of 100 K (each held at 3x); 07 at 100 periods in float64
+# 06 at 0.5 ps on the reference scene in float32, over the example's seeds
+# and two variants, universe drift up to 1.0002e-4 Ha and mean molecular T
+# within 5.16 K of 100 K (each held at 3x; at 1 ps, the depth before, the
+# readings were 1.0020e-4 Ha and 2.66 K); 07 at 100 periods in float64
 # (deterministic NVE): peaks 1508.38 and 1601.69 cm^-1 at g = 1e-3 and
 # 1555.04 at g = 0, bin 15.55 cm^-1 (each peak held within one bin). The
 # traced runs (EXAMPLE_TRACED) are short ones of 03 and 06 whose profiler
@@ -495,14 +521,14 @@ EXAMPLE_DEPTHS = {
     "02": dict(n_steps=500, t_window=250),
     "03": dict(n_steps=300, fire_steps=200),
     "04": dict(n_steps=100),
-    "06": dict(runtime_ps=1.0, fire_steps=300),
+    "06": dict(runtime_ps=0.5, fire_steps=300),
     "07": dict(n_periods=100),
     "08": dict(n_chunks=2, chunk=500, reference_every=500),
 }
 EXAMPLE_05_ARGS = ["--n-molecules", "250", "--runtime", "0.01", "--seed",
                    "0", "--enable-energy-tracker"]
-EX06_DRIFT_BOUND_HA = 3 * 1.0020e-4
-EX06_T_BOUND_K = 3 * 2.66
+EX06_DRIFT_BOUND_HA = 3 * 1.0002e-4
+EX06_T_BOUND_K = 3 * 5.16
 EX07_JAX_PEAKS_CM1 = {"peaks_g0": [1555.0355457530832],
                       "peaks": [1508.3844793804908, 1601.6866121256758]}
 # kernel symbol in a trace -> the wrapper counts its records must equal
@@ -753,8 +779,10 @@ def device_ms(torch, fn, reps=15, inner=10):
     not yet reached), otherwise the spin is doubled. A call that
     synchronises with the host raises (sync debug mode "error")."""
     reps, inner, issue_s = _call_plan(torch, fn, reps, inner)
-    # ~2e9 spin cycles a second at H100 clocks, with a 3x margin
-    spin_cycles = max(50_000_000, int(6e9 * inner * issue_s))
+    # ~2e9 spin cycles a second at H100 clocks, with a 3x margin, and at
+    # least 5 ms of spin (a sample whose spin ended early is taken again
+    # with twice the spin)
+    spin_cycles = max(10_000_000, int(6e9 * inner * issue_s))
     samples = []
     while len(samples) < reps:
         start = torch.cuda.Event(enable_timing=True)
@@ -841,7 +869,7 @@ def profiled_device_ms(torch, fn, reps=5, match=None, ops=False, once=()):
           f"calls in {PROFILE_TRIES} (device operations and counts of "
           f"{list(marks)}: {[t[:2] for t in taken]})")
     n, counts, dev = max(usable, key=lambda t: (sum(t[1]), t[0]))
-    ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    ms = sum(e.end - e.start for e in dev) / 1e3
     ms /= len(dev) if match is not None else reps
     return (ms, n / reps) if ops else ms
 
@@ -1474,9 +1502,10 @@ def large_n_path(torch, pt, n_mol, drift_bound, dt_fs=LARGE_DT_FS,
 def small_grid_path(torch, pt):
     """The cell pass on a grid with < 3 cells per axis (the K8 grid): the
     N = 501 reference scene with pair_mode='cell' (2^3 cells, the
-    deduplicated neighbour table) through Simulation.run, phase 3's
-    protocol with fewer chunks. Its universe drift is held to phase 3's
-    bound: the window is a prefix of phase 3's, from the same first step."""
+    deduplicated neighbour table) through Simulation.run on SHORT_RUN, the
+    prefix of phase 3's protocol that phase 3's unfused run takes, its
+    universe drift held to that prefix's bound SHORT_DRIFT_BOUND_HA (the
+    JAX package's reading on the same scene, seed and steps)."""
     import numpy as np
 
     from cavmd_tpu_torch.core import PhysicalConstants as PC
@@ -1493,16 +1522,17 @@ def small_grid_path(torch, pt):
     sim = pt.Simulation(snap, ff, main_methods(pt, PC.kT_from_kelvin(100.0)),
                         dt=PC.fs_to_atomic_units(0.25), seed=7,
                         chunk_size=CHUNK)
-    sim.run(n_steps=N_WARM)
+    warm, n_chunks, chunk = SHORT_RUN
+    sim.run(n_steps=warm)
     chunks, chunk_s = [], []
-    for _ in range(SMALL_GRID_CHUNKS):
+    for _ in range(n_chunks):
         t0 = time.perf_counter()
-        sim.run(n_steps=CHUNK)
+        sim.run(n_steps=chunk)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
         chunks.append(sim.last_obs)
     launches = dict(_cuda.launches)
-    total = N_WARM + SMALL_GRID_CHUNKS * CHUNK
+    total = warm + n_chunks * chunk
     obs = {k: np.concatenate([c[k] for c in chunks])
            for k in OBS_KEYS + ("cell_overflow",)}
     check(not obs["cell_overflow"].any(), "small-grid path: overflow")
@@ -1515,11 +1545,12 @@ def small_grid_path(torch, pt):
               f"{launches.get(kname, 0)} < {total} times")
     U = universe_energy(obs)
     drift = float(np.abs(U - U[0]).max())
-    check(drift < DRIFT_BOUND_HA,
-          f"small-grid path: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
+    check(drift < SHORT_DRIFT_BOUND_HA,
+          f"small-grid path: universe drift {drift} >= "
+          f"{SHORT_DRIFT_BOUND_HA} Ha")
     res = dict(n=snap.N, ncells=ff.cell_cfg.ncells, cap=ff.cell_cfg.cap,
-               steps=SMALL_GRID_CHUNKS * CHUNK,
-               steps_per_s=statistics.median(CHUNK / t for t in chunk_s),
+               steps=n_chunks * chunk,
+               steps_per_s=statistics.median(chunk / t for t in chunk_s),
                universe_drift_ha=drift, launches=launches)
     print("phase 6 (small grid, N=501 cell mode): " + ", ".join(
         f"{k}={v!r}" for k, v in res.items()), flush=True)
@@ -1703,7 +1734,7 @@ def domain_large_path(torch, pt, unsharded):
 
 
 def zcol_work_counts(torch, pos_loc, box_L, clist, cfg, hull, W, typeid,
-                     charge, ff):
+                     charge, ff, rows=None):
     """(bytes moved, operations, pair counts) of one zcol-kernel call on
     this run's inputs. Bytes: positions, anchors and local anchors, box,
     typeid, charge, the four (T, T) tables, the bucket, halo and exclusion
@@ -1717,7 +1748,10 @@ def zcol_work_counts(torch, pos_loc, box_L, clist, cfg, hull, W, typeid,
     test (9); per pair inside the cutoff the self and exclusion tests
     (1 + E); per counted pair 6, 17 more in the LJ range, 20 more for a
     charged pair (the pairs counted i-block by i-block from the plain
-    twin's tiles)."""
+    twin's tiles). ``rows`` = (row0, n_rows): a launch with that row range
+    (the hull as without one), which needs the pair work of its own i rows
+    only (the i-blocks that hold one stage their visited blocks) and
+    writes their forces."""
     from cavmd_tpu_torch.ops import zcol_kernels as zk
 
     n, e = pos_loc.shape[0], pos_loc.element_size()
@@ -1732,18 +1766,23 @@ def zcol_work_counts(torch, pos_loc, box_L, clist, cfg, hull, W, typeid,
     t = torch.arange(W, device=pos_loc.device)
     s1, c1, s2, cnt = (h.long()[..., None] for h in hull.unbind(-1))
     jb = torch.where(t < c1, s1 + t, s2 + (t - c1))
-    rows = torch.clamp(real - jb * zk.J_BLOCK, 0, zk.J_BLOCK)
-    staged = torch.where(t < cnt, rows, 0).sum(dim=-1)
-    real_i = (clist.bucket_idx < n).view(XY, NIB, zk.I_BLOCK).sum(dim=-1)
-    n_staged = int(staged.sum())
+    in_block = torch.clamp(real - jb * zk.J_BLOCK, 0, zk.J_BLOCK)
+    staged = torch.where(t < cnt, in_block, 0).sum(dim=-1)
+    b = clist.bucket_idx.view(XY, NIB, zk.I_BLOCK)
+    r0, r_end, n_out = 0, n, n
+    if rows is not None:
+        r0, r_end, n_out = rows[0], rows[0] + rows[1], rows[1]
+    real_i = ((b >= r0) & (b < r_end)).sum(dim=-1)
+    n_staged = int(staged[real_i > 0].sum())
     n_cand = int((real_i * staged).sum())
     n_near, n_in, n_lj, n_ew = pair_counts(
         torch, zk.zcol_tiles(pos_loc, box_L, clist, hull, W,
                              zk.rows_per_block(W, e)),
-        n, ff.cell_exclusions, typeid, charge, ff, cfg.r_cut * cfg.r_cut)
+        n, ff.cell_exclusions, typeid, charge, ff, cfg.r_cut * cfg.r_cut,
+        rows=rows)
     n_bytes = (e * (9 * n + 3 + n + 4 * T * T) + 4 * n
                + 4 * (XY * Kc + 9 * XY * Kc + (n + 1) * E)
-               + e * (3 * n + 2 * XY * NIB))
+               + e * (3 * n_out + 2 * XY * NIB))
     n_ops = (12 * n + 2 * 10 * XY * Kc + 12 * XY * NIB * NB
              + 3 * n_staged + 9 * n_cand + (1 + E) * n_near + 6 * n_in
              + 17 * n_lj + 20 * n_ew)
@@ -2400,11 +2439,22 @@ def union_us(intervals):
     return total
 
 
+class DeviceRecord(NamedTuple):
+    """One device record of a trace: the kernel's (or copy's) name and
+    its start and end in us."""
+    name: str
+    start: float
+    end: float
+
+
 def traces(torch, fn):
     """``fn()`` under ``torch.profiler``, up to PROFILE_TRIES times: yields
-    (its result, the trace's device records) for each try; the caller
-    stops when a trace is complete enough (the profiler on the card's
-    machine drops device records, PERF.md §7)."""
+    (its result, the trace's device records as ``DeviceRecord``s) for each
+    try; the caller stops when a trace is complete enough (the profiler on
+    the card's machine drops device records, PERF.md §7). The records are
+    read from the profiler's raw results: the same names and counts as
+    its parsed ``events()``, which take ~20x longer to build (1.3-2.1 s
+    against 0.06-0.09 s for 50 steps at N = 501 on the card's host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2412,8 +2462,10 @@ def traces(torch, fn):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
-        yield out, [e for e in prof.events()
-                    if e.device_type == DeviceType.CUDA]
+        yield out, [DeviceRecord(e.name(), e.start_ns() / 1e3,
+                                 e.end_ns() / 1e3)
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA]
 
 
 def named(dev, mark):
@@ -2468,10 +2520,10 @@ def profiled_steps(torch, run, steps, marks=DENSE_STEP_MARKS):
           f"each of {marks} at least {steps - 1} times in {PROFILE_TRIES} "
           f"(device operations and counts: {seen})")
     missing, dev = best
-    iv = [(e.time_range.start, e.time_range.end) for e in dev]
+    iv = [(e.start, e.end) for e in dev]
     by_name = defaultdict(float)
     for e in dev:
-        by_name[e.name[:60]] += e.time_range.elapsed_us() / steps
+        by_name[e.name[:60]] += (e.end - e.start) / steps
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
     return dict(ops=sum(round(c / steps) for c in per_name.values()),
                 records=len(dev) / steps, us=union_us(iv) / steps,
@@ -4538,6 +4590,23 @@ def every_rank(complete: bool) -> bool:
     return bool(flag.item())
 
 
+def example_job(stem, kwargs):
+    """A ``run_ranks`` job of one rank: an example's ``main(**kwargs)`` on
+    the card, its launches counted by the wrappers. Returns the figures
+    with ``seconds`` (of the job) and ``launches``."""
+    import torch
+
+    from cavmd_tpu_torch.ops import _cuda
+
+    ex = load_example(stem)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = ex.main(**kwargs)
+    torch.cuda.synchronize()
+    return dict(out, seconds=time.perf_counter() - t0,
+                launches=dict(_cuda.launches))
+
+
 def example_rank_job(stem, kwargs):
     """A ``run_ranks`` job: an example's ``main(**kwargs)`` on this rank,
     on the card, its launches counted from a complete trace; the ranks
@@ -4638,11 +4707,16 @@ def examples_phase(torch):
                   f"force calls)")
 
     unfused = ("fused_pre_force", "fused_post_force")
-    # 04's two ranks start first and run while this process runs 01, 02
-    # and 07 (their spawn and imports are most of their time)
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    # 04's two ranks and 07's one (16,000 launch-bound steps of three
+    # particles) start first and run while this process runs 01, 02, 03,
+    # 05 and 08 (their spawn and imports are most of 04's time); 06, whose
+    # steps/s is reported, runs after them, alone
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     ranks04 = pool.submit(run_ranks, [(example_rank_job, (
         "04_slab_replicas_torch", EXAMPLE_DEPTHS["04"]))], 2, timeout=600)
+    rank07 = pool.submit(run_ranks, [(example_job, (
+        "07_polariton_rabi_splitting_torch", EXAMPLE_DEPTHS["07"]))], 1,
+        timeout=600)
     t04 = time.perf_counter()
     pool.shutdown(wait=False)
 
@@ -4658,21 +4732,6 @@ def examples_phase(torch):
               f"phase 16 example {name}: drift {out['drift_ha']}")
         figures(name, out)
 
-    # 07: the polariton spectrum, float64 NVE, no pair kernel
-    out = run("07_polariton_rabi_splitting_torch", **EXAMPLE_DEPTHS["07"])
-    check(not any(out["launches"].get(k, 0) for k in BATCHED_KERNELS),
-          f"phase 16 example 07: launches {out['launches']}")
-    for key, want in EX07_JAX_PEAKS_CM1.items():
-        got = out[key]
-        check(len(got) == len(want) and all(
-            abs(g - w) <= out["bin_cm1"] for g, w in zip(got, want)),
-              f"phase 16 example 07: {key} {got} against JAX's {want} "
-              f"(bin {out['bin_cm1']:.2f})")
-    figures("07", out)
-    print(f"phase 16 example 07: splitting {out['splitting_cm1']:.2f} "
-          f"cm^-1 (analytic g q_c / (sqrt(mu) omega) "
-          f"{out['analytic_cm1']:.1f})", flush=True)
-
     # 03: the replica batch, K1-K5 once a step for all replicas
     ex03 = load_example("03_replicas_torch")
     kw = EXAMPLE_TRACED["03"]
@@ -4687,6 +4746,50 @@ def examples_phase(torch):
     check(all(np.isfinite(out["drift_ha"] + out["mean_T_K"])),
           f"phase 16 example 03: {out}")
     figures("03", out)
+
+    # 05: the driver
+    work = tempfile.mkdtemp(prefix="cavmd_ex05_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        out = run("05_advanced_run_torch", argv=EXAMPLE_05_ARGS)
+        check(out["rc"] == 0 and os.path.isfile(os.path.join(
+            work, "cavity_coupling_1eneg03", "prod-1_energy_tracker.txt")),
+              f"phase 16 example 05: {out}")
+        check(all(launched(out, k) > 0 for k in BATCHED_KERNELS),
+              f"phase 16 example 05: launches {out['launches']}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    figures("05", out)
+
+    # 08: the IR spectrum, float64, files in a temporary directory
+    work = tempfile.mkdtemp(prefix="cavmd_ex08_")
+    try:
+        out = run("08_ir_spectrum_torch", workdir=work,
+                  **EXAMPLE_DEPTHS["08"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(all(launched(out, k) == 0 for k in unfused)
+          and launched(out, "dense_pair") > 0
+          and out["n_segments"] >= 2,
+          f"phase 16 example 08: {out}")
+    figures("08", out)
+    # 07: the polariton spectrum, float64 NVE, no pair kernel, in its own
+    # process (its seconds include the spawn)
+    (out,), = rank07.result()
+    check(not any(out["launches"].get(k, 0) for k in BATCHED_KERNELS),
+          f"phase 16 example 07: launches {out['launches']}")
+    for key, want in EX07_JAX_PEAKS_CM1.items():
+        got = out[key]
+        check(len(got) == len(want) and all(
+            abs(g - w) <= out["bin_cm1"] for g, w in zip(got, want)),
+              f"phase 16 example 07: {key} {got} against JAX's {want} "
+              f"(bin {out['bin_cm1']:.2f})")
+    figures("07", out)
+    print(f"phase 16 example 07: splitting {out['splitting_cm1']:.2f} "
+          f"cm^-1 (analytic g q_c / (sqrt(mu) omega) "
+          f"{out['analytic_cm1']:.1f})", flush=True)
 
     # 04: 2 replicas x 1 slab on two gloo ranks sharing the card, each
     # rank's run traced whole: the slab kernel, K2 and K3 once a step
@@ -4706,22 +4809,6 @@ def examples_phase(torch):
           f"phase 16 example 04: {out}")
     figures("04", out)
 
-    # 05: the driver
-    work = tempfile.mkdtemp(prefix="cavmd_ex05_")
-    cwd = os.getcwd()
-    try:
-        os.chdir(work)
-        out = run("05_advanced_run_torch", argv=EXAMPLE_05_ARGS)
-        check(out["rc"] == 0 and os.path.isfile(os.path.join(
-            work, "cavity_coupling_1eneg03", "prod-1_energy_tracker.txt")),
-              f"phase 16 example 05: {out}")
-        check(all(launched(out, k) > 0 for k in BATCHED_KERNELS),
-              f"phase 16 example 05: launches {out['launches']}")
-    finally:
-        os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
-    figures("05", out)
-
     # 06: the reference anchor, cut; K1-K5 once a step
     ex06 = load_example("06_reference_anchor_validation_torch")
     kw = EXAMPLE_TRACED["06"]
@@ -4739,18 +4826,6 @@ def examples_phase(torch):
           f"phase 16 example 06: mean T {out['mean_T_K']} K")
     figures("06", out)
 
-    # 08: the IR spectrum, float64, files in a temporary directory
-    work = tempfile.mkdtemp(prefix="cavmd_ex08_")
-    try:
-        out = run("08_ir_spectrum_torch", workdir=work,
-                  **EXAMPLE_DEPTHS["08"])
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    check(all(launched(out, k) == 0 for k in unfused)
-          and launched(out, "dense_pair") > 0
-          and out["n_segments"] >= 2,
-          f"phase 16 example 08: {out}")
-    figures("08", out)
     return fig
 
 
@@ -5002,13 +5077,17 @@ def profile_dir_path(torch, pt):
 # ranges cut the rows into ROWS_S blocks; 18c runs ROWS_S ranks sharing the
 # card over gloo (host-staged collectives): ROWS_F64_STEPS float64 steps
 # held to TRAJ_TOL_BOHR against the one-rank run, SHORT_RUN in float32 held
-# to phase 3's DRIFT_BOUND_HA; 18d ROWS_CELL_STEPS steps in cell mode
+# to phase 3's DRIFT_BOUND_HA; 18d ROWS_CELL_STEPS steps in cell mode; 18e
+# ROWS_CELL_STEPS float32 steps in zcol mode and ROWS_ZCOL_F64_STEPS
+# float64 steps held to TRAJ_TOL_BOHR against the one-rank zcol run
 ROWS_S = 2
 ROWS_F64_STEPS = 100
 ROWS_CELL_STEPS = 20
+ROWS_ZCOL_F64_STEPS = 20  # 18e: the float64 zcol run on the row path
 # the kernels line's row-range rows -> the kernel each one is a range of
 ROWS_KERNELS = {"dense_pair_rows": "dense_pair",
-                "cell_pair_rows": "cell_pair"}
+                "cell_pair_rows": "cell_pair",
+                "zcol_pair_rows": "zcol_pair"}
 
 
 def row_ranges(n, S):
@@ -5164,13 +5243,12 @@ def rows_kernel_phase(torch, pt, dtype, timed):
         out[key] = dict(max_abs_err=max(errs), n=csnap.N,
                         ncells=cff.cell_cfg.ncells, blocks_sum_bit_equal=True,
                         rows=row_ranges(csnap.N, ROWS_S))
-        if key == "cell_pair_rows":
-            cfirst = row_ranges(csnap.N, ROWS_S)[0]
-            calls[key] = (
-                lambda a=cargs, r=cfirst: ck.cell_pair_force_fused(*a,
-                                                                   rows=r),
-                lambda a=cargs, r=cfirst: ck.cell_pair_force_fused_plain(
-                    *a, row_range=r))
+        cfirst = row_ranges(csnap.N, ROWS_S)[0]
+        calls[key] = (
+            lambda a=cargs, r=cfirst: ck.cell_pair_force_fused(*a, rows=r),
+            lambda a=cargs, r=cfirst: ck.cell_pair_force_fused_plain(
+                *a, row_range=r))
+        if timed:
             counts[key] = cell_work_counts(
                 torch, *cargs[:4], csnap.typeid, csnap.charge, cff,
                 cff.cell_exclusions, ck.launch_blocks(
@@ -5193,10 +5271,109 @@ def rows_kernel_phase(torch, pt, dtype, timed):
     return out
 
 
+def zcol_rows_kernel_phase(torch, pt, dtype, timed):
+    """Phase 18e (a), (b): K9 with a row range (``zcol_pair_rows``) on
+    ROWS_S row blocks, at N = 2 LARGE_N_MOL + 1 in zcol mode (17 x 17
+    columns, W = 8, phase 10's scene) and on REPLICA_B replicas of
+    N = 2 HELD_N_MOL + 1 in one launch (phase 12a's batch): each block's
+    forces and energy shares within TOL of its twin with the same range,
+    zero outside its rows, the window flag the full launch's; the blocks'
+    forces summed equal the full launch's bit for bit (an owned row is
+    summed as in the full launch), their energy shares summed within TOL
+    of its energies. In float32 the wrapper with the first block's range
+    is timed beside the full wrapper (``ms``, ``full_ms``), each pair
+    kernel's own time in its trace beside them, with the range's twin
+    (``plain_ms``) and the bound from the range's own work."""
+    from cavmd_tpu_torch.core.system import reference_box_for
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    dev = torch.device("cuda")
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]
+    snap = reference_scene(pt, LARGE_N_MOL, reference_box_for(LARGE_N_MOL),
+                           dtype, dev)
+    ff = pt.ForceField.create(snap, coupling=1e-3, freq_cm1=2000.0,
+                              pair_mode="zcol")
+    clist = ff.build_cells(snap.position, snap.box_L)
+    check(not bool(clist.overflow), f"phase 18e: zcol list N={snap.N} "
+          "overflowed")
+    args = (snap.position, snap.box_L, clist, ff.cell_cfg, snap.typeid,
+            snap.charge, ff.lj_eps, ff.lj_sig2, ff.lj_rcut2, ff.lj_vshift,
+            ff.cell_exclusions, ff.kappa_value, ff.zcol_W)
+    _, bff, bargs = cell_replica_inputs(torch, pt, "zcol_pair", REPLICA_B,
+                                        dtype)
+    out = {}
+    for label, a in ((f"N={snap.N}", args),
+                     (f"B={REPLICA_B} x N={bargs[0].shape[-2]}", bargs)):
+        n = a[0].shape[-2]
+        full = zk.zcol_pair_force(*a)
+        summed, shares, errs = torch.zeros_like(full[0]), [0.0, 0.0], []
+        for r0, m in row_ranges(n, ROWS_S):
+            tag = f"phase 18e zcol_pair_rows {label} [{r0}, {r0 + m}) {name}"
+            k = zk.zcol_pair_force(*a, rows=(r0, m))
+            p = zk.zcol_pair_force_plain(*a, rows=(r0, m))
+            torch.cuda.synchronize()
+            for what, x, y in zip(("F", "E_lj", "E_ew"), k[:3], p[:3]):
+                err, ref = max_err(x, y)
+                check(bool(torch.isfinite(x).all()), f"{tag}: non-finite")
+                check(err <= tol * max(ref, 1e-300),
+                      f"{tag} vs twin {what}: max|diff| {err} > {tol}*{ref}")
+                errs.append(err)
+            check(bool(torch.equal(k[3], full[3])),
+                  f"{tag}: window flag {k[3]} against the full launch's "
+                  f"{full[3]}")
+            outside = torch.ones(n, dtype=torch.bool, device=dev)
+            outside[r0:r0 + m] = False
+            check(bool((k[0][..., outside, :] == 0).all()),
+                  f"{tag}: forces outside the range")
+            summed = summed + k[0]
+            shares = [shares[0] + k[1], shares[1] + k[2]]
+            del p
+        check(bool(torch.equal(summed, full[0])),
+              f"phase 18e zcol_pair_rows {label} {name}: the row blocks' "
+              "forces summed differ from the full launch's")
+        for i, what in ((0, "E_lj"), (1, "E_ew")):
+            err, ref = max_err(shares[i], full[i + 1])
+            check(err <= tol * max(ref, 1e-300),
+                  f"phase 18e zcol_pair_rows {label} {name}: the row "
+                  f"blocks' {what} summed vs the full launch: {err} > "
+                  f"{tol}*{ref}")
+        out[label] = dict(max_abs_err=max(errs), blocks_sum_bit_equal=True,
+                          rows=row_ranges(n, ROWS_S))
+        torch.cuda.empty_cache()
+    res = dict(out[f"N={snap.N}"], n=snap.N, batched=out[
+        f"B={REPLICA_B} x N={bargs[0].shape[-2]}"], W=ff.zcol_W,
+        columns=ff.cell_cfg.ncells[:2])
+    if timed:
+        first = row_ranges(snap.N, ROWS_S)[0]
+        res["ms"] = device_ms(torch, lambda: zk.zcol_pair_force(
+            *args, rows=first))
+        res["full_ms"] = device_ms(torch, lambda: zk.zcol_pair_force(*args))
+        res["kernel_only_ms"] = profiled_device_ms(
+            torch, lambda: zk.zcol_pair_force(*args, rows=first),
+            match="zcol_pair_kernel")
+        res["full_kernel_only_ms"] = profiled_device_ms(
+            torch, lambda: zk.zcol_pair_force(*args),
+            match="zcol_pair_kernel")
+        res["plain_ms"] = profiled_device_ms(
+            torch, lambda: zk.zcol_pair_force_plain(*args, rows=first))
+        pos_loc = zk.zcol_local_positions(snap.position, snap.box_L, clist)
+        hull, _, W = zk.zcol_hull(pos_loc, snap.box_L, clist, ff.cell_cfg,
+                                  ff.zcol_W)
+        n_bytes, n_ops, pairs = zcol_work_counts(
+            torch, pos_loc, snap.box_L, clist, ff.cell_cfg, hull, W,
+            snap.typeid, snap.charge, ff, rows=first)
+        res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, n_ops)
+        res.update(bytes=n_bytes, ops=n_ops, pairs=pairs)
+    print(f"phase 18: zcol_pair_rows {name}: " + ", ".join(
+        f"{k}={v!r}" for k, v in res.items()), flush=True)
+    return res
+
+
 def rows_scene(torch, pt, dtype, mode):
     """18c's scene (the reference scene, dense) or 18d's (2 HELD_N_MOL + 1
-    particles, cell mode), on the card, ghost-padded to a multiple of
-    ROWS_S: (snapshot, force field)."""
+    particles, in cell mode, or in zcol mode for 18e), on the card,
+    ghost-padded to a multiple of ROWS_S: (snapshot, force field)."""
     from cavmd_tpu_torch.core.system import reference_box_for
     from cavmd_tpu_torch.parallel import pad_snapshot_to
 
@@ -5258,8 +5435,8 @@ def rows_run_job(dtype_name, mode, warm, chunks, chunk):
 
 
 def rows_path_phase(torch, pt):
-    """Phase 18c and 18d: one ``run_ranks`` spawn of ROWS_S gloo ranks
-    sharing the card (host-staged collectives) runs (c) the padded
+    """Phase 18c, 18d and 18e (c): one ``run_ranks`` spawn of ROWS_S gloo
+    ranks sharing the card (host-staged collectives) runs (c) the padded
     reference scene (N = 502, dense) through ``Simulation(shard_atoms=2)``
     in float64 for ROWS_F64_STEPS steps, held to TRAJ_TOL_BOHR against
     the one-rank run in this process, and in float32 on SHORT_RUN, its
@@ -5269,7 +5446,13 @@ def rows_path_phase(torch, pt):
     never in float64; (d) 2 HELD_N_MOL + 1 particles (padded to 20,002)
     in cell mode with an opaque ``extra_obs``, ROWS_CELL_STEPS float32
     steps: the cell kernel's row range once a step on each rank and no
-    overflow. The ranks' states agree bit for bit."""
+    overflow; (e) the same scene in zcol mode (the row path: the slab
+    plan takes cell mode only), ROWS_CELL_STEPS float32 steps (K9's row
+    range ``zcol_pair_rows``, its hull ``zcol_hull``, K2 and K3 once a
+    step and for the initial forces on each rank, the full K9 never, no
+    overflow and no window flag) and ROWS_ZCOL_F64_STEPS float64 steps
+    held to TRAJ_TOL_BOHR against the one-rank zcol run in this process.
+    The ranks' states agree bit for bit."""
     import numpy as np
 
     from cavmd_tpu_torch.integrate import universe_energy
@@ -5277,18 +5460,24 @@ def rows_path_phase(torch, pt):
 
     warm, chunks, chunk = SHORT_RUN
     t0 = time.perf_counter()
-    f64, f32, cell = run_ranks([
+    f64, f32, cell, zcol, zcol_f64 = run_ranks([
         (rows_run_job, ("float64", "dense", 0, 1, ROWS_F64_STEPS)),
         (rows_run_job, ("float32", "dense", warm, chunks, chunk)),
-        (rows_run_job, ("float32", "cell", 0, 1, ROWS_CELL_STEPS))],
+        (rows_run_job, ("float32", "cell", 0, 1, ROWS_CELL_STEPS)),
+        (rows_run_job, ("float32", "zcol", 0, 1, ROWS_CELL_STEPS)),
+        (rows_run_job, ("float64", "zcol", 0, 1, ROWS_ZCOL_F64_STEPS))],
         ROWS_S, timeout=600)
     spawn_s = time.perf_counter() - t0
     ref = rows_run_job("float64", "dense", 0, 1, ROWS_F64_STEPS)
+    zref = rows_run_job("float64", "zcol", 0, 1, ROWS_ZCOL_F64_STEPS)
     res = dict(spawn_s=spawn_s)
     for label, runs, steps, pair, fused in (
             ("18c f64", f64, ROWS_F64_STEPS, "dense_pair", False),
             ("18c f32", f32, warm + chunks * chunk, "dense_pair", True),
-            ("18d cell f32", cell, ROWS_CELL_STEPS, "cell_pair", True)):
+            ("18d cell f32", cell, ROWS_CELL_STEPS, "cell_pair", True),
+            ("18e zcol f32", zcol, ROWS_CELL_STEPS, "zcol_pair", True),
+            ("18e zcol f64", zcol_f64, ROWS_ZCOL_F64_STEPS, "zcol_pair",
+             False)):
         for k, r in enumerate(runs):
             tag = f"phase {label} rank {k} N={r['n']}"
             check(r["rows"] and r["on_card"], f"{tag}: not on the row path "
@@ -5297,6 +5486,8 @@ def rows_path_phase(torch, pt):
                     "pppm_spread": steps + 1, "pppm_interpolate": steps + 1,
                     "fused_pre_force": steps if fused else 0,
                     "fused_post_force": steps if fused else 0}
+            if pair == "zcol_pair":
+                want["zcol_hull"] = steps + 1
             for kname, n in want.items():
                 got = r["launches"].get(kname, 0)
                 check(got == n, f"{tag}: {kname} launched {got} times "
@@ -5317,11 +5508,21 @@ def rows_path_phase(torch, pt):
     check(drift < DRIFT_BOUND_HA,
           f"phase 18c f32: universe drift {drift} >= {DRIFT_BOUND_HA} Ha")
     check(not cell[0]["obs"]["cell_overflow"].any(), "phase 18d: overflow")
+    # the zcol window flag rides cell_overflow
+    for r in zcol + zcol_f64:
+        check(not r["obs"]["cell_overflow"].any(),
+              "phase 18e: overflow or window flag")
+    zdx = float(np.abs(zcol_f64[0]["position"] - zref["position"]).max())
+    check(not zref["rows"] and zdx <= TRAJ_TOL_BOHR,
+          f"phase 18e zcol f64: max|dx| {zdx} vs the one-rank run > "
+          f"{TRAJ_TOL_BOHR}")
     res.update(f64_max_dx_bohr=dx, f32_universe_drift_ha=drift,
                f32_steps_per_s=statistics.median(
                    chunk / s for s in f32[0]["chunk_s"]),
                cell_ms_per_step=1e3 * cell[0]["chunk_s"][0]
-               / ROWS_CELL_STEPS)
+               / ROWS_CELL_STEPS,
+               zcol_ms_per_step=1e3 * zcol[0]["chunk_s"][0]
+               / ROWS_CELL_STEPS, zcol_f64_max_dx_bohr=zdx)
     print("phase 18: rows path " + ", ".join(
         f"{k}={v!r}" for k, v in res.items()), flush=True)
     return res
@@ -5344,6 +5545,12 @@ def main() -> None:
              f"{e}")
     check("jax" not in sys.modules, "the port imported jax")
 
+    # phase 1's builds start here, one nvcc per source, all at once, and
+    # run while phase 0 reads the card
+    t0 = time.perf_counter()
+    build_pool = concurrent.futures.ThreadPoolExecutor(len(SOURCES))
+    builds = [build_pool.submit(_cuda.build, src) for src in SOURCES]
+
     # phase 0: device
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5351,10 +5558,16 @@ def main() -> None:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     clock.lap(0)
 
-    # phase 1: build, one nvcc per source, all at once
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(_cuda.build, SOURCES))
+    # phase 1: the builds' end; meanwhile the profiler's one-time start
+    # (~8 s on the card's machine) is paid by an empty trace
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    for b in builds:
+        b.result()
+    build_pool.shutdown()
     build_s = time.perf_counter() - t0
     fresh = sorted(_cuda.build_log)
     print(f"phase 1: kernels ready in {build_s:.2f} s (compiled now: "
@@ -5599,7 +5812,7 @@ def main() -> None:
 
     # phase 13: the MTTK and Berendsen baths (unfused, K4/K5 never), exact
     # resume through a checkpoint, the triatomic scene, an MTTK batch
-    mttk = bath_path(torch, pt, "mttk", 1, BATH_CHUNKS, one_step)
+    mttk = bath_path(torch, pt, "mttk", 0, BATH_CHUNKS, one_step)
     beren = bath_path(torch, pt, "berendsen", 0, BERENDSEN_CHUNKS, one_step)
     torch.cuda.empty_cache()
     mttk_big = bath_large_path(
@@ -5730,13 +5943,16 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(17)
 
-    # phase 18: atom sharding by rows: K1 and the cell kernel with a row
-    # range, and Simulation(shard_atoms=2) on two ranks sharing the card
+    # phase 18: atom sharding by rows: K1, the cell kernel and K9 with a
+    # row range, and Simulation(shard_atoms=2) on two ranks sharing the
+    # card, in dense, cell and zcol mode
     rk18 = {}
     for dtype in (torch.float32, torch.float64):
         r = rows_kernel_phase(torch, pt, dtype, timed=dtype == torch.float32)
+        z = zcol_rows_kernel_phase(torch, pt, dtype,
+                                   timed=dtype == torch.float32)
         if dtype == torch.float32:
-            rk18 = r
+            rk18 = dict(r, zcol_pair_rows=z)
         torch.cuda.empty_cache()
     rows18 = rows_path_phase(torch, pt)
     print(f"phase 18: dense_pair_rows N={rk18['dense_pair_rows']['n']} "
@@ -5749,7 +5965,15 @@ def main() -> None:
           f"{fused['steps_per_s']:.1f}), drift "
           f"{rows18['f32_universe_drift_ha']:.3e} Ha, cell N="
           f"{rows18['18d cell f32']['n']} "
-          f"{rows18['cell_ms_per_step']:.3f} ms/step", flush=True)
+          f"{rows18['cell_ms_per_step']:.3f} ms/step; zcol_pair_rows "
+          f"N={rk18['zcol_pair_rows']['n']} "
+          f"{rk18['zcol_pair_rows']['ms']:.4f} ms (full wrapper "
+          f"{rk18['zcol_pair_rows']['full_ms']:.4f} ms; pair kernel "
+          f"{rk18['zcol_pair_rows']['kernel_only_ms']:.4f} vs "
+          f"{rk18['zcol_pair_rows']['full_kernel_only_ms']:.4f} ms), zcol "
+          f"N={rows18['18e zcol f32']['n']} "
+          f"{rows18['zcol_ms_per_step']:.3f} ms/step, f64 max|dx| "
+          f"{rows18['zcol_f64_max_dx_bohr']:.2e} bohr", flush=True)
     check("jax" not in sys.modules, "the port imported jax")
     clock.lap(18)
 
@@ -5830,7 +6054,9 @@ def main() -> None:
           f"cell_pair_rows {rk18['cell_pair_rows']['ms']:.4f} ms, 2 ranks "
           f"f64 {rows18['f64_max_dx_bohr']:.2e} bohr, f32 "
           f"{rows18['f32_steps_per_s']:.1f} steps/s drift "
-          f"{rows18['f32_universe_drift_ha']:.3e} Ha | script "
+          f"{rows18['f32_universe_drift_ha']:.3e} Ha, zcol_pair_rows "
+          f"{rk18['zcol_pair_rows']['ms']:.4f} ms, zcol 2 ranks f64 "
+          f"{rows18['zcol_f64_max_dx_bohr']:.2e} bohr | script "
           f"{clock.total():.1f} s, "
           + ", ".join(f"phase {p} {t:.1f} s"
                       for p, t in sorted(clock.seconds.items())),
@@ -5885,14 +6111,16 @@ def main() -> None:
     shapes["slabs"] = {f"cell_pair_slab_b{REPLICA_B}": slabs15["kernel"]}
     batched[f"cell_pair_slab_b{REPLICA_B}"] = "cell_pair_slab"
     where[f"cell_pair_slab_b{REPLICA_B}"] = ("slabs", slabs15["launches"])
-    # the row-range rows: timed on phase 18a/18b's first block in float32,
-    # launched by 18c's float32 run (K1) and 18d's (the cell kernel)
+    # the row-range rows: timed on phase 18a/18b/18e's first block in
+    # float32, launched by 18c's float32 run (K1), 18d's (the cell kernel)
+    # and 18e's (K9)
     shapes["rows"] = rk18
+    row_runs = {"dense_pair": "18c f32", "cell_pair": "18d cell f32",
+                "zcol_pair": "18e zcol f32"}
     for k, base in ROWS_KERNELS.items():
         batched[k] = base
-        where[k] = ("rows", {base: rows18[
-            "18c f32" if base == "dense_pair" else "18d cell f32"][
-            "launches"].get(k, 0)})
+        where[k] = ("rows", {base: rows18[row_runs[base]]["launches"].get(
+            k, 0)})
     kernels = []
     for k in list(KERNELS) + list(batched):
         src, rep = KERNELS[batched.get(k, k)]

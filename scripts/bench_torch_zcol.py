@@ -3,7 +3,8 @@
 of cavmd_tpu_torch on one GPU, per scene.
 
 Run from the root of a checkout on a machine with a CUDA device:
-``python3 scripts/bench_torch_zcol.py [--root DIR] [--label NAME]``.
+``python3 scripts/bench_torch_zcol.py [--root DIR] [--label NAME]
+[--rows S]``.
 ``--root`` imports ``cavmd_tpu_torch`` from another checkout (for example
 an unpacked parent commit), so two versions can be timed in turns in one
 run on one card; the timers are ``chip_smoke.py``'s of this checkout
@@ -23,13 +24,18 @@ ms in the wrapper's trace, the hull launch alone (the wrapper's hull
 kernel where the checkout has it, else the plain ``zcol_local_positions``
 + ``zcol_hull`` the older wrapper ran), the largest error against the
 plain twin and the twin's
-scale, and whether two calls gave the same bits. One JSON line per
-measurement; the last line names the card and its power limit.
+scale, and whether two calls gave the same bits. With ``--rows S``
+(S > 1, a checkout whose wrapper takes a row range: atom sharding by
+rows) each line also gives the wrapper's device ms with the first of S
+row blocks (``rows_ms``) and its pair kernel's own time in its trace
+(``rows_kernel_ms``). One JSON line per measurement; the last line names
+the card and its power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -43,6 +49,8 @@ def main():
     ap.add_argument("--root", default=HERE,
                     help="checkout whose cavmd_tpu_torch is imported")
     ap.add_argument("--label", default="change")
+    ap.add_argument("--rows", type=int, default=1,
+                    help="also time the first of this many row blocks")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as cs
@@ -92,6 +100,18 @@ def main():
             ref = zk.zcol_pair_force_plain(*call_args)
             err = max(float((a.double() - b.double()).abs().max())
                       for a, b in zip(first[:3], ref[:3]))
+            rows = {}
+            if args.rows > 1 and "rows" in inspect.signature(
+                    zk.zcol_pair_force).parameters:
+                block = (0, snap.N // args.rows)
+
+                def call_rows():
+                    return zk.zcol_pair_force(*call_args, rows=block)
+
+                rows = dict(rows=block,
+                            rows_ms=cs.device_ms(torch, call_rows, inner=1),
+                            rows_kernel_ms=cs.profiled_device_ms(
+                                torch, call_rows, match="zcol_pair_kernel"))
             print(json.dumps(dict(
                 label=args.label, n=snap.N, positions=where,
                 columns=cfg.ncells[:2], cap=cfg.cap, W=ff.zcol_W,
@@ -110,7 +130,7 @@ def main():
                 scale=float(ref[0].double().abs().max()),
                 window_flag=bool(first[3]),
                 bit_equal_calls=all(bool(torch.equal(a, b))
-                                    for a, b in zip(first, again)))),
+                                    for a, b in zip(first, again)), **rows)),
                 flush=True)
         del ff, snap, clist
         torch.cuda.empty_cache()

@@ -11,12 +11,14 @@ seed 1, no thermalisation, the default ForceField), dt 0.25 fs, state seed
 7, Langevin (tau 5 ps, 100 K) on the photon:
 
 - MTTK (100 K, tau 0.5 ps, the tau of tests/test_integrate.py's MTTK
-  test) on the molecules: one warm-up chunk of 1000 steps, then 3 x 1000
-  steps; the reading is max |E - E[0]| of the extended energy E (the
-  universe energy plus the molecular MTTK energy) over the 3000 steps,
-  and over the first 1000 of them (phase 13a's window);
-- Berendsen (100 K, tau 0.5 ps): 2 x 1000 steps; the reading is the mean
-  molecular temperature of the second chunk and its distance from 100 K;
+  test) on the molecules: ``MTTK_WARM`` warm-up chunks of 1000 steps,
+  then ``MTTK_CHUNKS`` x 1000 steps; the reading is max |E - E[0]| of the
+  extended energy E (the universe energy plus the molecular MTTK energy)
+  over the measured steps, and over the first 1000 of them (phase 13a's
+  window: the first chunk, with no warm-up);
+- Berendsen (100 K, tau 0.5 ps): ``BERENDSEN_CHUNKS`` x 1000 steps; the
+  reading is the mean molecular temperature of the last chunk and its
+  distance from 100 K (phase 13b's window: one chunk);
 - the short run: Bussi (100 K, tau 5 ps) on the molecules, 250 warm-up
   steps, then 2 x 500 steps; the reading is max |U - U[0]| of the
   universe energy U over the 1000 steps, for the scene's state (phase 3's
@@ -71,6 +73,9 @@ from cavmd_tpu.parallel import (  # noqa: E402
 
 CHUNK = 1000
 TAU_BATH_PS = 0.5
+# phase 13a's and 13b's windows (a warm-up chunk and three chunks of MTTK,
+# two of Berendsen, before they were cut)
+MTTK_WARM, MTTK_CHUNKS, BERENDSEN_CHUNKS = 0, 1, 1
 SHORT_WARM, SHORT_CHUNKS, SHORT_CHUNK = 250, 2, 500
 SHORT_REPLICAS = 32
 
@@ -169,8 +174,9 @@ def main():
         dtype = jnp.float32 if p == "f32" else jnp.float64
         out = dict(precision=p)
         if args.protocol in ("baths", "all"):
-            out.update(mttk=run("mttk", dtype, 1, 3),
-                       berendsen=run("berendsen", dtype, 0, 2))
+            out.update(mttk=run("mttk", dtype, MTTK_WARM, MTTK_CHUNKS),
+                       berendsen=run("berendsen", dtype, 0,
+                                     BERENDSEN_CHUNKS))
         if args.protocol in ("short", "all"):
             out.update(short_run=short_run(dtype, None),
                        short_run_batch=short_run(dtype, SHORT_REPLICAS))

@@ -22,10 +22,11 @@ examples, which configure JAX when they are imported.
   absorption in each band window, and the bin) over VARIANTS variants;
   the test holds the port's 08 to the first, its own seeds;
 - ``chip``: the cut protocols of phase 16, where the port draws its own
-  noise: 06 at 1 ps on the reference scene (N = 501, float32; drift and
-  mean T over three variants; a bound is 3x the largest reading) and 07
-  at 100 periods (float64, deterministic; the photon spectrum's peaks at
-  g = 0 and g = 1e-3, the bin, the splitting);
+  noise: 06 at 0.5 ps on the reference scene (N = 501, float32; drift
+  and mean T over three variants; a bound is 3x the largest reading) and
+  07 at 100 periods (float64, deterministic; the photon spectrum's peaks
+  at g = 0 and g = 1e-3, the bin, the splitting; at 50 periods the bin
+  is 31.1 cm^-1 and the g = 1e-3 spectrum shows one peak, not two);
 - ``anchor`` (not in ``all``; ~15-30 min): 06 at its full 50 ps at the
   example's seeds (``--variant k``: moved by 10 k), float32: drift,
   final and mean T, the mean T of each 10,000-step chunk and the two
@@ -91,7 +92,7 @@ VARIANTS = 5
 # port example's main; the test passes the others' protocols itself)
 TESTS = {"08": dict(n_chunks=4, chunk=250, reference_every=250)}
 # phase 16's cut protocols
-CHIP = {"06": dict(runtime_ps=1.0), "07": dict(n_periods=100)}
+CHIP = {"06": dict(runtime_ps=0.5), "07": dict(n_periods=100)}
 BAND_WINDOWS_CM1 = {"O-O": (1200.0, 1900.0), "N-N": (1900.0, 2700.0)}
 
 

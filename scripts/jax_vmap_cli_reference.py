@@ -5,7 +5,7 @@ protocol, on the CPU: each replica's universe-energy drift.
 Run from the repository root: ``python scripts/jax_vmap_cli_reference.py
 [--precision f32|f64]`` (f32 by default). It runs the JAX ``advanced_run``
 CLI in a temporary directory on phase 5's arguments (250 molecules,
-``--runtime 0.08``, energy tracker and F(k,t), seed 0) with
+``--runtime 0.06``, energy tracker and F(k,t), seed 0) with
 ``--vmap-replicas --replicas 1-8 --device CPU --precision P``, and prints
 one JSON line: the CLI's exit code or the error it raised, for each
 replica max |U - U[0]| of the ``universe_total_energy`` column (index 18)
@@ -38,7 +38,7 @@ from cavmd_tpu.drivers import advanced_run  # noqa: E402
 
 ARGS = ["--device", "CPU", "--n-molecules", "250",
         "--enable-energy-tracker", "--enable-fkt", "--seed", "0",
-        "--runtime", "0.08", "--vmap-replicas", "--replicas", "1-8"]
+        "--runtime", "0.06", "--vmap-replicas", "--replicas", "1-8"]
 
 
 def main():

@@ -771,6 +771,49 @@ def test_zcol_kernel_at_a_retry_grown_window(cuda, dtype):
         assert _close(k, p, TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3])
+def test_zcol_kernel_row_blocks(cuda, B, dtype):
+    """The zcol pair kernel with a row range (``zcol_pair_rows``) on three
+    uneven row blocks of the 500-molecule scene (B = 1) and of three
+    jittered replicas of it in one launch (B = 3): each block against its
+    twin with the same range (TOL), zero outside its rows, one launch
+    counted as ``zcol_pair_rows``; the blocks' forces summed equal the
+    full launch's bit for bit and their energy shares summed within TOL
+    of its energies."""
+    from cavmd_tpu_torch.ops import zcol_kernels as zk
+
+    if B == 1:
+        snap, ff = _zcol_scene(dtype, cuda)
+        clist = ff.build_cells(snap.position, snap.box_L)
+        args = _zcol_args(ff, snap, clist, snap.position, ff.zcol_W)
+    else:
+        ff, snap, _, clist, args = _batched_pair_inputs(dtype, cuda, B,
+                                                        "zcol")
+    n = snap.N
+    full = zk.zcol_pair_force(*args)
+    summed, shares = torch.zeros_like(full[0]), [0.0, 0.0]
+    for r0, r1 in ((0, 300), (300, 301), (301, n)):
+        before = dict(_cuda.launches)
+        out_k = zk.zcol_pair_force(*args, rows=(r0, r1 - r0))
+        torch.cuda.synchronize()
+        assert _cuda.launches["zcol_pair_rows"] == before.get(
+            "zcol_pair_rows", 0) + 1
+        assert _cuda.launches["zcol_pair"] == before.get("zcol_pair", 0)
+        out_p = zk.zcol_pair_force_plain(*args, rows=(r0, r1 - r0))
+        for k, p in zip(out_k[:3], out_p[:3]):
+            assert _close(k, p, TOL[dtype])
+        assert torch.equal(out_k[3], full[3])
+        outside = torch.ones(n, dtype=torch.bool, device=cuda)
+        outside[r0:r1] = False
+        assert bool((out_k[0][..., outside, :] == 0).all())
+        summed = summed + out_k[0]
+        shares = [shares[0] + out_k[1], shares[1] + out_k[2]]
+    assert torch.equal(summed, full[0])
+    for got, want in zip(shares, full[1:3]):
+        assert _close(got, want, TOL[dtype])
+
+
 def test_zcol_wrapper_issues_few_device_operations(cuda):
     """On a CUDA tensor zcol_pair_force issues at most 6 device operations
     a call (zero the forces, the hull kernel, the pair kernel, the energy

@@ -7,7 +7,9 @@ padding (``parallel/mesh.py``), float64 on the CPU:
   32 atoms in dense mode over 1 x 8 ranks, 20 steps; the 2 x 4 replica
   mesh, 10 steps; cell mode at 60 diatomics over 1 x 8 ranks, 10 steps;
   each to 1e-10, the port drawing JAX's noise from a table, over 8 gloo
-  ranks (``parallel/launch.py:run_ranks``);
+  ranks (``parallel/launch.py:run_ranks``); and the port's zcol mode on
+  the cell scene over 1 x 8 ranks, held to JAX's cell-mode run (JAX's
+  float64 zcol pass runs in float32, ROADMAP.md Queue 3);
 - on 2 of those ranks, molecular Langevin, a Brownian photon and a custom
   force through ``Simulation(shard_atoms=2)``, draw for draw the
   unsharded run;
@@ -59,8 +61,13 @@ SCENES = {
     "cell": (60, 48.0, (61, 62), dict(pair_mode="cell", r_cut=12.0,
                                       pppm_mesh=(16, 16, 16))),
 }
-STEPS = {"dense": 20, "batch": 10, "cell": 10}
-MESHES = {"dense": (1, 8), "batch": (2, 4), "cell": (1, 8)}
+# the port's zcol row path on the cell scene; its reference is JAX's
+# cell-mode run (JAX_REF), with no JAX run of its own
+SCENES["zcol"] = SCENES["cell"][:3] + (dict(SCENES["cell"][3],
+                                            pair_mode="zcol"),)
+JAX_REF = {"zcol": "cell"}
+STEPS = {"dense": 20, "batch": 10, "cell": 10, "zcol": 10}
+MESHES = {"dense": (1, 8), "batch": (2, 4), "cell": (1, 8), "zcol": (1, 8)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -271,21 +278,27 @@ def _jax_world(kind):
 
 @pytest.fixture(scope="module")
 def worlds():
-    """JAX's three sharded runs, the port's row path on each and the
-    2-rank Langevin/custom-force run: JAX's set up and run in threads, the
-    port's in one spawn of 8 gloo ranks while JAX compiles its own."""
+    """JAX's three sharded runs, the port's row path on each (and in zcol
+    mode on the cell scene) and the 2-rank Langevin/custom-force run:
+    JAX's set up and run in threads, the port's in one spawn of 8 gloo
+    ranks while JAX compiles its own."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(4) as pool:
-        preps = {kind: pool.submit(_jax_world, kind) for kind in SCENES}
+        preps = {kind: pool.submit(_jax_world, kind) for kind in SCENES
+                 if kind not in JAX_REF}
         jax_runs = {kind: f.result()[0] for kind, f in preps.items()}
         sharded = {kind: pool.submit(f.result()[1])
                    for kind, f in preps.items()}
-        jobs = [(_rows_job, (kind, jax_runs[kind]["start"],
-                             jax_runs[kind]["table"])) for kind in SCENES]
+        refs = {kind: JAX_REF.get(kind, kind) for kind in SCENES}
+        jobs = [(_rows_job, (kind, jax_runs[refs[kind]]["start"],
+                             jax_runs[refs[kind]]["table"]))
+                for kind in SCENES]
         results = run_ranks(jobs + [(_pair_of_ranks_job, ())], 8, 400)
         for kind, f in sharded.items():
             jax_runs[kind].update(f.result())
+    for kind, ref in JAX_REF.items():
+        jax_runs[kind] = jax_runs[ref]
     port = dict(zip(SCENES, results))
     return jax_runs, port, results[-1]
 
@@ -294,9 +307,9 @@ def worlds():
 def test_row_path_matches_jax_sharded_runner(worlds, kind):
     """Every rank's final positions within 1e-10 (relative and absolute)
     of JAX's ``make_sharded_runner`` (its replica rows on the 2 x 4
-    mesh), and the cavity coupling energy within 1e-8 (tests/
-    test_parallel.py's tolerances); the ranks of a replica agree bit for
-    bit."""
+    mesh; in zcol mode its cell-mode run), and the cavity coupling energy
+    within 1e-8 (tests/test_parallel.py's tolerances); the ranks of a
+    replica agree bit for bit."""
     jax_runs, port, _ = worlds
     want = jax_runs[kind]
     for got in port[kind]:
@@ -341,7 +354,8 @@ def test_two_ranks_langevin_brownian_custom_force_draw_for_draw(worlds):
 
 # ------------------------------------------------- S blocks, one process
 @pytest.mark.parametrize("kind, S", [("dense", 2), ("dense", 4),
-                                     ("cell", 2), ("cell", 8)])
+                                     ("cell", 2), ("cell", 8),
+                                     ("zcol", 2), ("zcol", 4)])
 def test_row_blocks_in_one_process_match_the_unsharded_step(kind, S):
     """The force field bound to rows on S thread ranks, and one step of
     each rank's row-split step: the forces, every energy and the stepped
@@ -376,14 +390,11 @@ def test_row_blocks_in_one_process_match_the_unsharded_step(kind, S):
                 abs(float(ref_obs[k])), 1.0), k
 
 
-def test_row_split_refuses_zcol_and_an_indivisible_n():
+def test_row_split_refuses_an_indivisible_n():
     snap = pt.add_cavity_particle(pt.make_diatomic_system(
         300, box_L=60.0, temperature_K=100.0, seed=2, dtype=torch.float64,
         device="cpu"), coupling=1e-3, freq_cm1=2000.0, temperature_K=100.0,
         seed=3)
-    zcol = pt.ForceField.create(snap, pair_mode="zcol")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zcol.bind_rows(Communicator(0, 2))
     _, ff, _ = _scene("dense")
     bound = ff.bind_rows(Communicator(0, 5))  # 32 rows
     with pytest.raises(ValueError, match="pad the snapshot first"):
